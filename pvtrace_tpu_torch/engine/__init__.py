@@ -1,0 +1,19 @@
+"""The port's engine: scene tensors, the eager twins and ``simulate``.
+
+    from pvtrace_tpu_torch import engine
+    result = engine.simulate(scene, 1_000_000, record_every=0)   # on "cuda"
+    result.fate_counts()
+"""
+from pvtrace_tpu.engine.api import EngineResult
+from pvtrace_tpu.engine.compiler import CompiledScene, UnsupportedSceneError, compile_scene
+from pvtrace_tpu_torch.engine.api import simulate
+from pvtrace_tpu_torch.engine.tables import scene_tensors
+
+__all__ = [
+    "CompiledScene",
+    "EngineResult",
+    "UnsupportedSceneError",
+    "compile_scene",
+    "scene_tensors",
+    "simulate",
+]

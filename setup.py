@@ -20,6 +20,7 @@ setup(
         "pvtrace_tpu.data": ["schema.sql"],
         "pvtrace_tpu.studio": ["static/*"],
         "pvtrace_tpu.native": ["*.cpp"],
+        "pvtrace_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[
@@ -30,6 +31,8 @@ setup(
         "pandas",
         "scipy",
     ],
+    # The PyTorch + CUDA port, pvtrace_tpu_torch, needs torch.
+    extras_require={"torch": ["torch"]},
     # The studio is dependency-free (stdlib HTTP + Server-Sent Events),
     # so unlike the reference there are no optional extras to install.
     entry_points={
