@@ -1,21 +1,29 @@
 """pvtrace_tpu_torch — the PyTorch + CUDA port of pvtrace_tpu.
 
-The scene API (nodes, geometry, materials, lights) and the scene
-compiler are framework-free and are shared with ``pvtrace_tpu`` rather
-than copied: a scene built from the names re-exported here compiles to
-the same ``CompiledScene`` the JAX package traces. What differs is the
-engine: ``pvtrace_tpu_torch.engine.simulate`` traces on an NVIDIA GPU
-through hand-written CUDA kernels (``pvtrace_tpu_torch.kernels``), with a
+The port keeps its own copy of the JAX package's framework-free host
+layers, under the same sub-paths: the scene API (nodes, geometry,
+materials, lights, ``scene``), the per-ray oracle
+(``algorithm.photon_tracer``), the scene compiler and recorder specs
+(``engine.compiler``, ``engine.recorder``) and the result objects
+(``engine.result``). Each copy differs from its original only in its
+imports. A scene built from the names re-exported here compiles, with
+the port's compiler, to the same tables as the same scene built from
+``pvtrace_tpu`` with the JAX package's. What differs is the engine:
+``pvtrace_tpu_torch.engine.simulate`` traces on an NVIDIA GPU through
+hand-written CUDA kernels (``pvtrace_tpu_torch.kernels``), with a
 plain-PyTorch twin of every kernel for CPU tensors.
 
-Importing this package imports ``torch`` and never ``jax``.
+Importing this package imports ``torch``, never ``jax``, and nothing of
+``pvtrace_tpu``.
 """
-from pvtrace_tpu.data import fluro_red, lumogen_f_red_305
-from pvtrace_tpu.geometry.box import Box
-from pvtrace_tpu.geometry.cylinder import Cylinder
-from pvtrace_tpu.geometry.sphere import Sphere
-from pvtrace_tpu.light.event import Event
-from pvtrace_tpu.light.light import (
+from pvtrace_tpu_torch.data import fluro_red, lumogen_f_red_305
+from pvtrace_tpu_torch.engine.recorder import Heatmap, Histogram, Recorder
+from pvtrace_tpu_torch.geometry.box import Box
+from pvtrace_tpu_torch.geometry.cylinder import Cylinder
+from pvtrace_tpu_torch.geometry.mesh import Mesh
+from pvtrace_tpu_torch.geometry.sphere import Sphere
+from pvtrace_tpu_torch.light.event import Event
+from pvtrace_tpu_torch.light.light import (
     CircularMask,
     ConstantWavelengthMask,
     CubeMask,
@@ -26,17 +34,17 @@ from pvtrace_tpu.light.light import (
     cube_mask,
     rectangular_mask,
 )
-from pvtrace_tpu.material.component import Absorber, Luminophore, Reactor, Scatterer
-from pvtrace_tpu.material.distribution import Distribution
-from pvtrace_tpu.material.material import Material
-from pvtrace_tpu.material.surface import (
+from pvtrace_tpu_torch.material.component import Absorber, Luminophore, Reactor, Scatterer
+from pvtrace_tpu_torch.material.distribution import Distribution
+from pvtrace_tpu_torch.material.material import Material
+from pvtrace_tpu_torch.material.surface import (
     FacetOverride,
     FacetOverrideSurfaceDelegate,
     FresnelSurfaceDelegate,
     NullSurfaceDelegate,
     Surface,
 )
-from pvtrace_tpu.material.utils import (
+from pvtrace_tpu_torch.material.utils import (
     Cone,
     HenyeyGreenstein,
     cone,
@@ -44,8 +52,8 @@ from pvtrace_tpu.material.utils import (
     isotropic,
     lambertian,
 )
-from pvtrace_tpu.scene.node import Node
-from pvtrace_tpu.scene.scene import Scene
+from pvtrace_tpu_torch.scene.node import Node
+from pvtrace_tpu_torch.scene.scene import Scene
 
 from pvtrace_tpu_torch import engine
 

@@ -2,16 +2,21 @@
 
     from pvtrace_tpu_torch import engine
     result = engine.simulate(scene, 1_000_000, record_every=0)   # on "cuda"
-    result.fate_counts()
+    result.fate_counts(), result.recorders
 """
-from pvtrace_tpu.engine.api import EngineResult
-from pvtrace_tpu.engine.compiler import CompiledScene, UnsupportedSceneError, compile_scene
 from pvtrace_tpu_torch.engine.api import simulate
+from pvtrace_tpu_torch.engine.compiler import CompiledScene, UnsupportedSceneError, compile_scene
+from pvtrace_tpu_torch.engine.recorder import Heatmap, Histogram, Recorder
+from pvtrace_tpu_torch.engine.result import EngineResult, RecorderResult
 from pvtrace_tpu_torch.engine.tables import scene_tensors
 
 __all__ = [
     "CompiledScene",
     "EngineResult",
+    "Heatmap",
+    "Histogram",
+    "Recorder",
+    "RecorderResult",
     "UnsupportedSceneError",
     "compile_scene",
     "scene_tensors",

@@ -1,18 +1,18 @@
 """``simulate``: the port's entry point, with the JAX package's signature.
 
 Port of ``pvtrace_tpu.engine.api.simulate`` for the tallies-only path:
-lights lowered to device samplers, no event log, no recorders, no
-gradients. The result is the JAX package's ``EngineResult`` with the same
-``data`` layout.
+lights lowered to device samplers, fates and recorders, no event log, no
+gradients. The result is the port's copy of the JAX package's
+``EngineResult`` with the same ``data`` layout.
 """
 import time
 
 import numpy as np
 import torch
 
-from pvtrace_tpu.engine.api import EngineResult, _RoundRobinSources
-from pvtrace_tpu.engine.compiler import EMIT_METHODS, compile_scene
 from pvtrace_tpu_torch.engine import rng, tracer
+from pvtrace_tpu_torch.engine.compiler import EMIT_METHODS, compile_scene
+from pvtrace_tpu_torch.engine.result import EngineResult, _RoundRobinSources
 from pvtrace_tpu_torch.engine.tables import scene_tensors
 
 _U32 = 2 ** 32 - 1
@@ -75,9 +75,9 @@ def simulate(
       eager PyTorch twin, in float32 or float64. There is no fallback
       from one to the other.
     * `dtype` None means float32.
-    * `record_every` > 0, `score`, `pathwise`, recorders, meshes and
-      lights that need host emission raise NotImplementedError naming
-      the ROADMAP item that brings them. `workers` and `max_events` are
+    * `record_every` > 0, `score`, `pathwise`, meshes and lights that
+      need host emission raise NotImplementedError naming the ROADMAP
+      item that brings them. `workers` and `max_events` are
       accepted and unused, as in the JAX package with record_every=0.
     * `lanes`: on the CPU the wavefront width of the eager twin ("auto":
       ``min(num_rays, 2**18)``, None: one lane per photon, no
@@ -87,8 +87,13 @@ def simulate(
       the CPU, and the largest per-photon step count on the card: the
       persistent kernel has no common step. The JAX package reports its
       loop's step count.
-    * Fate counts are int64 and ``index_offset + num_rays`` may reach
-      ``2**32 - 1``.
+    * Fate counts and the recorders' ``rec_distinct``, ``rec_crossings``
+      and ``rec_bins`` are int64, and ``index_offset + num_rays`` may
+      reach ``2**32 - 1``. ``rec_sums`` is in the run's dtype (the
+      kernel adds per-block float32 sums in float64).
+    * The spectra take the Chebyshev fits (K5a) or the table lerp (K5b)
+      by the JAX package's rule, ``PVTRACE_TPU_NO_CHEB`` included, read
+      on every call.
     """
     _check_options(record_every, score, pathwise)
     if emit_method not in EMIT_METHODS:
@@ -105,7 +110,7 @@ def simulate(
         lanes = min(num_rays, 1 << 18) if device.type == "cpu" else None
 
     tic = time.perf_counter()
-    fates, steps = tracer.trace(
+    fates, steps, tallies = tracer.trace(
         st, rng.key_words(seed), num_rays, index_offset=index_offset,
         lanes=lanes, maxsteps=maxsteps, emit_method=EMIT_METHODS[emit_method],
         maxpathlength=float("inf") if maxpathlength is None else float(maxpathlength),
@@ -115,10 +120,10 @@ def simulate(
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     data = {
-        "rec_distinct": np.zeros(1, np.int64),
-        "rec_crossings": np.zeros(1, np.int64),
-        "rec_sums": np.zeros((1, 8), np_dtype),
-        "rec_bins": np.zeros(0, np.int64),
+        "rec_distinct": tallies["distinct"].cpu().numpy(),
+        "rec_crossings": tallies["cross"].cpu().numpy(),
+        "rec_sums": tallies["sums"].cpu().numpy().astype(np_dtype),
+        "rec_bins": tallies["bins"].cpu().numpy(),
         "fates": fates,
         "counts": np.zeros(0, np.int64),
         "steps": int(steps),

@@ -5,18 +5,17 @@ photon takes the light ``pid % n_lights``, draws six uniforms from its
 emission stream and samples a wavelength (constant, or a lerp in
 ``light_icdf_pairs``), a local position (point, rect, circle, cube) and
 a local direction (default, cone, isotropic, Lambertian, HG), then
-applies the light's baked local-to-world matrix. The lamp-spectrum
-Chebyshev surrogate (K5a) is not ported: spectral lights always take the
-exact table lerp.
+applies the light's baked local-to-world matrix. A spectral light's
+wavelength is its Chebyshev fit (K5a) or the table lerp (K5b), by the
+JAX package's rule (``spectral.light_icdf``).
 """
 import math
 
 import torch
 
-from pvtrace_tpu.engine.compiler import CompiledScene as C
-from pvtrace_tpu_torch.engine import rng
+from pvtrace_tpu_torch.engine import rng, spectral
 from pvtrace_tpu_torch.engine import tables as T
-from pvtrace_tpu_torch.engine.spectral import lerp_pairs
+from pvtrace_tpu_torch.engine.compiler import CompiledScene as C
 
 
 def emit(st, keys, pids):
@@ -29,7 +28,6 @@ def emit(st, keys, pids):
     u = rng.draw(pk0, pk1, torch.zeros_like(pids), 16, 3, f)
     light_f, light_i = st["rows"]["light_f"], st["rows"]["light_i"]
     n_lights = len(light_i)
-    M = st["meta"]["icdf_n"]
     light_id = pids % n_lights
     zeros = torch.zeros_like(u[0])
     out = None
@@ -38,7 +36,7 @@ def emit(st, keys, pids):
         if wkind == C.WAV_CONST:
             w_l = torch.full_like(zeros, lf[T.LF_WAV])
         else:
-            w_l = lerp_pairs(st["light_icdf_pairs"], row * M, M, u[0])
+            w_l = spectral.light_icdf(st, row, u[0])
         a, b, c = lf[T.LF_POS:T.LF_POS + 3]
         if pkind == C.POS_DEFAULT:
             lx, ly, lz = zeros, zeros, zeros

@@ -7,7 +7,7 @@ node record (``tables.NF_GP``); rays are component triples of tensors.
 """
 import torch
 
-from pvtrace_tpu.engine.compiler import GEOM_BOX, GEOM_SPHERE
+from pvtrace_tpu_torch.engine.compiler import GEOM_BOX, GEOM_SPHERE
 
 _INF = float("inf")
 

@@ -1,9 +1,9 @@
 """K3, K4 and K6: one physics step of every lane, the eager twin.
 
 Port of ``physics_core`` (pvtrace_tpu/engine/tracer.py ``_run``) without
-meshes and without the recorder selectors. The JAX function is generated
-per scene; this one is table-driven, a loop over the node records in
-node order, as the CUDA kernel's ``step_one`` is. One step:
+meshes. The JAX function is generated per scene; this one is
+table-driven, a loop over the node records in node order, as the CUDA
+kernel's ``step_one`` is. One step:
 
 1. intersect every node (strict ``<`` nearest-two update in node order,
    then candidate order); container = the nearest node with exactly one
@@ -13,17 +13,24 @@ node order, as the CUDA kernel's ``step_one`` is. One step:
    advance, then component roulette, quantum-yield coin, phase, emission
    with ``p1`` truncation, delays and reactors;
 4. at a surface: normal of the hit node, facet override, Fresnel / TIR,
-   reflect, refract, pass through or Lambertian.
+   reflect, refract, pass through or Lambertian;
+5. the recorder selectors (K9's inputs): which event a recorder may
+   count (``sel``, a recorder.EVENTS tag or SEL_NONE), on which node
+   (``tnode``), whether the world normal applies (``have_n``), and the
+   hit surface's world normal and incidence cosine on surface events.
+   The JAX package computes them only when a scene has recorders; the
+   port computes them on every step. An ``adj_bad`` lane is counted as
+   KILL and stays alive, as in the reference (ROADMAP queue 3).
 """
 import math
 
 import torch
 
-from pvtrace_tpu.engine import compiler as comp
-from pvtrace_tpu_torch.engine import geometry
+from pvtrace_tpu_torch.engine import compiler as comp
+from pvtrace_tpu_torch.engine import geometry, spectral
 from pvtrace_tpu_torch.engine import tables as T
 from pvtrace_tpu_torch.engine.emit import hg_mu
-from pvtrace_tpu_torch.engine.spectral import grid_index, lerp_pairs, spec_slots
+from pvtrace_tpu_torch.engine.recorder import EVENTS
 
 ALPHA_ZERO = 1e-8
 C_CM_PER_S = 2.99792458e10
@@ -37,18 +44,30 @@ N_FATES = 11
 # Facet override modes (material.surface OVERRIDE_* values)
 OVR_MIRROR, OVR_ABSORB, OVR_LAMBERTIAN = 0, 1, 2
 
+# Recorder selectors (recorder.EVENTS tags); SEL_NONE: nothing to count
+REC_ENTERING, REC_ESCAPING = EVENTS["entering"], EVENTS["escaping"]
+REC_REFLECTED, REC_LOST = EVENTS["reflected"], EVENTS["lost"]
+REC_REACTED, REC_KILLED, REC_EXIT = EVENTS["reacted"], EVENTS["killed"], EVENTS["exit"]
+SEL_NONE = -1
+
 STATE_FLOATS = ("px", "py", "pz", "dx", "dy", "dz", "wav", "trav", "dur")
 FLAGS = ("exit_mask", "losing", "reacting", "kills", "no_hit_term")
+# Per-lane outputs for the recorders: int32 node and selector, bool flags,
+# and the world normal and incidence cosine of the hit surface on surface
+# events (0 on other lanes).
+SELECTORS = ("sel", "tnode")
+EVENT_FLAGS = ("have_n", "surface_event")
+SURFACE = ("wnx", "wny", "wnz", "c_in")
 
 
 def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     """One step of lanes `s` (dict of STATE_FLOATS, ``source``, ``alive``
     and ``count``, already incremented) with uniforms ``u[0..7]``.
 
-    Returns the new state plus the per-lane FLAGS, ``hit`` and
-    ``container``."""
+    Returns the new state plus the per-lane FLAGS, ``hit``,
+    ``container``, SELECTORS, EVENT_FLAGS and SURFACE."""
     meta = st["meta"]
-    N, L, M = meta["n_nodes"], meta["grid_n"], meta["icdf_n"]
+    N, L = meta["n_nodes"], meta["grid_n"]
     node_f, node_i = st["rows"]["node_f"], st["rows"]["node_i"]
     px, py, pz = s["px"], s["py"], s["pz"]
     dxv, dyv, dzv = s["dx"], s["dy"], s["dz"]
@@ -112,8 +131,8 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     exit_mask = alive & (hit == meta["root_id"])
 
     # -- K5b + K6: free path, advance, volume events --------------------
-    i0, frac = grid_index(wav, meta["grid_x0"], meta["grid_dx"], L)
-    slots = spec_slots(st["spec_pack"], cl, i0.long(), frac, L)
+    i0, frac = spectral.grid_index(wav, meta["grid_x0"], meta["grid_dx"], L)
+    slots = spectral.slots(st, cl, i0, frac)
     K = node_it[cl, T.NI_NCOMP]
     alpha = torch.where(
         K > 0, slots.gather(1, (K - 1).clamp(min=0).long()[:, None])[:, 0], 0.0
@@ -176,7 +195,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
             )
         gamma = p1 + (1.0 - p1) * u[5]
         lum = torch.where(has_c, ci[:, T.CI_LUM], 0).long()
-        new_wav = lerp_pairs(st["ems_icdf_pairs"], lum * M, M, gamma)
+        new_wav = spectral.emission_icdf(st, lum, gamma)
         tau_rad = attr(T.CF_TAU_RAD)
         rad_delay = torch.where(tau_rad > 0.0, -torch.log1p(-u[6]) * tau_rad, 0.0)
         wav = torch.where(emitting, new_wav, wav)
@@ -287,6 +306,27 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     dyv = torch.where(reflecting, rfy, torch.where(transmitting, tyd, dyv))
     dzv = torch.where(reflecting, rfz, torch.where(transmitting, tzd, dzv))
 
+    # -- recorder selectors, in the JAX package's order (tracer.py) -----
+    sel = torch.full_like(count, SEL_NONE)
+    tnode = torch.full_like(count, -1)
+    sel = torch.where(kill_max, REC_KILLED, sel)
+    tnode = torch.where(kill_max, container, tnode)
+    sel = torch.where(exit_mask, REC_EXIT, sel)
+    tnode = torch.where(exit_mask, hit, tnode)
+    sel = torch.where(reacting, REC_REACTED, sel)
+    sel = torch.where(losing, REC_LOST, sel)
+    tnode = torch.where(reacting | losing, container, tnode)
+    refl_tally = reflecting & (container != hit)
+    sel = torch.where(refl_tally, REC_REFLECTED, sel)
+    tnode = torch.where(refl_tally, hit, tnode)
+    sel = torch.where(
+        transmitting, torch.where(container == hit, REC_ESCAPING, REC_ENTERING).to(sel.dtype),
+        sel,
+    )
+    tnode = torch.where(transmitting, hit, tnode)
+    have_n = exit_mask | refl_tally | transmitting
+    surface_event = exit_mask | reflecting | transmitting
+
     return {
         "px": px, "py": py, "pz": pz, "dx": dxv, "dy": dyv, "dz": dzv,
         "wav": wav, "trav": trav, "dur": dur, "source": source,
@@ -294,4 +334,9 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
         "exit_mask": exit_mask, "losing": losing, "reacting": reacting,
         "kills": kill_max | adj_bad, "no_hit_term": no_hit_term,
         "hit": hit, "container": container,
+        "sel": sel, "tnode": tnode, "have_n": have_n, "surface_event": surface_event,
+        "wnx": torch.where(surface_event, wnx, 0.0),
+        "wny": torch.where(surface_event, wny, 0.0),
+        "wnz": torch.where(surface_event, wnz, 0.0),
+        "c_in": torch.where(surface_event, c_in, 0.0),
     }

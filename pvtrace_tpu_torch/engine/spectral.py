@@ -1,11 +1,16 @@
-"""K5b: exact spectral lookups by linear interpolation, the eager twin.
+"""K5a or K5b: the spectral lookups of a step and of emission, eager twin.
 
-Port of ``spec_slots_gather`` and ``icdf_gather`` (pvtrace_tpu/engine/
-tracer.py ``_run``) and of the lamp-spectrum ICDF lerp in
-``_device_emit_flat``: the JAX package's ``PVTRACE_TPU_NO_CHEB`` path.
-The piecewise-Chebyshev surrogates (K5a) are not ported yet.
+K5b is the exact table lerp: port of ``spec_slots_gather`` and
+``icdf_gather`` (pvtrace_tpu/engine/tracer.py ``_run``) and of the
+lamp-spectrum ICDF lerp in ``_device_emit_flat``, the JAX package's
+``PVTRACE_TPU_NO_CHEB`` path. K5a is the piecewise-Chebyshev surrogate
+(``engine/chebyshev.py``). ``slots``, ``emission_icdf`` and
+``light_icdf`` take K5a where ``scene_tensors`` says the JAX package
+would (``meta["cheb_spec"]``, ``"cheb_icdf"``, ``"cheb_light"``).
 """
 import torch
+
+from pvtrace_tpu_torch.engine import chebyshev
 
 
 def grid_index(wav, x0, dx, L):
@@ -37,3 +42,26 @@ def lerp_pairs(pairs, base, M, gamma):
     gfrac = gposf - j0.to(gamma.dtype)
     prow = pairs[base + j0]
     return prow[:, 0] + gfrac * (prow[:, 1] - prow[:, 0])
+
+
+def slots(st, container, i0, frac):
+    """The spectral slots of each lane's container, K5a or K5b: [B, W]."""
+    if st["meta"]["cheb_spec"]:
+        return chebyshev.spec_slots(st, container, i0, frac)
+    return spec_slots(st["spec_pack"], container, i0.long(), frac, st["meta"]["grid_n"])
+
+
+def emission_icdf(st, lum, gamma):
+    """Emission wavelengths of luminophore rows `lum` (int64) at `gamma`."""
+    if st["meta"]["cheb_icdf"]:
+        return chebyshev.icdf(st, lum, gamma)
+    M = st["meta"]["icdf_n"]
+    return lerp_pairs(st["ems_icdf_pairs"], lum * M, M, gamma)
+
+
+def light_icdf(st, row, u):
+    """Lamp wavelengths of light-spectrum row `row` (an int) at uniforms `u`."""
+    if st["meta"]["cheb_light"]:
+        return chebyshev.light_icdf(st, row, u)
+    M = st["meta"]["icdf_n"]
+    return lerp_pairs(st["light_icdf_pairs"], row * M, M, u)

@@ -18,14 +18,36 @@ Records (rows padded to at least one so no tensor is empty):
 * ``light_f`` [nL, LIGHT_F] and ``light_i`` [nL, LIGHT_I];
 * the three spectral tables the tracer reads: ``spec_pack`` [N*L, 2W],
   ``ems_icdf_pairs`` [n_lum*M, 2] and ``light_icdf_pairs`` [rows*M, 2].
-  The other tables of ``device_tables`` are not read by the tracer.
+  The other tables of ``device_tables`` are not read by the tracer;
+* K5a, the compiler's Chebyshev fits (``cheb_comp``, ``cheb_spec``,
+  ``cheb_icdf``, ``cheb_light_icdf``) flattened: ``cheb_fit_i`` [F,
+  CHEB_FIT_I] and ``cheb_fit_f`` [F] per fit (kind, segment count, first
+  segment; ``off``), ``cheb_seg_f`` [S, CHEB_SEG_F] and ``cheb_seg_i``
+  [S, CHEB_SEG_I] per segment, one coefficient array ``cheb_coef``, and
+  the spectral slots ``cheb_slot`` [N*W, 2], each the sum of the fits
+  ``cheb_ref[first:first + count]`` (a ``cum`` slot lists its
+  components' fits). Fits are numbered components first, then the
+  non-``cum`` slot fits, the emission ICDFs (from ``meta["cheb_icdf0"]``)
+  and the lamp ICDFs (from ``meta["cheb_light0"]``);
+* K9, the recorders: ``rec_f`` [R, REC_F] and ``rec_i`` [R, REC_I],
+  ``hist_f`` [H, HIST_F] and ``hist_i`` [H, HIST_I] (the compiler's
+  ``hist_specs``), and an index from (node, selector) to the recorders
+  that can match it, in CSR form: the recorders of key ``node * N_SEL +
+  sel`` are ``rec_ids[rec_csr[key]:rec_csr[key + 1]]``.
+
+``meta`` says which lookups take K5a: a lookup takes its Chebyshev fits
+when the compiler made them and ``PVTRACE_TPU_NO_CHEB`` is unset, the JAX
+package's rule (tracer.py ``spec_slots_fn`` / ``icdf_fn``, and
+``_device_emit_flat`` for lamps); otherwise the table lerp (K5b).
 """
+import os
 from types import MappingProxyType
 
 import numpy as np
 import torch
 
-from pvtrace_tpu.engine import compiler as comp
+from pvtrace_tpu_torch.engine import compiler as comp
+from pvtrace_tpu_torch.engine.recorder import EVENTS
 
 # node_f columns
 NF_W2L = 0  # 3x4 world-to-local rows, 12 values
@@ -78,6 +100,64 @@ LI_DIR = 2  # direction kind; HG with |g| < 1e-12 is stored as isotropic
 LI_ROW = 3  # light_icdf_pairs row block of a spectrum light
 LIGHT_I = 4
 
+# cheb_fit_i columns and fit kinds (the compiler's "lin", "log", "pw")
+FI_KIND = 0
+FI_NSEG = 1
+FI_SEG0 = 2
+CHEB_FIT_I = 3
+FIT_LIN = 0
+FIT_LOG = 1
+FIT_PW = 2
+
+# cheb_seg_f columns: segment [a, b) of t and 2 / (b - a), taken in float64
+SF_A = 0
+SF_B = 1
+SF_SCALE = 2
+CHEB_SEG_F = 3
+
+# cheb_seg_i columns: FIT_LIN or FIT_LOG, first coefficient, degree
+SI_KIND = 0
+SI_COEF0 = 1
+SI_DEG = 2
+CHEB_SEG_I = 3
+
+# rec_f columns: facet normal and its tolerance
+RF_NX = 0
+RF_ATOL = 3
+REC_F = 4
+
+# rec_i columns
+RI_NODE = 0
+RI_EVENT = 1
+RI_FACET = 2  # 1 when the recorder has a facet filter
+RI_HIST0 = 3  # first hist row
+RI_NHIST = 4
+REC_I = 5
+
+# hist_f columns: lower edge and width (hi - lo, taken in float64) per axis
+HF_LO_A = 0
+HF_W_A = 1
+HF_LO_B = 2
+HF_W_B = 3
+HIST_F = 4
+
+# hist_i columns: recorder, properties (recorder.PROPERTIES; -1: a 1-D
+# histogram), bin counts and the offset into the flat bins
+HI_REC = 0
+HI_PROP_A = 1
+HI_PROP_B = 2
+HI_NA = 3
+HI_NB = 4
+HI_OFF = 5
+HIST_I = 6
+
+N_SEL = len(EVENTS)  # recorder selectors, recorder.EVENTS tags
+MAX_RECORDERS = comp.MAX_RECORDERS
+SEEN_WORDS = MAX_RECORDERS // 32  # the kernel's per-photon seen bitset
+# A block of the kernel moves a recorder's float32 moment sums into the
+# float64 totals at every SUMS_FLUSH-th distinct ray of that recorder.
+SUMS_FLUSH = 1024
+
 LAYOUT = MappingProxyType({
     name: value for name, value in globals().items()
     if name.isupper() and isinstance(value, int)
@@ -95,8 +175,6 @@ def unsupported_reason(compiled):
     """Why the port's tracer cannot run `compiled`, or None."""
     if compiled.mesh_data:
         return "triangle meshes (ROADMAP queue 1 item 8, kernel K10)"
-    if compiled.n_recorders:
-        return "recorders (ROADMAP queue 1 item 4, kernel K9)"
     if not compiled.lights_supported:
         return (
             "lights the compiler cannot lower to device samplers need host "
@@ -105,12 +183,111 @@ def unsupported_reason(compiled):
     return None
 
 
+class _Fits:
+    """Flattens compiler fit descriptors into the cheb_* records."""
+
+    def __init__(self):
+        self.fit_i, self.fit_f, self.seg_f, self.seg_i, self.coef = [], [], [], [], []
+
+    def add(self, fit):
+        """Append fit ``(kind, coef, off)``; returns its index."""
+        kind, coef, off = fit
+        segs = coef if kind == "pw" else ((-1.0, 1.0, kind, coef),)
+        self.fit_i.append(({"lin": FIT_LIN, "log": FIT_LOG, "pw": FIT_PW}[kind],
+                           len(segs), len(self.seg_i)))
+        self.fit_f.append(float(off))
+        for a, b, skind, c in segs:
+            c = np.asarray(c, np.float64).ravel()
+            self.seg_f.append((a, b, 2.0 / (b - a)))
+            self.seg_i.append((FIT_LOG if skind == "log" else FIT_LIN, len(self.coef), len(c) - 1))
+            self.coef.extend(c.tolist())
+        return len(self.fit_i) - 1
+
+
+def _cheb_records(compiled):
+    """cheb_* arrays and meta of `compiled`'s fits (empty when it has none)."""
+    N, W = len(compiled.nodes), compiled.pack_width
+    fits = _Fits()
+    comp_fit = [fits.add(f) for f in compiled.cheb_comp or ()]
+    slots = np.zeros((N * W, 2), np.int32)
+    refs = []
+    spec = compiled.cheb_spec
+    if spec is not None and compiled.cheb_comp is not None:
+        for n, node_fits in sorted(spec.items()):
+            for w, fit in enumerate(node_fits):
+                ids = [comp_fit[c] for c in fit[1]] if fit[0] == "cum" else [fits.add(fit)]
+                slots[n * W + w] = (len(refs), len(ids))
+                refs.extend(ids)
+        if len(spec) == 1:
+            # The JAX rule (tracer.py spec_slots_cheb): with one component
+            # node, its slot values serve every container.
+            (n,) = spec
+            slots[:] = np.tile(slots[n * W:(n + 1) * W], (N, 1))
+    icdf0 = len(fits.fit_i)
+    for f in compiled.cheb_icdf or ():
+        fits.add(f)
+    light0 = len(fits.fit_i)
+    for f in compiled.cheb_light_icdf or ():
+        fits.add(f)
+
+    no_cheb = bool(os.environ.get("PVTRACE_TPU_NO_CHEB", ""))
+    records = {
+        "cheb_fit_i": np.asarray(fits.fit_i or [(FIT_LIN, 0, 0)], np.int32),
+        "cheb_fit_f": np.asarray(fits.fit_f or [0.0]),
+        "cheb_seg_f": np.asarray(fits.seg_f or [(-1.0, 1.0, 1.0)]),
+        "cheb_seg_i": np.asarray(fits.seg_i or [(FIT_LIN, 0, 0)], np.int32),
+        "cheb_coef": np.asarray(fits.coef or [0.0]),
+        "cheb_slot": slots,
+        "cheb_ref": np.asarray(refs or [0], np.int32),
+    }
+    meta = {
+        "cheb_spec": spec is not None and compiled.cheb_comp is not None and not no_cheb,
+        "cheb_icdf": bool(compiled.cheb_icdf) and not no_cheb,
+        "cheb_light": compiled.cheb_light_icdf is not None and not no_cheb,
+        "cheb_icdf0": icdf0,
+        "cheb_light0": light0,
+        "cheb_n_fits": len(fits.fit_i),
+        "cheb_max_seg": max([nseg for _, nseg, _ in fits.fit_i] + [1]),
+        "cheb_max_refs": int(slots[:, 1].max()) if slots.size else 0,
+    }
+    return records, meta
+
+
+def _recorder_records(compiled):
+    """rec_*, hist_* and the (node, selector) CSR index of `compiled`."""
+    R, N = compiled.n_recorders, len(compiled.nodes)
+    if R > MAX_RECORDERS:
+        raise ValueError(f"at most {MAX_RECORDERS} recorders, got {R}")
+    rec_f = np.zeros((max(R, 1), REC_F))
+    rec_i = np.zeros((max(R, 1), REC_I), np.int32)
+    keys = [[] for _ in range(N * N_SEL)]
+    for r in range(R):
+        rec_f[r, RF_NX:RF_NX + 3] = compiled.rec_facet[r]
+        rec_f[r, RF_ATOL] = compiled.rec_atol[r]
+        rec_i[r] = (compiled.rec_node[r], compiled.rec_event[r], compiled.rec_has_facet[r],
+                    compiled.rec_hist_start[r], compiled.rec_hist_n[r])
+        keys[compiled.rec_node[r] * N_SEL + compiled.rec_event[r]].append(r)
+    specs = compiled.hist_specs
+    hist_f = np.zeros((max(len(specs), 1), HIST_F))
+    hist_i = np.zeros((max(len(specs), 1), HIST_I), np.int32)
+    for h, (r, pa, pb, na, nb, lo_a, hi_a, lo_b, hi_b, offset) in enumerate(specs):
+        hist_f[h] = (lo_a, hi_a - lo_a, lo_b, hi_b - lo_b)
+        hist_i[h] = (r, pa, pb, na, nb, offset)
+    csr = np.cumsum([0] + [len(k) for k in keys]).astype(np.int32)
+    ids = np.asarray([r for k in keys for r in k] or [0], np.int32)
+    return {
+        "rec_f": rec_f, "rec_i": rec_i, "hist_f": hist_f, "hist_i": hist_i,
+        "rec_csr": csr, "rec_ids": ids,
+    }
+
+
 def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
     """Flat tensors of `compiled` in `dtype` on `device` (see module doc).
 
     Returns a dict of tensors plus ``"meta"``, a dict of the scene-wide
-    python scalars (node count, root, grid and ICDF sizes, pack width),
-    and ``"rows"``, the small records as python lists.
+    python scalars (node count, root, grid and ICDF sizes, pack width,
+    which lookups take K5a, recorder and bin counts), and ``"rows"``, the
+    small records as python lists.
     """
     reason = unsupported_reason(compiled)
     if reason is not None:
@@ -172,6 +349,8 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
     def i(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
+    cheb, cheb_meta = _cheb_records(compiled)
+    recs = _recorder_records(compiled)
     out = {
         "node_f": f(node_f),
         "node_i": i(node_i),
@@ -184,6 +363,8 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
         "spec_pack": f(compiled.spec_pack),
         "ems_icdf_pairs": f(compiled.ems_icdf_pairs),
         "light_icdf_pairs": f(compiled.light_icdf_pairs),
+        **{k: (i(v) if v.dtype == np.int32 else f(v)) for k, v in cheb.items()},
+        **{k: (i(v) if v.dtype == np.int32 else f(v)) for k, v in recs.items()},
         "meta": {
             "n_nodes": N,
             "root_id": int(compiled.root_id),
@@ -195,6 +376,9 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
             "pack_width": int(compiled.pack_width),
             "grid_x0": float(compiled.grid_x0),
             "grid_dx": float(compiled.grid_dx),
+            "n_rec": int(compiled.n_recorders),
+            "total_bins": int(compiled.total_bins),
+            **cheb_meta,
         },
     }
     # The same records as python rows, read once, for the eager twin's

@@ -2,21 +2,23 @@
 
 Port of ``trace_bundle_device_emit``, ``_run`` and ``body_fast``
 (pvtrace_tpu/engine/tracer.py) for the tallies-only path: no event log,
-no score, no recorders. ``trace`` runs the CUDA kernel ``pvt_trace`` for
-tensors on a CUDA device and the eager twin ``trace_eager`` for tensors
-on the CPU (the kernel wrapper decides, by the tensors' device).
+no score; fates and recorder tallies (K9, ``engine/tally.py``). ``trace``
+runs the CUDA kernel ``pvt_trace`` for tensors on a CUDA device and the
+eager twin ``trace_eager`` for tensors on the CPU (the kernel wrapper
+decides, by the tensors' device).
 
 The eager twin mirrors the JAX loop step for step: a wavefront of
 ``lanes`` photons advances in lockstep; after every step dead lanes are
 refilled with the next photon ids by an exclusive prefix sum
 (``cand = next + rank``, bounded by ``index_offset + n``), re-keyed from
-the same seed and re-emitted. Every photon's random streams are a pure
-function of (seed, pid, its own step count), so the fate counts do not
+the same seed and re-emitted, and the recorders they had matched are
+forgotten. Every photon's random streams are a pure function of (seed,
+pid, its own step count), so the fate counts and integer tallies do not
 depend on the lane count, and match the JAX package's photon for photon.
 """
 import torch
 
-from pvtrace_tpu_torch.engine import physics, rng
+from pvtrace_tpu_torch.engine import physics, rng, tally
 from pvtrace_tpu_torch.engine.emit import emit
 
 # Runs of the eager twin: a run can show that it went through the kernel.
@@ -54,8 +56,8 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 emit_method=0, maxpathlength=float("inf")):
     """Trace photons ``index_offset + [0, n)`` with the eager twin.
 
-    Returns (fates, steps): int64 fate counts [11] and the number of loop
-    steps taken."""
+    Returns (fates, steps, tallies): int64 fate counts [11], the number of
+    loop steps taken, and the recorder tallies (``tally.empty``'s dict)."""
     global eager_runs
     eager_runs += 1
     device = st["node_f"].device
@@ -64,6 +66,7 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     s = initial_state(st, seed_words, pids)
     nxt, total = index_offset + B, index_offset + n
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64, device=device)
+    tallies = tally.empty(st, B)
     slots = (
         ("exit_mask", physics.EV_EXIT),
         ("losing", physics.EV_NONRADIATIVE),
@@ -77,6 +80,7 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         out = step_state(st, s, maxsteps, emit_method, maxpathlength)
         for name, slot in slots:
             fates[slot] += out[name].sum()
+        tally.tally(tallies, st, out)
         s = {k: out[k] for k in s}
         if B < n:
             dead = ~s["alive"]
@@ -87,8 +91,9 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 fresh = initial_state(st, seed_words, cand[idx])
                 for k, v in fresh.items():
                     s[k] = s[k].index_put((idx,), v)
+                tally.reset_seen(tallies, idx)
                 nxt += idx.numel()
-    return fates, steps
+    return fates, steps, tallies
 
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
@@ -97,8 +102,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     ``pvt_trace``: the CUDA kernel for scene tensors on a CUDA device,
     ``trace_eager`` for CPU tensors.
 
-    Returns (fates, steps). On the kernel path `steps` is the largest
-    per-photon step count; on the eager path it is the number of
+    Returns (fates, steps, tallies). On the kernel path `steps` is the
+    largest per-photon step count; on the eager path it is the number of
     wavefront steps (the JAX package's count of loop-body steps)."""
     from pvtrace_tpu_torch import kernels
 

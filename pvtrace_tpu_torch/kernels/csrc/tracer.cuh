@@ -1,11 +1,11 @@
-// Device functions shared by the three kernels of tracer.cu.
+// Device functions shared by the kernels of tracer.cu.
 //
 // One photon per thread, all state in registers. Every function is a
 // line-for-line port of the eager twin in pvtrace_tpu_torch/engine
-// (rng.py, emit.py, geometry.py, spectral.py, physics.py), which in turn
-// ports pvtrace_tpu/engine/tracer.py. float32 only; no fast-math: log1p,
-// sqrt and division stay IEEE (nvcc's default FMA contraction moves
-// results by ulps).
+// (rng.py, emit.py, geometry.py, spectral.py, chebyshev.py, physics.py,
+// tally.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
+// only; no fast-math: log1p, sqrt, exp, acos and division stay IEEE
+// (nvcc's default FMA contraction moves results by ulps).
 //
 // The functions are also host-callable (PVT_FN), so the arithmetic can
 // be compiled by a host C++ compiler and checked without a card.
@@ -16,8 +16,13 @@
 
 #ifdef __CUDACC__
 #define PVT_FN __host__ __device__ __forceinline__
+// A function called from many sites, kept out of line on the card: its
+// code inlined at every site makes pvt_trace larger and slower on every
+// path, K5b's included (an A/B build on the H100; PERF.md).
+#define PVT_CALLED_FN __host__ __device__ __noinline__
 #else
 #define PVT_FN inline
+#define PVT_CALLED_FN inline
 #endif
 
 // ---------------------------------------------------------------------
@@ -66,6 +71,54 @@
 #define LI_ROW 3
 #define LIGHT_I 4
 
+#define FI_KIND 0
+#define FI_NSEG 1
+#define FI_SEG0 2
+#define CHEB_FIT_I 3
+#define FIT_LIN 0
+#define FIT_LOG 1
+#define FIT_PW 2
+
+#define SF_A 0
+#define SF_B 1
+#define SF_SCALE 2
+#define CHEB_SEG_F 3
+
+#define SI_KIND 0
+#define SI_COEF0 1
+#define SI_DEG 2
+#define CHEB_SEG_I 3
+
+#define RF_NX 0
+#define RF_ATOL 3
+#define REC_F 4
+
+#define RI_NODE 0
+#define RI_EVENT 1
+#define RI_FACET 2
+#define RI_HIST0 3
+#define RI_NHIST 4
+#define REC_I 5
+
+#define HF_LO_A 0
+#define HF_W_A 1
+#define HF_LO_B 2
+#define HF_W_B 3
+#define HIST_F 4
+
+#define HI_REC 0
+#define HI_PROP_A 1
+#define HI_PROP_B 2
+#define HI_NA 3
+#define HI_NB 4
+#define HI_OFF 5
+#define HIST_I 6
+
+#define N_SEL 7
+#define MAX_RECORDERS 256
+#define SEEN_WORDS 8
+#define SUMS_FLUSH 1024
+
 // Tags of pvtrace_tpu/engine/compiler.py
 enum { GEOM_BOX = 0, GEOM_SPHERE = 1, GEOM_CYLINDER = 2 };
 enum { SURF_FRESNEL = 0 };
@@ -76,11 +129,46 @@ enum { WAV_CONST = 0 };
 enum { POS_DEFAULT = 0, POS_RECT = 1, POS_CIRCLE = 2 };
 enum { DIR_DEFAULT = 0, DIR_CONE = 1, DIR_ISOTROPIC = 2, DIR_LAMBERTIAN = 3 };
 enum { OVR_MIRROR = 0, OVR_ABSORB = 1, OVR_LAMBERTIAN = 2 };
+// Recorder selectors (engine/recorder.py EVENTS)
+enum { SEL_NONE = -1, REC_ENTERING = 0, REC_ESCAPING = 1, REC_REFLECTED = 2, REC_LOST = 3,
+       REC_REACTED = 4, REC_KILLED = 5, REC_EXIT = 6 };
 
 #define PVT_INF INFINITY
 #define PVT_TWO_PI 6.283185307179586f
 #define PVT_C_CM_PER_S 2.99792458e10f
 #define PVT_ALPHA_ZERO 1e-8f
+
+// Reads of the K5a tables go through the read-only data path: lanes read
+// different segments, which the constant cache would serialise.
+// Accumulators are atomics on the card, plain adds on the host.
+#ifdef __CUDA_ARCH__
+#define PVT_LDG(p) __ldg(p)
+#define PVT_ADD(p, v) atomicAdd((p), (v))
+#else
+#define PVT_LDG(p) (*(p))
+#define PVT_ADD(p, v) (*(p) += (v))
+#endif
+
+// Adds 1 to *p and returns the new value.
+PVT_FN unsigned int pvt_inc(unsigned int* p) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(p, 1u) + 1u;
+#else
+  return ++*p;
+#endif
+}
+
+// Returns *p and sets it to 0, in one atomic step on the card: an add
+// that races with it lands either in the value returned or in the new 0.
+PVT_FN float pvt_take(float* p) {
+#ifdef __CUDA_ARCH__
+  return atomicExch(p, 0.0f);
+#else
+  const float v = *p;
+  *p = 0.0f;
+  return v;
+#endif
+}
 
 // Scene tensors and run constants (field order mirrored by the ctypes
 // Structure in pvtrace_tpu_torch/kernels/__init__.py).
@@ -96,6 +184,19 @@ struct PvtScene {
   const float* spec_pack;
   const float* ems_icdf_pairs;
   const float* light_icdf_pairs;
+  const int* cheb_fit_i;
+  const float* cheb_fit_f;
+  const float* cheb_seg_f;
+  const int* cheb_seg_i;
+  const float* cheb_coef;
+  const int* cheb_slot;
+  const int* cheb_ref;
+  const float* rec_f;
+  const int* rec_i;
+  const float* hist_f;
+  const int* hist_i;
+  const int* rec_csr;
+  const int* rec_ids;
   int n_nodes;
   int root_id;
   int n_lights;
@@ -105,9 +206,17 @@ struct PvtScene {
   int pack_width;
   int maxsteps;
   int emit_method;
+  int cheb_spec;
+  int cheb_icdf;
+  int cheb_light;
+  int cheb_icdf0;
+  int cheb_light0;
+  int n_rec;
+  int total_bins;
   float grid_x0;
   float grid_dx;
   float maxpathlength;
+  float cheb_tscale;
 };
 
 struct Photon {
@@ -117,8 +226,9 @@ struct Photon {
 };
 
 struct StepOut {
-  int hit, container;
-  bool exit_mask, losing, reacting, kills, no_hit_term;
+  int hit, container, sel, tnode;
+  bool exit_mask, losing, reacting, kills, no_hit_term, have_n, surface_event;
+  float wn[3], c_in;  // hit surface's world normal and |cos| on surface events
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
@@ -133,10 +243,34 @@ struct PvtState {
 struct PvtFlags {
   int *hit, *container;
   unsigned char *exit_mask, *losing, *reacting, *kills, *no_hit_term;
+  int *sel, *tnode;
+  unsigned char *have_n, *surface_event;
+  float *wnx, *wny, *wnz, *c_in;
 };
 
 struct FateCounts {
-  unsigned long long exit, nonrad, react, kill, no_hit;
+  unsigned long long exit, nonrad, react, kill, no_hit, steps;
+};
+
+// K9 accumulators of one block (shared memory) or of the host harness:
+// crossings, moment sums and distinct rays per recorder, and the bins,
+// in bins32 when they fit in shared memory, else straight in bins64.
+// The float32 sums of a recorder move into the float64 sums64 at every
+// SUMS_FLUSH-th distinct ray, so none holds more than about SUMS_FLUSH
+// addends however many photons the block traces.
+struct PvtTally {
+  unsigned long long* cross;
+  float* sums;
+  unsigned int* distinct;
+  unsigned int* bins32;
+  unsigned long long* bins64;
+  double* sums64;
+};
+
+// K9 results in device memory (field order mirrored by ctypes).
+struct PvtTallyOut {
+  unsigned long long *distinct, *cross, *bins;
+  double* sums;
 };
 
 // ---------------------------------------------------------------------
@@ -204,6 +338,71 @@ PVT_FN float spec_lerp(const PvtScene& sc, int row, int w, float frac) {
   return p[0] + frac * (p[1] - p[0]);
 }
 
+// ---------------------------------------------------------------------
+// K5a: piecewise-Chebyshev fits (engine/chebyshev.py). The lane finds its
+// one segment by the reference's masks (the first segment takes t < b,
+// the last t >= a, a middle one a <= t < b; a later match wins, and a
+// matching log segment wins over linear ones) and runs one Clenshaw
+// chain of that segment's degree, instead of every segment's. Called from
+// five sites of a step (alpha, roulette, p1, emission and lamp ICDFs).
+// Replaces _clenshaw / _eval_fit (pvtrace_tpu/engine/tracer.py). Bound by
+// operations and the latency of dependent L1 loads: the segment scan reads
+// three values per segment and the chain one coefficient per degree.
+PVT_CALLED_FN float cheb_eval(const PvtScene& sc, int fit, float t) {
+  const int* fi = sc.cheb_fit_i + fit * CHEB_FIT_I;
+  const int kind = PVT_LDG(fi + FI_KIND), nseg = PVT_LDG(fi + FI_NSEG);
+  const int seg0 = PVT_LDG(fi + FI_SEG0);
+  int lin = -1, lg = -1;
+  for (int i = 0; i < nseg; ++i) {
+    const int s = seg0 + i;
+    const float a = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_A);
+    const float b = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_B);
+    bool m;
+    if (nseg == 1)
+      m = true;
+    else if (i == 0)
+      m = t < b;
+    else if (i == nseg - 1)
+      m = t >= a;
+    else
+      m = t >= a && t < b;
+    if (m) {
+      if (PVT_LDG(sc.cheb_seg_i + s * CHEB_SEG_I + SI_KIND) == FIT_LOG)
+        lg = s;
+      else
+        lin = s;
+    }
+  }
+  const int s = lg >= 0 ? lg : lin;
+  if (s < 0) return 0.0f;
+  const float* sf = sc.cheb_seg_f + s * CHEB_SEG_F;
+  const int* si = sc.cheb_seg_i + s * CHEB_SEG_I;
+  const float ts = kind == FIT_PW
+                       ? clampf((t - PVT_LDG(sf + SF_A)) * PVT_LDG(sf + SF_SCALE) - 1.0f, -1.0f, 1.0f)
+                       : t;
+  const float* c = sc.cheb_coef + PVT_LDG(si + SI_COEF0);
+  float b1 = 0.0f, b2 = 0.0f;
+  for (int k = PVT_LDG(si + SI_DEG); k > 0; --k) {
+    const float nb = 2.0f * ts * b1 - b2 + PVT_LDG(c + k);
+    b2 = b1;
+    b1 = nb;
+  }
+  float v = ts * b1 - b2 + PVT_LDG(c);
+  if (PVT_LDG(si + SI_KIND) == FIT_LOG) v = expf(v) - PVT_LDG(sc.cheb_fit_f + fit);
+  return v;
+}
+
+// Spectral slot w of the lane's container: K5a (the sum of the slot's
+// fits at t) when the scene takes it, else K5b (the lerp in row `row`).
+PVT_FN float spec_slot(const PvtScene& sc, int container, int row, int w, float frac,
+                       float t) {
+  if (!sc.cheb_spec) return spec_lerp(sc, row, w, frac);
+  const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
+  float v = 0.0f;
+  for (int q = 0; q < slot[1]; ++q) v += cheb_eval(sc, sc.cheb_ref[slot[0] + q], t);
+  return v;
+}
+
 // Henyey-Greenstein cosine for s = 2u - 1 (|g| >= 1e-12).
 PVT_FN float hg_mu(float g, float s) {
   float q = (1.0f - g * g) / (1.0f + g * s);
@@ -219,10 +418,10 @@ PVT_FN void emit_one(const PvtScene& sc, uint32_t k0, uint32_t k1,
   const int li = (int)(pid % (uint32_t)sc.n_lights);
   const float* lf = sc.light_f + li * LIGHT_F;
   const int* lk = sc.light_i + li * LIGHT_I;
-  float w = lk[LI_WAV] == WAV_CONST
-                ? lf[LF_WAV]
-                : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n,
-                             sc.icdf_n, u[0]);
+  float w = lf[LF_WAV];
+  if (lk[LI_WAV] != WAV_CONST)
+    w = sc.cheb_light ? cheb_eval(sc, sc.cheb_light0 + lk[LI_ROW], 2.0f * u[0] - 1.0f)
+                      : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n, sc.icdf_n, u[0]);
   const float a = lf[LF_POS], b = lf[LF_POS + 1], c = lf[LF_POS + 2];
   float lx = 0.0f, ly = 0.0f, lz = 0.0f;
   if (lk[LI_POS] == POS_RECT) {
@@ -443,14 +642,19 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 }
 
 // ---------------------------------------------------------------------
-// K3 + K4 + K5b + K6: one physics step of photon p with uniforms u[0..7]
+// K3 + K4 + K5 + K6: one physics step of photon p with uniforms u[0..7]
 // (p.count already incremented). Mirrors physics.step of the eager twin.
+// With kTally it also gives the recorder selectors and takes the world
+// normal on EXIT; without, out.sel is SEL_NONE and the normal is taken
+// only where the surface needs it.
+template <bool kTally>
 PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out) {
   Hits h;
   intersect_nodes(sc, p, h);
   out.hit = h.hit;
   out.container = h.container;
   out.exit_mask = out.losing = out.reacting = out.kills = out.no_hit_term = false;
+  out.wn[0] = out.wn[1] = out.wn[2] = out.c_in = 0.0f;
 
   bool alive = p.alive;
   out.no_hit_term = alive && h.nhits == 0;
@@ -468,8 +672,9 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
   const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
   const float frac = clampf(posf - (float)i0, 0.0f, 1.0f);
   const int row = h.container * sc.grid_n + i0;
+  const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
   const int K = ci_node[NI_NCOMP];
-  const float alpha = K > 0 ? spec_lerp(sc, row, K - 1, frac) : 0.0f;
+  const float alpha = K > 0 ? spec_slot(sc, h.container, row, K - 1, frac, t) : 0.0f;
   const float depth =
       alpha > PVT_ALPHA_ZERO ? -log1pf(-u[0]) / fmaxf(alpha, 1e-30f) : PVT_INF;
   const bool absorbed = alive && !exit_mask && depth < h.t0;
@@ -487,7 +692,8 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
   if (absorbed) {
     const float target = u[1] * alpha;
     int ordinal = 0;
-    for (int k = 0; k < K - 1; ++k) ordinal += spec_lerp(sc, row, k, frac) < target;
+    for (int k = 0; k < K - 1; ++k)
+      ordinal += spec_slot(sc, h.container, row, k, frac, t) < target;
     const int cid = ci_node[NI_COMP0] + ordinal;
     const float* cf = sc.comp_f + cid * COMP_F;
     const int* ci = sc.comp_i + cid * COMP_I;
@@ -509,9 +715,12 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
       if (is_lum) {
         float p1 = 0.0f;
         if (sc.emit_method != EMIT_FULL)
-          p1 = spec_lerp(sc, row, ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1), frac);
+          p1 = spec_slot(sc, h.container, row,
+                         ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1), frac, t);
         const float gamma = p1 + (1.0f - p1) * u[5];
-        p.wav = lerp_pairs(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
+        p.wav = sc.cheb_icdf
+                    ? cheb_eval(sc, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f)
+                    : lerp_pairs(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
         const float tau = cf[CF_TAU_RAD];
         p.dur = p.dur + (tau > 0.0f ? -log1pf(-u[6]) * tau : 0.0f);
       }
@@ -528,11 +737,13 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     }
   }
 
-  // Surface event at the hit node.
+  // Surface event at the hit node; with kTally the normal is also taken
+  // on EXIT, for the recorders.
   bool surf = alive && !exit_mask && !absorbed;
   const bool adj_bad = surf && h.adjacent < 0;
   surf = surf && !adj_bad;
-  if (surf) {
+  bool reflecting = false;
+  if (surf || (kTally && exit_mask)) {
     const float* hf = sc.node_f + h.hit * NODE_F;
     const int* hi = sc.node_i + h.hit * NODE_I;
     float q[3], ln[3];
@@ -542,60 +753,98 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     const float wnx = Rw[0] * ln[0] + Rw[1] * ln[1] + Rw[2] * ln[2];
     const float wny = Rw[3] * ln[0] + Rw[4] * ln[1] + Rw[5] * ln[2];
     const float wnz = Rw[6] * ln[0] + Rw[7] * ln[1] + Rw[8] * ln[2];
-    int mode = -1;
-    for (int o = hi[NI_OVR0]; o < hi[NI_OVR0] + hi[NI_NOVR] && mode < 0; ++o) {
-      const float* of = sc.ovr_f + o * OVR_F;
-      if (fabsf(ln[0] - of[0]) <= of[3] && fabsf(ln[1] - of[1]) <= of[3] &&
-          fabsf(ln[2] - of[2]) <= of[3])
-        mode = sc.ovr_i[o];
-    }
     const float ddot = wnx * p.dx + wny * p.dy + wnz * p.dz;
     const float c_in = clampf(fabsf(ddot), 0.0f, 1.0f);
-    const float flip = ddot < 0.0f ? -1.0f : 1.0f;
-    const float nax = wnx * flip, nay = wny * flip, naz = wnz * flip;
-    const float n1r = n_cont;
-    const float n2r = sc.node_f[h.adjacent * NODE_F + NF_NIDX];
-    const bool is_fresnel = hi[NI_SURF] == SURF_FRESNEL;
-    const float s2 = clampf(1.0f - c_in * c_in, 0.0f, 1.0f);
-    const float ratio = n1r / n2r;
-    float r = 0.0f;
-    if (is_fresnel) {
-      const bool tir = n2r < n1r && s2 * ratio * ratio > 1.0f;
-      const float kterm = sqrtf(fmaxf(1.0f - ratio * ratio * s2, 0.0f));
-      const float rs = (n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm);
-      const float rp = (n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in);
-      r = tir ? 1.0f : clampf(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f);
-    }
-    if (mode == OVR_MIRROR || mode == OVR_LAMBERTIAN) r = 1.0f;
-    if (mode == OVR_ABSORB) r = 0.0f;
-    if (u[7] < r) {
-      const float two_d = 2.0f * c_in;
-      if (mode == OVR_LAMBERTIAN) {
-        const float st_l = sqrtf(u[3]);
-        const float ct_l = sqrtf(fmaxf(1.0f - u[3], 0.0f));
-        const float phi_l = PVT_TWO_PI * u[4];
-        const float lx = st_l * cosf(phi_l), ly = st_l * sinf(phi_l);
-        const float axx = -nax, axy = -nay, axz = -naz;
-        const float sign = axz >= 0.0f ? 1.0f : -1.0f;
-        const float a_ = -1.0f / (sign + axz);
-        const float b_ = axx * axy * a_;
-        const float t1x = 1.0f + sign * axx * axx * a_, t1y = sign * b_, t1z = -sign * axx;
-        const float t2x = b_, t2y = sign + axy * axy * a_, t2z = -axy;
-        p.dx = lx * t1x + ly * t2x + ct_l * axx;
-        p.dy = lx * t1y + ly * t2y + ct_l * axy;
-        p.dz = lx * t1z + ly * t2z + ct_l * axz;
-      } else {
-        p.dx = p.dx - two_d * nax;
-        p.dy = p.dy - two_d * nay;
-        p.dz = p.dz - two_d * naz;
+    out.wn[0] = wnx;
+    out.wn[1] = wny;
+    out.wn[2] = wnz;
+    out.c_in = c_in;
+    if (surf) {
+      int mode = -1;
+      for (int o = hi[NI_OVR0]; o < hi[NI_OVR0] + hi[NI_NOVR] && mode < 0; ++o) {
+        const float* of = sc.ovr_f + o * OVR_F;
+        if (fabsf(ln[0] - of[0]) <= of[3] && fabsf(ln[1] - of[1]) <= of[3] &&
+            fabsf(ln[2] - of[2]) <= of[3])
+          mode = sc.ovr_i[o];
       }
-    } else if (is_fresnel && mode != OVR_ABSORB) {
-      const float cterm = sqrtf(fmaxf(1.0f - ratio * ratio * (1.0f - c_in * c_in), 0.0f));
-      const float scale = cterm - ratio * c_in;
-      p.dx = ratio * p.dx + scale * nax;
-      p.dy = ratio * p.dy + scale * nay;
-      p.dz = ratio * p.dz + scale * naz;
+      const float flip = ddot < 0.0f ? -1.0f : 1.0f;
+      const float nax = wnx * flip, nay = wny * flip, naz = wnz * flip;
+      const float n1r = n_cont;
+      const float n2r = sc.node_f[h.adjacent * NODE_F + NF_NIDX];
+      const bool is_fresnel = hi[NI_SURF] == SURF_FRESNEL;
+      const float s2 = clampf(1.0f - c_in * c_in, 0.0f, 1.0f);
+      const float ratio = n1r / n2r;
+      float r = 0.0f;
+      if (is_fresnel) {
+        const bool tir = n2r < n1r && s2 * ratio * ratio > 1.0f;
+        const float kterm = sqrtf(fmaxf(1.0f - ratio * ratio * s2, 0.0f));
+        const float rs = (n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm);
+        const float rp = (n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in);
+        r = tir ? 1.0f : clampf(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f);
+      }
+      if (mode == OVR_MIRROR || mode == OVR_LAMBERTIAN) r = 1.0f;
+      if (mode == OVR_ABSORB) r = 0.0f;
+      reflecting = u[7] < r;
+      if (reflecting) {
+        const float two_d = 2.0f * c_in;
+        if (mode == OVR_LAMBERTIAN) {
+          const float st_l = sqrtf(u[3]);
+          const float ct_l = sqrtf(fmaxf(1.0f - u[3], 0.0f));
+          const float phi_l = PVT_TWO_PI * u[4];
+          const float lx = st_l * cosf(phi_l), ly = st_l * sinf(phi_l);
+          const float axx = -nax, axy = -nay, axz = -naz;
+          const float sign = axz >= 0.0f ? 1.0f : -1.0f;
+          const float a_ = -1.0f / (sign + axz);
+          const float b_ = axx * axy * a_;
+          const float t1x = 1.0f + sign * axx * axx * a_, t1y = sign * b_, t1z = -sign * axx;
+          const float t2x = b_, t2y = sign + axy * axy * a_, t2z = -axy;
+          p.dx = lx * t1x + ly * t2x + ct_l * axx;
+          p.dy = lx * t1y + ly * t2y + ct_l * axy;
+          p.dz = lx * t1z + ly * t2z + ct_l * axz;
+        } else {
+          p.dx = p.dx - two_d * nax;
+          p.dy = p.dy - two_d * nay;
+          p.dz = p.dz - two_d * naz;
+        }
+      } else if (is_fresnel && mode != OVR_ABSORB) {
+        const float cterm = sqrtf(fmaxf(1.0f - ratio * ratio * (1.0f - c_in * c_in), 0.0f));
+        const float scale = cterm - ratio * c_in;
+        p.dx = ratio * p.dx + scale * nax;
+        p.dy = ratio * p.dy + scale * nay;
+        p.dz = ratio * p.dz + scale * naz;
+      }
     }
+  }
+  const bool transmitting = surf && !reflecting;
+
+  // Recorder selectors, in the reference's order (physics.py).
+  out.sel = SEL_NONE;
+  out.tnode = -1;
+  out.have_n = out.surface_event = false;
+  if (kTally) {
+    if (kill_max) {
+      out.sel = REC_KILLED;
+      out.tnode = h.container;
+    }
+    if (exit_mask) {
+      out.sel = REC_EXIT;
+      out.tnode = h.hit;
+    }
+    if (out.reacting || out.losing) {
+      out.sel = out.losing ? REC_LOST : REC_REACTED;
+      out.tnode = h.container;
+    }
+    const bool refl_tally = reflecting && h.container != h.hit;
+    if (refl_tally) {
+      out.sel = REC_REFLECTED;
+      out.tnode = h.hit;
+    }
+    if (transmitting) {
+      out.sel = h.container == h.hit ? REC_ESCAPING : REC_ENTERING;
+      out.tnode = h.hit;
+    }
+    out.have_n = exit_mask || refl_tally || transmitting;
+    out.surface_event = exit_mask || reflecting || transmitting;
   }
 
   out.exit_mask = exit_mask;
@@ -604,7 +853,88 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
 }
 
 // ---------------------------------------------------------------------
-// Per-lane bodies of the three kernels.
+// K9: add one event of a photon (step output o, post-step state p) to the
+// recorders that match it. The (tnode, sel) CSR index lists the
+// candidates; a facet recorder also needs the world normal within atol
+// on all three axes. Every match adds a crossing; the photon's first
+// match of a recorder (its bit in `seen`) adds a distinct ray, the eight
+// moments and the recorder's histogram bins. Replaces _tally and the tally
+// frame of body_fast (pvtrace_tpu/engine/tracer.py): the [B, R] match
+// matrix becomes a walk over the few recorders of this (node, event).
+// Bound by atomics: threads of a block add to the same few addresses.
+PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, uint32_t* seen,
+                        const StepOut& o, const Photon& p) {
+  if (o.sel < 0) return;
+  const int key = o.tnode * N_SEL + o.sel;
+  const int q1 = sc.rec_csr[key + 1];
+  int q = sc.rec_csr[key];
+  if (q == q1) return;
+  const float angle = o.surface_event ? acosf(o.c_in) : 0.0f;
+  const float moments[8] = {p.wav, p.wav * p.wav, angle, angle * angle,
+                            p.dur, p.dur * p.dur, p.trav, p.trav * p.trav};
+  // Histogram properties (engine/recorder.py PROPERTIES); x, y, z in the
+  // tnode's local frame.
+  const float* W = sc.node_f + o.tnode * NODE_F + NF_W2L;
+  float props[7] = {p.wav, angle, p.dur, p.trav};
+  for (int k = 0; k < 3; ++k)
+    props[4 + k] = W[4 * k] * p.px + W[4 * k + 1] * p.py + W[4 * k + 2] * p.pz + W[4 * k + 3];
+  for (; q < q1; ++q) {
+    const int r = sc.rec_ids[q];
+    const int* ri = sc.rec_i + r * REC_I;
+    if (ri[RI_FACET]) {
+      const float* rf = sc.rec_f + r * REC_F;
+      const float atol = rf[RF_ATOL];
+      if (!(o.have_n && fabsf(o.wn[0] - rf[RF_NX]) <= atol &&
+            fabsf(o.wn[1] - rf[RF_NX + 1]) <= atol && fabsf(o.wn[2] - rf[RF_NX + 2]) <= atol))
+        continue;
+    }
+    PVT_ADD(acc.cross + r, 1ull);
+    const uint32_t bit = 1u << (r & 31);
+    if (seen[r >> 5] & bit) continue;
+    seen[r >> 5] |= bit;
+    const unsigned int rays = pvt_inc(acc.distinct + r);
+    for (int k = 0; k < 8; ++k) PVT_ADD(acc.sums + 8 * r + k, moments[k]);
+    if (rays % SUMS_FLUSH == 0)
+      for (int k = 0; k < 8; ++k)
+        PVT_ADD(acc.sums64 + 8 * r + k, (double)pvt_take(acc.sums + 8 * r + k));
+    for (int hh = ri[RI_HIST0]; hh < ri[RI_HIST0] + ri[RI_NHIST]; ++hh) {
+      const int* hi = sc.hist_i + hh * HIST_I;
+      const float* hf = sc.hist_f + hh * HIST_F;
+      const int na = hi[HI_NA], nb = hi[HI_NB];
+      const float fa = floorf((props[hi[HI_PROP_A]] - hf[HF_LO_A]) / hf[HF_W_A] * (float)na);
+      if (!(fa >= 0.0f && fa < (float)na)) continue;
+      int ib = 0;
+      if (hi[HI_PROP_B] >= 0) {
+        const float fb = floorf((props[hi[HI_PROP_B]] - hf[HF_LO_B]) / hf[HF_W_B] * (float)nb);
+        if (!(fb >= 0.0f && fb < (float)nb)) continue;
+        ib = (int)fb;
+      }
+      const int bin = hi[HI_OFF] + (int)fa * nb + ib;
+      if (acc.bins32)
+        PVT_ADD(acc.bins32 + bin, 1u);
+      else
+        PVT_ADD(acc.bins64 + bin, 1ull);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Per-lane bodies of the kernels.
+
+PVT_FN void load_lane(const PvtState& s, long long i, Photon& p) {
+  p.px = s.px[i];
+  p.py = s.py[i];
+  p.pz = s.pz[i];
+  p.dx = s.dx[i];
+  p.dy = s.dy[i];
+  p.dz = s.dz[i];
+  p.wav = s.wav[i];
+  p.trav = s.trav[i];
+  p.dur = s.dur[i];
+  p.source = s.source[i];
+  p.alive = s.alive[i] != 0;
+  p.count = s.count[i];
+}
 
 PVT_FN void store_lane(const PvtState& s, long long i, const Photon& p,
                        uint32_t k0, uint32_t k1) {
@@ -639,23 +969,13 @@ PVT_FN void emit_lane(const PvtScene& sc, uint32_t s0, uint32_t s1,
 PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
                       const PvtFlags& fl, long long i) {
   Photon p;
-  p.px = in.px[i];
-  p.py = in.py[i];
-  p.pz = in.pz[i];
-  p.dx = in.dx[i];
-  p.dy = in.dy[i];
-  p.dz = in.dz[i];
-  p.wav = in.wav[i];
-  p.trav = in.trav[i];
-  p.dur = in.dur[i];
-  p.source = in.source[i];
-  p.alive = in.alive[i] != 0;
-  p.count = in.count[i] + (p.alive ? 1 : 0);
+  load_lane(in, i, p);
+  p.count += p.alive ? 1 : 0;
   const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
   float u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
-  step_one(sc, p, u, o);
+  step_one<true>(sc, p, u, o);
   store_lane(out, i, p, k0, k1);
   fl.hit[i] = o.hit;
   fl.container[i] = o.container;
@@ -664,27 +984,63 @@ PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& ou
   fl.reacting[i] = o.reacting;
   fl.kills[i] = o.kills;
   fl.no_hit_term[i] = o.no_hit_term;
+  fl.sel[i] = o.sel;
+  fl.tnode[i] = o.tnode;
+  fl.have_n[i] = o.have_n;
+  fl.surface_event[i] = o.surface_event;
+  fl.wnx[i] = o.wn[0];
+  fl.wny[i] = o.wn[1];
+  fl.wnz[i] = o.wn[2];
+  fl.c_in[i] = o.c_in;
+}
+
+// pvt_tally: add the event of lane i (post-step state s, selectors fl)
+// to acc; `seen` holds SEEN_WORDS words per lane, read and written back.
+PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl,
+                       uint32_t* seen, long long i, const PvtTally& acc) {
+  Photon p;
+  load_lane(s, i, p);
+  StepOut o;
+  o.sel = fl.sel[i];
+  o.tnode = fl.tnode[i];
+  o.have_n = fl.have_n[i] != 0;
+  o.surface_event = fl.surface_event[i] != 0;
+  o.wn[0] = fl.wnx[i];
+  o.wn[1] = fl.wny[i];
+  o.wn[2] = fl.wnz[i];
+  o.c_in = fl.c_in[i];
+  uint32_t words[SEEN_WORDS];
+  for (int k = 0; k < SEEN_WORDS; ++k) words[k] = seen[i * SEEN_WORDS + k];
+  tally_event(sc, acc, words, o, p);
+  for (int k = 0; k < SEEN_WORDS; ++k) seen[i * SEEN_WORDS + k] = words[k];
 }
 
 // pvt_trace: key, emit and step photon `pid` until it dies, adding its
-// fates to f. Returns its step count.
+// fates and steps to f and, with kTally, its recorder events to *acc.
+// Returns its step count.
+template <bool kTally>
 PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
-                        FateCounts& f) {
+                        FateCounts& f, const PvtTally* acc) {
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
   emit_one(sc, k0, k1, pid, p);
+  uint32_t seen[SEEN_WORDS];
+  if (kTally)
+    for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
   while (p.alive) {
     p.count += 1;
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
-    step_one(sc, p, u, o);
+    step_one<kTally>(sc, p, u, o);
     f.exit += o.exit_mask;
     f.nonrad += o.losing;
     f.react += o.reacting;
     f.kill += o.kills;
     f.no_hit += o.no_hit_term;
+    if (kTally) tally_event(sc, *acc, seen, o, p);
   }
+  f.steps += (unsigned long long)p.count;
   return p.count;
 }

@@ -6,16 +6,17 @@ On the CPU:
   the Python side (``engine/tables.py``, the ctypes Structures);
 * the device code of ``tracer.cuh`` (``emit_lane``, ``step_lane``,
   ``trace_photon``, host-callable by design) is compiled with the host
-  C++ compiler and held against the eager twin;
+  C++ compiler (``kernels/host.py``) and held against the eager twin, at
+  the scene's defaults (Chebyshev spectra, K5a) and with the table lerp
+  (K5b, ``PVTRACE_TPU_NO_CHEB``);
 * the wrappers take the twin for CPU tensors and count no launch.
 
-On the card (marked ``gpu``, skipped without CUDA): phases 2-4 of
-``chip_smoke.py`` at a small size, and the float64 refusal.
+On the card (marked ``gpu``, skipped without CUDA): phases 2-4 and 6-9
+of ``chip_smoke.py`` at a small size, on both spectral paths, and the
+float64 refusal.
 """
 import ctypes
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -23,34 +24,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pvtrace_tpu_torch import kernels  # noqa: E402
-from pvtrace_tpu_torch.engine import compile_scene, physics, rng, tables, tracer  # noqa: E402
-from pvtrace_tpu_torch.kernels import build  # noqa: E402
-from pvtrace_tpu_torch.scenes import lsc_slab  # noqa: E402
+from pvtrace_tpu_torch.kernels import check  # noqa: E402
+from pvtrace_tpu_torch.engine import compile_scene, physics, rng, tables, tally, tracer  # noqa: E402
+from pvtrace_tpu_torch.kernels import build, host  # noqa: E402
+from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_heatmap, lsc_slab_recorders  # noqa: E402
 
 torch.set_num_threads(1)
 HEADER = (build.CSRC / "tracer.cuh").read_text()
-
-HARNESS = r"""
-#include "tracer.cuh"
-extern "C" {
-void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
-            long long B, const PvtState* out) {
-  for (long long i = 0; i < B; ++i) emit_lane(*sc, s0, s1, off, i, *out);
-}
-void h_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
-            const PvtFlags* fl, long long B) {
-  for (long long i = 0; i < B; ++i) step_lane(*sc, *in, *out, *fl, i);
-}
-void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
-             unsigned long long total, long long* fates) {
-  FateCounts f = {0, 0, 0, 0, 0};
-  for (unsigned long long id = off; id < total; ++id)
-    trace_photon(*sc, s0, s1, (uint32_t)id, f);
-  fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
-  fates[9] += f.kill; fates[10] += f.no_hit;
-}
-}
-"""
 
 
 def _struct_fields(name):
@@ -74,6 +54,7 @@ def test_header_layout_matches_tables():
 
 @pytest.mark.parametrize("struct, cls", [
     ("PvtScene", kernels._Scene), ("PvtState", kernels._State), ("PvtFlags", kernels._Flags),
+    ("PvtTallyOut", kernels._TallyOut),
 ])
 def test_header_structs_match_ctypes(struct, cls):
     assert _struct_fields(struct) == [name for name, _ in cls._fields_]
@@ -82,23 +63,9 @@ def test_header_structs_match_ctypes(struct, cls):
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     """The device code of tracer.cuh built for the host (skips without g++)."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    if host.compiler() is None:
         pytest.skip("no host C++ compiler")
-    src = tmp_path_factory.mktemp("host") / "harness.cpp"
-    src.write_text(HARNESS)
-    lib = src.with_suffix(".so")
-    subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-ffp-contract=off",
-         "-I", str(build.CSRC), "-o", str(lib), str(src)],
-        check=True, capture_output=True, timeout=300,
-    )
-    h = ctypes.CDLL(str(lib))
-    vp, u32, u64, i64 = ctypes.c_void_p, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_longlong
-    h.h_emit.argtypes = [vp, u32, u32, u64, i64, vp]
-    h.h_step.argtypes = [vp, vp, vp, vp, i64]
-    h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp]
-    return h
+    return host.build_library(tmp_path_factory.mktemp("host"))
 
 
 @pytest.fixture(scope="module")
@@ -106,15 +73,22 @@ def bench_f32():
     return tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device="cpu")
 
 
-def _flags(B):
-    flags = {name: torch.empty(B, dtype=torch.bool) for name in physics.FLAGS}
-    flags["hit"] = torch.empty(B, dtype=torch.int32)
-    flags["container"] = torch.empty(B, dtype=torch.int32)
-    return flags
+def _spectra_scene(monkeypatch, spectra, device="cpu"):
+    """The bench slab's float32 tensors on spectral path `spectra` (K5a:
+    the defaults; K5b: ``PVTRACE_TPU_NO_CHEB`` set)."""
+    if spectra == "K5b":
+        monkeypatch.setenv("PVTRACE_TPU_NO_CHEB", "1")
+    else:
+        monkeypatch.delenv("PVTRACE_TPU_NO_CHEB", raising=False)
+    st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device=device)
+    cheb = spectra == "K5a"
+    assert st["meta"]["cheb_spec"] == cheb and st["meta"]["cheb_icdf"] == cheb
+    return st
 
 
-def test_device_code_matches_twin_on_host(host_lib, bench_f32):
-    st, seed, B = bench_f32, rng.key_words(5), 1 << 12
+@pytest.mark.parametrize("spectra", ["K5a", "K5b"])
+def test_device_code_matches_twin_on_host(host_lib, monkeypatch, spectra):
+    st, seed, B = _spectra_scene(monkeypatch, spectra), rng.key_words(5), 1 << 12
     sc = kernels._scene(st, 1000, 0, float("inf"))
     out = kernels._empty_state(B, "cpu")
     host_lib.h_emit(ctypes.byref(sc), seed[0], seed[1], 7, B,
@@ -129,7 +103,7 @@ def test_device_code_matches_twin_on_host(host_lib, bench_f32):
     s = twin
     for _ in range(6):
         ref = tracer.step_state(st, s, 1000, 0)
-        got, flags = kernels._empty_state(B, "cpu"), _flags(B)
+        got, flags = kernels._empty_state(B, "cpu"), kernels._empty_flags(B, "cpu")
         host_lib.h_step(
             ctypes.byref(sc),
             ctypes.byref(kernels._struct(kernels._State, s, kernels._STATE_PTRS)),
@@ -137,15 +111,15 @@ def test_device_code_matches_twin_on_host(host_lib, bench_f32):
             ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS)), B,
         )
         got.update(flags)
-        for name in ("alive", "hit", "container", "source", "count") + physics.FLAGS:
+        for name in check.DISCRETE:
             assert torch.equal(got[name].long(), ref[name].long()), name
-        for name in physics.STATE_FLOATS:
+        for name in physics.STATE_FLOATS + physics.SURFACE:
             torch.testing.assert_close(got[name], ref[name], rtol=1e-4, atol=1e-5)
         s = ref
 
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64)
     host_lib.h_trace(ctypes.byref(sc), seed[0], seed[1], 0, 4096, fates.data_ptr())
-    ref, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
+    ref, _, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
     assert int(fates.sum()) == 4096
     assert int((fates - ref).abs().max()) <= 2, (fates.tolist(), ref.tolist())
 
@@ -159,9 +133,18 @@ def test_wrappers_run_the_twin_on_cpu(bench_f32):
         assert torch.equal(state[name], ref[name]), name
     stepped = kernels.step(st, state)
     assert torch.equal(stepped["alive"], tracer.step_state(st, state, 1000, 0)["alive"])
-    fates, _ = kernels.trace(st, seed, 300, lanes=64)
+    fates, _, _ = kernels.trace(st, seed, 300, lanes=64)
     assert torch.equal(fates, tracer.trace_eager(st, seed, 300, lanes=64)[0])
-    assert kernels.launches == {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0}
+    values = kernels.cheb(st, torch.linspace(-1.0, 1.0, 5))
+    assert values.shape == (st["meta"]["cheb_n_fits"], 5)
+    rec = tables.scene_tensors(compile_scene(lsc_slab_recorders(8)))
+    out = tracer.step_state(rec, tracer.initial_state(rec, seed, torch.arange(256)), 1000, 0)
+    got, ref = tally.empty(rec, 256), tally.empty(rec, 256)
+    assert kernels.tally_step(got, rec, out) is None
+    tally.tally(ref, rec, out)
+    for name in ref:
+        assert torch.equal(got[name], ref[name]), name
+    assert set(kernels.launches.values()) == {0}
 
 
 def test_build_names_library_by_source_hash():
@@ -183,22 +166,49 @@ def cuda_scene():
     return tables.scene_tensors(compiled, dtype=torch.float32, device="cuda")
 
 
-@pytest.mark.gpu
-def test_emit_and_step_kernels_match_twin_on_card(cuda_scene):
-    from pvtrace_tpu_torch.kernels import check
+def _cuda_spectra_scene(monkeypatch, spectra):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _spectra_scene(monkeypatch, spectra, "cuda")
 
-    state, rep = check.check_emit(cuda_scene, rng.key_words(1), 1 << 16, reps=2)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spectra", ["K5a", "K5b"])
+def test_emit_and_step_kernels_match_twin_on_card(monkeypatch, spectra):
+    st = _cuda_spectra_scene(monkeypatch, spectra)
+    state, rep = check.check_emit(st, rng.key_words(1), 1 << 16, reps=2)
     assert rep["max_abs_err"] <= 1e-5
-    rep = check.check_step(cuda_scene, state, steps=8, reps=2)
+    rep = check.check_step(st, state, steps=8, reps=2)
     assert rep["discrete_frac"] <= 1e-4
 
 
 @pytest.mark.gpu
-def test_trace_kernel_matches_twin_on_card(cuda_scene):
-    from pvtrace_tpu_torch.kernels import check
-
-    rep = check.check_trace(cuda_scene, rng.key_words(1), 1 << 16, lanes=1 << 14)
+@pytest.mark.parametrize("spectra", ["K5a", "K5b"])
+def test_trace_kernel_matches_twin_on_card(monkeypatch, spectra):
+    st = _cuda_spectra_scene(monkeypatch, spectra)
+    rep = check.check_trace(st, rng.key_words(1), 1 << 16, lanes=1 << 14)
     assert sum(rep["fates"]) == 1 << 16
+
+
+@pytest.mark.gpu
+def test_cheb_and_tally_kernels_match_twin_on_card(cuda_scene):
+    rep = check.check_cheb(cuda_scene, n_t=4096, reps=2)
+    assert rep["max_rel_err"] <= check.CHEB_RTOL
+    st = tables.scene_tensors(compile_scene(lsc_slab_recorders(32)), device="cuda")
+    state = tracer.initial_state(st, rng.key_words(1), torch.arange(1 << 14, device="cuda"))
+    rep = check.check_tally(st, state, steps=8, reps=2)
+    assert rep["max_rel_err"] <= check.SUMS_RTOL
+
+
+@pytest.mark.gpu
+def test_recorder_trace_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for scene, shared_bins in ((lsc_slab_recorders(32), True), (lsc_slab_recorders(256), True),
+                               (lsc_slab_heatmap(), False)):
+        st = tables.scene_tensors(compile_scene(scene), device="cuda")
+        rep = check.check_trace(st, rng.key_words(2), 1 << 16, lanes=1 << 14)
+        assert rep["shared_bins"] == shared_bins
 
 
 @pytest.mark.gpu
