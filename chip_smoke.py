@@ -4,8 +4,9 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain-PyTorch twin on the card, then drives the port's main
-paths, ``engine.simulate`` of the LSC benchmark scene without and with
-recorders, at 2**27 photons. Phases, one line each:
+paths: ``engine.simulate`` of the LSC benchmark scene without and with
+recorders, of the hex-plate mesh LSC, and with event-log histories, at
+full width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a);
@@ -30,7 +31,26 @@ recorders, at 2**27 photons. Phases, one line each:
 11. the recorder path at 2**27 photons for 4, 32 and 256 recorders,
     each read around its own run: photons/s, and launches of pvt_trace
     with no eager run; at 32, its tallies against the same photons in
-    128 runs of 2**20 (integers equal, sums within the stated bound).
+    128 runs of 2**20 (integers equal, sums within the stated bound);
+12. pvt_mesh (K10) against the twin, 2**20 random rays against the hex
+    plate (24 triangles) and the tessellated slab (140): hit counts equal
+    except on rays near an edge, t1 and t2 within 1e-5 relative, the
+    nearest hit's normals equal;
+13. pvt_trace on the mesh LSC (``scenes.mesh_lsc``) against the eager
+    twin, 2**20 photons: fates, each recorder's distinct rays, crossings
+    and bins within max(20, 0.2% of n), mean wavelengths within one
+    standard error;
+14. the event log (K11) against the twin's, photon by photon, on the
+    mesh LSC and the slab, record_every=1, 2**14 photons, max_events 128
+    and on the mesh LSC 8 (the event-budget kill); then simulate's
+    recorder tallies against the tallies recomputed from its own log
+    (``history_tally``), on the mesh LSC and on the slab with 8
+    recorders;
+15. full width: the mesh LSC at 2**27 photons (record_every=0), at 2**27
+    with record_every=1000 and at 2**17 with record_every=1, each read
+    around its own run (photons/s, the log's bytes, launches of pvt_trace
+    and pvt_trace_log with no eager run); the slab at 2**27 again, beside
+    phase 5.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -45,6 +65,8 @@ import time
 N_CHECK = 1 << 20
 N_MAIN = 1 << 27
 N_CHUNK = 1 << 20
+N_LOG = 1 << 14
+N_LOG_FULL = 1 << 17
 SOURCE = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
 REPLACES = {
     "pvt_emit": "pvtrace_tpu/engine/tracer.py:762",
@@ -52,6 +74,8 @@ REPLACES = {
     "pvt_trace": "pvtrace_tpu/engine/tracer.py:953",
     "pvt_cheb": "pvtrace_tpu/engine/tracer.py:128",
     "pvt_tally": "pvtrace_tpu/engine/tracer.py:588",
+    "pvt_mesh": "pvtrace_tpu/engine/tracer.py:366",
+    "pvt_trace_log": "pvtrace_tpu/engine/tracer.py:512",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
 LSC_FATES = (4, 7, 9)
@@ -72,7 +96,13 @@ def main():
     from pvtrace_tpu_torch import kernels
     from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, simulate, tracer
     from pvtrace_tpu_torch.kernels import build, check
-    from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_heatmap, lsc_slab_recorders
+    from pvtrace_tpu_torch.scenes import (
+        lsc_slab,
+        lsc_slab_heatmap,
+        lsc_slab_recorders,
+        mesh_lsc,
+        mesh_slab_fine,
+    )
 
     # 0. the card
     smi = subprocess.run(
@@ -135,21 +165,22 @@ def main():
         flush=True,
     )
 
-    def drive(run_scene, run_compiled, seed_value):
+    def drive(run_scene, run_compiled, seed_value, n=N_MAIN, record_every=0):
         """One main-path run, its launch counts read around it alone."""
         kernels.reset()
         tracer.eager_runs = 0
         result = simulate(
-            run_scene, N_MAIN, seed=seed_value, record_every=0, dtype=np.float32,
+            run_scene, n, seed=seed_value, record_every=record_every, dtype=np.float32,
             compiled=run_compiled,
         )
         launches, eager = dict(kernels.launches), tracer.eager_runs
         fates = np.asarray(result.data["fates"])
-        if int(fates.sum()) != N_MAIN:
-            fail(f"main path: fates {fates.tolist()} do not sum to {N_MAIN}")
+        if int(fates.sum()) != n:
+            fail(f"main path: fates {fates.tolist()} do not sum to {n}")
         if any(fates[i] for i in range(len(fates)) if i not in LSC_FATES):
             fail(f"main path: fates other than EXIT/NONRADIATIVE/KILL: {fates.tolist()}")
-        if launches["pvt_trace"] != 1 or eager:
+        logged = launches["pvt_trace_log"] == (1 if record_every else 0)
+        if launches["pvt_trace"] != 1 or not logged or eager:
             fail(f"main path did not run through pvt_trace: {launches}, eager runs {eager}")
         return result, launches
 
@@ -321,6 +352,101 @@ def main():
             flush=True,
         )
 
+    # 12. K10 ray by ray: the hex plate and the tessellated slab
+    mesh_scene = mesh_lsc()
+    mesh_compiled = compile_scene(mesh_scene)
+    st_mesh = scene_tensors(mesh_compiled, dtype=torch.float32, device="cuda")
+    st_fine = scene_tensors(compile_scene(mesh_slab_fine()), dtype=torch.float32, device="cuda")
+    mesh_reps = {}
+    for label, st_m in (("hex plate", st_mesh), ("fine slab", st_fine)):
+        rep = check.check_mesh(st_m, 1, N_CHECK, seed=12)
+        mesh_reps[label] = rep
+        print(
+            f"phase 12 pvt_mesh vs twin, {label}: {rep['rays']} rays x {rep['triangles']} "
+            f"triangles, {rep['hits']} hits, counts differ on {rep['count_diffs']} rays "
+            f"({rep['near_edge']} near an edge), t max rel err {rep['max_rel_err']:.3g} "
+            f"(limit {check.MESH_RTOL}); kernel {rep['ms']:.4f} ms, twin {rep['plain_ms']:.4f} ms, "
+            f"bound {rep['bound_ms']:.5f} ms | {smi}",
+            flush=True,
+        )
+
+    # 13. the mesh LSC through pvt_trace against the eager twin
+    mesh_rep = check.check_trace(st_mesh, seed, N_CHECK)
+    print(
+        f"phase 13 mesh LSC vs twin: {N_CHECK} photons, fates {mesh_rep['fates']} vs "
+        f"{mesh_rep['twin_fates']}, max diff {mesh_rep['max_abs_err']}, recorders max diff "
+        f"{mesh_rep['tally_max_diff']}, mean wavelengths within "
+        f"{mesh_rep['mean_wavelength_worst_se']:.3f} standard errors; kernel "
+        f"{mesh_rep['ms']:.2f} ms, twin {mesh_rep['plain_ms']:.2f} ms, bound "
+        f"{mesh_rep['bound_ms']:.4f} ms | {smi}",
+        flush=True,
+    )
+
+    # 14. K11: the event log against the twin's, then tallies against the log
+    log_reps = {}
+    for label, st_l, events in (("mesh LSC", st_mesh, 128), ("slab", st, 128),
+                                ("mesh LSC", st_mesh, 8)):
+        rep = check.check_log(st_l, seed, N_LOG, record_every=1, max_events=events)
+        log_reps[(label, events)] = rep
+        if events == 8 and not rep["budget_kills"]:
+            fail("max_events=8: no photon met the event budget")
+        print(
+            f"phase 14 event log vs twin, {label}, max_events {events}: {rep['slots']} photons, "
+            f"{rep['records']} records, {rep['diverged']} diverged (limit "
+            f"{check.LOG_DIVERGED:g} of them), floats within {rep['max_rel_err']:.3g} of their "
+            f"column's scale (limit {check.LOG_RTOL}), {rep['full_rows']} full rows, "
+            f"{rep['budget_kills']} "
+            f"budget kills; fates {rep['fates']} vs {rep['twin_fates']}; kernel "
+            f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms | {smi}",
+            flush=True,
+        )
+    for label, make in (("mesh LSC", mesh_lsc), ("slab R=8", lambda: lsc_slab_recorders(8))):
+        log_scene = make()
+        res = simulate(log_scene, N_LOG, seed=14, record_every=1, dtype=np.float32)
+        worst = check.check_log_tallies(log_scene, res)
+        print(
+            f"phase 14 tallies from the log, {label}: {N_LOG} photons, "
+            f"{len(res.recorders)} recorders, rays {[r.rays for r in res.recorders.values()]}, "
+            f"rays, crossings and bins equal to the log's, moments within {worst:.3g} "
+            f"(limit {check.LOG_SUMS_RTOL}) | {smi}",
+            flush=True,
+        )
+
+    # 15. full width: meshes, histories, and the slab beside phase 5
+    full = {}
+    for label, n, every in (("mesh", N_MAIN, 0), ("mesh, record_every=1000", N_MAIN, 1000),
+                            ("mesh, record_every=1", N_LOG_FULL, 1)):
+        res, full_launches = drive(mesh_scene, mesh_compiled, 15, n, every)
+        log_bytes = sum(
+            res.data[k].size * res.data[k].itemsize
+            for k in ("kind", "hit", "container", "adjacent", "component", "source",
+                      "position", "direction", "normal", "wavelength", "travelled", "duration")
+        )
+        full[label] = {
+            "n": n, "photons_per_s": n / res.elapsed, "elapsed_s": res.elapsed,
+            "kernel_ms": kernels.last_trace["ms"], "log_bytes": log_bytes,
+            "slots": int(res.num_recorded), "records": int(np.asarray(res.data["counts"]).sum()),
+            "launches": full_launches,
+        }
+        if every and res.num_recorded != -(-n // every):
+            fail(f"{label}: {res.num_recorded} recorded photons, not {-(-n // every)}")
+        print(
+            f"phase 15 {label}: {n} photons, {res.elapsed:.4f} s, {n / res.elapsed:.6g} "
+            f"photons/s, pvt_trace {kernels.last_trace['ms']:.2f} ms, fates "
+            f"{np.asarray(res.data['fates']).tolist()}, {full[label]['slots']} slots, "
+            f"{full[label]['records']} records, log {log_bytes} bytes, launches {full_launches} "
+            f"| {smi}",
+            flush=True,
+        )
+    res, _ = drive(scene, compiled, 2)
+    full["slab again"] = {"n": N_MAIN, "photons_per_s": N_MAIN / res.elapsed,
+                          "kernel_ms": kernels.last_trace["ms"]}
+    print(
+        f"phase 15 slab again: {N_MAIN / res.elapsed:.6g} photons/s (phase 5: {rate:.6g}), "
+        f"pvt_trace {kernels.last_trace['ms']:.2f} ms | {smi}",
+        flush=True,
+    )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -343,12 +469,26 @@ def main():
                                 "runs_inside": "pvt_trace (cheb_eval)"}),
         ("pvt_tally", tally_rep, {"n": N_CHECK, "recorders": 32,
                                   "runs_inside": "pvt_trace (tally_event)"}),
+        ("pvt_mesh", mesh_reps["hex plate"], {
+            "n": N_CHECK, "triangles": mesh_reps["hex plate"]["triangles"],
+            "runs_inside": "pvt_trace (mesh_nearest_two)",
+            "fine_slab": {k: mesh_reps["fine slab"][k] for k in ("ms", "plain_ms", "bound_ms")},
+            "mesh_path_photons_per_s": full["mesh"]["photons_per_s"],
+            "mesh_path_launches": full["mesh"]["launches"],
+        }),
+        ("pvt_trace_log", log_reps[("mesh LSC", 128)], {
+            "n": N_LOG, "record_every": 1, "max_events": 128,
+            "full_width": {k: {q: v[q] for q in ("n", "photons_per_s", "kernel_ms", "log_bytes")}
+                           for k, v in full.items() if "record_every" in k},
+        }),
     ]
+    launches_of = dict(main_launches, pvt_trace_log=full["mesh, record_every=1000"]["launches"][
+        "pvt_trace_log"])
     print(smi)
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_launches[name],
+            "replaces": REPLACES[name], "launches": launches_of[name],
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": None, **extra,

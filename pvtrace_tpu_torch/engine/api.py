@@ -1,16 +1,16 @@
 """``simulate``: the port's entry point, with the JAX package's signature.
 
-Port of ``pvtrace_tpu.engine.api.simulate`` for the tallies-only path:
-lights lowered to device samplers, fates and recorders, no event log, no
-gradients. The result is the port's copy of the JAX package's
-``EngineResult`` with the same ``data`` layout.
+Port of ``pvtrace_tpu.engine.api.simulate`` for lights lowered to
+device samplers: fates, recorders and event-log histories, no gradients.
+The result is the port's copy of the JAX package's ``EngineResult`` with
+the same ``data`` layout.
 """
 import time
 
 import numpy as np
 import torch
 
-from pvtrace_tpu_torch.engine import rng, tracer
+from pvtrace_tpu_torch.engine import eventlog, rng, tracer
 from pvtrace_tpu_torch.engine.compiler import EMIT_METHODS, compile_scene
 from pvtrace_tpu_torch.engine.result import EngineResult, _RoundRobinSources
 from pvtrace_tpu_torch.engine.tables import scene_tensors
@@ -19,12 +19,7 @@ _U32 = 2 ** 32 - 1
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
-def _check_options(record_every, score, pathwise):
-    if record_every > 0:
-        raise NotImplementedError(
-            "record_every > 0 (event-log histories) is not ported yet: "
-            "ROADMAP queue 1 item 9, kernel K11. Pass record_every=0."
-        )
+def _check_options(score, pathwise):
     if score:
         raise NotImplementedError(
             "score=True is not ported yet: ROADMAP queue 1 item 10, kernel K12."
@@ -75,10 +70,9 @@ def simulate(
       eager PyTorch twin, in float32 or float64. There is no fallback
       from one to the other.
     * `dtype` None means float32.
-    * `record_every` > 0, `score`, `pathwise`, meshes and lights that
-      need host emission raise NotImplementedError naming the ROADMAP
-      item that brings them. `workers` and `max_events` are
-      accepted and unused, as in the JAX package with record_every=0.
+    * `score`, `pathwise` and lights that need host emission raise
+      NotImplementedError naming the ROADMAP item that brings them.
+      `workers` is accepted and unused.
     * `lanes`: on the CPU the wavefront width of the eager twin ("auto":
       ``min(num_rays, 2**18)``, None: one lane per photon, no
       regeneration); on the card a cap on the persistent kernel's thread
@@ -95,7 +89,7 @@ def simulate(
       by the JAX package's rule, ``PVTRACE_TPU_NO_CHEB`` included, read
       on every call.
     """
-    _check_options(record_every, score, pathwise)
+    _check_options(score, pathwise)
     if emit_method not in EMIT_METHODS:
         raise ValueError(f"emit_method must be one of {sorted(EMIT_METHODS)}")
     _check_budget(num_rays, index_offset)
@@ -109,31 +103,37 @@ def simulate(
     if lanes == "auto":
         lanes = min(num_rays, 1 << 18) if device.type == "cpu" else None
 
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     tic = time.perf_counter()
-    fates, steps, tallies = tracer.trace(
+    fates, steps, tallies, log = tracer.trace(
         st, rng.key_words(seed), num_rays, index_offset=index_offset,
         lanes=lanes, maxsteps=maxsteps, emit_method=EMIT_METHODS[emit_method],
         maxpathlength=float("inf") if maxpathlength is None else float(maxpathlength),
+        record_every=max(int(record_every), 0), max_events=int(max_events),
     )
     fates = fates.cpu().numpy()
+    if log is None:
+        log_ints = np.full((0, max_events, eventlog.LOG_I), -1, np.int32)
+        log_floats = np.zeros((0, max_events, eventlog.LOG_F), np_dtype)
+    else:
+        log_ints, log_floats = log["ints"].cpu().numpy(), log["floats"].cpu().numpy()
     elapsed = time.perf_counter() - tic
 
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     data = {
         "rec_distinct": tallies["distinct"].cpu().numpy(),
         "rec_crossings": tallies["cross"].cpu().numpy(),
         "rec_sums": tallies["sums"].cpu().numpy().astype(np_dtype),
         "rec_bins": tallies["bins"].cpu().numpy(),
         "fates": fates,
-        "counts": np.zeros(0, np.int64),
+        "counts": (log_ints[..., 0] >= 0).sum(axis=1).astype(np.int32),
         "steps": int(steps),
     }
-    for name in ("kind", "hit", "container", "adjacent", "component", "source"):
-        data[name] = np.full((0, max_events), -1, np.int32)
-    for name in ("position", "direction", "normal"):
-        data[name] = np.zeros((0, max_events, 3), np_dtype)
-    for name in ("wavelength", "travelled", "duration"):
-        data[name] = np.zeros((0, max_events), np_dtype)
+    for i, name in enumerate(eventlog.LOG_INTS):
+        data[name] = log_ints[..., i]
+    for i, name in enumerate(eventlog.LOG_VECS):
+        data[name] = log_floats[..., 3 * i:3 * i + 3]
+    for i, name in enumerate(eventlog.LOG_SCALARS):
+        data[name] = log_floats[..., 9 + i]
     sources = _RoundRobinSources(compiled.light_names, num_rays, offset=index_offset)
     return EngineResult(compiled, data, sources, max_events, record_every, elapsed)
 

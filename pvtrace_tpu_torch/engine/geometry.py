@@ -1,9 +1,12 @@
-"""K3 and K4 per geometry: forward hits and outward normals, the eager twin.
+"""K3, K4 and K10 per geometry: forward hits and outward normals, the
+eager twin.
 
-Port of ``_intersect_node_static`` and ``_local_normal_static``
-(pvtrace_tpu/engine/tracer.py) for boxes, spheres and capped cylinders,
-in the node's local frame. Parameters are python floats read from the
-node record (``tables.NF_GP``); rays are component triples of tensors.
+Port of ``_intersect_node_static``, ``_local_normal_static`` and
+``_mesh_nearest_two`` (pvtrace_tpu/engine/tracer.py) for boxes, spheres,
+capped cylinders and triangle meshes, in the node's local frame.
+Parameters are python floats read from the node record
+(``tables.NF_GP``), triangles rows of ``tables.TRI_F``; rays are
+component triples of tensors.
 """
 import torch
 
@@ -111,3 +114,45 @@ def local_normal(gtype, params, p):
     ny = torch.where(cap, 0.0, py / sr)
     nz = torch.where(bottom, -1.0, torch.where(top, 1.0, torch.zeros_like(pz)))
     return nx, ny, nz
+
+
+def mesh_nearest_two(tri, o, d, eps):
+    """Möller–Trumbore over the triangles `tri` ([T, TRI_F] rows v0, e1,
+    e2, face normal): the nearest two forward hits (t1, t2; inf where
+    there are fewer), the number of forward hits and the face normal of
+    the nearest (0, 0, 1 where there is none).
+
+    The JAX function's tolerances: ``|det| > 1e-14``, ``u, v >= -1e-12``,
+    ``u + v <= 1 + 1e-12``, ``t > eps``. It keeps the nearest two by
+    strict ``<`` in triangle order, so a tie keeps the earlier triangle
+    (its normal included), and counts every hit: there is no dedup of a
+    hit on an edge two triangles share. The triangles are a second axis
+    of every product, each element computed as the JAX function computes
+    it."""
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    a0, a1, a2, e10, e11, e12, e20, e21, e22 = (tri[None, :, k] for k in range(9))
+    pvx = dy * e22 - dz * e21
+    pvy = dz * e20 - dx * e22
+    pvz = dx * e21 - dy * e20
+    det = e10 * pvx + e11 * pvy + e12 * pvz
+    ok = torch.abs(det) > 1e-14
+    inv = 1.0 / torch.where(ok, det, 1.0)
+    tvx = ox - a0
+    tvy = oy - a1
+    tvz = oz - a2
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e12 - tvz * e11
+    qvy = tvz * e10 - tvx * e12
+    qvz = tvx * e11 - tvy * e10
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv
+    th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv
+    hit = ok & (u >= -1e-12) & (v >= -1e-12) & (u + v <= 1.0 + 1e-12) & (th > eps)
+    tv = torch.where(hit, th, _INF)
+    t1, first = tv.min(1)  # the first of equal minima
+    t2 = tv.scatter(1, first[:, None], _INF).min(1).values
+    found = t1 < _INF
+    normal = tuple(
+        torch.where(found, tri[first, 9 + k], 1.0 if k == 2 else 0.0) for k in range(3)
+    )
+    return t1, t2, hit.sum(1, dtype=torch.int32), normal

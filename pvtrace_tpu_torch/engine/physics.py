@@ -1,13 +1,16 @@
 """K3, K4 and K6: one physics step of every lane, the eager twin.
 
-Port of ``physics_core`` (pvtrace_tpu/engine/tracer.py ``_run``) without
-meshes. The JAX function is generated per scene; this one is
-table-driven, a loop over the node records in node order, as the CUDA
-kernel's ``step_one`` is. One step:
+Port of ``physics_core`` (pvtrace_tpu/engine/tracer.py ``_run``). The
+JAX function is generated per scene; this one is table-driven, a loop
+over the node records in node order, as the CUDA kernel's ``step_one``
+is. One step:
 
 1. intersect every node (strict ``<`` nearest-two update in node order,
    then candidate order); container = the nearest node with exactly one
-   forward hit, the hit node when there is one hit in all;
+   forward hit, the hit node when there is one hit in all. A mesh node
+   (K10) gives its nearest two triangle hits as candidates, counts every
+   hit, and keeps the face normal of its nearest hit: that, not a
+   normal computed from the hit point, is its surface normal below;
 2. NO_HIT, then KILL on ``count > maxsteps`` or the path-length cap;
 3. free path ``-log1p(-u0) / alpha`` against the boundary distance,
    advance, then component roulette, quantum-yield coin, phase, emission
@@ -20,7 +23,10 @@ kernel's ``step_one`` is. One step:
    hit surface's world normal and incidence cosine on surface events.
    The JAX package computes them only when a scene has recorders; the
    port computes them on every step. An ``adj_bad`` lane is counted as
-   KILL and stays alive, as in the reference (ROADMAP queue 3).
+   KILL and stays alive, as in the reference (ROADMAP queue 3);
+6. with ``want_extras``, what the event log (K11) records besides: the
+   masks of each event, the component, the adjacent node, the duration
+   after the advance and the source before the volume event (EXTRAS).
 """
 import math
 
@@ -58,14 +64,20 @@ FLAGS = ("exit_mask", "losing", "reacting", "kills", "no_hit_term")
 SELECTORS = ("sel", "tnode")
 EVENT_FLAGS = ("have_n", "surface_event")
 SURFACE = ("wnx", "wny", "wnz", "c_in")
+# The event log's extra per-lane outputs (want_extras)
+EXTRAS = (
+    "adjacent", "comp_id", "absorbed", "emitting", "scattering", "kill_max",
+    "adj_bad", "reflecting", "transmitting", "dur_adv", "source_pre",
+)
 
 
-def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
+def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False):
     """One step of lanes `s` (dict of STATE_FLOATS, ``source``, ``alive``
     and ``count``, already incremented) with uniforms ``u[0..7]``.
 
     Returns the new state plus the per-lane FLAGS, ``hit``,
-    ``container``, SELECTORS, EVENT_FLAGS and SURFACE."""
+    ``container``, SELECTORS, EVENT_FLAGS and SURFACE, and with
+    `want_extras` the EXTRAS."""
     meta = st["meta"]
     N, L = meta["n_nodes"], meta["grid_n"]
     node_f, node_i = st["rows"]["node_f"], st["rows"]["node_i"]
@@ -79,7 +91,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     # -- K3: nearest two forward hits, container, adjacent --------------
     t1, t2, n1, n2 = inf, inf, izero, izero
     nhits, cont_t, cont_n = izero, inf, izero
-    frames = []
+    frames, mesh_normals = [], {}
     for n in range(N):
         R = node_f[n][T.NF_W2L:T.NF_W2L + 12]
         o = (
@@ -93,13 +105,21 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
             R[8] * dxv + R[9] * dyv + R[10] * dzv,
         )
         frames.append((o, d))
-        cnt_n, tmin_n = izero, inf
-        for t, valid in geometry.intersect(
-            node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3], o, d,
-            node_f[n][T.NF_EPS],
-        ):
+        if node_i[n][T.NI_GEOM] == comp.GEOM_MESH:
+            first = node_i[n][T.NI_TRI0]
+            tmin_n, mt2, cnt_n, mesh_normals[n] = geometry.mesh_nearest_two(
+                st["tri_f"][first:first + node_i[n][T.NI_NTRI]], o, d, node_f[n][T.NF_EPS]
+            )
+            cands = [(tmin_n, cnt_n >= 1), (mt2, cnt_n >= 2)]
+        else:
+            cands = geometry.intersect(
+                node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3], o, d,
+                node_f[n][T.NF_EPS],
+            )
+            cnt_n = sum(valid.to(torch.int32) for _, valid in cands)
+            tmin_n = inf
+        for t, valid in cands:
             tv = torch.where(valid, t, _INF)
-            cnt_n = cnt_n + valid.to(torch.int32)
             tmin_n = torch.minimum(tmin_n, tv)
             isfirst = tv < t1
             issecond = ~isfirst & (tv < t2)
@@ -149,6 +169,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     pz = torch.where(alive, pz + dzv * advance, pz)
     trav = torch.where(alive, trav + advance, trav)
     dur = torch.where(alive, dur + advance * n_cont / C_CM_PER_S, dur)
+    dur_adv, source_pre = dur, source
 
     target = u[1] * alpha
     ordinal = izero
@@ -223,10 +244,13 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     ovr_mode = torch.full_like(count, comp.OVR_NONE)
     for n in range(N):
         (lox, loy, loz), (ldx, ldy, ldz) = frames[n]
-        nx_n, ny_n, nz_n = geometry.local_normal(
-            node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3],
-            (lox + t0 * ldx, loy + t0 * ldy, loz + t0 * ldz),
-        )
+        if n in mesh_normals:
+            nx_n, ny_n, nz_n = mesh_normals[n]
+        else:
+            nx_n, ny_n, nz_n = geometry.local_normal(
+                node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3],
+                (lox + t0 * ldx, loy + t0 * ldy, loz + t0 * ldz),
+            )
         Rw = node_f[n][T.NF_L2W:T.NF_L2W + 9]
         here = hit == n
         wnx = torch.where(here, Rw[0] * nx_n + Rw[1] * ny_n + Rw[2] * nz_n, wnx)
@@ -327,7 +351,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
     have_n = exit_mask | refl_tally | transmitting
     surface_event = exit_mask | reflecting | transmitting
 
-    return {
+    out = {
         "px": px, "py": py, "pz": pz, "dx": dxv, "dy": dyv, "dz": dzv,
         "wav": wav, "trav": trav, "dur": dur, "source": source,
         "alive": alive & ~exit_mask & ~nonrad, "count": count,
@@ -340,3 +364,11 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF):
         "wnz": torch.where(surface_event, wnz, 0.0),
         "c_in": torch.where(surface_event, c_in, 0.0),
     }
+    if want_extras:
+        out.update(
+            adjacent=adjacent, comp_id=comp_id, absorbed=absorbed, emitting=emitting,
+            scattering=radiative & ~is_lum, kill_max=kill_max, adj_bad=adj_bad,
+            reflecting=reflecting, transmitting=transmitting, dur_adv=dur_adv,
+            source_pre=source_pre,
+        )
+    return out

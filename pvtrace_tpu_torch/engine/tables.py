@@ -15,6 +15,10 @@ Records (rows padded to at least one so no tensor is empty):
   (a node's components are the contiguous range
   ``[comp_first, comp_first + n_comps)``);
 * ``ovr_f`` [O, OVR_F] and ``ovr_i`` [O]: facet overrides, node by node;
+* K10, the triangles of every mesh node, node by node: ``tri_f`` [ΣT,
+  TRI_F], rows (v0, e1, e2, outward face normal) in the node's local
+  frame (the compiler's ``mesh_data``); a mesh node's triangles are the
+  rows ``[tri_first, tri_first + n_tris)`` (``NI_TRI0``, ``NI_NTRI``);
 * ``light_f`` [nL, LIGHT_F] and ``light_i`` [nL, LIGHT_I];
 * the three spectral tables the tracer reads: ``spec_pack`` [N*L, 2W],
   ``ems_icdf_pairs`` [n_lum*M, 2] and ``light_icdf_pairs`` [rows*M, 2].
@@ -64,7 +68,16 @@ NI_NCOMP = 2
 NI_COMP0 = 3
 NI_OVR0 = 4
 NI_NOVR = 5
-NODE_I = 6
+NI_TRI0 = 6  # first tri_f row of a mesh node
+NI_NTRI = 7  # its triangle count (0 for other geometries)
+NODE_I = 8
+
+# tri_f columns: a triangle's first vertex, two edges and face normal
+TF_V0 = 0
+TF_E1 = 3
+TF_E2 = 6
+TF_N = 9
+TRI_F = 12
 
 # comp_f columns
 CF_QY = 0
@@ -151,6 +164,10 @@ HI_NB = 4
 HI_OFF = 5
 HIST_I = 6
 
+# Event-log records (engine/eventlog.py): ints and floats per record
+LOG_I = 6
+LOG_F = 12
+
 N_SEL = len(EVENTS)  # recorder selectors, recorder.EVENTS tags
 MAX_RECORDERS = comp.MAX_RECORDERS
 SEEN_WORDS = MAX_RECORDERS // 32  # the kernel's per-photon seen bitset
@@ -173,8 +190,6 @@ def _isotropic_if_flat(kind, hg_kind, iso_kind, g):
 
 def unsupported_reason(compiled):
     """Why the port's tracer cannot run `compiled`, or None."""
-    if compiled.mesh_data:
-        return "triangle meshes (ROADMAP queue 1 item 8, kernel K10)"
     if not compiled.lights_supported:
         return (
             "lights the compiler cannot lower to device samplers need host "
@@ -286,8 +301,8 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
 
     Returns a dict of tensors plus ``"meta"``, a dict of the scene-wide
     python scalars (node count, root, grid and ICDF sizes, pack width,
-    which lookups take K5a, recorder and bin counts), and ``"rows"``, the
-    small records as python lists.
+    triangle count, which lookups take K5a, recorder and bin counts), and
+    ``"rows"``, the small records as python lists.
     """
     reason = unsupported_reason(compiled)
     if reason is not None:
@@ -298,7 +313,7 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
 
     node_f = np.zeros((N, NODE_F))
     node_i = np.zeros((N, NODE_I), np.int32)
-    ovr_f, ovr_i = [], []
+    ovr_f, ovr_i, tri_f = [], [], []
     comp_first = [int(compiled.node_comp_idx[n, 0]) for n in range(N)]
     p1_slot = {}
     for n, (geom, surf, K, comp_ids, lums, ovrs) in enumerate(
@@ -311,7 +326,12 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
         node_f[n, NF_GP:NF_GP + 3] = compiled.geom_params[n, :3]
         node_f[n, NF_EPS] = eps[n]
         node_f[n, NF_NIDX] = compiled.refractive_index[n]
-        node_i[n] = (geom, surf, K, comp_first[n] if K else 0, len(ovr_i), len(ovrs))
+        mesh = compiled.mesh_data.get(n)
+        n_tris = 0 if mesh is None else len(mesh[0])
+        node_i[n] = (geom, surf, K, comp_first[n] if K else 0, len(ovr_i), len(ovrs),
+                     len(tri_f), n_tris)
+        if mesh is not None:
+            tri_f.extend(np.concatenate(mesh, axis=1))
         for mode, normal, atol in ovrs:
             ovr_f.append((*normal, atol))
             ovr_i.append(mode)
@@ -358,6 +378,7 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
         "comp_i": i(comp_i),
         "ovr_f": f(ovr_f if ovr_f else np.zeros((1, OVR_F))),
         "ovr_i": i(ovr_i if ovr_i else [comp.OVR_NONE]),
+        "tri_f": f(tri_f if tri_f else np.zeros((1, TRI_F))),
         "light_f": f(light_f),
         "light_i": i(light_i),
         "spec_pack": f(compiled.spec_pack),
@@ -374,6 +395,7 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
             "grid_n": int(compiled.grid_n),
             "icdf_n": int(compiled.icdf_n),
             "pack_width": int(compiled.pack_width),
+            "n_tris": len(tri_f),
             "grid_x0": float(compiled.grid_x0),
             "grid_dx": float(compiled.grid_dx),
             "n_rec": int(compiled.n_recorders),

@@ -1,8 +1,9 @@
 """K7 and K8: the trace loop with fate counts and lane regeneration.
 
-Port of ``trace_bundle_device_emit``, ``_run`` and ``body_fast``
-(pvtrace_tpu/engine/tracer.py) for the tallies-only path: no event log,
-no score; fates and recorder tallies (K9, ``engine/tally.py``). ``trace``
+Port of ``trace_bundle_device_emit``, ``_run``, ``body_fast`` and, with
+an event log, ``body`` (pvtrace_tpu/engine/tracer.py), without score:
+fates, recorder tallies (K9, ``engine/tally.py``) and the event log of
+every ``record_every``-th photon (K11, ``engine/eventlog.py``). ``trace``
 runs the CUDA kernel ``pvt_trace`` for tensors on a CUDA device and the
 eager twin ``trace_eager`` for tensors on the CPU (the kernel wrapper
 decides, by the tensors' device).
@@ -12,13 +13,15 @@ The eager twin mirrors the JAX loop step for step: a wavefront of
 refilled with the next photon ids by an exclusive prefix sum
 (``cand = next + rank``, bounded by ``index_offset + n``), re-keyed from
 the same seed and re-emitted, and the recorders they had matched are
-forgotten. Every photon's random streams are a pure function of (seed,
-pid, its own step count), so the fate counts and integer tallies do not
-depend on the lane count, and match the JAX package's photon for photon.
+forgotten; with a log, their slots are remapped and their GENERATE
+records written. Every photon's random streams are a pure function of
+(seed, pid, its own step count), so the fate counts, integer tallies and
+logs do not depend on the lane count, and match the JAX package's photon
+for photon.
 """
 import torch
 
-from pvtrace_tpu_torch.engine import physics, rng, tally
+from pvtrace_tpu_torch.engine import eventlog, physics, rng, tally
 from pvtrace_tpu_torch.engine.emit import emit
 
 # Runs of the eager twin: a run can show that it went through the kernel.
@@ -40,24 +43,31 @@ def initial_state(st, seed_words, pids):
     }
 
 
-def step_state(st, s, maxsteps, emit_method, maxpathlength=float("inf")):
+def step_state(st, s, maxsteps, emit_method, maxpathlength=float("inf"), alive=None,
+               want_extras=False):
     """One loop step of lanes `s`: count the step, draw, take the physics
-    step. Returns the new state (keys carried over) with the flags."""
+    step, of the lanes `alive` (default ``s["alive"]``; the event budget
+    kills lanes after their step is counted). Returns the new state
+    (keys carried over) with the flags, and with `want_extras` the log's
+    extras."""
     count = s["count"] + s["alive"].to(torch.int32)
     u = rng.draw8(s["k0"], s["k1"], count.long(), s["px"].dtype)
     out = physics.step(
-        st, dict(s, count=count), u, maxsteps, emit_method, maxpathlength
+        st, dict(s, count=count, alive=s["alive"] if alive is None else alive), u,
+        maxsteps, emit_method, maxpathlength, want_extras,
     )
     out["k0"], out["k1"] = s["k0"], s["k1"]
     return out
 
 
 def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-                emit_method=0, maxpathlength=float("inf")):
+                emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
     """Trace photons ``index_offset + [0, n)`` with the eager twin.
 
-    Returns (fates, steps, tallies): int64 fate counts [11], the number of
-    loop steps taken, and the recorder tallies (``tally.empty``'s dict)."""
+    Returns (fates, steps, tallies, log): int64 fate counts [11], the
+    number of loop steps taken, the recorder tallies (``tally.empty``'s
+    dict) and, with ``record_every > 0``, the event log of ``ceil(n /
+    record_every)`` slots (``eventlog.empty``'s dict), else None."""
     global eager_runs
     eager_runs += 1
     device = st["node_f"].device
@@ -67,7 +77,16 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     nxt, total = index_offset + B, index_offset + n
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64, device=device)
     tallies = tally.empty(st, B)
-    slots = (
+    log = None
+    if record_every > 0:
+        S = eventlog.n_slots(n, record_every)
+        first_rec = eventlog.first_recorded(index_offset, record_every)
+        log = eventlog.empty(S, max_events, s["px"].dtype, device)
+        slot = eventlog.slots(pids, record_every, first_rec, S)
+        nevents = eventlog.record_generate(
+            log, torch.zeros_like(slot), slot, torch.ones_like(s["alive"]), s
+        )
+    fate_slots = (
         ("exit_mask", physics.EV_EXIT),
         ("losing", physics.EV_NONRADIATIVE),
         ("reacting", physics.EV_REACT),
@@ -77,10 +96,17 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     steps = 0
     while bool(s["alive"].any()):
         steps += 1
-        out = step_state(st, s, maxsteps, emit_method, maxpathlength)
-        for name, slot in slots:
-            fates[slot] += out[name].sum()
+        alive = s["alive"]
+        if log is not None:
+            killed, nevents = eventlog.budget_kill(log, nevents, slot, s)
+            fates[physics.EV_KILL] += killed.sum()
+            alive = alive & ~killed
+        out = step_state(st, s, maxsteps, emit_method, maxpathlength, alive, log is not None)
+        for name, fate in fate_slots:
+            fates[fate] += out[name].sum()
         tally.tally(tallies, st, out)
+        if log is not None:
+            nevents = eventlog.record_step(log, nevents, slot, s, out)
         s = {k: out[k] for k in s}
         if B < n:
             dead = ~s["alive"]
@@ -93,21 +119,28 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                     s[k] = s[k].index_put((idx,), v)
                 tally.reset_seen(tallies, idx)
                 nxt += idx.numel()
-    return fates, steps, tallies
+                if log is not None:
+                    slot = slot.index_put((idx,), eventlog.slots(cand[idx], record_every,
+                                                                 first_rec, S))
+                    nevents = eventlog.record_generate(
+                        log, nevents.index_put((idx,), torch.zeros_like(idx, dtype=torch.int32)),
+                        slot, refill, s,
+                    )
+    return fates, steps, tallies, log
 
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-          emit_method=0, maxpathlength=float("inf")):
+          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
     """Trace photons ``index_offset + [0, n)`` through the wrapper of
     ``pvt_trace``: the CUDA kernel for scene tensors on a CUDA device,
     ``trace_eager`` for CPU tensors.
 
-    Returns (fates, steps, tallies). On the kernel path `steps` is the
-    largest per-photon step count; on the eager path it is the number of
-    wavefront steps (the JAX package's count of loop-body steps)."""
+    Returns (fates, steps, tallies, log). On the kernel path `steps` is
+    the largest per-photon step count; on the eager path it is the number
+    of wavefront steps (the JAX package's count of loop-body steps)."""
     from pvtrace_tpu_torch import kernels
 
     return kernels.trace(
         st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-        maxpathlength,
+        maxpathlength, record_every, max_events,
     )

@@ -16,19 +16,21 @@ import ctypes
 
 import torch
 
-from pvtrace_tpu_torch.engine import chebyshev, physics, tally, tracer
+from pvtrace_tpu_torch.engine import chebyshev, eventlog, geometry, physics, tally, tracer
 from pvtrace_tpu_torch.engine import tables as T
 from pvtrace_tpu_torch.kernels import build
 
-# Launches of each kernel since the last reset(), and what the last
+# Launches of each kernel since the last reset() ("pvt_trace_log": those
+# launches of pvt_trace that wrote an event log), and what the last
 # pvt_trace launch reported: its thread count, the dynamic shared memory
-# of a block, whether the recorder bins were in shared memory, and the
-# steps its photons took in all.
-launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0}
-last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "total_steps": 0}
+# of a block, whether the recorder bins were in shared memory, the steps
+# its photons took in all, and its time on the card (CUDA events, ms).
+launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
+            "pvt_mesh": 0, "pvt_trace_log": 0}
+last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "total_steps": 0, "ms": 0.0}
 
 _SCENE_PTRS = (
-    "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "light_f",
+    "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "tri_f", "light_f",
     "light_i", "spec_pack", "ems_icdf_pairs", "light_icdf_pairs",
     "cheb_fit_i", "cheb_fit_f", "cheb_seg_f", "cheb_seg_i", "cheb_coef",
     "cheb_slot", "cheb_ref", "rec_f", "rec_i", "hist_f", "hist_i", "rec_csr",
@@ -39,7 +41,7 @@ _SCENE_INTS = (
     "cheb_slot", "cheb_ref", "rec_i", "hist_i", "rec_csr", "rec_ids",
 )
 _SCENE_META_INTS = (
-    "n_nodes", "root_id", "n_lights", "n_lum", "grid_n", "icdf_n", "pack_width",
+    "n_nodes", "root_id", "n_lights", "n_lum", "grid_n", "icdf_n", "pack_width", "n_tris",
 )
 _STATE_PTRS = physics.STATE_FLOATS + ("source", "count", "alive", "k0", "k1")
 _FLAG_PTRS = ("hit", "container") + physics.FLAGS + physics.SELECTORS \
@@ -71,6 +73,13 @@ class _TallyOut(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _TALLY_PTRS]
 
 
+class _Log(ctypes.Structure):
+    _fields_ = [
+        ("ints", ctypes.c_void_p), ("floats", ctypes.c_void_p), ("n_slots", ctypes.c_longlong),
+        ("max_events", ctypes.c_int), ("every", ctypes.c_uint), ("first", ctypes.c_ulonglong),
+    ]
+
+
 _lib = None
 
 
@@ -92,8 +101,10 @@ def library():
         lib.pvt_step.argtypes = [vp, vp, vp, vp, i64, vp]
         lib.pvt_cheb.argtypes = [vp, i32, vp, i64, vp, vp]
         lib.pvt_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
-        lib.pvt_trace.argtypes = [vp, u32, u32, u64, i64, vp, vp, vp, vp, vp, vp, vp]
-        for fn in (lib.pvt_emit, lib.pvt_step, lib.pvt_cheb, lib.pvt_tally, lib.pvt_trace):
+        lib.pvt_trace.argtypes = [vp, u32, u32, u64, i64, vp, vp, vp, vp, vp, vp, vp, vp]
+        lib.pvt_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp, vp]
+        for fn in (lib.pvt_emit, lib.pvt_step, lib.pvt_cheb, lib.pvt_tally, lib.pvt_trace,
+                   lib.pvt_mesh):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -311,21 +322,70 @@ def launch_tally(st, out, words, res):
     return bool(shared.value)
 
 
+def mesh_rows(st, node):
+    """The triangle rows of mesh node `node` and its forward-hit tolerance."""
+    row = st["rows"]["node_i"][node]
+    first, count = row[T.NI_TRI0], row[T.NI_NTRI]
+    if not count:
+        raise ValueError(f"node {node} is not a mesh")
+    return st["tri_f"][first:first + count], st["rows"]["node_f"][node][T.NF_EPS]
+
+
+def mesh(st, node, o, d):
+    """K10 for rays (o, d: [B, 3], the local frame of mesh node `node`):
+    (t1, t2, count, normal [B, 3]), the twin ``geometry.mesh_nearest_two``
+    on the CPU, ``pvt_mesh`` on the card."""
+    tri, eps = mesh_rows(st, node)
+    if _on_cpu(st):
+        t1, t2, cnt, nrm = geometry.mesh_nearest_two(tri, o.unbind(1), d.unbind(1), eps)
+        return t1, t2, cnt, torch.stack(nrm, dim=1)
+    _check_scene(st)
+    B = o.shape[0]
+    for name, t in (("o", o), ("d", d)):
+        if t.shape != (B, 3) or t.dtype != torch.float32 or t.device != tri.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 [B, 3] on {tri.device}")
+    f = dict(device=o.device, dtype=torch.float32)
+    t1, t2, nrm = torch.empty(B, **f), torch.empty(B, **f), torch.empty((B, 3), **f)
+    cnt = torch.empty(B, device=o.device, dtype=torch.int32)
+    rc = library().pvt_mesh(
+        tri.data_ptr(), tri.shape[0], eps, o.data_ptr(), d.data_ptr(), B, t1.data_ptr(),
+        t2.data_ptr(), cnt.data_ptr(), nrm.data_ptr(), _stream(),
+    )
+    _raise_on(rc, "pvt_mesh")
+    launches["pvt_mesh"] += 1
+    return t1, t2, cnt, nrm
+
+
+def empty_log(n, record_every, max_events, index_offset, device):
+    """The kernel's event log for a run of n photons from `index_offset`:
+    (the log dict, ints -1 and floats 0 of ``ceil(n / record_every)``
+    slots, and its ctypes descriptor); no slots without a log."""
+    S = eventlog.n_slots(n, record_every)
+    log = eventlog.empty(S, max_events, torch.float32, device)
+    first = eventlog.first_recorded(index_offset, record_every) if S else 0
+    desc = _Log(log["ints"].data_ptr(), log["floats"].data_ptr(), S, max_events,
+                max(record_every, 1), first)
+    return log, desc
+
+
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-          emit_method=0, maxpathlength=float("inf")):
+          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
     """Trace photons ``index_offset + [0, n)``; returns (fates, steps,
-    tallies), as ``tracer.trace_eager`` does.
+    tallies, log), as ``tracer.trace_eager`` does.
 
     On the card, `lanes` caps the persistent kernel's thread count (None:
     the resident capacity), `steps` is the largest per-photon step count,
     where the eager twin reports its number of wavefront steps, and the
     tallies have no ``seen``. Their sums are float32 per block, moved
     into float64 totals every ``tables.SUMS_FLUSH`` distinct rays of a
-    recorder and at the end (``check.SUMS_BOUND``)."""
+    recorder and at the end (``check.SUMS_BOUND``). With ``record_every >
+    0`` the kernel writes the event log of every record_every-th photon
+    (``eventlog``'s layout, S rows)."""
     if _on_cpu(st):
         return tracer.trace_eager(
             st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-            maxpathlength,
+            maxpathlength, record_every, max_events,
         )
     _check_scene(st)
     dev = st["node_f"].device
@@ -334,19 +394,26 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     longest = torch.zeros(1, device=dev, dtype=torch.int32)
     total_steps = torch.zeros(1, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
+    log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
     info = (ctypes.c_longlong * 3)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     rc = library().pvt_trace(
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n,
         n if lanes is None else min(lanes, n), nxt.data_ptr(),
         fates.data_ptr(), longest.data_ptr(), total_steps.data_ptr(),
-        ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), info, _stream(),
+        ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc), info,
+        _stream(),
     )
     _raise_on(rc, "pvt_trace")
+    stop.record()
     launches["pvt_trace"] += 1
+    if log_desc.n_slots:
+        launches["pvt_trace_log"] += 1
     last_trace.update(
         threads=info[0], shared_bytes=info[1], shared_bins=info[2],
-        total_steps=int(total_steps.item()),
+        total_steps=int(total_steps.item()), ms=start.elapsed_time(stop),
     )
     res["bins"] = res["bins"][:st["meta"]["total_bins"]]
-    return fates, int(longest.item()), res
+    return fates, int(longest.item()), res, log if log_desc.n_slots else None

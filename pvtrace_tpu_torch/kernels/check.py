@@ -6,10 +6,11 @@ the largest deviation, the kernel's and the twin's times (CUDA events,
 milliseconds per call), and the operations and bytes the call needs,
 counted from the code and this call's inputs, for its bound (``bound``).
 """
+import numpy as np
 import torch
 
 from pvtrace_tpu_torch import kernels
-from pvtrace_tpu_torch.engine import chebyshev, physics, tally, tracer
+from pvtrace_tpu_torch.engine import chebyshev, geometry, history_tally, physics, tally, tracer
 from pvtrace_tpu_torch.engine import tables as T
 
 # Discrete outcomes of a step that must agree lane by lane.
@@ -54,6 +55,28 @@ OPS_TALLY_LANE = 30  # key, candidate walk, acos, local frame
 OPS_TALLY_MATCH = 12  # facet test, crossing
 OPS_TALLY_NEW = 20  # seen bit, distinct, eight moments
 OPS_TALLY_BIN = 10  # one histogram bin
+OPS_TRIANGLE = 60  # one Möller–Trumbore test: 3 cross products, 4 dots, a division
+
+# pvt_mesh against the twin: t1 and t2 within MESH_RTOL relative where the
+# hit counts agree; the counts may differ only on rays that pass within
+# EDGE_TOL (barycentric) of a triangle's edge, where FMA contraction can
+# move a hit across it.
+MESH_RTOL = 1e-5
+EDGE_TOL = 1e-5
+# The event log against the twin's: a recorded photon whose ints differ
+# anywhere has diverged (an ulp flipped one of its discrete outcomes); on
+# the others, every float within LOG_RTOL of the twin's, relative to its
+# column's largest magnitude (the scene's size for positions, 1 for
+# directions). Not to each value's own magnitude: K5a carries the
+# kernel's rounding relative to a fit's scale (CHEB_RTOL), so in a
+# spectrum's tail an absorption length, and the positions it leads to,
+# can differ by more than 1e-4 of their own size.
+LOG_RTOL = 1e-4
+LOG_DIVERGED = 1e-2
+# Recorder moment sums recomputed from the kernel's float32 log in
+# float64, against the kernel's own: SUMS_BOUND and the angle's float32
+# rounding (acos of a float32 cosine), rounded up.
+LOG_SUMS_RTOL = 2e-4
 
 
 def require(ok, message):
@@ -249,10 +272,11 @@ def trace_bound(st, n, total_steps, tallies=None):
     """(bound_ms, bound_by) of pvt_trace for `n` photons that took
     `total_steps` steps in all, with this run's recorder tallies: emission
     per photon, the step per step (not counting K5a's segment search and
-    Clenshaw chains, which only lowers the bound), and each crossing,
-    distinct ray and bin add. Bytes: the scene tensors read once and the
-    fates, counts and tallies written once."""
-    ops = n * OPS_EMIT + total_steps * OPS_STEP
+    Clenshaw chains, which only lowers the bound) with a test of every
+    mesh triangle, and each crossing, distinct ray and bin add. Bytes: the
+    scene tensors read once and the fates, counts and tallies written
+    once."""
+    ops = n * OPS_EMIT + total_steps * (OPS_STEP + st["meta"]["n_tris"] * OPS_TRIANGLE)
     nbytes = sum(
         v.numel() * v.element_size() for v in st.values() if isinstance(v, torch.Tensor)
     ) + 8 * physics.N_FATES
@@ -270,16 +294,19 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
     max(20, 0.2% of n) (the same photons take the same streams; FMA
     contraction flips a few discrete outcomes). With recorders, so do
     each recorder's distinct rays, crossings and bins, and its mean
-    wavelength agrees within its standard error."""
+    wavelength agrees within its standard error, or within SUMS_RTOL of
+    itself where that is larger (a recorder that sees one wavelength,
+    like the mesh LSC's top face under a 555 nm lamp, has none; its
+    float32 sums still round)."""
     start = torch.cuda.Event(enable_timing=True)
     mid = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    got, longest, got_t = kernels.trace(
+    got, longest, got_t, _ = kernels.trace(
         st, seed_words, n, maxsteps=maxsteps, emit_method=emit_method
     )
     mid.record()
-    ref, steps, ref_t = tracer.trace_eager(
+    ref, steps, ref_t, _ = tracer.trace_eager(
         st, seed_words, n, lanes=lanes, maxsteps=maxsteps, emit_method=emit_method
     )
     stop.record()
@@ -321,8 +348,9 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
             mt = float(ref_t["sums"][r, 0]) / nt
             var = max(float(ref_t["sums"][r, 1]) / nt - mt * mt, 0.0)
             se = (var / nt) ** 0.5
-            require(abs(mk - mt) <= se, f"pvt_trace: recorder {r} mean wavelength "
-                    f"{mk} vs twin {mt}, standard error {se}")
+            require(abs(mk - mt) <= max(se, SUMS_RTOL * abs(mt)),
+                    f"pvt_trace: recorder {r} mean wavelength {mk} vs twin {mt}, "
+                    f"standard error {se}")
             worst = max(worst, abs(mk - mt) / se if se else 0.0)
         report["mean_wavelength_worst_se"] = worst
         report["distinct"] = got_t["distinct"][:R].tolist()
@@ -341,7 +369,7 @@ def check_chunks(st, seed_words, data, n, chunk=1 << 20):
     sums' largest relative difference."""
     total = None
     for first in range(0, n, chunk):
-        _, _, t = kernels.trace(st, seed_words, min(chunk, n - first), index_offset=first)
+        _, _, t, _ = kernels.trace(st, seed_words, min(chunk, n - first), index_offset=first)
         total = t if total is None else {name: total[name] + t[name] for name in t}
     R = st["meta"]["n_rec"]
     for name, key in (("distinct", "rec_distinct"), ("cross", "rec_crossings"),
@@ -355,3 +383,180 @@ def check_chunks(st, seed_words, data, n, chunk=1 << 20):
     require(rel <= SUMS_RUNS_RTOL,
             f"{n} photons against runs of {chunk}: sums off by {rel:.3g} > {SUMS_RUNS_RTOL:.3g}")
     return rel
+
+
+def mesh_rays(st, node, B, seed):
+    """B float32 rays in the local frame of mesh node `node`: origins
+    uniform in its bounding box grown by a fifth on every side, directions
+    isotropic (a torch.Generator seeded with `seed`, on the scene's device)."""
+    tri, _ = kernels.mesh_rows(st, node)
+    g = torch.Generator(device=tri.device).manual_seed(seed)
+    v0 = tri[:, T.TF_V0:T.TF_V0 + 3]
+    corners = torch.cat([v0, v0 + tri[:, T.TF_E1:T.TF_E1 + 3], v0 + tri[:, T.TF_E2:T.TF_E2 + 3]])
+    lo, hi = corners.min(0).values, corners.max(0).values
+    lo, hi = lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo)
+    f = dict(generator=g, device=tri.device, dtype=torch.float32)
+    o = lo + (hi - lo) * torch.rand((B, 3), **f)
+    d = torch.randn((B, 3), **f)
+    return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
+
+
+def near_edge(tri, o, d, tol=EDGE_TOL, chunk=1 << 16):
+    """Rays whose line crosses the plane of a triangle ahead of the origin
+    within `tol` (barycentric, float64) of one of its edges."""
+    tri = tri.double()
+    out = []
+    for first in range(0, o.shape[0], chunk):
+        oo, dd = o[first:first + chunk].double(), d[first:first + chunk].double()
+        v0, e1, e2 = tri[None, :, 0:3], tri[None, :, 3:6], tri[None, :, 6:9]
+        pv = torch.cross(dd[:, None, :].expand(-1, tri.shape[0], -1), e2.expand(oo.shape[0], -1, -1),
+                         dim=2)
+        det = (e1 * pv).sum(2)
+        inv = 1.0 / torch.where(det.abs() > 1e-14, det, 1.0)
+        tv = oo[:, None, :] - v0
+        u = (tv * pv).sum(2) * inv
+        qv = torch.cross(tv, e1.expand(oo.shape[0], -1, -1), dim=2)
+        v = (dd[:, None, :] * qv).sum(2) * inv
+        t = (e2 * qv).sum(2) * inv
+        w = 1.0 - u - v
+        close = torch.minimum(torch.minimum(u.abs(), v.abs()), w.abs()) < tol
+        inside = (u > -tol) & (v > -tol) & (w > -tol)
+        out.append((close & inside & (det.abs() > 1e-14) & (t > 0.0)).any(1))
+    return torch.cat(out)
+
+
+def check_mesh(st, node, B=1 << 20, seed=0, reps=10, chunk=1 << 17):
+    """pvt_mesh against the twin for B random rays (``mesh_rays``) against
+    mesh node `node`: hit counts equal except on rays near an edge,
+    t1 and t2 within MESH_RTOL where the counts agree, and there the
+    nearest hit's normal equal (ties only happen on edges)."""
+    tri, eps = kernels.mesh_rows(st, node)
+    o, d = mesh_rays(st, node, B, seed)
+    got = kernels.mesh(st, node, o, d)
+
+    def twin():
+        parts = [geometry.mesh_nearest_two(tri, o[i:i + chunk].unbind(1), d[i:i + chunk].unbind(1),
+                                           eps) for i in range(0, B, chunk)]
+        return [torch.cat([p[k] for p in parts]) for k in range(3)] + [
+            torch.stack([torch.cat([p[3][k] for p in parts]) for k in range(3)], dim=1)]
+
+    ref = twin()
+    torch.cuda.synchronize()
+    edge = near_edge(tri, o, d)
+    differ = got[2] != ref[2]
+    stray = int((differ & ~edge).sum())
+    require(stray == 0, f"pvt_mesh: hit counts differ on {stray} rays away from any edge")
+    same = ~differ
+    err, rel = 0.0, 0.0
+    for k in (0, 1):
+        a, b = got[k][same], ref[k][same]
+        fin = torch.isfinite(b)
+        require(bool((torch.isfinite(a) == fin).all()), "pvt_mesh: a finite t against inf")
+        diff = (a[fin] - b[fin]).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / b[fin].abs().clamp(min=1e-30)).max()))
+    require(rel <= MESH_RTOL, f"pvt_mesh: t off by {rel:.3g} relative > {MESH_RTOL}")
+    keep = same & ~edge
+    bad_n = int((got[3][keep] != ref[3][keep]).any(1).sum())
+    require(bad_n == 0, f"pvt_mesh: the nearest hit's normal differs on {bad_n} rays")
+    report = {
+        "max_abs_err": err,
+        "max_rel_err": rel,
+        "rays": B,
+        "triangles": int(tri.shape[0]),
+        "hits": int(ref[2].sum()),
+        "count_diffs": int(differ.sum()),
+        "near_edge": int(edge.sum()),
+        "ms": cuda_ms(lambda: kernels.mesh(st, node, o, d), reps),
+        "plain_ms": cuda_ms(twin, max(1, reps // 5)),
+    }
+    # Reads o, d (24 bytes a ray) and the triangles, writes t1, t2, the
+    # count and the normal (24 bytes a ray).
+    report["bound_ms"], report["bound_by"] = bound(
+        B * tri.shape[0] * OPS_TRIANGLE, B * 48 + tri.numel() * 4
+    )
+    return report
+
+
+def _log_rel(got, ref):
+    """Largest |got - ref| over its float column's largest |ref| (the
+    log's last axis, LOG_F columns)."""
+    scale = ref.abs().amax(dim=tuple(range(ref.dim() - 1)), keepdim=True)
+    return float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+
+
+def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18):
+    """pvt_trace with the event log against the twin (on the card), n
+    photons: fates within max(20, 0.2% of n); the recorded photons'
+    records compared photon by photon, at most a fraction LOG_DIVERGED of
+    them diverged (ints differing anywhere), the others' records (and so
+    their record counts) equal in the ints and within LOG_RTOL in the
+    floats. Returns the report, with the kernel's tallies and log."""
+    start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    got, _, got_t, got_log = kernels.trace(st, seed_words, n, record_every=record_every,
+                                           max_events=max_events)
+    mid.record()
+    ref, _, _, ref_log = tracer.trace_eager(st, seed_words, n, lanes=lanes,
+                                            record_every=record_every, max_events=max_events)
+    stop.record()
+    torch.cuda.synchronize()
+    got, ref = got.cpu(), ref.cpu()
+    tol = max(20, n // 500)
+    fate_err = int((got - ref).abs().max())
+    require(int(got.sum()) == n, f"pvt_trace (log): fates sum to {int(got.sum())}, not {n}")
+    require(fate_err <= tol, f"pvt_trace (log): fates {got.tolist()} vs twin {ref.tolist()}")
+    S = got_log["ints"].shape[0]
+    require(ref_log["ints"].shape == got_log["ints"].shape, "pvt_trace (log): log shapes differ")
+    diverged = (got_log["ints"] != ref_log["ints"]).flatten(1).any(1)
+    frac = float(diverged.sum()) / S
+    require(frac <= LOG_DIVERGED,
+            f"pvt_trace (log): {int(diverged.sum())} of {S} recorded photons diverged")
+    keep = ~diverged
+    rel = _log_rel(got_log["floats"][keep], ref_log["floats"][keep])
+    require(rel <= LOG_RTOL, f"pvt_trace (log): floats off by {rel:.3g} relative > {LOG_RTOL}")
+    counts = (got_log["ints"][..., 0] >= 0).sum(1)
+    records = int(counts.sum())
+    report = {
+        "max_abs_err": float((got_log["floats"][keep] - ref_log["floats"][keep]).abs().max()),
+        "max_rel_err": rel,
+        "slots": S,
+        "diverged": int(diverged.sum()),
+        "records": records,
+        "full_rows": int((counts == max_events).sum()),
+        "budget_kills": int(((got_log["ints"][..., 0] == 9) & (got_log["ints"][..., 1] < 0)
+                             & (got_log["ints"][..., 2] < 0)).sum()),
+        "fates": got.tolist(),
+        "twin_fates": ref.tolist(),
+        "ms": start.elapsed_time(mid),
+        "plain_ms": mid.elapsed_time(stop),
+        "tallies": got_t,
+        "log": got_log,
+    }
+    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t)
+    # The log adds its records' bytes (written once) to the trace's.
+    log_ms = records * 4 * (T.LOG_I + T.LOG_F) / PEAK_BYTES_PER_S * 1e3
+    report["bound_ms"], report["bound_by"] = (ops_ms, by) if ops_ms >= log_ms else (log_ms, "bytes")
+    return report
+
+
+def check_log_tallies(scene, result, rtol=LOG_SUMS_RTOL):
+    """The recorder tallies of `result` (a ``simulate`` with record_every
+    = 1) against ``history_tally.tally_histories`` of its own log: rays,
+    crossings and bins equal, moments within `rtol`. Returns the largest
+    relative difference of the moments."""
+    oracle = history_tally.tally_histories(scene, result.histories())
+    worst = 0.0
+    for name, rec in result.recorders.items():
+        want = oracle[name]
+        require((rec.rays, rec.crossings) == (want.rays, want.crossings),
+                f"recorder {name}: rays, crossings {rec.rays}, {rec.crossings} against "
+                f"{want.rays}, {want.crossings} from the log")
+        for h in range(len(rec.spec.histograms)):
+            require(np.array_equal(rec.histogram(h)[-1], want.histogram(h)[-1]),
+                    f"recorder {name}: histogram {h} differs from the log's")
+        scale = np.maximum(np.abs(want._moments), 1e-30)
+        worst = max(worst, float((np.abs(rec._moments - want._moments) / scale).max()))
+    require(worst <= rtol, f"recorder moments off by {worst:.3g} relative from the log's")
+    return worst

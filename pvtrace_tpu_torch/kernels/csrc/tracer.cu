@@ -1,7 +1,7 @@
 // The Hopper kernels of pvtrace_tpu_torch: emission, one physics step,
-// the persistent trace kernel of the main path, and the standalone K5a
-// and K9 entries that let the card hold those device functions to their
-// twins.
+// the persistent trace kernel of the main path (with recorders, an event
+// log, or both), and the standalone K5a, K9 and K10 entries that let the
+// card hold those device functions to their twins.
 //
 // Built by pvtrace_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -123,6 +123,17 @@ tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
   tally_block_flush(sc, acc, out);
 }
 
+// Replaces _mesh_nearest_two (pvtrace_tpu/engine/tracer.py) for B rays
+// against one mesh node, one thread each. Not on the main path
+// (mesh_nearest_two runs inside pvt_trace); it lets the card hold K10 to
+// its twin ray by ray. Bound by operations, about 60 a triangle.
+__global__ void __launch_bounds__(kBlock)
+mesh_kernel(const float* tri, int n_tris, float eps, const float* o, const float* d,
+            long long B, float* t1, float* t2, int* cnt, float* nrm) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
+}
+
 // Fate counter slots (light.event.Event values; 10 = left without a hit).
 enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 
@@ -142,11 +153,17 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // photon has matched), flushed once at the end, the moment sums also
 // every SUMS_FLUSH distinct rays of a recorder. The instantiation
 // without recorders computes no selectors and takes no normal on EXIT.
-template <bool kTally>
+// With the event log (kLog, K11; replaces _record and the log calls of
+// body), a recorded photon's thread writes its records to the photon's
+// own row with plain stores, its record count in a register: the thread
+// traces the photon from emission to death, so no two threads share a
+// row and nothing needs an atomic. The instantiations without the log
+// carry none of its code, those without meshes (kMesh) none of K10's.
+template <bool kTally, bool kLog, bool kMesh>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
-             unsigned long long* steps, PvtTallyOut tout, int shared_bins) {
+             unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg) {
   __shared__ unsigned long long block_fates[6];
   __shared__ int block_max;
   extern __shared__ __align__(8) unsigned char smem[];
@@ -161,7 +178,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   for (;;) {
     const unsigned long long id = atomicAdd(next, 1ull);
     if (id >= total) break;
-    longest = max(longest, trace_photon<kTally>(sc, s0, s1, (uint32_t)id, f, &acc));
+    longest = max(longest,
+                  trace_photon<kTally, kLog, kMesh>(sc, s0, s1, (uint32_t)id, f, &acc, &lg));
   }
 
   atomicAdd(&block_fates[0], f.exit);
@@ -189,6 +207,37 @@ unsigned int grid_for(long long n) { return (unsigned int)((n + kBlock - 1) / kB
 template <typename K>
 cudaError_t allow_shared(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// One pvt_trace launch of the instantiation <kTally, kLog, kMesh>, sized
+// to the card's resident capacity (see pvt_trace).
+template <bool kTally, bool kLog, bool kMesh>
+cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
+                         unsigned long long total, long long max_threads,
+                         unsigned long long* next, unsigned long long* fates, int* max_count,
+                         unsigned long long* steps, const PvtTallyOut& tally,
+                         const PvtLog& lg, long long* info, cudaStream_t stream) {
+  const int shared_bins = kTally && bins_fit_shared(sc) ? 1 : 0;
+  const size_t bytes = kTally ? tally_bytes(sc, shared_bins) : 0;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const auto kernel = trace_kernel<kTally, kLog, kMesh>;
+  if (err == cudaSuccess && kTally) err = allow_shared(kernel, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, bytes);
+  if (err != cudaSuccess) return err;
+  long long blocks = (long long)sms * per_sm;
+  const long long wanted = grid_for(max_threads);
+  if (wanted < blocks) blocks = wanted;
+  if (blocks < 1) blocks = 1;
+  info[0] = blocks * kBlock;
+  info[1] = (long long)bytes;
+  info[2] = shared_bins;
+  kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(
+      sc, s0, s1, total, next, fates, max_count, steps, tally, shared_bins, lg);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -231,42 +280,39 @@ int pvt_tally(const PvtScene* sc, const PvtState* state, const PvtFlags* flags,
   return (int)cudaGetLastError();
 }
 
+// B rays (o, d: [B, 3], the node's local frame) against n_tris triangles
+// (rows of TRI_F): t1, t2, cnt [B] and the nearest hit's normal nrm [B, 3].
+int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
+             long long B, float* t1, float* t2, int* cnt, float* nrm, void* stream) {
+  mesh_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(tri, n_tris, eps, o, d, B, t1,
+                                                                 t2, cnt, nrm);
+  return (int)cudaGetLastError();
+}
+
 // Launches min(max_threads, resident capacity) threads, rounded up to
 // whole blocks. info[0] gets their number, info[1] the dynamic shared
 // memory of a block, info[2] 1 when the recorder bins were in shared
-// memory. With sc->n_rec == 0 the tally outputs are not touched.
+// memory. With sc->n_rec == 0 the tally outputs are not touched, with
+// log->n_slots == 0 the log. The instantiation follows the scene and the
+// run: recorders, log, meshes.
 int pvt_trace(const PvtScene* sc, unsigned int s0, unsigned int s1,
               unsigned long long total, long long max_threads,
               unsigned long long* next, unsigned long long* fates, int* max_count,
-              unsigned long long* steps, const PvtTallyOut* tally, long long* info,
-              void* stream) {
-  const bool with_tally = sc->n_rec > 0;
-  const int shared_bins = with_tally && bins_fit_shared(*sc) ? 1 : 0;
-  const size_t bytes = with_tally ? tally_bytes(*sc, shared_bins) : 0;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && with_tally) err = allow_shared(trace_kernel<true>, bytes);
-  if (err == cudaSuccess)
-    err = with_tally
-              ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel<true>, kBlock, bytes)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace_kernel<false>, kBlock, 0);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (long long)sms * per_sm;
-  const long long wanted = grid_for(max_threads);
-  if (wanted < blocks) blocks = wanted;
-  if (blocks < 1) blocks = 1;
-  info[0] = blocks * kBlock;
-  info[1] = (long long)bytes;
-  info[2] = shared_bins;
-  if (with_tally)
-    trace_kernel<true><<<(unsigned int)blocks, kBlock, bytes, (cudaStream_t)stream>>>(
-        *sc, s0, s1, total, next, fates, max_count, steps, *tally, shared_bins);
-  else
-    trace_kernel<false><<<(unsigned int)blocks, kBlock, 0, (cudaStream_t)stream>>>(
-        *sc, s0, s1, total, next, fates, max_count, steps, *tally, 0);
-  return (int)cudaGetLastError();
+              unsigned long long* steps, const PvtTallyOut* tally, const PvtLog* log,
+              long long* info, void* stream) {
+  using Launch = cudaError_t (*)(const PvtScene&, unsigned int, unsigned int, unsigned long long,
+                                 long long, unsigned long long*, unsigned long long*, int*,
+                                 unsigned long long*, const PvtTallyOut&, const PvtLog&,
+                                 long long*, cudaStream_t);
+  const Launch launch[2][2][2] = {
+      {{launch_trace<false, false, false>, launch_trace<false, false, true>},
+       {launch_trace<false, true, false>, launch_trace<false, true, true>}},
+      {{launch_trace<true, false, false>, launch_trace<true, false, true>},
+       {launch_trace<true, true, false>, launch_trace<true, true, true>}},
+  };
+  return (int)launch[sc->n_rec > 0][log->n_slots > 0][sc->n_tris > 0](
+      *sc, s0, s1, total, max_threads, next, fates, max_count, steps, *tally, *log, info,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

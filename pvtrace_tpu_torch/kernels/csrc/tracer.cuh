@@ -3,7 +3,7 @@
 // One photon per thread, all state in registers. Every function is a
 // line-for-line port of the eager twin in pvtrace_tpu_torch/engine
 // (rng.py, emit.py, geometry.py, spectral.py, chebyshev.py, physics.py,
-// tally.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
+// tally.py, eventlog.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
 // only; no fast-math: log1p, sqrt, exp, acos and division stay IEEE
 // (nvcc's default FMA contraction moves results by ulps).
 //
@@ -41,7 +41,15 @@
 #define NI_COMP0 3
 #define NI_OVR0 4
 #define NI_NOVR 5
-#define NODE_I 6
+#define NI_TRI0 6
+#define NI_NTRI 7
+#define NODE_I 8
+
+#define TF_V0 0
+#define TF_E1 3
+#define TF_E2 6
+#define TF_N 9
+#define TRI_F 12
 
 #define CF_QY 0
 #define CF_TAU_RAD 1
@@ -114,13 +122,16 @@
 #define HI_OFF 5
 #define HIST_I 6
 
+#define LOG_I 6
+#define LOG_F 12
+
 #define N_SEL 7
 #define MAX_RECORDERS 256
 #define SEEN_WORDS 8
 #define SUMS_FLUSH 1024
 
 // Tags of pvtrace_tpu/engine/compiler.py
-enum { GEOM_BOX = 0, GEOM_SPHERE = 1, GEOM_CYLINDER = 2 };
+enum { GEOM_BOX = 0, GEOM_SPHERE = 1, GEOM_CYLINDER = 2, GEOM_MESH = 3 };
 enum { SURF_FRESNEL = 0 };
 enum { COMP_SCATTERER = 1, COMP_LUMINOPHORE = 2, COMP_REACTOR = 3 };
 enum { PHASE_HG = 1, PHASE_CONE = 2 };
@@ -132,14 +143,18 @@ enum { OVR_MIRROR = 0, OVR_ABSORB = 1, OVR_LAMBERTIAN = 2 };
 // Recorder selectors (engine/recorder.py EVENTS)
 enum { SEL_NONE = -1, REC_ENTERING = 0, REC_ESCAPING = 1, REC_REFLECTED = 2, REC_LOST = 3,
        REC_REACTED = 4, REC_KILLED = 5, REC_EXIT = 6 };
+// Event kinds of the log (light/event.py Event values)
+enum { EV_GENERATE = 0, EV_REFLECT = 1, EV_TRANSMIT = 2, EV_ABSORB = 3, EV_NONRADIATIVE = 4,
+       EV_SCATTER = 5, EV_EMIT = 6, EV_EXIT = 7, EV_REACT = 8, EV_KILL = 9 };
 
 #define PVT_INF INFINITY
 #define PVT_TWO_PI 6.283185307179586f
 #define PVT_C_CM_PER_S 2.99792458e10f
 #define PVT_ALPHA_ZERO 1e-8f
 
-// Reads of the K5a tables go through the read-only data path: lanes read
-// different segments, which the constant cache would serialise.
+// Reads of the K5a tables and of the triangles go through the read-only
+// data path: lanes read different rows, which the constant cache would
+// serialise.
 // Accumulators are atomics on the card, plain adds on the host.
 #ifdef __CUDA_ARCH__
 #define PVT_LDG(p) __ldg(p)
@@ -179,6 +194,7 @@ struct PvtScene {
   const int* comp_i;
   const float* ovr_f;
   const int* ovr_i;
+  const float* tri_f;
   const float* light_f;
   const int* light_i;
   const float* spec_pack;
@@ -204,6 +220,7 @@ struct PvtScene {
   int grid_n;
   int icdf_n;
   int pack_width;
+  int n_tris;
   int maxsteps;
   int emit_method;
   int cheb_spec;
@@ -229,6 +246,10 @@ struct StepOut {
   int hit, container, sel, tnode;
   bool exit_mask, losing, reacting, kills, no_hit_term, have_n, surface_event;
   float wn[3], c_in;  // hit surface's world normal and |cos| on surface events
+  // What the event log records besides (step_one<kTally, true> only)
+  int adjacent, comp, source_pre;
+  bool kill_max, adj_bad, absorbed, emitting, scattering, reflecting, transmitting;
+  float dur_adv;
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
@@ -271,6 +292,20 @@ struct PvtTally {
 struct PvtTallyOut {
   unsigned long long *distinct, *cross, *bins;
   double* sums;
+};
+
+// K11: the event log of every `every`-th photon, n_slots rows of
+// max_events records, LOG_I ints and LOG_F floats each (engine/
+// eventlog.py); photon pid's slot is (pid - first) / every, `first` being
+// the first multiple of `every` at or after the run's first pid. Field
+// order mirrored by ctypes.
+struct PvtLog {
+  int* ints;
+  float* floats;
+  long long n_slots;
+  int max_events;
+  unsigned int every;
+  unsigned long long first;
 };
 
 // ---------------------------------------------------------------------
@@ -541,6 +576,67 @@ PVT_FN int intersect_node(int gtype, const float* gp, const float* o,
   return 4;
 }
 
+// K10: Möller–Trumbore over the n_tris triangles `tri` (rows of TRI_F:
+// v0, e1, e2, face normal) of one mesh node, in its local frame. Writes
+// the nearest two forward hits (strict < in triangle order; PVT_INF where
+// there are fewer) and the index of the nearest's triangle (-1 without
+// one; `mesh_normal` reads its face normal), and returns the number of
+// forward hits. Tolerances as the JAX
+// function's: |det| > 1e-14, u, v >= -1e-12, u + v <= 1 + 1e-12 (1 in
+// float32), t > eps; no dedup of a hit on a shared edge. Replaces
+// _mesh_nearest_two (pvtrace_tpu/engine/tracer.py). Bound by operations:
+// about 60 per triangle, 48 bytes of it read through L1 (a node's
+// triangles are shared by every thread); kept out of line, so a scene
+// without meshes pays a call site it never takes.
+PVT_CALLED_FN int mesh_nearest_two(const float* tri, int n_tris, const float* o,
+                                   const float* d, float eps, float* t1_out, float* t2_out,
+                                   int* first_out) {
+  float t1 = PVT_INF, t2 = PVT_INF;
+  int cnt = 0, first = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    const float* r = tri + (size_t)k * TRI_F;
+    const float a0 = PVT_LDG(r + TF_V0), a1 = PVT_LDG(r + TF_V0 + 1), a2 = PVT_LDG(r + TF_V0 + 2);
+    const float e10 = PVT_LDG(r + TF_E1), e11 = PVT_LDG(r + TF_E1 + 1);
+    const float e12 = PVT_LDG(r + TF_E1 + 2);
+    const float e20 = PVT_LDG(r + TF_E2), e21 = PVT_LDG(r + TF_E2 + 1);
+    const float e22 = PVT_LDG(r + TF_E2 + 2);
+    const float pvx = d[1] * e22 - d[2] * e21;
+    const float pvy = d[2] * e20 - d[0] * e22;
+    const float pvz = d[0] * e21 - d[1] * e20;
+    const float det = e10 * pvx + e11 * pvy + e12 * pvz;
+    const bool ok = fabsf(det) > 1e-14f;
+    const float inv = 1.0f / (ok ? det : 1.0f);
+    const float tvx = o[0] - a0, tvy = o[1] - a1, tvz = o[2] - a2;
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+    const float qvx = tvy * e12 - tvz * e11;
+    const float qvy = tvz * e10 - tvx * e12;
+    const float qvz = tvx * e11 - tvy * e10;
+    const float v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
+    const float th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv;
+    const bool hit = ok && u >= -1e-12f && v >= -1e-12f && u + v <= (float)(1.0 + 1e-12) &&
+                     th > eps;
+    cnt += hit;
+    const float tv = hit ? th : PVT_INF;
+    if (tv < t1) {
+      t2 = t1;
+      t1 = tv;
+      first = k;
+    } else if (tv < t2) {
+      t2 = tv;
+    }
+  }
+  *t1_out = t1;
+  *t2_out = t2;
+  *first_out = first;
+  return cnt;
+}
+
+// The face normal of triangle `first` of `tri`, (0, 0, 1) for -1.
+PVT_FN void mesh_normal(const float* tri, int first, float* nrm) {
+  for (int k = 0; k < 3; ++k)
+    nrm[k] = first >= 0 ? PVT_LDG(tri + (size_t)first * TRI_F + TF_N + k) : (k == 2 ? 1.0f : 0.0f);
+}
+
 struct Hits {
   float t0;        // nearest forward hit distance
   int hit;         // its node
@@ -549,29 +645,44 @@ struct Hits {
   int nhits;       // forward hits over all nodes
   float lo[3];     // ray in the hit node's local frame
   float ld[3];
+  int tri;         // a mesh hit node's nearest triangle (its row in tri_f)
 };
 
 // K3: nearest two forward hits over all nodes (strict < in node order,
-// then candidate order), container and adjacent node.
+// then candidate order), container and adjacent node. With kMesh a mesh
+// node's candidates are its nearest two triangle hits, and all its hits
+// count; without, the scene has no mesh and the code has no mesh branch
+// (it would cost the other scenes registers: an A/B build on the H100).
+template <bool kMesh>
 PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
   float t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
   int n1 = 0, n2 = 0, cont_n = 0, nhits = 0;
   for (int n = 0; n < sc.n_nodes; ++n) {
     const float* nf = sc.node_f + n * NODE_F;
+    const int* ni = sc.node_i + n * NODE_I;
     const float* R = nf + NF_W2L;
     float o[3], d[3], t[4];
     bool v[4];
+    int tri = -1;
     for (int k = 0; k < 3; ++k) {
       o[k] = R[4 * k] * p.px + R[4 * k + 1] * p.py + R[4 * k + 2] * p.pz + R[4 * k + 3];
       d[k] = R[4 * k] * p.dx + R[4 * k + 1] * p.dy + R[4 * k + 2] * p.dz;
     }
-    const int nc = intersect_node(sc.node_i[n * NODE_I + NI_GEOM], nf + NF_GP,
-                                  o, d, nf[NF_EPS], t, v);
-    int cnt_n = 0;
+    int nc, cnt_n = 0;
+    if (kMesh && ni[NI_GEOM] == GEOM_MESH) {
+      cnt_n = mesh_nearest_two(sc.tri_f + (size_t)ni[NI_TRI0] * TRI_F, ni[NI_NTRI], o, d,
+                               nf[NF_EPS], &t[0], &t[1], &tri);
+      if (tri >= 0) tri += ni[NI_TRI0];
+      v[0] = cnt_n >= 1;
+      v[1] = cnt_n >= 2;
+      nc = 2;
+    } else {
+      nc = intersect_node(ni[NI_GEOM], nf + NF_GP, o, d, nf[NF_EPS], t, v);
+      for (int c = 0; c < nc; ++c) cnt_n += v[c];
+    }
     float tmin_n = PVT_INF;
     for (int c = 0; c < nc; ++c) {
       const float tv = v[c] ? t[c] : PVT_INF;
-      cnt_n += v[c];
       tmin_n = fminf(tmin_n, tv);
       if (tv < t1) {
         t2 = t1;
@@ -582,6 +693,7 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
           h.lo[k] = o[k];
           h.ld[k] = d[k];
         }
+        if (kMesh) h.tri = tri;
       } else if (tv < t2) {
         t2 = tv;
         n2 = n;
@@ -646,11 +758,13 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 // (p.count already incremented). Mirrors physics.step of the eager twin.
 // With kTally it also gives the recorder selectors and takes the world
 // normal on EXIT; without, out.sel is SEL_NONE and the normal is taken
-// only where the surface needs it.
-template <bool kTally>
+// only where the surface needs it. With kLog it also gives what the event
+// log records (StepOut's last fields); without, those are not set. kMesh
+// false: the scene has no mesh.
+template <bool kTally, bool kLog = false, bool kMesh = true>
 PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out) {
   Hits h;
-  intersect_nodes(sc, p, h);
+  intersect_nodes<kMesh>(sc, p, h);
   out.hit = h.hit;
   out.container = h.container;
   out.exit_mask = out.losing = out.reacting = out.kills = out.no_hit_term = false;
@@ -686,6 +800,12 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     p.trav = p.trav + advance;
     p.dur = p.dur + advance * n_cont / PVT_C_CM_PER_S;
   }
+  if (kLog) {
+    out.dur_adv = p.dur;
+    out.source_pre = p.source;
+    out.comp = -1;
+    out.emitting = out.scattering = false;
+  }
 
   // Volume event: component roulette, quantum-yield coin, re-emission.
   bool nonrad = false;
@@ -700,6 +820,11 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     const int ctype = ci[CI_TYPE];
     const bool is_lum = ctype == COMP_LUMINOPHORE;
     const bool radiative = (is_lum || ctype == COMP_SCATTERER) && u[2] < cf[CF_QY];
+    if (kLog) {
+      out.comp = cid;
+      out.emitting = radiative && is_lum;
+      out.scattering = radiative && !is_lum;
+    }
     if (radiative) {
       float mu;
       if (ci[CI_PHASE] == PHASE_HG) {
@@ -746,9 +871,14 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
   if (surf || (kTally && exit_mask)) {
     const float* hf = sc.node_f + h.hit * NODE_F;
     const int* hi = sc.node_i + h.hit * NODE_I;
-    float q[3], ln[3];
-    for (int k = 0; k < 3; ++k) q[k] = h.lo[k] + h.t0 * h.ld[k];
-    local_normal(hi[NI_GEOM], hf + NF_GP, q, ln);
+    float ln[3];
+    if (kMesh && hi[NI_GEOM] == GEOM_MESH) {
+      mesh_normal(sc.tri_f, h.tri, ln);
+    } else {
+      float q[3];
+      for (int k = 0; k < 3; ++k) q[k] = h.lo[k] + h.t0 * h.ld[k];
+      local_normal(hi[NI_GEOM], hf + NF_GP, q, ln);
+    }
     const float* Rw = hf + NF_L2W;
     const float wnx = Rw[0] * ln[0] + Rw[1] * ln[1] + Rw[2] * ln[2];
     const float wny = Rw[3] * ln[0] + Rw[4] * ln[1] + Rw[5] * ln[2];
@@ -847,6 +977,14 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     out.surface_event = exit_mask || reflecting || transmitting;
   }
 
+  if (kLog) {
+    out.adjacent = h.adjacent;
+    out.kill_max = kill_max;
+    out.adj_bad = adj_bad;
+    out.absorbed = absorbed;
+    out.reflecting = reflecting;
+    out.transmitting = transmitting;
+  }
   out.exit_mask = exit_mask;
   out.kills = kill_max || adj_bad;
   p.alive = alive && !exit_mask && !nonrad;
@@ -1015,12 +1153,72 @@ PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl
   for (int k = 0; k < SEEN_WORDS; ++k) seen[i * SEEN_WORDS + k] = words[k];
 }
 
+// K11: one record of photon slot `slot`, its nev-th, unless the row is
+// full (engine/eventlog.py record). `nrm` may be null (zeros). The
+// photon owns its row, so these are plain stores.
+PVT_FN void log_record(const PvtLog& lg, long long slot, int& nev, int kind, int hit,
+                       int container, int adjacent, int component, int source, const float* pos,
+                       const float* dir, const float* nrm, float wav, float trav, float dur) {
+  if (nev >= lg.max_events) return;
+  const long long at = slot * lg.max_events + nev;
+  int* ri = lg.ints + at * LOG_I;
+  ri[0] = kind;
+  ri[1] = hit;
+  ri[2] = container;
+  ri[3] = adjacent;
+  ri[4] = component;
+  ri[5] = source;
+  float* rf = lg.floats + at * LOG_F;
+  for (int k = 0; k < 3; ++k) {
+    rf[k] = pos[k];
+    rf[3 + k] = dir[k];
+    rf[6 + k] = nrm ? nrm[k] : 0.0f;
+  }
+  rf[9] = wav;
+  rf[10] = trav;
+  rf[11] = dur;
+  ++nev;
+}
+
+// K11: the records of one step (o, post-step state p; the direction,
+// wavelength and source before it), in the JAX package's order
+// (engine/eventlog.py record_step).
+PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& o,
+                     const Photon& p, const float* d_in, float wav_in, int src_in) {
+  const float pos[3] = {p.px, p.py, p.pz};
+  const float d_out[3] = {p.dx, p.dy, p.dz};
+  if (o.kill_max)
+    log_record(lg, slot, nev, EV_KILL, -1, o.container, -1, -1, src_in, pos, d_in, nullptr,
+               p.wav, p.trav, p.dur);
+  if (o.exit_mask)
+    log_record(lg, slot, nev, EV_EXIT, o.hit, o.container, o.adjacent, -1, p.source, pos, d_in,
+               nullptr, p.wav, p.trav, o.dur_adv);
+  if (o.absorbed)
+    log_record(lg, slot, nev, EV_ABSORB, -1, o.container, -1, o.comp, o.source_pre, pos, d_in,
+               nullptr, wav_in, p.trav, o.dur_adv);
+  const int volume[4] = {EV_EMIT, EV_SCATTER, EV_REACT, EV_NONRADIATIVE};
+  const bool happened[4] = {o.emitting, o.scattering, o.reacting, o.losing};
+  for (int k = 0; k < 4; ++k)
+    if (happened[k])
+      log_record(lg, slot, nev, volume[k], -1, o.container, -1, o.comp, p.source, pos, d_out,
+                 nullptr, p.wav, p.trav, p.dur);
+  if (o.adj_bad)
+    log_record(lg, slot, nev, EV_KILL, o.hit, o.container, -1, -1, p.source, pos, d_out, nullptr,
+               p.wav, p.trav, p.dur);
+  if (o.reflecting || o.transmitting)
+    log_record(lg, slot, nev, o.reflecting ? EV_REFLECT : EV_TRANSMIT, o.hit, o.container,
+               o.adjacent, -1, p.source, pos, d_out, o.wn, p.wav, p.trav, p.dur);
+}
+
 // pvt_trace: key, emit and step photon `pid` until it dies, adding its
-// fates and steps to f and, with kTally, its recorder events to *acc.
-// Returns its step count.
-template <bool kTally>
+// fates and steps to f, with kTally its recorder events to *acc, and with
+// kLog, when it is recorded, its events to *lg: GENERATE at emission,
+// then each step's records, and the event-budget KILL (a recorded photon
+// with max_events - 1 records or more dies before its next step, counted
+// in f.kill). kMesh false: the scene has no mesh. Returns its step count.
+template <bool kTally, bool kLog, bool kMesh>
 PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
-                        FateCounts& f, const PvtTally* acc) {
+                        FateCounts& f, const PvtTally* acc, const PvtLog* lg) {
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
@@ -1028,19 +1226,50 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
   uint32_t seen[SEEN_WORDS];
   if (kTally)
     for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
+  long long slot = -1;
+  int nev = 0;
+  if (kLog && pid % lg->every == 0) {
+    slot = (long long)(((unsigned long long)pid - lg->first) / lg->every);
+    if (slot >= lg->n_slots) slot = -1;
+  }
+  if (kLog && slot >= 0) {
+    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+    log_record(*lg, slot, nev, EV_GENERATE, -1, -1, -1, -1, -1, pos, dir, nullptr, p.wav, 0.0f,
+               0.0f);
+  }
   while (p.alive) {
     p.count += 1;
+    if (kLog && slot >= 0 && nev >= lg->max_events - 1) {
+      const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+      log_record(*lg, slot, nev, EV_KILL, -1, -1, -1, -1, p.source, pos, dir, nullptr, p.wav,
+                 p.trav, p.dur);
+      f.kill += 1;
+      break;
+    }
+    const float d_in[3] = {p.dx, p.dy, p.dz};
+    const float wav_in = p.wav;
+    const int src_in = p.source;
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
-    step_one<kTally>(sc, p, u, o);
+    step_one<kTally, kLog, kMesh>(sc, p, u, o);
     f.exit += o.exit_mask;
     f.nonrad += o.losing;
     f.react += o.reacting;
     f.kill += o.kills;
     f.no_hit += o.no_hit_term;
     if (kTally) tally_event(sc, *acc, seen, o, p);
+    if (kLog && slot >= 0) log_step(*lg, slot, nev, o, p, d_in, wav_in, src_in);
   }
   f.steps += (unsigned long long)p.count;
   return p.count;
+}
+
+// pvt_mesh: nearest two hits of ray i (o, d: [B, 3] in the node's local
+// frame) against the node's triangles.
+PVT_FN void mesh_lane(const float* tri, int n_tris, float eps, const float* o, const float* d,
+                      long long i, float* t1, float* t2, int* cnt, float* nrm) {
+  int first;
+  cnt[i] = mesh_nearest_two(tri, n_tris, o + 3 * i, d + 3 * i, eps, t1 + i, t2 + i, &first);
+  mesh_normal(tri, first, nrm + 3 * i);
 }

@@ -36,12 +36,20 @@ void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned
   for (long long i = 0; i < B; ++i) tally_lane(*sc, *s, *fl, seen, i, acc);
 }
 void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
-             unsigned long long total, long long* fates) {
+             unsigned long long total, const PvtLog* lg, long long* fates) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
-  for (unsigned long long id = off; id < total; ++id)
-    trace_photon<false>(*sc, s0, s1, (uint32_t)id, f, nullptr);
+  for (unsigned long long id = off; id < total; ++id) {
+    if (lg->n_slots > 0)
+      trace_photon<false, true, true>(*sc, s0, s1, (uint32_t)id, f, nullptr, lg);
+    else
+      trace_photon<false, false, true>(*sc, s0, s1, (uint32_t)id, f, nullptr, nullptr);
+  }
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
+}
+void h_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
+            long long B, float* t1, float* t2, int* cnt, float* nrm) {
+  for (long long i = 0; i < B; ++i) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
 }
 """
@@ -70,7 +78,8 @@ def build_library(directory):
     h.h_step.argtypes = [vp, vp, vp, vp, i64]
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
-    h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp]
-    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace):
+    h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
+    h.h_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
+    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_mesh):
         fn.restype = None
     return h

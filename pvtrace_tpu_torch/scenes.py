@@ -65,32 +65,32 @@ def lsc_slab(ns=None):
     cm^-1, quantum yield 0.9) and a 0.3 cm^-1 background absorber, in a
     25 cm world sphere, lit by a 555 nm cone (20 degrees) from 3 cm above."""
     p = api(ns)
+    return _slab_scene(p, p.Box((5.0, 5.0, 1.0), material=_slab_material(p)))
+
+
+def _slab_material(p):
     x = np.arange(400, 801, dtype=float)
+    return p.Material(
+        refractive_index=1.5,
+        components=[
+            p.Luminophore(
+                coefficient=np.column_stack((x, p.lumogen_f_red_305.absorption(x) * 10.0)),
+                emission=np.column_stack((x, p.lumogen_f_red_305.emission(x))),
+                quantum_yield=0.9,
+                name="dye",
+            ),
+            p.Absorber(0.3, name="background"),
+        ],
+    )
+
+
+def _slab_scene(p, geometry):
+    """`geometry` as the node "lsc" in the bench slab's world and light."""
     world = p.Node(
         name="world",
         geometry=p.Sphere(radius=25.0, material=p.Material(refractive_index=1.0)),
     )
-    p.Node(
-        name="lsc",
-        geometry=p.Box(
-            (5.0, 5.0, 1.0),
-            material=p.Material(
-                refractive_index=1.5,
-                components=[
-                    p.Luminophore(
-                        coefficient=np.column_stack(
-                            (x, p.lumogen_f_red_305.absorption(x) * 10.0)
-                        ),
-                        emission=np.column_stack((x, p.lumogen_f_red_305.emission(x))),
-                        quantum_yield=0.9,
-                        name="dye",
-                    ),
-                    p.Absorber(0.3, name="background"),
-                ],
-            ),
-        ),
-        parent=world,
-    )
+    p.Node(name="lsc", geometry=geometry, parent=world)
     light = p.Node(
         name="light",
         light=p.Light(
@@ -224,8 +224,7 @@ def mixed_scene(ns=None):
 
 def tetrahedron(ns=None):
     """A glass tetrahedron mesh in a world sphere with a default lamp at
-    the origin (the port's compiler takes it; its tracer does not trace
-    meshes yet)."""
+    the origin, on vertex 0, shining along an edge."""
     p = api(ns)
     world = p.Node(name="world",
                    geometry=p.Sphere(radius=5.0, material=p.Material(refractive_index=1.0)))
@@ -234,4 +233,154 @@ def tetrahedron(ns=None):
     p.Node(name="tet", geometry=p.Mesh((v, f), material=p.Material(refractive_index=1.3)),
            parent=world)
     p.Node(name="lamp", light=p.Light(), parent=world)
+    return p.Scene(world)
+
+
+def _outward(vertices, faces):
+    """`faces` wound so that every face normal points away from the
+    centroid (right for star-shaped meshes)."""
+    faces = np.array(faces, dtype=np.int64)
+    v0 = vertices[faces[:, 0]]
+    n = np.cross(vertices[faces[:, 1]] - v0, vertices[faces[:, 2]] - v0)
+    out = vertices[faces].mean(axis=1) - vertices.mean(axis=0)
+    flip = np.einsum("ij,ij->i", n, out) < 0
+    faces[flip] = faces[flip][:, [0, 2, 1]]
+    return faces
+
+
+def mesh_small(ns=None):
+    """The parity scene of the mesh path: a glass tetrahedron (edge 2 cm,
+    n = 1.5) with a constant absorber and an isotropic scatterer, a
+    mirror on its -x face and two recorders (escaping through the
+    slanted face, entering anywhere), lit from 1.5 cm below by a 10
+    degree cone that lands inside the bottom face, away from its edges
+    and vertices."""
+    p = api(ns)
+    world = p.Node(name="world",
+                   geometry=p.Sphere(radius=5.0, material=p.Material(refractive_index=1.0)))
+    v = 2.0 * np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=float)
+    f = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])
+    mirror = p.FacetOverrideSurfaceDelegate(
+        [p.FacetOverride((-1.0, 0.0, 0.0), p.OVERRIDE_MIRROR, atol=1e-3)]
+    )
+    tet = p.Node(
+        name="tet",
+        geometry=p.Mesh((v, f), material=p.Material(
+            refractive_index=1.5,
+            surface=p.Surface(mirror),
+            components=[p.Absorber(0.4, name="grey"), p.Scatterer(1.5, name="haze")],
+        )),
+        parent=world,
+    )
+    slant = tuple(float(c) for c in np.full(3, 1.0 / np.sqrt(3.0)))
+    tet.recorders = [
+        p.Recorder("slant", event="escaping", facet=slant, atol=1e-3),
+        p.Recorder("in", event="entering"),
+    ]
+    lamp = p.Node(name="lamp", light=p.Light(direction=functools.partial(p.cone, np.radians(10))),
+                  parent=world)
+    lamp.translate((0.0, 0.0, -1.5))
+    return p.Scene(world)
+
+
+def mesh_slab_fine(ns=None):
+    """The bench slab as a closed mesh: the 5x5x1 cm box with its faces cut
+    into 1 cm squares, two triangles each (140 triangles, more than the
+    JAX package unrolls), with the bench slab's material, world and light."""
+    p = api(ns)
+    corners = np.array([[x, y, z] for x in range(6) for y in range(6) for z in (0, 1)], float)
+    index = {tuple(c): i for i, c in enumerate(corners)}
+    vertices = corners - np.array([2.5, 2.5, 0.5])
+    faces = []
+
+    def square(a, b, c, d):
+        ids = [index[tuple(q)] for q in (a, b, c, d)]
+        faces.extend([(ids[0], ids[1], ids[2]), (ids[0], ids[2], ids[3])])
+
+    for i in range(5):
+        for j in range(5):
+            for z in (0, 1):
+                square((i, j, z), (i + 1, j, z), (i + 1, j + 1, z), (i, j + 1, z))
+        for fixed in (0, 5):
+            square((fixed, i, 0), (fixed, i + 1, 0), (fixed, i + 1, 1), (fixed, i, 1))
+            square((i, fixed, 0), (i + 1, fixed, 0), (i + 1, fixed, 1), (i, fixed, 1))
+    mesh = (vertices, _outward(vertices, faces))
+    return _slab_scene(p, p.Mesh(mesh, material=_slab_material(p)))
+
+
+def hex_plate(radius=4.0, thickness=1.0):
+    """Closed hexagonal-plate triangle mesh with outward windings (24
+    triangles; ``examples/mesh_lsc.py``)."""
+    ang = np.arange(6) * np.pi / 3.0
+    h = 0.5 * thickness
+    ring = np.column_stack([radius * np.cos(ang), radius * np.sin(ang)])
+    vertices = np.vstack([
+        [0.0, 0.0, h], [0.0, 0.0, -h],
+        np.column_stack([ring, np.full(6, h)]),
+        np.column_stack([ring, np.full(6, -h)]),
+    ])
+    faces = []
+    for k in range(6):
+        k2 = (k + 1) % 6
+        faces.append((0, 2 + k, 2 + k2))  # top fan (+z)
+        faces.append((1, 8 + k2, 8 + k))  # bottom fan (-z)
+        faces.append((2 + k, 8 + k, 8 + k2))  # side lower
+        faces.append((2 + k, 8 + k2, 2 + k2))  # side upper
+    return vertices, _outward(vertices, faces)
+
+
+def edge_normals():
+    """Outward normals of the hex plate's six edge facets (local frame)."""
+    ang = np.arange(6) * np.pi / 3.0 + np.pi / 6.0
+    return [(float(np.cos(a)), float(np.sin(a)), 0.0) for a in ang]
+
+
+def mesh_lsc(ns=None, radius=4.0, thickness=1.0, dye_peak=5.0, bg=0.1):
+    """The mesh LSC of ``examples/mesh_lsc.py`` (``build_mesh_lsc``): a
+    24-triangle hexagonal plate (n = 1.5) with Lumogen F Red 305 dye and
+    a background absorber, a mirror on its bottom faces, ideal solar
+    cells (absorbing facet overrides) on its six edges, a recorder on each
+    cell and one on the top face; a 555 nm cone light (20 degrees) above."""
+    p = api(ns)
+    x = np.arange(400, 801, dtype=float)
+    overrides = [p.FacetOverride((0.0, 0.0, -1.0), p.OVERRIDE_MIRROR, atol=1e-3)]
+    overrides += [p.FacetOverride(nrm, p.OVERRIDE_ABSORB, atol=1e-3) for nrm in edge_normals()]
+    world = p.Node(
+        name="world",
+        geometry=p.Sphere(radius=radius * 25.0, material=p.Material(refractive_index=1.0)),
+    )
+    plate = p.Node(
+        name="plate",
+        parent=world,
+        geometry=p.Mesh(
+            hex_plate(radius, thickness),
+            material=p.Material(
+                refractive_index=1.5,
+                surface=p.Surface(delegate=p.FacetOverrideSurfaceDelegate(overrides)),
+                components=[
+                    p.Luminophore(
+                        np.column_stack((x, dye_peak * p.lumogen_f_red_305.absorption(x))),
+                        emission=np.column_stack((x, p.lumogen_f_red_305.emission(x))),
+                        quantum_yield=0.95,
+                        name="dye",
+                    ),
+                    p.Absorber(bg, name="background"),
+                ],
+            ),
+        ),
+    )
+    plate.recorders = [
+        p.Recorder(f"cell_{i}", event="escaping", facet=nrm, atol=1e-3)
+        for i, nrm in enumerate(edge_normals())
+    ] + [p.Recorder("incident", event="entering", facet=(0.0, 0.0, 1.0))]
+    light = p.Node(
+        name="light",
+        parent=world,
+        light=p.Light(
+            direction=functools.partial(p.cone, np.radians(20)),
+            wavelength=p.ConstantWavelengthMask(555.0),
+        ),
+    )
+    light.translate((0.0, 0.0, thickness * 2.0))
+    light.rotate(np.radians(180), (1, 0, 0))
     return p.Scene(world)

@@ -25,6 +25,9 @@ SCENES = {
     "recorders256": functools.partial(scenes.lsc_slab_recorders, 256),
     "heatmap_xyz": functools.partial(scenes.lsc_slab_heatmap, 200),
     "tetrahedron": scenes.tetrahedron,
+    "mesh_lsc": scenes.mesh_lsc,
+    "mesh_small": scenes.mesh_small,
+    "mesh_slab_fine": scenes.mesh_slab_fine,
 }
 # CompiledScene attributes that hold the scene's own objects, which are of
 # each package's classes: compared through the names and tables derived

@@ -11,9 +11,10 @@ On the CPU:
   (K5b, ``PVTRACE_TPU_NO_CHEB``);
 * the wrappers take the twin for CPU tensors and count no launch.
 
-On the card (marked ``gpu``, skipped without CUDA): phases 2-4 and 6-9
-of ``chip_smoke.py`` at a small size, on both spectral paths, and the
-float64 refusal.
+On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9 and
+12-14 of ``chip_smoke.py`` at a small size, on both spectral paths, and
+the float64 refusal. This file imports no JAX, so it runs there with
+``--noconftest``.
 """
 import ctypes
 import re
@@ -25,9 +26,15 @@ torch = pytest.importorskip("torch")
 
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.kernels import check  # noqa: E402
-from pvtrace_tpu_torch.engine import compile_scene, physics, rng, tables, tally, tracer  # noqa: E402
+from pvtrace_tpu_torch.engine import compile_scene, physics, rng, simulate, tables, tally, tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import build, host  # noqa: E402
-from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_heatmap, lsc_slab_recorders  # noqa: E402
+from pvtrace_tpu_torch.scenes import (  # noqa: E402
+    lsc_slab,
+    lsc_slab_heatmap,
+    lsc_slab_recorders,
+    mesh_lsc,
+    mesh_slab_fine,
+)
 
 torch.set_num_threads(1)
 HEADER = (build.CSRC / "tracer.cuh").read_text()
@@ -52,9 +59,16 @@ def test_header_layout_matches_tables():
         assert name in defines
 
 
+def test_header_event_kinds_match_event():
+    from pvtrace_tpu_torch.light.event import Event
+
+    kinds = dict(re.findall(r"EV_([A-Z]+) = (\d+)", HEADER))
+    assert {name: int(v) for name, v in kinds.items()} == {e.name: e.value for e in Event}
+
+
 @pytest.mark.parametrize("struct, cls", [
     ("PvtScene", kernels._Scene), ("PvtState", kernels._State), ("PvtFlags", kernels._Flags),
-    ("PvtTallyOut", kernels._TallyOut),
+    ("PvtTallyOut", kernels._TallyOut), ("PvtLog", kernels._Log),
 ])
 def test_header_structs_match_ctypes(struct, cls):
     assert _struct_fields(struct) == [name for name, _ in cls._fields_]
@@ -118,8 +132,10 @@ def test_device_code_matches_twin_on_host(host_lib, monkeypatch, spectra):
         s = ref
 
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64)
-    host_lib.h_trace(ctypes.byref(sc), seed[0], seed[1], 0, 4096, fates.data_ptr())
-    ref, _, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
+    _, no_log = kernels.empty_log(4096, 0, 128, 0, "cpu")
+    host_lib.h_trace(ctypes.byref(sc), seed[0], seed[1], 0, 4096, ctypes.byref(no_log),
+                     fates.data_ptr())
+    ref, _, _, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
     assert int(fates.sum()) == 4096
     assert int((fates - ref).abs().max()) <= 2, (fates.tolist(), ref.tolist())
 
@@ -133,7 +149,7 @@ def test_wrappers_run_the_twin_on_cpu(bench_f32):
         assert torch.equal(state[name], ref[name]), name
     stepped = kernels.step(st, state)
     assert torch.equal(stepped["alive"], tracer.step_state(st, state, 1000, 0)["alive"])
-    fates, _, _ = kernels.trace(st, seed, 300, lanes=64)
+    fates, _, _, _ = kernels.trace(st, seed, 300, lanes=64)
     assert torch.equal(fates, tracer.trace_eager(st, seed, 300, lanes=64)[0])
     values = kernels.cheb(st, torch.linspace(-1.0, 1.0, 5))
     assert values.shape == (st["meta"]["cheb_n_fits"], 5)
@@ -213,13 +229,54 @@ def test_recorder_trace_matches_twin_on_card():
 
 @pytest.mark.gpu
 def test_simulate_on_card_goes_through_the_kernel(cuda_scene):
-    from pvtrace_tpu_torch.engine import simulate
-
     kernels.reset()
     tracer.eager_runs = 0
     result = simulate(lsc_slab(), 1 << 16, seed=3, record_every=0)
     assert int(np.asarray(result.data["fates"]).sum()) == 1 << 16
     assert kernels.launches["pvt_trace"] == 1 and tracer.eager_runs == 0
+
+
+def _cuda_tensors(make):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return tables.scene_tensors(compile_scene(make()), dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [mesh_lsc, mesh_slab_fine], ids=["hex_plate", "fine_slab"])
+def test_mesh_kernel_matches_twin_on_card(make):
+    rep = check.check_mesh(_cuda_tensors(make), 1, 1 << 16, seed=1, reps=2)
+    assert rep["max_rel_err"] <= check.MESH_RTOL
+
+
+@pytest.mark.gpu
+def test_mesh_trace_matches_twin_on_card():
+    rep = check.check_trace(_cuda_tensors(mesh_lsc), rng.key_words(1), 1 << 16, lanes=1 << 14)
+    assert sum(rep["fates"]) == 1 << 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, events", [(mesh_lsc, 128), (lsc_slab, 128), (mesh_lsc, 8)])
+def test_log_kernel_matches_twin_on_card(make, events):
+    rep = check.check_log(_cuda_tensors(make), rng.key_words(1), 1 << 12, max_events=events)
+    assert rep["diverged"] <= check.LOG_DIVERGED * rep["slots"]
+
+
+@pytest.mark.gpu
+def test_mesh_and_log_on_card_go_through_the_kernel():
+    """simulate of the mesh LSC, without and with the log, launches
+    pvt_trace (the log instantiation for the second) and no eager run;
+    the kernel's tallies equal those recomputed from its own log."""
+    _cuda_tensors(mesh_lsc)
+    scene = mesh_lsc()
+    for every in (0, 1):
+        kernels.reset()
+        tracer.eager_runs = 0
+        result = simulate(scene, 1 << 12, seed=3, record_every=every)
+        assert int(np.asarray(result.data["fates"]).sum()) == 1 << 12
+        assert kernels.launches["pvt_trace"] == 1 and tracer.eager_runs == 0
+        assert kernels.launches["pvt_trace_log"] == every
+    assert check.check_log_tallies(scene, result) <= check.LOG_SUMS_RTOL
 
 
 @pytest.mark.gpu
