@@ -5,11 +5,13 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain-PyTorch twin on the card, then drives the port's main
 paths: ``engine.simulate`` of the LSC benchmark scene without and with
-recorders, of the hex-plate mesh LSC, and with event-log histories, at
-full width. Phases, one line each:
+recorders, of the hex-plate mesh LSC, and with event-log histories, and
+the gradient path of ``diff.transport`` (score channels, the Beer–Lambert
+surrogate), at full width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
-1. build the kernels with nvcc (sm_90a);
+1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
+   score, diff) started together: build time, registers and spills;
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
@@ -50,7 +52,33 @@ full width. Phases, one line each:
     with record_every=1000 and at 2**17 with record_every=1, each read
     around its own run (photons/s, the log's bytes, launches of pvt_trace
     and pvt_trace_log with no eager run); the slab at 2**27 again, beside
-    phase 5.
+    phase 5;
+16. pvt_score (K12, one step with score channels) against the twin on
+    phase 3's lanes for 8 steps, on the slab and on the mixed scene:
+    discrete outcomes on all but 1e-4 of the lanes, path scores within
+    1e-4 of each channel's scale plus their slack, the folds likewise;
+    pvt_fresnel (dR/dn) in float32 against the twin on the unit tests'
+    grid;
+17. pvt_trace with score channels against the eager twin, 2**20 photons,
+    on the slab with 32 recorders and on the mesh LSC: fates within
+    max(20, 0.2% of n), fate_scores and rec_scores within the stated
+    bound; then simulate(score=True) at 2**27 with 32 recorders against
+    the same photons in 128 runs of 2**20 (integers equal, score sums
+    within the float64 accumulation bound);
+18. the gradient path at full width: diff.transport.fate_gradients of the
+    slab at 2**27 photons (wrt="all", bundles of 16e6) and simulate of the
+    mesh LSC at 2**27 with score=True, each read around its own run
+    (photons/s beside phase 5, launches of pvt_trace_score, no eager run);
+    the absorber slab and the Fresnel slab at 2**24 against their
+    analytic gradients (bounds 0.02 and 0.005); optimize_concentration on
+    the scaled LSC as examples/optimize_lsc.py calls it (6 iterations of
+    400,000 photons), its history finite;
+19. K15: pvt_absorbed and pvt_absorbed_grad against the plain version on
+    2**24 photons emitted by pvt_emit from the slab's light: weights
+    within 1e-5 relative, the gradient within 1e-4; then 5 SGD steps of
+    make_training_step's single-shard arithmetic through
+    absorbed_fraction_fn (launches read around them) against the plain
+    version, step by step.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -67,7 +95,14 @@ N_MAIN = 1 << 27
 N_CHUNK = 1 << 20
 N_LOG = 1 << 14
 N_LOG_FULL = 1 << 17
-SOURCE = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
+N_SLAB = 1 << 24
+N_OPT = 400_000
+SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
+    "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
+SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/score.cu"
+               for name in ("pvt_score", "pvt_fresnel", "pvt_trace_score")})
+SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/diff.cu"
+               for name in ("pvt_absorbed", "pvt_absorbed_grad")})
 REPLACES = {
     "pvt_emit": "pvtrace_tpu/engine/tracer.py:762",
     "pvt_step": "pvtrace_tpu/engine/tracer.py:1073",
@@ -76,6 +111,11 @@ REPLACES = {
     "pvt_tally": "pvtrace_tpu/engine/tracer.py:588",
     "pvt_mesh": "pvtrace_tpu/engine/tracer.py:366",
     "pvt_trace_log": "pvtrace_tpu/engine/tracer.py:512",
+    "pvt_score": "pvtrace_tpu/engine/tracer.py:1871",
+    "pvt_fresnel": "pvtrace_tpu/engine/tracer.py:172",
+    "pvt_trace_score": "pvtrace_tpu/engine/tracer.py:1991",
+    "pvt_absorbed": "pvtrace_tpu/diff/transport.py:214",
+    "pvt_absorbed_grad": "pvtrace_tpu/diff/transport.py:284",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
 LSC_FATES = (4, 7, 9)
@@ -94,14 +134,19 @@ def main():
     import numpy as np
 
     from pvtrace_tpu_torch import kernels
-    from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, simulate, tracer
+    from pvtrace_tpu_torch.diff import transport
+    from pvtrace_tpu_torch.engine import absorb, compile_scene, rng, scene_tensors, simulate, tracer
     from pvtrace_tpu_torch.kernels import build, check
+    from pvtrace_tpu_torch.light.event import Event
     from pvtrace_tpu_torch.scenes import (
+        absorber_slab,
+        fresnel_slab,
         lsc_slab,
         lsc_slab_heatmap,
         lsc_slab_recorders,
         mesh_lsc,
         mesh_slab_fine,
+        mixed_scene,
     )
 
     # 0. the card
@@ -116,17 +161,17 @@ def main():
         flush=True,
     )
 
-    # 1. build
+    # 1. build: one nvcc per library, started together
     tic = time.perf_counter()
-    path, report = build.build()
-    kernels.library()
-    ptxas = [
-        line.strip() for line in (report or "").splitlines()
-        if "registers" in line or "spill" in line or "Compiling entry" in line
-    ]
-    print(f"phase 1 build: {path.name} in {time.perf_counter() - tic:.1f} s", flush=True)
-    for line in ptxas:
-        print(f"  ptxas: {line}")
+    built = build.build_all()
+    for name in built:
+        kernels.library(name)
+    print(f"phase 1 build: {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
+    for name, (_, report) in built.items():
+        for line in (report or "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -202,12 +247,15 @@ def main():
     state_b, emit_b = check.check_emit(st_b, seed, N_CHECK)
     step_b = check.check_step(st_b, state_b, steps=8)
     trace_b = check.check_trace(st_b, seed, N_CHECK)
+    lerp_ms, lerp_by = check.lerp_bound(st_b, trace_b["total_steps"])
     print(
         f"phase 4b K5b: pvt_emit max abs err {emit_b['max_abs_err']:.3g}; pvt_step "
         f"discrete mismatch {step_b['discrete_frac']:.2e}, max abs err "
         f"{step_b['max_abs_err']:.3g}; pvt_trace fates {trace_b['fates']} vs "
         f"{trace_b['twin_fates']}, max diff {trace_b['max_abs_err']}; kernel "
-        f"{trace_b['ms']:.2f} ms, twin {trace_b['plain_ms']:.2f} ms | {smi}",
+        f"{trace_b['ms']:.2f} ms, twin {trace_b['plain_ms']:.2f} ms, bound "
+        f"{trace_b['bound_ms']:.4f} ms; the table lerp's own bound {lerp_ms:.5f} ms "
+        f"({lerp_by}, {trace_b['total_steps']} steps) | {smi}",
         flush=True,
     )
 
@@ -447,6 +495,158 @@ def main():
         flush=True,
     )
 
+    # 16. K12 lane by lane: pvt_score on phase 3's lanes, and pvt_fresnel
+    score_reps = {}
+    for label, st_s, lanes in (("slab", st, state),
+                               ("mixed", scene_tensors(compile_scene(mixed_scene()),
+                                                       dtype=torch.float32, device="cuda"), None)):
+        if lanes is None:
+            lanes, _ = check.check_emit(st_s, seed, N_CHECK, reps=1)
+        rep = check.check_score(st_s, lanes, steps=8)
+        score_reps[label] = rep
+        print(
+            f"phase 16 pvt_score vs twin, {label}: {N_CHECK} lanes x 8 steps, {rep['channels']} "
+            f"channels, discrete mismatch {rep['discrete_frac']:.2e} (limit 1e-4), path scores "
+            f"at {rep['bound_used']:.3g} of their bound ({check.SCORE_RTOL} of the channel's "
+            f"scale plus slack, {rep['grazing']} grazing lanes left out; worst: "
+            f"{rep['worst_lane']}), folds within "
+            f"{rep['fold_rel_err']:.3g} of their magnitudes; "
+            f"kernel {rep['ms']:.4f} ms, twin {rep['plain_ms']:.4f} ms, bound "
+            f"{rep['bound_ms']:.5f} ms | {smi}",
+            flush=True,
+        )
+    fresnel_rep = check.check_fresnel("cuda")
+    print(
+        f"phase 16 pvt_fresnel vs twin: {fresnel_rep['points']} (n1, n2, c) points, "
+        f"{fresnel_rep['singular']} at the critical angle, max err {fresnel_rep['max_abs_err']:.3g} "
+        f"of max(|dR/dn|, 1) (limit {check.SCORE_RTOL}); kernel {fresnel_rep['ms']:.4f} ms, "
+        f"twin {fresnel_rep['plain_ms']:.4f} ms | {smi}",
+        flush=True,
+    )
+
+    # 17. the score trace against the eager twin, then against itself in runs
+    trace_score_reps = {}
+    for label, st_s in (("slab", st), ("slab R=32", st32), ("mesh LSC", st_mesh)):
+        rep = check.check_trace_scores(st_s, seed, N_CHECK)
+        trace_score_reps[label] = rep
+        if not rep["shared_scores"]:
+            fail(f"{label}: the score sums did not take the shared-memory path")
+        print(
+            f"phase 17 pvt_trace_score vs twin, {label}: {N_CHECK} photons, fates {rep['fates']} "
+            f"vs {rep['twin_fates']}, {rep['parted']} photons parted (limit "
+            f"{check.SCORE_PARTED * N_CHECK:g}), the others' scores at "
+            f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
+            f"theirs (fate_scores within {rep['max_abs_err']:.4g} of the twin's); kernel "
+            f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"| {smi}",
+            flush=True,
+        )
+    res = simulate(lsc_slab_recorders(32), N_MAIN, seed=17, record_every=0, dtype=np.float32,
+                   compiled=rec32, score=True)
+    worst = check.check_chunk_scores(st32, rng.key_words(17), res.data, N_MAIN, N_CHUNK)
+    print(
+        f"phase 17 score sums of {N_MAIN} photons against {-(-N_MAIN // N_CHUNK)} runs of "
+        f"{N_CHUNK}: fates and rays equal, fate_scores and rec_scores at {worst:.3g} of their "
+        f"float64 accumulation bound; simulate {res.elapsed:.4f} s | {smi}",
+        flush=True,
+    )
+
+    # 18. the gradient path at full width
+    kernels.reset()
+    tracer.eager_runs = 0
+    tic = time.perf_counter()
+    fractions, gradients = transport.fate_gradients(scene, N_MAIN, seed=18, wrt="all",
+                                                    dtype=np.float32)
+    grad_s = time.perf_counter() - tic
+    grad_launches, grad_eager = dict(kernels.launches), tracer.eager_runs
+    if grad_launches["pvt_trace_score"] != -(-N_MAIN // 16_000_000) or grad_eager:
+        fail(f"fate_gradients did not run through pvt_trace_score: {grad_launches}, eager "
+             f"runs {grad_eager}")
+    if not all(np.isfinite(g[:2]).all() for g in gradients.values()):
+        fail(f"fate_gradients: component gradients not finite: {gradients}")
+    grad_rate = N_MAIN / grad_s
+    print(
+        f"phase 18 gradient path: fate_gradients(slab, {N_MAIN}, wrt='all') in {grad_s:.4f} s, "
+        f"{grad_rate:.6g} photons/s (phase 5: {rate:.6g}, {grad_rate / rate:.3f}x), fractions "
+        f"{ {e.name: round(float(v), 6) for e, v in fractions.items()} }, d/dlog(dye, "
+        f"background) and d/dn(world, slab) of NONRADIATIVE "
+        f"{gradients[Event.NONRADIATIVE].tolist()}, launches {grad_launches} | {smi}",
+        flush=True,
+    )
+    kernels.reset()
+    tracer.eager_runs = 0
+    res = simulate(mesh_scene, N_MAIN, seed=18, record_every=0, dtype=np.float32,
+                   compiled=mesh_compiled, score=True)
+    mesh_score_launches = dict(kernels.launches)
+    if mesh_score_launches["pvt_trace_score"] != 1 or tracer.eager_runs:
+        fail(f"mesh LSC score run did not go through pvt_trace_score: {mesh_score_launches}")
+    mesh_score_rate = N_MAIN / res.elapsed
+    rec_scores = np.asarray(res.data["rec_scores"])
+    print(
+        f"phase 18 mesh LSC with score: {N_MAIN} photons, {res.elapsed:.4f} s, "
+        f"{mesh_score_rate:.6g} photons/s (without score, phase 15: "
+        f"{full['mesh']['photons_per_s']:.6g}), pvt_trace_score {kernels.last_trace['ms']:.2f} "
+        f"ms, rec_scores {rec_scores.shape}, finite {bool(np.isfinite(rec_scores).all())}, "
+        f"launches {mesh_score_launches} | {smi}",
+        flush=True,
+    )
+    analytic = {}
+    for label, make, event, channel, kwargs, expect, limit in (
+        ("absorber slab", lambda: absorber_slab(0.8), Event.NONRADIATIVE, 0, {},
+         0.8 * np.exp(-0.8), 0.02),
+        ("Fresnel slab", lambda: fresnel_slab(1.5, 0.5), Event.NONRADIATIVE, 1,
+         {"wrt": "refractive_index"},
+         -((1 - np.exp(-0.5)) ** 2) / (1 - 0.04 * np.exp(-0.5)) ** 2 * 4 * 0.5 / 2.5 ** 3, 0.005),
+    ):
+        fr, gr = transport.fate_gradients(make(), N_SLAB, seed=7, dtype=np.float32, **kwargs)
+        got = float(gr[event][channel])
+        analytic[label] = {"got": got, "expect": expect, "limit": limit}
+        if not abs(got - expect) < limit:
+            fail(f"{label}: gradient {got} against the analytic {expect} (limit {limit})")
+        print(f"phase 18 {label}: {N_SLAB} photons, gradient {got:.6f}, analytic {expect:.6f}, "
+              f"|diff| {abs(got - expect):.2e} (limit {limit}), P(absorb) "
+              f"{float(fr[event]):.6f} | {smi}", flush=True)
+    tic = time.perf_counter()
+    log_scale, history = transport.optimize_concentration(
+        lambda scale: lsc_slab(scale_bg=scale), 0.55, num_rays=N_OPT, iters=6, lr=8.0, seed=11,
+        component=1, event=Event.NONRADIATIVE, dtype=np.float32,
+    )
+    if not (np.isfinite(log_scale) and np.isfinite(np.asarray(history)).all()):
+        fail(f"optimize_concentration: history not finite: {history}")
+    print(f"phase 18 optimize_concentration: 6 x {N_OPT} photons in "
+          f"{time.perf_counter() - tic:.2f} s, log scale {log_scale:+.4f}, history (log scale, P, "
+          f"loss) {[tuple(round(float(v), 6) for v in row) for row in history]} | {smi}",
+          flush=True)
+
+    # 19. K15: the surrogate's kernels against the plain version
+    tab = absorb.table(compiled, "cuda")
+    pos, direction, wav = check.absorbed_photons(st, seed, N_SLAB)
+    absorbed_rep = check.check_absorbed(tab, pos, direction, wav)
+    weight = transport.absorbed_fraction_fn(compiled)
+    kernels.reset()
+    sgd = check.surrogate_sgd(lambda lc, p, d, w: weight({"log_concentration": lc}, p, d, w),
+                              pos, direction, wav)
+    sgd_launches = dict(kernels.launches)
+    plain_sgd = check.surrogate_sgd(
+        lambda lc, p, d, w: absorb.weight(torch.exp(lc), absorb.depth(tab, p, d, w)),
+        pos, direction, wav)
+    for k, (a, b) in enumerate(zip(sgd, plain_sgd)):
+        if not np.allclose(a, b, rtol=check.GRAD_RTOL, atol=1e-9):
+            fail(f"surrogate SGD step {k}: kernel {a} against plain {b}")
+    if sgd_launches["pvt_absorbed"] != 5 or sgd_launches["pvt_absorbed_grad"] != 5:
+        fail(f"surrogate SGD did not run through pvt_absorbed: {sgd_launches}")
+    print(
+        f"phase 19 pvt_absorbed vs plain: {N_SLAB} photons, weights within "
+        f"{absorbed_rep['max_rel_err']:.3g} (limit {check.ABSORBED_RTOL}), gradient within "
+        f"{absorbed_rep['grad_rel_err']:.3g} (limit {check.GRAD_RTOL}), mean weight "
+        f"{absorbed_rep['absorbed']:.6f}; forward {absorbed_rep['ms']:.4f} ms (plain "
+        f"{absorbed_rep['plain_ms']:.4f}, bound {absorbed_rep['bound_ms']:.4f}), backward "
+        f"{absorbed_rep['grad_ms']:.4f} ms (plain {absorbed_rep['grad_plain_ms']:.4f}, bound "
+        f"{absorbed_rep['grad_bound_ms']:.4f}); 5 SGD steps (log c, loss, grad) {sgd} equal "
+        f"the plain version's, launches {sgd_launches} | {smi}",
+        flush=True,
+    )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -482,12 +682,39 @@ def main():
                            for k, v in full.items() if "record_every" in k},
         }),
     ]
+    rows += [
+        ("pvt_score", score_reps["slab"], {
+            "n": N_CHECK, "channels": score_reps["slab"]["channels"],
+            "runs_inside": "pvt_trace_score (score_step)",
+            "mixed_scene": {k: score_reps["mixed"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        }),
+        ("pvt_fresnel", fresnel_rep, {"points": fresnel_rep["points"],
+                                      "runs_inside": "pvt_trace_score (fresnel_dR)"}),
+        ("pvt_trace_score", trace_score_reps["slab"], {
+            "n": N_CHECK, "parted": trace_score_reps["slab"]["parted"],
+            **{key: {k: trace_score_reps[label][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "max_abs_err", "parted")}
+               for key, label in (("slab_32_recorders", "slab R=32"), ("mesh_lsc", "mesh LSC"))},
+            "gradient_path_photons_per_s": grad_rate, "main_path_photons_per_s": rate,
+            "mesh_score_photons_per_s": mesh_score_rate,
+            "mesh_score_launches": mesh_score_launches["pvt_trace_score"],
+            "analytic": analytic,
+        }),
+        ("pvt_absorbed", absorbed_rep, {"n": N_SLAB}),
+        ("pvt_absorbed_grad", dict(absorbed_rep, ms=absorbed_rep["grad_ms"],
+                                   plain_ms=absorbed_rep["grad_plain_ms"],
+                                   bound_ms=absorbed_rep["grad_bound_ms"],
+                                   bound_by=absorbed_rep["grad_bound_by"],
+                                   max_abs_err=absorbed_rep["grad_abs_err"]), {"n": N_SLAB}),
+    ]
     launches_of = dict(main_launches, pvt_trace_log=full["mesh, record_every=1000"]["launches"][
-        "pvt_trace_log"])
+        "pvt_trace_log"], pvt_trace_score=grad_launches["pvt_trace_score"],
+        pvt_absorbed=sgd_launches["pvt_absorbed"],
+        pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"])
     print(smi)
     print(json.dumps({"kernels": [
         {
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches_of[name],
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],

@@ -1,7 +1,8 @@
 """``simulate``: the port's entry point, with the JAX package's signature.
 
 Port of ``pvtrace_tpu.engine.api.simulate`` for lights lowered to
-device samplers: fates, recorders and event-log histories, no gradients.
+device samplers: fates, recorders, event-log histories and score-function
+gradient sums (``score=True``); no pathwise channels.
 The result is the port's copy of the JAX package's ``EngineResult`` with
 the same ``data`` layout.
 """
@@ -19,11 +20,7 @@ _U32 = 2 ** 32 - 1
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
-def _check_options(score, pathwise):
-    if score:
-        raise NotImplementedError(
-            "score=True is not ported yet: ROADMAP queue 1 item 10, kernel K12."
-        )
+def _check_options(pathwise):
     if pathwise:
         raise NotImplementedError(
             "pathwise channels are not ported yet: ROADMAP queue 1 item 11, "
@@ -70,9 +67,14 @@ def simulate(
       eager PyTorch twin, in float32 or float64. There is no fallback
       from one to the other.
     * `dtype` None means float32.
-    * `score`, `pathwise` and lights that need host emission raise
+    * `pathwise` and lights that need host emission raise
       NotImplementedError naming the ROADMAP item that brings them.
       `workers` is accepted and unused.
+    * With `score`, ``data["fate_scores"]`` [11, CH] and, with recorders,
+      ``data["rec_scores"]`` [R, CH] in the run's dtype, channels in the
+      JAX package's layout: the components, then the nodes in preorder
+      (``engine/score.py``). On the card a photon's score is float32 and
+      the accumulators float64.
     * `lanes`: on the CPU the wavefront width of the eager twin ("auto":
       ``min(num_rays, 2**18)``, None: one lane per photon, no
       regeneration); on the card a cap on the persistent kernel's thread
@@ -89,7 +91,7 @@ def simulate(
       by the JAX package's rule, ``PVTRACE_TPU_NO_CHEB`` included, read
       on every call.
     """
-    _check_options(score, pathwise)
+    _check_options(pathwise)
     if emit_method not in EMIT_METHODS:
         raise ValueError(f"emit_method must be one of {sorted(EMIT_METHODS)}")
     _check_budget(num_rays, index_offset)
@@ -109,7 +111,7 @@ def simulate(
         st, rng.key_words(seed), num_rays, index_offset=index_offset,
         lanes=lanes, maxsteps=maxsteps, emit_method=EMIT_METHODS[emit_method],
         maxpathlength=float("inf") if maxpathlength is None else float(maxpathlength),
-        record_every=max(int(record_every), 0), max_events=int(max_events),
+        record_every=max(int(record_every), 0), max_events=int(max_events), score=bool(score),
     )
     fates = fates.cpu().numpy()
     if log is None:
@@ -128,6 +130,11 @@ def simulate(
         "counts": (log_ints[..., 0] >= 0).sum(axis=1).astype(np.int32),
         "steps": int(steps),
     }
+    if score:
+        data["fate_scores"] = tallies["fate_scores"].cpu().numpy().astype(np_dtype)
+        if compiled.n_recorders > 0:
+            data["rec_scores"] = tallies["rec_scores"][:compiled.n_recorders].cpu().numpy().astype(
+                np_dtype)
     for i, name in enumerate(eventlog.LOG_INTS):
         data[name] = log_ints[..., i]
     for i, name in enumerate(eventlog.LOG_VECS):

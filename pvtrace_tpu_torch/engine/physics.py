@@ -26,7 +26,13 @@ is. One step:
    KILL and stays alive, as in the reference (ROADMAP queue 3);
 6. with ``want_extras``, what the event log (K11) records besides: the
    masks of each event, the component, the adjacent node, the duration
-   after the advance and the source before the volume event (EXTRAS).
+   after the advance and the source before the volume event (EXTRAS);
+7. with ``want_score``, what the score channels (K12, ``engine/score.py``)
+   read (SCORE_EXTRAS): the container's spectral slots at the incoming
+   wavelength, the lanes that moved (alive after the no-hit and kill
+   masks) and how far, the volume event, the two refractive indices and
+   the reflectivity after the overrides of a surface event, and whether
+   its reflect/transmit was a Fresnel coin (not TIR, no override).
 """
 import math
 
@@ -69,15 +75,22 @@ EXTRAS = (
     "adjacent", "comp_id", "absorbed", "emitting", "scattering", "kill_max",
     "adj_bad", "reflecting", "transmitting", "dur_adv", "source_pre",
 )
+# The score channels' extra per-lane outputs (want_score); "slot_vals" is
+# [B, W], the container's slots.
+SCORE_EXTRAS = (
+    "slot_vals", "moving", "advance", "absorbed", "comp_id", "adjacent", "n1r", "n2r",
+    "refl_r", "fres_coin", "reflecting", "transmitting",
+)
 
 
-def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False):
+def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
+         want_score=False):
     """One step of lanes `s` (dict of STATE_FLOATS, ``source``, ``alive``
     and ``count``, already incremented) with uniforms ``u[0..7]``.
 
     Returns the new state plus the per-lane FLAGS, ``hit``,
-    ``container``, SELECTORS, EVENT_FLAGS and SURFACE, and with
-    `want_extras` the EXTRAS."""
+    ``container``, SELECTORS, EVENT_FLAGS and SURFACE, with `want_extras`
+    the EXTRAS and with `want_score` the SCORE_EXTRAS."""
     meta = st["meta"]
     N, L = meta["n_nodes"], meta["grid_n"]
     node_f, node_i = st["rows"]["node_f"], st["rows"]["node_i"]
@@ -370,5 +383,12 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False)
             scattering=radiative & ~is_lum, kill_max=kill_max, adj_bad=adj_bad,
             reflecting=reflecting, transmitting=transmitting, dur_adv=dur_adv,
             source_pre=source_pre,
+        )
+    if want_score:
+        out.update(
+            slot_vals=slots, moving=alive, advance=advance, absorbed=absorbed, comp_id=comp_id,
+            adjacent=adjacent, n1r=n1r, n2r=n2r, refl_r=r,
+            fres_coin=is_fresnel & ~tir & (ovr_mode == comp.OVR_NONE),
+            reflecting=reflecting, transmitting=transmitting,
         )
     return out

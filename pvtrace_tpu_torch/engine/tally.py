@@ -14,6 +14,10 @@ recorder's histograms. Binning is the reference's expression,
 ``floor((v - lo) / (hi - lo) * n)`` in the run's dtype, with values out
 of range dropped; x, y and z are the position in ``tnode``'s local frame.
 
+With score channels (K12) the first match also adds the photon's path
+score, this step's contributions included, to ``rec_scores`` [R, CH];
+``fate_scores`` [11, CH] is kept here too (``score.fold`` adds to it).
+
 Counters are int64 (the JAX package's int32 ``cross`` and ``bins`` can
 wrap, ROADMAP queue 3); sums are in the run's dtype. The tallies are
 updated in place.
@@ -23,12 +27,30 @@ import torch
 from pvtrace_tpu_torch.engine import tables as T
 
 
-def empty(st, B):
+def empty(st, B, channels=0):
     """Zero tallies of `B` lanes: ``distinct`` and ``cross`` [max(R, 1)],
-    ``sums`` [max(R, 1), 8], ``bins`` [total_bins] and ``seen`` [B, max(R, 1)]."""
+    ``sums`` [max(R, 1), 8], ``bins`` [total_bins] and ``seen`` [B, max(R, 1)],
+    and with `channels` score channels ``fate_scores`` [11, channels] and
+    ``rec_scores`` [max(R, 1), channels], the sums of their addends'
+    magnitudes ``fate_abs`` and ``rec_abs``, each channel's largest
+    per-photon magnitude folded or matched, ``score_max`` [channels], and
+    the sums of the scores' slack (``score.py``), ``fate_slack`` and
+    ``rec_slack`` (float64)."""
     meta, dev = st["meta"], st["node_f"].device
     R = max(meta["n_rec"], 1)
+    f = dict(dtype=st["node_f"].dtype, device=dev)
+    scores = {
+        name: torch.zeros(shape, **f) for name, shape in (
+            ("fate_scores", (11, channels)), ("fate_abs", (11, channels)),
+            ("rec_scores", (R, channels)), ("rec_abs", (R, channels)),
+            ("score_max", (channels,)),
+        )
+    } if channels else {}
+    if channels:
+        scores["fate_slack"] = torch.zeros((11, channels), dtype=torch.float64, device=dev)
+        scores["rec_slack"] = torch.zeros((R, channels), dtype=torch.float64, device=dev)
     return {
+        **scores,
         "distinct": torch.zeros(R, dtype=torch.int64, device=dev),
         "cross": torch.zeros(R, dtype=torch.int64, device=dev),
         "sums": torch.zeros((R, 8), dtype=st["node_f"].dtype, device=dev),
@@ -50,9 +72,11 @@ def local_position(st, out):
     ]
 
 
-def tally(t, st, out):
+def tally(t, st, out, score=None, slack=None):
     """Add the events of one step (`out`, the dict of ``physics.step``
-    with the post-step state) to tallies `t`, in place."""
+    with the post-step state) to tallies `t`, in place; with `score`
+    [CH, B], the path scores of the photons' first matches to
+    ``rec_scores``, and their `slack` to ``rec_slack``."""
     meta = st["meta"]
     if not meta["n_rec"]:
         return
@@ -76,6 +100,15 @@ def tally(t, st, out):
         [wav, wav * wav, angle, angle * angle, dur, dur * dur, trav, trav * trav], 1
     )
     t["sums"] += new.T.to(props8.dtype) @ props8
+    if score is not None:
+        newf = new.T.to(score.dtype)
+        t["rec_scores"] += newf @ score.T
+        t["rec_abs"] += newf @ score.abs().T
+        if slack is not None:
+            t["rec_slack"] += new.T.double() @ slack.T
+        first = new.any(1)
+        if bool(first.any()):
+            t["score_max"] = torch.maximum(t["score_max"], score[:, first].abs().amax(1))
     if meta["total_bins"]:
         props = torch.stack([wav, angle, dur, trav, *local_position(st, out)], 1)
         hist_i, hist_f = st["hist_i"], st["hist_f"]

@@ -1,9 +1,13 @@
 """K7 and K8: the trace loop with fate counts and lane regeneration.
 
 Port of ``trace_bundle_device_emit``, ``_run``, ``body_fast`` and, with
-an event log, ``body`` (pvtrace_tpu/engine/tracer.py), without score:
-fates, recorder tallies (K9, ``engine/tally.py``) and the event log of
-every ``record_every``-th photon (K11, ``engine/eventlog.py``). ``trace``
+an event log, ``body`` (pvtrace_tpu/engine/tracer.py): fates, recorder tallies (K9,
+``engine/tally.py``), the event log of every ``record_every``-th photon
+(K11, ``engine/eventlog.py``) and, with ``score``, the score channels
+(K12, ``engine/score.py``): each lane carries its photon's path score
+[CH], zeroed on refill, adds the step's contributions after the step,
+folds it into ``fate_scores`` at termination, then hands it to the
+recorders. ``trace``
 runs the CUDA kernel ``pvt_trace`` for tensors on a CUDA device and the
 eager twin ``trace_eager`` for tensors on the CPU (the kernel wrapper
 decides, by the tensors' device).
@@ -22,6 +26,7 @@ for photon.
 import torch
 
 from pvtrace_tpu_torch.engine import eventlog, physics, rng, tally
+from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine.emit import emit
 
 # Runs of the eager twin: a run can show that it went through the kernel.
@@ -44,30 +49,36 @@ def initial_state(st, seed_words, pids):
 
 
 def step_state(st, s, maxsteps, emit_method, maxpathlength=float("inf"), alive=None,
-               want_extras=False):
+               want_extras=False, want_score=False):
     """One loop step of lanes `s`: count the step, draw, take the physics
     step, of the lanes `alive` (default ``s["alive"]``; the event budget
     kills lanes after their step is counted). Returns the new state
-    (keys carried over) with the flags, and with `want_extras` the log's
-    extras."""
+    (keys carried over) with the flags, with `want_extras` the log's
+    extras and with `want_score` the score channels' inputs."""
     count = s["count"] + s["alive"].to(torch.int32)
     u = rng.draw8(s["k0"], s["k1"], count.long(), s["px"].dtype)
     out = physics.step(
         st, dict(s, count=count, alive=s["alive"] if alive is None else alive), u,
-        maxsteps, emit_method, maxpathlength, want_extras,
+        maxsteps, emit_method, maxpathlength, want_extras, want_score,
     )
     out["k0"], out["k1"] = s["k0"], s["k1"]
     return out
 
 
 def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-                emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
+                emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
+                score=False, per_photon=False):
     """Trace photons ``index_offset + [0, n)`` with the eager twin.
 
     Returns (fates, steps, tallies, log): int64 fate counts [11], the
     number of loop steps taken, the recorder tallies (``tally.empty``'s
-    dict) and, with ``record_every > 0``, the event log of ``ceil(n /
-    record_every)`` slots (``eventlog.empty``'s dict), else None."""
+    dict, with `score` also ``fate_scores`` and ``rec_scores``) and, with
+    ``record_every > 0``, the event log of ``ceil(n / record_every)``
+    slots (``eventlog.empty``'s dict), else None. With `score` and
+    `per_photon` the tallies also hold each photon's record at its last
+    fold, photon ``index_offset + k`` in column k: ``photon_scores`` [CH,
+    n], ``photon_fate`` and ``photon_steps`` [n] (int64; -1 and 0 where
+    it never folded) and ``photon_slack`` [CH, n]."""
     global eager_runs
     eager_runs += 1
     device = st["node_f"].device
@@ -76,7 +87,20 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     s = initial_state(st, seed_words, pids)
     nxt, total = index_offset + B, index_offset + n
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64, device=device)
-    tallies = tally.empty(st, B)
+    CH = score_ch.n_channels(st) if score else 0
+    tallies = tally.empty(st, B, CH)
+    if score:
+        s["score"] = torch.zeros((CH, B), dtype=s["px"].dtype, device=device)
+        s["slack"] = torch.zeros((CH, B), dtype=torch.float64, device=device)
+    record = score and per_photon
+    if record:
+        pid = pids.clone()
+        tallies.update(
+            photon_scores=torch.zeros((CH, n), dtype=s["px"].dtype, device=device),
+            photon_fate=torch.full((n,), -1, dtype=torch.int64, device=device),
+            photon_steps=torch.zeros(n, dtype=torch.int64, device=device),
+            photon_slack=torch.zeros((CH, n), dtype=torch.float64, device=device),
+        )
     log = None
     if record_every > 0:
         S = eventlog.n_slots(n, record_every)
@@ -96,15 +120,26 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     steps = 0
     while bool(s["alive"].any()):
         steps += 1
-        alive = s["alive"]
+        alive, killed = s["alive"], None
         if log is not None:
             killed, nevents = eventlog.budget_kill(log, nevents, slot, s)
             fates[physics.EV_KILL] += killed.sum()
             alive = alive & ~killed
-        out = step_state(st, s, maxsteps, emit_method, maxpathlength, alive, log is not None)
+        out = step_state(st, s, maxsteps, emit_method, maxpathlength, alive, log is not None,
+                         score)
         for name, fate in fate_slots:
             fates[fate] += out[name].sum()
-        tally.tally(tallies, st, out)
+        if score:
+            ds, slack = score_ch.contributions(st, out, with_slack=True)
+            out["score"], out["slack"] = s["score"] + ds, s["slack"] + slack
+            idx, at = score_ch.fold(tallies, out["score"], out, killed, out["slack"])
+            if record and idx.numel():
+                p = pid[idx] - index_offset
+                tallies["photon_scores"][:, p] = out["score"][:, idx]
+                tallies["photon_fate"][p] = at
+                tallies["photon_steps"][p] = out["count"][idx].long()
+                tallies["photon_slack"][:, p] = out["slack"][:, idx]
+        tally.tally(tallies, st, out, out.get("score"), out.get("slack"))
         if log is not None:
             nevents = eventlog.record_step(log, nevents, slot, s, out)
         s = {k: out[k] for k in s}
@@ -117,6 +152,11 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 fresh = initial_state(st, seed_words, cand[idx])
                 for k, v in fresh.items():
                     s[k] = s[k].index_put((idx,), v)
+                if score:
+                    s["score"][:, idx] = 0.0
+                    s["slack"][:, idx] = 0.0
+                if record:
+                    pid[idx] = cand[idx]
                 tally.reset_seen(tallies, idx)
                 nxt += idx.numel()
                 if log is not None:
@@ -130,7 +170,8 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
+          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
+          score=False):
     """Trace photons ``index_offset + [0, n)`` through the wrapper of
     ``pvt_trace``: the CUDA kernel for scene tensors on a CUDA device,
     ``trace_eager`` for CPU tensors.
@@ -142,5 +183,5 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
     return kernels.trace(
         st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-        maxpathlength, record_every, max_events,
+        maxpathlength, record_every, max_events, score,
     )

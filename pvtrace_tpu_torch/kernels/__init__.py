@@ -1,4 +1,5 @@
-"""ctypes wrappers of the hand-written CUDA kernels (csrc/tracer.cu).
+"""ctypes wrappers of the hand-written CUDA kernels (csrc/tracer.cu,
+csrc/score.cu, csrc/diff.cu).
 
 Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``:
 
@@ -9,25 +10,29 @@ Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``:
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
 The kernels cover float32 only; float64 CUDA tensors raise
-NotImplementedError. The library is built by ``build.build()`` at the
+NotImplementedError. Each library is built by ``build.build()`` at its
 first launch.
 """
 import ctypes
 
 import torch
 
-from pvtrace_tpu_torch.engine import chebyshev, eventlog, geometry, physics, tally, tracer
+from pvtrace_tpu_torch.engine import absorb, chebyshev, eventlog, geometry, physics, tally, tracer
+from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
 from pvtrace_tpu_torch.kernels import build
 
 # Launches of each kernel since the last reset() ("pvt_trace_log": those
-# launches of pvt_trace that wrote an event log), and what the last
-# pvt_trace launch reported: its thread count, the dynamic shared memory
-# of a block, whether the recorder bins were in shared memory, the steps
-# its photons took in all, and its time on the card (CUDA events, ms).
+# launches of pvt_trace that wrote an event log; "pvt_trace_score": those
+# with score channels), and what the last pvt_trace launch reported: its
+# thread count, the dynamic shared memory of a block, whether the
+# recorder bins and the score sums were in shared memory, the steps its
+# photons took in all, and its time on the card (CUDA events, ms).
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
-            "pvt_mesh": 0, "pvt_trace_log": 0}
-last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "total_steps": 0, "ms": 0.0}
+            "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
+            "pvt_fresnel": 0, "pvt_absorbed": 0, "pvt_absorbed_grad": 0}
+last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
+              "total_steps": 0, "ms": 0.0}
 
 _SCENE_PTRS = (
     "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "tri_f", "light_f",
@@ -80,7 +85,48 @@ class _Log(ctypes.Structure):
     ]
 
 
-_lib = None
+class _Score(ctypes.Structure):
+    _fields_ = [
+        ("rows", ctypes.c_void_p), ("fate_scores", ctypes.c_void_p),
+        ("rec_scores", ctypes.c_void_p), ("stride", ctypes.c_longlong), ("ch", ctypes.c_int),
+        ("n_comps", ctypes.c_int), ("shared", ctypes.c_int), ("photon", ctypes.c_void_p),
+        ("photon_n", ctypes.c_longlong),
+    ]
+
+
+class _Absorbers(ctypes.Structure):
+    _fields_ = [
+        ("node_f", ctypes.c_void_p), ("node_i", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
+        ("n", ctypes.c_int), ("grid_n", ctypes.c_int), ("x0", ctypes.c_float),
+        ("dx", ctypes.c_float),
+    ]
+
+
+_VP, _U32, _U64, _I32, _I64 = (
+    ctypes.c_void_p, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong
+)
+# Each library's entry points and their argument types.
+_ENTRIES = {
+    "tracer": {
+        "pvt_emit": [_VP, _U32, _U32, _U64, _I64, _VP, _VP],
+        "pvt_step": [_VP, _VP, _VP, _VP, _I64, _VP],
+        "pvt_cheb": [_VP, _I32, _VP, _I64, _VP, _VP],
+        "pvt_tally": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
+        "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+        "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
+    },
+    "score": {
+        "pvt_score": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
+        "pvt_fresnel": [_VP, _VP, _VP, _I64, _VP, _VP, _VP],
+        "pvt_trace_score": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                            _VP, _VP],
+    },
+    "diff": {
+        "pvt_absorbed": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
+        "pvt_absorbed_grad": [_VP, _VP, _VP, _I64, _I32, _VP, _VP],
+    },
+}
+_libs = {}
 
 
 def reset():
@@ -88,26 +134,18 @@ def reset():
         launches[name] = 0
 
 
-def library():
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        path, _ = build.build()
+def library(name="tracer"):
+    """The loaded kernel library `name` (build.LIBRARIES), built first if
+    needed."""
+    if name not in _libs:
+        path, _ = build.build(name)
         lib = ctypes.CDLL(str(path))
-        vp, u32, u64, i32, i64 = (
-            ctypes.c_void_p, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong
-        )
-        lib.pvt_emit.argtypes = [vp, u32, u32, u64, i64, vp, vp]
-        lib.pvt_step.argtypes = [vp, vp, vp, vp, i64, vp]
-        lib.pvt_cheb.argtypes = [vp, i32, vp, i64, vp, vp]
-        lib.pvt_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
-        lib.pvt_trace.argtypes = [vp, u32, u32, u64, i64, vp, vp, vp, vp, vp, vp, vp, vp]
-        lib.pvt_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp, vp]
-        for fn in (lib.pvt_emit, lib.pvt_step, lib.pvt_cheb, lib.pvt_tally, lib.pvt_trace,
-                   lib.pvt_mesh):
+        for entry, argtypes in _ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _on_cpu(st):
@@ -370,7 +408,8 @@ def empty_log(n, record_every, max_events, index_offset, device):
 
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
-          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128):
+          emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
+          score=False, per_photon=False):
     """Trace photons ``index_offset + [0, n)``; returns (fates, steps,
     tallies, log), as ``tracer.trace_eager`` does.
 
@@ -381,39 +420,221 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     into float64 totals every ``tables.SUMS_FLUSH`` distinct rays of a
     recorder and at the end (``check.SUMS_BOUND``). With ``record_every >
     0`` the kernel writes the event log of every record_every-th photon
-    (``eventlog``'s layout, S rows)."""
+    (``eventlog``'s layout, S rows). With `score` the launch is
+    ``pvt_trace_score``, and the tallies also hold ``fate_scores`` [11, CH]
+    and ``rec_scores`` [max(R, 1), CH] (float64 sums of float32 path
+    scores) and ``fate_abs``, ``rec_abs``, the sums of their addends'
+    magnitudes (``check.score_runs_bound``). A block keeps its score sums
+    in shared memory when they fit beside its tallies, else it adds them
+    straight to the totals (``last_trace["shared_scores"]`` says which).
+    With `per_photon` (`score`, index_offset 0) the kernel also writes
+    each photon's record, returned as the twin's ``photon_scores``,
+    ``photon_fate`` and ``photon_steps`` (no ``photon_slack``)."""
     if _on_cpu(st):
         return tracer.trace_eager(
             st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-            maxpathlength, record_every, max_events,
+            maxpathlength, record_every, max_events, score, per_photon,
         )
+    if per_photon and (not score or index_offset):
+        raise ValueError("per_photon: needs score=True and index_offset 0")
     _check_scene(st)
     dev = st["node_f"].device
+    threads = n if lanes is None else min(lanes, n)
     nxt = torch.full((1,), index_offset, device=dev, dtype=torch.int64)
     fates = torch.zeros(physics.N_FATES, device=dev, dtype=torch.int64)
     longest = torch.zeros(1, device=dev, dtype=torch.int32)
     total_steps = torch.zeros(1, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
-    info = (ctypes.c_longlong * 3)()
+    info = (ctypes.c_longlong * 4)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
+    args = (
+        ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
+        nxt.data_ptr(), fates.data_ptr(), longest.data_ptr(), total_steps.data_ptr(),
+        ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc),
+    )
+    if score:
+        sums, desc = score_sums(st, resident_threads(dev, threads))
+        if per_photon:
+            CH = score_ch.n_channels(st)
+            photon = torch.zeros((CH + 2, n), device=dev, dtype=torch.float32)
+            photon[CH] = -1.0
+            desc.photon, desc.photon_n = photon.data_ptr(), n
+        args += (ctypes.byref(desc),)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    rc = library().pvt_trace(
-        ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n,
-        n if lanes is None else min(lanes, n), nxt.data_ptr(),
-        fates.data_ptr(), longest.data_ptr(), total_steps.data_ptr(),
-        ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc), info,
-        _stream(),
-    )
-    _raise_on(rc, "pvt_trace")
+    entry = library("score").pvt_trace_score if score else library().pvt_trace
+    rc = entry(*args, info, _stream())
+    _raise_on(rc, "pvt_trace_score" if score else "pvt_trace")
     stop.record()
     launches["pvt_trace"] += 1
     if log_desc.n_slots:
         launches["pvt_trace_log"] += 1
+    if score:
+        launches["pvt_trace_score"] += 1
+        res.update(score_results(sums))
+    if per_photon:
+        res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
+                   photon_steps=photon[CH + 1].long())
     last_trace.update(
         threads=info[0], shared_bytes=info[1], shared_bins=info[2],
-        total_steps=int(total_steps.item()), ms=start.elapsed_time(stop),
+        shared_scores=bool(info[3]), total_steps=int(total_steps.item()),
+        ms=start.elapsed_time(stop),
     )
     res["bins"] = res["bins"][:st["meta"]["total_bins"]]
     return fates, int(longest.item()), res, log if log_desc.n_slots else None
+
+
+def resident_threads(device, threads):
+    """The most threads pvt_trace can have resident on `device`, at most
+    `threads`, in whole blocks of 256 (the rows a score run allocates)."""
+    props = torch.cuda.get_device_properties(device)
+    cap = props.multi_processor_count * props.max_threads_per_multi_processor
+    return max(256, (min(threads, cap) + 255) // 256 * 256)
+
+
+def score_sums(st, stride):
+    """Zeroed K12 outputs of a score launch with `stride` lanes: the
+    per-lane rows [CH, stride] float32 and the float64 totals
+    ``fate_scores`` [2, 11, CH] and ``rec_scores`` [2, max(R, 1), CH]
+    (signed sums, then magnitudes), with their ctypes descriptor (no
+    per-photon records; the launch decides where a block keeps its
+    sums)."""
+    meta, dev = st["meta"], st["node_f"].device
+    CH, R = score_ch.n_channels(st), max(meta["n_rec"], 1)
+    sums = {
+        "rows": torch.empty((CH, stride), device=dev, dtype=torch.float32),
+        "fate": torch.zeros((2, physics.N_FATES, CH), device=dev, dtype=torch.float64),
+        "rec": torch.zeros((2, R, CH), device=dev, dtype=torch.float64),
+    }
+    desc = _Score(sums["rows"].data_ptr(), sums["fate"].data_ptr(), sums["rec"].data_ptr(),
+                  stride, CH, meta["n_comps"], 0)
+    return sums, desc
+
+
+def score_results(sums):
+    """``fate_scores``, ``rec_scores`` and their magnitudes' sums
+    ``fate_abs``, ``rec_abs`` of ``score_sums``' totals."""
+    return {"fate_scores": sums["fate"][0], "fate_abs": sums["fate"][1],
+            "rec_scores": sums["rec"][0], "rec_abs": sums["rec"][1]}
+
+
+def score_step(st, s, scores, maxsteps=1000, emit_method=0, maxpathlength=float("inf")):
+    """One loop step of lanes `s` with score channels: the stepped state
+    and flags (as ``step``) with ``comp_id``, the absorbing component (-1
+    for none), the lanes' new path scores (`scores` [CH, B] plus the
+    step's contributions) and this step's folds, ``fate_scores`` and
+    ``fate_abs`` [11, CH] in float64 (a dict). The twin
+    (``score_step_twin``) on the CPU, ``pvt_score`` on the card."""
+    CH = score_ch.n_channels(st)
+    if _on_cpu(st):
+        return score_step_twin(st, s, scores, maxsteps, emit_method, maxpathlength)
+    _check_scene(st)
+    dev = st["node_f"].device
+    B = s["px"].shape[0]
+    want = _empty_state(B, dev)
+    _check_lanes(s, want, B, dev)
+    if scores.shape != (CH, B) or scores.dtype != torch.float32 or not scores.is_contiguous():
+        raise ValueError(f"scores: need contiguous float32 [{CH}, {B}]")
+    flags = _empty_flags(B, dev)
+    flags["comp_id"] = torch.empty(B, device=dev, dtype=torch.int32)
+    sums = {"rows": scores.clone(),
+            "fate": torch.zeros((2, physics.N_FATES, CH), device=dev, dtype=torch.float64)}
+    desc = _Score(sums["rows"].data_ptr(), sums["fate"].data_ptr(), sums["fate"].data_ptr(), B,
+                  CH, st["meta"]["n_comps"], 0)
+    sc = _scene(st, maxsteps, emit_method, maxpathlength)
+    rc = library("score").pvt_score(
+        ctypes.byref(sc), ctypes.byref(_struct(_State, s, _STATE_PTRS)),
+        ctypes.byref(_struct(_State, want, _STATE_PTRS)),
+        ctypes.byref(_struct(_Flags, flags, _FLAG_PTRS)), B, ctypes.byref(desc),
+        flags["comp_id"].data_ptr(), _stream(),
+    )
+    _raise_on(rc, "pvt_score")
+    launches["pvt_score"] += 1
+    return dict(want, **flags), sums["rows"], {"fate_scores": sums["fate"][0],
+                                               "fate_abs": sums["fate"][1]}
+
+
+def score_step_twin(st, s, scores, maxsteps=1000, emit_method=0, maxpathlength=float("inf")):
+    """The twin of ``pvt_score`` (``score_step``'s CPU path), on the
+    tensors' device; ``out["slack"]`` is this step's slack and the folds
+    also hold ``fate_slack`` (``score.py``)."""
+    out = tracer.step_state(st, s, maxsteps, emit_method, maxpathlength, want_score=True)
+    out["comp_id"] = torch.where(out["absorbed"], out["comp_id"], -1)
+    ds, out["slack"] = score_ch.contributions(st, out, with_slack=True)
+    new = scores + ds
+    f = dict(dtype=torch.float64, device=new.device)
+    CH = new.shape[0]
+    t = {name: torch.zeros((physics.N_FATES, CH), **f)
+         for name in ("fate_scores", "fate_abs", "fate_slack")}
+    t["score_max"] = torch.zeros(CH, **f)
+    score_ch.fold(t, new, out, slack=out["slack"])
+    return out, new, t
+
+
+def fresnel(n1, n2, c):
+    """(dR/dn1, dR/dn2) of the Fresnel reflectivity at (n1, n2, c): the twin
+    ``score.fresnel_dR`` on the CPU, ``pvt_fresnel`` (float32) on the card."""
+    if n1.device.type == "cpu":
+        return score_ch.fresnel_dR(n1, n2, c)
+    for t in (n1, n2, c):
+        if t.dtype != torch.float32 or t.dim() != 1 or t.shape != n1.shape \
+                or not t.is_contiguous() or t.device != n1.device:
+            raise ValueError("fresnel: need contiguous float32 vectors of one length on one card")
+    d1, d2 = torch.empty_like(n1), torch.empty_like(n1)
+    rc = library("score").pvt_fresnel(n1.data_ptr(), n2.data_ptr(), c.data_ptr(), n1.shape[0],
+                                      d1.data_ptr(), d2.data_ptr(), _stream())
+    _raise_on(rc, "pvt_fresnel")
+    launches["pvt_fresnel"] += 1
+    return d1, d2
+
+
+def _check_photons(tab, pos, direction, wav):
+    P, dev = wav.shape[0], tab["node_f"].device
+    for name, t, shape in (("pos", pos, (P, 3)), ("dir", direction, (P, 3)), ("wav", wav, (P,))):
+        if t.shape != shape or t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous float32 {list(shape)} on {dev}")
+
+
+def absorbed(tab, pos, direction, wav, c):
+    """K15 forward: (weights, optical depths) [P] of photons (pos, dir
+    [P, 3], wav [P], float32) through the absorbing nodes `tab`
+    (``absorb.table``) at concentration scale `c` (float32 [1], on the
+    photons' device): the twin on the CPU, ``pvt_absorbed`` on the card."""
+    if wav.device.type == "cpu":
+        dep = absorb.depth(tab, pos, direction, wav)
+        return absorb.weight(c, dep), dep
+    _check_photons(tab, pos, direction, wav)
+    if c.shape != (1,) or c.dtype != torch.float32 or c.device != wav.device:
+        raise ValueError("c: need a float32 [1] on the photons' device")
+    P = wav.shape[0]
+    w, dep = torch.empty_like(wav), torch.empty_like(wav)
+    m = tab["meta"]
+    desc = _Absorbers(tab["node_f"].data_ptr(), tab["node_i"].data_ptr(),
+                      tab["alpha"].data_ptr(), tab["node_i"].shape[0], m["L"], m["x0"], m["dx"])
+    rc = library("diff").pvt_absorbed(ctypes.byref(desc), pos.data_ptr(), direction.data_ptr(),
+                                      wav.data_ptr(), c.data_ptr(), P, w.data_ptr(),
+                                      dep.data_ptr(), _stream())
+    _raise_on(rc, "pvt_absorbed")
+    launches["pvt_absorbed"] += 1
+    return w, dep
+
+
+def absorbed_grad(dep, grad_w, c):
+    """K15 backward: ``sum_i grad_w[i] * c * dep[i] * exp(-c * dep[i])``,
+    the gradient in log_concentration, as a float32 [1]: the twin on the
+    CPU, ``pvt_absorbed_grad`` (float64 sum) on the card."""
+    if dep.device.type == "cpu":
+        return absorb.grad_log_concentration(c, dep, grad_w).reshape(1)
+    for name, t in (("depth", dep), ("grad", grad_w)):
+        if t.dtype != torch.float32 or t.shape != dep.shape or t.dim() != 1 \
+                or not t.is_contiguous() or t.device != dep.device:
+            raise ValueError(f"{name}: need a contiguous float32 vector on the card")
+    out = torch.zeros(1, device=dep.device, dtype=torch.float64)
+    blocks = 4 * torch.cuda.get_device_properties(dep.device).multi_processor_count
+    rc = library("diff").pvt_absorbed_grad(dep.data_ptr(), grad_w.data_ptr(), c.data_ptr(),
+                                           dep.shape[0], blocks, out.data_ptr(), _stream())
+    _raise_on(rc, "pvt_absorbed_grad")
+    launches["pvt_absorbed_grad"] += 1
+    return out.to(torch.float32)

@@ -10,7 +10,9 @@ import numpy as np
 import torch
 
 from pvtrace_tpu_torch import kernels
-from pvtrace_tpu_torch.engine import chebyshev, geometry, history_tally, physics, tally, tracer
+from pvtrace_tpu_torch.engine import absorb, chebyshev, geometry, history_tally, physics, tally
+from pvtrace_tpu_torch.engine import tracer
+from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
 
 # Discrete outcomes of a step that must agree lane by lane.
@@ -56,6 +58,13 @@ OPS_TALLY_MATCH = 12  # facet test, crossing
 OPS_TALLY_NEW = 20  # seen bit, distinct, eight moments
 OPS_TALLY_BIN = 10  # one histogram bin
 OPS_TRIANGLE = 60  # one Möller–Trumbore test: 3 cross products, 4 dots, a division
+OPS_LERP = 10  # one K5b lerp: grid index, clamp, cast, row offset, two loads' lerp
+OPS_FRESNEL_DR = 70  # fresnel_dR: two partials, 8 divisions, a root
+OPS_SCORE_STEP = 20 + OPS_FRESNEL_DR  # component channels of the slab, branch, 4 row adds
+OPS_SCORE_FOLD = 4  # per channel folded: load, compare, two float64 adds
+OPS_CHORD = 60  # one node's transform (24) and chord (box slab test, 36)
+OPS_ABSORBED = 20  # grid lerp, exp, weight
+OPS_ABSORBED_GRAD = 16  # two multiplies, exp, a float64 add
 
 # pvt_mesh against the twin: t1 and t2 within MESH_RTOL relative where the
 # hit counts agree; the counts may differ only on rays that pass within
@@ -77,6 +86,43 @@ LOG_DIVERGED = 1e-2
 # float64, against the kernel's own: SUMS_BOUND and the angle's float32
 # rounding (acos of a float32 cosine), rounded up.
 LOG_SUMS_RTOL = 2e-4
+# K12 against its twin, both float32 on the card: a lane's path score
+# within SCORE_RTOL of its channel's scale (the largest |score| of the
+# twin's lanes) plus the score's slack, which the twin carries with it
+# (``engine/score.py``: K5a's rounding on the component channels, the
+# Fresnel partials' conditioning near the critical angle on the node
+# channels); FMA contraction moves each contribution by ulps.
+SCORE_RTOL = 1e-4
+# Score sums (fate_scores, rec_scores): each addend is a float32 path
+# score and its sign varies, so a bound relative to the sum itself means
+# nothing. The trace kernel against its twin is held photon by photon
+# (``compare_score_records``): a photon's path parted from the twin's
+# where its fate or step count differs, or a channel of its folded score
+# is off by more than SCORE_RTOL of the channel's scale plus its slack;
+# at most SCORE_PARTED of the photons may part. The kernel's sums must
+# equal its own records added up by fate, in float64 (m addends in two
+# orders: 2 m 2**-53 S, S the sum of their magnitudes, fate_abs /
+# rec_abs), and the twin's sums within SCORE_RTOL of S, the folded
+# scores' slack, and twice the channel's largest |score| for each photon
+# that parted. Two kernel runs of the same photons: each photon's
+# float32 score is the same in both (its own steps in order); the kernel
+# adds them in float64, m of them with an error of at most m * 2**-53 * S
+# per run; ``simulate`` returns the sums cast to float32 (2**-24 * S).
+# ``score_runs_bound`` gives that bound.
+SCORE_F64_ULP = 2.0 ** -53
+SCORE_PARTED = 1e-4
+# Fresnel partials in float32 on the card against the twin in float32:
+# SCORE_RTOL of max(|value|, 1) (the partials are sums of O(1) terms that
+# cancel near grazing incidence and at n1 = n2), away from the critical
+# angle, where 1 - ratio^2 s2 is within FRESNEL_SINGULAR of 0 and the
+# square root's slope decides the value.
+FRESNEL_SINGULAR = 1e-3
+# K15 against the plain version, both float32 on the card: weights and
+# depths within ABSORBED_RTOL relative (FMA contraction in the transform
+# and the chord), the gradient within GRAD_RTOL of the sum of its terms'
+# magnitudes (a float32 sum in another order).
+ABSORBED_RTOL = 1e-5
+GRAD_RTOL = 1e-4
 
 
 def require(ok, message):
@@ -286,6 +332,16 @@ def trace_bound(st, n, total_steps, tallies=None):
                 + int(tallies["bins"].sum()) * OPS_TALLY_BIN)
         nbytes += sum(v.numel() * v.element_size() for v in tallies.values())
     return bound(ops, nbytes)
+
+
+def lerp_bound(st, total_steps):
+    """(bound_ms, bound_by) of K5b's own work in a run of `total_steps`
+    steps: one table lerp a step (the container's attenuation, which every
+    step takes; the roulette's, p1's and the emission ICDF's lerps only
+    raise it), and the lerp tables read once."""
+    nbytes = sum(st[name].numel() * 4
+                 for name in ("spec_pack", "ems_icdf_pairs", "light_icdf_pairs"))
+    return bound(total_steps * OPS_LERP, nbytes)
 
 
 def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
@@ -560,3 +616,347 @@ def check_log_tallies(scene, result, rtol=LOG_SUMS_RTOL):
         worst = max(worst, float((np.abs(rec._moments - want._moments) / scale).max()))
     require(worst <= rtol, f"recorder moments off by {worst:.3g} relative from the log's")
     return worst
+
+
+def score_runs_bound(m, S):
+    """``simulate``'s float32 score sums against float64 totals of the
+    same photons added in another order: m addends, S the sum of their
+    magnitudes (``SCORE_F64_ULP``)."""
+    return (2.0 ** -24 + 2 * m * SCORE_F64_ULP) * S
+
+
+def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
+    """A score run of photons [0, n) with per-photon records (`got_t`,
+    `got_fates`: ``kernels.trace(..., per_photon=True)`` on the card or
+    the host build of its device code) against the twin's (`ref_t`:
+    ``tracer.trace_eager(..., per_photon=True)``), by the rules above
+    SCORE_F64_ULP; at most `max_parted` photons may part. Returns a dict:
+    ``parted`` photons, ``record_used`` and ``sums_used``, the largest
+    share of its bound a record and a sum took, and ``max_abs_err`` of the
+    fate_scores against the twin's."""
+    dev = ref_t["fate_scores"].device
+    kf, tf = got_t["photon_fate"].to(dev), ref_t["photon_fate"]
+    require(bool((kf >= 0).all()), "pvt_trace (score): a photon never folded its score")
+    ks, ts = got_t["photon_scores"].to(dev).double(), ref_t["photon_scores"].double()
+    allow = SCORE_RTOL * ts.abs().amax(1, keepdim=True) + ref_t["photon_slack"]
+    off = (ks - ts).abs()
+    parted = (kf != tf) | (got_t["photon_steps"].to(dev) != ref_t["photon_steps"]) \
+        | (off > allow).any(0)
+    n_parted = int(parted.sum())
+    require(n_parted <= max_parted,
+            f"pvt_trace (score): {n_parted} of {n} photons parted from the twin's "
+            f"(limit {max_parted:g})")
+    record_used = float(torch.where(parted[None, :], 0.0, off / allow.clamp(min=1e-30)).max()) \
+        if n_parted < n else 0.0
+    # The kernel's sums against its own records; a photon counted KILL for
+    # want of an adjacent node folds again later (one fate count more each),
+    # and only its last fold is in its record.
+    got = {k: got_t[k].to(dev).double() for k in ("fate_scores", "fate_abs")}
+    own = torch.zeros_like(got["fate_scores"]).index_add_(0, kf, ks.T)
+    own_abs = torch.zeros_like(own).index_add_(0, kf, ks.abs().T)
+    smax = torch.maximum(ref_t["score_max"].double(), ks.abs().amax(1))
+    refolds = int(got_fates.sum()) - n
+    own_allow = 2 * n * SCORE_F64_ULP * torch.maximum(own_abs, got["fate_abs"])
+    own_allow[physics.EV_KILL] += refolds * smax
+    own_off = (got["fate_scores"] - own).abs()
+    require(bool((own_off <= own_allow).all()),
+            f"pvt_trace (score): fate_scores off their records by "
+            f"{float((own_off - own_allow).max()):.3g} past the bound")
+    sums_used = 0.0
+    pairs = [("fate_scores", "fate_abs", "fate_slack")]
+    if ref_t["rec_scores"].shape[0]:
+        pairs.append(("rec_scores", "rec_abs", "rec_slack"))
+    for name, abs_name, slack_name in pairs:
+        a, b = got_t[name].to(dev).double(), ref_t[name].double()
+        a = a[:b.shape[0]]
+        bound_ = SCORE_RTOL * ref_t[abs_name].double() + ref_t[slack_name] \
+            + n_parted * 2.0 * smax
+        d = (a - b).abs()
+        require(bool((d <= bound_).all()),
+                f"pvt_trace (score): {name} off the twin's by "
+                f"{float((d - bound_).max()):.3g} past the bound")
+        sums_used = max(sums_used, float((d / bound_.clamp(min=1e-30)).max()))
+    return {"parted": n_parted, "record_used": record_used, "sums_used": sums_used,
+            "max_abs_err": float((got["fate_scores"] - ref_t["fate_scores"].double())
+                                 .abs().max())}
+
+
+def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_method=0, reps=10):
+    """pvt_score against its twin for `steps` steps from lanes `state`,
+    both fed the twin's previous state and scores: discrete outcomes (the
+    absorbing component among them) differ on at most a fraction
+    `max_discrete` of lanes; on the others, bar the Fresnel lanes at
+    incidence cosines below ``score.GRAZING_C`` (counted), each path score
+    within SCORE_RTOL of its channel's scale plus the step's slack; each
+    step's folds within SCORE_RTOL of their magnitudes, the folded lanes'
+    slack, and the differing and grazing lanes at twice the channel's
+    scale."""
+    B = state["px"].shape[0]
+    CH = score_ch.n_channels(st)
+    s = state
+    dev = state["px"].device
+    scores = torch.zeros((CH, B), device=dev, dtype=torch.float32)
+    # rel: the largest difference over its allowance on the agreeing lanes
+    worst_frac, err, rel, fold_rel, worst_lane = 0.0, 0.0, 0.0, 0.0, ""
+    grazing = 0
+    for k in range(steps):
+        twin, twin_new, twin_t = kernels.score_step_twin(st, s, scores, maxsteps, emit_method)
+        got, got_new, got_t = kernels.score_step(st, s, scores, maxsteps, emit_method)
+        torch.cuda.synchronize()
+        bad = torch.zeros(B, dtype=torch.bool, device=dev)
+        for name in DISCRETE + ("comp_id",):
+            bad |= got[name].long() != twin[name].long()
+        frac = float(bad.sum()) / B
+        worst_frac = max(worst_frac, frac)
+        require(frac <= max_discrete,
+                f"pvt_score step {k}: discrete outcomes differ in {frac:.2e} of lanes")
+        graze = twin["fres_coin"] & (twin["reflecting"] | twin["transmitting"]) \
+            & (twin["c_in"] < score_ch.GRAZING_C) & ~bad
+        grazing += int(graze.sum())
+        bad |= graze
+        scale = twin_new.abs().amax(1, keepdim=True).clamp(min=1e-30).double()
+        allow = SCORE_RTOL * scale + twin["slack"]
+        diff = (got_new - twin_new).abs().double()
+        excess = torch.where(bad[None, :], 0.0, diff - allow)
+        over = float(excess.max())
+        if over > 0.0:
+            c, i = divmod(int(excess.argmax()), B)
+            raise AssertionError(
+                f"pvt_score step {k}: lane {i} channel {c} off by {float(diff[c, i]):.4g} "
+                f"(kernel {float(got_new[c, i]):.6g}, twin {float(twin_new[c, i]):.6g}, "
+                f"before {float(scores[c, i]):.6g}, allowed {float(allow[c, i]):.4g}; "
+                f"n1 {float(twin['n1r'][i])}, n2 {float(twin['n2r'][i])}, "
+                f"c_in {float(twin['c_in'][i])}, R {float(twin['refl_r'][i])}, "
+                f"advance {float(twin['advance'][i])})")
+        good = diff[:, ~bad]
+        if good.numel():
+            err = max(err, float(good.max()))
+            used = torch.where(bad[None, :], 0.0, diff / allow)
+            if float(used.max()) > rel:
+                rel = float(used.max())
+                c, i = divmod(int(used.argmax()), B)
+                worst_lane = (f"step {k} lane {i} channel {c}: kernel "
+                              f"{float(got_new[c, i]):.6g}, twin {float(twin_new[c, i]):.6g}, "
+                              f"allowed {float(allow[c, i]):.3g} (slack "
+                              f"{float(twin['slack'][c, i]):.3g}), nodes "
+                              f"{int(twin['container'][i])} -> {int(twin['adjacent'][i])}, n "
+                              f"{float(twin['n1r'][i]):.4g} -> {float(twin['n2r'][i]):.4g}, c_in "
+                              f"{float(twin['c_in'][i]):.6g}, R {float(twin['refl_r'][i]):.4g}, "
+                              f"advance {float(twin['advance'][i]):.4g}")
+        twin_abs = twin_t["fate_abs"]
+        fold_allow = SCORE_RTOL * twin_abs + twin_t["fate_slack"] \
+            + int(bad.sum()) * 2.0 * scale.T
+        off = (got_t["fate_scores"] - twin_t["fate_scores"]).abs()
+        require(bool((off <= fold_allow).all()),
+                f"pvt_score step {k}: folds off by {float((off - fold_allow).max()):.3g} "
+                f"past the bound")
+        fold_rel = max(fold_rel, float((off / twin_abs.clamp(min=1e-30)).max()))
+        s, scores = {name: twin[name] for name in s}, twin_new
+    report = {
+        "max_abs_err": err,
+        "bound_used": rel,
+        "worst_lane": worst_lane,
+        "fold_rel_err": fold_rel,
+        "discrete_frac": worst_frac,
+        "grazing": grazing,
+        "channels": CH,
+        "ms": cuda_ms(lambda: kernels.score_step(st, s, scores, maxsteps, emit_method), reps),
+        "plain_ms": cuda_ms(lambda: kernels.score_step_twin(st, s, scores, maxsteps, emit_method),
+                            reps),
+    }
+    # pvt_step's bytes, and each lane's CH scores read and written.
+    report["bound_ms"], report["bound_by"] = bound(
+        B * (OPS_STEP + OPS_SCORE_STEP), B * (2 * 61 + 45 + 8 * CH)
+    )
+    return report
+
+
+def fresnel_grid(device, dtype=torch.float32):
+    """(n1, n2, c) on the unit tests' grid: four indices each way, 201
+    cosines from 0 to 1 plus 1 - 1e-7 and 1e-9, and cosines at and next to
+    each critical angle."""
+    ns = [1.0, 1.33, 1.5, 2.4]
+    cs = np.concatenate([np.linspace(0.0, 1.0, 201), [1.0 - 1e-7, 1e-9]])
+    n1, n2, c = (a.ravel() for a in np.meshgrid(ns, ns, cs, indexing="ij"))
+    crit = [(a, b, np.sqrt(1.0 - (b / a) ** 2) + e) for a in ns for b in ns if b < a
+            for e in (0.0, 1e-7, -1e-7, 1e-4, -1e-4)]
+    n1 = np.concatenate([n1, [x[0] for x in crit]])
+    n2 = np.concatenate([n2, [x[1] for x in crit]])
+    c = np.concatenate([c, [x[2] for x in crit]])
+    return tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in (n1, n2, c))
+
+
+def check_fresnel(device, reps=10):
+    """pvt_fresnel against the twin, both float32 on the card, on
+    ``fresnel_grid``: within SCORE_RTOL of max(|twin|, 1) away from the
+    critical angle (FRESNEL_SINGULAR), non-finite where the twin is."""
+    n1, n2, c = fresnel_grid(device)
+    got = kernels.fresnel(n1, n2, c)
+    twin = score_ch.fresnel_dR(n1, n2, c)
+    torch.cuda.synchronize()
+    r64 = n1.double() / n2.double()
+    x = 1.0 - r64 * r64 * torch.clamp(1.0 - c.double() ** 2, 0.0, 1.0)
+    regular = x.abs() > FRESNEL_SINGULAR
+    err = 0.0
+    for g, t in zip(got, twin):
+        fin = torch.isfinite(t) & regular
+        require(bool((torch.isfinite(g) == torch.isfinite(t))[regular].all()),
+                "pvt_fresnel: finite where the twin is not, or the reverse")
+        d = (g - t).abs()[fin] / t.abs()[fin].clamp(min=1.0)
+        err = max(err, float(d.max()))
+    require(err <= SCORE_RTOL, f"pvt_fresnel: off by {err:.3g} > {SCORE_RTOL}")
+    report = {
+        "max_abs_err": err,
+        "points": int(n1.numel()),
+        "singular": int((~regular).sum()),
+        "ms": cuda_ms(lambda: kernels.fresnel(n1, n2, c), reps),
+        "plain_ms": cuda_ms(lambda: score_ch.fresnel_dR(n1, n2, c), reps),
+    }
+    report["bound_ms"], report["bound_by"] = bound(
+        n1.numel() * OPS_FRESNEL_DR, n1.numel() * 20
+    )
+    return report
+
+
+def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
+    """pvt_trace with score channels against the twin, both on the card,
+    n photons: fates (and recorder tallies) as ``check_trace``; the
+    per-photon records and the fate_scores and rec_scores by
+    ``compare_score_records``, at most SCORE_PARTED of the photons
+    parted. The kernel is timed again without its records, the twin with
+    them."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    got, _, got_t, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
+                                     emit_method=emit_method, score=True, per_photon=True)
+    start.record()
+    ref, _, ref_t, _ = tracer.trace_eager(st, seed_words, n, lanes=lanes, maxsteps=maxsteps,
+                                          emit_method=emit_method, score=True, per_photon=True)
+    stop.record()
+    torch.cuda.synchronize()
+    got, ref = got.cpu(), ref.cpu()
+    tol = max(20, n // 500)
+    require(int(got.sum()) == n, f"pvt_trace (score): fates sum to {int(got.sum())}, not {n}")
+    err = int((got - ref).abs().max())
+    require(err <= tol, f"pvt_trace (score): fates {got.tolist()} vs twin {ref.tolist()}")
+    report = compare_score_records(got_t, ref_t, got, n, SCORE_PARTED * n)
+    R = st["meta"]["n_rec"]
+    if R:
+        for name in ("distinct", "cross", "bins"):
+            d = (got_t[name] - ref_t[name]).abs()
+            diff = int(d.max()) if d.numel() else 0
+            require(diff <= tol, f"pvt_trace (score): recorder {name} off by {diff} > {tol}")
+    report.update(fates=got.tolist(), twin_fates=ref.tolist(), fate_scores=got_t["fate_scores"],
+                  twin_fate_scores=ref_t["fate_scores"], plain_ms=start.elapsed_time(stop),
+                  tallies=got_t)
+    again, _, _, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
+                                   emit_method=emit_method, score=True)
+    require(torch.equal(again.cpu(), got), "pvt_trace (score): fates differ between two runs")
+    report.update(ms=kernels.last_trace["ms"], shared_scores=kernels.last_trace["shared_scores"])
+    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None)
+    CH = score_ch.n_channels(st)
+    score_ms = (kernels.last_trace["total_steps"] * OPS_SCORE_STEP + n * CH * OPS_SCORE_FOLD) \
+        / PEAK_OPS_PER_S * 1e3
+    report["bound_ms"], report["bound_by"] = (ops_ms + score_ms, "operations") \
+        if by == "operations" else (ops_ms, by)
+    return report
+
+
+def check_chunk_scores(st, seed_words, data, n, chunk=1 << 20):
+    """The score sums of one ``simulate(score=True)`` run of photons
+    [0, n) (`data`) against the same photons traced by pvt_trace in runs
+    of `chunk`: fates and recorder counts equal, and fate_scores and
+    rec_scores within ``score_runs_bound`` of the runs' float64 totals.
+    Returns the largest difference over its bound."""
+    total = None
+    for first in range(0, n, chunk):
+        fates, _, t, _ = kernels.trace(st, seed_words, min(chunk, n - first),
+                                       index_offset=first, score=True)
+        t = dict(t, fates=fates)
+        total = t if total is None else {k: total[k] + t[k] for k in t}
+    fates = total["fates"].cpu()
+    require(bool((torch.as_tensor(data["fates"]) == fates).all()),
+            f"{n} photons against runs of {chunk}: fates differ")
+    worst = 0.0
+    R = st["meta"]["n_rec"]
+    rows = [("fate_scores", "fate_abs", fates.double())]
+    if R:
+        distinct = total["distinct"][:R].cpu()
+        require(bool((torch.as_tensor(data["rec_distinct"]) == distinct).all()),
+                f"{n} photons against runs of {chunk}: rec_distinct differs")
+        rows.append(("rec_scores", "rec_abs", distinct.double()))
+    for name, abs_name, m in rows:
+        got = torch.as_tensor(data[name]).double()
+        ref = total[name][:got.shape[0]].cpu()
+        allow = score_runs_bound(m[:, None], total[abs_name][:got.shape[0]].cpu())
+        off = (got - ref).abs()
+        require(bool((off <= allow).all()),
+                f"{n} photons against runs of {chunk}: {name} off by "
+                f"{float((off - allow).max()):.3g} past the bound")
+        worst = max(worst, float((off / allow.clamp(min=1e-300)).max()))
+    return worst
+
+
+def absorbed_photons(st, seed_words, P):
+    """P photons of the scene's lights, as pvt_emit makes them: float32
+    positions and directions [P, 3] and wavelengths [P]."""
+    s = kernels.emit(st, seed_words, 0, P)
+    pos = torch.stack([s["px"], s["py"], s["pz"]], 1).contiguous()
+    direction = torch.stack([s["dx"], s["dy"], s["dz"]], 1).contiguous()
+    return pos, direction, s["wav"].contiguous()
+
+
+def check_absorbed(tab, pos, direction, wav, log_c=0.0, reps=10):
+    """pvt_absorbed and pvt_absorbed_grad against the plain version
+    (``engine/absorb.py``) on the card: weights and depths within
+    ABSORBED_RTOL relative, the gradient (cotangents 1/P, as a mean's)
+    within GRAD_RTOL of the sum of its terms' magnitudes."""
+    P = wav.shape[0]
+    c = torch.exp(torch.full((1,), log_c, device=wav.device, dtype=torch.float32))
+    grad_w = torch.full_like(wav, 1.0 / P)
+    w, dep = kernels.absorbed(tab, pos, direction, wav, c)
+    g = kernels.absorbed_grad(dep, grad_w, c)
+    ref_dep = absorb.depth(tab, pos, direction, wav)
+    ref_w = absorb.weight(c, ref_dep)
+    terms = grad_w * (c * ref_dep * torch.exp(-c * ref_dep))
+    torch.cuda.synchronize()
+    rel_w = float(((w - ref_w).abs() / ref_w.abs().clamp(min=1e-30)).max())
+    rel_d = float(((dep - ref_dep).abs() / ref_dep.abs().clamp(min=1e-30)).max())
+    rel_g = float((g.double() - terms.double().sum()).abs() / terms.abs().double().sum())
+    require(rel_w <= ABSORBED_RTOL and rel_d <= ABSORBED_RTOL,
+            f"pvt_absorbed: weights off by {rel_w:.3g}, depths by {rel_d:.3g} > {ABSORBED_RTOL}")
+    require(rel_g <= GRAD_RTOL, f"pvt_absorbed_grad: off by {rel_g:.3g} > {GRAD_RTOL}")
+    A = tab["node_i"].shape[0]
+    report = {
+        "max_abs_err": float((w - ref_w).abs().max()),
+        "max_rel_err": rel_w,
+        "grad_rel_err": rel_g,
+        "grad_abs_err": float((g.double() - terms.double().sum()).abs()),
+        "absorbed": float(w.mean()),
+        "ms": cuda_ms(lambda: kernels.absorbed(tab, pos, direction, wav, c), reps),
+        "plain_ms": cuda_ms(lambda: absorb.weight(c, absorb.depth(tab, pos, direction, wav)),
+                            reps),
+        "grad_ms": cuda_ms(lambda: kernels.absorbed_grad(dep, grad_w, c), reps),
+        "grad_plain_ms": cuda_ms(lambda: absorb.grad_log_concentration(c, ref_dep, grad_w),
+                                 reps),
+    }
+    # Reads pos, dir, wav (28 bytes), writes w and depth (8); the grad
+    # reads depth and the cotangent (8 bytes) and writes one float64.
+    report["bound_ms"], report["bound_by"] = bound(P * (A * OPS_CHORD + OPS_ABSORBED), P * 36)
+    report["grad_bound_ms"], report["grad_bound_by"] = bound(P * OPS_ABSORBED_GRAD, P * 8 + 8)
+    return report
+
+
+def surrogate_sgd(weight_fn, pos, direction, wav, steps=5, target=0.8, lr=0.1):
+    """`steps` SGD steps of ``make_training_step``'s single-shard
+    arithmetic: loss = (mean(w) - target)^2 over the photons, gradient in
+    log_concentration by torch.autograd, log_c -= lr * grad. `weight_fn`
+    (log_c, pos, dir, wav) -> weights. Returns [(log_c, loss, grad)]."""
+    log_c = torch.zeros((), device=wav.device, dtype=torch.float32, requires_grad=True)
+    history = []
+    for _ in range(steps):
+        loss = (weight_fn(log_c, pos, direction, wav).mean() - target) ** 2
+        (grad,) = torch.autograd.grad(loss, log_c)
+        history.append((float(log_c.detach()), float(loss.detach()), float(grad)))
+        with torch.no_grad():
+            log_c -= lr * grad
+    return history

@@ -3,13 +3,14 @@
 // One photon per thread, all state in registers. Every function is a
 // line-for-line port of the eager twin in pvtrace_tpu_torch/engine
 // (rng.py, emit.py, geometry.py, spectral.py, chebyshev.py, physics.py,
-// tally.py, eventlog.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
+// tally.py, eventlog.py, score.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
 // only; no fast-math: log1p, sqrt, exp, acos and division stay IEEE
 // (nvcc's default FMA contraction moves results by ulps).
 //
 // The functions are also host-callable (PVT_FN), so the arithmetic can
 // be compiled by a host C++ compiler and checked without a card.
 #pragma once
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -143,6 +144,9 @@ enum { OVR_MIRROR = 0, OVR_ABSORB = 1, OVR_LAMBERTIAN = 2 };
 // Recorder selectors (engine/recorder.py EVENTS)
 enum { SEL_NONE = -1, REC_ENTERING = 0, REC_ESCAPING = 1, REC_REFLECTED = 2, REC_LOST = 3,
        REC_REACTED = 4, REC_KILLED = 5, REC_EXIT = 6 };
+// Fate counter slots (the Event values, and one for photons that left
+// without a hit)
+enum { N_FATES = 11, FATE_NO_HIT = 10 };
 // Event kinds of the log (light/event.py Event values)
 enum { EV_GENERATE = 0, EV_REFLECT = 1, EV_TRANSMIT = 2, EV_ABSORB = 3, EV_NONRADIATIVE = 4,
        EV_SCATTER = 5, EV_EMIT = 6, EV_EXIT = 7, EV_REACT = 8, EV_KILL = 9 };
@@ -246,10 +250,17 @@ struct StepOut {
   int hit, container, sel, tnode;
   bool exit_mask, losing, reacting, kills, no_hit_term, have_n, surface_event;
   float wn[3], c_in;  // hit surface's world normal and |cos| on surface events
-  // What the event log records besides (step_one<kTally, true> only)
+  // What the event log records besides (step_one with kLog), and what the
+  // score channels read (with kScore; the shared fields with either)
   int adjacent, comp, source_pre;
   bool kill_max, adj_bad, absorbed, emitting, scattering, reflecting, transmitting;
   float dur_adv;
+  // The score channels' inputs (kScore): alive after the no-hit and kill
+  // masks, the distance moved, the container's total attenuation, and on
+  // a surface event the two indices, the reflectivity after the overrides
+  // and whether the reflect/transmit was a Fresnel coin.
+  bool moving, fres_coin;
+  float advance, alpha, n1r, n2r, refl_r;
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
@@ -306,6 +317,43 @@ struct PvtLog {
   int max_events;
   unsigned int every;
   unsigned long long first;
+};
+
+// K12: a score run's accumulators (field order mirrored by ctypes):
+// per-thread path scores `rows` [ch, stride] (channel-major: thread t's
+// channel c at c * stride + t), and the float64 totals, each [.., ch]
+// twice over: the signed sums, then the sums of the addends' magnitudes
+// (fate_scores [2, 11, ch], rec_scores [2, n_rec, ch]). `shared`, set by
+// the launch: a block adds into shared memory and then the totals (1), or
+// straight into the totals (0, when ch is too large). `photon`, when not
+// null, gets each photon's record at its fold ([ch + 2, photon_n], photon
+// id p in column p: its path score, its fate, its step count; the last
+// fold wins), which lets a check compare the kernel with its twin photon
+// by photon.
+struct PvtScore {
+  float* rows;
+  double* fate_scores;
+  double* rec_scores;
+  long long stride;
+  int ch;
+  int n_comps;
+  int shared;
+  float* photon;
+  long long photon_n;
+};
+
+// One thread's view of them: its row, the accumulators it adds to (a
+// block's shared copies or the totals), and the per-photon records.
+struct ScoreAcc {
+  float* row;
+  double* fate;
+  double* rec;
+  long long stride;
+  int ch;
+  int n_comps;
+  int n_rec;
+  float* photon;
+  long long photon_n;
 };
 
 // ---------------------------------------------------------------------
@@ -759,10 +807,12 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 // With kTally it also gives the recorder selectors and takes the world
 // normal on EXIT; without, out.sel is SEL_NONE and the normal is taken
 // only where the surface needs it. With kLog it also gives what the event
-// log records (StepOut's last fields); without, those are not set. kMesh
-// false: the scene has no mesh.
-template <bool kTally, bool kLog = false, bool kMesh = true>
+// log records (StepOut's middle fields); without, those are not set. kMesh
+// false: the scene has no mesh. With kScore it also gives the score
+// channels' inputs (StepOut's last fields and the shared ones).
+template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false>
 PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out) {
+  constexpr bool kExtras = kLog || kScore;
   Hits h;
   intersect_nodes<kMesh>(sc, p, h);
   out.hit = h.hit;
@@ -793,6 +843,15 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
       alpha > PVT_ALPHA_ZERO ? -log1pf(-u[0]) / fmaxf(alpha, 1e-30f) : PVT_INF;
   const bool absorbed = alive && !exit_mask && depth < h.t0;
   const float advance = absorbed ? depth : h.t0;
+  if (kScore) {
+    out.moving = alive;
+    out.advance = advance;
+    out.alpha = alpha;
+    out.fres_coin = false;
+    out.n1r = n_cont;
+    out.n2r = 1.0f;
+    out.refl_r = 0.0f;
+  }
   if (alive) {
     p.px = p.px + p.dx * advance;
     p.py = p.py + p.dy * advance;
@@ -803,9 +862,9 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
   if (kLog) {
     out.dur_adv = p.dur;
     out.source_pre = p.source;
-    out.comp = -1;
     out.emitting = out.scattering = false;
   }
+  if (kExtras) out.comp = -1;
 
   // Volume event: component roulette, quantum-yield coin, re-emission.
   bool nonrad = false;
@@ -820,8 +879,8 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     const int ctype = ci[CI_TYPE];
     const bool is_lum = ctype == COMP_LUMINOPHORE;
     const bool radiative = (is_lum || ctype == COMP_SCATTERER) && u[2] < cf[CF_QY];
+    if (kExtras) out.comp = cid;
     if (kLog) {
-      out.comp = cid;
       out.emitting = radiative && is_lum;
       out.scattering = radiative && !is_lum;
     }
@@ -905,8 +964,9 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
       const float s2 = clampf(1.0f - c_in * c_in, 0.0f, 1.0f);
       const float ratio = n1r / n2r;
       float r = 0.0f;
+      bool tir = false;
       if (is_fresnel) {
-        const bool tir = n2r < n1r && s2 * ratio * ratio > 1.0f;
+        tir = n2r < n1r && s2 * ratio * ratio > 1.0f;
         const float kterm = sqrtf(fmaxf(1.0f - ratio * ratio * s2, 0.0f));
         const float rs = (n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm);
         const float rp = (n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in);
@@ -914,6 +974,11 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
       }
       if (mode == OVR_MIRROR || mode == OVR_LAMBERTIAN) r = 1.0f;
       if (mode == OVR_ABSORB) r = 0.0f;
+      if (kScore) {
+        out.n2r = n2r;
+        out.refl_r = r;
+        out.fres_coin = is_fresnel && !tir && mode < 0;
+      }
       reflecting = u[7] < r;
       if (reflecting) {
         const float two_d = 2.0f * c_in;
@@ -977,7 +1042,7 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     out.surface_event = exit_mask || reflecting || transmitting;
   }
 
-  if (kLog) {
+  if (kExtras) {
     out.adjacent = h.adjacent;
     out.kill_max = kill_max;
     out.adj_bad = adj_bad;
@@ -991,6 +1056,122 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
 }
 
 // ---------------------------------------------------------------------
+// K12: score-function channels (engine/score.py). Replaces the score
+// block of body, _fresnel_R_scalar and _fresnel_dR (pvtrace_tpu/engine/
+// tracer.py); the reference takes dR/dn with jax.vmap(jax.grad), the port
+// writes the partials out in the twin's order.
+
+// NaN to 0 and +-inf to +-FLT_MAX (jnp.nan_to_num in float32).
+PVT_FN float pvt_nan_to_num(float x) {
+  if (isnan(x)) return 0.0f;
+  if (isinf(x)) return x > 0.0f ? FLT_MAX : -FLT_MAX;
+  return x;
+}
+
+// dR/dn1 and dR/dn2 of the unpolarised Fresnel reflectivity from n1 into
+// n2 at incidence cosine c, with the reference's rule for the clip of
+// 1 - ratio^2 s2 at 0 (slope 1 above, 1/2 at the tie, 0 below): inf or
+// NaN where that term is 0, as the reference's are.
+PVT_FN void fresnel_dR(float n1, float n2, float c, float* d) {
+  const float s2 = clampf(1.0f - c * c, 0.0f, 1.0f);
+  const float ratio = n1 / n2;
+  const float x = 1.0f - ratio * ratio * s2;
+  const float slope = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+  const float k = sqrtf(fmaxf(x, 0.0f));
+  const float half_over_k = 0.5f / k;
+  const float A = n1 * c - n2 * k, B = n1 * c + n2 * k;
+  const float C = n1 * k - n2 * c, D = n1 * k + n2 * c;
+  const float qs = A / B, qp = C / D;
+  for (int j = 0; j < 2; ++j) {
+    const float dratio = j == 0 ? 1.0f / n2 : -n1 / (n2 * n2);
+    const float dn1 = j == 0 ? 1.0f : 0.0f, dn2 = j == 0 ? 0.0f : 1.0f;
+    const float dk = slope * (-(2.0f * ratio * dratio) * s2) * half_over_k;
+    const float dA = dn1 * c - (dn2 * k + n2 * dk);
+    const float dB = dn1 * c + (dn2 * k + n2 * dk);
+    const float dC = (dn1 * k + n1 * dk) - dn2 * c;
+    const float dD = (dn1 * k + n1 * dk) + dn2 * c;
+    const float dqs = dA / B - dB * A / (B * B);
+    const float dqp = dC / D - dD * C / (D * D);
+    d[j] = 0.5f * (2.0f * qs * dqs + 2.0f * qp * dqp);
+  }
+}
+
+// Adds one step's contributions (step output o with kScore; the incoming
+// wavelength wav_in) to a photon's score row. Component channel c of the
+// container: -a_c * advance on a lane that moved, a_c being c's slot minus
+// the previous one at wav_in (the last slot is o.alpha, the others are
+// evaluated again, K5a or K5b), plus 1 where c absorbed the photon. Node
+// channels of the container and the adjacent node on a Fresnel coin:
+// nan_to_num(dR/dn * branch), branch 1/max(R, 1e-12) on a reflection and
+// -1/max(1 - R, 1e-12) on a transmission. Touches at most K + 2 channels.
+PVT_FN void score_step(const PvtScene& sc, const StepOut& o, float wav_in, const ScoreAcc& sa) {
+  if (o.moving) {
+    const int* ci = sc.node_i + o.container * NODE_I;
+    const int K = ci[NI_NCOMP], comp0 = ci[NI_COMP0];
+    if (K > 0) {
+      const float posf = (wav_in - sc.grid_x0) / sc.grid_dx;
+      const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
+      const float frac = clampf(posf - (float)i0, 0.0f, 1.0f);
+      const int row = o.container * sc.grid_n + i0;
+      const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
+      float prev = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        const float cum = k == K - 1 ? o.alpha : spec_slot(sc, o.container, row, k, frac, t);
+        const float a = k > 0 ? cum - prev : cum;
+        prev = cum;
+        float ds = -a * o.advance;
+        if (o.absorbed && o.comp == comp0 + k) ds += 1.0f;
+        sa.row[(comp0 + k) * sa.stride] += ds;
+      }
+    }
+  }
+  if (o.fres_coin && (o.reflecting || o.transmitting)) {
+    float d[2];
+    fresnel_dR(o.n1r, o.n2r, o.c_in, d);
+    const float branch =
+        o.reflecting ? 1.0f / fmaxf(o.refl_r, 1e-12f) : -1.0f / fmaxf(1.0f - o.refl_r, 1e-12f);
+    sa.row[(sa.n_comps + o.container) * sa.stride] += pvt_nan_to_num(d[0] * branch);
+    if (o.adjacent >= 0)
+      sa.row[(sa.n_comps + o.adjacent) * sa.stride] += pvt_nan_to_num(d[1] * branch);
+  }
+}
+
+// The fate a step's output terminates the photon with, the reference's
+// last mask winning (EXIT, NONRADIATIVE, REACT, the two KILLs, NO_HIT),
+// or -1. A KILL for want of an adjacent node leaves the photon alive.
+PVT_FN int score_fate(const StepOut& o) {
+  int f = -1;
+  if (o.exit_mask) f = EV_EXIT;
+  if (o.losing) f = EV_NONRADIATIVE;
+  if (o.reacting) f = EV_REACT;
+  if (o.kills) f = EV_KILL;
+  if (o.no_hit_term) f = FATE_NO_HIT;
+  return f;
+}
+
+// Adds the photon's score row into slot `slot` of `acc` ([2, n, ch]: the
+// signed sums, then the magnitudes' sums), in float64; zero channels are
+// skipped.
+PVT_FN void score_add(const ScoreAcc& sa, double* acc, int n, int slot) {
+  for (int c = 0; c < sa.ch; ++c) {
+    const float v = sa.row[c * sa.stride];
+    if (v == 0.0f) continue;
+    PVT_ADD(acc + slot * sa.ch + c, (double)v);
+    PVT_ADD(acc + (n + slot) * sa.ch + c, (double)fabsf(v));
+  }
+}
+
+// Writes photon `pid`'s record (its path score, `fate` and `steps`) when
+// the run keeps per-photon records.
+PVT_FN void score_record(const ScoreAcc& sa, uint32_t pid, int fate, int steps) {
+  if (!sa.photon || (long long)pid >= sa.photon_n) return;
+  const long long n = sa.photon_n;
+  for (int c = 0; c < sa.ch; ++c) sa.photon[c * n + pid] = sa.row[c * sa.stride];
+  sa.photon[sa.ch * n + pid] = (float)fate;
+  sa.photon[(sa.ch + 1) * n + pid] = (float)steps;
+}
+
+// ---------------------------------------------------------------------
 // K9: add one event of a photon (step output o, post-step state p) to the
 // recorders that match it. The (tnode, sel) CSR index lists the
 // candidates; a facet recorder also needs the world normal within atol
@@ -1000,8 +1181,10 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
 // frame of body_fast (pvtrace_tpu/engine/tracer.py): the [B, R] match
 // matrix becomes a walk over the few recorders of this (node, event).
 // Bound by atomics: threads of a block add to the same few addresses.
+// With score channels (sa), a first match also adds the photon's path
+// score to the recorder's rec_scores.
 PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, uint32_t* seen,
-                        const StepOut& o, const Photon& p) {
+                        const StepOut& o, const Photon& p, const ScoreAcc* sa = nullptr) {
   if (o.sel < 0) return;
   const int key = o.tnode * N_SEL + o.sel;
   const int q1 = sc.rec_csr[key + 1];
@@ -1031,6 +1214,7 @@ PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, uint32_t* seen,
     if (seen[r >> 5] & bit) continue;
     seen[r >> 5] |= bit;
     const unsigned int rays = pvt_inc(acc.distinct + r);
+    if (sa) score_add(*sa, sa->rec, sa->n_rec, r);
     for (int k = 0; k < 8; ++k) PVT_ADD(acc.sums + 8 * r + k, moments[k]);
     if (rays % SUMS_FLUSH == 0)
       for (int k = 0; k < 8; ++k)
@@ -1103,18 +1287,7 @@ PVT_FN void emit_lane(const PvtScene& sc, uint32_t s0, uint32_t s1,
   store_lane(out, i, p, k0, k1);
 }
 
-// pvt_step: count the step, draw, take one physics step of lane i.
-PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
-                      const PvtFlags& fl, long long i) {
-  Photon p;
-  load_lane(in, i, p);
-  p.count += p.alive ? 1 : 0;
-  const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
-  float u[8];
-  pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
-  StepOut o;
-  step_one<true>(sc, p, u, o);
-  store_lane(out, i, p, k0, k1);
+PVT_FN void store_flags(const PvtFlags& fl, long long i, const StepOut& o) {
   fl.hit[i] = o.hit;
   fl.container[i] = o.container;
   fl.exit_mask[i] = o.exit_mask;
@@ -1130,6 +1303,44 @@ PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& ou
   fl.wny[i] = o.wn[1];
   fl.wnz[i] = o.wn[2];
   fl.c_in[i] = o.c_in;
+}
+
+// pvt_step: count the step, draw, take one physics step of lane i.
+PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
+                      const PvtFlags& fl, long long i) {
+  Photon p;
+  load_lane(in, i, p);
+  p.count += p.alive ? 1 : 0;
+  const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
+  float u[8];
+  pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
+  StepOut o;
+  step_one<true>(sc, p, u, o);
+  store_lane(out, i, p, k0, k1);
+  store_flags(fl, i, o);
+}
+
+// pvt_score: pvt_step with the score channels: lane i's step, its
+// contributions added to its score (row i of sa, updated in place), and
+// the score folded into sa.fate where the step terminated the photon;
+// comp[i] gets the component that absorbed it (-1 for none).
+PVT_FN void score_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
+                       const PvtFlags& fl, long long i, const ScoreAcc& sa, int* comp) {
+  Photon p;
+  load_lane(in, i, p);
+  p.count += p.alive ? 1 : 0;
+  const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
+  const float wav_in = p.wav;
+  float u[8];
+  pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
+  StepOut o;
+  step_one<true, false, true, true>(sc, p, u, o);
+  store_lane(out, i, p, k0, k1);
+  store_flags(fl, i, o);
+  comp[i] = o.absorbed ? o.comp : -1;
+  score_step(sc, o, wav_in, sa);
+  const int fate = score_fate(o);
+  if (fate >= 0) score_add(sa, sa.fate, N_FATES, fate);
 }
 
 // pvt_tally: add the event of lane i (post-step state s, selectors fl)
@@ -1215,10 +1426,16 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // kLog, when it is recorded, its events to *lg: GENERATE at emission,
 // then each step's records, and the event-budget KILL (a recorded photon
 // with max_events - 1 records or more dies before its next step, counted
-// in f.kill). kMesh false: the scene has no mesh. Returns its step count.
-template <bool kTally, bool kLog, bool kMesh>
+// in f.kill). kMesh false: the scene has no mesh. With kScore the photon's
+// path score lives in the thread's row of *sa: zeroed at emission, the
+// step's contributions added after each step, folded at its fate where
+// the step terminated it (or at KILL by the event budget), its record
+// written where the run keeps them, and added by the recorders at a
+// first match. Returns its step count.
+template <bool kTally, bool kLog, bool kMesh, bool kScore = false>
 PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
-                        FateCounts& f, const PvtTally* acc, const PvtLog* lg) {
+                        FateCounts& f, const PvtTally* acc, const PvtLog* lg,
+                        const ScoreAcc* sa = nullptr) {
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
@@ -1226,6 +1443,8 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
   uint32_t seen[SEEN_WORDS];
   if (kTally)
     for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
+  if (kScore)
+    for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
   long long slot = -1;
   int nev = 0;
   if (kLog && pid % lg->every == 0) {
@@ -1244,6 +1463,10 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
       log_record(*lg, slot, nev, EV_KILL, -1, -1, -1, -1, p.source, pos, dir, nullptr, p.wav,
                  p.trav, p.dur);
       f.kill += 1;
+      if (kScore) {
+        score_add(*sa, sa->fate, N_FATES, EV_KILL);
+        score_record(*sa, pid, EV_KILL, p.count);
+      }
       break;
     }
     const float d_in[3] = {p.dx, p.dy, p.dz};
@@ -1252,13 +1475,21 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
-    step_one<kTally, kLog, kMesh>(sc, p, u, o);
+    step_one<kTally, kLog, kMesh, kScore>(sc, p, u, o);
     f.exit += o.exit_mask;
     f.nonrad += o.losing;
     f.react += o.reacting;
     f.kill += o.kills;
     f.no_hit += o.no_hit_term;
-    if (kTally) tally_event(sc, *acc, seen, o, p);
+    if (kScore) {
+      score_step(sc, o, wav_in, *sa);
+      const int fate = score_fate(o);
+      if (fate >= 0) {
+        score_add(*sa, sa->fate, N_FATES, fate);
+        score_record(*sa, pid, fate, p.count);
+      }
+    }
+    if (kTally) tally_event(sc, *acc, seen, o, p, kScore ? sa : nullptr);
     if (kLog && slot >= 0) log_step(*lg, slot, nev, o, p, d_in, wav_in, src_in);
   }
   f.steps += (unsigned long long)p.count;

@@ -16,6 +16,14 @@ from pvtrace_tpu_torch.kernels import build
 
 HARNESS = r"""
 #include "tracer.cuh"
+#include "diff.cuh"
+template <bool kTally, bool kLog>
+void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                     unsigned long long total, const PvtLog* lg, FateCounts& f,
+                     const PvtTally* acc, const ScoreAcc* sa) {
+  for (unsigned long long id = off; id < total; ++id)
+    trace_photon<kTally, kLog, true, true>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa);
+}
 extern "C" {
 void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
             long long B, const PvtState* out) {
@@ -51,6 +59,49 @@ void h_mesh(const float* tri, int n_tris, float eps, const float* o, const float
             long long B, float* t1, float* t2, int* cnt, float* nrm) {
   for (long long i = 0; i < B; ++i) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
+void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
+             long long B, float* rows, int ch, int n_comps, double* fate_scores, int* comp) {
+  for (long long i = 0; i < B; ++i) {
+    const ScoreAcc sa = {rows + i, fate_scores, nullptr, B, ch, n_comps, 0};
+    score_lane(*sc, *in, *out, *fl, i, sa, comp);
+  }
+}
+void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                   unsigned long long total, const PvtLog* lg, long long* fates,
+                   unsigned long long* cross, float* sums, unsigned* distinct,
+                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
+                   double* fate_scores, double* rec_scores, float* photon) {
+  FateCounts f = {0, 0, 0, 0, 0, 0};
+  const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
+  const ScoreAcc sa = {row, fate_scores, rec_scores, 1, ch, n_comps, sc->n_rec, photon,
+                       (long long)total};
+  if (sc->n_rec > 0) {
+    if (lg->n_slots > 0) h_trace_score_t<true, true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
+    else h_trace_score_t<true, false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
+  } else {
+    if (lg->n_slots > 0) h_trace_score_t<false, true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
+    else h_trace_score_t<false, false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
+  }
+  fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
+  fates[9] += f.kill; fates[10] += f.no_hit;
+}
+void h_fresnel(const float* n1, const float* n2, const float* c, long long n, float* d1,
+               float* d2) {
+  for (long long i = 0; i < n; ++i) {
+    float d[2];
+    fresnel_dR(n1[i], n2[i], c[i], d);
+    d1[i] = d[0];
+    d2[i] = d[1];
+  }
+}
+void h_absorbed(const PvtAbsorbers* a, const float* pos, const float* dir, const float* wav,
+                const float* c, long long P, float* w, float* depth, const float* grad_w,
+                float* grad) {
+  for (long long i = 0; i < P; ++i) {
+    absorbed_lane(*a, pos, dir, wav, c, i, w, depth);
+    grad[i] = absorbed_grad_lane(depth, grad_w, *c, i);
+  }
+}
 }
 """
 
@@ -80,6 +131,12 @@ def build_library(directory):
     h.h_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
     h.h_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_mesh):
+    h.h_score.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32, vp, vp]
+    h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                i32, vp, vp, vp]
+    h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
+    h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
+    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_mesh, h.h_score,
+               h.h_trace_score, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h

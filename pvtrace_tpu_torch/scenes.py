@@ -31,6 +31,7 @@ _NAMES = {
     "Material": ("material.material", "Material"),
     "FacetOverride": ("material.surface", "FacetOverride"),
     "FacetOverrideSurfaceDelegate": ("material.surface", "FacetOverrideSurfaceDelegate"),
+    "NullSurfaceDelegate": ("material.surface", "NullSurfaceDelegate"),
     "Surface": ("material.surface", "Surface"),
     "OVERRIDE_ABSORB": ("material.surface", "OVERRIDE_ABSORB"),
     "OVERRIDE_LAMBERTIAN_MIRROR": ("material.surface", "OVERRIDE_LAMBERTIAN_MIRROR"),
@@ -59,16 +60,18 @@ def api(ns=None):
     return SimpleNamespace(**out)
 
 
-def lsc_slab(ns=None):
+def lsc_slab(ns=None, scale_bg=1.0):
     """The LSC benchmark scene of the JAX package's ``bench.py``: a 5x5x1
     cm slab (n = 1.5) with a Lumogen F Red 305 dye (peak absorption 10
     cm^-1, quantum yield 0.9) and a 0.3 cm^-1 background absorber, in a
-    25 cm world sphere, lit by a 555 nm cone (20 degrees) from 3 cm above."""
+    25 cm world sphere, lit by a 555 nm cone (20 degrees) from 3 cm above.
+    `scale_bg` multiplies the background absorber: the scene that
+    ``examples/optimize_lsc.py`` builds for ``optimize_concentration``."""
     p = api(ns)
-    return _slab_scene(p, p.Box((5.0, 5.0, 1.0), material=_slab_material(p)))
+    return _slab_scene(p, p.Box((5.0, 5.0, 1.0), material=_slab_material(p, scale_bg)))
 
 
-def _slab_material(p):
+def _slab_material(p, scale_bg=1.0):
     x = np.arange(400, 801, dtype=float)
     return p.Material(
         refractive_index=1.5,
@@ -79,7 +82,7 @@ def _slab_material(p):
                 quantum_yield=0.9,
                 name="dye",
             ),
-            p.Absorber(0.3, name="background"),
+            p.Absorber(0.3 * scale_bg, name="background"),
         ],
     )
 
@@ -106,6 +109,43 @@ def _slab_scene(p, geometry):
 
 def _slab_node(scene):
     return next(n for n in scene.root.iter_preorder() if n.name == "lsc")
+
+
+def _collimated_slab(p, material):
+    """A 2x2x1 cm box of `material` in a 10 cm world sphere, lit straight
+    down by a 555 nm default lamp from 3 cm above (``tests/test_diff.py``)."""
+    world = p.Node(
+        name="world",
+        geometry=p.Sphere(radius=10.0, material=p.Material(refractive_index=1.0)),
+    )
+    p.Node(name="slab", parent=world, geometry=p.Box((2.0, 2.0, 1.0), material=material))
+    light = p.Node(name="light", parent=world,
+                   light=p.Light(wavelength=p.ConstantWavelengthMask(555.0)))
+    light.translate((0.0, 0.0, 3.0))
+    light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
+def absorber_slab(alpha=0.8, ns=None):
+    """Collimated light through a null-surface slab with one absorber: no
+    reflection, no refraction, so P(absorb) = 1 - exp(-alpha L) exactly
+    and its derivative in log(alpha) is alpha L exp(-alpha L) (the JAX
+    package's ``tests/test_diff.py::slab_scene``)."""
+    p = api(ns)
+    return _collimated_slab(p, p.Material(
+        refractive_index=1.0, surface=p.Surface(delegate=p.NullSurfaceDelegate()),
+        components=[p.Absorber(alpha)],
+    ))
+
+
+def fresnel_slab(n_slab=1.5, alpha=0.5, ns=None):
+    """Collimated normal-incidence light on a Fresnel slab with an
+    absorber: every surface coin is R = ((n-1)/(n+1))^2 and the path
+    geometry does not depend on n, so d(fate)/dn is analytic (the JAX
+    package's ``tests/test_diff.py::fresnel_slab_scene``)."""
+    p = api(ns)
+    return _collimated_slab(p, p.Material(refractive_index=n_slab,
+                                          components=[p.Absorber(alpha)]))
 
 
 def lsc_slab_recorders(n_rec, ns=None):

@@ -11,9 +11,9 @@ On the CPU:
   (K5b, ``PVTRACE_TPU_NO_CHEB``);
 * the wrappers take the twin for CPU tensors and count no launch.
 
-On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9 and
-12-14 of ``chip_smoke.py`` at a small size, on both spectral paths, and
-the float64 refusal. This file imports no JAX, so it runs there with
+On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9,
+12-14 and 16-19 of ``chip_smoke.py`` at a small size, on both spectral
+paths, and the float64 refusal. This file imports no JAX, so it runs there with
 ``--noconftest``.
 """
 import ctypes
@@ -34,14 +34,15 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab_recorders,
     mesh_lsc,
     mesh_slab_fine,
+    mixed_scene,
 )
 
 torch.set_num_threads(1)
 HEADER = (build.CSRC / "tracer.cuh").read_text()
 
 
-def _struct_fields(name):
-    body = re.search(r"struct %s \{(.*?)\};" % name, HEADER, re.S).group(1)
+def _struct_fields(name, header=HEADER):
+    body = re.search(r"struct %s \{(.*?)\};" % name, header, re.S).group(1)
     # The last identifier of each declarator: "unsigned char *a, *b;" -> a, b
     return [
         re.findall(r"\w+", part)[-1]
@@ -59,6 +60,14 @@ def test_header_layout_matches_tables():
         assert name in defines
 
 
+def test_diff_header_layout_matches_absorb():
+    from pvtrace_tpu_torch.engine import absorb
+
+    text = (build.CSRC / "diff.cuh").read_text()
+    defines = dict(re.findall(r"^#define ([A-Z_0-9]+) (\d+)$", text, re.M))
+    assert defines == {name: str(getattr(absorb, name)) for name in ("AF_W2L", "AF_G", "AF")}
+
+
 def test_header_event_kinds_match_event():
     from pvtrace_tpu_torch.light.event import Event
 
@@ -68,10 +77,12 @@ def test_header_event_kinds_match_event():
 
 @pytest.mark.parametrize("struct, cls", [
     ("PvtScene", kernels._Scene), ("PvtState", kernels._State), ("PvtFlags", kernels._Flags),
-    ("PvtTallyOut", kernels._TallyOut), ("PvtLog", kernels._Log),
+    ("PvtTallyOut", kernels._TallyOut), ("PvtLog", kernels._Log), ("PvtScore", kernels._Score),
+    ("PvtAbsorbers", kernels._Absorbers),
 ])
 def test_header_structs_match_ctypes(struct, cls):
-    assert _struct_fields(struct) == [name for name, _ in cls._fields_]
+    header = (build.CSRC / ("diff.cuh" if struct == "PvtAbsorbers" else "tracer.cuh")).read_text()
+    assert _struct_fields(struct, header) == [name for name, _ in cls._fields_]
 
 
 @pytest.fixture(scope="module")
@@ -284,3 +295,81 @@ def test_float64_on_card_is_refused(cuda_scene):
     st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float64, device="cuda")
     with pytest.raises(NotImplementedError):
         kernels.trace(st, rng.key_words(1), 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [lsc_slab, mixed_scene], ids=["slab", "mixed"])
+def test_score_kernel_matches_twin_on_card(make):
+    st = _cuda_tensors(make)
+    state = tracer.initial_state(st, rng.key_words(1), torch.arange(1 << 14, device="cuda"))
+    rep = check.check_score(st, state, steps=8, reps=2)
+    assert rep["discrete_frac"] <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fresnel_kernel_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert check.check_fresnel("cuda", reps=2)["max_abs_err"] <= check.SCORE_RTOL
+
+
+def _many_channels():
+    """``lsc_slab_recorders(256)`` with three absorbing spheres that no
+    light reaches: 10 score channels beside 256 recorders' tallies, more
+    than a block's shared memory holds, so the score sums go straight to
+    the totals."""
+    from pvtrace_tpu_torch.scenes import api
+
+    p = api()
+    scene = lsc_slab_recorders(256)
+    for k in range(3):
+        ball = p.Node(name=f"ball{k}", parent=scene.root, geometry=p.Sphere(
+            radius=0.5, material=p.Material(refractive_index=1.2,
+                                            components=[p.Absorber(0.5)])))
+        ball.translate((10.0, 4.0 * k - 2.0, -10.0))
+    return scene
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, shared", [
+    (lsc_slab, True), (lambda: lsc_slab_recorders(32), True), (mesh_lsc, True),
+    (_many_channels, False),
+], ids=["slab", "rec32", "mesh", "global-sums"])
+def test_score_trace_matches_twin_on_card(make, shared):
+    st = _cuda_tensors(make)
+    rep = check.check_trace_scores(st, rng.key_words(2), 1 << 16, lanes=1 << 14)
+    assert rep["shared_scores"] == shared
+    assert rep["record_used"] <= 1.0 and rep["sums_used"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_gradient_path_on_card_goes_through_the_kernel():
+    from pvtrace_tpu_torch.diff.transport import fate_gradients
+
+    _cuda_tensors(lsc_slab)
+    kernels.reset()
+    tracer.eager_runs = 0
+    fractions, grads = fate_gradients(lsc_slab(), 1 << 16, seed=3, wrt="all", bundle=1 << 15)
+    assert kernels.launches["pvt_trace_score"] == 2 and tracer.eager_runs == 0
+    assert all(np.isfinite(g).all() for g in grads.values())
+
+
+@pytest.mark.gpu
+def test_absorbed_kernels_match_plain_on_card():
+    from pvtrace_tpu_torch.diff.transport import absorbed_fraction_fn
+    from pvtrace_tpu_torch.engine import absorb
+
+    st = _cuda_tensors(lsc_slab)
+    compiled = compile_scene(lsc_slab())
+    tab = absorb.table(compiled, "cuda")
+    pos, d, wav = check.absorbed_photons(st, rng.key_words(1), 1 << 16)
+    rep = check.check_absorbed(tab, pos, d, wav, reps=2)
+    assert rep["max_rel_err"] <= check.ABSORBED_RTOL
+    weight = absorbed_fraction_fn(compiled)
+    kernels.reset()
+    got = check.surrogate_sgd(lambda lc, p, dd, w: weight({"log_concentration": lc}, p, dd, w),
+                              pos, d, wav)
+    assert kernels.launches["pvt_absorbed"] == 5 and kernels.launches["pvt_absorbed_grad"] == 5
+    ref = check.surrogate_sgd(
+        lambda lc, p, dd, w: absorb.weight(torch.exp(lc), absorb.depth(tab, p, dd, w)), pos, d, wav)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-9)
