@@ -6,12 +6,14 @@ Builds the CUDA kernels from the sources in this checkout, holds each
 against its plain-PyTorch twin on the card, then drives the port's main
 paths: ``engine.simulate`` of the LSC benchmark scene without and with
 recorders, of the hex-plate mesh LSC, and with event-log histories, and
-the gradient path of ``diff.transport`` (score channels, the Beer–Lambert
-surrogate), at full width. Phases, one line each:
+the gradient paths of ``diff.transport`` (score channels, pathwise
+channels, the Beer–Lambert surrogate), at full width. Phases, one line
+each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
-   score, diff) started together: build time, registers and spills;
+   score, pathwise, diff) started together: build time, registers and
+   spills;
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
@@ -78,7 +80,26 @@ surrogate), at full width. Phases, one line each:
     within 1e-5 relative, the gradient within 1e-4; then 5 SGD steps of
     make_training_step's single-shard arithmetic through
     absorbed_fraction_fn (launches read around them) against the plain
-    version, step by step.
+    version, step by step;
+20. pvt_pathwise (K13, one step with pathwise channels) against the twin
+    on 2**20 lanes of the mixed scene for 8 steps, channels ("n",
+    "plate"), ("size", "plate", 2), ("radius", "rod"), ("length", "rod"):
+    discrete outcomes on all but 1e-4 of the lanes, each channel's tangent
+    map, contribution and new tangents within the stated tolerance of its
+    scale (saturated and grazing lanes left out, counted, capped);
+21. pvt_trace_pathwise against the eager twin photon by photon, 2**20
+    photons, on the slab and the slab with 32 recorders with ("n", "lsc")
+    and ("size", "lsc", 2), and on the mesh LSC with ("n", plate): as
+    phase 17;
+22. the analytic pathwise gradients at 2**24 photons: d P(NONRADIATIVE)
+    / dn of the tilted Fresnel slab (30 degrees) within 0.006 of its
+    analytic value and EXIT's within 0.008 of its negative; d
+    P(NONRADIATIVE) / dL of the index-matched and the Fresnel absorber
+    slab within 0.005 (the JAX package's bounds);
+23. the pathwise gradient path at full width: fate_gradients(slab,
+    2**27, wrt="all", pathwise=[("n", "lsc"), ("size", "lsc", 2)]) in
+    bundles of 16e6 (launches read around it; photons/s beside phases 5
+    and 18).
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -101,6 +122,8 @@ SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/score.cu"
                for name in ("pvt_score", "pvt_fresnel", "pvt_trace_score")})
+SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/pathwise.cu"
+               for name in ("pvt_pathwise", "pvt_trace_pathwise")})
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/diff.cu"
                for name in ("pvt_absorbed", "pvt_absorbed_grad")})
 REPLACES = {
@@ -114,11 +137,34 @@ REPLACES = {
     "pvt_score": "pvtrace_tpu/engine/tracer.py:1871",
     "pvt_fresnel": "pvtrace_tpu/engine/tracer.py:172",
     "pvt_trace_score": "pvtrace_tpu/engine/tracer.py:1991",
+    "pvt_pathwise": "pvtrace_tpu/engine/tracer.py:1746",
+    "pvt_trace_pathwise": "pvtrace_tpu/engine/tracer.py:1918",
     "pvt_absorbed": "pvtrace_tpu/diff/transport.py:214",
     "pvt_absorbed_grad": "pvtrace_tpu/diff/transport.py:284",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
 LSC_FATES = (4, 7, 9)
+PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
+
+
+def oblique_analytic(n, theta0, alpha, L):
+    """P(absorb) and dP/dn of the tilted Fresnel slab: multiple internal
+    reflections at one angle (the JAX package's tests/test_diff.py)."""
+    import numpy as np
+
+    s, c1 = np.sin(theta0), np.cos(theta0)
+
+    def P(n):
+        st = s / n
+        ct = np.sqrt(1 - st * st)
+        rs = ((c1 - n * ct) / (c1 + n * ct)) ** 2
+        rp = ((ct - n * c1) / (ct + n * c1)) ** 2
+        R = 0.5 * (rs + rp)
+        T = np.exp(-alpha * L / ct)
+        return (1 - R) * (1 - T) / (1 - R * T)
+
+    h = 1e-6
+    return P(n), (P(n + h) - P(n - h)) / (2 * h)
 
 
 def fail(message):
@@ -126,6 +172,7 @@ def fail(message):
 
 
 def main():
+    start_s = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -147,6 +194,8 @@ def main():
         mesh_lsc,
         mesh_slab_fine,
         mixed_scene,
+        pathwise_slab,
+        tilted_fresnel_slab,
     )
 
     # 0. the card
@@ -647,6 +696,97 @@ def main():
         flush=True,
     )
 
+    # 20. K13 lane by lane: pvt_pathwise on the mixed scene's lanes
+    mixed_compiled = compile_scene(mixed_scene())
+    st_mixed = scene_tensors(mixed_compiled, dtype=torch.float32, device="cuda")
+    mixed_specs = transport.resolve_pathwise_params(mixed_compiled, [
+        ("n", "plate"), ("size", "plate", 2), ("radius", "rod"), ("length", "rod")])
+    lanes_mixed, _ = check.check_emit(st_mixed, seed, N_CHECK, reps=1)
+    path_rep = check.check_pathwise(st_mixed, lanes_mixed, mixed_specs, steps=8)
+    print(
+        f"phase 20 pvt_pathwise vs twin, mixed: {N_CHECK} lanes x 8 steps, channels "
+        f"{list(mixed_specs)}, discrete mismatch {path_rep['discrete_frac']:.2e} (limit 1e-4), "
+        f"maps, contributions and tangents at {path_rep['bound_used']:.3g} of their bound "
+        f"({check.PATH_RTOL} of the scale plus slack and conditioning; {path_rep['left_out']} "
+        f"lane-steps left out, {path_rep['saturated']} saturated, limit "
+        f"{check.PATH_LEFT_OUT * N_CHECK * 8:g}; worst: {path_rep['worst_lane']}); kernel "
+        f"{path_rep['ms']:.4f} ms, twin {path_rep['plain_ms']:.4f} ms, bound "
+        f"{path_rep['bound_ms']:.5f} ms | {smi}",
+        flush=True,
+    )
+
+    # 21. the pathwise trace against the eager twin, photon by photon
+    path_trace_reps = {}
+    for label, st_p, comp_p, specs in (
+        ("slab", st, compiled, PATHWISE), ("slab R=32", st32, rec32, PATHWISE),
+        ("mesh LSC", st_mesh, mesh_compiled, [("n", mesh_compiled.node_names[1])]),
+    ):
+        resolved = transport.resolve_pathwise_params(comp_p, specs)
+        rep = check.check_trace_scores(st_p, seed, N_CHECK, pathwise=resolved)
+        path_trace_reps[label] = rep
+        print(
+            f"phase 21 pvt_trace_pathwise vs twin, {label}: {N_CHECK} photons, channels "
+            f"{list(resolved)}, fates {rep['fates']} vs {rep['twin_fates']}, {rep['parted']} "
+            f"photons parted, {rep['saturated']} saturated (limit each "
+            f"{check.SCORE_PARTED * N_CHECK:g}), the others' scores at "
+            f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
+            f"theirs (fate_scores within {rep['max_abs_err']:.4g} of the twin's); kernel "
+            f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"| {smi}",
+            flush=True,
+        )
+
+    # 22. analytic pathwise gradients on the card
+    p_true, dp_true = oblique_analytic(1.5, np.radians(30.0), 0.5, 1.0)
+    R, T = 0.04, np.exp(-0.8)
+    path_analytic = {}
+    for label, make, spec, checks in (
+        ("tilted Fresnel slab, d/dn", tilted_fresnel_slab, ("n", "slab"),
+         ((Event.NONRADIATIVE, dp_true, 0.006), (Event.EXIT, -dp_true, 0.008))),
+        ("index-matched slab, d/dL", lambda: pathwise_slab(False), ("size", "slab", 2),
+         ((Event.NONRADIATIVE, 0.8 * T, 0.005),)),
+        ("Fresnel slab, d/dL", lambda: pathwise_slab(True), ("size", "slab", 2),
+         ((Event.NONRADIATIVE, -((1 - R) ** 2) / (1 - R * T) ** 2 * (-0.8 * T), 0.005),)),
+    ):
+        fr, gr = transport.fate_gradients(make(), N_SLAB, seed=3, wrt="pathwise",
+                                          pathwise=[spec], dtype=np.float32)
+        got = {e.name: float(gr[e][0]) for e, _, _ in checks}
+        path_analytic[label] = {"got": got, "expect": {e.name: x for e, x, _ in checks}}
+        for event, expect, limit in checks:
+            if not abs(got[event.name] - expect) < limit:
+                fail(f"{label}: {event.name} gradient {got[event.name]} against the analytic "
+                     f"{expect} (limit {limit})")
+        print(f"phase 22 {label}: {N_SLAB} photons, "
+              + ", ".join(f"{e.name} {got[e.name]:.6f} (analytic {x:.6f}, |diff| "
+                          f"{abs(got[e.name] - x):.2e}, limit {lim})" for e, x, lim in checks)
+              + f", P(absorb) {float(fr[Event.NONRADIATIVE]):.6f} | {smi}", flush=True)
+
+    # 23. the pathwise gradient path at full width
+    kernels.reset()
+    tracer.eager_runs = 0
+    tic = time.perf_counter()
+    fractions, gradients = transport.fate_gradients(scene, N_MAIN, seed=23, wrt="all",
+                                                    pathwise=PATHWISE, dtype=np.float32)
+    path_s = time.perf_counter() - tic
+    path_launches, path_eager = dict(kernels.launches), tracer.eager_runs
+    if path_launches["pvt_trace_pathwise"] != -(-N_MAIN // 16_000_000) or path_eager \
+            or path_launches["pvt_trace_score"]:
+        fail(f"fate_gradients(pathwise=...) did not run through pvt_trace_pathwise: "
+             f"{path_launches}, eager runs {path_eager}")
+    if not all(np.isfinite(g).all() for g in gradients.values()):
+        fail(f"fate_gradients(pathwise=...): gradients not finite: {gradients}")
+    path_rate = N_MAIN / path_s
+    print(
+        f"phase 23 pathwise gradient path: fate_gradients(slab, {N_MAIN}, wrt='all', pathwise="
+        f"{PATHWISE}) in {path_s:.4f} s, {path_rate:.6g} photons/s (phase 5: {rate:.6g}, "
+        f"{path_rate / rate:.3f}x; phase 18: {grad_rate:.6g}, {path_rate / grad_rate:.3f}x), "
+        f"d/dn(lsc) and d/dsize_z(lsc) of NONRADIATIVE "
+        f"{gradients[Event.NONRADIATIVE][-2:].tolist()}, of EXIT "
+        f"{gradients[Event.EXIT][-2:].tolist()}, launches {path_launches}; "
+        f"{time.perf_counter() - start_s:.1f} s since the start | {smi}",
+        flush=True,
+    )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -700,6 +840,17 @@ def main():
             "mesh_score_launches": mesh_score_launches["pvt_trace_score"],
             "analytic": analytic,
         }),
+        ("pvt_pathwise", path_rep, {
+            "n": N_CHECK, "channels": path_rep["channels"], "left_out": path_rep["left_out"],
+            "runs_inside": "pvt_trace_pathwise (step_tangent, pathwise_step)"}),
+        ("pvt_trace_pathwise", path_trace_reps["slab"], {
+            "n": N_CHECK, "parted": path_trace_reps["slab"]["parted"],
+            **{key: {k: path_trace_reps[label][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "max_abs_err", "parted")}
+               for key, label in (("slab_32_recorders", "slab R=32"), ("mesh_lsc", "mesh LSC"))},
+            "pathwise_gradient_photons_per_s": path_rate, "gradient_path_photons_per_s": grad_rate,
+            "main_path_photons_per_s": rate, "analytic": path_analytic,
+        }),
         ("pvt_absorbed", absorbed_rep, {"n": N_SLAB}),
         ("pvt_absorbed_grad", dict(absorbed_rep, ms=absorbed_rep["grad_ms"],
                                    plain_ms=absorbed_rep["grad_plain_ms"],
@@ -710,6 +861,8 @@ def main():
     launches_of = dict(main_launches, pvt_trace_log=full["mesh, record_every=1000"]["launches"][
         "pvt_trace_log"], pvt_trace_score=grad_launches["pvt_trace_score"],
         pvt_absorbed=sgd_launches["pvt_absorbed"],
+        pvt_pathwise=path_launches["pvt_pathwise"],
+        pvt_trace_pathwise=path_launches["pvt_trace_pathwise"],
         pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"])
     print(smi)
     print(json.dumps({"kernels": [

@@ -3,16 +3,17 @@
 
 * `fate_gradients`: full multi-bounce gradients of fate fractions from
   one score run of ``engine.simulate`` (K12 inside ``pvt_trace`` on the
-  card), in component log-scales and node refractive indices.
+  card), in component log-scales and node refractive indices, and with
+  ``pathwise=`` in refractive indices and geometry parameters through
+  the hybrid pathwise channels (K13 inside ``pvt_trace`` on the card).
 * `optimize_concentration`: host-loop gradient descent on one
   component's log-scale with those gradients.
 * `absorbed_fraction_fn`: the first-pass Beer–Lambert surrogate (K15,
   ``pvt_absorbed`` on the card), differentiable in
   ``params["log_concentration"]`` through ``torch.autograd``.
 
-Not ported yet: pathwise channels (ROADMAP queue 1 item 11, kernel K13),
-the device mesh (item 12, K14) and ``make_training_step``, its
-multi-device step (item 13, after K14).
+Not ported yet: the device mesh (ROADMAP queue 1 item 12, kernel K14)
+and ``make_training_step``, its multi-device step (item 13, after K14).
 """
 import numpy as np
 import torch
@@ -85,7 +86,14 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
       reflect/transmit probabilities (the Snell bending of transmitted
       directions is not differentiated: the full derivative at normal
       incidence, the probability-path partial otherwise);
-    - ``"all"``: both blocks concatenated.
+    - ``"all"``: both blocks concatenated, then the pathwise block;
+    - ``"pathwise"``: [len(pathwise)], the hybrid pathwise channels of the
+      parameters in `pathwise` (``resolve_pathwise_params`` has the spec
+      forms). An ``("n", node)`` channel is the complete derivative at any
+      incidence: its Fresnel coin term takes the full dR, and boundary
+      motion enters through the free-flight survival and collision
+      likelihoods, with position and direction tangents carried photon by
+      photon through every reflection and refraction.
 
     ``bundle`` caps the photons per ``simulate`` call; the [fate, channel]
     sums of the bundles are added in float64 on the host. ``center=True``
@@ -93,13 +101,9 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
     kwargs pass through to ``engine.simulate`` (lanes, dtype, device, ...):
     the run is on the card unless ``device="cpu"``.
 
-    Raises NotImplementedError for a non-empty `pathwise` (ROADMAP queue 1
-    item 11, kernel K13) and for `mesh` (item 12, kernel K14).
+    Raises NotImplementedError for `mesh` (ROADMAP queue 1 item 12, kernel
+    K14).
     """
-    if pathwise:
-        raise NotImplementedError(
-            "pathwise channels are not ported yet: ROADMAP queue 1 item 11, kernel K13."
-        )
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh is not ported yet: ROADMAP queue 1 item 12, kernel K14."
@@ -107,6 +111,7 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
     compiled = kwargs.pop("compiled", None)
     if compiled is None:
         compiled = compile_scene(scene)
+    pw = resolve_pathwise_params(compiled, pathwise) if pathwise else ()
     if seed is None:
         seed = int(np.random.randint(0, 2 ** 31 - 1))
 
@@ -119,7 +124,7 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
         n_call = num_rays - traced if not bundle else min(bundle, num_rays - traced)
         data = simulate(
             scene, n_call, seed=seed, index_offset=traced, record_every=0, score=True,
-            compiled=compiled, **kwargs
+            pathwise=pw, compiled=compiled, **kwargs
         ).data
         part = np.asarray(data["fate_scores"], dtype=np.float64)
         fate_part = np.asarray(data["fates"], dtype=np.float64)

@@ -1,8 +1,8 @@
 """``simulate``: the port's entry point, with the JAX package's signature.
 
 Port of ``pvtrace_tpu.engine.api.simulate`` for lights lowered to
-device samplers: fates, recorders, event-log histories and score-function
-gradient sums (``score=True``); no pathwise channels.
+device samplers: fates, recorders, event-log histories, score-function
+gradient sums (``score=True``) and pathwise channels (``pathwise=``).
 The result is the port's copy of the JAX package's ``EngineResult`` with
 the same ``data`` layout.
 """
@@ -18,14 +18,6 @@ from pvtrace_tpu_torch.engine.tables import scene_tensors
 
 _U32 = 2 ** 32 - 1
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
-
-
-def _check_options(pathwise):
-    if pathwise:
-        raise NotImplementedError(
-            "pathwise channels are not ported yet: ROADMAP queue 1 item 11, "
-            "kernel K13."
-        )
 
 
 def _check_budget(num_rays, index_offset):
@@ -67,14 +59,16 @@ def simulate(
       eager PyTorch twin, in float32 or float64. There is no fallback
       from one to the other.
     * `dtype` None means float32.
-    * `pathwise` and lights that need host emission raise
-      NotImplementedError naming the ROADMAP item that brings them.
-      `workers` is accepted and unused.
+    * Lights that need host emission raise NotImplementedError naming the
+      ROADMAP item that brings them. `workers` is accepted and unused.
     * With `score`, ``data["fate_scores"]`` [11, CH] and, with recorders,
       ``data["rec_scores"]`` [R, CH] in the run's dtype, channels in the
       JAX package's layout: the components, then the nodes in preorder
-      (``engine/score.py``). On the card a photon's score is float32 and
-      the accumulators float64.
+      (``engine/score.py``), then one channel per entry of `pathwise`
+      (``engine/pathwise.py``; resolved specs, as
+      ``diff.transport.resolve_pathwise_params`` makes them). On the card
+      a photon's score is float32 and the accumulators float64. Without
+      `score`, `pathwise` is ignored, as in the JAX package.
     * `lanes`: on the CPU the wavefront width of the eager twin ("auto":
       ``min(num_rays, 2**18)``, None: one lane per photon, no
       regeneration); on the card a cap on the persistent kernel's thread
@@ -91,7 +85,6 @@ def simulate(
       by the JAX package's rule, ``PVTRACE_TPU_NO_CHEB`` included, read
       on every call.
     """
-    _check_options(pathwise)
     if emit_method not in EMIT_METHODS:
         raise ValueError(f"emit_method must be one of {sorted(EMIT_METHODS)}")
     _check_budget(num_rays, index_offset)
@@ -112,6 +105,7 @@ def simulate(
         lanes=lanes, maxsteps=maxsteps, emit_method=EMIT_METHODS[emit_method],
         maxpathlength=float("inf") if maxpathlength is None else float(maxpathlength),
         record_every=max(int(record_every), 0), max_events=int(max_events), score=bool(score),
+        pathwise=tuple(tuple(p) for p in pathwise) if score else (),
     )
     fates = fates.cpu().numpy()
     if log is None:

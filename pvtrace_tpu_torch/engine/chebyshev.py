@@ -17,6 +17,7 @@ segment. The CUDA kernel's ``cheb_eval`` does the same per thread.
 import torch
 
 from pvtrace_tpu_torch.engine import tables as T
+from pvtrace_tpu_torch.engine import ties
 
 
 def _segment(st, fit, t):
@@ -44,7 +45,7 @@ def eval_fits(st, fit, t):
     seg_f, seg_i, coef = st["cheb_seg_f"], st["cheb_seg_i"], st["cheb_coef"]
     ts = torch.where(
         st["cheb_fit_i"][fit, T.FI_KIND] == T.FIT_PW,
-        torch.clamp((t - seg_f[s, T.SF_A]) * seg_f[s, T.SF_SCALE] - 1.0, -1.0, 1.0),
+        ties.clip((t - seg_f[s, T.SF_A]) * seg_f[s, T.SF_SCALE] - 1.0, -1.0, 1.0),
         t,
     )
     deg, c0 = seg_i[s, T.SI_DEG], seg_i[s, T.SI_COEF0].long()

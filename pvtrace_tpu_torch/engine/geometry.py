@@ -5,11 +5,13 @@ Port of ``_intersect_node_static``, ``_local_normal_static`` and
 ``_mesh_nearest_two`` (pvtrace_tpu/engine/tracer.py) for boxes, spheres,
 capped cylinders and triangle meshes, in the node's local frame.
 Parameters are python floats read from the node record
-(``tables.NF_GP``), triangles rows of ``tables.TRI_F``; rays are
-component triples of tensors.
+(``tables.NF_GP``) or 0-dim tensors, triangles rows of ``tables.TRI_F``;
+rays are component triples of tensors. The box's slab test takes its
+minima and maxima from ``engine/ties.py`` (the reference's tangents).
 """
 import torch
 
+from pvtrace_tpu_torch.engine import ties
 from pvtrace_tpu_torch.engine.compiler import GEOM_BOX, GEOM_SPHERE
 
 _INF = float("inf")
@@ -31,11 +33,11 @@ def intersect(gtype, params, o, d, eps):
             inv = 1.0 / torch.where(par, 1.0, dd)
             t1 = (-h - oo) * inv
             t2 = (h - oo) * inv
-            lo = torch.where(par, -_INF, torch.minimum(t1, t2))
-            hi = torch.where(par, _INF, torch.maximum(t1, t2))
+            lo = torch.where(par, -_INF, ties.minimum(t1, t2))
+            hi = torch.where(par, _INF, ties.maximum(t1, t2))
             miss = miss | (par & ((oo < -h) | (oo > h)))
-            tmin = torch.maximum(tmin, lo)
-            tmax = torch.minimum(tmax, hi)
+            tmin = ties.maximum(tmin, lo)
+            tmax = ties.minimum(tmax, hi)
         ok = (tmax >= tmin) & ~miss
         return [(tmin, ok & (tmin > eps)), (tmax, ok & (tmax > eps))]
     if gtype == GEOM_SPHERE:

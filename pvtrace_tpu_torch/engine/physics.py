@@ -32,14 +32,25 @@ is. One step:
    wavelength, the lanes that moved (alive after the no-hit and kill
    masks) and how far, the volume event, the two refractive indices and
    the reflectivity after the overrides of a surface event, and whether
-   its reflect/transmit was a Fresnel coin (not TIR, no override).
+   its reflect/transmit was a Fresnel coin (not TIR, no override); and
+   what the pathwise channels (K13, ``engine/pathwise.py``) read besides:
+   the nearest hit's distance ``t0``, the container's total attenuation
+   ``alpha`` and the incidence cosine at the nearest hit along the pre-step
+   direction ``c_hit`` (on every lane: it conditions t0's tangent).
+
+``params`` replaces the nodes' refractive indices (``"nidx"``, a tensor
+[N]) and geometry parameters (``"gp"``, N triples of floats or 0-dim
+tensors), the JAX function's ``nidx`` / ``gp``: the pathwise channels
+differentiate the step in them with ``torch.autograd.forward_ad``. Where
+the reference clips or takes an absolute value on that path, the step
+uses ``engine/ties.py``, which has the reference's derivatives.
 """
 import math
 
 import torch
 
 from pvtrace_tpu_torch.engine import compiler as comp
-from pvtrace_tpu_torch.engine import geometry, spectral
+from pvtrace_tpu_torch.engine import geometry, spectral, ties
 from pvtrace_tpu_torch.engine import tables as T
 from pvtrace_tpu_torch.engine.emit import hg_mu
 from pvtrace_tpu_torch.engine.recorder import EVENTS
@@ -79,19 +90,30 @@ EXTRAS = (
 # [B, W], the container's slots.
 SCORE_EXTRAS = (
     "slot_vals", "moving", "advance", "absorbed", "comp_id", "adjacent", "n1r", "n2r",
-    "refl_r", "fres_coin", "reflecting", "transmitting",
+    "refl_r", "fres_coin", "reflecting", "transmitting", "t0", "alpha", "c_hit",
 )
 
 
+def node_params(st):
+    """The nodes' refractive indices [N] and geometry parameters (N
+    triples of floats), the defaults of ``step``'s `params`."""
+    return {"nidx": st["node_f"][:, T.NF_NIDX],
+            "gp": [row[T.NF_GP:T.NF_GP + 3] for row in st["rows"]["node_f"]]}
+
+
 def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
-         want_score=False):
+         want_score=False, params=None):
     """One step of lanes `s` (dict of STATE_FLOATS, ``source``, ``alive``
     and ``count``, already incremented) with uniforms ``u[0..7]``.
 
     Returns the new state plus the per-lane FLAGS, ``hit``,
     ``container``, SELECTORS, EVENT_FLAGS and SURFACE, with `want_extras`
-    the EXTRAS and with `want_score` the SCORE_EXTRAS."""
+    the EXTRAS and with `want_score` the SCORE_EXTRAS; `params` as the module
+    doc says."""
     meta = st["meta"]
+    if params is None:
+        params = node_params(st)
+    nidx, gp = params["nidx"], params["gp"]
     N, L = meta["n_nodes"], meta["grid_n"]
     node_f, node_i = st["rows"]["node_f"], st["rows"]["node_i"]
     px, py, pz = s["px"], s["py"], s["pz"]
@@ -126,8 +148,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
             cands = [(tmin_n, cnt_n >= 1), (mt2, cnt_n >= 2)]
         else:
             cands = geometry.intersect(
-                node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3], o, d,
-                node_f[n][T.NF_EPS],
+                node_i[n][T.NI_GEOM], gp[n], o, d, node_f[n][T.NF_EPS],
             )
             cnt_n = sum(valid.to(torch.int32) for _, valid in cands)
             tmin_n = inf
@@ -158,9 +179,9 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
         kill_max = kill_max | (alive & (trav > maxpathlength))
     alive = alive & ~kill_max
 
-    node_ft, node_it = st["node_f"], st["node_i"]
+    node_it = st["node_i"]
     cl = container.long()
-    n_cont = node_ft[cl, T.NF_NIDX]
+    n_cont = nidx[cl]
     exit_mask = alive & (hit == meta["root_id"])
 
     # -- K5b + K6: free path, advance, volume events --------------------
@@ -172,7 +193,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
     )
     depth = torch.where(
         alpha > ALPHA_ZERO,
-        -torch.log1p(-u[0]) / torch.clamp(alpha, min=1e-30),
+        -torch.log1p(-u[0]) / ties.clip(alpha, 1e-30),
         _INF,
     )
     absorbed = alive & ~exit_mask & (depth < t0)
@@ -261,8 +282,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
             nx_n, ny_n, nz_n = mesh_normals[n]
         else:
             nx_n, ny_n, nz_n = geometry.local_normal(
-                node_i[n][T.NI_GEOM], node_f[n][T.NF_GP:T.NF_GP + 3],
-                (lox + t0 * ldx, loy + t0 * ldy, loz + t0 * ldz),
+                node_i[n][T.NI_GEOM], gp[n], (lox + t0 * ldx, loy + t0 * ldy, loz + t0 * ldz),
             )
         Rw = node_f[n][T.NF_L2W:T.NF_L2W + 9]
         here = hit == n
@@ -283,22 +303,20 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
             ovr_mode = torch.where(here, mode_n, ovr_mode)
 
     ddot = wnx * dxv + wny * dyv + wnz * dzv
-    c_in = torch.clamp(torch.abs(ddot), 0.0, 1.0)
+    c_in = ties.clip(ties.abs_(ddot), 0.0, 1.0)
     flip = torch.where(ddot < 0.0, -1.0, torch.ones_like(ddot))
     nax, nay, naz = wnx * flip, wny * flip, wnz * flip
 
     n1r = n_cont
-    n2r = torch.where(
-        adjacent >= 0, node_ft[adjacent.clamp(min=0).long(), T.NF_NIDX], 1.0
-    )
+    n2r = torch.where(adjacent >= 0, nidx[adjacent.clamp(min=0).long()], 1.0)
     is_fresnel = node_it[hit.long(), T.NI_SURF] == comp.SURF_FRESNEL
-    s2 = torch.clamp(1.0 - c_in * c_in, 0.0, 1.0)
+    s2 = ties.clip(1.0 - c_in * c_in, 0.0, 1.0)
     ratio = n1r / n2r
     tir = (n2r < n1r) & (s2 * ratio * ratio > 1.0)
-    kterm = torch.sqrt(torch.clamp(1.0 - ratio * ratio * s2, min=0.0))
+    kterm = torch.sqrt(ties.clip(1.0 - ratio * ratio * s2, 0.0))
     rs = ((n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm)) ** 2
     rp = ((n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in)) ** 2
-    r = torch.where(tir, 1.0, torch.clamp(0.5 * (rs + rp), 0.0, 1.0))
+    r = torch.where(tir, 1.0, ties.clip(0.5 * (rs + rp), 0.0, 1.0))
     r = torch.where(is_fresnel, r, 0.0)
     r = torch.where((ovr_mode == OVR_MIRROR) | (ovr_mode == OVR_LAMBERTIAN), 1.0, r)
     r = torch.where(ovr_mode == OVR_ABSORB, 0.0, r)
@@ -331,9 +349,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
         rfy = torch.where(lam, lx * t1y + ly * t2y + ct_l * axy, rfy)
         rfz = torch.where(lam, lx * t1z + ly * t2z + ct_l * axz, rfz)
 
-    cterm = torch.sqrt(
-        torch.clamp(1.0 - ratio * ratio * (1.0 - c_in * c_in), min=0.0)
-    )
+    cterm = torch.sqrt(ties.clip(1.0 - ratio * ratio * (1.0 - c_in * c_in), 0.0))
     scale = cterm - ratio * c_in
     pass_through = ~is_fresnel | (ovr_mode == OVR_ABSORB)
     txd = torch.where(pass_through, dxv, ratio * dxv + scale * nax)
@@ -389,6 +405,7 @@ def step(st, s, u, maxsteps, emit_method, maxpathlength=_INF, want_extras=False,
             slot_vals=slots, moving=alive, advance=advance, absorbed=absorbed, comp_id=comp_id,
             adjacent=adjacent, n1r=n1r, n2r=n2r, refl_r=r,
             fres_coin=is_fresnel & ~tir & (ovr_mode == comp.OVR_NONE),
-            reflecting=reflecting, transmitting=transmitting,
+            reflecting=reflecting, transmitting=transmitting, t0=t0, alpha=alpha,
+            c_hit=torch.abs(wnx * s["dx"] + wny * s["dy"] + wnz * s["dz"]),
         )
     return out

@@ -55,9 +55,10 @@ GRAZING_ROUNDING = 1e-5
 GRAZING_C = 0.02
 
 
-def n_channels(st):
-    """Score channels of a scene: components, then nodes in preorder."""
-    return st["meta"]["n_comps"] + st["meta"]["n_nodes"]
+def n_channels(st, n_path=0):
+    """Score channels of a scene: components, then nodes in preorder, then
+    `n_path` pathwise channels (``engine/pathwise.py``)."""
+    return st["meta"]["n_comps"] + st["meta"]["n_nodes"] + n_path
 
 
 def fresnel_R(n1, n2, c):
@@ -116,6 +117,19 @@ def attenuation_scale(st):
     return meta["attenuation_scale"]
 
 
+def conditioning(out):
+    """Per lane, the relative error (float64) that a float32 computation
+    of a surface event's Fresnel term may have (the module docstring):
+    the critical angle and 1/P, and grazing incidence down to GRAZING_C."""
+    ratio = out["n1r"].double() / out["n2r"].double()
+    c = out["c_in"].double()
+    x = 1.0 - ratio * ratio * torch.clamp(1.0 - c * c, 0.0, 1.0)
+    r = out["refl_r"].double()
+    p = torch.where(out["reflecting"], r, 1.0 - r)
+    return FRESNEL_ROUNDING * (1.0 / x.clamp(min=1e-300) + 1.0 / p.clamp(min=1e-300)) \
+        + GRAZING_ROUNDING / (c * c).clamp(min=GRAZING_C ** 2)
+
+
 def contributions(st, out, with_slack=False):
     """This step's score contributions [CH, B] from ``physics.step``'s
     output with ``want_score``; with `with_slack`, also their slack
@@ -155,12 +169,7 @@ def contributions(st, out, with_slack=False):
     ds[C + out["adjacent"].long()[adj], lanes[adj]] = w2[adj]
     if not with_slack:
         return ds
-    ratio = out["n1r"].double() / out["n2r"].double()
-    c = out["c_in"].double()
-    x = 1.0 - ratio * ratio * torch.clamp(1.0 - c * c, 0.0, 1.0)
-    p = torch.where(refl, r.double(), 1.0 - r.double())
-    cond = FRESNEL_ROUNDING * (1.0 / x.clamp(min=1e-300) + 1.0 / p.clamp(min=1e-300)) \
-        + GRAZING_ROUNDING / (c * c).clamp(min=GRAZING_C ** 2)
+    cond = conditioning(out)
     floor = FRESNEL_ROUNDING * branch.double().abs()
     slack[C + cont[coin], lanes[coin]] = floor[coin] + cond[coin] * w1.double().abs()
     slack[C + out["adjacent"].long()[adj], lanes[adj]] = floor[adj] \

@@ -10,17 +10,18 @@ would (``meta["cheb_spec"]``, ``"cheb_icdf"``, ``"cheb_light"``).
 """
 import torch
 
-from pvtrace_tpu_torch.engine import chebyshev
+from pvtrace_tpu_torch.engine import chebyshev, ties
 
 
 def grid_index(wav, x0, dx, L):
     """(i0, frac) of wavelengths on the uniform grid: i0 truncates toward
-    zero and is clipped to [0, L-2]; frac is clipped to [0, 1]. The float
-    is clamped before the integer cast (the same index for every finite
-    value, and no out-of-range cast)."""
+    zero and is clipped to [0, L-2]; frac is clipped to [0, 1] (with the
+    reference's derivative, ``ties.clip``). The float is clamped before the
+    integer cast (the same index for every finite value, and no
+    out-of-range cast)."""
     posf = (wav - x0) / dx
-    i0 = torch.clamp(posf, 0, L - 2).to(torch.int32)
-    frac = torch.clamp(posf - i0.to(wav.dtype), 0.0, 1.0)
+    i0 = torch.clamp(posf.detach(), 0, L - 2).to(torch.int32)
+    frac = ties.clip(posf - i0.to(wav.dtype), 0.0, 1.0)
     return i0, frac
 
 

@@ -168,6 +168,19 @@ HIST_I = 6
 LOG_I = 6
 LOG_F = 12
 
+# K13, the pathwise channels' table (``pathwise_table``): per channel the
+# kind (PATH_N: a node's refractive index; PATH_GEOM: a geometry
+# parameter), the node and the parameter's index in the node's NF_GP
+# values; and the width of a channel's tangent map (engine/pathwise.py
+# OUTPUTS).
+PATH_KIND = 0
+PATH_NODE = 1
+PATH_PARAM = 2
+PATH_I = 3
+PATH_N = 0
+PATH_GEOM = 1
+PATH_J = 10
+
 N_SEL = len(EVENTS)  # recorder selectors, recorder.EVENTS tags
 MAX_RECORDERS = comp.MAX_RECORDERS
 SEEN_WORDS = MAX_RECORDERS // 32  # the kernel's per-photon seen bitset
@@ -407,3 +420,11 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
     # loops over nodes, overrides and lights.
     out["rows"] = {name: out[name].tolist() for name in ROW_RECORDS}
     return out
+
+
+def pathwise_table(specs, device="cpu"):
+    """The pathwise channels `specs` (``("n", node)`` or ``("geom", node,
+    j)``) as int32 rows [max(C, 1), PATH_I] for the kernel."""
+    rows = [(PATH_N, int(p[1]), 0) if p[0] == "n" else (PATH_GEOM, int(p[1]), int(p[2]))
+            for p in specs]
+    return torch.as_tensor(np.asarray(rows or [(0, 0, 0)], np.int32), device=device)

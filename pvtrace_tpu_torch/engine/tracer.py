@@ -7,7 +7,10 @@ an event log, ``body`` (pvtrace_tpu/engine/tracer.py): fates, recorder tallies (
 (K12, ``engine/score.py``): each lane carries its photon's path score
 [CH], zeroed on refill, adds the step's contributions after the step,
 folds it into ``fate_scores`` at termination, then hands it to the
-recorders. ``trace``
+recorders. With ``pathwise`` channels (K13, ``engine/pathwise.py``) the
+score row has one more channel each, and the lane also carries their
+tangents [C, 7], zeroed on refill: the step is linearized, and the
+channels' contributions join the others before the fold. ``trace``
 runs the CUDA kernel ``pvt_trace`` for tensors on a CUDA device and the
 eager twin ``trace_eager`` for tensors on the CPU (the kernel wrapper
 decides, by the tensors' device).
@@ -25,7 +28,7 @@ for photon.
 """
 import torch
 
-from pvtrace_tpu_torch.engine import eventlog, physics, rng, tally
+from pvtrace_tpu_torch.engine import eventlog, pathwise as path, physics, rng, tally
 from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine.emit import emit
 
@@ -67,7 +70,7 @@ def step_state(st, s, maxsteps, emit_method, maxpathlength=float("inf"), alive=N
 
 def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-                score=False, per_photon=False):
+                score=False, per_photon=False, pathwise=()):
     """Trace photons ``index_offset + [0, n)`` with the eager twin.
 
     Returns (fates, steps, tallies, log): int64 fate counts [11], the
@@ -78,7 +81,9 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     `per_photon` the tallies also hold each photon's record at its last
     fold, photon ``index_offset + k`` in column k: ``photon_scores`` [CH,
     n], ``photon_fate`` and ``photon_steps`` [n] (int64; -1 and 0 where
-    it never folded) and ``photon_slack`` [CH, n]."""
+    it never folded) and ``photon_slack`` [CH, n]. `pathwise` (resolved
+    specs, used with `score` only, as in the JAX package) appends the
+    pathwise channels to CH."""
     global eager_runs
     eager_runs += 1
     device = st["node_f"].device
@@ -87,11 +92,14 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     s = initial_state(st, seed_words, pids)
     nxt, total = index_offset + B, index_offset + n
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64, device=device)
-    CH = score_ch.n_channels(st) if score else 0
+    specs = tuple(pathwise) if score else ()
+    CH = score_ch.n_channels(st, len(specs)) if score else 0
     tallies = tally.empty(st, B, CH)
     if score:
         s["score"] = torch.zeros((CH, B), dtype=s["px"].dtype, device=device)
         s["slack"] = torch.zeros((CH, B), dtype=torch.float64, device=device)
+    if specs:
+        s["tang"] = torch.zeros((len(specs), 7, B), dtype=s["px"].dtype, device=device)
     record = score and per_photon
     if record:
         pid = pids.clone()
@@ -125,12 +133,20 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
             killed, nevents = eventlog.budget_kill(log, nevents, slot, s)
             fates[physics.EV_KILL] += killed.sum()
             alive = alive & ~killed
-        out = step_state(st, s, maxsteps, emit_method, maxpathlength, alive, log is not None,
-                         score)
+        if specs:
+            out, jv = path.step_state(st, s, specs, maxsteps, emit_method, maxpathlength, alive,
+                                      log is not None)
+        else:
+            out = step_state(st, s, maxsteps, emit_method, maxpathlength, alive,
+                             log is not None, score)
         for name, fate in fate_slots:
             fates[fate] += out[name].sum()
         if score:
             ds, slack = score_ch.contributions(st, out, with_slack=True)
+            if specs:
+                ds_pw, out["tang"], slack_pw = path.contributions(
+                    out, jv, (s["dx"], s["dy"], s["dz"]), with_slack=True)
+                ds, slack = torch.cat([ds, ds_pw]), torch.cat([slack, slack_pw])
             out["score"], out["slack"] = s["score"] + ds, s["slack"] + slack
             idx, at = score_ch.fold(tallies, out["score"], out, killed, out["slack"])
             if record and idx.numel():
@@ -155,6 +171,8 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 if score:
                     s["score"][:, idx] = 0.0
                     s["slack"][:, idx] = 0.0
+                if specs:
+                    s["tang"][:, :, idx] = 0.0
                 if record:
                     pid[idx] = cand[idx]
                 tally.reset_seen(tallies, idx)
@@ -171,7 +189,7 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
           emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-          score=False):
+          score=False, pathwise=()):
     """Trace photons ``index_offset + [0, n)`` through the wrapper of
     ``pvt_trace``: the CUDA kernel for scene tensors on a CUDA device,
     ``trace_eager`` for CPU tensors.
@@ -183,5 +201,5 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
     return kernels.trace(
         st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-        maxpathlength, record_every, max_events, score,
+        maxpathlength, record_every, max_events, score, pathwise=pathwise,
     )

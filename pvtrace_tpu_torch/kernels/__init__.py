@@ -1,5 +1,5 @@
 """ctypes wrappers of the hand-written CUDA kernels (csrc/tracer.cu,
-csrc/score.cu, csrc/diff.cu).
+csrc/score.cu, csrc/pathwise.cu, csrc/diff.cu).
 
 Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``:
 
@@ -18,19 +18,22 @@ import ctypes
 import torch
 
 from pvtrace_tpu_torch.engine import absorb, chebyshev, eventlog, geometry, physics, tally, tracer
+from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
 from pvtrace_tpu_torch.kernels import build
 
 # Launches of each kernel since the last reset() ("pvt_trace_log": those
 # launches of pvt_trace that wrote an event log; "pvt_trace_score": those
-# with score channels), and what the last pvt_trace launch reported: its
+# with score channels; "pvt_trace_pathwise": those with pathwise channels
+# as well), and what the last pvt_trace launch reported: its
 # thread count, the dynamic shared memory of a block, whether the
 # recorder bins and the score sums were in shared memory, the steps its
 # photons took in all, and its time on the card (CUDA events, ms).
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
-            "pvt_fresnel": 0, "pvt_absorbed": 0, "pvt_absorbed_grad": 0}
+            "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
+            "pvt_absorbed_grad": 0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "total_steps": 0, "ms": 0.0}
 
@@ -90,7 +93,15 @@ class _Score(ctypes.Structure):
         ("rows", ctypes.c_void_p), ("fate_scores", ctypes.c_void_p),
         ("rec_scores", ctypes.c_void_p), ("stride", ctypes.c_longlong), ("ch", ctypes.c_int),
         ("n_comps", ctypes.c_int), ("shared", ctypes.c_int), ("photon", ctypes.c_void_p),
-        ("photon_n", ctypes.c_longlong),
+        ("photon_n", ctypes.c_longlong), ("tang", ctypes.c_void_p), ("path", ctypes.c_void_p),
+        ("n_path", ctypes.c_int),
+    ]
+
+
+class _Path(ctypes.Structure):
+    _fields_ = [
+        ("path", ctypes.c_void_p), ("n", ctypes.c_int), ("tin", ctypes.c_void_p),
+        ("tout", ctypes.c_void_p), ("jv", ctypes.c_void_p), ("ds", ctypes.c_void_p),
     ]
 
 
@@ -120,6 +131,11 @@ _ENTRIES = {
         "pvt_fresnel": [_VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace_score": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                             _VP, _VP],
+    },
+    "pathwise": {
+        "pvt_pathwise": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
+        "pvt_trace_pathwise": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                               _VP, _VP],
     },
     "diff": {
         "pvt_absorbed": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
@@ -409,7 +425,7 @@ def empty_log(n, record_every, max_events, index_offset, device):
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
           emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-          score=False, per_photon=False):
+          score=False, per_photon=False, pathwise=()):
     """Trace photons ``index_offset + [0, n)``; returns (fates, steps,
     tallies, log), as ``tracer.trace_eager`` does.
 
@@ -429,11 +445,14 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     straight to the totals (``last_trace["shared_scores"]`` says which).
     With `per_photon` (`score`, index_offset 0) the kernel also writes
     each photon's record, returned as the twin's ``photon_scores``,
-    ``photon_fate`` and ``photon_steps`` (no ``photon_slack``)."""
+    ``photon_fate`` and ``photon_steps`` (no ``photon_slack``). With
+    `score` and `pathwise` (resolved specs) the launch is
+    ``pvt_trace_pathwise``: CH gains one channel per spec, and each
+    thread keeps its photon's tangents beside its score row."""
     if _on_cpu(st):
         return tracer.trace_eager(
             st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-            maxpathlength, record_every, max_events, score, per_photon,
+            maxpathlength, record_every, max_events, score, per_photon, pathwise,
         )
     if per_photon and (not score or index_offset):
         raise ValueError("per_photon: needs score=True and index_offset 0")
@@ -453,25 +472,27 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         nxt.data_ptr(), fates.data_ptr(), longest.data_ptr(), total_steps.data_ptr(),
         ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc),
     )
+    specs = tuple(pathwise) if score else ()
     if score:
-        sums, desc = score_sums(st, resident_threads(dev, threads))
+        sums, desc = score_sums(st, resident_threads(dev, threads), specs)
         if per_photon:
-            CH = score_ch.n_channels(st)
+            CH = score_ch.n_channels(st, len(specs))
             photon = torch.zeros((CH + 2, n), device=dev, dtype=torch.float32)
             photon[CH] = -1.0
             desc.photon, desc.photon_n = photon.data_ptr(), n
         args += (ctypes.byref(desc),)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    entry = library("score").pvt_trace_score if score else library().pvt_trace
-    rc = entry(*args, info, _stream())
-    _raise_on(rc, "pvt_trace_score" if score else "pvt_trace")
+    name = "pvt_trace_pathwise" if specs else "pvt_trace_score" if score else "pvt_trace"
+    lib = {"pvt_trace": "tracer", "pvt_trace_score": "score", "pvt_trace_pathwise": "pathwise"}
+    rc = getattr(library(lib[name]), name)(*args, info, _stream())
+    _raise_on(rc, name)
     stop.record()
     launches["pvt_trace"] += 1
     if log_desc.n_slots:
         launches["pvt_trace_log"] += 1
-    if score:
-        launches["pvt_trace_score"] += 1
+    if name != "pvt_trace":
+        launches[name] += 1
         res.update(score_results(sums))
     if per_photon:
         res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
@@ -493,22 +514,27 @@ def resident_threads(device, threads):
     return max(256, (min(threads, cap) + 255) // 256 * 256)
 
 
-def score_sums(st, stride):
+def score_sums(st, stride, pathwise=()):
     """Zeroed K12 outputs of a score launch with `stride` lanes: the
     per-lane rows [CH, stride] float32 and the float64 totals
     ``fate_scores`` [2, 11, CH] and ``rec_scores`` [2, max(R, 1), CH]
     (signed sums, then magnitudes), with their ctypes descriptor (no
     per-photon records; the launch decides where a block keeps its
-    sums)."""
+    sums). With `pathwise` specs (K13), CH counts them, and the lanes'
+    tangent rows [C, 7, stride] and the path table come too."""
     meta, dev = st["meta"], st["node_f"].device
-    CH, R = score_ch.n_channels(st), max(meta["n_rec"], 1)
+    CH, R = score_ch.n_channels(st, len(pathwise)), max(meta["n_rec"], 1)
     sums = {
         "rows": torch.empty((CH, stride), device=dev, dtype=torch.float32),
         "fate": torch.zeros((2, physics.N_FATES, CH), device=dev, dtype=torch.float64),
         "rec": torch.zeros((2, R, CH), device=dev, dtype=torch.float64),
+        "tang": torch.empty((len(pathwise), 7, stride), device=dev, dtype=torch.float32),
+        "path": T.pathwise_table(pathwise, dev),
     }
     desc = _Score(sums["rows"].data_ptr(), sums["fate"].data_ptr(), sums["rec"].data_ptr(),
-                  stride, CH, meta["n_comps"], 0)
+                  stride, CH, meta["n_comps"], 0, None, 0,
+                  sums["tang"].data_ptr() if pathwise else None, sums["path"].data_ptr(),
+                  len(pathwise))
     return sums, desc
 
 
@@ -638,3 +664,59 @@ def absorbed_grad(dep, grad_w, c):
     _raise_on(rc, "pvt_absorbed_grad")
     launches["pvt_absorbed_grad"] += 1
     return out.to(torch.float32)
+
+
+def pathwise_step(st, s, tang, specs, maxsteps=1000, emit_method=0,
+                  maxpathlength=float("inf")):
+    """One loop step of lanes `s` with the pathwise channels `specs`
+    (resolved) and the lanes' tangents `tang` [C, 7, B]: the stepped state
+    and flags (as ``step``) with ``comp_id`` (as ``score_step``), each
+    channel's map [C, PATH_J, B] (the new coordinates' tangents, then those
+    of t0, alpha and the reflectivity on surface events, through
+    nan_to_num), contribution [C, B] and new tangents [C, 7, B]. The twin
+    (``pathwise_step_twin``) on the CPU, ``pvt_pathwise`` on the card."""
+    if _on_cpu(st):
+        return pathwise_step_twin(st, s, tang, specs, maxsteps, emit_method, maxpathlength)
+    _check_scene(st)
+    dev = st["node_f"].device
+    B, C = s["px"].shape[0], len(specs)
+    want = _empty_state(B, dev)
+    _check_lanes(s, want, B, dev)
+    if tang.shape != (C, 7, B) or tang.dtype != torch.float32 or not tang.is_contiguous() \
+            or tang.device != dev:
+        raise ValueError(f"tangents: need contiguous float32 [{C}, 7, {B}] on {dev}")
+    flags = _empty_flags(B, dev)
+    flags["comp_id"] = torch.empty(B, device=dev, dtype=torch.int32)
+    f = dict(device=dev, dtype=torch.float32)
+    table = T.pathwise_table(specs, dev)
+    jv, ds, tout = (torch.empty((C, T.PATH_J, B), **f), torch.empty((C, B), **f),
+                    torch.empty((C, 7, B), **f))
+    desc = _Path(table.data_ptr(), C, tang.data_ptr(), tout.data_ptr(), jv.data_ptr(),
+                 ds.data_ptr())
+    sc = _scene(st, maxsteps, emit_method, maxpathlength)
+    rc = library("pathwise").pvt_pathwise(
+        ctypes.byref(sc), ctypes.byref(_struct(_State, s, _STATE_PTRS)),
+        ctypes.byref(_struct(_State, want, _STATE_PTRS)),
+        ctypes.byref(_struct(_Flags, flags, _FLAG_PTRS)), B, ctypes.byref(desc),
+        flags["comp_id"].data_ptr(), _stream(),
+    )
+    _raise_on(rc, "pvt_pathwise")
+    launches["pvt_pathwise"] += 1
+    return dict(want, **flags), jv, ds, tout
+
+
+def pathwise_step_twin(st, s, tang, specs, maxsteps=1000, emit_method=0,
+                       maxpathlength=float("inf")):
+    """The twin of ``pvt_pathwise`` (``pathwise_step``'s CPU path), on the
+    tensors' device; ``out["path_slack"]`` [C, B] is the contributions'
+    slack and ``out["jv_raw"]`` the map before nan_to_num (a dict of [C,
+    B] per ``pathwise.OUTPUTS``)."""
+    out, jv = path.step_state(st, dict(s, tang=tang), specs, maxsteps, emit_method,
+                              maxpathlength)
+    out["comp_id"] = torch.where(out["absorbed"], out["comp_id"], -1)
+    ds, tout, out["path_slack"] = path.contributions(out, jv, (s["dx"], s["dy"], s["dz"]),
+                                                     with_slack=True)
+    out["jv_raw"] = jv
+    surface = out["reflecting"] | out["transmitting"]
+    rows = [jv[name] for name in path.OUTPUTS[:-1]] + [torch.where(surface, jv["refl_r"], 0.0)]
+    return out, torch.nan_to_num(torch.stack(rows, 1)), ds, tout

@@ -1,8 +1,10 @@
 """Build the CUDA kernels with nvcc into shared libraries for ctypes.
 
-Three libraries, one per translation unit of ``csrc/``: ``tracer`` (the
+Four libraries, one per translation unit of ``csrc/``: ``tracer`` (the
 score-free kernels), ``score`` (K12: the score instantiations of the trace
-kernel, ``pvt_score``, ``pvt_fresnel``) and ``diff`` (K15). They go to
+kernel, ``pvt_score``, ``pvt_fresnel``), ``pathwise`` (K13: the
+instantiations with pathwise channels, ``pvt_pathwise``) and ``diff``
+(K15). They go to
 ``pvtrace_tpu_torch/kernels/_build/`` (listed in ``.gitignore``), named by
 a hash of the sources and flags, so a build happens at first use and
 again only when a source changes; ``build_all`` starts one nvcc per
@@ -20,8 +22,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # Library name -> its translation unit; every one includes headers of csrc/.
-LIBRARIES = {"tracer": "tracer.cu", "score": "score.cu", "diff": "diff.cu"}
-SOURCES = ("tracer.cu", "score.cu", "diff.cu", "tracer.cuh", "trace_kernel.cuh", "diff.cuh")
+LIBRARIES = {"tracer": "tracer.cu", "score": "score.cu", "pathwise": "pathwise.cu",
+             "diff": "diff.cu"}
+SOURCES = ("tracer.cu", "score.cu", "pathwise.cu", "diff.cu", "tracer.cuh", "trace_kernel.cuh",
+           "diff.cuh")
 # No --use_fast_math: log1p, sqrt and division stay IEEE.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

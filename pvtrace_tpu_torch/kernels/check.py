@@ -11,6 +11,7 @@ import torch
 
 from pvtrace_tpu_torch import kernels
 from pvtrace_tpu_torch.engine import absorb, chebyshev, geometry, history_tally, physics, tally
+from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import tracer
 from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
@@ -65,6 +66,9 @@ OPS_SCORE_FOLD = 4  # per channel folded: load, compare, two float64 adds
 OPS_CHORD = 60  # one node's transform (24) and chord (box slab test, 36)
 OPS_ABSORBED = 20  # grid lerp, exp, weight
 OPS_ABSORBED_GRAD = 16  # two multiplies, exp, a float64 add
+OPS_PATH_STEP = 40  # the hybrid terms a step's channels share (expm1 twice, exp, branch)
+OPS_PATH_CHANNEL = 260  # one channel's tangent map: frames 36, slab test 60, normal, Fresnel
+# 90, reflection or refraction 40, hybrid terms and shift 30
 
 # pvt_mesh against the twin: t1 and t2 within MESH_RTOL relative where the
 # hit counts agree; the counts may differ only on rays that pass within
@@ -123,6 +127,38 @@ FRESNEL_SINGULAR = 1e-3
 # magnitudes (a float32 sum in another order).
 ABSORBED_RTOL = 1e-5
 GRAD_RTOL = 1e-4
+# K13 against its twin, both float32 on the card, lane by lane: each
+# output of a channel's tangent map (``kernels.pathwise_step``) within
+# PATH_RTOL of its scale (the largest |value| of the twin's lanes; see
+# PATH_GROUPS), the contribution within that plus its slack
+# (``engine/pathwise.py``), and each value also within
+# ``pathwise.grazing`` of itself: near a grazing hit, t0's tangent carries
+# the rounding of the incidence cosine c_hit over c_hit^2 (1.1e-3 of the
+# value at c_hit = 0.034 on a cylinder's barrel, measured on the H100).
+# The reflectivity's tangent and the coin term also carry PATH_RTOL of the
+# tangents' scale (the error of the incidence cosine's tangent) times
+# dR/dc, which grows without bound at the critical angle. Left out,
+# counted and capped at PATH_LEFT_OUT of the lanes: lanes whose step
+# differs (the discrete outcomes), lanes where either side saturates
+# (``saturates``: a square root's infinite slope taken through
+# nan_to_num, FLT_MAX, or a NaN sum of two), and lanes whose nearest hit
+# is below the grazing cosine ``score.GRAZING_C``. In the photon-by-photon
+# trace check a photon whose record saturates on either side is left out
+# and counted likewise (at most SCORE_PARTED of them), and its scores join
+# the sums' allowance.
+PATH_RTOL = 1e-4
+PATH_LEFT_OUT = 1e-3
+# A scale is taken over a group of outputs: the position's and the
+# direction's tangents, before and after the shift, and t0's (a direction
+# tangent's rounding is a position tangent's over a radius of curvature
+# of order 1 cm: a ray whose origin moves along itself hits a curved
+# surface at the same point, and the tangent of the normal there is 0 in
+# exact arithmetic and a residue of two cancelling O(|position tangent|)
+# terms in float32), and the wavelength's; each other output has its own.
+# A scale is at least PATH_FLOOR of the channel's largest.
+PATH_GROUPS = ((0, 1, 2, 3, 4, 5, 7, 11, 12, 13, 14, 15, 16), (6, 17))
+PATH_FLOOR = 1e-6
+SATURATED = 1e30
 
 
 def require(ok, message):
@@ -630,16 +666,22 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     `got_fates`: ``kernels.trace(..., per_photon=True)`` on the card or
     the host build of its device code) against the twin's (`ref_t`:
     ``tracer.trace_eager(..., per_photon=True)``), by the rules above
-    SCORE_F64_ULP; at most `max_parted` photons may part. Returns a dict:
-    ``parted`` photons, ``record_used`` and ``sums_used``, the largest
-    share of its bound a record and a sum took, and ``max_abs_err`` of the
-    fate_scores against the twin's."""
+    SCORE_F64_ULP; at most `max_parted` photons may part, and as many may
+    saturate (the pathwise channels, PATH_RTOL above). Returns a dict:
+    ``parted`` and ``saturated`` photons, ``record_used`` and
+    ``sums_used``, the largest share of its bound a record and a sum took,
+    and ``max_abs_err`` of the fate_scores against the twin's."""
     dev = ref_t["fate_scores"].device
     kf, tf = got_t["photon_fate"].to(dev), ref_t["photon_fate"]
     require(bool((kf >= 0).all()), "pvt_trace (score): a photon never folded its score")
     ks, ts = got_t["photon_scores"].to(dev).double(), ref_t["photon_scores"].double()
-    allow = SCORE_RTOL * ts.abs().amax(1, keepdim=True) + ref_t["photon_slack"]
-    off = (ks - ts).abs()
+    saturated = (saturates(ks) | saturates(ts)).any(0)
+    n_sat = int(saturated.sum())
+    require(n_sat <= max_parted,
+            f"pvt_trace (score): {n_sat} of {n} photons saturated (limit {max_parted:g})")
+    scale = torch.where(saturated[None, :], 0.0, ts.abs()).amax(1, keepdim=True)
+    allow = SCORE_RTOL * scale + ref_t["photon_slack"]
+    off = torch.where(saturated[None, :], 0.0, (ks - ts).abs())
     parted = (kf != tf) | (got_t["photon_steps"].to(dev) != ref_t["photon_steps"]) \
         | (off > allow).any(0)
     n_parted = int(parted.sum())
@@ -654,7 +696,8 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     got = {k: got_t[k].to(dev).double() for k in ("fate_scores", "fate_abs")}
     own = torch.zeros_like(got["fate_scores"]).index_add_(0, kf, ks.T)
     own_abs = torch.zeros_like(own).index_add_(0, kf, ks.abs().T)
-    smax = torch.maximum(ref_t["score_max"].double(), ks.abs().amax(1))
+    smax = torch.where(saturated[None, :], 0.0, torch.maximum(ks.abs(), ts.abs())).amax(1)
+    sat = (ks.abs() + ts.abs())[:, saturated].sum(1)
     refolds = int(got_fates.sum()) - n
     own_allow = 2 * n * SCORE_F64_ULP * torch.maximum(own_abs, got["fate_abs"])
     own_allow[physics.EV_KILL] += refolds * smax
@@ -670,13 +713,14 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
         a, b = got_t[name].to(dev).double(), ref_t[name].double()
         a = a[:b.shape[0]]
         bound_ = SCORE_RTOL * ref_t[abs_name].double() + ref_t[slack_name] \
-            + n_parted * 2.0 * smax
+            + n_parted * 2.0 * smax + sat
         d = (a - b).abs()
         require(bool((d <= bound_).all()),
                 f"pvt_trace (score): {name} off the twin's by "
                 f"{float((d - bound_).max()):.3g} past the bound")
         sums_used = max(sums_used, float((d / bound_.clamp(min=1e-30)).max()))
-    return {"parted": n_parted, "record_used": record_used, "sums_used": sums_used,
+    return {"parted": n_parted, "saturated": n_sat, "record_used": record_used,
+            "sums_used": sums_used,
             "max_abs_err": float((got["fate_scores"] - ref_t["fate_scores"].double())
                                  .abs().max())}
 
@@ -818,19 +862,22 @@ def check_fresnel(device, reps=10):
     return report
 
 
-def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
+def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0,
+                       pathwise=()):
     """pvt_trace with score channels against the twin, both on the card,
     n photons: fates (and recorder tallies) as ``check_trace``; the
     per-photon records and the fate_scores and rec_scores by
     ``compare_score_records``, at most SCORE_PARTED of the photons
     parted. The kernel is timed again without its records, the twin with
-    them."""
+    them. With `pathwise` specs the kernel is pvt_trace_pathwise."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     got, _, got_t, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
-                                     emit_method=emit_method, score=True, per_photon=True)
+                                     emit_method=emit_method, score=True, per_photon=True,
+                                     pathwise=pathwise)
     start.record()
     ref, _, ref_t, _ = tracer.trace_eager(st, seed_words, n, lanes=lanes, maxsteps=maxsteps,
-                                          emit_method=emit_method, score=True, per_photon=True)
+                                          emit_method=emit_method, score=True, per_photon=True,
+                                          pathwise=pathwise)
     stop.record()
     torch.cuda.synchronize()
     got, ref = got.cpu(), ref.cpu()
@@ -849,15 +896,119 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
                   twin_fate_scores=ref_t["fate_scores"], plain_ms=start.elapsed_time(stop),
                   tallies=got_t)
     again, _, _, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
-                                   emit_method=emit_method, score=True)
+                                   emit_method=emit_method, score=True, pathwise=pathwise)
     require(torch.equal(again.cpu(), got), "pvt_trace (score): fates differ between two runs")
     report.update(ms=kernels.last_trace["ms"], shared_scores=kernels.last_trace["shared_scores"])
     ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None)
-    CH = score_ch.n_channels(st)
-    score_ms = (kernels.last_trace["total_steps"] * OPS_SCORE_STEP + n * CH * OPS_SCORE_FOLD) \
+    C = len(pathwise)
+    CH = score_ch.n_channels(st, C)
+    per_step = OPS_SCORE_STEP + (OPS_PATH_STEP + C * OPS_PATH_CHANNEL if C else 0)
+    score_ms = (kernels.last_trace["total_steps"] * per_step + n * CH * OPS_SCORE_FOLD) \
         / PEAK_OPS_PER_S * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms + score_ms, "operations") \
         if by == "operations" else (ops_ms, by)
+    return report
+
+
+def saturates(x):
+    """Where `x` is not finite or at least SATURATED in magnitude."""
+    return ~torch.isfinite(x) | (x.abs() >= SATURATED)
+
+
+def fresnel_dR_dc(out):
+    """|dR/dc| of the Fresnel reflectivity at each lane's (n1, n2, c_in),
+    float64 (inf at the critical angle)."""
+    c = out["c_in"].double().requires_grad_()
+    with torch.enable_grad():
+        r = score_ch.fresnel_R(out["n1r"].double(), out["n2r"].double(), c)
+        (g,) = torch.autograd.grad(r.sum(), c)
+    return g.abs()
+
+
+def check_pathwise(st, state, specs, steps=8, max_discrete=1e-4, maxsteps=1000, emit_method=0,
+                   reps=10):
+    """pvt_pathwise against its twin for `steps` steps from lanes `state`
+    with the pathwise channels `specs`, both fed the twin's previous state
+    and tangents (zero at the start): discrete outcomes (the absorbing
+    component among them) differ on at most a fraction `max_discrete` of
+    the lanes; on the others, bar the lanes left out (PATH_RTOL above,
+    counted, at most PATH_LEFT_OUT of them), each channel's map (the new
+    coordinates' tangents, then those of t0, alpha and the reflectivity),
+    contribution and new tangents within PATH_RTOL of their scale, the
+    contribution also within its slack."""
+    B, C = state["px"].shape[0], len(specs)
+    dev = state["px"].device
+    s = state
+    tang = torch.zeros((C, 7, B), device=dev, dtype=torch.float32)
+    worst_frac, used, err, left_out, saturated, worst = 0.0, 0.0, 0.0, 0, 0, ""
+    names = path.OUTPUTS + ("contribution",) + tuple(f"new {c}" for c in path.COORDS)
+    for k in range(steps):
+        twin, t_jv, t_ds, t_tang = kernels.pathwise_step_twin(st, s, tang, specs, maxsteps,
+                                                              emit_method)
+        got, g_jv, g_ds, g_tang = kernels.pathwise_step(st, s, tang, specs, maxsteps, emit_method)
+        torch.cuda.synchronize()
+        bad = torch.zeros(B, dtype=torch.bool, device=dev)
+        for name in DISCRETE + ("comp_id",):
+            bad |= got[name].long() != twin[name].long()
+        frac = float(bad.sum()) / B
+        worst_frac = max(worst_frac, frac)
+        require(frac <= max_discrete,
+                f"pvt_pathwise step {k}: discrete outcomes differ in {frac:.2e} of lanes")
+        ref = torch.cat([t_jv, t_ds[:, None], t_tang], 1).double()  # [C, 18, B]
+        val = torch.cat([g_jv, g_ds[:, None], g_tang], 1).double()
+        sat = (saturates(ref) | saturates(val)).any(1).any(0)
+        graze = torch.isfinite(twin["t0"]) & (twin["c_hit"] < score_ch.GRAZING_C)
+        out = bad | sat | graze
+        saturated += int((sat & ~bad).sum())
+        left_out += int((out & ~bad).sum())
+        require(left_out <= PATH_LEFT_OUT * B * (k + 1),
+                f"pvt_pathwise step {k}: {left_out} lanes left out (limit "
+                f"{PATH_LEFT_OUT * B * (k + 1):g})")
+        scale = torch.where(out[None, None, :], 0.0, ref.abs()).amax(2, keepdim=True)
+        for group in PATH_GROUPS:
+            scale[:, group] = scale[:, group].amax(1, keepdim=True)
+        scale = torch.maximum(scale, PATH_FLOOR * scale.amax(1, keepdim=True))
+        allow = PATH_RTOL * scale.clamp(min=1e-30) + ref.abs() * path.grazing(twin)
+        allow[:, T.PATH_J] += twin["path_slack"]
+        # The reflectivity's tangent and the coin term carry the error of
+        # c's tangent (PATH_RTOL of the tangents' scale) times dR/dc.
+        dr_dc = fresnel_dR_dc(twin).nan_to_num(posinf=0.0, neginf=0.0)
+        coin = twin["fres_coin"] & (twin["reflecting"] | twin["transmitting"])
+        r = torch.where(coin, twin["refl_r"].double(), 0.5)
+        branch = torch.where(twin["reflecting"], 1.0 / r.clamp(min=1e-12),
+                             1.0 / (1.0 - r).clamp(min=1e-12))
+        carried = PATH_RTOL * scale[:, 0] * torch.where(coin, dr_dc, 0.0)[None, :]
+        allow[:, 9] += carried
+        allow[:, T.PATH_J] += carried * branch
+        diff = torch.where(out[None, None, :], 0.0, (val - ref).abs())
+        share = torch.where(out[None, None, :], 0.0, diff / allow)
+        over = float(share.max())
+        if over > used or over > 1.0:
+            used = over
+            c, q, i = np.unravel_index(int(share.argmax()), share.shape)
+            worst = (f"step {k} lane {i} channel {specs[c]} {names[q]}: kernel "
+                     f"{float(val[c, q, i]):.6g}, twin {float(ref[c, q, i]):.6g}, allowed "
+                     f"{float(allow[c, q, i]):.3g}; hit {int(twin['hit'][i])}, c_in "
+                     f"{float(twin['c_in'][i]):.6g}, absorbed {bool(twin['absorbed'][i])}")
+        require(over <= 1.0, f"pvt_pathwise: {worst}")
+        err = max(err, float((diff / scale.clamp(min=1e-30)).max()))
+        require(over <= 1.0 and err == err, f"pvt_pathwise step {k}: not finite")
+        s, tang = {name: twin[name] for name in s}, t_tang.contiguous()
+    report = {
+        "max_abs_err": err, "bound_used": used, "worst_lane": worst,
+        "discrete_frac": worst_frac, "left_out": left_out, "saturated": saturated,
+        "channels": C,
+        "ms": cuda_ms(lambda: kernels.pathwise_step(st, s, tang, specs, maxsteps, emit_method),
+                      reps),
+        "plain_ms": cuda_ms(lambda: kernels.pathwise_step_twin(st, s, tang, specs, maxsteps,
+                                                               emit_method), reps),
+    }
+    # pvt_step's work and bytes, and per channel the map: 7 tangents read,
+    # 7 written, PATH_J map values and one contribution written.
+    report["bound_ms"], report["bound_by"] = bound(
+        B * (OPS_STEP + OPS_PATH_STEP + C * OPS_PATH_CHANNEL),
+        B * (2 * 61 + 45 + 4 * C * (7 + 7 + T.PATH_J + 1)),
+    )
     return report
 
 

@@ -1,8 +1,9 @@
 // The persistent trace kernel of pvtrace_tpu_torch (pvt_trace) and what a
 // block of it shares: its recorder tallies (K9) and score sums (K12) in
 // shared memory. Included by tracer.cu, which instantiates the score-free
-// kernels, and by score.cu, which instantiates the score kernels: two
-// translation units that nvcc builds side by side.
+// kernels, by score.cu, which instantiates the score kernels, and by
+// pathwise.cu, which instantiates the score kernels with pathwise channels:
+// three translation units that nvcc builds side by side.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -102,6 +103,9 @@ __device__ ScoreAcc score_block_init(const PvtScene& sc, const PvtScore& s, unsi
   a.n_rec = sc.n_rec;
   a.photon = s.photon;
   a.photon_n = s.photon_n;
+  a.tang = s.tang ? s.tang + lane : nullptr;
+  a.path = s.path;
+  a.n_path = s.n_path;
   if (s.shared) {
     a.fate = reinterpret_cast<double*>(smem);
     a.rec = a.fate + 2 * N_FATES * s.ch;
@@ -163,8 +167,12 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // folded in float64 into the block's shared [fate, channel] sums, which
 // go to the totals at the end. The instantiations without the log carry
 // none of its code, those without meshes (kMesh) none of K10's, those
-// without scores none of K12's.
-template <bool kTally, bool kLog, bool kMesh, bool kScore>
+// without scores none of K12's. With pathwise channels (kPath, K13, only
+// with kScore; replaces the pathwise block of body), the photon's tangents
+// live in the thread's own rows of `score.tang` beside its score row, and
+// each step's tangent map and hybrid terms run after the primal step
+// (pathwise_step); only the instantiations of pathwise.cu carry that code.
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
@@ -188,7 +196,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   for (;;) {
     const unsigned long long id = atomicAdd(next, 1ull);
     if (id >= total) break;
-    longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore>(
+    longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore, kPath>(
                                sc, s0, s1, (uint32_t)id, f, &acc, &lg, kScore ? &sa : nullptr));
   }
 
@@ -211,12 +219,12 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   if (kScore) score_block_flush(sc, score, sa);
 }
 
-// One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore>,
-// sized to the card's resident capacity (see pvt_trace), and with scores
-// to at most score.stride threads (the rows there are). info gets the
+// One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore,
+// kPath>, sized to the card's resident capacity (see pvt_trace), and with
+// scores to at most score.stride threads (the rows there are). info gets the
 // thread count, a block's dynamic shared memory, and whether the recorder
 // bins and the score sums were placed there.
-template <bool kTally, bool kLog, bool kMesh, bool kScore>
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          unsigned long long total, long long max_threads,
                          unsigned long long* next, unsigned long long* fates, int* max_count,
@@ -232,7 +240,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore>;
+  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath>;
   if (err == cudaSuccess && bytes > 0) err = allow_shared(kernel, bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, bytes);

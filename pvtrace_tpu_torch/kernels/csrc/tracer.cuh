@@ -126,6 +126,14 @@
 #define LOG_I 6
 #define LOG_F 12
 
+#define PATH_KIND 0
+#define PATH_NODE 1
+#define PATH_PARAM 2
+#define PATH_I 3
+#define PATH_N 0
+#define PATH_GEOM 1
+#define PATH_J 10
+
 #define N_SEL 7
 #define MAX_RECORDERS 256
 #define SEEN_WORDS 8
@@ -261,6 +269,13 @@ struct StepOut {
   // and whether the reflect/transmit was a Fresnel coin.
   bool moving, fres_coin;
   float advance, alpha, n1r, n2r, refl_r;
+  // What the pathwise channels' tangent map reads besides (kPath): the
+  // nearest hit's distance, its candidate and a mesh hit's triangle, the
+  // facet override (-1 for none), TIR, and whether the volume event was
+  // radiative (and with `emitting`, an emission).
+  float t0;
+  int cand, tri, mode;
+  bool tir, radiative;
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
@@ -330,6 +345,13 @@ struct PvtLog {
 // id p in column p: its path score, its fate, its step count; the last
 // fold wins), which lets a check compare the kernel with its twin photon
 // by photon.
+//
+// K13: with pathwise channels (n_path > 0, the last n_path of the ch), each
+// thread also keeps its photon's tangents in `tang` [n_path, 7, stride]
+// (channel ci's coordinate k at (ci * 7 + k) * stride + t), and `path`
+// [n_path, PATH_I] says what each channel differentiates: the kind
+// (PATH_N, a node's refractive index; PATH_GEOM, a geometry parameter),
+// the node and the parameter's index in NF_GP.
 struct PvtScore {
   float* rows;
   double* fate_scores;
@@ -340,6 +362,9 @@ struct PvtScore {
   int shared;
   float* photon;
   long long photon_n;
+  float* tang;
+  const int* path;
+  int n_path;
 };
 
 // One thread's view of them: its row, the accumulators it adds to (a
@@ -354,6 +379,9 @@ struct ScoreAcc {
   int n_rec;
   float* photon;
   long long photon_n;
+  float* tang;
+  const int* path;
+  int n_path;
 };
 
 // ---------------------------------------------------------------------
@@ -694,6 +722,7 @@ struct Hits {
   float lo[3];     // ray in the hit node's local frame
   float ld[3];
   int tri;         // a mesh hit node's nearest triangle (its row in tri_f)
+  int cand;        // the candidate of the hit node that gave t0 (kPath)
 };
 
 // K3: nearest two forward hits over all nodes (strict < in node order,
@@ -701,7 +730,8 @@ struct Hits {
 // node's candidates are its nearest two triangle hits, and all its hits
 // count; without, the scene has no mesh and the code has no mesh branch
 // (it would cost the other scenes registers: an A/B build on the H100).
-template <bool kMesh>
+// With kPath it also keeps the hit's candidate.
+template <bool kMesh, bool kPath = false>
 PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
   float t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
   int n1 = 0, n2 = 0, cont_n = 0, nhits = 0;
@@ -742,6 +772,7 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
           h.ld[k] = d[k];
         }
         if (kMesh) h.tri = tri;
+        if (kPath) h.cand = c;
       } else if (tv < t2) {
         t2 = tv;
         n2 = n;
@@ -809,12 +840,21 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 // only where the surface needs it. With kLog it also gives what the event
 // log records (StepOut's middle fields); without, those are not set. kMesh
 // false: the scene has no mesh. With kScore it also gives the score
-// channels' inputs (StepOut's last fields and the shared ones).
-template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false>
+// channels' inputs (StepOut's last fields and the shared ones), and with
+// kPath (only with kScore) what the pathwise channels' tangent map reads.
+template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
+          bool kPath = false>
 PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out) {
   constexpr bool kExtras = kLog || kScore;
   Hits h;
-  intersect_nodes<kMesh>(sc, p, h);
+  intersect_nodes<kMesh, kPath>(sc, p, h);
+  if (kPath) {
+    out.t0 = h.t0;
+    out.cand = h.cand;
+    out.tri = kMesh ? h.tri : -1;
+    out.mode = -1;
+    out.tir = out.radiative = out.emitting = false;
+  }
   out.hit = h.hit;
   out.container = h.container;
   out.exit_mask = out.losing = out.reacting = out.kills = out.no_hit_term = false;
@@ -883,6 +923,10 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     if (kLog) {
       out.emitting = radiative && is_lum;
       out.scattering = radiative && !is_lum;
+    }
+    if (kPath) {
+      out.radiative = radiative;
+      out.emitting = radiative && is_lum;
     }
     if (radiative) {
       float mu;
@@ -978,6 +1022,10 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
         out.n2r = n2r;
         out.refl_r = r;
         out.fres_coin = is_fresnel && !tir && mode < 0;
+      }
+      if (kPath) {
+        out.mode = mode;
+        out.tir = tir;
       }
       reflecting = u[7] < r;
       if (reflecting) {
@@ -1343,6 +1391,510 @@ PVT_FN void score_lane(const PvtScene& sc, const PvtState& in, const PvtState& o
   if (fate >= 0) score_add(sa, sa.fate, N_FATES, fate);
 }
 
+// ---------------------------------------------------------------------
+// K13: pathwise channels (engine/pathwise.py). Replaces the jax.linearize
+// of physics_core in the pathwise block of body and the hybrid channels
+// built on it (pvtrace_tpu/engine/tracer.py). The primal step is step_one
+// with kPath, which keeps the branch it took; step_tangent is then a
+// straight-line, hand-written JVP of that branch, applied once per channel
+// to the channel's tangent row. Branch decisions come from the primal step
+// and are never taken again, so a tangent follows its photon's path
+// exactly. Ties follow JAX's rules: a clip has slope 1/2 at a bound, an
+// absolute value slope +1 at 0, a minimum or maximum 1/2 of each slope at a
+// tie; a square root at 0 has an infinite slope, and the hybrid terms take
+// nan_to_num of every tangent, as the reference does.
+
+// Slope of jnp.clip(x, lo, hi) in x.
+PVT_FN float clip_slope(float x, float lo, float hi) {
+  if (x > lo && x < hi) return 1.0f;
+  return (x == lo || x == hi) ? 0.5f : 0.0f;
+}
+
+// Slope of jnp.maximum(x, 0) (jnp.clip(x, 0, None)) in x.
+PVT_FN float max0_slope(float x) { return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f); }
+
+// min(a, b) and max(a, b) with their tangents (1/2 of each at a tie).
+PVT_FN void min_t(float a, float da, float b, float db, float& m, float& dm) {
+  m = fminf(a, b);
+  dm = a < b ? da : (b < a ? db : 0.5f * (da + db));
+}
+
+PVT_FN void max_t(float a, float da, float b, float db, float& m, float& dm) {
+  m = fmaxf(a, b);
+  dm = a > b ? da : (b > a ? db : 0.5f * (da + db));
+}
+
+// cheb_eval of fit `fit` at t and its derivative in t (the segment's affine
+// map and clip, the Clenshaw derivative recurrence, exp on a log segment).
+PVT_CALLED_FN float cheb_eval_d(const PvtScene& sc, int fit, float t, float* dv_dt) {
+  const int* fi = sc.cheb_fit_i + fit * CHEB_FIT_I;
+  const int kind = PVT_LDG(fi + FI_KIND), nseg = PVT_LDG(fi + FI_NSEG);
+  const int seg0 = PVT_LDG(fi + FI_SEG0);
+  int lin = -1, lg = -1;
+  for (int i = 0; i < nseg; ++i) {
+    const int s = seg0 + i;
+    const float a = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_A);
+    const float b = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_B);
+    bool m;
+    if (nseg == 1)
+      m = true;
+    else if (i == 0)
+      m = t < b;
+    else if (i == nseg - 1)
+      m = t >= a;
+    else
+      m = t >= a && t < b;
+    if (m) {
+      if (PVT_LDG(sc.cheb_seg_i + s * CHEB_SEG_I + SI_KIND) == FIT_LOG)
+        lg = s;
+      else
+        lin = s;
+    }
+  }
+  const int s = lg >= 0 ? lg : lin;
+  *dv_dt = 0.0f;
+  if (s < 0) return 0.0f;
+  const float* sf = sc.cheb_seg_f + s * CHEB_SEG_F;
+  const int* si = sc.cheb_seg_i + s * CHEB_SEG_I;
+  float ts = t, dts = 1.0f;
+  if (kind == FIT_PW) {
+    const float scale = PVT_LDG(sf + SF_SCALE);
+    const float x = (t - PVT_LDG(sf + SF_A)) * scale - 1.0f;
+    ts = clampf(x, -1.0f, 1.0f);
+    dts = clip_slope(x, -1.0f, 1.0f) * scale;
+  }
+  const float* c = sc.cheb_coef + PVT_LDG(si + SI_COEF0);
+  float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f;
+  for (int k = PVT_LDG(si + SI_DEG); k > 0; --k) {
+    const float nb = 2.0f * ts * b1 - b2 + PVT_LDG(c + k);
+    const float nd = 2.0f * b1 + 2.0f * ts * d1 - d2;
+    b2 = b1;
+    b1 = nb;
+    d2 = d1;
+    d1 = nd;
+  }
+  float v = ts * b1 - b2 + PVT_LDG(c);
+  float dv = b1 + ts * d1 - d2;
+  if (PVT_LDG(si + SI_KIND) == FIT_LOG) {
+    const float e = expf(v);
+    v = e - PVT_LDG(sc.cheb_fit_f + fit);
+    dv = e * dv;
+  }
+  *dv_dt = dv * dts;
+  return v;
+}
+
+// d(slot w of the container)/d(wavelength) at the step's incoming
+// wavelength: K5a's fits' derivatives in t, or K5b's lerp slope, through
+// t = (i0 + frac) * tscale - 1 and frac = clip(posf - i0, 0, 1) (its slope
+// fr_s), posf = (wav - x0) / dx.
+PVT_FN float spec_slot_slope(const PvtScene& sc, int container, int row, int w, float t,
+                             float fr_s) {
+  float d_frac;
+  if (!sc.cheb_spec) {
+    const float* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
+    d_frac = p[1] - p[0];
+  } else {
+    const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
+    float d_t = 0.0f;
+    for (int q = 0; q < slot[1]; ++q) {
+      float d;
+      cheb_eval_d(sc, sc.cheb_ref[slot[0] + q], t, &d);
+      d_t += d;
+    }
+    d_frac = d_t * sc.cheb_tscale;
+  }
+  return d_frac * fr_s / sc.grid_dx;
+}
+
+// Slope of lerp_pairs in gamma: (M - 1) times the row's difference.
+PVT_FN float lerp_pairs_slope(const float* pairs, int base, int M, float gamma) {
+  const float g = gamma * (float)(M - 1);
+  const int j0 = (int)clampf(g, 0.0f, (float)(M - 2));
+  const float* p = pairs + 2 * (size_t)(base + j0);
+  return (float)(M - 1) * (p[1] - p[0]);
+}
+
+// What a step's tangent map shares between its channels: the slopes of the
+// container's attenuation and of p1 in the incoming wavelength, and of the
+// emitted wavelength in gamma (K5a or K5b, evaluated once per step).
+struct PathSlopes {
+  float dalpha, dp1, dnew;
+};
+
+PVT_FN PathSlopes path_slopes(const PvtScene& sc, const StepOut& o, float wav_in,
+                              const float* u) {
+  PathSlopes ps = {0.0f, 0.0f, 0.0f};
+  const int K = sc.node_i[o.container * NODE_I + NI_NCOMP];
+  if (K == 0) return ps;
+  const float posf = (wav_in - sc.grid_x0) / sc.grid_dx;
+  const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
+  const float fr = posf - (float)i0;
+  const float frac = clampf(fr, 0.0f, 1.0f);
+  const float fr_s = clip_slope(fr, 0.0f, 1.0f);
+  const int row = o.container * sc.grid_n + i0;
+  const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
+  ps.dalpha = spec_slot_slope(sc, o.container, row, K - 1, t, fr_s);
+  if (o.emitting) {
+    const int* ci = sc.comp_i + o.comp * COMP_I;
+    float p1 = 0.0f;
+    if (sc.emit_method != EMIT_FULL) {
+      const int w = ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1);
+      p1 = spec_slot(sc, o.container, row, w, frac, t);
+      ps.dp1 = spec_slot_slope(sc, o.container, row, w, t, fr_s);
+    }
+    const float gamma = p1 + (1.0f - p1) * u[5];
+    if (sc.cheb_icdf) {
+      cheb_eval_d(sc, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f, &ps.dnew);
+      ps.dnew *= 2.0f;
+    } else {
+      ps.dnew = lerp_pairs_slope(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
+    }
+  }
+  return ps;
+}
+
+// Tangent of candidate `cand` of one node's forward hits (intersect_node's
+// formulas, or Möller–Trumbore on triangle row `tri` of a mesh), for the
+// ray (o, d) with tangents (dO, dD) and the geometry's parameter tangents
+// dgp.
+PVT_FN float hit_tangent(const PvtScene& sc, int gtype, const float* gp, const float* dgp,
+                         const float* o, const float* d, const float* dO, const float* dD,
+                         int cand, int tri) {
+  if (gtype == GEOM_BOX) {
+    float tmin = -PVT_INF, tmax = PVT_INF, dmin = 0.0f, dmax = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+      const float h = 0.5f * gp[k], dh = 0.5f * dgp[k];
+      float lo = -PVT_INF, hi = PVT_INF, dlo = 0.0f, dhi = 0.0f;
+      if (!(fabsf(d[k]) < 1e-30f)) {
+        const float inv = 1.0f / d[k], dinv = -dD[k] * inv * inv;
+        const float t1 = (-h - o[k]) * inv, t2 = (h - o[k]) * inv;
+        const float dt1 = (-dh - dO[k]) * inv + (-h - o[k]) * dinv;
+        const float dt2 = (dh - dO[k]) * inv + (h - o[k]) * dinv;
+        min_t(t1, dt1, t2, dt2, lo, dlo);
+        max_t(t1, dt1, t2, dt2, hi, dhi);
+      }
+      max_t(tmin, dmin, lo, dlo, tmin, dmin);
+      min_t(tmax, dmax, hi, dhi, tmax, dmax);
+    }
+    return cand == 0 ? dmin : dmax;
+  }
+  if (gtype == GEOM_SPHERE || (gtype == GEOM_CYLINDER && cand < 2)) {
+    const bool sphere = gtype == GEOM_SPHERE;
+    const float r = sphere ? gp[0] : gp[1], dr = sphere ? dgp[0] : dgp[1];
+    const int m = sphere ? 3 : 2;
+    float a = 0.0f, da = 0.0f, b = 0.0f, db = 0.0f, c = 0.0f, dc = 0.0f;
+    for (int k = 0; k < m; ++k) {
+      a += d[k] * d[k];
+      da += 2.0f * d[k] * dD[k];
+      b += d[k] * o[k];
+      db += dD[k] * o[k] + d[k] * dO[k];
+      c += o[k] * o[k];
+      dc += 2.0f * o[k] * dO[k];
+    }
+    b *= 2.0f;
+    db *= 2.0f;
+    c -= r * r;
+    dc -= 2.0f * r * dr;
+    const float disc = b * b - 4.0f * a * c;
+    const float ddisc = 2.0f * b * db - 4.0f * (da * c + a * dc);
+    const float sq = sqrtf(disc >= 0.0f ? disc : 0.0f);
+    const float dsq = ddisc * (0.5f / sq);
+    const bool has = sphere || a > 1e-30f;
+    const float y = 2.0f * (has ? a : 1.0f), dy = has ? 2.0f * da : 0.0f;
+    const float x = cand == 0 ? -b - sq : -b + sq, dx = cand == 0 ? -db - dsq : -db + dsq;
+    return dx / y - x * dy / (y * y);
+  }
+  if (gtype == GEOM_CYLINDER) {
+    const float zcap = cand == 2 ? -0.5f * gp[0] : 0.5f * gp[0];
+    const float dz = cand == 2 ? -0.5f * dgp[0] : 0.5f * dgp[0];
+    const bool hasc = fabsf(d[2]) > 1e-30f;
+    const float y = hasc ? d[2] : 1.0f, dy = hasc ? dD[2] : 0.0f;
+    return (dz - dO[2]) / y - (zcap - o[2]) * dy / (y * y);
+  }
+  const float* rw = sc.tri_f + (size_t)tri * TRI_F;
+  const float* e1 = rw + TF_E1;
+  const float* e2 = rw + TF_E2;
+  const float pv[3] = {d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
+                       d[0] * e2[1] - d[1] * e2[0]};
+  const float dpv[3] = {dD[1] * e2[2] - dD[2] * e2[1], dD[2] * e2[0] - dD[0] * e2[2],
+                        dD[0] * e2[1] - dD[1] * e2[0]};
+  const float det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2];
+  const float ddet = e1[0] * dpv[0] + e1[1] * dpv[1] + e1[2] * dpv[2];
+  const float inv = 1.0f / det, dinv = -ddet * inv * inv;
+  const float tv[3] = {o[0] - rw[TF_V0], o[1] - rw[TF_V0 + 1], o[2] - rw[TF_V0 + 2]};
+  const float qv[3] = {tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+                       tv[0] * e1[1] - tv[1] * e1[0]};
+  const float dqv[3] = {dO[1] * e1[2] - dO[2] * e1[1], dO[2] * e1[0] - dO[0] * e1[2],
+                        dO[0] * e1[1] - dO[1] * e1[0]};
+  const float num = e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2];
+  const float dnum = e2[0] * dqv[0] + e2[1] * dqv[1] + e2[2] * dqv[2];
+  return dnum * inv + num * dinv;
+}
+
+// Tangent dn of the outward local normal at local point q (tangent dq):
+// zero on a box face, a cylinder's cap and a mesh face; the sphere's and
+// the barrel's q / |q| otherwise.
+PVT_FN void normal_tangent(int gtype, const float* gp, const float* q, const float* dq,
+                           float* dn) {
+  dn[0] = dn[1] = dn[2] = 0.0f;
+  if (gtype == GEOM_SPHERE) {
+    const float mag = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
+    if (mag == 0.0f) {
+      for (int k = 0; k < 3; ++k) dn[k] = dq[k];
+      return;
+    }
+    const float dmag =
+        2.0f * (q[0] * dq[0] + q[1] * dq[1] + q[2] * dq[2]) * (0.5f / mag);
+    for (int k = 0; k < 3; ++k) dn[k] = dq[k] / mag - q[k] * dmag / (mag * mag);
+    return;
+  }
+  if (gtype != GEOM_CYLINDER) return;
+  const float half = 0.5f * gp[0];
+  const float atol = 1e-8f + 1e-5f * fabsf(half);
+  if (fabsf(q[2] + half) <= atol || fabsf(q[2] - half) <= atol) return;
+  const float r = sqrtf(q[0] * q[0] + q[1] * q[1]);
+  const float sr = r == 0.0f ? 1.0f : r;
+  const float dsr = r == 0.0f ? 0.0f : 2.0f * (q[0] * dq[0] + q[1] * dq[1]) * (0.5f / r);
+  for (int k = 0; k < 2; ++k) dn[k] = dq[k] / sr - q[k] * dsr / (sr * sr);
+}
+
+// K13's linear map: one channel's tangents through the step of photon
+// `pin` (its state before the step) that produced `o` (step_one with
+// kPath), uniforms u, shared slopes ps. `spec` is the channel's row of the
+// path table, `tin` the tangents of (px, py, pz, dx, dy, dz, wav) before
+// the step. Writes j[PATH_J]: the new coordinates' tangents, then those of
+// t0, alpha and the reflectivity (0 off a surface event), raw: infinite or
+// NaN where the reference's are.
+PVT_FN void step_tangent(const PvtScene& sc, const Photon& pin, const StepOut& o,
+                         const PathSlopes& ps, const float* u, const int* spec,
+                         const float* tin, float* j) {
+  const int kind = spec[PATH_KIND], pnode = spec[PATH_NODE];
+  const float dn1 = kind == PATH_N && pnode == o.container ? 1.0f : 0.0f;
+  const float dn2 = kind == PATH_N && o.adjacent >= 0 && pnode == o.adjacent ? 1.0f : 0.0f;
+  const float din[3] = {tin[3], tin[4], tin[5]};
+  const float pd[3] = {pin.dx, pin.dy, pin.dz};
+  // The hit node's local ray and its tangent, t0's tangent.
+  const int h = o.hit;
+  const float* nf = sc.node_f + h * NODE_F;
+  const int gtype = sc.node_i[h * NODE_I + NI_GEOM];
+  const float* R = nf + NF_W2L;
+  float lo[3], ld[3], dlo[3], dld[3];
+  for (int k = 0; k < 3; ++k) {
+    lo[k] = R[4 * k] * pin.px + R[4 * k + 1] * pin.py + R[4 * k + 2] * pin.pz + R[4 * k + 3];
+    ld[k] = R[4 * k] * pin.dx + R[4 * k + 1] * pin.dy + R[4 * k + 2] * pin.dz;
+    dlo[k] = R[4 * k] * tin[0] + R[4 * k + 1] * tin[1] + R[4 * k + 2] * tin[2];
+    dld[k] = R[4 * k] * tin[3] + R[4 * k + 1] * tin[4] + R[4 * k + 2] * tin[5];
+  }
+  float dgp[3] = {0.0f, 0.0f, 0.0f};
+  if (kind == PATH_GEOM && pnode == h) dgp[spec[PATH_PARAM]] = 1.0f;
+  const float dt0 = isfinite(o.t0)
+                        ? hit_tangent(sc, gtype, nf + NF_GP, dgp, lo, ld, dlo, dld, o.cand, o.tri)
+                        : 0.0f;
+  // Attenuation, free path and the advance.
+  const float dalpha = ps.dalpha * tin[6];
+  float dp[3] = {tin[0], tin[1], tin[2]};
+  float dd[3] = {din[0], din[1], din[2]};
+  float dw = tin[6];
+  if (o.moving) {
+    const float dadv = o.absorbed ? log1pf(-u[0]) * dalpha / (o.alpha * o.alpha) : dt0;
+    for (int k = 0; k < 3; ++k) dp[k] = tin[k] + din[k] * o.advance + pd[k] * dadv;
+  }
+  // Volume event: a new direction drawn from u alone; re-emission at gamma.
+  if (o.absorbed && o.radiative) {
+    dd[0] = dd[1] = dd[2] = 0.0f;
+    if (o.emitting) dw = ps.dnew * (ps.dp1 * tin[6] * (1.0f - u[5]));
+  }
+  // Surface event at the hit node.
+  float dr = 0.0f;
+  if (o.reflecting || o.transmitting) {
+    float q[3], dq[3], dln[3];
+    for (int k = 0; k < 3; ++k) {
+      q[k] = lo[k] + o.t0 * ld[k];
+      dq[k] = dlo[k] + dt0 * ld[k] + o.t0 * dld[k];
+    }
+    normal_tangent(gtype, nf + NF_GP, q, dq, dln);
+    const float* Rw = nf + NF_L2W;
+    float dwn[3];
+    for (int k = 0; k < 3; ++k)
+      dwn[k] = Rw[3 * k] * dln[0] + Rw[3 * k + 1] * dln[1] + Rw[3 * k + 2] * dln[2];
+    const float* wn = o.wn;
+    const float ddot = wn[0] * pd[0] + wn[1] * pd[1] + wn[2] * pd[2];
+    const float dddot = dwn[0] * pd[0] + dwn[1] * pd[1] + dwn[2] * pd[2] + wn[0] * din[0] +
+                        wn[1] * din[1] + wn[2] * din[2];
+    const float c = o.c_in;
+    const float dc = clip_slope(fabsf(ddot), 0.0f, 1.0f) * (ddot >= 0.0f ? dddot : -dddot);
+    const float flip = ddot < 0.0f ? -1.0f : 1.0f;
+    const float na[3] = {wn[0] * flip, wn[1] * flip, wn[2] * flip};
+    const float dna[3] = {dwn[0] * flip, dwn[1] * flip, dwn[2] * flip};
+    const float n1 = o.n1r, n2 = o.n2r;
+    const float ratio = n1 / n2, dratio = dn1 / n2 - n1 * dn2 / (n2 * n2);
+    if (o.fres_coin) {
+      const float s2r = 1.0f - c * c;
+      const float s2 = clampf(s2r, 0.0f, 1.0f);
+      const float ds2 = clip_slope(s2r, 0.0f, 1.0f) * (-2.0f * c * dc);
+      const float ur = 1.0f - ratio * ratio * s2;
+      const float dur = max0_slope(ur) * -(2.0f * ratio * dratio * s2 + ratio * ratio * ds2);
+      const float k = sqrtf(fmaxf(ur, 0.0f));
+      const float dk = dur * (0.5f / k);
+      const float A = n1 * c - n2 * k, B = n1 * c + n2 * k;
+      const float dA = dn1 * c + n1 * dc - (dn2 * k + n2 * dk);
+      const float dB = dn1 * c + n1 * dc + (dn2 * k + n2 * dk);
+      const float C = n1 * k - n2 * c, D = n1 * k + n2 * c;
+      const float dC = dn1 * k + n1 * dk - (dn2 * c + n2 * dc);
+      const float dD2 = dn1 * k + n1 * dk + (dn2 * c + n2 * dc);
+      const float qs = A / B, qp = C / D;
+      const float dqs = dA / B - A * dB / (B * B), dqp = dC / D - C * dD2 / (D * D);
+      dr = clip_slope(0.5f * (qs * qs + qp * qp), 0.0f, 1.0f) * (qs * dqs + qp * dqp);
+    }
+    if (o.reflecting) {
+      if (o.mode == OVR_LAMBERTIAN) {
+        const float st_l = sqrtf(u[3]);
+        const float ct_l = sqrtf(fmaxf(1.0f - u[3], 0.0f));
+        const float phi_l = PVT_TWO_PI * u[4];
+        const float lx = st_l * cosf(phi_l), ly = st_l * sinf(phi_l);
+        const float ax = -na[0], ay = -na[1], az = -na[2];
+        const float dax = -dna[0], day = -dna[1], daz = -dna[2];
+        const float sign = az >= 0.0f ? 1.0f : -1.0f;
+        const float den = sign + az;
+        const float a_ = -1.0f / den, da_ = daz / (den * den);
+        const float db_ = dax * ay * a_ + ax * day * a_ + ax * ay * da_;
+        const float dt1[3] = {sign * (2.0f * ax * dax * a_ + ax * ax * da_), sign * db_,
+                              -sign * dax};
+        const float dt2[3] = {db_, 2.0f * ay * day * a_ + ay * ay * da_, -day};
+        const float dax3[3] = {dax, day, daz};
+        for (int k = 0; k < 3; ++k) dd[k] = lx * dt1[k] + ly * dt2[k] + ct_l * dax3[k];
+      } else {
+        for (int k = 0; k < 3; ++k) dd[k] = din[k] - 2.0f * (dc * na[k] + c * dna[k]);
+      }
+    } else if (sc.node_i[h * NODE_I + NI_SURF] == SURF_FRESNEL && o.mode != OVR_ABSORB) {
+      const float cr = 1.0f - ratio * ratio * (1.0f - c * c);
+      const float dcr = -(2.0f * ratio * dratio * (1.0f - c * c)) + ratio * ratio * 2.0f * c * dc;
+      const float cterm = sqrtf(fmaxf(cr, 0.0f));
+      const float dct = max0_slope(cr) * dcr * (0.5f / cterm);
+      const float scale = cterm - ratio * c, dscale = dct - (dratio * c + ratio * dc);
+      for (int k = 0; k < 3; ++k)
+        dd[k] = dratio * pd[k] + ratio * din[k] + dscale * na[k] + scale * dna[k];
+    }
+  }
+  for (int k = 0; k < 3; ++k) {
+    j[k] = dp[k];
+    j[3 + k] = dd[k];
+  }
+  j[6] = dw;
+  j[7] = dt0;
+  j[8] = dalpha;
+  j[9] = dr;
+}
+
+// What the hybrid terms of a step share between channels.
+struct PathTerms {
+  bool surv, coll, coin;
+  float t0_fin, a_t0, coll_denom, rep_fac, branch;
+};
+
+PVT_FN PathTerms path_terms(const StepOut& o) {
+  PathTerms pt;
+  pt.surv = o.moving && !o.absorbed;
+  const bool finite_t0 = isfinite(o.t0);
+  pt.t0_fin = finite_t0 ? o.t0 : 0.0f;
+  pt.a_t0 = o.alpha * pt.t0_fin;
+  pt.coll_denom = fmaxf(-expm1f(-pt.a_t0), 1e-12f);
+  pt.coll = o.absorbed && finite_t0;
+  pt.rep_fac = expf(fminf(o.alpha * (o.advance - pt.t0_fin), 0.0f)) *
+               (-expm1f(-o.alpha * o.advance)) / pt.coll_denom;
+  pt.coin = o.fres_coin && (o.reflecting || o.transmitting);
+  pt.branch = o.reflecting ? 1.0f / fmaxf(o.refl_r, 1e-12f)
+                           : -1.0f / fmaxf(1.0f - o.refl_r, 1e-12f);
+  return pt;
+}
+
+// One channel's hybrid contribution from its map j (step_tangent), and its
+// new tangents tout[7] (pd: the pre-step direction): survival -d(alpha t0)
+// on lanes that reached a boundary, collision e^{-a t0} d(alpha t0) /
+// max(-expm1(-a t0), 1e-12) on absorbed lanes, the coin nan_to_num(dR *
+// branch); the absorption point moved by dt0 * rep_fac along pd.
+PVT_FN float path_contribution(const PathTerms& pt, const StepOut& o, const float* j,
+                               const float* pd, float* tout) {
+  const float dt0 = pvt_nan_to_num(j[7]);
+  const float d_at0 = pvt_nan_to_num(j[8]) * pt.t0_fin + o.alpha * dt0;
+  const float ds = (pt.surv ? -d_at0 : 0.0f) +
+                   (pt.coll ? expf(-pt.a_t0) * d_at0 / pt.coll_denom : 0.0f) +
+                   (pt.coin ? pvt_nan_to_num(j[9] * pt.branch) : 0.0f);
+  const float shift = pt.coll ? dt0 * pt.rep_fac : 0.0f;
+  for (int k = 0; k < 7; ++k) tout[k] = pvt_nan_to_num(j[k]);
+  for (int k = 0; k < 3; ++k) tout[k] += shift * pd[k];
+  return ds;
+}
+
+// K13 in the trace: after step_one<.., kPath> of photon pin (its state
+// before the step; wavelength wav_in) gave o, each pathwise channel's
+// contribution is added to the photon's score row and its tangent row
+// replaced by the new tangents.
+PVT_FN void pathwise_step(const PvtScene& sc, const StepOut& o, const Photon& pin,
+                          const float* u, const ScoreAcc& sa) {
+  // The spectral slopes multiply the wavelength's tangent: skipped while
+  // every channel's is 0 (no parameter moves a wavelength, so it stays 0
+  // from emission on; the K5a fits' slopes are finite).
+  bool dwav = false;
+  for (int ci = 0; ci < sa.n_path; ++ci) dwav = dwav || sa.tang[(ci * 7 + 6) * sa.stride] != 0.0f;
+  const PathSlopes ps = dwav ? path_slopes(sc, o, pin.wav, u) : PathSlopes{0.0f, 0.0f, 0.0f};
+  const PathTerms pt = path_terms(o);
+  const float pd[3] = {pin.dx, pin.dy, pin.dz};
+  const int first = sa.ch - sa.n_path;
+  for (int ci = 0; ci < sa.n_path; ++ci) {
+    float* row = sa.tang + (size_t)ci * 7 * sa.stride;
+    float tin[7], j[PATH_J], tout[7];
+    for (int k = 0; k < 7; ++k) tin[k] = row[k * sa.stride];
+    step_tangent(sc, pin, o, ps, u, sa.path + ci * PATH_I, tin, j);
+    sa.row[(first + ci) * sa.stride] += path_contribution(pt, o, j, pd, tout);
+    for (int k = 0; k < 7; ++k) row[k * sa.stride] = tout[k];
+  }
+}
+
+// The pathwise lanes of pvt_pathwise (field order mirrored by ctypes):
+// the path table, n channels, the tangents before the step tin [n, 7, B]
+// and after it tout [n, 7, B], each channel's map jv [n, PATH_J, B]
+// (step_tangent's, taken through nan_to_num) and contribution ds [n, B].
+struct PvtPath {
+  const int* path;
+  int n;
+  const float* tin;
+  float* tout;
+  float* jv;
+  float* ds;
+};
+
+// pvt_pathwise: lane i's step (as pvt_step's), then every channel's map,
+// contribution and new tangents; comp[i] as pvt_score's.
+PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
+                          const PvtFlags& fl, long long i, long long B, const PvtPath& pw,
+                          int* comp) {
+  Photon p;
+  load_lane(in, i, p);
+  p.count += p.alive ? 1 : 0;
+  const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
+  const Photon pin = p;
+  float u[8];
+  pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
+  StepOut o;
+  step_one<true, false, true, true, true>(sc, p, u, o);
+  store_lane(out, i, p, k0, k1);
+  store_flags(fl, i, o);
+  comp[i] = o.absorbed ? o.comp : -1;
+  const PathSlopes ps = path_slopes(sc, o, pin.wav, u);
+  const PathTerms pt = path_terms(o);
+  const float pd[3] = {pin.dx, pin.dy, pin.dz};
+  for (int ci = 0; ci < pw.n; ++ci) {
+    float tin[7], j[PATH_J], tout[7];
+    for (int k = 0; k < 7; ++k) tin[k] = pw.tin[(ci * 7 + k) * B + i];
+    step_tangent(sc, pin, o, ps, u, pw.path + ci * PATH_I, tin, j);
+    pw.ds[ci * B + i] = path_contribution(pt, o, j, pd, tout);
+    for (int k = 0; k < 7; ++k) pw.tout[(ci * 7 + k) * B + i] = tout[k];
+    for (int k = 0; k < PATH_J; ++k) pw.jv[(ci * PATH_J + k) * B + i] = pvt_nan_to_num(j[k]);
+  }
+}
+
 // pvt_tally: add the event of lane i (post-step state s, selectors fl)
 // to acc; `seen` holds SEEN_WORDS words per lane, read and written back.
 PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl,
@@ -1431,8 +1983,11 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // step's contributions added after each step, folded at its fate where
 // the step terminated it (or at KILL by the event budget), its record
 // written where the run keeps them, and added by the recorders at a
-// first match. Returns its step count.
-template <bool kTally, bool kLog, bool kMesh, bool kScore = false>
+// first match. With kPath (and kScore) the photon's pathwise tangents
+// live in the thread's rows of sa->tang, zeroed at emission, and each step
+// adds the pathwise channels' contributions (pathwise_step) before the
+// fold. Returns its step count.
+template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false>
 PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
                         FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa = nullptr) {
@@ -1445,6 +2000,8 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
     for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
   if (kScore)
     for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
+  if (kPath)
+    for (int k = 0; k < 7 * sa->n_path; ++k) sa->tang[k * sa->stride] = 0.0f;
   long long slot = -1;
   int nev = 0;
   if (kLog && pid % lg->every == 0) {
@@ -1472,10 +2029,12 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
     const float d_in[3] = {p.dx, p.dy, p.dz};
     const float wav_in = p.wav;
     const int src_in = p.source;
+    Photon pin;
+    if (kPath) pin = p;
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
-    step_one<kTally, kLog, kMesh, kScore>(sc, p, u, o);
+    step_one<kTally, kLog, kMesh, kScore, kPath>(sc, p, u, o);
     f.exit += o.exit_mask;
     f.nonrad += o.losing;
     f.react += o.reacting;
@@ -1483,6 +2042,7 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
     f.no_hit += o.no_hit_term;
     if (kScore) {
       score_step(sc, o, wav_in, *sa);
+      if (kPath) pathwise_step(sc, o, pin, u, *sa);
       const int fate = score_fate(o);
       if (fate >= 0) {
         score_add(*sa, sa->fate, N_FATES, fate);

@@ -17,12 +17,24 @@ from pvtrace_tpu_torch.kernels import build
 HARNESS = r"""
 #include "tracer.cuh"
 #include "diff.cuh"
-template <bool kTally, bool kLog>
+template <bool kTally, bool kLog, bool kPath>
 void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                      unsigned long long total, const PvtLog* lg, FateCounts& f,
                      const PvtTally* acc, const ScoreAcc* sa) {
   for (unsigned long long id = off; id < total; ++id)
-    trace_photon<kTally, kLog, true, true>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa);
+    trace_photon<kTally, kLog, true, true, kPath>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa);
+}
+template <bool kPath>
+void h_trace_score_p(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                     unsigned long long total, const PvtLog* lg, FateCounts& f,
+                     const PvtTally* acc, const ScoreAcc* sa) {
+  if (sc->n_rec > 0) {
+    if (lg->n_slots > 0) h_trace_score_t<true, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+    else h_trace_score_t<true, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+  } else {
+    if (lg->n_slots > 0) h_trace_score_t<false, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+    else h_trace_score_t<false, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+  }
 }
 extern "C" {
 void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
@@ -70,20 +82,20 @@ void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long l
                    unsigned long long total, const PvtLog* lg, long long* fates,
                    unsigned long long* cross, float* sums, unsigned* distinct,
                    unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
-                   double* fate_scores, double* rec_scores, float* photon) {
+                   double* fate_scores, double* rec_scores, float* photon, float* tang,
+                   const int* path, int n_path) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
   const ScoreAcc sa = {row, fate_scores, rec_scores, 1, ch, n_comps, sc->n_rec, photon,
-                       (long long)total};
-  if (sc->n_rec > 0) {
-    if (lg->n_slots > 0) h_trace_score_t<true, true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-    else h_trace_score_t<true, false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-  } else {
-    if (lg->n_slots > 0) h_trace_score_t<false, true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-    else h_trace_score_t<false, false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-  }
+                       (long long)total, tang, path, n_path};
+  if (n_path > 0) h_trace_score_p<true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
+  else h_trace_score_p<false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
+}
+void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
+                long long B, const PvtPath* pw, int* comp) {
+  for (long long i = 0; i < B; ++i) pathwise_lane(*sc, *in, *out, *fl, i, B, *pw, comp);
 }
 void h_fresnel(const float* n1, const float* n2, const float* c, long long n, float* d1,
                float* d2) {
@@ -133,10 +145,11 @@ def build_library(directory):
     h.h_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
     h.h_score.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32, vp, vp]
     h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
-                                i32, vp, vp, vp]
+                                i32, vp, vp, vp, vp, vp, i32]
+    h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_mesh, h.h_score,
-               h.h_trace_score, h.h_fresnel, h.h_absorbed):
+               h.h_trace_score, h.h_pathwise, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h

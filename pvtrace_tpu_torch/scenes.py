@@ -148,6 +148,44 @@ def fresnel_slab(n_slab=1.5, alpha=0.5, ns=None):
                                           components=[p.Absorber(alpha)]))
 
 
+def pathwise_slab(fresnel, alpha=0.8, ns=None):
+    """The collimated 2x2x1 cm absorber slab, index-matched behind a null
+    surface (``fresnel`` False: P(absorb) = 1 - exp(-alpha L)) or a Fresnel
+    slab of n = 1.5 (a geometric series in R and exp(-alpha L)): the
+    analytic d P(absorb) / d L of the JAX package's
+    ``tests/test_diff.py::test_pathwise_geometry_gradient_matches_analytic``
+    (its nested ``slab``)."""
+    p = api(ns)
+    return _collimated_slab(p, p.Material(
+        refractive_index=1.5 if fresnel else 1.0,
+        surface=p.Surface() if fresnel else p.Surface(delegate=p.NullSurfaceDelegate()),
+        components=[p.Absorber(alpha)],
+    ))
+
+
+def tilted_fresnel_slab(n_slab=1.5, alpha=0.5, tilt_deg=30.0, ns=None):
+    """Oblique incidence on a 4x4x1 cm Fresnel absorber slab tilted by
+    `tilt_deg` about x: the Fresnel coins and the chord both depend on n
+    (Snell), so the full d(fate)/dn needs the pathwise channel (the JAX
+    package's ``tests/test_diff.py::tilted_fresnel_slab``)."""
+    p = api(ns)
+    world = p.Node(
+        name="world",
+        geometry=p.Sphere(radius=10.0, material=p.Material(refractive_index=1.0)),
+    )
+    slab = p.Node(
+        name="slab", parent=world,
+        geometry=p.Box((4.0, 4.0, 1.0), material=p.Material(
+            refractive_index=n_slab, components=[p.Absorber(alpha)])),
+    )
+    slab.rotate(np.radians(tilt_deg), (1, 0, 0))
+    light = p.Node(name="light", parent=world,
+                   light=p.Light(wavelength=p.ConstantWavelengthMask(555.0)))
+    light.translate((0.0, 0.0, 3.0))
+    light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
 def lsc_slab_recorders(n_rec, ns=None):
     """The LSC slab with `n_rec` recorders on the slab, as the JAX
     package's ``benchmarks/benchmark_recorders.py`` builds it: events

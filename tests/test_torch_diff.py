@@ -160,10 +160,13 @@ def test_optimize_concentration_matches_jax(jax_lsc_runs):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        transport.fate_gradients(absorber_slab(), 10, pathwise=[("n", "slab")], device="cpu")
+    """The device mesh is still to port; pathwise channels, which raised
+    here before they were ported, run (``tests/test_torch_pathwise.py``)."""
     with pytest.raises(NotImplementedError, match="item 12"):
         transport.fate_gradients(absorber_slab(), 10, mesh=object(), device="cpu")
+    _, grads = transport.fate_gradients(absorber_slab(), 10, wrt="pathwise",
+                                        pathwise=[("n", "slab")], device="cpu")
+    assert grads[Event.EXIT].shape == (1,)
 
 
 def _surrogate_scene(ns=None):

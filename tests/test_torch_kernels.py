@@ -12,7 +12,7 @@ On the CPU:
 * the wrappers take the twin for CPU tensors and count no launch.
 
 On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9,
-12-14 and 16-19 of ``chip_smoke.py`` at a small size, on both spectral
+12-14 and 16-22 of ``chip_smoke.py`` at a small size, on both spectral
 paths, and the float64 refusal. This file imports no JAX, so it runs there with
 ``--noconftest``.
 """
@@ -78,7 +78,7 @@ def test_header_event_kinds_match_event():
 @pytest.mark.parametrize("struct, cls", [
     ("PvtScene", kernels._Scene), ("PvtState", kernels._State), ("PvtFlags", kernels._Flags),
     ("PvtTallyOut", kernels._TallyOut), ("PvtLog", kernels._Log), ("PvtScore", kernels._Score),
-    ("PvtAbsorbers", kernels._Absorbers),
+    ("PvtAbsorbers", kernels._Absorbers), ("PvtPath", kernels._Path),
 ])
 def test_header_structs_match_ctypes(struct, cls):
     header = (build.CSRC / ("diff.cuh" if struct == "PvtAbsorbers" else "tracer.cuh")).read_text()
@@ -373,3 +373,51 @@ def test_absorbed_kernels_match_plain_on_card():
     ref = check.surrogate_sgd(
         lambda lc, p, dd, w: absorb.weight(torch.exp(lc), absorb.depth(tab, p, dd, w)), pos, d, wav)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_pathwise_step_matches_twin_on_card():
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+
+    st = _cuda_tensors(mixed_scene)
+    specs = resolve_pathwise_params(compile_scene(mixed_scene()), [
+        ("n", "plate"), ("size", "plate", 2), ("radius", "rod"), ("length", "rod")])
+    lanes, _ = check.check_emit(st, rng.key_words(1), 1 << 16, reps=1)
+    rep = check.check_pathwise(st, lanes, specs, steps=8, reps=2)
+    assert rep["bound_used"] <= 1.0 and rep["left_out"] <= check.PATH_LEFT_OUT * 8 * (1 << 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, specs", [
+    (lsc_slab, [("n", "lsc"), ("size", "lsc", 2)]),
+    (lambda: lsc_slab_recorders(32), [("n", "lsc"), ("size", "lsc", 2)]),
+    (mesh_lsc, [("n", "plate")]),
+], ids=["slab", "rec32", "mesh"])
+def test_pathwise_trace_matches_twin_on_card(make, specs):
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+
+    st = _cuda_tensors(make)
+    resolved = resolve_pathwise_params(compile_scene(make()), specs)
+    kernels.reset()
+    rep = check.check_trace_scores(st, rng.key_words(2), 1 << 16, lanes=1 << 14,
+                                   pathwise=resolved)
+    assert kernels.launches["pvt_trace_pathwise"] == 2 and not kernels.launches["pvt_trace_score"]
+    assert rep["record_used"] <= 1.0 and rep["sums_used"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_pathwise_thickness_gradient_on_card():
+    """d P(absorb) / d L of the index-matched absorber slab at 2**22
+    photons on the card, through pvt_trace_pathwise: within 0.005 of
+    alpha e^{-alpha L} (the JAX package's bound)."""
+    from pvtrace_tpu_torch.diff.transport import fate_gradients
+    from pvtrace_tpu_torch.light.event import Event
+    from pvtrace_tpu_torch.scenes import pathwise_slab
+
+    _cuda_tensors(lsc_slab)
+    kernels.reset()
+    tracer.eager_runs = 0
+    _, grads = fate_gradients(pathwise_slab(False), 1 << 22, seed=3, wrt="pathwise",
+                              pathwise=[("size", "slab", 2)])
+    assert kernels.launches["pvt_trace_pathwise"] == 1 and tracer.eager_runs == 0
+    assert abs(grads[Event.NONRADIATIVE][0] - 0.8 * np.exp(-0.8)) < 0.005

@@ -231,6 +231,7 @@ def test_trace_photon_with_scores_matches_twin(host_lib, make, record_every):
         ctypes.byref(desc), fates.data_ptr(), cross.data_ptr(), sums.data_ptr(),
         distinct.data_ptr(), bins.data_ptr(), sums64.data_ptr(), row.data_ptr(), CH,
         st["meta"]["n_comps"], fate_scores.data_ptr(), rec_scores.data_ptr(), photon.data_ptr(),
+        None, None, 0,
     )
     ref, _, t, _ = tracer.trace_eager(st, seed, n, lanes=512, score=True,
                                       record_every=record_every, max_events=6, per_photon=True)

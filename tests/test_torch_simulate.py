@@ -170,19 +170,49 @@ def _fate_gradients(scene, n, **kwargs):
     return fate_gradients(scene, n, **kwargs)
 
 
-# Meshes, event logs and score channels run since they were ported; what
-# is still to port raises: pathwise channels (in simulate and in
-# fate_gradients), the device mesh of fate_gradients, host emission.
+# Meshes, event logs, score and pathwise channels run since they were
+# ported; what is still to port raises: the device mesh of
+# fate_gradients, host emission.
 @pytest.mark.parametrize("call, make, kwargs, item", [
-    (_fate_gradients, lsc_slab, {"pathwise": [("n", "lsc")]}, "item 11"),
     (_fate_gradients, lsc_slab, {"mesh": object()}, "item 12"),
-    (simulate, lsc_slab, {"record_every": 0, "pathwise": (("n", 1),)}, "item 11"),
     (simulate, _mesh_host_light_scene, {"record_every": 0}, "item 5"),
     (simulate, _host_light_scene, {"record_every": 0}, "item 5"),
-], ids=["fate-gradients-pathwise", "fate-gradients-mesh", "pathwise", "mesh", "host-emission"])
+], ids=["fate-gradients-mesh", "mesh", "host-emission"])
 def test_unported_features_raise(call, make, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         call(make(), 10, device="cpu", **kwargs)
+
+
+# The pathwise specs the JAX package refuses, refused with its messages.
+@pytest.mark.parametrize("spec", [
+    ("size", "world", 0), ("radius", "lsc"), ("length", "lsc"), ("area", "lsc"),
+], ids=["size-on-sphere", "radius-on-box", "length-on-box", "unknown-kind"])
+def test_pathwise_spec_refusals_match_jax(spec):
+    from pvtrace_tpu.diff.transport import resolve_pathwise_params as jax_resolve
+    from pvtrace_tpu.engine.compiler import compile_scene as jax_compile
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+    from pvtrace_tpu_torch.engine import compile_scene
+
+    with pytest.raises(ValueError) as want:
+        jax_resolve(jax_compile(lsc_slab(pvtrace_tpu)), [spec])
+    with pytest.raises(ValueError) as got:
+        resolve_pathwise_params(compile_scene(lsc_slab()), [spec])
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match=str(want.value)):
+        _fate_gradients(lsc_slab(), 10, wrt="pathwise", pathwise=[spec], device="cpu")
+
+
+@pytest.mark.parametrize("record_every", [0, 1])
+def test_pathwise_without_score_is_ignored(record_every):
+    """As in the JAX package, `pathwise` acts only with ``score=True``:
+    without it the run equals one without `pathwise`."""
+    kwargs = dict(seed=4, record_every=record_every, device="cpu")
+    plain = simulate(lsc_slab(), 300, **kwargs).data
+    got = simulate(lsc_slab(), 300, pathwise=(("n", 1), ("geom", 1, 2)), **kwargs).data
+    assert "fate_scores" not in got
+    assert set(got) == set(plain)
+    for name in plain:
+        np.testing.assert_array_equal(got[name], plain[name], err_msg=name)
 
 
 @pytest.mark.parametrize("n, offset", [(0, 0), (10, -1), (2, 2 ** 32 - 2)])
