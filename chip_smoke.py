@@ -99,16 +99,47 @@ each:
 23. the pathwise gradient path at full width: fate_gradients(slab,
     2**27, wrt="all", pathwise=[("n", "lsc"), ("size", "lsc", 2)]) in
     bundles of 16e6 (launches read around it; photons/s beside phases 5
-    and 18).
+    and 18);
+24. pvt_trace in bundle mode (K8's trace_bundle entry) against the twin
+    fed the same host bundle: ``scenes.lsc_slab_host`` with 4 recorders,
+    one ``emit_bundle`` output of 2**20 photons, fates and recorder
+    counts within max(20, 0.2% of n); at 2**14 with the event log photon
+    by photon (as phase 14); with score channels photon by photon (as
+    phase 17); then pvt_emit's output (phase 2's photons) fed back as a
+    bundle gives phase 4's fates bit for bit, and on the slab with 32
+    recorders phase 8's tallies;
+25. the host-emission path at full width: simulate(lsc_slab_host(),
+    2**24, record_every=0) (launches read around it: one pvt_trace, in
+    bundle mode, no eager run), photons/s over `elapsed` beside phase 5's,
+    the numpy sampling's seconds apart;
+26. K14, the sharded runs of ``parallel``: a world of one on NCCL
+    (``init_distributed(backend="nccl")``) runs shard_simulate of the slab
+    with 4 recorders at 2**27, equal to simulate of the same seed (fates
+    and integer tallies; rec_sums within two runs' bound), then the score
+    run at 2**27, fate_gradients(mesh=) at 2**24 and a make_training_step
+    step on 2**24 photons; then two ranks on gloo sharing the card
+    (``python3 chip_smoke.py --rank r`` subprocesses: NCCL refuses two
+    ranks on one card) run the same three, against the world of one:
+    integers equal, score sums and gradients within the float64
+    accumulation bound, the step within float32 rounding. The all-reduce's
+    time and bytes per call on each backend (no multi-GPU speed can be
+    measured on one card).
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before the last line; without a CUDA device nothing runs.
+
+    python3 chip_smoke.py --rank R --world W --port P --out FILE
+
+is one rank of phase 26's gloo world: it joins ``tcp://localhost:P``,
+runs the sharded runs on the card and writes them to FILE as JSON.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 N_CHECK = 1 << 20
@@ -118,6 +149,8 @@ N_LOG = 1 << 14
 N_LOG_FULL = 1 << 17
 N_SLAB = 1 << 24
 N_OPT = 400_000
+N_HOST = 1 << 24
+RANKS = 2
 SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/score.cu"
@@ -126,6 +159,8 @@ SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/pathwise.cu"
                for name in ("pvt_pathwise", "pvt_trace_pathwise")})
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/diff.cu"
                for name in ("pvt_absorbed", "pvt_absorbed_grad")})
+SOURCE["pvt_trace_bundle"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
+SOURCE["all_reduce_tallies"] = "pvtrace_tpu_torch/parallel/shard.py"
 REPLACES = {
     "pvt_emit": "pvtrace_tpu/engine/tracer.py:762",
     "pvt_step": "pvtrace_tpu/engine/tracer.py:1073",
@@ -141,6 +176,8 @@ REPLACES = {
     "pvt_trace_pathwise": "pvtrace_tpu/engine/tracer.py:1918",
     "pvt_absorbed": "pvtrace_tpu/diff/transport.py:214",
     "pvt_absorbed_grad": "pvtrace_tpu/diff/transport.py:284",
+    "pvt_trace_bundle": "pvtrace_tpu/engine/tracer.py:936",
+    "all_reduce_tallies": "pvtrace_tpu/parallel/shard.py:48",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
 LSC_FATES = (4, 7, 9)
@@ -171,6 +208,92 @@ def fail(message):
     raise SystemExit(f"chip_smoke: FAILED: {message}")
 
 
+def shard_runs(mesh):
+    """Phase 26's sharded runs on `mesh` (this process's rank of it), on
+    the card: shard_simulate of the slab with 4 recorders at N_MAIN with
+    score channels, fate_gradients(mesh=) of the slab at N_SLAB, and one
+    make_training_step step on N_SLAB photons of the slab's lamp (this
+    rank's slice). Returns them JSON-ready, with the all-reduces' cost."""
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.diff import transport
+    from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors
+    from pvtrace_tpu_torch.kernels import check
+    from pvtrace_tpu_torch.parallel import shard, shard_simulate
+    from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders
+
+    shard.reduce_stats.update(calls=0, bytes=0)
+    kernels.reset()
+    rec4 = lsc_slab_recorders(4)
+    data = shard_simulate(rec4, N_MAIN, mesh, seed=26, compiled=compile_scene(rec4), score=True)
+    reduce = dict(shard.reduce_stats)
+    score_launches = kernels.launches["pvt_trace_score"]
+    fractions, gradients = transport.fate_gradients(lsc_slab(), N_SLAB, seed=27, wrt="all",
+                                                    mesh=mesh, dtype=np.float32)
+    slab = compile_scene(lsc_slab())
+    st = scene_tensors(slab, dtype=torch.float32, device=mesh.device)
+    pos, direction, wav = check.absorbed_photons(st, rng.key_words(19), N_SLAB)
+    rows = slice(mesh.rank * N_SLAB // mesh.size, (mesh.rank + 1) * N_SLAB // mesh.size)
+    step = transport.make_training_step(slab, mesh)
+    params = {"log_concentration": torch.zeros((), device=mesh.device)}
+    new, loss = step(params, pos[rows].contiguous(), direction[rows].contiguous(),
+                     wav[rows].contiguous())
+    # The all-reduce alone, on the score run's tallies (on the card): one call
+    # first (NCCL makes its communicator at the first), a barrier, then 50
+    # calls on the host clock, each ending in a read of the steps.
+    names = {"fates": "fates", "distinct": "rec_distinct", "cross": "rec_crossings",
+             "bins": "rec_bins", "sums": "rec_sums", "fate_scores": "fate_scores",
+             "rec_scores": "rec_scores"}
+    tallies = {k: torch.as_tensor(data[v], device=mesh.device) for k, v in names.items()}
+    shard._all_reduce_tallies(mesh, tallies, 0)
+    torch.distributed.barrier(group=mesh.group)
+    shard.reduce_stats.update(calls=0, bytes=0)
+    tic = time.perf_counter()
+    for _ in range(50):
+        shard._all_reduce_tallies(mesh, tallies, 0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    steady = dict(shard.reduce_stats)
+    return {
+        "rank": mesh.rank, "size": mesh.size,
+        "score_run": {k: (np.asarray(v).tolist() if k != "steps" else v) for k, v in data.items()},
+        "score_launches": score_launches, "reduce": reduce,
+        "reduce_ms": seconds / steady["calls"] * 1e3,
+        "reduce_bytes": steady["bytes"] / steady["calls"],
+        "fractions": {e.name: float(v) for e, v in fractions.items()},
+        "gradients": {e.name: np.asarray(g).tolist() for e, g in gradients.items()},
+        "train": [float(loss), float(new["log_concentration"])],
+    }
+
+
+def rank_main(rank, world, port, out_path):
+    """One rank of phase 26's gloo world on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
+    from pvtrace_tpu_torch.parallel import init_distributed, make_photon_mesh, shutdown_distributed
+
+    init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                     rank=rank, device="cuda")
+    try:
+        out = shard_runs(make_photon_mesh(device="cuda"))
+    finally:
+        shutdown_distributed()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     start_s = time.perf_counter()
     import torch
@@ -185,10 +308,14 @@ def main():
     from pvtrace_tpu_torch.engine import absorb, compile_scene, rng, scene_tensors, simulate, tracer
     from pvtrace_tpu_torch.kernels import build, check
     from pvtrace_tpu_torch.light.event import Event
+    from pvtrace_tpu_torch.engine.emit import emit_bundle
+    from pvtrace_tpu_torch.parallel import init_distributed, make_photon_mesh, shard, shard_simulate
+    from pvtrace_tpu_torch.parallel import shutdown_distributed
     from pvtrace_tpu_torch.scenes import (
         absorber_slab,
         fresnel_slab,
         lsc_slab,
+        lsc_slab_host,
         lsc_slab_heatmap,
         lsc_slab_recorders,
         mesh_lsc,
@@ -787,6 +914,167 @@ def main():
         flush=True,
     )
 
+    # 24. K8's host-bundle entry against the twin, and against pvt_emit
+    host_scene = lsc_slab_host(n_rec=4)
+    host_compiled = compile_scene(host_scene)
+    st_host = scene_tensors(host_compiled, dtype=torch.float32, device="cuda")
+    np.random.seed(24)
+    bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(host_scene, N_CHECK)[:3],
+                                                 np.float32)).cuda()
+    bundle_rep = check.check_trace(st_host, seed, N_CHECK, bundle=bundle)
+    bundle_log = check.check_log(st_host, seed, N_LOG, bundle=bundle[:, :N_LOG].contiguous())
+    bundle_score = check.check_trace_scores(st_host, seed, N_CHECK, bundle=bundle)
+    print(
+        f"phase 24 pvt_trace bundle mode vs twin, slab lit by a histogram lamp, 4 recorders: "
+        f"{N_CHECK} photons from one emit_bundle, fates {bundle_rep['fates']} vs "
+        f"{bundle_rep['twin_fates']}, max diff {bundle_rep['max_abs_err']}, recorders max diff "
+        f"{bundle_rep['tally_max_diff']} (limit {max(20, N_CHECK // 500)}); log of {N_LOG} "
+        f"photons: {bundle_log['diverged']} diverged, floats within "
+        f"{bundle_log['max_rel_err']:.3g} of their scale; score: {bundle_score['parted']} "
+        f"photons parted, records at {bundle_score['record_used']:.3g} and sums at "
+        f"{bundle_score['sums_used']:.3g} of their bounds; kernel {bundle_rep['ms']:.2f} ms "
+        f"(score {bundle_score['ms']:.2f} ms), twin {bundle_rep['plain_ms']:.2f} ms, bound "
+        f"{bundle_rep['bound_ms']:.4f} ms | {smi}",
+        flush=True,
+    )
+    emitted = kernels.emit(st, seed, 0, N_CHECK)
+    emitted = torch.stack([emitted[k] for k in tracer.BUNDLE_ROWS])
+    again, _, _, _ = kernels.trace(st, seed, N_CHECK, bundle=emitted)
+    if again.cpu().tolist() != trace_rep["fates"]:
+        fail(f"pvt_emit's photons as a bundle: fates {again.cpu().tolist()} against phase 4's "
+             f"{trace_rep['fates']}")
+    state32 = kernels.emit(st32, seed, 0, N_CHECK)
+    _, _, t32, _ = kernels.trace(st32, seed, N_CHECK,
+                                 bundle=torch.stack([state32[k] for k in tracer.BUNDLE_ROWS]))
+    for name in ("distinct", "cross", "bins"):
+        if not torch.equal(t32[name], rec_rep["tallies"][name]):
+            fail(f"pvt_emit's photons as a bundle, 32 recorders: {name} differs from phase 8's")
+    print(f"phase 24 pvt_emit's photons fed back as a bundle: fates equal to phase 4's "
+          f"{trace_rep['fates']} bit for bit, and with 32 recorders phase 8's distinct, "
+          f"crossings and bins | {smi}", flush=True)
+
+    # 25. the host-emission path at full width
+    kernels.reset()
+    tracer.eager_runs = 0
+    tic = time.perf_counter()
+    res = simulate(lsc_slab_host(), N_HOST, seed=25, record_every=0, dtype=np.float32)
+    host_wall = time.perf_counter() - tic
+    host_launches = dict(kernels.launches)
+    fates = np.asarray(res.data["fates"])
+    if host_launches["pvt_trace"] != 1 or host_launches["pvt_trace_bundle"] != 1 \
+            or tracer.eager_runs:
+        fail(f"the host-emission path did not run through pvt_trace in bundle mode: "
+             f"{host_launches}, eager runs {tracer.eager_runs}")
+    if int(fates.sum()) != N_HOST or any(fates[i] for i in range(11) if i not in LSC_FATES):
+        fail(f"host-emission path: fates {fates.tolist()}")
+    host_rate = N_HOST / res.elapsed
+    print(
+        f"phase 25 host-emission path: simulate(lsc_slab_host(), {N_HOST}) fates "
+        f"{fates.tolist()}, {res.elapsed:.4f} s over elapsed (upload, pvt_trace "
+        f"{kernels.last_trace['ms']:.2f} ms, fetch), {host_rate:.6g} photons/s (phase 5: "
+        f"{rate:.6g}); numpy emission and set-up {host_wall - res.elapsed:.3f} s apart; "
+        f"launches {host_launches} | {smi}",
+        flush=True,
+    )
+
+    # 26. K14: NCCL as a world of one, then two gloo ranks sharing the card
+    init_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                     world_size=1, rank=0, device="cuda")
+    try:
+        mesh = make_photon_mesh(device="cuda")
+        rec4 = lsc_slab_recorders(4)
+        rec4_compiled = compile_scene(rec4)
+        shard.reduce_stats.update(calls=0, bytes=0)
+        kernels.reset()
+        sharded = shard_simulate(rec4, N_MAIN, mesh, seed=26, compiled=rec4_compiled)
+        nccl = dict(shard.reduce_stats)
+        nccl_launches = dict(kernels.launches)
+        single = simulate(rec4, N_MAIN, seed=26, record_every=0, dtype=np.float32,
+                          compiled=rec4_compiled).data
+        for key in ("fates", "rec_distinct", "rec_crossings", "rec_bins"):
+            if not np.array_equal(sharded[key], single[key]):
+                fail(f"NCCL world of one: {key} differs from simulate's")
+        int_err = max(int(np.abs(sharded[k] - single[k]).max())
+                      for k in ("fates", "rec_distinct", "rec_crossings", "rec_bins"))
+        sums_rel = float(np.max(np.abs(sharded["rec_sums"].astype(np.float64) - single["rec_sums"])
+                                / np.maximum(np.abs(single["rec_sums"]), 1e-30)))
+        if not sums_rel <= check.SUMS_RUNS_RTOL:
+            fail(f"NCCL world of one: rec_sums off simulate's by {sums_rel:.3g}")
+        if nccl["calls"] != 3 or nccl_launches["pvt_trace"] != 1:
+            fail(f"NCCL world of one: {nccl['calls']} all-reduces, launches {nccl_launches}")
+        one = json.loads(json.dumps(shard_runs(mesh)))
+    finally:
+        shutdown_distributed()
+    nccl_ms, nccl_bytes = one["reduce_ms"], one["reduce_bytes"]
+    print(
+        f"phase 26 NCCL world of one: shard_simulate(slab with 4 recorders, {N_MAIN}) equals "
+        f"simulate: fates {sharded['fates'].tolist()}, distinct "
+        f"{sharded['rec_distinct'].tolist()}, rec_sums within {sums_rel:.3g} (limit "
+        f"{check.SUMS_RUNS_RTOL:.3g}, two runs' bound); {nccl['calls']} all-reduces of "
+        f"{nccl['bytes']} bytes in all on the card in that run; {nccl_ms:.4f} ms per call of "
+        f"{nccl_bytes:.0f} bytes (the score run's tallies, 150 calls after the first) | {smi}",
+        flush=True,
+    )
+    port, tmp = free_port(), tempfile.mkdtemp()
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in range(RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(RANKS), "--port", str(port), "--out", paths[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(RANKS)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"gloo rank {r} exited {p.returncode}: {text[-3000:]}")
+    ranks = []
+    for path in paths:
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec4_st = scene_tensors(rec4_compiled, dtype=torch.float32, device="cuda")
+    slab_st = scene_tensors(compiled, dtype=torch.float32, device="cuda")
+    grad_fates, _, grad_t, _ = kernels.trace(slab_st, rng.key_words(27), N_SLAB, score=True)
+    grad_bound = check.sharded_gradient_bound(grad_fates.double().cpu(),
+                                              grad_t["fate_abs"].double().cpu(), N_SLAB)
+    worst = {"score": 0.0, "gradients": 0.0}
+    for run in [one] + ranks:
+        data = {k: np.asarray(v) for k, v in run["score_run"].items()}
+        for key in ("fates", "rec_distinct", "rec_crossings", "rec_bins"):
+            if not np.array_equal(data[key], np.asarray(one["score_run"][key])):
+                fail(f"gloo rank {run['rank']} of {run['size']}: {key} differs from the world "
+                     f"of one")
+        worst["score"] = max(worst["score"], check.check_chunk_scores(
+            rec4_st, rng.key_words(26), data, N_MAIN, N_MAIN // RANKS))
+        if run["fractions"] != one["fractions"]:
+            fail(f"fate_gradients(mesh=): fractions {run['fractions']} against {one['fractions']}")
+        for e, g in run["gradients"].items():
+            off = torch.as_tensor(g) - torch.as_tensor(one["gradients"][e])
+            used = float((off.abs() / grad_bound[Event[e].value].clamp(min=1e-300)).max())
+            if not used <= 1.0:
+                fail(f"fate_gradients(mesh=): {e} gradients {g} against {one['gradients'][e]}")
+            worst["gradients"] = max(worst["gradients"], used)
+        (loss, lc), (one_loss, one_lc) = run["train"], one["train"]
+        rel = np.log2(N_SLAB) * 2.0 ** -24
+        if not (abs(loss - one_loss) <= 2 * np.sqrt(one_loss) * rel
+                and abs(lc - one_lc) <= 4 * rel * abs(one_lc) + 2.0 ** -23 * abs(one_lc)):
+            fail(f"make_training_step: (loss, log c) {run['train']} against {one['train']}")
+    gloo_ms, gloo_bytes = max(r["reduce_ms"] for r in ranks), ranks[0]["reduce_bytes"]
+    print(
+        f"phase 26 gloo world of {RANKS} on the one card: shard_simulate(score=True, {N_MAIN}) "
+        f"integers equal to the world of one, score sums at {worst['score']:.3g} of their "
+        f"float64 bound; fate_gradients(mesh=, {N_SLAB}) fractions equal, gradients at "
+        f"{worst['gradients']:.3g} of their bound; make_training_step (loss, log c) "
+        f"{[r['train'] for r in ranks]} against {one['train']}; launches of pvt_trace_score a "
+        f"rank {[r['score_launches'] for r in ranks]}; all-reduce on gloo (CPU copies) "
+        f"{gloo_ms:.4f} ms per call of {gloo_bytes:.0f} bytes, the slower rank of 150 calls "
+        f"after a barrier (NCCL, world of one: {nccl_ms:.4f}); two ranks share one card: no "
+        f"multi-GPU speed measured | {smi}",
+        flush=True,
+    )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -858,12 +1146,31 @@ def main():
                                    bound_by=absorbed_rep["grad_bound_by"],
                                    max_abs_err=absorbed_rep["grad_abs_err"]), {"n": N_SLAB}),
     ]
+    rows += [
+        ("pvt_trace_bundle", bundle_rep, {
+            "n": N_CHECK, "scene": "lsc_slab_host(n_rec=4)",
+            "log": {k: bundle_log[k] for k in ("diverged", "max_rel_err", "ms", "plain_ms")},
+            "score": {k: bundle_score[k] for k in ("parted", "ms", "plain_ms", "bound_ms")},
+            "host_path_photons_per_s": host_rate, "host_path_elapsed_s": res.elapsed,
+            "host_path_emission_s": host_wall - res.elapsed, "n_host_path": N_HOST,
+        }),
+    ]
+    collective = {
+        "name": "all_reduce_tallies", "route": "torch.distributed",
+        "source": SOURCE["all_reduce_tallies"], "replaces": REPLACES["all_reduce_tallies"],
+        "launches": nccl["calls"], "max_abs_err": int_err, "rec_sums_max_rel_err": sums_rel,
+        "ms": nccl_ms, "plain_ms": gloo_ms, "plain_is": "gloo all_reduce of CPU copies, "
+        f"world of {RANKS} on one card, per call",
+        "bound_ms": 2 * nccl_bytes / check.PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None, "bytes_per_call": nccl_bytes, "backend": "nccl, world of one",
+    }
     launches_of = dict(main_launches, pvt_trace_log=full["mesh, record_every=1000"]["launches"][
         "pvt_trace_log"], pvt_trace_score=grad_launches["pvt_trace_score"],
         pvt_absorbed=sgd_launches["pvt_absorbed"],
         pvt_pathwise=path_launches["pvt_pathwise"],
         pvt_trace_pathwise=path_launches["pvt_trace_pathwise"],
-        pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"])
+        pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"],
+        pvt_trace_bundle=host_launches["pvt_trace_bundle"])
     print(smi)
     print(json.dumps({"kernels": [
         {
@@ -874,11 +1181,20 @@ def main():
             "bound_by": rep["bound_by"], "library_ms": None, **extra,
         }
         for name, rep, extra in rows
-    ]}))
+    ] + [collective]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        import argparse
+
+        parser = argparse.ArgumentParser(description="one rank of phase 26's gloo world")
+        for flag, kind in (("--rank", int), ("--world", int), ("--port", int), ("--out", str)):
+            parser.add_argument(flag, type=kind, required=True)
+        args = parser.parse_args()
+        rank_main(args.rank, args.world, args.port, args.out)
+    else:
+        main()

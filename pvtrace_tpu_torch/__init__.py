@@ -11,7 +11,11 @@ the port's compiler, to the same tables as the same scene built from
 ``pvtrace_tpu`` with the JAX package's. What differs is the engine:
 ``pvtrace_tpu_torch.engine.simulate`` traces on an NVIDIA GPU through
 hand-written CUDA kernels (``pvtrace_tpu_torch.kernels``), with a
-plain-PyTorch twin of every kernel for CPU tensors.
+plain-PyTorch twin of every kernel for CPU tensors, from lights emitted
+on the device or, where the compiler cannot lower them, on the host
+(``engine.emit``). ``pvtrace_tpu_torch.parallel`` shards a run over a
+``torch.distributed`` process group, one process per device;
+``pvtrace_tpu_torch.diff.transport`` has the gradients.
 
 Importing this package imports ``torch``, never ``jax``, and nothing of
 ``pvtrace_tpu``.

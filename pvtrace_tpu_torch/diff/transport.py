@@ -11,12 +11,17 @@
 * `absorbed_fraction_fn`: the first-pass Beer–Lambert surrogate (K15,
   ``pvt_absorbed`` on the card), differentiable in
   ``params["log_concentration"]`` through ``torch.autograd``.
+* `make_training_step`: an SGD step on the dye concentration with that
+  surrogate, the photon batch split over a process group and the loss's
+  sums and the gradient all-reduced (K14, ``parallel/``).
 
-Not ported yet: the device mesh (ROADMAP queue 1 item 12, kernel K14)
-and ``make_training_step``, its multi-device step (item 13, after K14).
+``fate_gradients(mesh=...)`` shards each bundle over a process group
+(``parallel.shard_simulate``), as the JAX package shards it over a device
+mesh.
 """
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pvtrace_tpu_torch import kernels
 from pvtrace_tpu_torch.engine import absorb
@@ -101,19 +106,30 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
     kwargs pass through to ``engine.simulate`` (lanes, dtype, device, ...):
     the run is on the card unless ``device="cpu"``.
 
-    Raises NotImplementedError for `mesh` (ROADMAP queue 1 item 12, kernel
-    K14).
+    ``mesh`` (``parallel.make_photon_mesh()``) shards each bundle's photon
+    axis over a process group through ``parallel.shard_simulate``, on
+    ``mesh.device``: each rank traces its slice and the score sums are
+    all-reduced. `num_rays` must be a multiple of the mesh size, and
+    `bundle` is rounded down to one. Per-photon keys fold the global
+    photon index, so the sharded estimator equals the single-process one
+    (fate counts bit for bit, score sums up to summation order).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet: ROADMAP queue 1 item 12, kernel K14."
-        )
     compiled = kwargs.pop("compiled", None)
     if compiled is None:
         compiled = compile_scene(scene)
     pw = resolve_pathwise_params(compiled, pathwise) if pathwise else ()
     if seed is None:
         seed = int(np.random.randint(0, 2 ** 31 - 1))
+    if mesh is not None:
+        from pvtrace_tpu_torch.parallel.shard import shard_simulate
+
+        n_dev = mesh.size
+        if num_rays % n_dev != 0:
+            raise ValueError(
+                f"num_rays ({num_rays}) must be a multiple of the mesh size ({n_dev})."
+            )
+        if bundle:
+            bundle = max(n_dev, bundle - bundle % n_dev)
 
     n_comps = int(compiled.n_components)
     n_nodes = len(compiled.nodes)
@@ -122,10 +138,16 @@ def fate_gradients(scene, num_rays, seed=None, wrt="components",
     traced = 0
     while traced < num_rays:
         n_call = num_rays - traced if not bundle else min(bundle, num_rays - traced)
-        data = simulate(
-            scene, n_call, seed=seed, index_offset=traced, record_every=0, score=True,
-            pathwise=pw, compiled=compiled, **kwargs
-        ).data
+        if mesh is not None:
+            data = shard_simulate(
+                scene, n_call, mesh, seed=seed, index_offset=traced, score=True, pathwise=pw,
+                compiled=compiled, **kwargs
+            )
+        else:
+            data = simulate(
+                scene, n_call, seed=seed, index_offset=traced, record_every=0, score=True,
+                pathwise=pw, compiled=compiled, **kwargs
+            ).data
         part = np.asarray(data["fate_scores"], dtype=np.float64)
         fate_part = np.asarray(data["fates"], dtype=np.float64)
         scores_sum = part if scores_sum is None else scores_sum + part
@@ -251,3 +273,49 @@ def optimize_concentration(scene_builder, target, num_rays=200_000,
                   f"P={p:.4f} loss={loss:.6f}")
         log_scale -= lr * 2.0 * (p - target) * g
     return log_scale, history
+
+
+def make_training_step(compiled, mesh, axis_name="photons", target=0.8, lr=0.1):
+    """An SGD step on the dye concentration with the photon batch split
+    over `mesh` (``parallel.make_photon_mesh()``).
+
+    fn(params, pos, dir, wav, key=None) -> (new_params, loss): each rank
+    passes its slice of the photons (float32 `pos` and `dir` [P, 3], `wav`
+    [P], on its device) and the same `params` (``{"log_concentration": a
+    float32 scalar tensor}``). With w the Beer–Lambert weight of
+    `absorbed_fraction_fn` (``pvt_absorbed`` on the card), the loss is
+    (Σw / Σcount − target)², both sums over every rank's photons; the
+    gradient is each rank's ``torch.autograd.grad`` of its own Σw
+    (``pvt_absorbed_grad``), summed over the ranks, times 2(mean −
+    target)/Σcount, which is what the JAX package's ``value_and_grad``
+    through its ``psum`` computes; then one step of size `lr`. The three
+    float32 sums go through one all-reduce (NCCL on the card, gloo on CPU
+    copies). `key` is accepted, as the JAX step's, and unused.
+
+    NOTE: the loss differentiates the first-pass straight-line surrogate:
+    exact for index-matched scenes, biased where refraction bends rays
+    (use `fate_gradients` / `optimize_concentration` for the unbiased
+    multi-bounce gradients).
+    """
+    weight = absorbed_fraction_fn(compiled)
+
+    def step(params, pos, direction, wav, key=None):
+        log_c = params["log_concentration"].detach().requires_grad_(True)
+        w = weight({"log_concentration": log_c}, pos, direction, wav)
+        local = w.sum()
+        (g_local,) = torch.autograd.grad(local, log_c)
+        sums = torch.stack([local.detach(), torch.tensor(float(w.shape[0]), device=w.device),
+                            g_local.reshape(())]).float()
+        if mesh.group is not None:
+            on_card = dist.get_backend(mesh.group) == "nccl"
+            buf = sums if on_card else sums.cpu()
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+            sums = buf.to(w.device)
+        total, count, grad = sums.unbind(0)
+        mean = total / count
+        loss = (mean - target) ** 2
+        grad = 2.0 * (mean - target) / count * grad
+        new = (log_c.detach() - lr * grad).reshape(params["log_concentration"].shape)
+        return {"log_concentration": new}, loss
+
+    return step

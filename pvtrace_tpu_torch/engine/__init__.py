@@ -3,6 +3,12 @@
     from pvtrace_tpu_torch import engine
     result = engine.simulate(scene, 1_000_000, record_every=0)   # on "cuda"
     result.fate_counts(), result.recorders
+
+Lights the compiler lowers to device samplers are emitted inside the
+trace (``device_emit.py``, K2); others are emitted on the host by
+``emit.py::emit_bundle`` and traced as a bundle (K8's trace_bundle
+entry). ``pvtrace_tpu_torch.parallel`` shards ``simulate``'s photon axis
+over processes.
 """
 from pvtrace_tpu_torch.engine.api import simulate
 from pvtrace_tpu_torch.engine.compiler import CompiledScene, UnsupportedSceneError, compile_scene

@@ -1,10 +1,12 @@
 """``simulate``: the port's entry point, with the JAX package's signature.
 
-Port of ``pvtrace_tpu.engine.api.simulate`` for lights lowered to
-device samplers: fates, recorders, event-log histories, score-function
-gradient sums (``score=True``) and pathwise channels (``pathwise=``).
-The result is the port's copy of the JAX package's ``EngineResult`` with
-the same ``data`` layout.
+Port of ``pvtrace_tpu.engine.api.simulate``: fates, recorders,
+event-log histories, score-function gradient sums (``score=True``) and
+pathwise channels (``pathwise=``), with the lights emitted on the device
+where the compiler lowered them to samplers, else on the host
+(``engine/emit.py::emit_bundle``) and traced as a bundle. The result is
+the port's copy of the JAX package's ``EngineResult`` with the same
+``data`` layout.
 """
 import time
 
@@ -13,6 +15,7 @@ import torch
 
 from pvtrace_tpu_torch.engine import eventlog, rng, tracer
 from pvtrace_tpu_torch.engine.compiler import EMIT_METHODS, compile_scene
+from pvtrace_tpu_torch.engine.emit import emit_bundle
 from pvtrace_tpu_torch.engine.result import EngineResult, _RoundRobinSources
 from pvtrace_tpu_torch.engine.tables import scene_tensors
 
@@ -30,6 +33,28 @@ def _check_budget(num_rays, index_offset):
             f"photon ids [{index_offset}, {index_offset + num_rays}) must "
             f"lie in [0, {_U32}): they label the per-photon random streams."
         )
+
+
+def tally_data(compiled, fates, steps, tallies, np_dtype, score):
+    """The tally keys of ``simulate``'s data, as numpy: ``rec_distinct``,
+    ``rec_crossings``, ``rec_sums`` (in `np_dtype`), ``rec_bins``,
+    ``fates``, ``steps`` and, with `score`, ``fate_scores`` and (with
+    recorders) ``rec_scores``, from a trace's `fates`, `steps` and
+    `tallies`."""
+    data = {
+        "rec_distinct": tallies["distinct"].cpu().numpy(),
+        "rec_crossings": tallies["cross"].cpu().numpy(),
+        "rec_sums": tallies["sums"].cpu().numpy().astype(np_dtype),
+        "rec_bins": tallies["bins"].cpu().numpy(),
+        "fates": fates.cpu().numpy(),
+        "steps": int(steps),
+    }
+    if score:
+        data["fate_scores"] = tallies["fate_scores"].cpu().numpy().astype(np_dtype)
+        if compiled.n_recorders > 0:
+            data["rec_scores"] = tallies["rec_scores"][:compiled.n_recorders].cpu().numpy().astype(
+                np_dtype)
+    return data
 
 
 def simulate(
@@ -59,8 +84,14 @@ def simulate(
       eager PyTorch twin, in float32 or float64. There is no fallback
       from one to the other.
     * `dtype` None means float32.
-    * Lights that need host emission raise NotImplementedError naming the
-      ROADMAP item that brings them. `workers` is accepted and unused.
+    * Lights the compiler cannot lower to device samplers (a histogram
+      spectrum, a custom delegate) are emitted on the host, as in the JAX
+      package: ``emit_bundle(scene, num_rays)`` draws from the global
+      ``np.random`` stream, the bundle goes to `device` in the run's dtype
+      and is traced without regeneration (`lanes` ignored; on the card
+      ``pvt_trace`` in bundle mode). `elapsed` counts the upload, the
+      trace and the fetch, not the sampling, and the result's sources are
+      the bundle's. `workers` is accepted and unused.
     * With `score`, ``data["fate_scores"]`` [11, CH] and, with recorders,
       ``data["rec_scores"]`` [R, CH] in the run's dtype, channels in the
       JAX package's layout: the components, then the nodes in preorder
@@ -99,15 +130,23 @@ def simulate(
         lanes = min(num_rays, 1 << 18) if device.type == "cpu" else None
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    bundle = None
+    if compiled.lights_supported:
+        sources = _RoundRobinSources(compiled.light_names, num_rays, offset=index_offset)
+    else:
+        positions, directions, wavelengths, sources = emit_bundle(scene, num_rays)
+        host = tracer.bundle_rows(positions, directions, wavelengths, np_dtype)
     tic = time.perf_counter()
+    if not compiled.lights_supported:
+        bundle = torch.from_numpy(host).to(device)
     fates, steps, tallies, log = tracer.trace(
         st, rng.key_words(seed), num_rays, index_offset=index_offset,
         lanes=lanes, maxsteps=maxsteps, emit_method=EMIT_METHODS[emit_method],
         maxpathlength=float("inf") if maxpathlength is None else float(maxpathlength),
         record_every=max(int(record_every), 0), max_events=int(max_events), score=bool(score),
-        pathwise=tuple(tuple(p) for p in pathwise) if score else (),
+        pathwise=tuple(tuple(p) for p in pathwise) if score else (), bundle=bundle,
     )
-    fates = fates.cpu().numpy()
+    fates = fates.cpu()
     if log is None:
         log_ints = np.full((0, max_events, eventlog.LOG_I), -1, np.int32)
         log_floats = np.zeros((0, max_events, eventlog.LOG_F), np_dtype)
@@ -115,26 +154,13 @@ def simulate(
         log_ints, log_floats = log["ints"].cpu().numpy(), log["floats"].cpu().numpy()
     elapsed = time.perf_counter() - tic
 
-    data = {
-        "rec_distinct": tallies["distinct"].cpu().numpy(),
-        "rec_crossings": tallies["cross"].cpu().numpy(),
-        "rec_sums": tallies["sums"].cpu().numpy().astype(np_dtype),
-        "rec_bins": tallies["bins"].cpu().numpy(),
-        "fates": fates,
-        "counts": (log_ints[..., 0] >= 0).sum(axis=1).astype(np.int32),
-        "steps": int(steps),
-    }
-    if score:
-        data["fate_scores"] = tallies["fate_scores"].cpu().numpy().astype(np_dtype)
-        if compiled.n_recorders > 0:
-            data["rec_scores"] = tallies["rec_scores"][:compiled.n_recorders].cpu().numpy().astype(
-                np_dtype)
+    data = tally_data(compiled, fates, steps, tallies, np_dtype, score)
+    data["counts"] = (log_ints[..., 0] >= 0).sum(axis=1).astype(np.int32)
     for i, name in enumerate(eventlog.LOG_INTS):
         data[name] = log_ints[..., i]
     for i, name in enumerate(eventlog.LOG_VECS):
         data[name] = log_floats[..., 3 * i:3 * i + 3]
     for i, name in enumerate(eventlog.LOG_SCALARS):
         data[name] = log_floats[..., 9 + i]
-    sources = _RoundRobinSources(compiled.light_names, num_rays, offset=index_offset)
     return EngineResult(compiled, data, sources, max_events, record_every, elapsed)
 

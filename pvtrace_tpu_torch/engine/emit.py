@@ -1,95 +1,214 @@
-"""K2: device emission, the eager twin.
+"""Bundle emission: whole-array sampling of the scene's light sources.
 
-Port of ``_device_emit_flat`` (pvtrace_tpu/engine/tracer.py). Each
-photon takes the light ``pid % n_lights``, draws six uniforms from its
-emission stream and samples a wavelength (constant, or a lerp in
-``light_icdf_pairs``), a local position (point, rect, circle, cube) and
-a local direction (default, cone, isotropic, Lambertian, HG), then
-applies the light's baked local-to-world matrix. A spectral light's
-wavelength is its Chebyshev fit (K5a) or the table lerp (K5b), by the
-JAX package's rule (``spectral.light_icdf``).
+Role parity with the reference's ``pvtrace/engine/emit.py`` (host-side
+vectorised emission), organised as a dispatch table instead of
+isinstance chains: each built-in delegate type registers a *sampler
+factory* which, given the delegate, returns a closure drawing ``n``
+samples at once with numpy. Delegates with no registered factory make
+the light fall back to the per-ray generator path, so custom Python
+light sources keep working unchanged.
+
+The sampled distributions are identical to the per-ray delegates
+(uniform masks, sqrt-uniform disc/cone, cosine-weighted Lambertian,
+Henyey-Greenstein); only the draw granularity differs.
 """
-import math
+import functools
 
-import torch
+import numpy as np
 
-from pvtrace_tpu_torch.engine import rng, spectral
-from pvtrace_tpu_torch.engine import tables as T
-from pvtrace_tpu_torch.engine.compiler import CompiledScene as C
+from pvtrace_tpu_torch.light import light as light_module
+from pvtrace_tpu_torch.material.utils import (
+    Cone,
+    HenyeyGreenstein,
+    cone,
+    isotropic,
+    lambertian,
+)
+
+_TAU = 2.0 * np.pi
 
 
-def emit(st, keys, pids):
-    """Initial (pos, dir, wav) of photons `pids` with keys `keys`.
-
-    `st` is the dict of ``tables.scene_tensors``. Returns ((px, py, pz),
-    (dx, dy, dz), wav) in the scene dtype."""
-    f = st["node_f"].dtype
-    pk0, pk1 = keys
-    u = rng.draw(pk0, pk1, torch.zeros_like(pids), 16, 3, f)
-    light_f, light_i = st["rows"]["light_f"], st["rows"]["light_i"]
-    n_lights = len(light_i)
-    light_id = pids % n_lights
-    zeros = torch.zeros_like(u[0])
-    out = None
-    for li in range(n_lights):
-        lf, (wkind, pkind, dkind, row) = light_f[li], light_i[li]
-        if wkind == C.WAV_CONST:
-            w_l = torch.full_like(zeros, lf[T.LF_WAV])
-        else:
-            w_l = spectral.light_icdf(st, row, u[0])
-        a, b, c = lf[T.LF_POS:T.LF_POS + 3]
-        if pkind == C.POS_DEFAULT:
-            lx, ly, lz = zeros, zeros, zeros
-        elif pkind == C.POS_RECT:
-            lx = (2.0 * u[1] - 1.0) * a
-            ly = (2.0 * u[2] - 1.0) * b
-            lz = zeros
-        elif pkind == C.POS_CIRCLE:
-            r = torch.sqrt(u[1]) * a
-            ang = 2.0 * math.pi * u[2]
-            lx, ly, lz = r * torch.cos(ang), r * torch.sin(ang), zeros
-        else:
-            lx = (2.0 * u[1] - 1.0) * a
-            ly = (2.0 * u[2] - 1.0) * b
-            lz = (2.0 * u[3] - 1.0) * c
-        phi = 2.0 * math.pi * u[5]
-        if dkind == C.DIR_DEFAULT:
-            ldx, ldy, ldz = zeros, zeros, zeros + 1.0
-        else:
-            if dkind == C.DIR_CONE:
-                s = torch.sqrt(u[4]) * lf[T.LF_SIN_DIR]
-                mu = torch.sqrt(torch.clamp(1.0 - s * s, min=0.0))
-                s_t = s
-            elif dkind == C.DIR_ISOTROPIC:
-                mu = 2.0 * u[4] - 1.0
-                s_t = torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))
-            elif dkind == C.DIR_LAMBERTIAN:
-                s_t = torch.sqrt(u[4])
-                mu = torch.sqrt(torch.clamp(1.0 - u[4], min=0.0))
-            else:
-                mu = hg_mu(lf[T.LF_DIR], 2.0 * u[4] - 1.0)
-                s_t = torch.sqrt(torch.clamp(1.0 - mu * mu, min=0.0))
-            ldx, ldy, ldz = s_t * torch.cos(phi), s_t * torch.sin(phi), mu
-        m = lf[T.LF_MAT:T.LF_MAT + 12]
-        world = (
-            m[0] * lx + m[1] * ly + m[2] * lz + m[3],
-            m[4] * lx + m[5] * ly + m[6] * lz + m[7],
-            m[8] * lx + m[9] * ly + m[10] * lz + m[11],
-            m[0] * ldx + m[1] * ldy + m[2] * ldz,
-            m[4] * ldx + m[5] * ldy + m[6] * ldz,
-            m[8] * ldx + m[9] * ldy + m[10] * ldz,
-            w_l,
+def _unit_from_angles(theta, phi):
+    """Stack spherical angles into unit direction rows."""
+    return np.column_stack(
+        (
+            np.sin(theta) * np.cos(phi),
+            np.sin(theta) * np.sin(phi),
+            np.cos(theta),
         )
-        if out is None:
-            out = world
-        else:
-            here = light_id == li
-            out = tuple(torch.where(here, w, o) for w, o in zip(world, out))
-    px, py, pz, dx, dy, dz, wav = out
-    return (px, py, pz), (dx, dy, dz), wav
+    )
 
 
-def hg_mu(g, s):
-    """Henyey-Greenstein cosine for s = 2u - 1 (|g| >= 1e-12)."""
-    mu = (1.0 + g * g - ((1.0 - g * g) / (1.0 + g * s)) ** 2) / (2.0 * g)
-    return torch.clamp(mu, -1.0, 1.0)
+def _uniform_box(half_extents):
+    """Uniform sampler over a centred axis-aligned box (0-extent axes
+    collapse to the plane/line/point)."""
+    hx, hy, hz = half_extents
+
+    def draw(n):
+        return np.column_stack(
+            (
+                np.random.uniform(-hx, hx, n) if hx else np.zeros(n),
+                np.random.uniform(-hy, hy, n) if hy else np.zeros(n),
+                np.random.uniform(-hz, hz, n) if hz else np.zeros(n),
+            )
+        )
+
+    return draw
+
+
+def _disc(radius):
+    def draw(n):
+        rho = radius * np.sqrt(np.random.uniform(0, 1, n))
+        phi = np.random.uniform(0, _TAU, n)
+        return np.column_stack(
+            (rho * np.cos(phi), rho * np.sin(phi), np.zeros(n))
+        )
+
+    return draw
+
+
+def _cone_directions(theta_max):
+    sin_max = np.sin(theta_max)
+
+    def draw(n):
+        theta = np.arcsin(sin_max * np.sqrt(np.random.uniform(0, 1, n)))
+        return _unit_from_angles(theta, np.random.uniform(0, _TAU, n))
+
+    return draw
+
+
+def _isotropic_directions(n):
+    theta = np.arccos(1.0 - 2.0 * np.random.uniform(0, 1, n))
+    return _unit_from_angles(theta, np.random.uniform(0, _TAU, n))
+
+
+def _lambertian_directions(n):
+    theta = np.arcsin(np.sqrt(np.random.uniform(0, 1, n)))
+    return _unit_from_angles(theta, np.random.uniform(0, _TAU, n))
+
+
+def _hg_directions(g):
+    if abs(g) < 1e-12:
+        return _isotropic_directions
+
+    def draw(n):
+        s = np.random.uniform(-1, 1, n)
+        mu = (1 + g * g - ((1 - g * g) / (1 + g * s)) ** 2) / (2 * g)
+        return _unit_from_angles(np.arccos(mu), np.random.uniform(0, _TAU, n))
+
+    return draw
+
+
+def _cone_half_angle(delegate):
+    """Half-angle of a cone delegate, also accepting partial(cone, θ)."""
+    if isinstance(delegate, Cone):
+        return delegate.theta_max
+    if isinstance(delegate, functools.partial) and delegate.func is cone:
+        if delegate.args:
+            return float(delegate.args[0])
+        if "theta_max" in delegate.keywords:
+            return float(delegate.keywords["theta_max"])
+    return None
+
+
+# Factories keyed by delegate class. Each maps delegate -> draw(n).
+_BY_CLASS = {
+    light_module.DefaultWavelength: lambda d: (
+        lambda n: np.full(n, 555.0)
+    ),
+    light_module.ConstantWavelengthMask: lambda d: (
+        lambda n: np.full(n, d.nanometers)
+    ),
+    light_module.SpectrumWavelengthMask: lambda d: (
+        lambda n: np.asarray(
+            d.distribution.sample(np.random.uniform(0, 1, n)), dtype=float
+        )
+    ),
+    light_module.DefaultPosition: lambda d: (
+        lambda n: np.zeros((n, 3))
+    ),
+    light_module.RectangularMask: lambda d: _uniform_box((d.x, d.y, 0.0)),
+    light_module.CircularMask: lambda d: _disc(d.radius),
+    light_module.CubeMask: lambda d: _uniform_box((d.x, d.y, d.z)),
+    light_module.DefaultDirection: lambda d: (
+        lambda n: np.tile((0.0, 0.0, 1.0), (n, 1))
+    ),
+    Cone: lambda d: _cone_directions(d.theta_max),
+    HenyeyGreenstein: lambda d: _hg_directions(d.g),
+}
+
+# Factories keyed by function identity (module-level delegate callables).
+_BY_IDENTITY = {
+    light_module.default_wavelength: lambda d: (lambda n: np.full(n, 555.0)),
+    light_module.default_position: lambda d: (lambda n: np.zeros((n, 3))),
+    light_module.default_direction: lambda d: (
+        lambda n: np.tile((0.0, 0.0, 1.0), (n, 1))
+    ),
+    isotropic: lambda d: _isotropic_directions,
+    lambertian: lambda d: _lambertian_directions,
+}
+
+
+def _resolve(delegate):
+    """Bulk sampler for a delegate, or None if only per-ray works."""
+    try:
+        factory = _BY_IDENTITY.get(delegate)
+    except TypeError:  # unhashable delegate
+        factory = None
+    if factory is None:
+        factory = _BY_CLASS.get(type(delegate))
+    if factory is None:
+        theta_max = _cone_half_angle(delegate)
+        if theta_max is not None:
+            return _cone_directions(theta_max)
+        return None
+    return factory(delegate)
+
+
+def emit_bundle(scene, num_rays):
+    """Emit ``num_rays`` from the scene's lights as world-frame arrays.
+
+    Returns ``(positions, directions, wavelengths, sources)``. Rays are
+    dealt round-robin across the scene's lights, matching
+    ``Scene.emit``'s ordering, and transformed from each light's frame
+    to the root frame with that node's rigid pose.
+    """
+    lights = scene.light_nodes
+    out_pos = np.zeros((num_rays, 3))
+    out_dir = np.zeros((num_rays, 3))
+    out_wav = np.zeros(num_rays)
+    out_src = [None] * num_rays
+
+    for offset, node in enumerate(lights):
+        rows = np.arange(offset, num_rays, len(lights))
+        if rows.size == 0:
+            continue
+        samplers = [
+            _resolve(node.light.wavelength),
+            _resolve(node.light.position),
+            _resolve(node.light.direction),
+        ]
+        if any(s is None for s in samplers):
+            _emit_per_ray(scene, node, rows, out_pos, out_dir, out_wav,
+                          out_src)
+            continue
+        draw_wav, draw_pos, draw_dir = samplers
+        n = rows.size
+        pose = np.asarray(node.transformation_to(scene.root))
+        out_wav[rows] = draw_wav(n)
+        out_pos[rows] = draw_pos(n) @ pose[:3, :3].T + pose[:3, 3]
+        out_dir[rows] = draw_dir(n) @ pose[:3, :3].T
+        for row in rows:
+            out_src[row] = node.light.name
+
+    return out_pos, out_dir, out_wav, out_src
+
+
+def _emit_per_ray(scene, node, rows, out_pos, out_dir, out_wav, out_src):
+    """Per-ray generator fallback for lights with custom delegates."""
+    for row, ray in zip(rows, node.emit(rows.size)):
+        world = ray.representation(node, scene.root)
+        out_pos[row] = world.position
+        out_dir[row] = world.direction
+        out_wav[row] = world.wavelength
+        out_src[row] = world.source

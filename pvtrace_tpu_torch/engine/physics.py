@@ -52,7 +52,7 @@ import torch
 from pvtrace_tpu_torch.engine import compiler as comp
 from pvtrace_tpu_torch.engine import geometry, spectral, ties
 from pvtrace_tpu_torch.engine import tables as T
-from pvtrace_tpu_torch.engine.emit import hg_mu
+from pvtrace_tpu_torch.engine.device_emit import hg_mu
 from pvtrace_tpu_torch.engine.recorder import EVENTS
 
 ALPHA_ZERO = 1e-8

@@ -8,7 +8,8 @@ so the same CUDA kernel serves every scene. The eager twin and the CUDA
 kernels read the same tensors, with the column layout below. The layout
 is mirrored by ``kernels/csrc/tracer.cuh``; the tests compare the two.
 
-Records (rows padded to at least one so no tensor is empty):
+Records (rows padded to at least one so no tensor is empty, the lights
+aside):
 
 * ``node_f`` [N, NODE_F] and ``node_i`` [N, NODE_I], in node order;
 * ``comp_f`` [C, COMP_F] and ``comp_i`` [C, COMP_I], in component order
@@ -19,7 +20,10 @@ Records (rows padded to at least one so no tensor is empty):
   TRI_F], rows (v0, e1, e2, outward face normal) in the node's local
   frame (the compiler's ``mesh_data``); a mesh node's triangles are the
   rows ``[tri_first, tri_first + n_tris)`` (``NI_TRI0``, ``NI_NTRI``);
-* ``light_f`` [nL, LIGHT_F] and ``light_i`` [nL, LIGHT_I];
+* ``light_f`` [nL, LIGHT_F] and ``light_i`` [nL, LIGHT_I], the lights
+  the compiler lowered to device samplers; none (``n_lights`` 0) when it
+  could not lower them all, and then every photon comes from a host
+  bundle (``engine/emit.py``) and device emission refuses the scene;
 * the three spectral tables the tracer reads: ``spec_pack`` [N*L, 2W],
   ``ems_icdf_pairs`` [n_lum*M, 2] and ``light_icdf_pairs`` [rows*M, 2].
   The other tables of ``device_tables`` are not read by the tracer;
@@ -201,16 +205,6 @@ def _isotropic_if_flat(kind, hg_kind, iso_kind, g):
     return iso_kind if kind == hg_kind and abs(g) < 1e-12 else kind
 
 
-def unsupported_reason(compiled):
-    """Why the port's tracer cannot run `compiled`, or None."""
-    if not compiled.lights_supported:
-        return (
-            "lights the compiler cannot lower to device samplers need host "
-            "emission (ROADMAP queue 1 item 5)"
-        )
-    return None
-
-
 class _Fits:
     """Flattens compiler fit descriptors into the cheb_* records."""
 
@@ -317,9 +311,6 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
     triangle count, which lookups take K5a, recorder and bin counts), and
     ``"rows"``, the small records as python lists.
     """
-    reason = unsupported_reason(compiled)
-    if reason is not None:
-        raise NotImplementedError(f"pvtrace_tpu_torch does not trace {reason}.")
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     N = len(compiled.nodes)
     eps = compiled.resolved_eps_per_node(np_dtype)

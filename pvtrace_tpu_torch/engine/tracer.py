@@ -1,6 +1,7 @@
 """K7 and K8: the trace loop with fate counts and lane regeneration.
 
-Port of ``trace_bundle_device_emit``, ``_run``, ``body_fast`` and, with
+Port of ``trace_bundle_device_emit``, ``trace_bundle`` (a host-emitted
+bundle, ``engine/emit.py``), ``_run``, ``body_fast`` and, with
 an event log, ``body`` (pvtrace_tpu/engine/tracer.py): fates, recorder tallies (K9,
 ``engine/tally.py``), the event log of every ``record_every``-th photon
 (K11, ``engine/eventlog.py``) and, with ``score``, the score channels
@@ -26,20 +27,46 @@ records written. Every photon's random streams are a pure function of
 logs do not depend on the lane count, and match the JAX package's photon
 for photon.
 """
+import numpy as np
 import torch
 
 from pvtrace_tpu_torch.engine import eventlog, pathwise as path, physics, rng, tally
 from pvtrace_tpu_torch.engine import score as score_ch
-from pvtrace_tpu_torch.engine.emit import emit
+from pvtrace_tpu_torch.engine.device_emit import emit
 
 # Runs of the eager twin: a run can show that it went through the kernel.
 eager_runs = 0
 
 
-def initial_state(st, seed_words, pids):
-    """Keys and freshly emitted state of photons `pids` (int64)."""
+# The rows of a host bundle: photon k's start is column k.
+BUNDLE_ROWS = ("px", "py", "pz", "dx", "dy", "dz", "wav")
+
+
+def check_bundle(bundle, n, dtype, device):
+    """Raise ValueError unless `bundle` is a [7, n] tensor of `dtype` on
+    `device` (rows ``BUNDLE_ROWS``)."""
+    if not isinstance(bundle, torch.Tensor) or bundle.shape != (len(BUNDLE_ROWS), n) \
+            or bundle.dtype != dtype or bundle.device != torch.device(device):
+        raise ValueError(f"bundle: need a {dtype} [{len(BUNDLE_ROWS)}, {n}] tensor on {device}")
+
+
+def bundle_rows(positions, directions, wavelengths, dtype):
+    """``emit_bundle``'s arrays (positions and directions [n, 3],
+    wavelengths [n]) as the C-contiguous numpy [7, n] of `dtype` that a
+    bundle tensor is made from (rows ``BUNDLE_ROWS``)."""
+    return np.ascontiguousarray(np.concatenate([positions.T, directions.T, wavelengths[None]]),
+                                dtype=dtype)
+
+
+def initial_state(st, seed_words, pids, bundle=None):
+    """Keys and initial state of photons `pids` (int64): freshly emitted
+    on the device, or with `bundle` (``check_bundle``'s, one column per
+    pid) its columns, as ``_run`` starts a host-emitted bundle."""
     k0, k1 = rng.photon_keys(seed_words, pids)
-    (px, py, pz), (dx, dy, dz), wav = emit(st, (k0, k1), pids)
+    if bundle is None:
+        (px, py, pz), (dx, dy, dz), wav = emit(st, (k0, k1), pids)
+    else:
+        px, py, pz, dx, dy, dz, wav = (row.clone() for row in bundle.unbind(0))
     zero = torch.zeros_like(px)
     return {
         "px": px, "py": py, "pz": pz, "dx": dx, "dy": dy, "dz": dz,
@@ -70,7 +97,7 @@ def step_state(st, s, maxsteps, emit_method, maxpathlength=float("inf"), alive=N
 
 def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                 emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-                score=False, per_photon=False, pathwise=()):
+                score=False, per_photon=False, pathwise=(), bundle=None):
     """Trace photons ``index_offset + [0, n)`` with the eager twin.
 
     Returns (fates, steps, tallies, log): int64 fate counts [11], the
@@ -83,13 +110,20 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     n], ``photon_fate`` and ``photon_steps`` [n] (int64; -1 and 0 where
     it never folded) and ``photon_slack`` [CH, n]. `pathwise` (resolved
     specs, used with `score` only, as in the JAX package) appends the
-    pathwise channels to CH."""
+    pathwise channels to CH. With a host `bundle` (``check_bundle``'s, in
+    the scene's dtype and on its device) photon ``index_offset + k``
+    starts from column k, and, as in ``trace_bundle``, every photon has
+    its own lane from the start: `lanes` is ignored, nothing is
+    regenerated."""
     global eager_runs
     eager_runs += 1
     device = st["node_f"].device
+    if bundle is not None:
+        check_bundle(bundle, n, st["node_f"].dtype, device)
+        lanes = None
     B = n if lanes is None or lanes >= n else lanes
     pids = index_offset + torch.arange(B, device=device, dtype=torch.int64)
-    s = initial_state(st, seed_words, pids)
+    s = initial_state(st, seed_words, pids, bundle)
     nxt, total = index_offset + B, index_offset + n
     fates = torch.zeros(physics.N_FATES, dtype=torch.int64, device=device)
     specs = tuple(pathwise) if score else ()
@@ -189,10 +223,11 @@ def trace_eager(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
           emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-          score=False, pathwise=()):
+          score=False, pathwise=(), bundle=None):
     """Trace photons ``index_offset + [0, n)`` through the wrapper of
     ``pvt_trace``: the CUDA kernel for scene tensors on a CUDA device,
-    ``trace_eager`` for CPU tensors.
+    ``trace_eager`` for CPU tensors; from a host `bundle` when one is
+    given, else emitted on the device.
 
     Returns (fates, steps, tallies, log). On the kernel path `steps` is
     the largest per-photon step count; on the eager path it is the number
@@ -201,5 +236,5 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
 
     return kernels.trace(
         st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-        maxpathlength, record_every, max_events, score, pathwise=pathwise,
+        maxpathlength, record_every, max_events, score, pathwise=pathwise, bundle=bundle,
     )

@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from pvtrace_tpu_torch.engine import absorb, chebyshev, eventlog, geometry, physics, tally, tracer
+from pvtrace_tpu_torch.engine import absorb, chebyshev, device_emit, eventlog, geometry, physics
+from pvtrace_tpu_torch.engine import tally, tracer
 from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
@@ -26,14 +27,14 @@ from pvtrace_tpu_torch.kernels import build
 # Launches of each kernel since the last reset() ("pvt_trace_log": those
 # launches of pvt_trace that wrote an event log; "pvt_trace_score": those
 # with score channels; "pvt_trace_pathwise": those with pathwise channels
-# as well), and what the last pvt_trace launch reported: its
+# as well; "pvt_trace_bundle": those that started from a host bundle), and what the last pvt_trace launch reported: its
 # thread count, the dynamic shared memory of a block, whether the
 # recorder bins and the score sums were in shared memory, the steps its
 # photons took in all, and its time on the card (CUDA events, ms).
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
-            "pvt_absorbed_grad": 0}
+            "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "total_steps": 0, "ms": 0.0}
 
@@ -105,6 +106,11 @@ class _Path(ctypes.Structure):
     ]
 
 
+class _Bundle(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("first", ctypes.c_ulonglong)]
+
+
 class _Absorbers(ctypes.Structure):
     _fields_ = [
         ("node_f", ctypes.c_void_p), ("node_i", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
@@ -123,19 +129,19 @@ _ENTRIES = {
         "pvt_step": [_VP, _VP, _VP, _VP, _I64, _VP],
         "pvt_cheb": [_VP, _I32, _VP, _I64, _VP, _VP],
         "pvt_tally": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
-        "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+        "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
         "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
     },
     "score": {
         "pvt_score": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_fresnel": [_VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace_score": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                            _VP, _VP],
+                            _VP, _VP, _VP],
     },
     "pathwise": {
         "pvt_pathwise": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace_pathwise": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                               _VP, _VP],
+                               _VP, _VP, _VP],
     },
     "diff": {
         "pvt_absorbed": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
@@ -250,12 +256,19 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
 
 
+def _check_device_lights(st):
+    """Device emission needs the scene's lights as device samplers."""
+    if not st["meta"]["n_lights"]:
+        raise ValueError(device_emit.NO_DEVICE_LIGHTS)
+
+
 def emit(st, seed_words, index_offset, B):
     """Keys and initial state of photons ``index_offset + [0, B)``."""
     if _on_cpu(st):
         pids = index_offset + torch.arange(B, dtype=torch.int64)
         return tracer.initial_state(st, seed_words, pids)
     _check_scene(st)
+    _check_device_lights(st)
     out = _empty_state(B, st["node_f"].device)
     sc = _scene(st, 0, 0, float("inf"))
     rc = library().pvt_emit(
@@ -425,7 +438,7 @@ def empty_log(n, record_every, max_events, index_offset, device):
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
           emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-          score=False, per_photon=False, pathwise=()):
+          score=False, per_photon=False, pathwise=(), bundle=None):
     """Trace photons ``index_offset + [0, n)``; returns (fates, steps,
     tallies, log), as ``tracer.trace_eager`` does.
 
@@ -448,16 +461,28 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     ``photon_fate`` and ``photon_steps`` (no ``photon_slack``). With
     `score` and `pathwise` (resolved specs) the launch is
     ``pvt_trace_pathwise``: CH gains one channel per spec, and each
-    thread keeps its photon's tangents beside its score row."""
+    thread keeps its photon's tangents beside its score row. With a
+    `bundle` (``tracer.check_bundle``'s [7, n], contiguous float32 on the
+    card) photon ``index_offset + k`` starts from its column k in place
+    of device emission (K8's trace_bundle entry); without one, a scene
+    without device lights is refused."""
     if _on_cpu(st):
         return tracer.trace_eager(
             st, seed_words, n, index_offset, lanes, maxsteps, emit_method,
-            maxpathlength, record_every, max_events, score, per_photon, pathwise,
+            maxpathlength, record_every, max_events, score, per_photon, pathwise, bundle,
         )
     if per_photon and (not score or index_offset):
         raise ValueError("per_photon: needs score=True and index_offset 0")
     _check_scene(st)
     dev = st["node_f"].device
+    if bundle is None:
+        _check_device_lights(st)
+        rows = _Bundle(None, 0, 0)
+    else:
+        tracer.check_bundle(bundle, n, torch.float32, dev)
+        if not bundle.is_contiguous():
+            raise ValueError(f"bundle: need a contiguous float32 [7, {n}] on {dev}")
+        rows = _Bundle(bundle.data_ptr(), n, index_offset)
     threads = n if lanes is None else min(lanes, n)
     nxt = torch.full((1,), index_offset, device=dev, dtype=torch.int64)
     fates = torch.zeros(physics.N_FATES, device=dev, dtype=torch.int64)
@@ -485,10 +510,12 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     start.record()
     name = "pvt_trace_pathwise" if specs else "pvt_trace_score" if score else "pvt_trace"
     lib = {"pvt_trace": "tracer", "pvt_trace_score": "score", "pvt_trace_pathwise": "pathwise"}
-    rc = getattr(library(lib[name]), name)(*args, info, _stream())
+    rc = getattr(library(lib[name]), name)(*args, ctypes.byref(rows), info, _stream())
     _raise_on(rc, name)
     stop.record()
     launches["pvt_trace"] += 1
+    if bundle is not None:
+        launches["pvt_trace_bundle"] += 1
     if log_desc.n_slots:
         launches["pvt_trace_log"] += 1
     if name != "pvt_trace":

@@ -350,18 +350,20 @@ def check_tally(st, state, steps=8, maxsteps=1000, emit_method=0, reps=10):
     return report
 
 
-def trace_bound(st, n, total_steps, tallies=None):
+def trace_bound(st, n, total_steps, tallies=None, bundle=False):
     """(bound_ms, bound_by) of pvt_trace for `n` photons that took
     `total_steps` steps in all, with this run's recorder tallies: emission
-    per photon, the step per step (not counting K5a's segment search and
-    Clenshaw chains, which only lowers the bound) with a test of every
-    mesh triangle, and each crossing, distinct ray and bin add. Bytes: the
-    scene tensors read once and the fates, counts and tallies written
-    once."""
-    ops = n * OPS_EMIT + total_steps * (OPS_STEP + st["meta"]["n_tris"] * OPS_TRIANGLE)
+    per photon (with a host `bundle`, the key alone and the bundle's 28
+    bytes a photon read), the step per step (not counting K5a's segment
+    search and Clenshaw chains, which only lowers the bound) with a test of
+    every mesh triangle, and each crossing, distinct ray and bin add.
+    Bytes: the scene tensors read once and the fates, counts and tallies
+    written once."""
+    ops = n * (OPS_THREEFRY if bundle else OPS_EMIT) \
+        + total_steps * (OPS_STEP + st["meta"]["n_tris"] * OPS_TRIANGLE)
     nbytes = sum(
         v.numel() * v.element_size() for v in st.values() if isinstance(v, torch.Tensor)
-    ) + 8 * physics.N_FATES
+    ) + 8 * physics.N_FATES + (28 * n if bundle else 0)
     if tallies is not None and st["meta"]["n_rec"]:
         ops += (int(tallies["cross"].sum()) * OPS_TALLY_MATCH
                 + int(tallies["distinct"].sum()) * OPS_TALLY_NEW
@@ -380,7 +382,7 @@ def lerp_bound(st, total_steps):
     return bound(total_steps * OPS_LERP, nbytes)
 
 
-def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
+def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, bundle=None):
     """pvt_trace against the twin, both on the card, for n photons: both
     account for every photon, and each fate count agrees within
     max(20, 0.2% of n) (the same photons take the same streams; FMA
@@ -389,17 +391,18 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
     wavelength agrees within its standard error, or within SUMS_RTOL of
     itself where that is larger (a recorder that sees one wavelength,
     like the mesh LSC's top face under a 555 nm lamp, has none; its
-    float32 sums still round)."""
+    float32 sums still round). With a host `bundle` ([7, n] float32 on
+    the card) both start from it (K8's trace_bundle entry)."""
     start = torch.cuda.Event(enable_timing=True)
     mid = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     got, longest, got_t, _ = kernels.trace(
-        st, seed_words, n, maxsteps=maxsteps, emit_method=emit_method
+        st, seed_words, n, maxsteps=maxsteps, emit_method=emit_method, bundle=bundle
     )
     mid.record()
     ref, steps, ref_t, _ = tracer.trace_eager(
-        st, seed_words, n, lanes=lanes, maxsteps=maxsteps, emit_method=emit_method
+        st, seed_words, n, lanes=lanes, maxsteps=maxsteps, emit_method=emit_method, bundle=bundle
     )
     stop.record()
     torch.cuda.synchronize()
@@ -422,7 +425,7 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0):
         "tally_max_diff": 0,
     }
     report["bound_ms"], report["bound_by"] = trace_bound(
-        st, n, report["total_steps"], got_t
+        st, n, report["total_steps"], got_t, bundle is not None
     )
     R = st["meta"]["n_rec"]
     if R:
@@ -578,20 +581,22 @@ def _log_rel(got, ref):
     return float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
 
 
-def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18):
+def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, bundle=None):
     """pvt_trace with the event log against the twin (on the card), n
     photons: fates within max(20, 0.2% of n); the recorded photons'
     records compared photon by photon, at most a fraction LOG_DIVERGED of
     them diverged (ints differing anywhere), the others' records (and so
     their record counts) equal in the ints and within LOG_RTOL in the
-    floats. Returns the report, with the kernel's tallies and log."""
+    floats. Returns the report, with the kernel's tallies and log. With a
+    host `bundle` both start from it."""
     start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
     got, _, got_t, got_log = kernels.trace(st, seed_words, n, record_every=record_every,
-                                           max_events=max_events)
+                                           max_events=max_events, bundle=bundle)
     mid.record()
     ref, _, _, ref_log = tracer.trace_eager(st, seed_words, n, lanes=lanes,
-                                            record_every=record_every, max_events=max_events)
+                                            record_every=record_every, max_events=max_events,
+                                            bundle=bundle)
     stop.record()
     torch.cuda.synchronize()
     got, ref = got.cpu(), ref.cpu()
@@ -626,7 +631,7 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18):
         "tallies": got_t,
         "log": got_log,
     }
-    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t)
+    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t, bundle is not None)
     # The log adds its records' bytes (written once) to the trace's.
     log_ms = records * 4 * (T.LOG_I + T.LOG_F) / PEAK_BYTES_PER_S * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms, by) if ops_ms >= log_ms else (log_ms, "bytes")
@@ -659,6 +664,17 @@ def score_runs_bound(m, S):
     same photons added in another order: m addends, S the sum of their
     magnitudes (``SCORE_F64_ULP``)."""
     return (2.0 ** -24 + 2 * m * SCORE_F64_ULP) * S
+
+
+def sharded_gradient_bound(fates, fate_abs, n):
+    """How far two ``fate_gradients(wrt="all")`` runs of the same n photons
+    may differ when their float64 score sums were added in other orders
+    (shards of a mesh against one process): ``score_runs_bound`` of each
+    [fate, channel] sum (`fates` [11] float64, `fate_abs` [11, CH], the
+    sums of the addends' magnitudes), carried through the centring, over
+    n."""
+    B = score_runs_bound(fates[:, None], fate_abs)
+    return (B + fates[:, None] / n * B.sum(0, keepdim=True)) / n
 
 
 def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
@@ -863,21 +879,22 @@ def check_fresnel(device, reps=10):
 
 
 def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0,
-                       pathwise=()):
+                       pathwise=(), bundle=None):
     """pvt_trace with score channels against the twin, both on the card,
     n photons: fates (and recorder tallies) as ``check_trace``; the
     per-photon records and the fate_scores and rec_scores by
     ``compare_score_records``, at most SCORE_PARTED of the photons
     parted. The kernel is timed again without its records, the twin with
-    them. With `pathwise` specs the kernel is pvt_trace_pathwise."""
+    them. With `pathwise` specs the kernel is pvt_trace_pathwise. With a
+    host `bundle` both start from it."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     got, _, got_t, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
                                      emit_method=emit_method, score=True, per_photon=True,
-                                     pathwise=pathwise)
+                                     pathwise=pathwise, bundle=bundle)
     start.record()
     ref, _, ref_t, _ = tracer.trace_eager(st, seed_words, n, lanes=lanes, maxsteps=maxsteps,
                                           emit_method=emit_method, score=True, per_photon=True,
-                                          pathwise=pathwise)
+                                          pathwise=pathwise, bundle=bundle)
     stop.record()
     torch.cuda.synchronize()
     got, ref = got.cpu(), ref.cpu()
@@ -896,10 +913,12 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
                   twin_fate_scores=ref_t["fate_scores"], plain_ms=start.elapsed_time(stop),
                   tallies=got_t)
     again, _, _, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
-                                   emit_method=emit_method, score=True, pathwise=pathwise)
+                                   emit_method=emit_method, score=True, pathwise=pathwise,
+                                   bundle=bundle)
     require(torch.equal(again.cpu(), got), "pvt_trace (score): fates differ between two runs")
     report.update(ms=kernels.last_trace["ms"], shared_scores=kernels.last_trace["shared_scores"])
-    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None)
+    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None,
+                             bundle is not None)
     C = len(pathwise)
     CH = score_ch.n_channels(st, C)
     per_step = OPS_SCORE_STEP + (OPS_PATH_STEP + C * OPS_PATH_CHANNEL if C else 0)

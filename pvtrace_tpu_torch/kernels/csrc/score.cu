@@ -84,16 +84,11 @@ int pvt_trace_score(const PvtScene* sc, unsigned int s0, unsigned int s1,
                     unsigned long long total, long long max_threads,
                     unsigned long long* next, unsigned long long* fates, int* max_count,
                     unsigned long long* steps, const PvtTallyOut* tally, const PvtLog* log,
-                    const PvtScore* score, long long* info, void* stream) {
-  const LaunchTrace launch[2][2][2] = {
-      {{launch_trace<false, false, false, true>, launch_trace<false, false, true, true>},
-       {launch_trace<false, true, false, true>, launch_trace<false, true, true, true>}},
-      {{launch_trace<true, false, false, true>, launch_trace<true, false, true, true>},
-       {launch_trace<true, true, false, true>, launch_trace<true, true, true, true>}},
-  };
-  return (int)launch[sc->n_rec > 0][log->n_slots > 0][sc->n_tris > 0](
+                    const PvtScore* score, const PvtBundle* bundle, long long* info,
+                    void* stream) {
+  return (int)launch_for<true, false>(*sc, *log, *bundle)(
       *sc, s0, s1, total, max_threads, next, fates, max_count, steps, *tally, *log, *score,
-      info, (cudaStream_t)stream);
+      *bundle, info, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -172,12 +172,17 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // live in the thread's own rows of `score.tang` beside its score row, and
 // each step's tangent map and hybrid terms run after the primal step
 // (pathwise_step); only the instantiations of pathwise.cu carry that code.
-template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false>
+// With kBundle (K8's trace_bundle entry) each photon starts from its row of
+// a host bundle in place of emit_one: a template axis, not a runtime branch,
+// because a branch on the bundle in every instantiation moved the
+// registers and spills of nearly all of them (PERF.md, section 6).
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
+          bool kBundle = false>
 __global__ void __launch_bounds__(kBlock)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
-             PvtScore score) {
+             PvtScore score, PvtBundle bundle) {
   __shared__ unsigned long long block_fates[6];
   __shared__ int block_max;
   extern __shared__ __align__(8) unsigned char smem[];
@@ -196,8 +201,9 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   for (;;) {
     const unsigned long long id = atomicAdd(next, 1ull);
     if (id >= total) break;
-    longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore, kPath>(
-                               sc, s0, s1, (uint32_t)id, f, &acc, &lg, kScore ? &sa : nullptr));
+    longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore, kPath, kBundle>(
+                               sc, s0, s1, (uint32_t)id, f, &acc, &lg, kScore ? &sa : nullptr,
+                               bundle));
   }
 
   atomicAdd(&block_fates[0], f.exit);
@@ -220,17 +226,21 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 }
 
 // One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore,
-// kPath>, sized to the card's resident capacity (see pvt_trace), and with
-// scores to at most score.stride threads (the rows there are). info gets the
+// kPath, kBundle>, sized to the card's resident capacity (see pvt_trace),
+// and with scores to at most score.stride threads (the rows there are).
+// Without a bundle every photon is emitted on the device, which a scene
+// without device lights cannot do: refused. info gets the
 // thread count, a block's dynamic shared memory, and whether the recorder
 // bins and the score sums were placed there.
-template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false>
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          unsigned long long total, long long max_threads,
                          unsigned long long* next, unsigned long long* fates, int* max_count,
                          unsigned long long* steps, const PvtTallyOut& tally,
-                         const PvtLog& lg, const PvtScore& given, long long* info,
-                         cudaStream_t stream) {
+                         const PvtLog& lg, const PvtScore& given, const PvtBundle& bundle,
+                         long long* info, cudaStream_t stream) {
+  // A photon without a bundle row is emitted from light pid % n_lights.
+  if (kBundle ? !bundle.rows : sc.n_lights <= 0) return cudaErrorInvalidValue;
   const int shared_bins = kTally && bins_fit_shared(sc) ? 1 : 0;
   const size_t offset = score_offset(sc, kTally, shared_bins);
   const PvtScore score = kScore ? score_placed(sc, given, offset) : given;
@@ -240,7 +250,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath>;
+  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath, kBundle>;
   if (err == cudaSuccess && bytes > 0) err = allow_shared(kernel, bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, bytes);
@@ -255,7 +265,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   info[2] = shared_bins;
   info[3] = kScore ? score.shared : 0;
   kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(
-      sc, s0, s1, total, next, fates, max_count, steps, tally, shared_bins, lg, score);
+      sc, s0, s1, total, next, fates, max_count, steps, tally, shared_bins, lg, score, bundle);
   return cudaGetLastError();
 }
 
@@ -264,6 +274,23 @@ using LaunchTrace = cudaError_t (*)(const PvtScene&, unsigned int, unsigned int,
                                     unsigned long long, long long, unsigned long long*,
                                     unsigned long long*, int*, unsigned long long*,
                                     const PvtTallyOut&, const PvtLog&, const PvtScore&,
-                                    long long*, cudaStream_t);
+                                    const PvtBundle&, long long*, cudaStream_t);
+
+// The launch_trace instantiation of a run with scores (kScore) and
+// pathwise channels (kPath): by whether it starts from a bundle, has
+// recorders, writes the log, and has meshes.
+template <bool kScore, bool kPath>
+LaunchTrace launch_for(const PvtScene& sc, const PvtLog& lg, const PvtBundle& bundle) {
+#define PVT_LAUNCH(b, t, l) \
+  {launch_trace<t, l, false, kScore, kPath, b>, launch_trace<t, l, true, kScore, kPath, b>}
+  const LaunchTrace launch[2][2][2][2] = {
+      {{PVT_LAUNCH(false, false, false), PVT_LAUNCH(false, false, true)},
+       {PVT_LAUNCH(false, true, false), PVT_LAUNCH(false, true, true)}},
+      {{PVT_LAUNCH(true, false, false), PVT_LAUNCH(true, false, true)},
+       {PVT_LAUNCH(true, true, false), PVT_LAUNCH(true, true, true)}},
+  };
+#undef PVT_LAUNCH
+  return launch[bundle.rows != nullptr][sc.n_rec > 0][lg.n_slots > 0][sc.n_tris > 0];
+}
 
 }  // namespace

@@ -83,6 +83,7 @@ extern "C" {
 
 int pvt_emit(const PvtScene* sc, unsigned int s0, unsigned int s1,
              unsigned long long offset, long long B, const PvtState* out, void* stream) {
+  if (sc->n_lights <= 0) return (int)cudaErrorInvalidValue;  // no device lights: host emission
   emit_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(*sc, s0, s1, offset, B, *out);
   return (int)cudaGetLastError();
 }
@@ -129,25 +130,22 @@ int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const floa
 // Launches min(max_threads, resident capacity) threads, rounded up to
 // whole blocks. info[0] gets their number, info[1] the dynamic shared
 // memory of a block, info[2] 1 when the recorder bins were in shared
-// memory, info[3] 1 when the score sums were (0 here). With sc->n_rec == 0 the tally outputs are not touched, with
-// log->n_slots == 0 the log. The instantiation follows the scene and the
-// run: recorders, log, meshes; none computes scores (pvt_trace_score,
-// score.cu).
+// memory, info[3] 1 when the score sums were (0 here). With sc->n_rec == 0
+// the tally outputs are not touched, with log->n_slots == 0 the log. With
+// bundle->rows set, photon pid starts from column pid - bundle->first of
+// the host bundle (K8's trace_bundle entry; the caller sets next to
+// bundle->first and total to first + n), else it is emitted on the device.
+// The instantiation follows the scene and the run: recorders, log,
+// meshes; none computes scores (pvt_trace_score, score.cu).
 int pvt_trace(const PvtScene* sc, unsigned int s0, unsigned int s1,
               unsigned long long total, long long max_threads,
               unsigned long long* next, unsigned long long* fates, int* max_count,
               unsigned long long* steps, const PvtTallyOut* tally, const PvtLog* log,
-              long long* info, void* stream) {
-  const LaunchTrace launch[2][2][2] = {
-      {{launch_trace<false, false, false, false>, launch_trace<false, false, true, false>},
-       {launch_trace<false, true, false, false>, launch_trace<false, true, true, false>}},
-      {{launch_trace<true, false, false, false>, launch_trace<true, false, true, false>},
-       {launch_trace<true, true, false, false>, launch_trace<true, true, true, false>}},
-  };
+              const PvtBundle* bundle, long long* info, void* stream) {
   const PvtScore no_score = {nullptr, nullptr, nullptr, 0, 0, 0, 0};
-  return (int)launch[sc->n_rec > 0][log->n_slots > 0][sc->n_tris > 0](
+  return (int)launch_for<false, false>(*sc, *log, *bundle)(
       *sc, s0, s1, total, max_threads, next, fates, max_count, steps, *tally, *log, no_score,
-      info, (cudaStream_t)stream);
+      *bundle, info, (cudaStream_t)stream);
 }
 
 }  // extern "C"

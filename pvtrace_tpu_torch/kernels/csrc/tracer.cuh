@@ -367,6 +367,17 @@ struct PvtScore {
   int n_path;
 };
 
+// K8's host-bundle start (trace_bundle): photons whose lights the host
+// emitted (engine/emit.py). Photon pid starts from column pid - first of
+// `rows` [7, n] (px, py, pz, dx, dy, dz, wav: structure of arrays, so the
+// loads of a warp's consecutive pids coalesce). rows null: each photon is
+// emitted on the device (emit_one). Field order mirrored by ctypes.
+struct PvtBundle {
+  const float* rows;
+  long long n;
+  unsigned long long first;
+};
+
 // One thread's view of them: its row, the accumulators it adds to (a
 // block's shared copies or the totals), and the per-photon records.
 struct ScoreAcc {
@@ -578,6 +589,24 @@ PVT_FN void emit_one(const PvtScene& sc, uint32_t k0, uint32_t k1,
   p.dy = m[4] * ldx + m[5] * ldy + m[6] * ldz;
   p.dz = m[8] * ldx + m[9] * ldy + m[10] * ldz;
   p.wav = w;
+  p.trav = 0.0f;
+  p.dur = 0.0f;
+  p.source = -1;
+  p.count = 0;
+  p.alive = true;
+}
+
+// K8's host-bundle start: photon pid's row of the bundle, in the state
+// emit_one leaves (source -1, count 0, alive; _run's init).
+PVT_FN void load_one(const PvtBundle& b, uint32_t pid, Photon& p) {
+  const float* r = b.rows + ((unsigned long long)pid - b.first);
+  p.px = r[0];
+  p.py = r[b.n];
+  p.pz = r[2 * b.n];
+  p.dx = r[3 * b.n];
+  p.dy = r[4 * b.n];
+  p.dz = r[5 * b.n];
+  p.wav = r[6 * b.n];
   p.trav = 0.0f;
   p.dur = 0.0f;
   p.source = -1;
@@ -1986,15 +2015,21 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // first match. With kPath (and kScore) the photon's pathwise tangents
 // live in the thread's rows of sa->tang, zeroed at emission, and each step
 // adds the pathwise channels' contributions (pathwise_step) before the
-// fold. Returns its step count.
-template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false>
+// fold. With kBundle the photon starts from its row of the host bundle
+// (load_one) in place of emit_one; its keys are the same. Returns its step
+// count.
+template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
+          bool kBundle = false>
 PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
                         FateCounts& f, const PvtTally* acc, const PvtLog* lg,
-                        const ScoreAcc* sa = nullptr) {
+                        const ScoreAcc* sa, const PvtBundle& bundle) {
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
-  emit_one(sc, k0, k1, pid, p);
+  if (kBundle)
+    load_one(bundle, pid, p);
+  else
+    emit_one(sc, k0, k1, pid, p);
   uint32_t seen[SEEN_WORDS];
   if (kTally)
     for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;

@@ -20,21 +20,31 @@ HARNESS = r"""
 template <bool kTally, bool kLog, bool kPath>
 void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                      unsigned long long total, const PvtLog* lg, FateCounts& f,
-                     const PvtTally* acc, const ScoreAcc* sa) {
-  for (unsigned long long id = off; id < total; ++id)
-    trace_photon<kTally, kLog, true, true, kPath>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa);
+                     const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b) {
+  for (unsigned long long id = off; id < total; ++id) {
+    if (b.rows)
+      trace_photon<kTally, kLog, true, true, kPath, true>(*sc, s0, s1, (uint32_t)id, f, acc, lg,
+                                                          sa, b);
+    else
+      trace_photon<kTally, kLog, true, true, kPath>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa, b);
+  }
 }
 template <bool kPath>
 void h_trace_score_p(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                      unsigned long long total, const PvtLog* lg, FateCounts& f,
-                     const PvtTally* acc, const ScoreAcc* sa) {
+                     const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b) {
   if (sc->n_rec > 0) {
-    if (lg->n_slots > 0) h_trace_score_t<true, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
-    else h_trace_score_t<true, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+    if (lg->n_slots > 0) h_trace_score_t<true, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
+    else h_trace_score_t<true, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
   } else {
-    if (lg->n_slots > 0) h_trace_score_t<false, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
-    else h_trace_score_t<false, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa);
+    if (lg->n_slots > 0) h_trace_score_t<false, true, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
+    else h_trace_score_t<false, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
   }
+}
+// The host bundle `b` or none (emission).
+PvtBundle h_bundle(const PvtBundle* b) {
+  const PvtBundle none = {nullptr, 0, 0};
+  return b ? *b : none;
 }
 extern "C" {
 void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
@@ -55,17 +65,30 @@ void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
   for (long long i = 0; i < B; ++i) tally_lane(*sc, *s, *fl, seen, i, acc);
 }
-void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
-             unsigned long long total, const PvtLog* lg, long long* fates) {
+void h_trace_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                    unsigned long long total, const PvtLog* lg, long long* fates,
+                    const PvtBundle* bundle) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
+  const PvtBundle b = h_bundle(bundle);
   for (unsigned long long id = off; id < total; ++id) {
-    if (lg->n_slots > 0)
-      trace_photon<false, true, true>(*sc, s0, s1, (uint32_t)id, f, nullptr, lg);
+    const uint32_t pid = (uint32_t)id;
+    if (lg->n_slots > 0 && b.rows)
+      trace_photon<false, true, true, false, false, true>(*sc, s0, s1, pid, f, nullptr, lg,
+                                                         nullptr, b);
+    else if (lg->n_slots > 0)
+      trace_photon<false, true, true>(*sc, s0, s1, pid, f, nullptr, lg, nullptr, b);
+    else if (b.rows)
+      trace_photon<false, false, true, false, false, true>(*sc, s0, s1, pid, f, nullptr, nullptr,
+                                                           nullptr, b);
     else
-      trace_photon<false, false, true>(*sc, s0, s1, (uint32_t)id, f, nullptr, nullptr);
+      trace_photon<false, false, true>(*sc, s0, s1, pid, f, nullptr, nullptr, nullptr, b);
   }
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
+}
+void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+             unsigned long long total, const PvtLog* lg, long long* fates) {
+  h_trace_bundle(sc, s0, s1, off, total, lg, fates, nullptr);
 }
 void h_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
             long long B, float* t1, float* t2, int* cnt, float* nrm) {
@@ -78,20 +101,31 @@ void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const 
     score_lane(*sc, *in, *out, *fl, i, sa, comp);
   }
 }
+void h_trace_score_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                   unsigned long long total, const PvtLog* lg, long long* fates,
+                   unsigned long long* cross, float* sums, unsigned* distinct,
+                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
+                   double* fate_scores, double* rec_scores, float* photon, float* tang,
+                   const int* path, int n_path, const PvtBundle* bundle) {
+  FateCounts f = {0, 0, 0, 0, 0, 0};
+  const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
+  const ScoreAcc sa = {row, fate_scores, rec_scores, 1, ch, n_comps, sc->n_rec, photon,
+                       (long long)total, tang, path, n_path};
+  const PvtBundle b = h_bundle(bundle);
+  if (n_path > 0) h_trace_score_p<true>(sc, s0, s1, off, total, lg, f, &acc, &sa, b);
+  else h_trace_score_p<false>(sc, s0, s1, off, total, lg, f, &acc, &sa, b);
+  fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
+  fates[9] += f.kill; fates[10] += f.no_hit;
+}
 void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                    unsigned long long total, const PvtLog* lg, long long* fates,
                    unsigned long long* cross, float* sums, unsigned* distinct,
                    unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
                    double* fate_scores, double* rec_scores, float* photon, float* tang,
                    const int* path, int n_path) {
-  FateCounts f = {0, 0, 0, 0, 0, 0};
-  const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
-  const ScoreAcc sa = {row, fate_scores, rec_scores, 1, ch, n_comps, sc->n_rec, photon,
-                       (long long)total, tang, path, n_path};
-  if (n_path > 0) h_trace_score_p<true>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-  else h_trace_score_p<false>(sc, s0, s1, off, total, lg, f, &acc, &sa);
-  fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
-  fates[9] += f.kill; fates[10] += f.no_hit;
+  h_trace_score_bundle(sc, s0, s1, off, total, lg, fates, cross, sums, distinct, bins, sums64,
+                       row, ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path,
+                       nullptr);
 }
 void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
                 long long B, const PvtPath* pw, int* comp) {
@@ -142,14 +176,17 @@ def build_library(directory):
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
+    h.h_trace_bundle.argtypes = h.h_trace.argtypes + [vp]
     h.h_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
     h.h_score.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32, vp, vp]
     h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                 i32, vp, vp, vp, vp, vp, i32]
+    h.h_trace_score_bundle.argtypes = h.h_trace_score.argtypes + [vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_mesh, h.h_score,
-               h.h_trace_score, h.h_pathwise, h.h_fresnel, h.h_absorbed):
+    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_trace_bundle, h.h_mesh,
+               h.h_score, h.h_trace_score, h.h_trace_score_bundle, h.h_pathwise, h.h_fresnel,
+               h.h_absorbed):
         fn.restype = None
     return h

@@ -107,6 +107,23 @@ def _slab_scene(p, geometry):
     return p.Scene(world)
 
 
+def lsc_slab_host(ns=None, n_rec=0):
+    """The bench slab (``lsc_slab``: the same box, dye, background and 20
+    degree cone from the same pose) under a lamp whose wavelengths come
+    from a spectrum tabulated in 10 nm bins, flat over 400-700 nm
+    (``Distribution(x, y, hist=True)``), as a lamp or solar spectrum is
+    often given. The compilers lower no histogram spectrum to a device
+    sampler, so its photons are emitted on the host (``engine/emit.py``).
+    `n_rec` recorders on the slab as ``lsc_slab_recorders`` puts them."""
+    p = api(ns)
+    scene = _slab_scene(p, p.Box((5.0, 5.0, 1.0), material=_slab_material(p)))
+    x = np.arange(400.0, 700.0, 10.0)
+    lamp = next(n for n in scene.root.iter_preorder() if n.name == "light")
+    lamp.light.wavelength = p.SpectrumWavelengthMask(p.Distribution(x, np.ones_like(x), hist=True))
+    _slab_node(scene).recorders = _slab_recorders(p, n_rec)
+    return scene
+
+
 def _slab_node(scene):
     return next(n for n in scene.root.iter_preorder() if n.name == "lsc")
 
@@ -192,8 +209,12 @@ def lsc_slab_recorders(n_rec, ns=None):
     cycle escaping / entering / reflected / lost, facets cycle the six
     axis normals (a lost recorder has none), and every recorder keeps a
     50-bin wavelength histogram over [400, 800) nm."""
-    p = api(ns)
     scene = lsc_slab(ns)
+    _slab_node(scene).recorders = _slab_recorders(api(ns), n_rec)
+    return scene
+
+
+def _slab_recorders(p, n_rec):
     events = ["escaping", "entering", "reflected", "lost"]
     faces = [(0, 0, 1), (0, 0, -1), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0)]
     recs = []
@@ -205,8 +226,7 @@ def lsc_slab_recorders(n_rec, ns=None):
             facet=faces[i % len(faces)] if event != "lost" else None,
             histograms=[p.Histogram("wavelength", 400.0, 800.0, 50)],
         ))
-    _slab_node(scene).recorders = recs
-    return scene
+    return recs
 
 
 def lsc_slab_heatmap(bins=200, ns=None):

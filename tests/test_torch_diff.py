@@ -160,10 +160,19 @@ def test_optimize_concentration_matches_jax(jax_lsc_runs):
 
 
 def test_unported_options_raise():
-    """The device mesh is still to port; pathwise channels, which raised
-    here before they were ported, run (``tests/test_torch_pathwise.py``)."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        transport.fate_gradients(absorber_slab(), 10, mesh=object(), device="cpu")
+    """Options that raised here before they were ported now run: pathwise
+    channels (``tests/test_torch_pathwise.py``) and the mesh, whose
+    estimator on a process of its own equals the unsharded one
+    (``tests/test_torch_parallel.py`` holds the sharded runs)."""
+    from pvtrace_tpu_torch.parallel import make_photon_mesh
+
+    kwargs = dict(seed=3, wrt="all", device="cpu", dtype=np.float64)
+    f_mesh, g_mesh = transport.fate_gradients(absorber_slab(), 10,
+                                              mesh=make_photon_mesh(device="cpu"), **kwargs)
+    f_one, g_one = transport.fate_gradients(absorber_slab(), 10, **kwargs)
+    assert f_mesh == f_one
+    for event in g_one:
+        np.testing.assert_array_equal(g_mesh[event], g_one[event])
     _, grads = transport.fate_gradients(absorber_slab(), 10, wrt="pathwise",
                                         pathwise=[("n", "slab")], device="cpu")
     assert grads[Event.EXIT].shape == (1,)

@@ -12,8 +12,9 @@ On the CPU:
 * the wrappers take the twin for CPU tensors and count no launch.
 
 On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9,
-12-14 and 16-22 of ``chip_smoke.py`` at a small size, on both spectral
-paths, and the float64 refusal. This file imports no JAX, so it runs there with
+12-14, 16-22 and 24-25 of ``chip_smoke.py`` at a small size, on both
+spectral paths, and the float64, device-emission and bad-bundle
+refusals. This file imports no JAX, so it runs there with
 ``--noconftest``.
 """
 import ctypes
@@ -421,3 +422,69 @@ def test_pathwise_thickness_gradient_on_card():
                               pathwise=[("size", "slab", 2)])
     assert kernels.launches["pvt_trace_pathwise"] == 1 and tracer.eager_runs == 0
     assert abs(grads[Event.NONRADIATIVE][0] - 0.8 * np.exp(-0.8)) < 0.005
+
+
+def _host_bundle_on_card(n, n_rec=4, np_seed=2):
+    """float32 tensors of ``lsc_slab_host(n_rec=n_rec)`` and a host bundle
+    of n photons, both on the card."""
+    from pvtrace_tpu_torch.engine.emit import emit_bundle
+    from pvtrace_tpu_torch.scenes import lsc_slab_host
+
+    scene = lsc_slab_host(n_rec=n_rec)
+    st = _cuda_tensors(lambda: scene)
+    np.random.seed(np_seed)
+    rows = tracer.bundle_rows(*emit_bundle(scene, n)[:3], np.float32)
+    return st, torch.from_numpy(rows).cuda()
+
+
+@pytest.mark.gpu
+def test_bundle_trace_matches_twin_on_card():
+    """pvt_trace in bundle mode against the twin fed the same host
+    bundle (phase 24 small): fates and recorders, then with the log and
+    with score channels."""
+    st, bundle = _host_bundle_on_card(1 << 16)
+    kernels.reset()
+    rep = check.check_trace(st, rng.key_words(2), 1 << 16, lanes=1 << 14, bundle=bundle)
+    assert sum(rep["fates"]) == 1 << 16 and kernels.launches["pvt_trace_bundle"] == 1
+    rep = check.check_log(st, rng.key_words(2), 1 << 12, bundle=bundle[:, :1 << 12].contiguous())
+    assert rep["diverged"] <= check.LOG_DIVERGED * rep["slots"]
+    rep = check.check_trace_scores(st, rng.key_words(2), 1 << 16, lanes=1 << 14, bundle=bundle)
+    assert rep["record_used"] <= 1.0 and rep["sums_used"] <= 1.0
+
+
+@pytest.mark.gpu
+def test_emitted_photons_as_a_bundle_are_bit_equal_on_card(cuda_scene):
+    """pvt_emit's photons fed back as a bundle: the same fates as the
+    device-emitted pvt_trace of the same seed and ids."""
+    seed, n = rng.key_words(4), 1 << 16
+    state = kernels.emit(cuda_scene, seed, 100, n)
+    bundle = torch.stack([state[k] for k in tracer.BUNDLE_ROWS])
+    emitted, _, _, _ = kernels.trace(cuda_scene, seed, n, index_offset=100)
+    fed, _, _, _ = kernels.trace(cuda_scene, seed, n, index_offset=100, bundle=bundle)
+    assert torch.equal(emitted, fed)
+
+
+@pytest.mark.gpu
+def test_device_emission_and_bad_bundles_refused_on_card():
+    st, bundle = _host_bundle_on_card(64, n_rec=0)
+    seed = rng.key_words(1)
+    with pytest.raises(ValueError, match="host emission"):
+        kernels.emit(st, seed, 0, 64)
+    with pytest.raises(ValueError, match="host emission"):
+        kernels.trace(st, seed, 64)
+    for bad in (bundle.double(), bundle.cpu(), bundle[:, ::2], bundle.t().contiguous().t()):
+        with pytest.raises(ValueError, match="bundle"):
+            kernels.trace(st, seed, bad.shape[1], bundle=bad)
+
+
+@pytest.mark.gpu
+def test_host_emission_path_on_card_goes_through_the_kernel():
+    from pvtrace_tpu_torch.scenes import lsc_slab_host
+
+    _cuda_tensors(lsc_slab)
+    kernels.reset()
+    tracer.eager_runs = 0
+    result = simulate(lsc_slab_host(), 1 << 16, seed=3, record_every=0)
+    assert int(np.asarray(result.data["fates"]).sum()) == 1 << 16
+    assert kernels.launches["pvt_trace"] == 1 and kernels.launches["pvt_trace_bundle"] == 1
+    assert tracer.eager_runs == 0

@@ -19,13 +19,11 @@ import jax  # noqa: E402
 import pvtrace_tpu  # noqa: E402
 from pvtrace_tpu import engine as jax_engine  # noqa: E402
 from pvtrace_tpu.engine import api as jax_api  # noqa: E402
-from pvtrace_tpu_torch import Light, Material, Node, Scene, Sphere  # noqa: E402
 from pvtrace_tpu_torch.engine import simulate  # noqa: E402
 from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab,
     lsc_slab_recorders,
     mixed_scene,
-    tetrahedron,
 )
 
 torch.set_num_threads(1)
@@ -150,37 +148,10 @@ def test_result_layout_with_histories():
     assert counts[Event.GENERATE] == 50 and counts[Event.EXIT] > 0
 
 
-def _host_light_scene():
-    world = Node(name="world", geometry=Sphere(radius=5.0, material=Material(refractive_index=1.0)))
-    Node(name="lamp", light=Light(direction=lambda: (0.0, 0.0, 1.0)), parent=world)
-    return Scene(world)
-
-
-def _mesh_host_light_scene():
-    """The tetrahedron lit by a lamp whose direction is a python function."""
-    scene = tetrahedron()
-    lamp = next(n for n in scene.root.iter_preorder() if n.name == "lamp")
-    lamp.light = Light(direction=lambda: (0.0, 0.0, 1.0))
-    return scene
-
-
 def _fate_gradients(scene, n, **kwargs):
     from pvtrace_tpu_torch.diff.transport import fate_gradients
 
     return fate_gradients(scene, n, **kwargs)
-
-
-# Meshes, event logs, score and pathwise channels run since they were
-# ported; what is still to port raises: the device mesh of
-# fate_gradients, host emission.
-@pytest.mark.parametrize("call, make, kwargs, item", [
-    (_fate_gradients, lsc_slab, {"mesh": object()}, "item 12"),
-    (simulate, _mesh_host_light_scene, {"record_every": 0}, "item 5"),
-    (simulate, _host_light_scene, {"record_every": 0}, "item 5"),
-], ids=["fate-gradients-mesh", "mesh", "host-emission"])
-def test_unported_features_raise(call, make, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        call(make(), 10, device="cpu", **kwargs)
 
 
 # The pathwise specs the JAX package refuses, refused with its messages.
