@@ -12,8 +12,9 @@ each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
-   score, pathwise, diff) started together: build time, registers and
-   spills;
+   score, pathwise, diff) started together: build time, and the
+   registers, stack frame and spills of every instantiation and of every
+   function kept out of line;
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
@@ -22,7 +23,14 @@ each:
    against the K5b twin;
 5. the main path: simulate at 2**27 photons through pvt_trace (launch
    counts set to 0 just before and read just after), with its photons/s;
-6. pvt_cheb against the twin on every Chebyshev fit of the scene;
+   the slab's K5a table must have been staged in shared memory;
+6. pvt_cheb against the twin on every Chebyshev fit of the scene, on a
+   grid of 2**16 t and at every breakpoint, its float32 neighbours, the
+   ends and NaN (each value's segment equal to the twin's), with the
+   table staged in shared memory and read in device memory; then
+   ``scenes.lsc_tiles``, whose K5a table is larger than a block's shared
+   budget: pvt_cheb and pvt_trace (2**16 photons) against the twin with
+   the table in device memory;
 7. pvt_tally against the twin on phase 3's lanes, 32 recorders, 8 steps;
 8. pvt_trace with 32 and with 256 recorders (the full width: all eight
    seen words, over 48 KB of shared memory a block), 2**20 photons,
@@ -318,6 +326,7 @@ def main():
         lsc_slab_host,
         lsc_slab_heatmap,
         lsc_slab_recorders,
+        lsc_tiles,
         mesh_lsc,
         mesh_slab_fine,
         mixed_scene,
@@ -346,7 +355,8 @@ def main():
           f"{time.perf_counter() - tic:.1f} s", flush=True)
     for name, (_, report) in built.items():
         for line in (report or "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(key in line for key in ("registers", "spill", "Compiling entry",
+                                           "Function properties")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     scene = lsc_slab()
@@ -442,21 +452,47 @@ def main():
     if not z < 5:
         fail(f"main path exit fraction: z = {z:.2f} against the twin")
     rate = N_MAIN / result.elapsed
+    if not kernels.last_trace["shared_cheb"]:
+        fail(f"main path: the slab's K5a table was not staged in shared memory: "
+             f"{kernels.last_trace}")
     print(
         f"phase 5 main path: simulate({N_MAIN} photons) fates {fates.tolist()}, "
         f"exit z = {z:.2f}, longest photon {result.data['steps']} steps, "
         f"{kernels.last_trace['threads']} threads, {result.elapsed:.4f} s, "
-        f"{rate:.6g} photons/s, launches {main_launches} | {smi}",
+        f"{rate:.6g} photons/s, kernel {kernels.last_trace['ms']:.2f} ms, K5a table in shared "
+        f"memory ({kernels.last_trace['shared_bytes']} bytes a block), launches {main_launches} "
+        f"| {smi}",
         flush=True,
     )
 
-    # 6. K5a: every fit of the scene on a grid of t
+    # 6. K5a: every fit of the scene on a grid of t and at its breakpoints,
+    # with the table in shared and in device memory
     cheb_rep = check.check_cheb(st, n_t=1 << 16)
+    cheb_dev = check.check_cheb(st, n_t=1 << 16, shared=False)
+    if not cheb_rep["shared_cheb"] or cheb_dev["shared_cheb"]:
+        fail(f"pvt_cheb: placements {cheb_rep['shared_cheb']}, {cheb_dev['shared_cheb']} "
+             "where shared and device memory were asked for")
+    for label, rep in (("shared memory", cheb_rep), ("device memory", cheb_dev)):
+        print(
+            f"phase 6 pvt_cheb vs twin, table in {label}: {rep['n_fits']} fits x {rep['n_t']} t "
+            f"and {rep['segment_points']} breakpoints, neighbours, ends and NaN, segments equal, "
+            f"max rel err {rep['max_rel_err']:.3g} (limit {check.CHEB_RTOL}); kernel "
+            f"{rep['ms']:.4f} ms (through the wrapper, host work between launches included, "
+            f"{rep['wrapper_ms']:.4f} ms), twin {rep['plain_ms']:.4f} ms, bound "
+            f"{rep['bound_ms']:.5f} ms | {smi}",
+            flush=True,
+        )
+    st_tiles = scene_tensors(compile_scene(lsc_tiles()), dtype=torch.float32, device="cuda")
+    tiles_cheb = check.check_cheb(st_tiles, n_t=1 << 12, reps=2)
+    tiles_rep = check.check_trace(st_tiles, seed, 1 << 16, lanes=1 << 14)
+    if tiles_cheb["shared_cheb"] or kernels.last_trace["shared_cheb"]:
+        fail("lsc_tiles: its K5a table was staged in shared memory, beyond the budget")
     print(
-        f"phase 6 pvt_cheb vs twin: {cheb_rep['n_fits']} fits x {cheb_rep['n_t']} t, "
-        f"max rel err {cheb_rep['max_rel_err']:.3g} (limit {check.CHEB_RTOL}); "
-        f"kernel {cheb_rep['ms']:.4f} ms, twin {cheb_rep['plain_ms']:.4f} ms, "
-        f"bound {cheb_rep['bound_ms']:.5f} ms | {smi}",
+        f"phase 6 lsc_tiles, K5a table of {4 * st_tiles['meta']['cheb_words']} bytes in device "
+        f"memory: pvt_cheb {tiles_cheb['n_fits']} fits, segments equal, max rel err "
+        f"{tiles_cheb['max_rel_err']:.3g}; pvt_trace vs twin {1 << 16} photons, fates "
+        f"{tiles_rep['fates']} vs {tiles_rep['twin_fates']}, max diff "
+        f"{tiles_rep['max_abs_err']}; kernel {tiles_rep['ms']:.2f} ms | {smi}",
         flush=True,
     )
 
@@ -1093,8 +1129,13 @@ def main():
             "photons_per_s_by_recorders": rec_rates,
             "launches_by_recorders": {R: v["pvt_trace"] for R, v in rec_launches.items()},
         }),
-        ("pvt_cheb", cheb_rep, {"n_fits": cheb_rep["n_fits"], "n_t": cheb_rep["n_t"],
-                                "runs_inside": "pvt_trace (cheb_eval)"}),
+        ("pvt_cheb", cheb_rep, {
+            "n_fits": cheb_rep["n_fits"], "n_t": cheb_rep["n_t"],
+            "runs_inside": "pvt_trace (cheb_eval)", "device_memory_ms": cheb_dev["ms"],
+            "in_trace_ms": 1e3 * (np.mean([N_MAIN / r for r in rates["K5a"]])
+                                  - np.mean([N_MAIN / r for r in rates["K5b"]])),
+            "tiles": {"table_bytes": 4 * st_tiles["meta"]["cheb_words"],
+                      "trace_ms": tiles_rep["ms"], "trace_fates": tiles_rep["fates"]}}),
         ("pvt_tally", tally_rep, {"n": N_CHECK, "recorders": 32,
                                   "runs_inside": "pvt_trace (tally_event)"}),
         ("pvt_mesh", mesh_reps["hex plate"], {

@@ -36,7 +36,21 @@ aside):
   ``cheb_ref[first:first + count]`` (a ``cum`` slot lists its
   components' fits). Fits are numbered components first, then the
   non-``cum`` slot fits, the emission ICDFs (from ``meta["cheb_icdf0"]``)
-  and the lamp ICDFs (from ``meta["cheb_light0"]``);
+  and the lamp ICDFs (from ``meta["cheb_light0"]``). The eager twin reads
+  these; the kernels read the same fits packed into ``cheb_pack``, int32
+  words (float32 values by their bits) in 16-byte records, which a block
+  of the trace kernels copies into its shared memory: a record per fit
+  (``FR_*``: segment count, word offsets of its first segment record and
+  of its breakpoints, ``off``), a record per segment (``SR_*``: a,
+  2 / (b - a), the word offset of its coefficients, and its degree with
+  ``SEG_LOG`` and ``SEG_MAP``), every piecewise fit's interior
+  breakpoints b_0 .. b_{n-2} (float32, as the segment records hold them),
+  and each segment's coefficients from the highest degree down, from a
+  16-byte boundary and padded with zeros to one (``meta["cheb_words"]``
+  words in all). Every piecewise fit must partition [-1, 1] (contiguous,
+  sorted, from -1 to 1), as the compiler builds them: the kernel's search
+  over the breakpoints then finds the one segment the reference's masks
+  select;
 * K9, the recorders: ``rec_f`` [R, REC_F] and ``rec_i`` [R, REC_I],
   ``hist_f`` [H, HIST_F] and ``hist_i`` [H, HIST_I] (the compiler's
   ``hist_specs``), and an index from (node, selector) to the recorders
@@ -138,6 +152,25 @@ SI_COEF0 = 1
 SI_DEG = 2
 CHEB_SEG_I = 3
 
+# cheb_pack: words of a fit or segment record; the fit record's segment
+# count, word offsets of its first segment record and of its breakpoints,
+# and off (float bits); the segment record's a and 2 / (b - a) (float
+# bits), word offset of its coefficients, and its degree with the flags
+# SEG_LOG (a log segment: exp(v) - off) and SEG_MAP (a piecewise fit's
+# segment: t is mapped onto it).
+CHEB_REC = 4
+FR_NSEG = 0
+FR_SEG = 1
+FR_BRK = 2
+FR_OFF = 3
+SR_A = 0
+SR_SCALE = 1
+SR_COEF = 2
+SR_DEG = 3
+SEG_DEG_MASK = 255
+SEG_LOG = 256
+SEG_MAP = 512
+
 # rec_f columns: facet normal and its tolerance
 RF_NX = 0
 RF_ATOL = 3
@@ -205,16 +238,30 @@ def _isotropic_if_flat(kind, hg_kind, iso_kind, g):
     return iso_kind if kind == hg_kind and abs(g) < 1e-12 else kind
 
 
+def _check_partition(segs, name):
+    """Raise ValueError unless the segments `segs` of piecewise fit `name`
+    partition [-1, 1]: from -1 to 1, each starting where the last ended."""
+    a = np.asarray([seg[0] for seg in segs], np.float64)
+    b = np.asarray([seg[1] for seg in segs], np.float64)
+    if not (a[0] == -1.0 and b[-1] == 1.0 and np.all(a < b) and np.array_equal(a[1:], b[:-1])):
+        raise ValueError(f"K5a fit {name}: its segments {list(zip(a, b))} do not partition "
+                         "[-1, 1] (contiguous, sorted, from -1 to 1)")
+
+
 class _Fits:
     """Flattens compiler fit descriptors into the cheb_* records."""
 
     def __init__(self):
         self.fit_i, self.fit_f, self.seg_f, self.seg_i, self.coef = [], [], [], [], []
+        self.seg_coef = []  # each segment's coefficients, for cheb_pack
 
-    def add(self, fit):
-        """Append fit ``(kind, coef, off)``; returns its index."""
+    def add(self, fit, name):
+        """Append fit ``(kind, coef, off)`` (`name` says which, in errors);
+        returns its index."""
         kind, coef, off = fit
         segs = coef if kind == "pw" else ((-1.0, 1.0, kind, coef),)
+        if kind == "pw":
+            _check_partition(segs, f"{len(self.fit_i)} ({name})")
         self.fit_i.append(({"lin": FIT_LIN, "log": FIT_LOG, "pw": FIT_PW}[kind],
                            len(segs), len(self.seg_i)))
         self.fit_f.append(float(off))
@@ -223,21 +270,53 @@ class _Fits:
             self.seg_f.append((a, b, 2.0 / (b - a)))
             self.seg_i.append((FIT_LOG if skind == "log" else FIT_LIN, len(self.coef), len(c) - 1))
             self.coef.extend(c.tolist())
+            self.seg_coef.append(c)
         return len(self.fit_i) - 1
+
+    def pack(self):
+        """The fits as ``cheb_pack``'s int32 words (module doc)."""
+        F, S = len(self.fit_i), len(self.seg_i)
+
+        def bits(x):
+            return int(np.float32(x).view(np.int32))
+
+        brk = [bits(self.seg_f[s][SF_B]) for _, nseg, seg0 in self.fit_i if nseg > 1
+               for s in range(seg0, seg0 + nseg - 1)]
+        words = [0] * (CHEB_REC * (F + S)) + brk + [0] * (-len(brk) % 4)
+        at = CHEB_REC * (F + S)  # the next fit's breakpoints
+        for f, (kind, nseg, seg0) in enumerate(self.fit_i):
+            words[CHEB_REC * f:CHEB_REC * (f + 1)] = (
+                nseg, CHEB_REC * (F + seg0), at, bits(self.fit_f[f]))
+            at += nseg - 1 if nseg > 1 else 0
+            for s in range(seg0, seg0 + nseg):
+                skind, deg = self.seg_i[s][SI_KIND], self.seg_i[s][SI_DEG]
+                flags = deg | (SEG_LOG if skind == FIT_LOG else 0) \
+                    | (SEG_MAP if kind == FIT_PW else 0)
+                words[CHEB_REC * (F + s):CHEB_REC * (F + s + 1)] = (
+                    bits(self.seg_f[s][SF_A]), bits(self.seg_f[s][SF_SCALE]), len(words), flags)
+                c = [bits(x) for x in self.seg_coef[s][::-1]]
+                words += c + [0] * (-len(c) % 4)
+        return np.asarray(words or [0] * CHEB_REC, np.int32)
 
 
 def _cheb_records(compiled):
     """cheb_* arrays and meta of `compiled`'s fits (empty when it has none)."""
     N, W = len(compiled.nodes), compiled.pack_width
     fits = _Fits()
-    comp_fit = [fits.add(f) for f in compiled.cheb_comp or ()]
+    comp_fit = [fits.add(f, f"component {c}") for c, f in enumerate(compiled.cheb_comp or ())]
     slots = np.zeros((N * W, 2), np.int32)
     refs = []
     spec = compiled.cheb_spec
     if spec is not None and compiled.cheb_comp is not None:
         for n, node_fits in sorted(spec.items()):
+            cums = [fit[1] for fit in node_fits if fit[0] == "cum"]
+            if any(tuple(ids) != tuple(cums[-1][:len(ids)]) for ids in cums):
+                # The kernel forms every cumulative slot of a node from the
+                # partial sums of its last one (tracer.cuh alpha_slot).
+                raise ValueError(f"node {n}: its cumulative slots are not prefixes of the last")
             for w, fit in enumerate(node_fits):
-                ids = [comp_fit[c] for c in fit[1]] if fit[0] == "cum" else [fits.add(fit)]
+                ids = ([comp_fit[c] for c in fit[1]] if fit[0] == "cum"
+                       else [fits.add(fit, f"node {n} slot {w}")])
                 slots[n * W + w] = (len(refs), len(ids))
                 refs.extend(ids)
         if len(spec) == 1:
@@ -246,11 +325,11 @@ def _cheb_records(compiled):
             (n,) = spec
             slots[:] = np.tile(slots[n * W:(n + 1) * W], (N, 1))
     icdf0 = len(fits.fit_i)
-    for f in compiled.cheb_icdf or ():
-        fits.add(f)
+    for lum, f in enumerate(compiled.cheb_icdf or ()):
+        fits.add(f, f"emission ICDF {lum}")
     light0 = len(fits.fit_i)
-    for f in compiled.cheb_light_icdf or ():
-        fits.add(f)
+    for row, f in enumerate(compiled.cheb_light_icdf or ()):
+        fits.add(f, f"lamp ICDF {row}")
 
     no_cheb = bool(os.environ.get("PVTRACE_TPU_NO_CHEB", ""))
     records = {
@@ -261,6 +340,7 @@ def _cheb_records(compiled):
         "cheb_coef": np.asarray(fits.coef or [0.0]),
         "cheb_slot": slots,
         "cheb_ref": np.asarray(refs or [0], np.int32),
+        "cheb_pack": fits.pack(),
     }
     meta = {
         "cheb_spec": spec is not None and compiled.cheb_comp is not None and not no_cheb,
@@ -271,6 +351,7 @@ def _cheb_records(compiled):
         "cheb_n_fits": len(fits.fit_i),
         "cheb_max_seg": max([nseg for _, nseg, _ in fits.fit_i] + [1]),
         "cheb_max_refs": int(slots[:, 1].max()) if slots.size else 0,
+        "cheb_words": int(records["cheb_pack"].size),
     }
     return records, meta
 

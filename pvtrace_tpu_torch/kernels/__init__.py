@@ -27,27 +27,29 @@ from pvtrace_tpu_torch.kernels import build
 # Launches of each kernel since the last reset() ("pvt_trace_log": those
 # launches of pvt_trace that wrote an event log; "pvt_trace_score": those
 # with score channels; "pvt_trace_pathwise": those with pathwise channels
-# as well; "pvt_trace_bundle": those that started from a host bundle), and what the last pvt_trace launch reported: its
-# thread count, the dynamic shared memory of a block, whether the
-# recorder bins and the score sums were in shared memory, the steps its
-# photons took in all, and its time on the card (CUDA events, ms).
+# as well; "pvt_trace_bundle": those that started from a host bundle), and
+# what the last pvt_trace launch reported: its thread count, the dynamic
+# shared memory of a block, whether the recorder bins, the score sums and
+# the K5a table ("shared_cheb"; else the blocks read it in device memory)
+# were in shared memory, the steps its photons took in all, and its time on
+# the card (CUDA events, ms); and where the last pvt_cheb launch read the
+# table.
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
-              "total_steps": 0, "ms": 0.0}
+              "shared_cheb": 0, "total_steps": 0, "ms": 0.0}
+last_cheb = {"shared_cheb": 0}
 
 _SCENE_PTRS = (
     "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "tri_f", "light_f",
-    "light_i", "spec_pack", "ems_icdf_pairs", "light_icdf_pairs",
-    "cheb_fit_i", "cheb_fit_f", "cheb_seg_f", "cheb_seg_i", "cheb_coef",
-    "cheb_slot", "cheb_ref", "rec_f", "rec_i", "hist_f", "hist_i", "rec_csr",
-    "rec_ids",
+    "light_i", "spec_pack", "ems_icdf_pairs", "light_icdf_pairs", "cheb_slot", "cheb_ref",
+    "cheb_pack", "rec_f", "rec_i", "hist_f", "hist_i", "rec_csr", "rec_ids",
 )
 _SCENE_INTS = (
-    "node_i", "comp_i", "ovr_i", "light_i", "cheb_fit_i", "cheb_seg_i",
-    "cheb_slot", "cheb_ref", "rec_i", "hist_i", "rec_csr", "rec_ids",
+    "node_i", "comp_i", "ovr_i", "light_i", "cheb_slot", "cheb_ref", "cheb_pack", "rec_i",
+    "hist_i", "rec_csr", "rec_ids",
 )
 _SCENE_META_INTS = (
     "n_nodes", "root_id", "n_lights", "n_lum", "grid_n", "icdf_n", "pack_width", "n_tris",
@@ -62,7 +64,7 @@ class _Scene(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _SCENE_PTRS] + [
         (name, ctypes.c_int) for name in _SCENE_META_INTS + (
             "maxsteps", "emit_method", "cheb_spec", "cheb_icdf", "cheb_light",
-            "cheb_icdf0", "cheb_light0", "n_rec", "total_bins",
+            "cheb_icdf0", "cheb_light0", "cheb_words", "n_rec", "total_bins",
         )
     ] + [
         (name, ctypes.c_float)
@@ -127,7 +129,7 @@ _ENTRIES = {
     "tracer": {
         "pvt_emit": [_VP, _U32, _U32, _U64, _I64, _VP, _VP],
         "pvt_step": [_VP, _VP, _VP, _VP, _I64, _VP],
-        "pvt_cheb": [_VP, _I32, _VP, _I64, _VP, _VP],
+        "pvt_cheb": [_VP, _I32, _VP, _I64, _VP, _VP, _I32, _VP, _VP],
         "pvt_tally": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
         "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
@@ -187,6 +189,9 @@ def _check_scene(st):
         want = torch.int32 if name in _SCENE_INTS else torch.float32
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"scene tensor {name}: need contiguous {want} on {dev}")
+    if st["cheb_pack"].data_ptr() % 16:
+        raise ValueError("scene tensor cheb_pack: the kernels read it 16 bytes at a time; "
+                         "need it 16-byte aligned")
 
 
 def _scene(st, maxsteps, emit_method, maxpathlength):
@@ -195,7 +200,8 @@ def _scene(st, maxsteps, emit_method, maxpathlength):
         *(st[name].data_ptr() for name in _SCENE_PTRS),
         *(meta[name] for name in _SCENE_META_INTS), int(maxsteps), int(emit_method),
         int(meta["cheb_spec"]), int(meta["cheb_icdf"]), int(meta["cheb_light"]),
-        meta["cheb_icdf0"], meta["cheb_light0"], meta["n_rec"], meta["total_bins"],
+        meta["cheb_icdf0"], meta["cheb_light0"], meta["cheb_words"], meta["n_rec"],
+        meta["total_bins"],
         meta["grid_x0"], meta["grid_dx"], float(maxpathlength),
         2.0 / (meta["grid_n"] - 1),
     )
@@ -303,24 +309,34 @@ def step(st, s, maxsteps=1000, emit_method=0, maxpathlength=float("inf")):
     return dict(want, **flags)
 
 
-def cheb(st, t):
+def cheb(st, t, shared=True, segments=False):
     """Every K5a fit of the scene at the values `t`: [n_fits, len(t)]
-    (the twin: ``chebyshev.eval_fits``)."""
+    (the twin: ``chebyshev.eval_fits``), and with `segments` the int64
+    index of the segment each value took (the row of ``cheb_seg_f``, -1
+    for none; the twin: ``chebyshev._segment``). On the card the blocks
+    stage the table in shared memory when `shared` and it fits
+    (``last_cheb["shared_cheb"]``), else read it in device memory."""
     F = st["meta"]["cheb_n_fits"]
     if _on_cpu(st):
         fit = torch.arange(F, dtype=torch.int64).repeat_interleave(t.shape[0])
-        return chebyshev.eval_fits(st, fit, t.repeat(F)).reshape(F, -1)
+        out = chebyshev.eval_fits(st, fit, t.repeat(F)).reshape(F, -1)
+        return (out, chebyshev._segment(st, fit, t.repeat(F)).reshape(F, -1)) if segments \
+            else out
     _check_scene(st)
     if t.dtype != torch.float32 or t.device != st["node_f"].device or t.dim() != 1 \
             or not t.is_contiguous():
         raise ValueError("t: need a contiguous float32 vector on the scene's device")
     out = torch.empty((F, t.shape[0]), device=t.device, dtype=torch.float32)
+    seg = torch.empty((F, t.shape[0]), device=t.device, dtype=torch.int32) if segments else None
+    placed = ctypes.c_int(0)
     sc = _scene(st, 0, 0, float("inf"))
     rc = library().pvt_cheb(ctypes.byref(sc), F, t.data_ptr(), t.shape[0], out.data_ptr(),
-                            _stream())
+                            seg.data_ptr() if segments else None, int(shared),
+                            ctypes.byref(placed), _stream())
     _raise_on(rc, "pvt_cheb")
     launches["pvt_cheb"] += 1
-    return out
+    last_cheb["shared_cheb"] = placed.value
+    return (out, seg.long()) if segments else out
 
 
 def pack_seen(seen):
@@ -490,7 +506,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     total_steps = torch.zeros(1, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
-    info = (ctypes.c_longlong * 4)()
+    info = (ctypes.c_longlong * 5)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
@@ -526,7 +542,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                    photon_steps=photon[CH + 1].long())
     last_trace.update(
         threads=info[0], shared_bytes=info[1], shared_bins=info[2],
-        shared_scores=bool(info[3]), total_steps=int(total_steps.item()),
+        shared_scores=bool(info[3]), shared_cheb=info[4], total_steps=int(total_steps.item()),
         ms=start.elapsed_time(stop),
     )
     res["bins"] = res["bins"][:st["meta"]["total_bins"]]

@@ -51,7 +51,7 @@ PEAK_OPS_PER_S = 67e12
 OPS_THREEFRY = 123  # 20 rounds of add, rotate (3), xor, + key schedule
 OPS_STEP = 4 * OPS_THREEFRY + 24 + 420  # draws, uniforms, one LSC-slab step
 OPS_EMIT = 4 * OPS_THREEFRY + 80  # key, three draws, samplers, transform
-OPS_CHEB_SEGMENT = 4  # two loads' compares and selects per segment scanned
+OPS_CHEB_SEARCH = 4  # one halving step of the segment search: load, compare, select, shift
 OPS_CHEB_DEGREE = 4  # one Clenshaw step
 OPS_CHEB_EVAL = 24  # affine map, final step, exp on a log segment
 OPS_TALLY_LANE = 30  # key, candidate walk, acos, local frame
@@ -189,6 +189,28 @@ def cuda_ms(fn, reps=10, warmup=1):
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps=10):
+    """Mean device milliseconds per call of `fn`: `reps` calls captured in
+    a CUDA graph and replayed, so no host time (a wrapper's checks and
+    ctypes call, which outlast a kernel of a few microseconds) lies
+    between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def check_emit(st, seed_words, B, index_offset=0, atol=1e-5, reps=10):
     """pvt_emit against the twin for B photons: keys and integer state
     bit-equal, floats within `atol`. Returns (state, report)."""
@@ -261,19 +283,46 @@ def check_step(st, state, steps=8, max_discrete=1e-4, rtol=1e-4, atol=1e-5,
     return report
 
 
-def check_cheb(st, n_t=4096, reps=10):
+def cheb_points(st):
+    """The float32 t values where K5a's masks switch: every breakpoint of
+    every piecewise fit, its float32 neighbours on both sides, -1, 1 and
+    NaN."""
+    seg_f = st["cheb_seg_f"].cpu().float()
+    edges = torch.cat([seg_f[:, T.SF_A], seg_f[:, T.SF_B], torch.tensor([-1.0, 1.0])])
+    t = torch.cat([edges, torch.nextafter(edges, torch.tensor(-np.inf)),
+                   torch.nextafter(edges, torch.tensor(np.inf))]).unique()
+    return torch.cat([t, torch.tensor([float("nan")])]).to(st["node_f"].device)
+
+
+def check_cheb(st, n_t=4096, reps=10, shared=True):
     """pvt_cheb against the twin: every fit of the scene at `n_t` values of
-    t evenly spaced on [-1, 1], within CHEB_RTOL of the fit's scale."""
+    t evenly spaced on [-1, 1] and at ``cheb_points`` (every breakpoint,
+    its neighbours, the ends and NaN): each value's segment equal to the
+    twin's, its value within CHEB_RTOL of the fit's scale on the grid (NaN
+    where the twin's is). With `shared` the blocks stage the table in
+    shared memory where it fits (``shared_cheb`` says whether it did), else
+    they read it in device memory. Times the grid on the card alone
+    (``graph_ms``) and through the wrapper, host work between launches
+    included (``wrapper_ms``)."""
     dev = st["node_f"].device
     F = st["meta"]["cheb_n_fits"]
     require(F > 0, "pvt_cheb: the scene has no Chebyshev fits")
-    t = torch.linspace(-1.0, 1.0, n_t, device=dev, dtype=torch.float32)
-    fits = torch.arange(F, device=dev, dtype=torch.int64).repeat_interleave(n_t)
-    got = kernels.cheb(st, t)
-    twin = chebyshev.eval_fits(st, fits, t.repeat(F)).reshape(F, n_t)
+    grid = torch.linspace(-1.0, 1.0, n_t, device=dev, dtype=torch.float32)
+    t = torch.cat([grid, cheb_points(st)])
+    got, seg = kernels.cheb(st, t, shared=shared, segments=True)
+    placed = kernels.last_cheb["shared_cheb"]
+    fits = torch.arange(F, device=dev, dtype=torch.int64).repeat_interleave(t.shape[0])
+    grid_fits = torch.arange(F, device=dev, dtype=torch.int64).repeat_interleave(n_t)
+    twin = chebyshev.eval_fits(st, fits, t.repeat(F)).reshape(F, -1)
+    twin_seg = chebyshev._segment(st, fits, t.repeat(F)).reshape(F, -1)
     torch.cuda.synchronize()
-    scale = twin.abs().amax(1).clamp(min=1e-30)
-    diff = (got - twin).abs()
+    bad = int((seg != twin_seg).sum())
+    require(bad == 0, f"pvt_cheb: {bad} values took another segment than the twin's")
+    nan = twin.isnan()
+    require(bool((got.isnan() == nan).all()), "pvt_cheb: NaN where the twin has none, or none "
+            "where it has")
+    scale = twin[:, :n_t].abs().amax(1).clamp(min=1e-30)
+    diff = (got - twin).abs().masked_fill(nan, 0.0)
     rel = float((diff / scale[:, None]).max())
     require(rel <= CHEB_RTOL, f"pvt_cheb: max relative error {rel:.3g} > {CHEB_RTOL}")
     report = {
@@ -281,12 +330,16 @@ def check_cheb(st, n_t=4096, reps=10):
         "max_rel_err": rel,
         "n_fits": F,
         "n_t": n_t,
-        "ms": cuda_ms(lambda: kernels.cheb(st, t), reps),
-        "plain_ms": cuda_ms(lambda: chebyshev.eval_fits(st, fits, t.repeat(F)), reps),
+        "segment_points": t.shape[0] - n_t,
+        "shared_cheb": placed,
+        "ms": graph_ms(lambda: kernels.cheb(st, grid, shared=shared), reps),
+        "wrapper_ms": cuda_ms(lambda: kernels.cheb(st, grid, shared=shared), reps),
+        "plain_ms": cuda_ms(lambda: chebyshev.eval_fits(st, grid_fits, grid.repeat(F)), reps),
     }
-    # Per evaluation: the fit's segments scanned, and the Clenshaw chain of
-    # the segment t falls in (t is uniform, so each segment's degree counts
-    # by its width).
+    # Per evaluation on the grid: the search's ceil(log2 nseg) halving
+    # steps, and the Clenshaw chain of the segment t falls in (t is
+    # uniform, so each segment's degree counts by its width). Bytes: t and
+    # the values, and the table read once.
     fit_i = st["cheb_fit_i"].cpu()
     seg_f, seg_i = st["cheb_seg_f"].cpu().double(), st["cheb_seg_i"].cpu()
     ops = 0.0
@@ -294,11 +347,9 @@ def check_cheb(st, n_t=4096, reps=10):
         a, b = seg_f[seg0:seg0 + nseg, T.SF_A], seg_f[seg0:seg0 + nseg, T.SF_B]
         deg = seg_i[seg0:seg0 + nseg, T.SI_DEG].double()
         mean_deg = float(((b - a) / 2.0 * deg).sum())
-        ops += n_t * (OPS_CHEB_SEGMENT * nseg + OPS_CHEB_DEGREE * mean_deg + OPS_CHEB_EVAL)
-    nbytes = 4 * n_t + 4 * F * n_t + sum(
-        st[name].numel() * st[name].element_size()
-        for name in ("cheb_fit_i", "cheb_fit_f", "cheb_seg_f", "cheb_seg_i", "cheb_coef")
-    )
+        steps = int(np.ceil(np.log2(nseg)))
+        ops += n_t * (OPS_CHEB_SEARCH * steps + OPS_CHEB_DEGREE * mean_deg + OPS_CHEB_EVAL)
+    nbytes = 4 * n_t + 4 * F * n_t + st["cheb_pack"].numel() * 4
     report["bound_ms"], report["bound_by"] = bound(ops, nbytes)
     return report
 

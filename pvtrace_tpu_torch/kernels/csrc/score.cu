@@ -21,7 +21,7 @@ namespace {
 __global__ void __launch_bounds__(kBlock)
 score_kernel(PvtScene sc, PvtState in, PvtState out, PvtFlags fl, long long B, PvtScore score,
              int* comp) {
-  extern __shared__ __align__(8) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const ScoreAcc sa = score_block_init(sc, score, smem, i);
   __syncthreads();

@@ -12,11 +12,16 @@
 namespace {
 
 constexpr int kBlock = 256;
+// Blocks of the trace kernel resident per SM, which caps a thread at 128
+// registers: left free, nvcc gives the main path's instantiation and the
+// heavier ones more and one block per SM, which ran slower than two
+// blocks that spill a little (an A/B build on the H100).
+constexpr int kMinBlocks = 2;
 // Recorder tallies keep their bins in shared memory while a block's
 // accumulators fit in this many bytes: two blocks of 256 threads are
-// resident per SM (registers allow no more), and 2 x 96 KB fits the
-// SM's 228 KB. Larger bin sets (big heatmaps) go straight to 64-bit
-// atomics in device memory.
+// resident per SM (kMinBlocks), and 2 x 96 KB fits the SM's 228 KB.
+// Larger bin sets (big heatmaps) go straight to 64-bit atomics in device
+// memory. The score sums and the K5a table share the same budget.
 constexpr size_t kSharedTallyLimit = 96 * 1024;
 
 // Bytes of a block's K9 accumulators: crossings u64 [R], sums f32 [8R],
@@ -128,6 +133,22 @@ __device__ void score_block_flush(const PvtScene& sc, const PvtScore& s, const S
     if (a.rec[k] != 0.0) atomicAdd(s.rec_scores + k, a.rec[k]);
 }
 
+// Bytes of the scene's K5a table (cheb_pack) when a run reads it: some
+// lookup takes K5a.
+__host__ __device__ inline size_t cheb_bytes(const PvtScene& sc) {
+  return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? 4 * (size_t)sc.cheb_words : 0;
+}
+
+// Copies the scene's K5a table into a block's shared memory at `dst`
+// (16-byte aligned), 16 bytes a thread at a time, and returns it there
+// (the caller synchronises). A block of a persistent kernel copies it once.
+__device__ const int* stage_cheb(const PvtScene& sc, unsigned char* dst) {
+  int4* d = reinterpret_cast<int4*>(dst);
+  const int4* src = reinterpret_cast<const int4*>(sc.cheb_pack);
+  for (int k = threadIdx.x; k < sc.cheb_words / 4; k += blockDim.x) d[k] = src[k];
+  return reinterpret_cast<const int*>(dst);
+}
+
 unsigned int grid_for(long long n) { return (unsigned int)((n + kBlock - 1) / kBlock); }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it
@@ -178,14 +199,14 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // registers and spills of nearly all of them (PERF.md, section 6).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
           bool kBundle = false>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
-             PvtScore score, PvtBundle bundle) {
+             PvtScore score, PvtBundle bundle, int cheb_at) {
   __shared__ unsigned long long block_fates[6];
   __shared__ int block_max;
-  extern __shared__ __align__(8) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   if (threadIdx.x < 6) block_fates[threadIdx.x] = 0ull;
   if (threadIdx.x == 0) block_max = 0;
   PvtTally acc;
@@ -194,6 +215,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   if (kScore)
     sa = score_block_init(sc, score, smem + score_offset(sc, kTally, shared_bins),
                           (long long)blockIdx.x * blockDim.x + threadIdx.x);
+  const int* cheb = cheb_at >= 0 ? stage_cheb(sc, smem + cheb_at) : sc.cheb_pack;
   __syncthreads();
 
   FateCounts f = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
@@ -202,8 +224,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     const unsigned long long id = atomicAdd(next, 1ull);
     if (id >= total) break;
     longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore, kPath, kBundle>(
-                               sc, s0, s1, (uint32_t)id, f, &acc, &lg, kScore ? &sa : nullptr,
-                               bundle));
+                               sc, cheb, s0, s1, (uint32_t)id, f, &acc, &lg,
+                               kScore ? &sa : nullptr, bundle));
   }
 
   atomicAdd(&block_fates[0], f.exit);
@@ -231,7 +253,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 // Without a bundle every photon is emitted on the device, which a scene
 // without device lights cannot do: refused. info gets the
 // thread count, a block's dynamic shared memory, and whether the recorder
-// bins and the score sums were placed there.
+// bins, the score sums and the K5a table were placed there (each in that
+// order while the block's budget, kSharedTallyLimit, allows).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          unsigned long long total, long long max_threads,
@@ -244,8 +267,15 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   const int shared_bins = kTally && bins_fit_shared(sc) ? 1 : 0;
   const size_t offset = score_offset(sc, kTally, shared_bins);
   const PvtScore score = kScore ? score_placed(sc, given, offset) : given;
-  const size_t bytes = kScore ? offset + score_bytes(sc, score)
-                              : (kTally ? tally_bytes(sc, shared_bins) : 0);
+  size_t bytes = kScore ? offset + score_bytes(sc, score)
+                        : (kTally ? tally_bytes(sc, shared_bins) : 0);
+  // The K5a table after them, 16-byte aligned, when it fits the budget too.
+  const size_t cheb_start = (bytes + 15) / 16 * 16;
+  int cheb_at = -1;
+  if (cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= kSharedTallyLimit) {
+    cheb_at = (int)cheb_start;
+    bytes = cheb_start + cheb_bytes(sc);
+  }
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -264,8 +294,10 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   info[1] = (long long)bytes;
   info[2] = shared_bins;
   info[3] = kScore ? score.shared : 0;
-  kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(
-      sc, s0, s1, total, next, fates, max_count, steps, tally, shared_bins, lg, score, bundle);
+  info[4] = cheb_at >= 0 ? 1 : 0;
+  kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(sc, s0, s1, total, next, fates,
+                                                           max_count, steps, tally, shared_bins,
+                                                           lg, score, bundle, cheb_at);
   return cudaGetLastError();
 }
 

@@ -39,14 +39,23 @@ step_kernel(PvtScene sc, PvtState in, PvtState out, PvtFlags fl, long long B) {
 }
 
 // Replaces _clenshaw / _eval_fit (pvtrace_tpu/engine/tracer.py) on a grid:
-// out[f * n_t + j] = fit f at t[j], one thread each. Not on the main path
-// (cheb_eval runs inside pvt_trace); it lets the card hold K5a to its
-// twin fit by fit. Bound by the segment search and the Clenshaw chain
-// (operations; each fit's few hundred coefficient bytes stay in L1).
+// out[f * n_t + j] = fit f at t[j], one thread each, and with `seg` the
+// segment each took. Not on the main path (cheb_eval runs inside
+// pvt_trace); it lets the card hold K5a to its twin fit by fit, with the
+// table placed as pvt_trace places it: with `staged` each block first
+// copies it into shared memory, else it is read in device memory. Bound by
+// the segment search and the Clenshaw chain (operations).
 __global__ void __launch_bounds__(kBlock)
-cheb_kernel(PvtScene sc, const float* t, long long n_t, long long n, float* out) {
+cheb_kernel(PvtScene sc, int staged, const float* t, long long n_t, long long n, float* out,
+            int* seg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int* tab = sc.cheb_pack;
+  if (staged) {
+    tab = stage_cheb(sc, smem);
+    __syncthreads();
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = cheb_eval(sc, (int)(i / n_t), t[i % n_t]);
+  if (i < n) cheb_lane(tab, (int)(i / n_t), t[i % n_t], i, out, seg);
 }
 
 // Replaces _tally and the tally frame of body_fast (pvtrace_tpu/engine/
@@ -57,7 +66,7 @@ cheb_kernel(PvtScene sc, const float* t, long long n_t, long long n, float* out)
 __global__ void __launch_bounds__(kBlock)
 tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
              PvtTallyOut out, int shared_bins) {
-  extern __shared__ __align__(8) unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const PvtTally acc = tally_block_init(sc, smem, shared_bins, out);
   __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -94,12 +103,21 @@ int pvt_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
   return (int)cudaGetLastError();
 }
 
-// Every fit of the scene (sc->cheb_* tables, n_fits of them) at the n_t
-// values t: out is [n_fits, n_t].
+// Every fit of the scene (sc->cheb_pack, n_fits of them) at the n_t values
+// t: out is [n_fits, n_t], and seg, when not null, each one's segment (-1
+// for none). With `shared` the blocks stage the table in shared memory
+// when it fits the trace kernel's budget; *placed gets 1 when they did.
 int pvt_cheb(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out,
-             void* stream) {
+             int* seg, int shared, int* placed, void* stream) {
   const long long n = (long long)n_fits * n_t;
-  cheb_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(*sc, t, n_t, n, out);
+  const size_t bytes = 4 * (size_t)sc->cheb_words;
+  *placed = shared && bytes <= kSharedTallyLimit ? 1 : 0;
+  if (*placed) {
+    const cudaError_t err = allow_shared(cheb_kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cheb_kernel<<<grid_for(n), kBlock, *placed ? bytes : 0, (cudaStream_t)stream>>>(
+      *sc, *placed, t, n_t, n, out, seg);
   return (int)cudaGetLastError();
 }
 
@@ -130,7 +148,8 @@ int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const floa
 // Launches min(max_threads, resident capacity) threads, rounded up to
 // whole blocks. info[0] gets their number, info[1] the dynamic shared
 // memory of a block, info[2] 1 when the recorder bins were in shared
-// memory, info[3] 1 when the score sums were (0 here). With sc->n_rec == 0
+// memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
+// K5a table was. With sc->n_rec == 0
 // the tally outputs are not touched, with log->n_slots == 0 the log. With
 // bundle->rows set, photon pid starts from column pid - bundle->first of
 // the host bundle (K8's trace_bundle entry; the caller sets next to

@@ -80,23 +80,18 @@
 #define LI_ROW 3
 #define LIGHT_I 4
 
-#define FI_KIND 0
-#define FI_NSEG 1
-#define FI_SEG0 2
-#define CHEB_FIT_I 3
-#define FIT_LIN 0
-#define FIT_LOG 1
-#define FIT_PW 2
-
-#define SF_A 0
-#define SF_B 1
-#define SF_SCALE 2
-#define CHEB_SEG_F 3
-
-#define SI_KIND 0
-#define SI_COEF0 1
-#define SI_DEG 2
-#define CHEB_SEG_I 3
+#define CHEB_REC 4
+#define FR_NSEG 0
+#define FR_SEG 1
+#define FR_BRK 2
+#define FR_OFF 3
+#define SR_A 0
+#define SR_SCALE 1
+#define SR_COEF 2
+#define SR_DEG 3
+#define SEG_DEG_MASK 255
+#define SEG_LOG 256
+#define SEG_MAP 512
 
 #define RF_NX 0
 #define RF_ATOL 3
@@ -164,9 +159,8 @@ enum { EV_GENERATE = 0, EV_REFLECT = 1, EV_TRANSMIT = 2, EV_ABSORB = 3, EV_NONRA
 #define PVT_C_CM_PER_S 2.99792458e10f
 #define PVT_ALPHA_ZERO 1e-8f
 
-// Reads of the K5a tables and of the triangles go through the read-only
-// data path: lanes read different rows, which the constant cache would
-// serialise.
+// Reads of the triangles go through the read-only data path: lanes read
+// different rows, which the constant cache would serialise.
 // Accumulators are atomics on the card, plain adds on the host.
 #ifdef __CUDA_ARCH__
 #define PVT_LDG(p) __ldg(p)
@@ -212,13 +206,9 @@ struct PvtScene {
   const float* spec_pack;
   const float* ems_icdf_pairs;
   const float* light_icdf_pairs;
-  const int* cheb_fit_i;
-  const float* cheb_fit_f;
-  const float* cheb_seg_f;
-  const int* cheb_seg_i;
-  const float* cheb_coef;
   const int* cheb_slot;
   const int* cheb_ref;
+  const int* cheb_pack;
   const float* rec_f;
   const int* rec_i;
   const float* hist_f;
@@ -240,6 +230,7 @@ struct PvtScene {
   int cheb_light;
   int cheb_icdf0;
   int cheb_light0;
+  int cheb_words;
   int n_rec;
   int total_bins;
   float grid_x0;
@@ -253,6 +244,9 @@ struct Photon {
   int source, count;
   bool alive;
 };
+
+// The cumulative K5a slots a step keeps in registers (alpha_slot).
+constexpr int kHeldSlots = 2;
 
 struct StepOut {
   int hit, container, sel, tnode;
@@ -276,6 +270,9 @@ struct StepOut {
   float t0;
   int cand, tri, mode;
   bool tir, radiative;
+  // The container's cumulative K5a slots 0 .. kHeldSlots - 1 at the
+  // incoming wavelength (alpha_slot; read by the roulette and kScore).
+  float held[kHeldSlots];
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
@@ -461,67 +458,162 @@ PVT_FN float spec_lerp(const PvtScene& sc, int row, int w, float frac) {
 }
 
 // ---------------------------------------------------------------------
-// K5a: piecewise-Chebyshev fits (engine/chebyshev.py). The lane finds its
-// one segment by the reference's masks (the first segment takes t < b,
-// the last t >= a, a middle one a <= t < b; a later match wins, and a
-// matching log segment wins over linear ones) and runs one Clenshaw
-// chain of that segment's degree, instead of every segment's. Called from
-// five sites of a step (alpha, roulette, p1, emission and lamp ICDFs).
-// Replaces _clenshaw / _eval_fit (pvtrace_tpu/engine/tracer.py). Bound by
-// operations and the latency of dependent L1 loads: the segment scan reads
-// three values per segment and the chain one coefficient per degree.
-PVT_CALLED_FN float cheb_eval(const PvtScene& sc, int fit, float t) {
-  const int* fi = sc.cheb_fit_i + fit * CHEB_FIT_I;
-  const int kind = PVT_LDG(fi + FI_KIND), nseg = PVT_LDG(fi + FI_NSEG);
-  const int seg0 = PVT_LDG(fi + FI_SEG0);
-  int lin = -1, lg = -1;
-  for (int i = 0; i < nseg; ++i) {
-    const int s = seg0 + i;
-    const float a = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_A);
-    const float b = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_B);
-    bool m;
-    if (nseg == 1)
-      m = true;
-    else if (i == 0)
-      m = t < b;
-    else if (i == nseg - 1)
-      m = t >= a;
-    else
-      m = t >= a && t < b;
-    if (m) {
-      if (PVT_LDG(sc.cheb_seg_i + s * CHEB_SEG_I + SI_KIND) == FIT_LOG)
-        lg = s;
-      else
-        lin = s;
+// K5a: piecewise-Chebyshev fits (engine/chebyshev.py), read from the
+// packed table cheb_pack (engine/tables.py): 16-byte fit and segment
+// records, each piecewise fit's interior breakpoints, and each segment's
+// coefficients from the highest degree down from a 16-byte boundary.
+// Replaces _clenshaw / _eval_fit (pvtrace_tpu/engine/tracer.py). The
+// trace kernels copy the table into a block's shared memory when it fits
+// there, else read it in device memory (trace_kernel.cuh); `tab` points at
+// either, and plain (generic) loads serve both. The compiler's piecewise
+// fits partition [-1, 1] (the host checks it), so the one segment the
+// reference's masks select (the first takes t < b, the last t >= a, a
+// middle one a <= t < b) is the count of breakpoints <= t: a binary search
+// of ceil(log2 nseg) steps in place of a scan of every segment. NaN t
+// selects none (0.0) in a fit of more than one segment, as the masks do.
+// Then one Clenshaw chain of the segment's degree, four coefficients to a
+// 16-byte load ahead of their dependent FMAs. Bound by operations (the
+// search's steps and the chain's FMAs; about a third fewer instructions a
+// fit than the scan took); the table stays in shared memory or L1.
+
+// A word of the K5a table as the float whose bits it holds.
+PVT_FN float pvt_word_float(int w) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(w);
+#else
+  float v;
+  memcpy(&v, &w, sizeof v);
+  return v;
+#endif
+}
+
+// Four words of the K5a table from a 16-byte boundary, as floats.
+PVT_FN void pvt_load4(const int* p, float* c) {
+#ifdef __CUDA_ARCH__
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  c[0] = q.x;
+  c[1] = q.y;
+  c[2] = q.z;
+  c[3] = q.w;
+#else
+  memcpy(c, p, 4 * sizeof(float));
+#endif
+}
+
+// The largest power of two <= n (n >= 1).
+PVT_FN int pvt_top_pow2(int n) {
+#ifdef __CUDA_ARCH__
+  return 1 << (31 - __clz(n));
+#else
+  return 1 << (31 - __builtin_clz((unsigned)n));
+#endif
+}
+
+// Word offset in `tab` of fit `fit`'s segment record for t (-1: none):
+// the count of its interior breakpoints <= t, by halving steps.
+PVT_FN int cheb_segment(const int* tab, int fit, float t) {
+  const int* fr = tab + CHEB_REC * fit;
+  const int nb = fr[FR_NSEG] - 1;
+  int s = 0;
+  if (nb > 0) {
+    if (t != t) return -1;
+    const int* brk = tab + fr[FR_BRK];
+    for (int step = pvt_top_pow2(nb); step > 0; step >>= 1) {
+      const int j = s + step;
+      if (j <= nb && pvt_word_float(brk[j - 1]) <= t) s = j;
     }
   }
-  const int s = lg >= 0 ? lg : lin;
+  return fr[FR_SEG] + CHEB_REC * s;
+}
+
+// One Clenshaw step with coefficient c.
+PVT_FN void cheb_step(float ts, float c, float& b1, float& b2) {
+  const float nb = 2.0f * ts * b1 - b2 + c;
+  b2 = b1;
+  b1 = nb;
+}
+
+// Fit `fit` of the table `tab` at t: its segment's Clenshaw chain in whole
+// 16-byte chunks of four steps, then the last deg mod 4 steps and c_0.
+PVT_CALLED_FN float cheb_eval(const int* tab, int fit, float t) {
+  const int s = cheb_segment(tab, fit, t);
   if (s < 0) return 0.0f;
-  const float* sf = sc.cheb_seg_f + s * CHEB_SEG_F;
-  const int* si = sc.cheb_seg_i + s * CHEB_SEG_I;
-  const float ts = kind == FIT_PW
-                       ? clampf((t - PVT_LDG(sf + SF_A)) * PVT_LDG(sf + SF_SCALE) - 1.0f, -1.0f, 1.0f)
-                       : t;
-  const float* c = sc.cheb_coef + PVT_LDG(si + SI_COEF0);
-  float b1 = 0.0f, b2 = 0.0f;
-  for (int k = PVT_LDG(si + SI_DEG); k > 0; --k) {
-    const float nb = 2.0f * ts * b1 - b2 + PVT_LDG(c + k);
-    b2 = b1;
-    b1 = nb;
+  const int* sr = tab + s;
+  const int info = sr[SR_DEG], deg = info & SEG_DEG_MASK;
+  const float ts =
+      info & SEG_MAP
+          ? clampf((t - pvt_word_float(sr[SR_A])) * pvt_word_float(sr[SR_SCALE]) - 1.0f, -1.0f,
+                   1.0f)
+          : t;
+  const int* c = tab + sr[SR_COEF];
+  float b1 = 0.0f, b2 = 0.0f, q[4];
+  int j = 0;
+  for (; j + 4 <= deg; j += 4) {
+    pvt_load4(c + j, q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cheb_step(ts, q[e], b1, b2);
   }
-  float v = ts * b1 - b2 + PVT_LDG(c);
-  if (PVT_LDG(si + SI_KIND) == FIT_LOG) v = expf(v) - PVT_LDG(sc.cheb_fit_f + fit);
+  pvt_load4(c + j, q);  // the last deg - j < 4 steps, then c_0
+  float c0 = q[0];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    if (j + e < deg) cheb_step(ts, q[e], b1, b2);
+    if (j + e + 1 == deg) c0 = q[e + 1];
+  }
+  float v = ts * b1 - b2 + c0;
+  if (info & SEG_LOG) v = expf(v) - pvt_word_float(tab[CHEB_REC * fit + FR_OFF]);
+  return v;
+}
+
+// The sum of the fits of K5a slot w of `container` at t, in the slot's
+// order (a cumulative slot lists its components' fits).
+PVT_FN float slot_fits(const PvtScene& sc, const int* cheb, int container, int w, float t) {
+  const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
+  float v = 0.0f;
+  for (int q = 0; q < slot[1]; ++q) v += cheb_eval(cheb, sc.cheb_ref[slot[0] + q], t);
   return v;
 }
 
 // Spectral slot w of the lane's container: K5a (the sum of the slot's
 // fits at t) when the scene takes it, else K5b (the lerp in row `row`).
-PVT_FN float spec_slot(const PvtScene& sc, int container, int row, int w, float frac,
-                       float t) {
-  if (!sc.cheb_spec) return spec_lerp(sc, row, w, frac);
-  const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
+PVT_FN float spec_slot(const PvtScene& sc, const int* cheb, int container, int row, int w,
+                       float frac, float t) {
+  return sc.cheb_spec ? slot_fits(sc, cheb, container, w, t) : spec_lerp(sc, row, w, frac);
+}
+
+// Slot K - 1 of a container of K components, its attenuation, as
+// spec_slot gives it, each of its K component fits evaluated once. On K5a
+// the partial sum after fit k is cumulative slot k (the compiler lists in
+// slot k the first k + 1 of slot K - 1's fits, in the same order; the host
+// checks it), and held[k] keeps it for k < kHeldSlots: the roulette and
+// the score channels read those (cum_slot) and evaluate nothing again.
+PVT_FN float alpha_slot(const PvtScene& sc, const int* cheb, int container, int row, int K,
+                        float frac, float t, float* held) {
+  if (!sc.cheb_spec) return spec_lerp(sc, row, K - 1, frac);
+  const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + K - 1);
   float v = 0.0f;
-  for (int q = 0; q < slot[1]; ++q) v += cheb_eval(sc, sc.cheb_ref[slot[0] + q], t);
+  for (int q = 0; q < slot[1]; ++q) {
+    v += cheb_eval(cheb, sc.cheb_ref[slot[0] + q], t);
+#pragma unroll
+    for (int k = 0; k < kHeldSlots; ++k)
+      if (q == k) held[k] = v;
+  }
+  return v;
+}
+
+// Cumulative slot k < K - 1 of the container at the step's wavelength:
+// the value alpha_slot held (K5a, k < kHeldSlots), K5b's lerp, or in a
+// node of more than kHeldSlots + 1 components slot k's fits evaluated
+// again (registers hold kHeldSlots values; an array indexed by k would
+// live in local memory on every step).
+PVT_FN float cum_slot(const PvtScene& sc, const int* cheb, const float* held, int container,
+                      int row, int k, float frac, float t) {
+  if (!sc.cheb_spec) return spec_lerp(sc, row, k, frac);
+  if (k >= kHeldSlots) return slot_fits(sc, cheb, container, k, t);
+  float v = held[0];
+#pragma unroll
+  for (int j = 1; j < kHeldSlots; ++j)
+    if (k == j) v = held[j];
   return v;
 }
 
@@ -533,7 +625,7 @@ PVT_FN float hg_mu(float g, float s) {
 
 // ---------------------------------------------------------------------
 // K2: emission of photon `pid` with key (k0, k1).
-PVT_FN void emit_one(const PvtScene& sc, uint32_t k0, uint32_t k1,
+PVT_FN void emit_one(const PvtScene& sc, const int* cheb, uint32_t k0, uint32_t k1,
                      uint32_t pid, Photon& p) {
   float u[6];
   pvt_draw(k0, k1, 0u, 16u, 3, u);
@@ -542,7 +634,7 @@ PVT_FN void emit_one(const PvtScene& sc, uint32_t k0, uint32_t k1,
   const int* lk = sc.light_i + li * LIGHT_I;
   float w = lf[LF_WAV];
   if (lk[LI_WAV] != WAV_CONST)
-    w = sc.cheb_light ? cheb_eval(sc, sc.cheb_light0 + lk[LI_ROW], 2.0f * u[0] - 1.0f)
+    w = sc.cheb_light ? cheb_eval(cheb, sc.cheb_light0 + lk[LI_ROW], 2.0f * u[0] - 1.0f)
                       : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n, sc.icdf_n, u[0]);
   const float a = lf[LF_POS], b = lf[LF_POS + 1], c = lf[LF_POS + 2];
   float lx = 0.0f, ly = 0.0f, lz = 0.0f;
@@ -873,7 +965,8 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 // kPath (only with kScore) what the pathwise channels' tangent map reads.
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
           bool kPath = false>
-PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out) {
+PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float* u,
+                     StepOut& out) {
   constexpr bool kExtras = kLog || kScore;
   Hits h;
   intersect_nodes<kMesh, kPath>(sc, p, h);
@@ -907,7 +1000,8 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
   const int row = h.container * sc.grid_n + i0;
   const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
   const int K = ci_node[NI_NCOMP];
-  const float alpha = K > 0 ? spec_slot(sc, h.container, row, K - 1, frac, t) : 0.0f;
+  const float alpha =
+      K > 0 ? alpha_slot(sc, cheb, h.container, row, K, frac, t, out.held) : 0.0f;
   const float depth =
       alpha > PVT_ALPHA_ZERO ? -log1pf(-u[0]) / fmaxf(alpha, 1e-30f) : PVT_INF;
   const bool absorbed = alive && !exit_mask && depth < h.t0;
@@ -941,7 +1035,7 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
     const float target = u[1] * alpha;
     int ordinal = 0;
     for (int k = 0; k < K - 1; ++k)
-      ordinal += spec_slot(sc, h.container, row, k, frac, t) < target;
+      ordinal += cum_slot(sc, cheb, out.held, h.container, row, k, frac, t) < target;
     const int cid = ci_node[NI_COMP0] + ordinal;
     const float* cf = sc.comp_f + cid * COMP_F;
     const int* ci = sc.comp_i + cid * COMP_I;
@@ -972,11 +1066,11 @@ PVT_FN void step_one(const PvtScene& sc, Photon& p, const float* u, StepOut& out
       if (is_lum) {
         float p1 = 0.0f;
         if (sc.emit_method != EMIT_FULL)
-          p1 = spec_slot(sc, h.container, row,
+          p1 = spec_slot(sc, cheb, h.container, row,
                          ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1), frac, t);
         const float gamma = p1 + (1.0f - p1) * u[5];
         p.wav = sc.cheb_icdf
-                    ? cheb_eval(sc, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f)
+                    ? cheb_eval(cheb, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f)
                     : lerp_pairs(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
         const float tau = cf[CF_TAU_RAD];
         p.dur = p.dur + (tau > 0.0f ? -log1pf(-u[6]) * tau : 0.0f);
@@ -1176,12 +1270,13 @@ PVT_FN void fresnel_dR(float n1, float n2, float c, float* d) {
 // Adds one step's contributions (step output o with kScore; the incoming
 // wavelength wav_in) to a photon's score row. Component channel c of the
 // container: -a_c * advance on a lane that moved, a_c being c's slot minus
-// the previous one at wav_in (the last slot is o.alpha, the others are
-// evaluated again, K5a or K5b), plus 1 where c absorbed the photon. Node
+// the previous one at wav_in (the last slot is o.alpha, the others the
+// step's held values, cum_slot), plus 1 where c absorbed the photon. Node
 // channels of the container and the adjacent node on a Fresnel coin:
 // nan_to_num(dR/dn * branch), branch 1/max(R, 1e-12) on a reflection and
 // -1/max(1 - R, 1e-12) on a transmission. Touches at most K + 2 channels.
-PVT_FN void score_step(const PvtScene& sc, const StepOut& o, float wav_in, const ScoreAcc& sa) {
+PVT_FN void score_step(const PvtScene& sc, const int* cheb, const StepOut& o, float wav_in,
+                       const ScoreAcc& sa) {
   if (o.moving) {
     const int* ci = sc.node_i + o.container * NODE_I;
     const int K = ci[NI_NCOMP], comp0 = ci[NI_COMP0];
@@ -1193,7 +1288,8 @@ PVT_FN void score_step(const PvtScene& sc, const StepOut& o, float wav_in, const
       const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
       float prev = 0.0f;
       for (int k = 0; k < K; ++k) {
-        const float cum = k == K - 1 ? o.alpha : spec_slot(sc, o.container, row, k, frac, t);
+        const float cum =
+            k == K - 1 ? o.alpha : cum_slot(sc, cheb, o.held, o.container, row, k, frac, t);
         const float a = k > 0 ? cum - prev : cum;
         prev = cum;
         float ds = -a * o.advance;
@@ -1360,7 +1456,7 @@ PVT_FN void emit_lane(const PvtScene& sc, uint32_t s0, uint32_t s1,
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
-  emit_one(sc, k0, k1, pid, p);
+  emit_one(sc, sc.cheb_pack, k0, k1, pid, p);
   store_lane(out, i, p, k0, k1);
 }
 
@@ -1382,6 +1478,16 @@ PVT_FN void store_flags(const PvtFlags& fl, long long i, const StepOut& o) {
   fl.c_in[i] = o.c_in;
 }
 
+// pvt_cheb: fit `fit` of the table `tab` at t into out[i], and with `seg`
+// its segment's index (the row of cheb_seg_f; -1 for none) into seg[i].
+PVT_FN void cheb_lane(const int* tab, int fit, float t, long long i, float* out, int* seg) {
+  out[i] = cheb_eval(tab, fit, t);
+  if (seg) {
+    const int s = cheb_segment(tab, fit, t);
+    seg[i] = s < 0 ? -1 : (s - tab[FR_SEG]) / CHEB_REC;
+  }
+}
+
 // pvt_step: count the step, draw, take one physics step of lane i.
 PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
                       const PvtFlags& fl, long long i) {
@@ -1392,7 +1498,7 @@ PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& ou
   float u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
-  step_one<true>(sc, p, u, o);
+  step_one<true>(sc, sc.cheb_pack, p, u, o);
   store_lane(out, i, p, k0, k1);
   store_flags(fl, i, o);
 }
@@ -1411,11 +1517,11 @@ PVT_FN void score_lane(const PvtScene& sc, const PvtState& in, const PvtState& o
   float u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
-  step_one<true, false, true, true>(sc, p, u, o);
+  step_one<true, false, true, true>(sc, sc.cheb_pack, p, u, o);
   store_lane(out, i, p, k0, k1);
   store_flags(fl, i, o);
   comp[i] = o.absorbed ? o.comp : -1;
-  score_step(sc, o, wav_in, sa);
+  score_step(sc, sc.cheb_pack, o, wav_in, sa);
   const int fate = score_fate(o);
   if (fate >= 0) score_add(sa, sa.fate, N_FATES, fate);
 }
@@ -1453,84 +1559,79 @@ PVT_FN void max_t(float a, float da, float b, float db, float& m, float& dm) {
   dm = a > b ? da : (b > a ? db : 0.5f * (da + db));
 }
 
-// cheb_eval of fit `fit` at t and its derivative in t (the segment's affine
-// map and clip, the Clenshaw derivative recurrence, exp on a log segment).
-PVT_CALLED_FN float cheb_eval_d(const PvtScene& sc, int fit, float t, float* dv_dt) {
-  const int* fi = sc.cheb_fit_i + fit * CHEB_FIT_I;
-  const int kind = PVT_LDG(fi + FI_KIND), nseg = PVT_LDG(fi + FI_NSEG);
-  const int seg0 = PVT_LDG(fi + FI_SEG0);
-  int lin = -1, lg = -1;
-  for (int i = 0; i < nseg; ++i) {
-    const int s = seg0 + i;
-    const float a = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_A);
-    const float b = PVT_LDG(sc.cheb_seg_f + s * CHEB_SEG_F + SF_B);
-    bool m;
-    if (nseg == 1)
-      m = true;
-    else if (i == 0)
-      m = t < b;
-    else if (i == nseg - 1)
-      m = t >= a;
-    else
-      m = t >= a && t < b;
-    if (m) {
-      if (PVT_LDG(sc.cheb_seg_i + s * CHEB_SEG_I + SI_KIND) == FIT_LOG)
-        lg = s;
-      else
-        lin = s;
-    }
-  }
-  const int s = lg >= 0 ? lg : lin;
+// One Clenshaw step with coefficient c, and of its derivative recurrence.
+PVT_FN void cheb_step_d(float ts, float c, float& b1, float& b2, float& d1, float& d2) {
+  const float nb = 2.0f * ts * b1 - b2 + c;
+  const float nd = 2.0f * b1 + 2.0f * ts * d1 - d2;
+  b2 = b1;
+  b1 = nb;
+  d2 = d1;
+  d1 = nd;
+}
+
+// cheb_eval of fit `fit` at t and its derivative in t (the same segment
+// search; the segment's affine map and clip, the Clenshaw derivative
+// recurrence, exp on a log segment).
+PVT_CALLED_FN float cheb_eval_d(const int* tab, int fit, float t, float* dv_dt) {
+  const int s = cheb_segment(tab, fit, t);
   *dv_dt = 0.0f;
   if (s < 0) return 0.0f;
-  const float* sf = sc.cheb_seg_f + s * CHEB_SEG_F;
-  const int* si = sc.cheb_seg_i + s * CHEB_SEG_I;
+  const int* sr = tab + s;
+  const int info = sr[SR_DEG], deg = info & SEG_DEG_MASK;
   float ts = t, dts = 1.0f;
-  if (kind == FIT_PW) {
-    const float scale = PVT_LDG(sf + SF_SCALE);
-    const float x = (t - PVT_LDG(sf + SF_A)) * scale - 1.0f;
+  if (info & SEG_MAP) {
+    const float scale = pvt_word_float(sr[SR_SCALE]);
+    const float x = (t - pvt_word_float(sr[SR_A])) * scale - 1.0f;
     ts = clampf(x, -1.0f, 1.0f);
     dts = clip_slope(x, -1.0f, 1.0f) * scale;
   }
-  const float* c = sc.cheb_coef + PVT_LDG(si + SI_COEF0);
-  float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f;
-  for (int k = PVT_LDG(si + SI_DEG); k > 0; --k) {
-    const float nb = 2.0f * ts * b1 - b2 + PVT_LDG(c + k);
-    const float nd = 2.0f * b1 + 2.0f * ts * d1 - d2;
-    b2 = b1;
-    b1 = nb;
-    d2 = d1;
-    d1 = nd;
+  const int* c = tab + sr[SR_COEF];
+  float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f, q[4];
+  int j = 0;
+  for (; j + 4 <= deg; j += 4) {
+    pvt_load4(c + j, q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cheb_step_d(ts, q[e], b1, b2, d1, d2);
   }
-  float v = ts * b1 - b2 + PVT_LDG(c);
+  pvt_load4(c + j, q);  // the last deg - j < 4 steps, then c_0
+  float c0 = q[0];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    if (j + e < deg) cheb_step_d(ts, q[e], b1, b2, d1, d2);
+    if (j + e + 1 == deg) c0 = q[e + 1];
+  }
+  float v = ts * b1 - b2 + c0;
   float dv = b1 + ts * d1 - d2;
-  if (PVT_LDG(si + SI_KIND) == FIT_LOG) {
+  if (info & SEG_LOG) {
     const float e = expf(v);
-    v = e - PVT_LDG(sc.cheb_fit_f + fit);
+    v = e - pvt_word_float(tab[CHEB_REC * fit + FR_OFF]);
     dv = e * dv;
   }
   *dv_dt = dv * dts;
   return v;
 }
 
-// d(slot w of the container)/d(wavelength) at the step's incoming
-// wavelength: K5a's fits' derivatives in t, or K5b's lerp slope, through
-// t = (i0 + frac) * tscale - 1 and frac = clip(posf - i0, 0, 1) (its slope
-// fr_s), posf = (wav - x0) / dx.
-PVT_FN float spec_slot_slope(const PvtScene& sc, int container, int row, int w, float t,
-                             float fr_s) {
+// Slot w of the container (*value, as spec_slot gives it) and its slope
+// in the wavelength at the step's incoming wavelength: K5a's fits and
+// their derivatives in t, each fit evaluated once, or K5b's lerp and its
+// slope, through t = (i0 + frac) * tscale - 1 and frac = clip(posf - i0,
+// 0, 1) (its slope fr_s), posf = (wav - x0) / dx.
+PVT_FN float spec_slot_slope(const PvtScene& sc, const int* cheb, int container, int row, int w,
+                             float frac, float t, float fr_s, float* value) {
   float d_frac;
   if (!sc.cheb_spec) {
     const float* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
+    *value = p[0] + frac * (p[1] - p[0]);
     d_frac = p[1] - p[0];
   } else {
     const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
-    float d_t = 0.0f;
+    float v = 0.0f, d_t = 0.0f;
     for (int q = 0; q < slot[1]; ++q) {
       float d;
-      cheb_eval_d(sc, sc.cheb_ref[slot[0] + q], t, &d);
+      v += cheb_eval_d(cheb, sc.cheb_ref[slot[0] + q], t, &d);
       d_t += d;
     }
+    *value = v;
     d_frac = d_t * sc.cheb_tscale;
   }
   return d_frac * fr_s / sc.grid_dx;
@@ -1551,8 +1652,8 @@ struct PathSlopes {
   float dalpha, dp1, dnew;
 };
 
-PVT_FN PathSlopes path_slopes(const PvtScene& sc, const StepOut& o, float wav_in,
-                              const float* u) {
+PVT_FN PathSlopes path_slopes(const PvtScene& sc, const int* cheb, const StepOut& o,
+                              float wav_in, const float* u) {
   PathSlopes ps = {0.0f, 0.0f, 0.0f};
   const int K = sc.node_i[o.container * NODE_I + NI_NCOMP];
   if (K == 0) return ps;
@@ -1563,18 +1664,18 @@ PVT_FN PathSlopes path_slopes(const PvtScene& sc, const StepOut& o, float wav_in
   const float fr_s = clip_slope(fr, 0.0f, 1.0f);
   const int row = o.container * sc.grid_n + i0;
   const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
-  ps.dalpha = spec_slot_slope(sc, o.container, row, K - 1, t, fr_s);
+  float alpha;
+  ps.dalpha = spec_slot_slope(sc, cheb, o.container, row, K - 1, frac, t, fr_s, &alpha);
   if (o.emitting) {
     const int* ci = sc.comp_i + o.comp * COMP_I;
     float p1 = 0.0f;
     if (sc.emit_method != EMIT_FULL) {
       const int w = ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1);
-      p1 = spec_slot(sc, o.container, row, w, frac, t);
-      ps.dp1 = spec_slot_slope(sc, o.container, row, w, t, fr_s);
+      ps.dp1 = spec_slot_slope(sc, cheb, o.container, row, w, frac, t, fr_s, &p1);
     }
     const float gamma = p1 + (1.0f - p1) * u[5];
     if (sc.cheb_icdf) {
-      cheb_eval_d(sc, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f, &ps.dnew);
+      cheb_eval_d(cheb, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f, &ps.dnew);
       ps.dnew *= 2.0f;
     } else {
       ps.dnew = lerp_pairs_slope(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
@@ -1860,14 +1961,15 @@ PVT_FN float path_contribution(const PathTerms& pt, const StepOut& o, const floa
 // before the step; wavelength wav_in) gave o, each pathwise channel's
 // contribution is added to the photon's score row and its tangent row
 // replaced by the new tangents.
-PVT_FN void pathwise_step(const PvtScene& sc, const StepOut& o, const Photon& pin,
-                          const float* u, const ScoreAcc& sa) {
+PVT_FN void pathwise_step(const PvtScene& sc, const int* cheb, const StepOut& o,
+                          const Photon& pin, const float* u, const ScoreAcc& sa) {
   // The spectral slopes multiply the wavelength's tangent: skipped while
   // every channel's is 0 (no parameter moves a wavelength, so it stays 0
   // from emission on; the K5a fits' slopes are finite).
   bool dwav = false;
   for (int ci = 0; ci < sa.n_path; ++ci) dwav = dwav || sa.tang[(ci * 7 + 6) * sa.stride] != 0.0f;
-  const PathSlopes ps = dwav ? path_slopes(sc, o, pin.wav, u) : PathSlopes{0.0f, 0.0f, 0.0f};
+  const PathSlopes ps =
+      dwav ? path_slopes(sc, cheb, o, pin.wav, u) : PathSlopes{0.0f, 0.0f, 0.0f};
   const PathTerms pt = path_terms(o);
   const float pd[3] = {pin.dx, pin.dy, pin.dz};
   const int first = sa.ch - sa.n_path;
@@ -1907,11 +2009,11 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   float u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
-  step_one<true, false, true, true, true>(sc, p, u, o);
+  step_one<true, false, true, true, true>(sc, sc.cheb_pack, p, u, o);
   store_lane(out, i, p, k0, k1);
   store_flags(fl, i, o);
   comp[i] = o.absorbed ? o.comp : -1;
-  const PathSlopes ps = path_slopes(sc, o, pin.wav, u);
+  const PathSlopes ps = path_slopes(sc, sc.cheb_pack, o, pin.wav, u);
   const PathTerms pt = path_terms(o);
   const float pd[3] = {pin.dx, pin.dy, pin.dz};
   for (int ci = 0; ci < pw.n; ++ci) {
@@ -2020,8 +2122,8 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // count.
 template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
           bool kBundle = false>
-PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t pid,
-                        FateCounts& f, const PvtTally* acc, const PvtLog* lg,
+PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+                        uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
@@ -2029,7 +2131,7 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
   if (kBundle)
     load_one(bundle, pid, p);
   else
-    emit_one(sc, k0, k1, pid, p);
+    emit_one(sc, cheb, k0, k1, pid, p);
   uint32_t seen[SEEN_WORDS];
   if (kTally)
     for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
@@ -2069,15 +2171,15 @@ PVT_FN int trace_photon(const PvtScene& sc, uint32_t s0, uint32_t s1, uint32_t p
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
-    step_one<kTally, kLog, kMesh, kScore, kPath>(sc, p, u, o);
+    step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o);
     f.exit += o.exit_mask;
     f.nonrad += o.losing;
     f.react += o.reacting;
     f.kill += o.kills;
     f.no_hit += o.no_hit_term;
     if (kScore) {
-      score_step(sc, o, wav_in, *sa);
-      if (kPath) pathwise_step(sc, o, pin, u, *sa);
+      score_step(sc, cheb, o, wav_in, *sa);
+      if (kPath) pathwise_step(sc, cheb, o, pin, u, *sa);
       const int fate = score_fate(o);
       if (fate >= 0) {
         score_add(*sa, sa->fate, N_FATES, fate);

@@ -23,10 +23,11 @@ void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long
                      const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b) {
   for (unsigned long long id = off; id < total; ++id) {
     if (b.rows)
-      trace_photon<kTally, kLog, true, true, kPath, true>(*sc, s0, s1, (uint32_t)id, f, acc, lg,
-                                                          sa, b);
+      trace_photon<kTally, kLog, true, true, kPath, true>(*sc, sc->cheb_pack, s0, s1,
+                                                          (uint32_t)id, f, acc, lg, sa, b);
     else
-      trace_photon<kTally, kLog, true, true, kPath>(*sc, s0, s1, (uint32_t)id, f, acc, lg, sa, b);
+      trace_photon<kTally, kLog, true, true, kPath>(*sc, sc->cheb_pack, s0, s1, (uint32_t)id, f,
+                                                    acc, lg, sa, b);
   }
 }
 template <bool kPath>
@@ -55,9 +56,13 @@ void h_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
             const PvtFlags* fl, long long B) {
   for (long long i = 0; i < B; ++i) step_lane(*sc, *in, *out, *fl, i);
 }
-void h_cheb(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out) {
+void h_cheb_seg(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out,
+                int* seg) {
   for (int f = 0; f < n_fits; ++f)
-    for (long long j = 0; j < n_t; ++j) out[f * n_t + j] = cheb_eval(*sc, f, t[j]);
+    for (long long j = 0; j < n_t; ++j) cheb_lane(sc->cheb_pack, f, t[j], f * n_t + j, out, seg);
+}
+void h_cheb(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out) {
+  h_cheb_seg(sc, n_fits, t, n_t, out, nullptr);
 }
 void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
              long long B, unsigned long long* cross, float* sums, unsigned* distinct,
@@ -73,15 +78,17 @@ void h_trace_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long 
   for (unsigned long long id = off; id < total; ++id) {
     const uint32_t pid = (uint32_t)id;
     if (lg->n_slots > 0 && b.rows)
-      trace_photon<false, true, true, false, false, true>(*sc, s0, s1, pid, f, nullptr, lg,
-                                                         nullptr, b);
+      trace_photon<false, true, true, false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f,
+                                                         nullptr, lg, nullptr, b);
     else if (lg->n_slots > 0)
-      trace_photon<false, true, true>(*sc, s0, s1, pid, f, nullptr, lg, nullptr, b);
+      trace_photon<false, true, true>(*sc, sc->cheb_pack, s0, s1, pid, f, nullptr, lg, nullptr,
+                                      b);
     else if (b.rows)
-      trace_photon<false, false, true, false, false, true>(*sc, s0, s1, pid, f, nullptr, nullptr,
-                                                           nullptr, b);
+      trace_photon<false, false, true, false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f,
+                                                           nullptr, nullptr, nullptr, b);
     else
-      trace_photon<false, false, true>(*sc, s0, s1, pid, f, nullptr, nullptr, nullptr, b);
+      trace_photon<false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f, nullptr, nullptr,
+                                       nullptr, b);
   }
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
@@ -174,6 +181,7 @@ def build_library(directory):
     h.h_emit.argtypes = [vp, u32, u32, u64, i64, vp]
     h.h_step.argtypes = [vp, vp, vp, vp, i64]
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
+    h.h_cheb_seg.argtypes = h.h_cheb.argtypes + [vp]
     h.h_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
     h.h_trace_bundle.argtypes = h.h_trace.argtypes + [vp]
@@ -185,8 +193,8 @@ def build_library(directory):
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_tally, h.h_trace, h.h_trace_bundle, h.h_mesh,
-               h.h_score, h.h_trace_score, h.h_trace_score_bundle, h.h_pathwise, h.h_fresnel,
-               h.h_absorbed):
+    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
+               h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
+               h.h_pathwise, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h

@@ -124,6 +124,56 @@ def lsc_slab_host(ns=None, n_rec=0):
     return scene
 
 
+def lsc_tiles(ns=None, tiles=8, dyes=5):
+    """A row of `tiles` 1 cm LSC cubes (n = 1.5) 1 mm apart, each with
+    `dyes` Lumogen F Red 305 luminophores of graded strength (10 cm^-1
+    peak in all, quantum yield 0.9) and a 0.3 cm^-1 background absorber,
+    in a 25 cm world sphere, lit by a 555 nm lamp over the row (a 20
+    degree cone from a rectangle 3 cm above). Every component is fitted on
+    its own, so the K5a table grows with tiles x dyes: at the defaults 40
+    luminophores, over 100 KB, more than the trace kernel's shared-memory
+    budget of a block (``kSharedTallyLimit``), and each node has more
+    components than a step holds in registers (``kHeldSlots``)."""
+    p = api(ns)
+    x = np.arange(400, 801, dtype=float)
+    world = p.Node(
+        name="world",
+        geometry=p.Sphere(radius=25.0, material=p.Material(refractive_index=1.0)),
+    )
+    for i in range(tiles):
+        comps = [
+            p.Luminophore(
+                coefficient=np.column_stack(
+                    (x, p.lumogen_f_red_305.absorption(x) * (10.0 / dyes) * (0.8 + 0.1 * j))
+                ),
+                emission=np.column_stack((x, p.lumogen_f_red_305.emission(x))),
+                quantum_yield=0.9,
+                name=f"dye{i}-{j}",
+            )
+            for j in range(dyes)
+        ]
+        comps.append(p.Absorber(0.3, name=f"background{i}"))
+        tile = p.Node(
+            name=f"tile{i}",
+            geometry=p.Box((1.0, 1.0, 1.0),
+                           material=p.Material(refractive_index=1.5, components=comps)),
+            parent=world,
+        )
+        tile.translate((1.1 * (i - (tiles - 1) / 2), 0.0, 0.0))
+    light = p.Node(
+        name="light",
+        light=p.Light(
+            position=p.RectangularMask(0.55 * tiles, 0.5),
+            direction=functools.partial(p.cone, np.radians(20)),
+            wavelength=p.ConstantWavelengthMask(555.0),
+        ),
+        parent=world,
+    )
+    light.translate((0.0, 0.0, 3.0))
+    light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
 def _slab_node(scene):
     return next(n for n in scene.root.iter_preorder() if n.name == "lsc")
 

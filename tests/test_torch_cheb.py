@@ -4,7 +4,10 @@
   ``tables.scene_tensors``) against the JAX ``_eval_fit`` on the
   compiler's fit descriptors, every fit of the bench and mixed scenes;
 * the device code's ``cheb_eval`` (``tracer.cuh``, built for the host)
-  against the twin;
+  against the twin, and its segment search against the twin's masks at
+  every breakpoint, its float32 neighbours, the ends and NaN;
+* ``scene_tensors`` refuses a piecewise fit that does not partition
+  [-1, 1], which the search relies on;
 * ``simulate`` of the mixed scene at both packages' defaults, which
   take K5a for it (no ``PVTRACE_TPU_NO_CHEB``; the test gets an empty
   JAX tracer cache, whose key ignores the variable). The bench slab
@@ -27,7 +30,7 @@ from pvtrace_tpu.engine import tracer as jt  # noqa: E402
 from pvtrace_tpu.engine.compiler import compile_scene as jax_compile_scene  # noqa: E402
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.engine import chebyshev, compile_scene, simulate, tables  # noqa: E402
-from pvtrace_tpu_torch.kernels import host  # noqa: E402
+from pvtrace_tpu_torch.kernels import check, host  # noqa: E402
 from pvtrace_tpu_torch.scenes import lsc_slab, mixed_scene  # noqa: E402
 
 torch.set_num_threads(1)
@@ -113,6 +116,53 @@ def test_device_cheb_eval_matches_twin_on_host(host_lib, name):
     ref = chebyshev.eval_fits(st, fits, t.repeat(F)).reshape(F, -1)
     scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
     assert float(((got - ref).abs() / scale).max()) <= HOST_RTOL
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_device_cheb_segment_matches_twin_on_host(host_lib, name):
+    """The search over the breakpoints picks the twin's segment (the
+    reference's masks) exactly at every breakpoint, its float32
+    neighbours on both sides, -1, 1 and NaN, and the values agree."""
+    st = tables.scene_tensors(compile_scene(SCENES[name]()), dtype=torch.float32)
+    F = st["meta"]["cheb_n_fits"]
+    t = check.cheb_points(st)
+    n = t.shape[0]
+    assert bool(t.isnan().any()) and bool(torch.isin(st["cheb_seg_f"][:, tables.SF_B], t).all())
+    got = torch.empty((F, n), dtype=torch.float32)
+    seg = torch.empty((F, n), dtype=torch.int32)
+    sc = kernels._scene(st, 1000, 0, float("inf"))
+    host_lib.h_cheb_seg(ctypes.byref(sc), F, t.data_ptr(), n, got.data_ptr(), seg.data_ptr())
+    fits = torch.arange(F).repeat_interleave(n)
+    assert torch.equal(seg.long(), chebyshev._segment(st, fits, t.repeat(F)).reshape(F, -1))
+    ref = chebyshev.eval_fits(st, fits, t.repeat(F)).reshape(F, -1)
+    nan = ref.isnan()
+    assert torch.equal(got.isnan(), nan)
+    scale = ref.masked_fill(nan, 0.0).abs().amax(1, keepdim=True).clamp(min=1e-30)
+    assert float(((got - ref).abs().masked_fill(nan, 0.0) / scale).max()) <= HOST_RTOL
+
+
+@pytest.mark.parametrize("fault", ["gap", "overlap"])
+def test_scene_tensors_refuses_a_fit_that_is_no_partition(fault):
+    """A piecewise fit whose second segment starts after (a gap) or before
+    (an overlap) the first one's end is refused, naming the fit."""
+    compiled = compile_scene(lsc_slab())
+    kind, segs, off = compiled.cheb_icdf[0]
+    assert kind == "pw"
+    a, b, skind, coef = segs[1]
+    shift = 1e-3 if fault == "gap" else -1e-3
+    compiled.cheb_icdf[0] = (kind, (segs[0], (a + shift, b, skind, coef), *segs[2:]), off)
+    with pytest.raises(ValueError, match="emission ICDF 0"):
+        tables.scene_tensors(compiled)
+
+
+def test_scene_tensors_refuses_cumulative_slots_that_are_not_prefixes():
+    """The kernel forms a node's cumulative slots from the partial sums of
+    its last one; a slot that lists other components is refused."""
+    compiled = compile_scene(mixed_scene())
+    node, fits = next((n, f) for n, f in compiled.cheb_spec.items() if len(f[2][1]) == 3)
+    compiled.cheb_spec[node] = [fits[0], ("cum", fits[2][1][1:2], 0.0), *fits[2:]]
+    with pytest.raises(ValueError, match=f"node {node}"):
+        tables.scene_tensors(compiled)
 
 
 def test_simulate_at_defaults_float64_matches_jax(defaults):

@@ -33,6 +33,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab,
     lsc_slab_heatmap,
     lsc_slab_recorders,
+    lsc_tiles,
     mesh_lsc,
     mesh_slab_fine,
     mixed_scene,
@@ -152,6 +153,86 @@ def test_device_code_matches_twin_on_host(host_lib, monkeypatch, spectra):
     assert int((fates - ref).abs().max()) <= 2, (fates.tolist(), ref.tolist())
 
 
+def test_device_code_with_many_components_matches_twin_on_host(host_lib):
+    """Two tiles of six components each (``lsc_tiles``), more than a step
+    holds in registers (``kHeldSlots``): the roulette evaluates the slots
+    beyond again. The host-built step, lane by lane for 6 steps, and trace
+    of 4096 photons against the twin."""
+    st = tables.scene_tensors(compile_scene(lsc_tiles(tiles=2)), dtype=torch.float32)
+    assert max(r[tables.NI_NCOMP] for r in st["rows"]["node_i"]) == 6
+    seed, B = rng.key_words(6), 1 << 12
+    sc = kernels._scene(st, 1000, 0, float("inf"))
+    s = tracer.initial_state(st, seed, torch.arange(B))
+    absorbed = 0
+    for _ in range(6):
+        ref = tracer.step_state(st, s, 1000, 0)
+        got, flags = kernels._empty_state(B, "cpu"), kernels._empty_flags(B, "cpu")
+        host_lib.h_step(
+            ctypes.byref(sc),
+            ctypes.byref(kernels._struct(kernels._State, s, kernels._STATE_PTRS)),
+            ctypes.byref(kernels._struct(kernels._State, got, kernels._STATE_PTRS)),
+            ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS)), B,
+        )
+        got.update(flags)
+        for name in check.DISCRETE:
+            assert torch.equal(got[name].long(), ref[name].long()), name
+        for name in physics.STATE_FLOATS + physics.SURFACE:
+            torch.testing.assert_close(got[name], ref[name], rtol=1e-4, atol=1e-5)
+        absorbed += int((ref["source"] != s["source"]).sum())
+        s = ref
+    assert absorbed > 0
+    fates = torch.zeros(physics.N_FATES, dtype=torch.int64)
+    _, no_log = kernels.empty_log(4096, 0, 128, 0, "cpu")
+    host_lib.h_trace(ctypes.byref(sc), seed[0], seed[1], 0, 4096, ctypes.byref(no_log),
+                     fates.data_ptr())
+    ref, _, _, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
+    assert int(fates.sum()) == 4096
+    assert int((fates - ref).abs().max()) <= 2, (fates.tolist(), ref.tolist())
+
+
+@pytest.mark.parametrize("make", [lsc_slab, mixed_scene, lsc_tiles],
+                         ids=["slab", "mixed", "tiles"])
+def test_cheb_pack_records_padding_and_alignment(make):
+    """``cheb_pack`` holds the ``cheb_*`` records as tracer.cuh reads them
+    (the ``CHEB_REC``, ``FR_*``, ``SR_*`` and ``SEG_*`` layout): a record
+    per fit and per segment, each piecewise fit's interior breakpoints (its
+    segments' b in float32), each segment's coefficients from the highest
+    degree down from a 16-byte boundary, padded with zeros to one, the
+    whole a multiple of 16 bytes and 16-byte aligned."""
+    st = tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
+    w = st["cheb_pack"].numpy()
+    f32 = w.view(np.float32)
+    fit_i, fit_f = st["cheb_fit_i"].tolist(), st["cheb_fit_f"].numpy()
+    seg_f, seg_i, coef = st["cheb_seg_f"].numpy(), st["cheb_seg_i"].numpy(), st["cheb_coef"]
+    F, R = len(fit_i), tables.CHEB_REC
+    assert R == 4 and w.size == st["meta"]["cheb_words"] and w.size % 4 == 0
+    assert st["cheb_pack"].data_ptr() % 16 == 0
+    ends = []
+    for f, (kind, nseg, seg0) in enumerate(fit_i):
+        fr = w[R * f:R * (f + 1)]
+        assert fr[tables.FR_NSEG] == nseg and fr[tables.FR_SEG] == R * (F + seg0)
+        assert f32[R * f + tables.FR_OFF] == np.float32(fit_f[f])
+        if nseg > 1:
+            brk = f32[fr[tables.FR_BRK]:fr[tables.FR_BRK] + nseg - 1]
+            assert np.array_equal(brk, seg_f[seg0:seg0 + nseg - 1, tables.SF_B])
+        for s in range(seg0, seg0 + nseg):
+            sr = w[R * (F + s):R * (F + s + 1)]
+            assert f32[R * (F + s) + tables.SR_A] == seg_f[s, tables.SF_A]
+            assert f32[R * (F + s) + tables.SR_SCALE] == seg_f[s, tables.SF_SCALE]
+            info, deg = sr[tables.SR_DEG], seg_i[s, tables.SI_DEG]
+            assert info & tables.SEG_DEG_MASK == deg
+            assert bool(info & tables.SEG_LOG) == (seg_i[s, tables.SI_KIND] == tables.FIT_LOG)
+            assert bool(info & tables.SEG_MAP) == (kind == tables.FIT_PW)
+            c0, first = sr[tables.SR_COEF], seg_i[s, tables.SI_COEF0]
+            assert c0 % 4 == 0
+            want = coef[first:first + deg + 1].flip(0).numpy()
+            assert np.array_equal(f32[c0:c0 + deg + 1], want)
+            padded = c0 + deg + 1 + (-(deg + 1) % 4)
+            assert not w[c0 + deg + 1:padded].any()
+            ends.append(padded)
+    assert max(ends) == w.size
+
+
 def test_wrappers_run_the_twin_on_cpu(bench_f32):
     st, seed = bench_f32, rng.key_words(3)
     kernels.reset()
@@ -226,6 +307,29 @@ def test_cheb_and_tally_kernels_match_twin_on_card(cuda_scene):
     state = tracer.initial_state(st, rng.key_words(1), torch.arange(1 << 14, device="cuda"))
     rep = check.check_tally(st, state, steps=8, reps=2)
     assert rep["max_rel_err"] <= check.SUMS_RTOL
+
+
+@pytest.mark.gpu
+def test_cheb_kernel_placements_match_twin_on_card(cuda_scene):
+    """pvt_cheb with the slab's K5a table staged in shared memory and read
+    in device memory, and with ``lsc_tiles``' table, too large for the
+    budget, in device memory: segments and values against the twin."""
+    for shared in (True, False):
+        rep = check.check_cheb(cuda_scene, n_t=4096, reps=2, shared=shared)
+        assert rep["shared_cheb"] == shared and rep["max_rel_err"] <= check.CHEB_RTOL
+    tiles = tables.scene_tensors(compile_scene(lsc_tiles()), device="cuda")
+    assert check.check_cheb(tiles, n_t=1024, reps=2)["shared_cheb"] == 0
+
+
+@pytest.mark.gpu
+def test_trace_kernel_places_k5a_table_by_budget_on_card(cuda_scene):
+    """pvt_trace stages the slab's K5a table in shared memory and reads
+    ``lsc_tiles``' in device memory; both against the twin."""
+    check.check_trace(cuda_scene, rng.key_words(1), 1 << 14, lanes=1 << 12)
+    assert kernels.last_trace["shared_cheb"] == 1
+    tiles = tables.scene_tensors(compile_scene(lsc_tiles()), device="cuda")
+    check.check_trace(tiles, rng.key_words(1), 1 << 14, lanes=1 << 12)
+    assert kernels.last_trace["shared_cheb"] == 0
 
 
 @pytest.mark.gpu

@@ -26,7 +26,13 @@ from pvtrace_tpu.engine.tracer import _fresnel_dR as jax_fresnel_dR  # noqa: E40
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.engine import compile_scene, rng, score, simulate, tables, tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import check, host  # noqa: E402
-from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders, mesh_small, mixed_scene  # noqa: E402
+from pvtrace_tpu_torch.scenes import (  # noqa: E402
+    lsc_slab,
+    lsc_slab_recorders,
+    lsc_tiles,
+    mesh_small,
+    mixed_scene,
+)
 
 torch.set_num_threads(1)
 N, LANES = 2 ** 12, 2 ** 10
@@ -169,11 +175,14 @@ def _f32(make):
     return tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
 
 
-@pytest.mark.parametrize("make", [lsc_slab, mixed_scene], ids=["slab", "mixed"])
+@pytest.mark.parametrize("make", [lsc_slab, mixed_scene, lambda: lsc_tiles(tiles=2)],
+                         ids=["slab", "mixed", "tiles"])
 def test_score_lane_device_code_matches_twin(host_lib, make):
     """``score_lane`` (pvt_score's body) against the twin for 8 steps from
     the same lanes: the steps equal, each path score within 1e-5 of its
-    channel's scale, each step's folds within 1e-5 of their magnitudes."""
+    channel's scale, each step's folds within 1e-5 of their magnitudes.
+    The tiles have six components a node, more than a step holds
+    (``kHeldSlots``): their last slots are evaluated again."""
     st, seed, B = _f32(make), rng.key_words(5), 1 << 12
     CH = score.n_channels(st)
     sc = kernels._scene(st, 1000, 0, float("inf"))
