@@ -18,7 +18,9 @@ each:
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
-   defaults (Chebyshev spectra, K5a);
+   defaults (Chebyshev spectra, K5a): the kernel's own time (CUDA events
+   around a second launch, whose fates must equal the first's) and the
+   wrapper's (the first ``kernels.trace`` call whole);
 4b. phases 2-4 again on the table lerp (K5b, PVTRACE_TPU_NO_CHEB=1),
    against the K5b twin;
 5. the main path: simulate at 2**27 photons through pvt_trace (launch
@@ -70,15 +72,21 @@ each:
     pvt_fresnel (dR/dn) in float32 against the twin on the unit tests'
     grid;
 17. pvt_trace with score channels against the eager twin, 2**20 photons,
-    on the slab with 32 recorders and on the mesh LSC: fates within
+    on the slab, the slab with 32 recorders and the mesh LSC: fates within
     max(20, 0.2% of n), fate_scores and rec_scores within the stated
-    bound; then simulate(score=True) at 2**27 with 32 recorders against
-    the same photons in 128 runs of 2**20 (integers equal, score sums
-    within the float64 accumulation bound);
+    bound, the block's placement (the threads' rows in shared memory)
+    equal to ``kernels.trace_layout``'s; each again with the rows forced
+    into device memory, its per-photon records bit-equal (only the
+    addresses differ) and both placements timed in turns; then
+    simulate(score=True) at 2**27 with 32 recorders against the same
+    photons in 128 runs of 2**20 (integers equal, score sums within the
+    float64 accumulation bound);
 18. the gradient path at full width: diff.transport.fate_gradients of the
     slab at 2**27 photons (wrt="all", bundles of 16e6) and simulate of the
     mesh LSC at 2**27 with score=True, each read around its own run
-    (photons/s beside phase 5, launches of pvt_trace_score, no eager run);
+    (photons/s beside phase 5, launches of pvt_trace_score, no eager run,
+    the launches' summed kernel time beside the host seconds, where the
+    rows lay);
     the absorber slab and the Fresnel slab at 2**24 against their
     analytic gradients (bounds 0.02 and 0.005); optimize_concentration on
     the scaled LSC as examples/optimize_lsc.py calls it (6 iterations of
@@ -98,7 +106,13 @@ each:
 21. pvt_trace_pathwise against the eager twin photon by photon, 2**20
     photons, on the slab and the slab with 32 recorders with ("n", "lsc")
     and ("size", "lsc", 2), and on the mesh LSC with ("n", plate): as
-    phase 17;
+    phase 17, the rows forced into device memory too; then the slab with
+    256 recorders, where the rows with two channels do not fit a block's
+    budget (they took device memory), and with one channel fit only
+    without the K5a table: each against the twin photon by photon at
+    2**16 photons (as above), then at 2**20 rows in shared memory and the
+    table in device memory against the reverse, records bit-equal, timed
+    in turns;
 22. the analytic pathwise gradients at 2**24 photons: d P(NONRADIATIVE)
     / dn of the tilted Fresnel slab (30 degrees) within 0.006 of its
     analytic value and EXIT's within 0.008 of its negative; d
@@ -107,7 +121,7 @@ each:
 23. the pathwise gradient path at full width: fate_gradients(slab,
     2**27, wrt="all", pathwise=[("n", "lsc"), ("size", "lsc", 2)]) in
     bundles of 16e6 (launches read around it; photons/s beside phases 5
-    and 18);
+    and 18; kernel time and rows as phase 18);
 24. pvt_trace in bundle mode (K8's trace_bundle entry) against the twin
     fed the same host bundle: ``scenes.lsc_slab_host`` with 4 recorders,
     one ``emit_bundle`` output of 2**20 photons, fates and recorder
@@ -158,6 +172,7 @@ N_LOG_FULL = 1 << 17
 N_SLAB = 1 << 24
 N_OPT = 400_000
 N_HOST = 1 << 24
+N_BUDGET = 1 << 16
 RANKS = 2
 SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
@@ -391,7 +406,8 @@ def main():
     print(
         f"phase 4 pvt_trace vs twin: {N_CHECK} photons, fates {trace_rep['fates']} "
         f"vs {trace_rep['twin_fates']}, max diff {trace_rep['max_abs_err']}; "
-        f"kernel {trace_rep['ms']:.2f} ms, twin {trace_rep['plain_ms']:.2f} ms, "
+        f"kernel {trace_rep['ms']:.4f} ms (through the wrapper {trace_rep['wrapper_ms']:.4f} "
+        f"ms), twin {trace_rep['plain_ms']:.2f} ms, "
         f"bound {trace_rep['bound_ms']:.4f} ms | {smi}",
         flush=True,
     )
@@ -439,7 +455,8 @@ def main():
         f"discrete mismatch {step_b['discrete_frac']:.2e}, max abs err "
         f"{step_b['max_abs_err']:.3g}; pvt_trace fates {trace_b['fates']} vs "
         f"{trace_b['twin_fates']}, max diff {trace_b['max_abs_err']}; kernel "
-        f"{trace_b['ms']:.2f} ms, twin {trace_b['plain_ms']:.2f} ms, bound "
+        f"{trace_b['ms']:.4f} ms (wrapper {trace_b['wrapper_ms']:.4f}), twin "
+        f"{trace_b['plain_ms']:.2f} ms, bound "
         f"{trace_b['bound_ms']:.4f} ms; the table lerp's own bound {lerp_ms:.5f} ms "
         f"({lerp_by}, {trace_b['total_steps']} steps) | {smi}",
         flush=True,
@@ -741,16 +758,19 @@ def main():
     for label, st_s in (("slab", st), ("slab R=32", st32), ("mesh LSC", st_mesh)):
         rep = check.check_trace_scores(st_s, seed, N_CHECK)
         trace_score_reps[label] = rep
-        if not rep["shared_scores"]:
-            fail(f"{label}: the score sums did not take the shared-memory path")
+        if not (rep["shared_scores"] and rep["shared_rows"]):
+            fail(f"{label}: the score sums or the rows did not take the shared-memory path")
+        rep["rows"] = check.check_rows_placement(st_s, seed, N_CHECK, rep["tallies"])
         print(
             f"phase 17 pvt_trace_score vs twin, {label}: {N_CHECK} photons, fates {rep['fates']} "
             f"vs {rep['twin_fates']}, {rep['parted']} photons parted (limit "
             f"{check.SCORE_PARTED * N_CHECK:g}), the others' scores at "
             f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
             f"theirs (fate_scores within {rep['max_abs_err']:.4g} of the twin's); kernel "
-            f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms "
-            f"| {smi}",
+            f"{rep['ms']:.4f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms; "
+            f"rows in shared memory ({kernels.trace_layout(st_s, True)['shared_bytes']} bytes a block); "
+            f"forced into device memory, records bit-equal, kernel ms in turns shared "
+            f"{rep['rows']['ms_placed']} / device {rep['rows']['ms_device']} | {smi}",
             flush=True,
         )
     res = simulate(lsc_slab_recorders(32), N_MAIN, seed=17, record_every=0, dtype=np.float32,
@@ -777,8 +797,11 @@ def main():
     if not all(np.isfinite(g[:2]).all() for g in gradients.values()):
         fail(f"fate_gradients: component gradients not finite: {gradients}")
     grad_rate = N_MAIN / grad_s
+    grad_kernel_ms = kernels.launch_ms["pvt_trace_score"]
     print(
         f"phase 18 gradient path: fate_gradients(slab, {N_MAIN}, wrt='all') in {grad_s:.4f} s, "
+        f"of it {grad_kernel_ms:.2f} ms in {grad_launches['pvt_trace_score']} pvt_trace_score "
+        f"launches (rows in shared memory: {kernels.last_trace['shared_rows']}), "
         f"{grad_rate:.6g} photons/s (phase 5: {rate:.6g}, {grad_rate / rate:.3f}x), fractions "
         f"{ {e.name: round(float(v), 6) for e, v in fractions.items()} }, d/dlog(dye, "
         f"background) and d/dn(world, slab) of NONRADIATIVE "
@@ -798,7 +821,8 @@ def main():
         f"phase 18 mesh LSC with score: {N_MAIN} photons, {res.elapsed:.4f} s, "
         f"{mesh_score_rate:.6g} photons/s (without score, phase 15: "
         f"{full['mesh']['photons_per_s']:.6g}), pvt_trace_score {kernels.last_trace['ms']:.2f} "
-        f"ms, rec_scores {rec_scores.shape}, finite {bool(np.isfinite(rec_scores).all())}, "
+        f"ms (rows in shared memory: {kernels.last_trace['shared_rows']}), rec_scores "
+        f"{rec_scores.shape}, finite {bool(np.isfinite(rec_scores).all())}, "
         f"launches {mesh_score_launches} | {smi}",
         flush=True,
     )
@@ -887,6 +911,9 @@ def main():
         resolved = transport.resolve_pathwise_params(comp_p, specs)
         rep = check.check_trace_scores(st_p, seed, N_CHECK, pathwise=resolved)
         path_trace_reps[label] = rep
+        if not rep["shared_rows"]:
+            fail(f"{label}: the pathwise rows did not take the shared-memory path")
+        rep["rows"] = check.check_rows_placement(st_p, seed, N_CHECK, rep["tallies"], resolved)
         print(
             f"phase 21 pvt_trace_pathwise vs twin, {label}: {N_CHECK} photons, channels "
             f"{list(resolved)}, fates {rep['fates']} vs {rep['twin_fates']}, {rep['parted']} "
@@ -894,8 +921,41 @@ def main():
             f"{check.SCORE_PARTED * N_CHECK:g}), the others' scores at "
             f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
             f"theirs (fate_scores within {rep['max_abs_err']:.4g} of the twin's); kernel "
-            f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms "
-            f"| {smi}",
+            f"{rep['ms']:.4f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms; "
+            f"rows in shared memory "
+            f"({kernels.trace_layout(st_p, True, len(resolved))['shared_bytes']} bytes a block); "
+            f"forced into device memory, records bit-equal, kernel ms in turns shared "
+            f"{rep['rows']['ms_placed']} / device {rep['rows']['ms_device']} | {smi}",
+            flush=True,
+        )
+    # Past the budget: 256 recorders, where two channels' rows do not fit
+    # and one channel's fit only if the K5a table goes to device memory.
+    # Each placement against the twin at N_BUDGET photons, then timed at
+    # N_CHECK as placed and with the rows forced into device memory (which
+    # gives the one-channel run the K5a table in shared memory instead).
+    rec256 = compile_scene(lsc_slab_recorders(256))
+    budget = {}
+    for label, specs in (("two channels", PATHWISE), ("one channel", PATHWISE[:1])):
+        resolved = transport.resolve_pathwise_params(rec256, specs)
+        rep = check.check_trace_scores(st256, seed, N_BUDGET, pathwise=resolved)
+        placed = kernels.trace_layout(st256, True, len(resolved))
+        want = (0, 1) if len(resolved) == 2 else (1, 0)
+        if (placed["shared_rows"], placed["shared_cheb"]) != want:
+            fail(f"256 recorders, {label}: rows and K5a table placed {placed}")
+        fates256, _, t256, _ = kernels.trace(st256, seed, N_CHECK, score=True, per_photon=True,
+                                             pathwise=resolved)
+        if int(fates256.sum()) != N_CHECK:
+            fail(f"256 recorders, {label}: fates {fates256.tolist()} do not sum to {N_CHECK}")
+        budget[label] = check.check_rows_placement(st256, seed, N_CHECK, t256, resolved, reps=3)
+        print(
+            f"phase 21 256 recorders, {label} ({list(resolved)}): block {placed}; vs twin at "
+            f"{N_BUDGET} photons, fates {rep['fates']} vs {rep['twin_fates']}, {rep['parted']} "
+            f"parted, {rep['saturated']} saturated (limit each "
+            f"{check.SCORE_PARTED * N_BUDGET:g}), the others' scores at "
+            f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
+            f"theirs; at {N_CHECK}, rows forced into device memory {budget[label]['device']}, "
+            f"records bit-equal; kernel ms in turns as placed {budget[label]['ms_placed']} / "
+            f"rows in device memory {budget[label]['ms_device']} | {smi}",
             flush=True,
         )
 
@@ -939,9 +999,13 @@ def main():
     if not all(np.isfinite(g).all() for g in gradients.values()):
         fail(f"fate_gradients(pathwise=...): gradients not finite: {gradients}")
     path_rate = N_MAIN / path_s
+    path_kernel_ms = kernels.launch_ms["pvt_trace_pathwise"]
     print(
         f"phase 23 pathwise gradient path: fate_gradients(slab, {N_MAIN}, wrt='all', pathwise="
-        f"{PATHWISE}) in {path_s:.4f} s, {path_rate:.6g} photons/s (phase 5: {rate:.6g}, "
+        f"{PATHWISE}) in {path_s:.4f} s, of it {path_kernel_ms:.2f} ms in "
+        f"{path_launches['pvt_trace_pathwise']} pvt_trace_pathwise launches (rows in shared "
+        f"memory: {kernels.last_trace['shared_rows']}), "
+        f"{path_rate:.6g} photons/s (phase 5: {rate:.6g}, "
         f"{path_rate / rate:.3f}x; phase 18: {grad_rate:.6g}, {path_rate / grad_rate:.3f}x), "
         f"d/dn(lsc) and d/dsize_z(lsc) of NONRADIATIVE "
         f"{gradients[Event.NONRADIATIVE][-2:].tolist()}, of EXIT "
@@ -968,7 +1032,8 @@ def main():
         f"photons: {bundle_log['diverged']} diverged, floats within "
         f"{bundle_log['max_rel_err']:.3g} of their scale; score: {bundle_score['parted']} "
         f"photons parted, records at {bundle_score['record_used']:.3g} and sums at "
-        f"{bundle_score['sums_used']:.3g} of their bounds; kernel {bundle_rep['ms']:.2f} ms "
+        f"{bundle_score['sums_used']:.3g} of their bounds; kernel {bundle_rep['ms']:.4f} ms "
+        f"(wrapper {bundle_rep['wrapper_ms']:.4f}) "
         f"(score {bundle_score['ms']:.2f} ms), twin {bundle_rep['plain_ms']:.2f} ms, bound "
         f"{bundle_rep['bound_ms']:.4f} ms | {smi}",
         flush=True,
@@ -1123,7 +1188,8 @@ def main():
         ("pvt_emit", emit_rep, {"n": N_CHECK}),
         ("pvt_step", step_rep, {"n": N_CHECK}),
         ("pvt_trace", trace_rep, {
-            "n": N_CHECK, "main_path_ms": result.elapsed * 1e3,
+            "n": N_CHECK, "wrapper_ms": trace_rep["wrapper_ms"],
+            "main_path_ms": result.elapsed * 1e3,
             "main_path_photons_per_s": rate,
             "photons_per_s_K5a": rates["K5a"], "photons_per_s_K5b": rates["K5b"],
             "photons_per_s_by_recorders": rec_rates,
@@ -1165,6 +1231,10 @@ def main():
                                                             "max_abs_err", "parted")}
                for key, label in (("slab_32_recorders", "slab R=32"), ("mesh_lsc", "mesh LSC"))},
             "gradient_path_photons_per_s": grad_rate, "main_path_photons_per_s": rate,
+            "gradient_path_kernel_ms": grad_kernel_ms,
+            "rows": {"shared_rows": trace_score_reps["slab"]["shared_rows"],
+                     "ms_shared": trace_score_reps["slab"]["rows"]["ms_placed"],
+                     "ms_device": trace_score_reps["slab"]["rows"]["ms_device"]},
             "mesh_score_photons_per_s": mesh_score_rate,
             "mesh_score_launches": mesh_score_launches["pvt_trace_score"],
             "analytic": analytic,
@@ -1178,6 +1248,13 @@ def main():
                                                            "max_abs_err", "parted")}
                for key, label in (("slab_32_recorders", "slab R=32"), ("mesh_lsc", "mesh LSC"))},
             "pathwise_gradient_photons_per_s": path_rate, "gradient_path_photons_per_s": grad_rate,
+            "pathwise_gradient_kernel_ms": path_kernel_ms,
+            "rows": {"shared_rows": path_trace_reps["slab"]["shared_rows"],
+                     "ms_shared": path_trace_reps["slab"]["rows"]["ms_placed"],
+                     "ms_device": path_trace_reps["slab"]["rows"]["ms_device"],
+                     "budget_256_recorders": {k: {q: v[q] for q in ("placed", "ms_placed",
+                                                                    "ms_device")}
+                                              for k, v in budget.items()}},
             "main_path_photons_per_s": rate, "analytic": path_analytic,
         }),
         ("pvt_absorbed", absorbed_rep, {"n": N_SLAB}),

@@ -28,19 +28,26 @@ from pvtrace_tpu_torch.kernels import build
 # launches of pvt_trace that wrote an event log; "pvt_trace_score": those
 # with score channels; "pvt_trace_pathwise": those with pathwise channels
 # as well; "pvt_trace_bundle": those that started from a host bundle), and
-# what the last pvt_trace launch reported: its thread count, the dynamic
-# shared memory of a block, whether the recorder bins, the score sums and
-# the K5a table ("shared_cheb"; else the blocks read it in device memory)
-# were in shared memory, the steps its photons took in all, and its time on
-# the card (CUDA events, ms); and where the last pvt_cheb launch read the
-# table.
+# the trace launches' summed time on the card (ms, as in last_trace, by
+# the same names: "pvt_trace" all of them). What the last pvt_trace launch
+# reported: its thread count, the dynamic shared memory of a block,
+# whether the recorder bins, the score sums, the K5a table ("shared_cheb")
+# and the threads' score and tangent rows ("shared_rows") were in shared
+# memory (else in device memory), the steps its photons took in all, and
+# its time on the card (CUDA events, ms); and where the last pvt_cheb
+# launch read the table.
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0}
+launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
-              "shared_cheb": 0, "total_steps": 0, "ms": 0.0}
+              "shared_cheb": 0, "shared_rows": 0, "total_steps": 0, "ms": 0.0}
 last_cheb = {"shared_cheb": 0}
+# A trace block's threads (tracer.cuh's kBlock).
+BLOCK = 256
+# What a trace launch's info[1..5] report (tracer.cuh's layout_info).
+_PLACEMENT = ("shared_bytes", "shared_bins", "shared_scores", "shared_cheb", "shared_rows")
 
 _SCENE_PTRS = (
     "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "tri_f", "light_f",
@@ -97,7 +104,7 @@ class _Score(ctypes.Structure):
         ("rec_scores", ctypes.c_void_p), ("stride", ctypes.c_longlong), ("ch", ctypes.c_int),
         ("n_comps", ctypes.c_int), ("shared", ctypes.c_int), ("photon", ctypes.c_void_p),
         ("photon_n", ctypes.c_longlong), ("tang", ctypes.c_void_p), ("path", ctypes.c_void_p),
-        ("n_path", ctypes.c_int),
+        ("n_path", ctypes.c_int), ("shared_rows", ctypes.c_int),
     ]
 
 
@@ -133,6 +140,7 @@ _ENTRIES = {
         "pvt_tally": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
         "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
+        "pvt_layout": [_VP, _I32, _VP, _VP],
     },
     "score": {
         "pvt_score": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
@@ -156,6 +164,8 @@ _libs = {}
 def reset():
     for name in launches:
         launches[name] = 0
+    for name in launch_ms:
+        launch_ms[name] = 0.0
 
 
 def library(name="tracer"):
@@ -454,7 +464,7 @@ def empty_log(n, record_every, max_events, index_offset, device):
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
           emit_method=0, maxpathlength=float("inf"), record_every=0, max_events=128,
-          score=False, per_photon=False, pathwise=(), bundle=None):
+          score=False, per_photon=False, pathwise=(), bundle=None, shared_rows=True):
     """Trace photons ``index_offset + [0, n)``; returns (fates, steps,
     tallies, log), as ``tracer.trace_eager`` does.
 
@@ -477,10 +487,13 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     ``photon_fate`` and ``photon_steps`` (no ``photon_slack``). With
     `score` and `pathwise` (resolved specs) the launch is
     ``pvt_trace_pathwise``: CH gains one channel per spec, and each
-    thread keeps its photon's tangents beside its score row. With a
-    `bundle` (``tracer.check_bundle``'s [7, n], contiguous float32 on the
-    card) photon ``index_offset + k`` starts from its column k in place
-    of device emission (K8's trace_bundle entry); without one, a scene
+    thread keeps its photon's tangents beside its score row. A block keeps
+    its threads' rows in shared memory where they fit
+    (``trace_layout``; ``last_trace["shared_rows"]``); `shared_rows`
+    False keeps them in device memory, for the checks. With a `bundle`
+    (``tracer.check_bundle``'s [7, n], contiguous float32 on the card)
+    photon ``index_offset + k`` starts from its column k in place of
+    device emission (K8's trace_bundle entry); without one, a scene
     without device lights is refused."""
     if _on_cpu(st):
         return tracer.trace_eager(
@@ -506,7 +519,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     total_steps = torch.zeros(1, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
-    info = (ctypes.c_longlong * 5)()
+    info = (ctypes.c_longlong * 6)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
@@ -516,6 +529,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     specs = tuple(pathwise) if score else ()
     if score:
         sums, desc = score_sums(st, resident_threads(dev, threads), specs)
+        desc.shared_rows = int(shared_rows)
         if per_photon:
             CH = score_ch.n_channels(st, len(specs))
             photon = torch.zeros((CH + 2, n), device=dev, dtype=torch.float32)
@@ -541,12 +555,36 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
                    photon_steps=photon[CH + 1].long())
     last_trace.update(
-        threads=info[0], shared_bytes=info[1], shared_bins=info[2],
-        shared_scores=bool(info[3]), shared_cheb=info[4], total_steps=int(total_steps.item()),
+        threads=info[0], **_placement(info), total_steps=int(total_steps.item()),
         ms=start.elapsed_time(stop),
     )
+    launch_ms["pvt_trace"] += last_trace["ms"]
+    if name != "pvt_trace":
+        launch_ms[name] += last_trace["ms"]
     res["bins"] = res["bins"][:st["meta"]["total_bins"]]
     return fates, int(longest.item()), res, log if log_desc.n_slots else None
+
+
+def _placement(info):
+    return {name: int(info[k + 1]) for k, name in enumerate(_PLACEMENT)}
+
+
+def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
+    """Where a block of a trace launch on the scene `st` would keep what
+    it shares, as ``last_trace`` reports it after the launch: the block's
+    dynamic shared memory (``shared_bytes``) and 1 or 0 for the recorder
+    bins, the score sums, the K5a table and the threads' score and tangent
+    rows (`shared_rows` False keeps the rows in device memory). The device
+    code's ``trace_layout`` decides, through ``pvt_layout`` on the card or
+    `entry`, the host build's ``h_layout``. Score and path channels as
+    ``score_sums`` counts them."""
+    desc = _Score(ch=score_ch.n_channels(st, n_path), n_path=n_path,
+                  shared_rows=int(shared_rows))
+    info = (ctypes.c_longlong * 6)()
+    (entry or library("tracer").pvt_layout)(
+        ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
+        ctypes.byref(desc) if score else None, info)
+    return _placement(info)
 
 
 def resident_threads(device, threads):

@@ -443,7 +443,11 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
     itself where that is larger (a recorder that sees one wavelength,
     like the mesh LSC's top face under a 555 nm lamp, has none; its
     float32 sums still round). With a host `bundle` ([7, n] float32 on
-    the card) both start from it (K8's trace_bundle entry)."""
+    the card) both start from it (K8's trace_bundle entry). ``ms`` is the
+    kernel's own time (``last_trace["ms"]``) in a second launch, whose
+    fates must equal the first's; ``wrapper_ms`` the first call of
+    ``kernels.trace`` whole (its allocations, scene descriptor and result
+    reads included)."""
     start = torch.cuda.Event(enable_timing=True)
     mid = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -457,7 +461,11 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
     )
     stop.record()
     torch.cuda.synchronize()
+    wrapper_ms = start.elapsed_time(mid)
+    again, _, _, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
+                                   emit_method=emit_method, bundle=bundle)
     got, ref = got.cpu(), ref.cpu()
+    require(torch.equal(again.cpu(), got), "pvt_trace: fates differ between two runs")
     require(int(got.sum()) == n, f"pvt_trace: fates sum to {int(got.sum())}, not {n}")
     require(int(ref.sum()) == n, f"twin: fates sum to {int(ref.sum())}, not {n}")
     tol = max(20, n // 500)
@@ -471,7 +479,8 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
         "twin_steps": steps,
         "total_steps": kernels.last_trace["total_steps"],
         "shared_bins": bool(kernels.last_trace["shared_bins"]),
-        "ms": start.elapsed_time(mid),
+        "ms": kernels.last_trace["ms"],
+        "wrapper_ms": wrapper_ms,
         "plain_ms": mid.elapsed_time(stop),
         "tally_max_diff": 0,
     }
@@ -929,6 +938,16 @@ def check_fresnel(device, reps=10):
     return report
 
 
+def check_layout(st, score, n_path, shared_rows=True):
+    """The placement the last trace launch reported (``last_trace``)
+    against ``kernels.trace_layout``'s for the same run, which it must
+    equal."""
+    want = kernels.trace_layout(st, score, n_path, shared_rows)
+    got = {k: int(kernels.last_trace[k]) for k in want}
+    require(got == want, f"pvt_trace placed its block as {got}, trace_layout says {want}")
+    return got
+
+
 def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0,
                        pathwise=(), bundle=None):
     """pvt_trace with score channels against the twin, both on the card,
@@ -937,11 +956,13 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
     ``compare_score_records``, at most SCORE_PARTED of the photons
     parted. The kernel is timed again without its records, the twin with
     them. With `pathwise` specs the kernel is pvt_trace_pathwise. With a
-    host `bundle` both start from it."""
+    host `bundle` both start from it. The block's placement
+    (``shared_rows`` among it) must be ``kernels.trace_layout``'s."""
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     got, _, got_t, _ = kernels.trace(st, seed_words, n, maxsteps=maxsteps,
                                      emit_method=emit_method, score=True, per_photon=True,
                                      pathwise=pathwise, bundle=bundle)
+    check_layout(st, True, len(pathwise))
     start.record()
     ref, _, ref_t, _ = tracer.trace_eager(st, seed_words, n, lanes=lanes, maxsteps=maxsteps,
                                           emit_method=emit_method, score=True, per_photon=True,
@@ -967,7 +988,9 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
                                    emit_method=emit_method, score=True, pathwise=pathwise,
                                    bundle=bundle)
     require(torch.equal(again.cpu(), got), "pvt_trace (score): fates differ between two runs")
-    report.update(ms=kernels.last_trace["ms"], shared_scores=kernels.last_trace["shared_scores"])
+    report.update(ms=kernels.last_trace["ms"], shared_scores=kernels.last_trace["shared_scores"],
+                  shared_rows=kernels.last_trace["shared_rows"],
+                  shared_cheb=kernels.last_trace["shared_cheb"])
     ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None,
                              bundle is not None)
     C = len(pathwise)
@@ -978,6 +1001,34 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
     report["bound_ms"], report["bound_by"] = (ops_ms + score_ms, "operations") \
         if by == "operations" else (ops_ms, by)
     return report
+
+
+def check_rows_placement(st, seed_words, n, records, pathwise=(), reps=2):
+    """The score trace of photons [0, n) with the threads' rows forced into
+    device memory against `records` (``check_trace_scores``' tallies, the
+    rows where ``trace_layout`` put them): only the rows' addresses
+    differ, so fates, every photon's record (its scores bit for bit), fate
+    and steps are equal. Returns the placement of each and the kernel's
+    time in each (``last_trace["ms"]`` of runs without records, in turns
+    placed, device, .. `reps` times): ``ms_placed``, ``ms_device``."""
+    got, _, t, _ = kernels.trace(st, seed_words, n, score=True, per_photon=True,
+                                 pathwise=pathwise, shared_rows=False)
+    device = check_layout(st, True, len(pathwise), shared_rows=False)
+    require(not device["shared_rows"], "shared_rows=False left the rows in shared memory")
+    for name in ("photon_fate", "photon_steps"):
+        require(torch.equal(t[name], records[name].to(t[name].device)),
+                f"rows in device memory: {name} differs from the placed rows' run")
+    a, b = t["photon_scores"], records["photon_scores"].to(t["photon_scores"].device)
+    require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+            f"rows in device memory: {int((a.view(torch.int32) != b.view(torch.int32)).sum())} "
+            f"record entries differ in their bits from the placed rows' run")
+    ms = {True: [], False: []}
+    for _ in range(reps):
+        for placed in (True, False):
+            kernels.trace(st, seed_words, n, score=True, pathwise=pathwise, shared_rows=placed)
+            ms[placed].append(kernels.last_trace["ms"])
+    return {"placed": kernels.trace_layout(st, True, len(pathwise)), "device": device,
+            "fates": got.cpu().tolist(), "ms_placed": ms[True], "ms_device": ms[False]}
 
 
 def saturates(x):

@@ -19,8 +19,6 @@
 
 namespace {
 
-constexpr int kBlock = 256;
-
 __global__ void __launch_bounds__(kBlock)
 absorbed_kernel(PvtAbsorbers a, const float* pos, const float* dir, const float* wav,
                 const float* c, long long P, float* w, float* depth) {

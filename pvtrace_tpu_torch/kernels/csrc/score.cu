@@ -23,7 +23,7 @@ score_kernel(PvtScene sc, PvtState in, PvtState out, PvtFlags fl, long long B, P
              int* comp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const ScoreAcc sa = score_block_init(sc, score, smem, i);
+  const ScoreAcc sa = score_block_init(sc, score, smem, nullptr, i);
   __syncthreads();
   if (i < B) score_lane(sc, in, out, fl, i, sa, comp);
   __syncthreads();
@@ -79,7 +79,9 @@ int pvt_fresnel(const float* n1, const float* n2, const float* c, long long n, f
 // [2, 11, ch] and, with recorders, score->rec_scores [2, R, ch] (float64,
 // zeroed by the caller; signed sums, then magnitudes), per block in shared
 // memory when they fit beside the tallies (info[3] says whether they did),
-// and with score->photon each photon's record.
+// and with score->photon each photon's record. With score->shared_rows
+// each block keeps its threads' rows in shared memory where they fit
+// (info[5]), score->rows then unused.
 int pvt_trace_score(const PvtScene* sc, unsigned int s0, unsigned int s1,
                     unsigned long long total, long long max_threads,
                     unsigned long long* next, unsigned long long* fates, int* max_count,

@@ -1,6 +1,7 @@
 // The persistent trace kernel of pvtrace_tpu_torch (pvt_trace) and what a
-// block of it shares: its recorder tallies (K9) and score sums (K12) in
-// shared memory. Included by tracer.cu, which instantiates the score-free
+// block of it shares in shared memory: its recorder tallies (K9), score
+// sums (K12), its threads' score and tangent rows (K12, K13) and the K5a
+// table (trace_layout, tracer.cuh). Included by tracer.cu, which instantiates the score-free
 // kernels, by score.cu, which instantiates the score kernels, and by
 // pathwise.cu, which instantiates the score kernels with pathwise channels:
 // three translation units that nvcc builds side by side.
@@ -11,48 +12,16 @@
 
 namespace {
 
-constexpr int kBlock = 256;
 // Blocks of the trace kernel resident per SM, which caps a thread at 128
 // registers: left free, nvcc gives the main path's instantiation and the
 // heavier ones more and one block per SM, which ran slower than two
-// blocks that spill a little (an A/B build on the H100).
+// blocks that spill a little (an A/B build on the H100). A block's shared
+// memory, kSharedTallyLimit, and its layout (trace_layout) are in
+// tracer.cuh.
 constexpr int kMinBlocks = 2;
-// Recorder tallies keep their bins in shared memory while a block's
-// accumulators fit in this many bytes: two blocks of 256 threads are
-// resident per SM (kMinBlocks), and 2 x 96 KB fits the SM's 228 KB.
-// Larger bin sets (big heatmaps) go straight to 64-bit atomics in device
-// memory. The score sums and the K5a table share the same budget.
-constexpr size_t kSharedTallyLimit = 96 * 1024;
-
-// Bytes of a block's K9 accumulators: crossings u64 [R], sums f32 [8R],
-// distinct u32 [R], then the bins u32 [total_bins] when they are shared.
-__host__ __device__ inline size_t tally_bytes(const PvtScene& sc, bool shared_bins) {
-  return 44 * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
-}
 
 bool bins_fit_shared(const PvtScene& sc) {
   return tally_bytes(sc, true) <= kSharedTallyLimit;
-}
-
-// Bytes of a block's K12 accumulators when they are shared: float64
-// fate_scores [2, 11, ch] and rec_scores [2, R, ch].
-__host__ __device__ inline size_t score_bytes(const PvtScene& sc, const PvtScore& s) {
-  return s.shared ? 16 * (size_t)s.ch * (N_FATES + (size_t)sc.n_rec) : 0;
-}
-
-// `s` with its `shared` decided: the block's score sums go to shared
-// memory when they fit there after `offset` bytes of tallies.
-PvtScore score_placed(const PvtScene& sc, const PvtScore& s, size_t offset) {
-  PvtScore placed = s;
-  placed.shared = 1;
-  placed.shared = offset + score_bytes(sc, placed) <= kSharedTallyLimit ? 1 : 0;
-  return placed;
-}
-
-// Offset of the score accumulators in a block's dynamic shared memory:
-// after the tallies, 8-byte aligned.
-__host__ __device__ inline size_t score_offset(const PvtScene& sc, bool tally, int shared_bins) {
-  return ((tally ? tally_bytes(sc, shared_bins) : 0) + 7) / 8 * 8;
 }
 
 // Points a block's accumulators into dynamic shared memory and zeroes
@@ -95,20 +64,28 @@ __device__ void tally_block_flush(const PvtScene& sc, const PvtTally& acc,
       if (acc.bins32[b]) atomicAdd(out.bins + b, (unsigned long long)acc.bins32[b]);
 }
 
-// A thread's K12 view: its own score row (global thread `lane` of the
-// launch) and the block's float64 accumulators, zeroed in shared memory
-// at `smem` (s.shared) or the totals themselves (the caller synchronises).
+// A thread's K12 view: its own rows and the block's float64 accumulators,
+// zeroed in shared memory at `smem` (s.shared) or the totals themselves
+// (the caller synchronises). Its rows are the block's shared copy at
+// `rows` (s.shared_rows; stride kBlock), or column `lane` of s.rows and
+// s.tang, the global thread `lane` of the launch (stride s.stride).
 __device__ ScoreAcc score_block_init(const PvtScene& sc, const PvtScore& s, unsigned char* smem,
-                                     long long lane) {
+                                     unsigned char* rows, long long lane) {
   ScoreAcc a;
-  a.row = s.rows + lane;
-  a.stride = s.stride;
+  if (s.shared_rows) {
+    a.row = reinterpret_cast<float*>(rows) + threadIdx.x;
+    a.stride = kBlock;
+    a.tang = a.row + (size_t)s.ch * kBlock;
+  } else {
+    a.row = s.rows + lane;
+    a.stride = s.stride;
+    a.tang = s.tang ? s.tang + lane : nullptr;
+  }
   a.ch = s.ch;
   a.n_comps = s.n_comps;
   a.n_rec = sc.n_rec;
   a.photon = s.photon;
   a.photon_n = s.photon_n;
-  a.tang = s.tang ? s.tang + lane : nullptr;
   a.path = s.path;
   a.n_path = s.n_path;
   if (s.shared) {
@@ -131,12 +108,6 @@ __device__ void score_block_flush(const PvtScene& sc, const PvtScore& s, const S
     if (a.fate[k] != 0.0) atomicAdd(s.fate_scores + k, a.fate[k]);
   for (int k = threadIdx.x; k < 2 * sc.n_rec * s.ch; k += blockDim.x)
     if (a.rec[k] != 0.0) atomicAdd(s.rec_scores + k, a.rec[k]);
-}
-
-// Bytes of the scene's K5a table (cheb_pack) when a run reads it: some
-// lookup takes K5a.
-__host__ __device__ inline size_t cheb_bytes(const PvtScene& sc) {
-  return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? 4 * (size_t)sc.cheb_words : 0;
 }
 
 // Copies the scene's K5a table into a block's shared memory at `dst`
@@ -186,7 +157,9 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // thread's own row of `score.rows` (any number of channels; a step
 // touches the container's components and two node channels), and is
 // folded in float64 into the block's shared [fate, channel] sums, which
-// go to the totals at the end. The instantiations without the log carry
+// go to the totals at the end; the rows are the block's, in shared memory
+// where they fit (trace_layout), so a step's reads and writes of them stay
+// on the SM. The instantiations without the log carry
 // none of its code, those without meshes (kMesh) none of K10's, those
 // without scores none of K12's. With pathwise channels (kPath, K13, only
 // with kScore; replaces the pathwise block of body), the photon's tangents
@@ -214,6 +187,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   ScoreAcc sa;
   if (kScore)
     sa = score_block_init(sc, score, smem + score_offset(sc, kTally, shared_bins),
+                          smem + rows_offset(sc, kTally, shared_bins, score),
                           (long long)blockIdx.x * blockDim.x + threadIdx.x);
   const int* cheb = cheb_at >= 0 ? stage_cheb(sc, smem + cheb_at) : sc.cheb_pack;
   __syncthreads();
@@ -251,10 +225,10 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 // kPath, kBundle>, sized to the card's resident capacity (see pvt_trace),
 // and with scores to at most score.stride threads (the rows there are).
 // Without a bundle every photon is emitted on the device, which a scene
-// without device lights cannot do: refused. info gets the
-// thread count, a block's dynamic shared memory, and whether the recorder
-// bins, the score sums and the K5a table were placed there (each in that
-// order while the block's budget, kSharedTallyLimit, allows).
+// without device lights cannot do: refused. info gets the thread count, a
+// block's dynamic shared memory, and whether the recorder bins, the score
+// sums, the K5a table and the threads' rows were placed there
+// (trace_layout).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          unsigned long long total, long long max_threads,
@@ -264,17 +238,13 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          long long* info, cudaStream_t stream) {
   // A photon without a bundle row is emitted from light pid % n_lights.
   if (kBundle ? !bundle.rows : sc.n_lights <= 0) return cudaErrorInvalidValue;
-  const int shared_bins = kTally && bins_fit_shared(sc) ? 1 : 0;
-  const size_t offset = score_offset(sc, kTally, shared_bins);
-  const PvtScore score = kScore ? score_placed(sc, given, offset) : given;
-  size_t bytes = kScore ? offset + score_bytes(sc, score)
-                        : (kTally ? tally_bytes(sc, shared_bins) : 0);
-  // The K5a table after them, 16-byte aligned, when it fits the budget too.
-  const size_t cheb_start = (bytes + 15) / 16 * 16;
-  int cheb_at = -1;
-  if (cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= kSharedTallyLimit) {
-    cheb_at = (int)cheb_start;
-    bytes = cheb_start + cheb_bytes(sc);
+  const TraceLayout L = trace_layout(sc, kTally, kScore ? &given : nullptr);
+  const int shared_bins = L.shared_bins, cheb_at = L.cheb_at;
+  const size_t bytes = L.bytes;
+  PvtScore score = given;
+  if (kScore) {
+    score.shared = L.shared_scores;
+    score.shared_rows = L.shared_rows;
   }
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -291,10 +261,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   if (wanted < blocks) blocks = wanted;
   if (blocks < 1) return cudaErrorInvalidValue;
   info[0] = blocks * kBlock;
-  info[1] = (long long)bytes;
-  info[2] = shared_bins;
-  info[3] = kScore ? score.shared : 0;
-  info[4] = cheb_at >= 0 ? 1 : 0;
+  layout_info(L, info);
   kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(sc, s0, s1, total, next, fates,
                                                            max_count, steps, tally, shared_bins,
                                                            lg, score, bundle, cheb_at);

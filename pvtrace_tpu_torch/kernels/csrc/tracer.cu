@@ -149,7 +149,8 @@ int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const floa
 // whole blocks. info[0] gets their number, info[1] the dynamic shared
 // memory of a block, info[2] 1 when the recorder bins were in shared
 // memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
-// K5a table was. With sc->n_rec == 0
+// K5a table was, info[5] 1 when the threads' score rows were (0 here).
+// With sc->n_rec == 0
 // the tally outputs are not touched, with log->n_slots == 0 the log. With
 // bundle->rows set, photon pid starts from column pid - bundle->first of
 // the host bundle (K8's trace_bundle entry; the caller sets next to
@@ -165,6 +166,16 @@ int pvt_trace(const PvtScene* sc, unsigned int s0, unsigned int s1,
   return (int)launch_for<false, false>(*sc, *log, *bundle)(
       *sc, s0, s1, total, max_threads, next, fates, max_count, steps, *tally, *log, no_score,
       *bundle, info, (cudaStream_t)stream);
+}
+
+// Where a trace launch on sc would place what its blocks share, without
+// launching: info[1..5] as pvt_trace's, for a launch with recorders
+// (tally) and, unless score is null, score->ch channels of which
+// score->n_path pathwise, the rows allowed in shared memory where
+// score->shared_rows.
+int pvt_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
+  layout_info(trace_layout(*sc, tally != 0, score), info);
+  return 0;
 }
 
 }  // extern "C"

@@ -349,6 +349,10 @@ struct PvtLog {
 // [n_path, PATH_I] says what each channel differentiates: the kind
 // (PATH_N, a node's refractive index; PATH_GEOM, a geometry parameter),
 // the node and the parameter's index in NF_GP.
+//
+// `shared_rows`: given, whether a trace block may keep its threads' rows
+// (score and tangents) in its shared memory; set by the launch, whether
+// they are there (trace_layout), `rows` and `tang` then left unused.
 struct PvtScore {
   float* rows;
   double* fate_scores;
@@ -362,6 +366,7 @@ struct PvtScore {
   float* tang;
   const int* path;
   int n_path;
+  int shared_rows;
 };
 
 // K8's host-bundle start (trace_bundle): photons whose lights the host
@@ -376,7 +381,9 @@ struct PvtBundle {
 };
 
 // One thread's view of them: its row, the accumulators it adds to (a
-// block's shared copies or the totals), and the per-photon records.
+// block's shared copies or the totals), and the per-photon records. Its
+// rows are a column of `rows` and `tang` (stride s.stride), or of the
+// block's shared copy (stride kBlock): channel c at row[c * stride].
 struct ScoreAcc {
   float* row;
   double* fate;
@@ -391,6 +398,113 @@ struct ScoreAcc {
   const int* path;
   int n_path;
 };
+
+// ---------------------------------------------------------------------
+// What a block of the trace kernel shares, and where. Its dynamic shared
+// memory holds, in this order and each while it fits kSharedTallyLimit
+// after the ones before it: the recorder tallies (K9), the float64 score
+// sums (K12), its threads' score and tangent rows (K12, K13), the K5a
+// table. What does not fit stays in device memory, read and written by
+// the same code through the same generic pointers. Host-callable: the
+// launch, pvt_layout (tracer.cu) and the host build's tests share it.
+
+// Threads of a block, in every kernel of the port.
+constexpr int kBlock = 256;
+// A block's shared budget: two blocks of 256 threads are resident per SM
+// (kMinBlocks, trace_kernel.cuh), and 2 x 96 KB fits the SM's 228 KB.
+// Larger recorder bin sets (big heatmaps) go straight to 64-bit atomics in
+// device memory.
+constexpr size_t kSharedTallyLimit = 96 * 1024;
+
+// Bytes of a block's K9 accumulators: crossings u64 [R], sums f32 [8R],
+// distinct u32 [R], then the bins u32 [total_bins] when they are shared.
+PVT_FN size_t tally_bytes(const PvtScene& sc, bool shared_bins) {
+  return 44 * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
+}
+
+// Bytes of a block's K12 accumulators when they are shared: float64
+// fate_scores [2, 11, ch] and rec_scores [2, R, ch].
+PVT_FN size_t score_bytes(const PvtScene& sc, const PvtScore& s) {
+  return s.shared ? 16 * (size_t)s.ch * (N_FATES + (size_t)sc.n_rec) : 0;
+}
+
+// `s` with its `shared` decided: the block's score sums go to shared
+// memory when they fit there after `offset` bytes of tallies.
+PVT_FN PvtScore score_placed(const PvtScene& sc, const PvtScore& s, size_t offset) {
+  PvtScore placed = s;
+  placed.shared = 1;
+  placed.shared = offset + score_bytes(sc, placed) <= kSharedTallyLimit ? 1 : 0;
+  return placed;
+}
+
+// Offset of the score accumulators: after the tallies, 8-byte aligned.
+PVT_FN size_t score_offset(const PvtScene& sc, bool tally, int shared_bins) {
+  return ((tally ? tally_bytes(sc, shared_bins) : 0) + 7) / 8 * 8;
+}
+
+// Bytes of a block's rows: score [ch] and tangents [n_path, 7] for each
+// of its threads, thread-minor (thread t's channel c at c * kBlock + t, so
+// a warp's accesses fall in 32 banks).
+PVT_FN size_t rows_bytes(const PvtScore& s) {
+  return 4 * (size_t)kBlock * ((size_t)s.ch + 7 * (size_t)s.n_path);
+}
+
+// Offset of the rows: after the score sums (s.shared placed), 16-byte
+// aligned.
+PVT_FN size_t rows_offset(const PvtScene& sc, bool tally, int shared_bins, const PvtScore& s) {
+  return (score_offset(sc, tally, shared_bins) + score_bytes(sc, s) + 15) / 16 * 16;
+}
+
+// Bytes of the scene's K5a table (cheb_pack) when a run reads it: some
+// lookup takes K5a.
+PVT_FN size_t cheb_bytes(const PvtScene& sc) {
+  return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? 4 * (size_t)sc.cheb_words : 0;
+}
+
+// A trace block's placement: whether the recorder bins, the score sums and
+// the rows are in shared memory, where the K5a table starts there (-1: in
+// device memory), and the block's dynamic shared bytes.
+struct TraceLayout {
+  int shared_bins, shared_scores, shared_rows, cheb_at;
+  size_t bytes;
+};
+
+// The placement of a launch with recorders (`tally`) and score channels
+// (`score`, null for none; its `shared_rows` says whether the rows may be
+// placed). The rows take the budget before the K5a table: where only one
+// of the two fits, the rows in shared memory ran faster (an A/B on the
+// H100; PERF.md).
+PVT_FN TraceLayout trace_layout(const PvtScene& sc, bool tally, const PvtScore* score) {
+  TraceLayout L;
+  L.shared_bins = tally && tally_bytes(sc, true) <= kSharedTallyLimit ? 1 : 0;
+  L.shared_scores = L.shared_rows = 0;
+  size_t end = tally ? tally_bytes(sc, L.shared_bins) : 0;
+  if (score) {
+    const size_t at = score_offset(sc, tally, L.shared_bins);
+    const PvtScore s = score_placed(sc, *score, at);
+    L.shared_scores = s.shared;
+    end = at + score_bytes(sc, s);
+    const size_t rows_at = rows_offset(sc, tally, L.shared_bins, s);
+    L.shared_rows = score->shared_rows && rows_at + rows_bytes(s) <= kSharedTallyLimit ? 1 : 0;
+    if (L.shared_rows) end = rows_at + rows_bytes(s);
+  }
+  const size_t cheb_start = (end + 15) / 16 * 16;
+  const bool cheb = cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= kSharedTallyLimit;
+  L.cheb_at = cheb ? (int)cheb_start : -1;
+  L.bytes = cheb ? cheb_start + cheb_bytes(sc) : end;
+  return L;
+}
+
+// A placement as a launch's info reports it: info[1] the block's dynamic
+// shared bytes, info[2..5] 1 where the recorder bins, the score sums, the
+// K5a table and the rows are in shared memory, else 0.
+PVT_FN void layout_info(const TraceLayout& L, long long* info) {
+  info[1] = (long long)L.bytes;
+  info[2] = L.shared_bins;
+  info[3] = L.shared_scores;
+  info[4] = L.cheb_at >= 0 ? 1 : 0;
+  info[5] = L.shared_rows;
+}
 
 // ---------------------------------------------------------------------
 // K1: Threefry-2x32, 20 rounds (jax's generator, bit for bit).
@@ -1789,21 +1903,20 @@ PVT_FN void normal_tangent(int gtype, const float* gp, const float* q, const flo
   for (int k = 0; k < 2; ++k) dn[k] = dq[k] / sr - q[k] * dsr / (sr * sr);
 }
 
-// K13's linear map: one channel's tangents through the step of photon
-// `pin` (its state before the step) that produced `o` (step_one with
-// kPath), uniforms u, shared slopes ps. `spec` is the channel's row of the
+// K13's linear map: one channel's tangents through the step that produced
+// `o` (step_one with kPath) from the photon's position pp and direction pd
+// before it, uniforms u, shared slopes ps. `spec` is the channel's row of the
 // path table, `tin` the tangents of (px, py, pz, dx, dy, dz, wav) before
 // the step. Writes j[PATH_J]: the new coordinates' tangents, then those of
 // t0, alpha and the reflectivity (0 off a surface event), raw: infinite or
 // NaN where the reference's are.
-PVT_FN void step_tangent(const PvtScene& sc, const Photon& pin, const StepOut& o,
+PVT_FN void step_tangent(const PvtScene& sc, const float* pp, const float* pd, const StepOut& o,
                          const PathSlopes& ps, const float* u, const int* spec,
                          const float* tin, float* j) {
   const int kind = spec[PATH_KIND], pnode = spec[PATH_NODE];
   const float dn1 = kind == PATH_N && pnode == o.container ? 1.0f : 0.0f;
   const float dn2 = kind == PATH_N && o.adjacent >= 0 && pnode == o.adjacent ? 1.0f : 0.0f;
   const float din[3] = {tin[3], tin[4], tin[5]};
-  const float pd[3] = {pin.dx, pin.dy, pin.dz};
   // The hit node's local ray and its tangent, t0's tangent.
   const int h = o.hit;
   const float* nf = sc.node_f + h * NODE_F;
@@ -1811,8 +1924,8 @@ PVT_FN void step_tangent(const PvtScene& sc, const Photon& pin, const StepOut& o
   const float* R = nf + NF_W2L;
   float lo[3], ld[3], dlo[3], dld[3];
   for (int k = 0; k < 3; ++k) {
-    lo[k] = R[4 * k] * pin.px + R[4 * k + 1] * pin.py + R[4 * k + 2] * pin.pz + R[4 * k + 3];
-    ld[k] = R[4 * k] * pin.dx + R[4 * k + 1] * pin.dy + R[4 * k + 2] * pin.dz;
+    lo[k] = R[4 * k] * pp[0] + R[4 * k + 1] * pp[1] + R[4 * k + 2] * pp[2] + R[4 * k + 3];
+    ld[k] = R[4 * k] * pd[0] + R[4 * k + 1] * pd[1] + R[4 * k + 2] * pd[2];
     dlo[k] = R[4 * k] * tin[0] + R[4 * k + 1] * tin[1] + R[4 * k + 2] * tin[2];
     dld[k] = R[4 * k] * tin[3] + R[4 * k + 1] * tin[4] + R[4 * k + 2] * tin[5];
   }
@@ -1957,29 +2070,29 @@ PVT_FN float path_contribution(const PathTerms& pt, const StepOut& o, const floa
   return ds;
 }
 
-// K13 in the trace: after step_one<.., kPath> of photon pin (its state
-// before the step; wavelength wav_in) gave o, each pathwise channel's
-// contribution is added to the photon's score row and its tangent row
-// replaced by the new tangents.
-PVT_FN void pathwise_step(const PvtScene& sc, const int* cheb, const StepOut& o,
-                          const Photon& pin, const float* u, const ScoreAcc& sa) {
-  // The spectral slopes multiply the wavelength's tangent: skipped while
-  // every channel's is 0 (no parameter moves a wavelength, so it stays 0
-  // from emission on; the K5a fits' slopes are finite).
-  bool dwav = false;
-  for (int ci = 0; ci < sa.n_path; ++ci) dwav = dwav || sa.tang[(ci * 7 + 6) * sa.stride] != 0.0f;
-  const PathSlopes ps =
-      dwav ? path_slopes(sc, cheb, o, pin.wav, u) : PathSlopes{0.0f, 0.0f, 0.0f};
+// K13 in the trace: after step_one<.., kPath> gave o (pp, pd and wav_in,
+// the photon's position, direction and wavelength before the step), each
+// pathwise channel's contribution is added to the photon's score row and
+// its tangent row replaced by the new tangents. `dwav`, the photon's flag
+// that some channel's wavelength tangent is not 0 (false at emission), is
+// read and set again: the spectral slopes multiply that tangent, so they
+// are skipped while it is 0 everywhere (no parameter moves a wavelength,
+// so it stays 0 from emission on; the K5a fits' slopes are finite).
+PVT_FN void pathwise_step(const PvtScene& sc, const int* cheb, const StepOut& o, const float* pp,
+                          const float* pd, float wav_in, const float* u, const ScoreAcc& sa,
+                          bool& dwav) {
+  const PathSlopes ps = dwav ? path_slopes(sc, cheb, o, wav_in, u) : PathSlopes{0.0f, 0.0f, 0.0f};
   const PathTerms pt = path_terms(o);
-  const float pd[3] = {pin.dx, pin.dy, pin.dz};
   const int first = sa.ch - sa.n_path;
+  dwav = false;
   for (int ci = 0; ci < sa.n_path; ++ci) {
     float* row = sa.tang + (size_t)ci * 7 * sa.stride;
     float tin[7], j[PATH_J], tout[7];
     for (int k = 0; k < 7; ++k) tin[k] = row[k * sa.stride];
-    step_tangent(sc, pin, o, ps, u, sa.path + ci * PATH_I, tin, j);
+    step_tangent(sc, pp, pd, o, ps, u, sa.path + ci * PATH_I, tin, j);
     sa.row[(first + ci) * sa.stride] += path_contribution(pt, o, j, pd, tout);
     for (int k = 0; k < 7; ++k) row[k * sa.stride] = tout[k];
+    dwav = dwav || tout[6] != 0.0f;
   }
 }
 
@@ -2005,7 +2118,7 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   load_lane(in, i, p);
   p.count += p.alive ? 1 : 0;
   const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
-  const Photon pin = p;
+  const float pp[3] = {p.px, p.py, p.pz}, pd[3] = {p.dx, p.dy, p.dz}, wav_in = p.wav;
   float u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
@@ -2013,13 +2126,12 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   store_lane(out, i, p, k0, k1);
   store_flags(fl, i, o);
   comp[i] = o.absorbed ? o.comp : -1;
-  const PathSlopes ps = path_slopes(sc, sc.cheb_pack, o, pin.wav, u);
+  const PathSlopes ps = path_slopes(sc, sc.cheb_pack, o, wav_in, u);
   const PathTerms pt = path_terms(o);
-  const float pd[3] = {pin.dx, pin.dy, pin.dz};
   for (int ci = 0; ci < pw.n; ++ci) {
     float tin[7], j[PATH_J], tout[7];
     for (int k = 0; k < 7; ++k) tin[k] = pw.tin[(ci * 7 + k) * B + i];
-    step_tangent(sc, pin, o, ps, u, pw.path + ci * PATH_I, tin, j);
+    step_tangent(sc, pp, pd, o, ps, u, pw.path + ci * PATH_I, tin, j);
     pw.ds[ci * B + i] = path_contribution(pt, o, j, pd, tout);
     for (int k = 0; k < 7; ++k) pw.tout[(ci * 7 + k) * B + i] = tout[k];
     for (int k = 0; k < PATH_J; ++k) pw.jv[(ci * PATH_J + k) * B + i] = pvt_nan_to_num(j[k]);
@@ -2116,8 +2228,8 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // written where the run keeps them, and added by the recorders at a
 // first match. With kPath (and kScore) the photon's pathwise tangents
 // live in the thread's rows of sa->tang, zeroed at emission, and each step
-// adds the pathwise channels' contributions (pathwise_step) before the
-// fold. With kBundle the photon starts from its row of the host bundle
+// adds the pathwise channels' contributions (pathwise_step, with the
+// photon's wavelength-tangent flag) before the fold. With kBundle the photon starts from its row of the host bundle
 // (load_one) in place of emit_one; its keys are the same. Returns its step
 // count.
 template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
@@ -2139,6 +2251,7 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
     for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
   if (kPath)
     for (int k = 0; k < 7 * sa->n_path; ++k) sa->tang[k * sa->stride] = 0.0f;
+  bool dwav = false;
   long long slot = -1;
   int nev = 0;
   if (kLog && pid % lg->every == 0) {
@@ -2166,8 +2279,7 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
     const float d_in[3] = {p.dx, p.dy, p.dz};
     const float wav_in = p.wav;
     const int src_in = p.source;
-    Photon pin;
-    if (kPath) pin = p;
+    const float p_in[3] = {p.px, p.py, p.pz};
     float u[8];
     pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
     StepOut o;
@@ -2179,7 +2291,7 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
     f.no_hit += o.no_hit_term;
     if (kScore) {
       score_step(sc, cheb, o, wav_in, *sa);
-      if (kPath) pathwise_step(sc, cheb, o, pin, u, *sa);
+      if (kPath) pathwise_step(sc, cheb, o, p_in, d_in, wav_in, u, *sa, dwav);
       const int fate = score_fate(o);
       if (fate >= 0) {
         score_add(*sa, sa->fate, N_FATES, fate);

@@ -12,6 +12,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 from pvtrace_tpu_torch.kernels import build
 
 HARNESS = r"""
@@ -108,21 +110,34 @@ void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const 
     score_lane(*sc, *in, *out, *fl, i, sa, comp);
   }
 }
-void h_trace_score_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
-                   unsigned long long total, const PvtLog* lg, long long* fates,
-                   unsigned long long* cross, float* sums, unsigned* distinct,
-                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
-                   double* fate_scores, double* rec_scores, float* photon, float* tang,
-                   const int* path, int n_path, const PvtBundle* bundle) {
+// The photons' score rows and tangents at row[c * stride] and
+// tang[k * stride], as a thread's column of a launch's rows (stride its
+// threads) or of a block's shared copy (stride kBlock).
+void h_trace_score_rows(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                        unsigned long long total, const PvtLog* lg, long long* fates,
+                        unsigned long long* cross, float* sums, unsigned* distinct,
+                        unsigned long long* bins, double* sums64, float* row, int ch,
+                        int n_comps, double* fate_scores, double* rec_scores, float* photon,
+                        float* tang, const int* path, int n_path, const PvtBundle* bundle,
+                        long long stride) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
-  const ScoreAcc sa = {row, fate_scores, rec_scores, 1, ch, n_comps, sc->n_rec, photon,
+  const ScoreAcc sa = {row, fate_scores, rec_scores, stride, ch, n_comps, sc->n_rec, photon,
                        (long long)total, tang, path, n_path};
   const PvtBundle b = h_bundle(bundle);
   if (n_path > 0) h_trace_score_p<true>(sc, s0, s1, off, total, lg, f, &acc, &sa, b);
   else h_trace_score_p<false>(sc, s0, s1, off, total, lg, f, &acc, &sa, b);
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
+}
+void h_trace_score_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                   unsigned long long total, const PvtLog* lg, long long* fates,
+                   unsigned long long* cross, float* sums, unsigned* distinct,
+                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
+                   double* fate_scores, double* rec_scores, float* photon, float* tang,
+                   const int* path, int n_path, const PvtBundle* bundle) {
+  h_trace_score_rows(sc, s0, s1, off, total, lg, fates, cross, sums, distinct, bins, sums64, row,
+                     ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path, bundle, 1);
 }
 void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                    unsigned long long total, const PvtLog* lg, long long* fates,
@@ -133,6 +148,10 @@ void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long l
   h_trace_score_bundle(sc, s0, s1, off, total, lg, fates, cross, sums, distinct, bins, sums64,
                        row, ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path,
                        nullptr);
+}
+// pvt_layout's twin (tracer.cu).
+void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
+  layout_info(trace_layout(*sc, tally != 0, score), info);
 }
 void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
                 long long B, const PvtPath* pw, int* comp) {
@@ -190,11 +209,48 @@ def build_library(directory):
     h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                 i32, vp, vp, vp, vp, vp, i32]
     h.h_trace_score_bundle.argtypes = h.h_trace_score.argtypes + [vp]
+    h.h_trace_score_rows.argtypes = h.h_trace_score_bundle.argtypes + [i64]
+    h.h_layout.argtypes = [vp, i32, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
                h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
-               h.h_pathwise, h.h_fresnel, h.h_absorbed):
+               h.h_trace_score_rows, h.h_layout, h.h_pathwise, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h
+
+
+def trace_score_records(h, st, seed_words, n, pathwise=(), stride=1):
+    """``trace_photon`` with scores (and the resolved `pathwise` specs)
+    built for the host (`h`, ``build_library``'s), photons [0, n) of the
+    float32 CPU scene tensors `st`, each photon's rows at `stride` (as a
+    thread's column of a launch's rows, or of a block's shared copy):
+    (fates [11] int64, records [CH + 2, n] float32: each photon's scores,
+    fate and steps, the folds' float64 fate_scores [2, 11, CH]: signed sums,
+    then magnitudes)."""
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.engine import score, tables
+
+    C = len(pathwise)
+    CH, R = score.n_channels(st, C), max(st["meta"]["n_rec"], 1)
+    _, log = kernels.empty_log(n, 0, 6, 0, "cpu")
+    fates = torch.zeros(11, dtype=torch.int64)
+    cross = torch.zeros(R, dtype=torch.int64)
+    bins = torch.zeros(max(st["meta"]["total_bins"], 1), dtype=torch.int64)
+    distinct, sums = torch.zeros(R, dtype=torch.int32), torch.zeros(8 * R)
+    sums64 = torch.zeros(8 * R, dtype=torch.float64)
+    row, tang = torch.zeros(CH * stride), torch.zeros(max(7 * C, 1) * stride)
+    fate_scores = torch.zeros((2, 11, CH), dtype=torch.float64)
+    rec_scores = torch.zeros((2, R, CH), dtype=torch.float64)
+    photon = torch.zeros((CH + 2, n))
+    table = tables.pathwise_table(pathwise)
+    h.h_trace_score_rows(
+        ctypes.byref(kernels._scene(st, 1000, 0, float("inf"))), seed_words[0], seed_words[1], 0,
+        n, ctypes.byref(log), fates.data_ptr(), cross.data_ptr(), sums.data_ptr(),
+        distinct.data_ptr(), bins.data_ptr(), sums64.data_ptr(), row.data_ptr(), CH,
+        st["meta"]["n_comps"], fate_scores.data_ptr(), rec_scores.data_ptr(), photon.data_ptr(),
+        tang.data_ptr(), table.data_ptr(), C, None, stride,
+    )
+    return fates, photon, fate_scores
+

@@ -448,6 +448,44 @@ def test_score_trace_matches_twin_on_card(make, shared):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("specs", [(), [("n", "lsc"), ("size", "lsc", 2)]],
+                         ids=["score", "pathwise"])
+def test_score_rows_placements_on_card(specs):
+    """The slab's score trace keeps its threads' rows in shared memory (as
+    ``kernels.trace_layout`` says) and, forced into device memory, gives
+    the same records bit for bit."""
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+
+    st = _cuda_tensors(lsc_slab)
+    resolved = resolve_pathwise_params(compile_scene(lsc_slab()), specs)
+    rep = check.check_trace_scores(st, rng.key_words(2), 1 << 16, lanes=1 << 14,
+                                   pathwise=resolved)
+    assert rep["shared_rows"] == 1 and rep["record_used"] <= 1.0
+    rows = check.check_rows_placement(st, rng.key_words(2), 1 << 16, rep["tallies"], resolved,
+                                      reps=1)
+    assert rows["device"]["shared_rows"] == 0 and rows["placed"]["shared_rows"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_path, rows, cheb", [(2, 0, 1), (1, 1, 0)], ids=["two", "one"])
+def test_score_rows_past_the_budget_on_card(n_path, rows, cheb):
+    """At 256 recorders two pathwise channels' rows do not fit a block's
+    budget (device memory), and one channel's fit with the K5a table in
+    device memory; either way the launch reports ``trace_layout``'s
+    placement and the fates account for every photon."""
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+
+    make = lambda: lsc_slab_recorders(256)  # noqa: E731
+    st = _cuda_tensors(make)
+    resolved = resolve_pathwise_params(compile_scene(make()),
+                                       [("n", "lsc"), ("size", "lsc", 2)][:n_path])
+    fates, _, _, _ = kernels.trace(st, rng.key_words(2), 1 << 14, score=True, pathwise=resolved)
+    placed = check.check_layout(st, True, n_path)
+    assert (placed["shared_rows"], placed["shared_cheb"]) == (rows, cheb)
+    assert int(fates.sum()) == 1 << 14
+
+
+@pytest.mark.gpu
 def test_gradient_path_on_card_goes_through_the_kernel():
     from pvtrace_tpu_torch.diff.transport import fate_gradients
 
@@ -544,12 +582,13 @@ def _host_bundle_on_card(n, n_rec=4, np_seed=2):
 @pytest.mark.gpu
 def test_bundle_trace_matches_twin_on_card():
     """pvt_trace in bundle mode against the twin fed the same host
-    bundle (phase 24 small): fates and recorders, then with the log and
+    bundle (phase 24 small): fates and recorders (the check's two
+    launches, the second timed, both in bundle mode), then with the log and
     with score channels."""
     st, bundle = _host_bundle_on_card(1 << 16)
     kernels.reset()
     rep = check.check_trace(st, rng.key_words(2), 1 << 16, lanes=1 << 14, bundle=bundle)
-    assert sum(rep["fates"]) == 1 << 16 and kernels.launches["pvt_trace_bundle"] == 1
+    assert sum(rep["fates"]) == 1 << 16 and kernels.launches["pvt_trace_bundle"] == 2
     rep = check.check_log(st, rng.key_words(2), 1 << 12, bundle=bundle[:, :1 << 12].contiguous())
     assert rep["diverged"] <= check.LOG_DIVERGED * rep["slots"]
     rep = check.check_trace_scores(st, rng.key_words(2), 1 << 16, lanes=1 << 14, bundle=bundle)

@@ -360,3 +360,131 @@ def test_pathwise_n_gradient_oblique_incidence():
     assert abs(fr[Event.NONRADIATIVE] - p_true) < 5 * np.sqrt(p_true * (1 - p_true) / n)
     assert abs(gr[Event.NONRADIATIVE][0] - dp_true) < 0.006
     assert abs(gr[Event.EXIT][0] + dp_true) < 0.008
+
+
+def _host_records(host_lib, st, resolved, n=1024, stride=1, seed=5, sums=False):
+    fates, rec, fate_scores = host.trace_score_records(host_lib, st, rng.key_words(seed), n,
+                                                       resolved, stride)
+    return (fates, rec, fate_scores) if sums else (fates, rec)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("make, specs", [
+    (mixed_scene, MIXED_SPECS),
+    (lambda: lsc_slab_recorders(4), [("n", "lsc"), ("size", "lsc", 2)]),
+], ids=["mixed", "recorders"])
+def test_pathwise_channel_record_does_not_depend_on_the_others(host_lib, make, specs):
+    """A step's tangent map carries nothing from one channel to the next
+    (the photon's wavelength-tangent flag is set by every channel alike):
+    each channel's per-photon record is bit-equal run alone, beside the
+    others, and with them in reverse order; so are the score channels,
+    fates and steps."""
+    st, resolved = _f32(make, specs)
+    C = len(resolved)
+    first = score.n_channels(st, 0)
+    fates, rec = _host_records(host_lib, st, resolved)
+    rev_fates, rev = _host_records(host_lib, st, resolved[::-1])
+    assert torch.equal(fates, rev_fates)
+    assert torch.equal(_bits(rec[:first]), _bits(rev[:first]))
+    assert torch.equal(_bits(rec[-2:]), _bits(rev[-2:]))
+    for i, spec in enumerate(resolved):
+        alone_fates, alone = _host_records(host_lib, st, [spec])
+        assert torch.equal(fates, alone_fates)
+        assert torch.equal(_bits(rec[first + i]), _bits(alone[first])), spec
+        assert torch.equal(_bits(rec[first + i]), _bits(rev[first + C - 1 - i])), spec
+        assert torch.equal(_bits(rec[:first]), _bits(alone[:first]))
+    assert float(rec[first:first + C].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("make, specs", [
+    (mixed_scene, MIXED_SPECS),
+    (lambda: lsc_slab_recorders(4), [("n", "lsc"), ("size", "lsc", 2)]),
+    (tilted_fresnel_slab, [("n", "slab")]),
+], ids=["mixed", "recorders", "tilted"])
+def test_pathwise_records_equal_at_any_row_stride(host_lib, make, specs):
+    """A thread's rows at stride 1 and at the block's stride (kBlock, the
+    rows in shared memory) give the same records and folds bit for bit:
+    only the addresses differ."""
+    st, resolved = _f32(make, specs)
+    fates, rec, sums = _host_records(host_lib, st, resolved, sums=True)
+    block_fates, block, block_sums = _host_records(host_lib, st, resolved, stride=kernels.BLOCK,
+                                                   sums=True)
+    assert torch.equal(fates, block_fates) and torch.equal(_bits(rec), _bits(block))
+    assert torch.equal(sums, block_sums) and float(sums[1, :, -len(resolved):].sum()) > 0
+
+
+# Lanes built to tie, in pathwise_slab's 2x2x1 cm box at the origin (the
+# world around it): through the vertical edge at x = y = -1 from outside
+# (the slab test's entry bound ties between x and y) and from inside
+# towards x = y = 1 (its exit bound ties), through the corner (-1, -1,
+# -0.5) (a three-way tie), and straight down onto the top face (c_in = 1,
+# 1 - c^2 = 0: the clips' bounds).
+TIE_RAYS = [
+    ((-2.0, -2.0, 0.0), (1.0, 1.0, 0.0)),
+    ((0.0, 0.0, 0.0), (1.0, 1.0, 0.0)),
+    ((-2.0, -2.0, -1.5), (1.0, 1.0, 1.0)),
+    ((0.3, 0.2, 3.0), (0.0, 0.0, -1.0)),
+]
+
+
+def test_step_tangent_at_ties_matches_twin(host_lib):
+    """``pathwise_lane``'s map (``step_tangent``, each channel's tangents) on
+    lanes at ties of the box's slab test and at the clips' bounds, against
+    the twin's (``engine/pathwise.py`` with ``engine/ties.py``): the steps
+    equal, every map output within 1e-5 of its scale; 16 lanes a ray (their
+    own uniforms: reflections, transmissions and absorptions), the same
+    random tangents into every channel."""
+    st, specs = _f32(lambda: pathwise_slab(True),
+                     [("size", "slab", 0), ("size", "slab", 1), ("size", "slab", 2),
+                      ("n", "slab")])
+    per, C = 16, len(specs)
+    B = per * len(TIE_RAYS)
+    s = tracer.initial_state(st, rng.key_words(7), torch.arange(B))
+    for r, (o, d) in enumerate(TIE_RAYS):
+        lanes = slice(r * per, (r + 1) * per)
+        d = torch.tensor(d, dtype=torch.float32)
+        d = d / torch.linalg.vector_norm(d)
+        for k, name in enumerate(("px", "py", "pz")):
+            s[name][lanes] = o[k]
+        for k, name in enumerate(("dx", "dy", "dz")):
+            s[name][lanes] = d[k]
+    tin = np.random.default_rng(8).normal(size=(1, 7, B)).astype(np.float32)
+    tang = torch.from_numpy(np.repeat(tin, C, axis=0))
+    tang[:, 6] = 0.0
+    out, jv, ds, tout = kernels.pathwise_step(st, s, tang, specs)
+    got, flags = kernels._empty_state(B, "cpu"), kernels._empty_flags(B, "cpu")
+    comp = torch.empty(B, dtype=torch.int32)
+    g_jv, g_ds, g_tout = torch.empty((C, tables.PATH_J, B)), torch.empty((C, B)), \
+        torch.empty((C, 7, B))
+    table = tables.pathwise_table(specs)
+    desc = kernels._Path(table.data_ptr(), C, tang.data_ptr(), g_tout.data_ptr(),
+                         g_jv.data_ptr(), g_ds.data_ptr())
+    host_lib.h_pathwise(
+        ctypes.byref(kernels._scene(st, 1000, 0, float("inf"))),
+        ctypes.byref(kernels._struct(kernels._State, s, kernels._STATE_PTRS)),
+        ctypes.byref(kernels._struct(kernels._State, got, kernels._STATE_PTRS)),
+        ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS)), B,
+        ctypes.byref(desc), comp.data_ptr(),
+    )
+    got.update(flags, comp_id=comp)
+    for name in check.DISCRETE + ("comp_id",):
+        assert torch.equal(got[name].long(), out[name].long()), name
+    assert bool(torch.isfinite(out["t0"]).all()) and bool((out["hit"] == 1).all())
+    surface = out["reflecting"] | out["transmitting"]
+    assert bool((surface | out["absorbed"]).all()) and bool(surface[:per].all())
+    assert bool(surface[-per:].all()) and bool((out["c_in"][-per:] == 1.0).all())
+    ref, val = jv.double(), g_jv.double()
+    scale = ref.abs().amax(2, keepdim=True).clamp(min=1e-30)
+    assert float(((val - ref).abs() / scale).max()) <= 1e-5
+    # At the edge the tie takes half of each axis's slope: t0 moves with the
+    # box's x size by half of -1/2 per 1/d_x (channel 2, the z size, moves it
+    # not at all), and by as much with its y size.
+    t0 = tables.PATH_J - 3
+    edge = g_jv[:, t0, :per].double()
+    half = -0.25 * np.sqrt(2.0)
+    np.testing.assert_allclose((edge[0] - edge[2]).numpy(), half, rtol=1e-5)
+    np.testing.assert_allclose((edge[1] - edge[2]).numpy(), half, rtol=1e-5)
+

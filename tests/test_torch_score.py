@@ -285,3 +285,103 @@ def test_score_with_event_log_float64_matches_jax(monkeypatch):
     assert int(((np.asarray(ref["kind"]) == 9) & (np.asarray(ref["hit"]) < 0)).sum()) > 0
     np.testing.assert_array_equal(got.data["kind"], np.asarray(ref["kind"]))
     _assert_scores_match(ref, got.data, tallies)
+
+
+@pytest.mark.parametrize("make", [lsc_slab, lambda: lsc_slab_recorders(4), mixed_scene],
+                         ids=["slab", "recorders", "mixed"])
+def test_score_records_equal_at_any_row_stride(host_lib, make):
+    """``trace_photon`` with scores keeps a photon's score row at a stride:
+    its column of a launch's rows (stride 1 here) or of a block's shared
+    copy (kBlock). Only the addresses differ, so the records and the
+    folds' sums are equal bit for bit."""
+    st = tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
+    seed = rng.key_words(5)
+    fates, rec, sums = host.trace_score_records(host_lib, st, seed, 1024)
+    block_fates, block, block_sums = host.trace_score_records(host_lib, st, seed, 1024,
+                                                              stride=kernels.BLOCK)
+    assert torch.equal(fates, block_fates) and torch.equal(sums, block_sums)
+    assert torch.equal(rec.view(torch.int32), block.view(torch.int32))
+    assert float(rec[:-2].abs().sum()) > 0 and float(sums[1].sum()) > 0
+
+
+LAYOUT_SCENES = {
+    "slab": lsc_slab, "recorders-32": lambda: lsc_slab_recorders(32),
+    "recorders-256": lambda: lsc_slab_recorders(256), "tiles": lsc_tiles,
+}
+
+
+@pytest.fixture(scope="module")
+def layout_tensors():
+    return {name: tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
+            for name, make in LAYOUT_SCENES.items()}
+
+
+SHARED_LIMIT = 96 * 1024
+
+
+def _budget_rule(st, score_, n_path, rows_allowed):
+    """A block's placement by the budget's rule, stated apart from the
+    device code: the recorder tallies (44 bytes a recorder, then the bins
+    while they fit), the float64 score sums (8-byte aligned), the threads'
+    rows (16-byte aligned, 256 threads of CH + 7 n_path floats), the K5a
+    table (16-byte aligned), each in shared memory while it fits after the
+    ones before it."""
+    meta = st["meta"]
+    R, CH = meta["n_rec"], score.n_channels(st, n_path)
+
+    def align(x, a):
+        return (x + a - 1) // a * a
+
+    bins = int(R > 0 and 44 * R + 4 * meta["total_bins"] <= SHARED_LIMIT)
+    end = 44 * R + 4 * meta["total_bins"] * bins
+    sums = rows = 0
+    if score_:
+        at, size = align(end, 8), 16 * CH * (11 + R)
+        sums = int(at + size <= SHARED_LIMIT)
+        end = at + size * sums
+        at, size = align(end, 16), 4 * 256 * (CH + 7 * n_path)
+        rows = int(rows_allowed and at + size <= SHARED_LIMIT)
+        end = at + size if rows else end
+    size = 4 * meta["cheb_words"] if meta["cheb_spec"] or meta["cheb_icdf"] or \
+        meta["cheb_light"] else 0
+    cheb = int(size > 0 and align(end, 16) + size <= SHARED_LIMIT)
+    return {"shared_bytes": align(end, 16) + size if cheb else end, "shared_bins": bins,
+            "shared_scores": sums, "shared_cheb": cheb, "shared_rows": rows}
+
+
+@pytest.mark.parametrize("scene", list(LAYOUT_SCENES))
+def test_trace_layout_follows_the_budget_rule(host_lib, layout_tensors, scene):
+    """The device code's ``trace_layout`` (through ``kernels.trace_layout``,
+    as ``last_trace`` reports a launch's placement) places each part by the
+    budget's rule for every run of the scene: without scores, with score
+    channels, and with one and two pathwise channels, the rows allowed in
+    shared memory or not."""
+    st = layout_tensors[scene]
+    for score_, n_path in ((False, 0), (True, 0), (True, 1), (True, 2)):
+        for rows in (True, False):
+            got = kernels.trace_layout(st, score_, n_path, rows, entry=host_lib.h_layout)
+            assert got == _budget_rule(st, score_, n_path, rows), (score_, n_path, rows)
+
+
+def test_trace_layout_budget(host_lib):
+    """The budget's order (tallies, score sums, rows, K5a table) at its
+    edges: the slab's rows and table fit; at 256 recorders two pathwise
+    channels' rows do not, and one channel's fit only with the table in
+    device memory (the rows take the budget first); ``lsc_tiles``' table
+    never fits; rows forced out of shared memory leave the table there."""
+    def layout(make, *args):
+        st = tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
+        return kernels.trace_layout(st, *args, entry=host_lib.h_layout)
+
+    slab = layout(lsc_slab, True, 2)
+    assert slab["shared_rows"] == slab["shared_cheb"] == slab["shared_scores"] == 1
+    assert slab["shared_bytes"] <= SHARED_LIMIT
+    wide = lambda: lsc_slab_recorders(256)  # noqa: E731
+    two, one = layout(wide, True, 2), layout(wide, True, 1)
+    assert (two["shared_rows"], two["shared_cheb"]) == (0, 1)
+    assert (one["shared_rows"], one["shared_cheb"]) == (1, 0)
+    forced = layout(wide, True, 1, False)
+    assert (forced["shared_rows"], forced["shared_cheb"]) == (0, 1)
+    assert layout(lsc_tiles, True, 0)["shared_cheb"] == 0
+    assert layout(lsc_slab, False)["shared_bytes"] == 4 * tables.scene_tensors(
+        compile_scene(lsc_slab()), dtype=torch.float32)["meta"]["cheb_words"]
