@@ -12,9 +12,10 @@ each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
-   score, pathwise, diff) started together: build time, and the
-   registers, stack frame and spills of every instantiation and of every
-   function kept out of line;
+   score, pathwise, diff) started together: build time, and one line a
+   function, every instantiation and every function kept out of line,
+   with its registers, stack frame and spills (``trace_kernel<..>`` by
+   its template flags);
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
@@ -24,8 +25,14 @@ each:
 4b. phases 2-4 again on the table lerp (K5b, PVTRACE_TPU_NO_CHEB=1),
    against the K5b twin;
 5. the main path: simulate at 2**27 photons through pvt_trace (launch
-   counts set to 0 just before and read just after), with its photons/s;
-   the slab's K5a table must have been staged in shared memory;
+   counts set to 0 just before and read just after), with its photons/s,
+   its kernel time and phase 4's at 2**20; the slab's K5a table must have
+   been staged in shared memory. Its lane efficiency (the photons' steps
+   over the lane-steps of the warps' turns, ``last_trace``) must exceed
+   the estimate for a loop per photon (each warp of 32 consecutive ids
+   as long as its longest photon) from phase 17's per-photon steps of
+   the slab, printed beside it; so in phases 10, 11, 15 (phase 17's
+   mesh LSC records) and 25 (phase 24's);
 6. pvt_cheb against the twin on every Chebyshev fit of the scene, on a
    grid of 2**16 t and at every breakpoint, its float32 neighbours, the
    ends and NaN (each value's segment equal to the twin's), with the
@@ -41,7 +48,8 @@ each:
 9. a recorder scene whose bins exceed a block's shared memory, so the
    kernel's global-atomic bins path runs, against the twin;
 10. the main path with K5a and with the table lerp (K5b,
-    PVTRACE_TPU_NO_CHEB=1), in turns a, b, b, a: photons/s of each;
+    PVTRACE_TPU_NO_CHEB=1), in turns a, b, b, a: photons/s and lane
+    efficiency of each (K5b's estimate from its own per-photon steps);
 11. the recorder path at 2**27 photons for 4, 32 and 256 recorders,
     each read around its own run: photons/s, and launches of pvt_trace
     with no eager run; at 32, its tallies against the same photons in
@@ -75,7 +83,9 @@ each:
     on the slab, the slab with 32 recorders and the mesh LSC: fates within
     max(20, 0.2% of n), fate_scores and rec_scores within the stated
     bound, the block's placement (the threads' rows in shared memory)
-    equal to ``kernels.trace_layout``'s; each again with the rows forced
+    equal to ``kernels.trace_layout``'s, the slab's and the mesh LSC's
+    per-photon loop estimates equal to those phases 5-15 printed; each
+    again with the rows forced
     into device memory, its per-photon records bit-equal (only the
     addresses differ) and both placements timed in turns; then
     simulate(score=True) at 2**27 with 32 recorders against the same
@@ -369,10 +379,9 @@ def main():
     print(f"phase 1 build: {', '.join(p.name for p, _ in built.values())} in "
           f"{time.perf_counter() - tic:.1f} s", flush=True)
     for name, (_, report) in built.items():
-        for line in (report or "").splitlines():
-            if any(key in line for key in ("registers", "spill", "Compiling entry",
-                                           "Function properties")):
-                print(f"  ptxas {name}: {line.strip()}")
+        for fn, regs, stack, stores, loads in build.ptxas_rows(report or ""):
+            print(f"  ptxas {name} {fn}: {regs if regs is not None else '-'} registers, {stack} "
+                  f"bytes stack, {stores} bytes spill stores, {loads} bytes spill loads")
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -408,7 +417,8 @@ def main():
         f"vs {trace_rep['twin_fates']}, max diff {trace_rep['max_abs_err']}; "
         f"kernel {trace_rep['ms']:.4f} ms (through the wrapper {trace_rep['wrapper_ms']:.4f} "
         f"ms), twin {trace_rep['plain_ms']:.2f} ms, "
-        f"bound {trace_rep['bound_ms']:.4f} ms | {smi}",
+        f"bound {trace_rep['bound_ms']:.4f} ms, lane efficiency "
+        f"{trace_rep['lane_efficiency']:.4f} | {smi}",
         flush=True,
     )
 
@@ -430,6 +440,23 @@ def main():
         if launches["pvt_trace"] != 1 or not logged or eager:
             fail(f"main path did not run through pvt_trace: {launches}, eager runs {eager}")
         return result, launches
+
+    def loop_estimate(st_e, bundle=None):
+        """The lane efficiency a loop per photon would have on the score
+        trace's per-photon steps of N_CHECK photons at `seed` (phase 17's
+        run of `st_e`; with a bundle, phase 24's)."""
+        _, _, t, _ = kernels.trace(st_e, seed, N_CHECK, score=True, per_photon=True,
+                                   bundle=bundle)
+        return check.per_photon_loop_efficiency(t["photon_steps"])
+
+    def efficiency(label, run, estimate):
+        """A launch's lane efficiency (`run`: its last_trace), which must
+        exceed the loop per photon's `estimate`; printed as a phrase."""
+        eff = run["lane_efficiency"]
+        if not eff > estimate:
+            fail(f"{label}: lane efficiency {eff:.4f}, not above the per-photon loop's "
+                 f"{estimate:.4f}")
+        return f"lane efficiency {eff:.4f} (a loop per photon: {estimate:.4f})"
 
     def exit_z(fates):
         """z of the exit fraction against phase 4's twin (other photons)."""
@@ -464,20 +491,23 @@ def main():
 
     # 5. the main path at full size, at the scene's defaults (K5a)
     result, main_launches = drive(scene, compiled, 2)
+    main_run = dict(kernels.last_trace)
+    slab_estimate = loop_estimate(st)
     fates = np.asarray(result.data["fates"])
     z = exit_z(fates)
     if not z < 5:
         fail(f"main path exit fraction: z = {z:.2f} against the twin")
     rate = N_MAIN / result.elapsed
-    if not kernels.last_trace["shared_cheb"]:
-        fail(f"main path: the slab's K5a table was not staged in shared memory: "
-             f"{kernels.last_trace}")
+    if not main_run["shared_cheb"]:
+        fail(f"main path: the slab's K5a table was not staged in shared memory: {main_run}")
     print(
         f"phase 5 main path: simulate({N_MAIN} photons) fates {fates.tolist()}, "
         f"exit z = {z:.2f}, longest photon {result.data['steps']} steps, "
-        f"{kernels.last_trace['threads']} threads, {result.elapsed:.4f} s, "
-        f"{rate:.6g} photons/s, kernel {kernels.last_trace['ms']:.2f} ms, K5a table in shared "
-        f"memory ({kernels.last_trace['shared_bytes']} bytes a block), launches {main_launches} "
+        f"{main_run['threads']} threads, {result.elapsed:.4f} s, "
+        f"{rate:.6g} photons/s, kernel {main_run['ms']:.2f} ms (at {N_CHECK}, phase 4: "
+        f"{trace_rep['ms']:.4f} ms), {main_run['total_steps']} steps, "
+        f"{efficiency('main path', main_run, slab_estimate)}, K5a table in shared "
+        f"memory ({main_run['shared_bytes']} bytes a block), launches {main_launches} "
         f"| {smi}",
         flush=True,
     )
@@ -581,6 +611,8 @@ def main():
     # The two compute different functions of the same photons, so their
     # fates differ (which shows the switch took effect) by far less than z 5.
     rates, spectra_fates = {"K5a": [], "K5b": []}, {}
+    spectra_eff = {"K5a": [], "K5b": []}
+    estimates = {"K5a": slab_estimate, "K5b": loop_estimate(st_b)}
     for spectra in ("K5a", "K5b", "K5b", "K5a"):
         if spectra == "K5b":
             os.environ["PVTRACE_TPU_NO_CHEB"] = "1"
@@ -589,6 +621,7 @@ def main():
         finally:
             os.environ.pop("PVTRACE_TPU_NO_CHEB", None)
         rates[spectra].append(N_MAIN / res.elapsed)
+        spectra_eff[spectra].append(efficiency(spectra, kernels.last_trace, estimates[spectra]))
         spectra_fates[spectra] = np.asarray(res.data["fates"])
         z_ab = exit_z(spectra_fates[spectra])
         if not z_ab < 5:
@@ -597,7 +630,8 @@ def main():
         fail("the main path gave the same fates with K5a and K5b: the switch did nothing")
     print(
         f"phase 10 spectra: photons/s K5a {[f'{r:.6g}' for r in rates['K5a']]}, "
-        f"K5b {[f'{r:.6g}' for r in rates['K5b']]} ({N_MAIN} photons); fates K5a "
+        f"K5b {[f'{r:.6g}' for r in rates['K5b']]} ({N_MAIN} photons); K5a: "
+        f"{'; '.join(spectra_eff['K5a'])}; K5b: {'; '.join(spectra_eff['K5b'])}; fates K5a "
         f"{spectra_fates['K5a'].tolist()}, K5b {spectra_fates['K5b'].tolist()} | {smi}",
         flush=True,
     )
@@ -624,8 +658,8 @@ def main():
             f"phase 11 recorders R={R}: {N_MAIN} photons, {res.elapsed:.4f} s, "
             f"{rec_rates[R]:.6g} photons/s, distinct {distinct.tolist()[:4]}..., "
             f"shared bins {bool(run['shared_bins'])} ({run['shared_bytes']} bytes a block), "
-            f"{run['threads']} threads, launches {rec_launches[R]}{chunks} "
-            f"| {smi}",
+            f"{run['threads']} threads, {efficiency(f'R={R}', run, slab_estimate)}, "
+            f"launches {rec_launches[R]}{chunks} | {smi}",
             flush=True,
         )
 
@@ -691,6 +725,7 @@ def main():
 
     # 15. full width: meshes, histories, and the slab beside phase 5
     full = {}
+    mesh_estimate = loop_estimate(st_mesh)
     for label, n, every in (("mesh", N_MAIN, 0), ("mesh, record_every=1000", N_MAIN, 1000),
                             ("mesh, record_every=1", N_LOG_FULL, 1)):
         res, full_launches = drive(mesh_scene, mesh_compiled, 15, n, every)
@@ -711,7 +746,8 @@ def main():
             f"phase 15 {label}: {n} photons, {res.elapsed:.4f} s, {n / res.elapsed:.6g} "
             f"photons/s, pvt_trace {kernels.last_trace['ms']:.2f} ms, fates "
             f"{np.asarray(res.data['fates']).tolist()}, {full[label]['slots']} slots, "
-            f"{full[label]['records']} records, log {log_bytes} bytes, launches {full_launches} "
+            f"{full[label]['records']} records, log {log_bytes} bytes, "
+            f"{efficiency(label, kernels.last_trace, mesh_estimate)}, launches {full_launches} "
             f"| {smi}",
             flush=True,
         )
@@ -720,7 +756,8 @@ def main():
                           "kernel_ms": kernels.last_trace["ms"]}
     print(
         f"phase 15 slab again: {N_MAIN / res.elapsed:.6g} photons/s (phase 5: {rate:.6g}), "
-        f"pvt_trace {kernels.last_trace['ms']:.2f} ms | {smi}",
+        f"pvt_trace {kernels.last_trace['ms']:.2f} ms, "
+        f"{efficiency('slab again', kernels.last_trace, slab_estimate)} | {smi}",
         flush=True,
     )
 
@@ -761,6 +798,11 @@ def main():
         if not (rep["shared_scores"] and rep["shared_rows"]):
             fail(f"{label}: the score sums or the rows did not take the shared-memory path")
         rep["rows"] = check.check_rows_placement(st_s, seed, N_CHECK, rep["tallies"])
+        rep["loop_estimate"] = check.per_photon_loop_efficiency(rep["tallies"]["photon_steps"])
+        printed = {"slab": slab_estimate, "mesh LSC": mesh_estimate}.get(label)
+        if printed is not None and rep["loop_estimate"] != printed:
+            fail(f"{label}: per-photon loop estimate {rep['loop_estimate']} from these records, "
+                 f"not the one printed before")
         print(
             f"phase 17 pvt_trace_score vs twin, {label}: {N_CHECK} photons, fates {rep['fates']} "
             f"vs {rep['twin_fates']}, {rep['parted']} photons parted (limit "
@@ -768,6 +810,7 @@ def main():
             f"{rep['record_used']:.3g} of their bound, score sums at {rep['sums_used']:.3g} of "
             f"theirs (fate_scores within {rep['max_abs_err']:.4g} of the twin's); kernel "
             f"{rep['ms']:.4f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms; "
+            f"per-photon steps' loop estimate {rep['loop_estimate']:.4f}; "
             f"rows in shared memory ({kernels.trace_layout(st_s, True)['shared_bytes']} bytes a block); "
             f"forced into device memory, records bit-equal, kernel ms in turns shared "
             f"{rep['rows']['ms_placed']} / device {rep['rows']['ms_device']} | {smi}",
@@ -1024,6 +1067,7 @@ def main():
     bundle_rep = check.check_trace(st_host, seed, N_CHECK, bundle=bundle)
     bundle_log = check.check_log(st_host, seed, N_LOG, bundle=bundle[:, :N_LOG].contiguous())
     bundle_score = check.check_trace_scores(st_host, seed, N_CHECK, bundle=bundle)
+    host_estimate = check.per_photon_loop_efficiency(bundle_score["tallies"]["photon_steps"])
     print(
         f"phase 24 pvt_trace bundle mode vs twin, slab lit by a histogram lamp, 4 recorders: "
         f"{N_CHECK} photons from one emit_bundle, fates {bundle_rep['fates']} vs "
@@ -1032,9 +1076,11 @@ def main():
         f"photons: {bundle_log['diverged']} diverged, floats within "
         f"{bundle_log['max_rel_err']:.3g} of their scale; score: {bundle_score['parted']} "
         f"photons parted, records at {bundle_score['record_used']:.3g} and sums at "
-        f"{bundle_score['sums_used']:.3g} of their bounds; kernel {bundle_rep['ms']:.4f} ms "
+        f"{bundle_score['sums_used']:.3g} of their bounds, per-photon steps' loop estimate "
+        f"{host_estimate:.4f}; kernel {bundle_rep['ms']:.4f} ms "
         f"(wrapper {bundle_rep['wrapper_ms']:.4f}) "
-        f"(score {bundle_score['ms']:.2f} ms), twin {bundle_rep['plain_ms']:.2f} ms, bound "
+        f"(score {bundle_score['ms']:.2f} ms), lane efficiency "
+        f"{bundle_rep['lane_efficiency']:.4f}, twin {bundle_rep['plain_ms']:.2f} ms, bound "
         f"{bundle_rep['bound_ms']:.4f} ms | {smi}",
         flush=True,
     )
@@ -1061,6 +1107,7 @@ def main():
     res = simulate(lsc_slab_host(), N_HOST, seed=25, record_every=0, dtype=np.float32)
     host_wall = time.perf_counter() - tic
     host_launches = dict(kernels.launches)
+    host_run = dict(kernels.last_trace)
     fates = np.asarray(res.data["fates"])
     if host_launches["pvt_trace"] != 1 or host_launches["pvt_trace_bundle"] != 1 \
             or tracer.eager_runs:
@@ -1072,7 +1119,8 @@ def main():
     print(
         f"phase 25 host-emission path: simulate(lsc_slab_host(), {N_HOST}) fates "
         f"{fates.tolist()}, {res.elapsed:.4f} s over elapsed (upload, pvt_trace "
-        f"{kernels.last_trace['ms']:.2f} ms, fetch), {host_rate:.6g} photons/s (phase 5: "
+        f"{host_run['ms']:.2f} ms, fetch), {efficiency('host emission', host_run, host_estimate)}, "
+        f"{host_rate:.6g} photons/s (phase 5: "
         f"{rate:.6g}); numpy emission and set-up {host_wall - res.elapsed:.3f} s apart; "
         f"launches {host_launches} | {smi}",
         flush=True,
@@ -1189,6 +1237,10 @@ def main():
         ("pvt_step", step_rep, {"n": N_CHECK}),
         ("pvt_trace", trace_rep, {
             "n": N_CHECK, "wrapper_ms": trace_rep["wrapper_ms"],
+            "lane_efficiency": trace_rep["lane_efficiency"],
+            "main_path_kernel_ms": main_run["ms"],
+            "main_path_lane_efficiency": main_run["lane_efficiency"],
+            "per_photon_loop_efficiency": slab_estimate,
             "main_path_ms": result.elapsed * 1e3,
             "main_path_photons_per_s": rate,
             "photons_per_s_K5a": rates["K5a"], "photons_per_s_K5b": rates["K5b"],
@@ -1267,6 +1319,10 @@ def main():
     rows += [
         ("pvt_trace_bundle", bundle_rep, {
             "n": N_CHECK, "scene": "lsc_slab_host(n_rec=4)",
+            "lane_efficiency": bundle_rep["lane_efficiency"],
+            "host_path_kernel_ms": host_run["ms"],
+            "host_path_lane_efficiency": host_run["lane_efficiency"],
+            "per_photon_loop_efficiency": host_estimate,
             "log": {k: bundle_log[k] for k in ("diverged", "max_rel_err", "ms", "plain_ms")},
             "score": {k: bundle_score[k] for k in ("parted", "ms", "plain_ms", "bound_ms")},
             "host_path_photons_per_s": host_rate, "host_path_elapsed_s": res.elapsed,

@@ -33,16 +33,19 @@ from pvtrace_tpu_torch.kernels import build
 # reported: its thread count, the dynamic shared memory of a block,
 # whether the recorder bins, the score sums, the K5a table ("shared_cheb")
 # and the threads' score and tangent rows ("shared_rows") were in shared
-# memory (else in device memory), the steps its photons took in all, and
-# its time on the card (CUDA events, ms); and where the last pvt_cheb
-# launch read the table.
+# memory (else in device memory), the steps its photons took in all, the
+# lane-steps of its warps' turns (32 a turn of each warp: a lane without a
+# photon idles through its warp's turn) and the share of them that traced
+# a photon (``lane_efficiency``), and its time on the card (CUDA events,
+# ms); and where the last pvt_cheb launch read the table.
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
-              "shared_cheb": 0, "shared_rows": 0, "total_steps": 0, "ms": 0.0}
+              "shared_cheb": 0, "shared_rows": 0, "total_steps": 0, "lane_steps": 0,
+              "lane_efficiency": 0.0, "ms": 0.0}
 last_cheb = {"shared_cheb": 0}
 # A trace block's threads (tracer.cuh's kBlock).
 BLOCK = 256
@@ -516,14 +519,14 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     nxt = torch.full((1,), index_offset, device=dev, dtype=torch.int64)
     fates = torch.zeros(physics.N_FATES, device=dev, dtype=torch.int64)
     longest = torch.zeros(1, device=dev, dtype=torch.int32)
-    total_steps = torch.zeros(1, device=dev, dtype=torch.int64)
+    steps = torch.zeros(2, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
     info = (ctypes.c_longlong * 6)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
-        nxt.data_ptr(), fates.data_ptr(), longest.data_ptr(), total_steps.data_ptr(),
+        nxt.data_ptr(), fates.data_ptr(), longest.data_ptr(), steps.data_ptr(),
         ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc),
     )
     specs = tuple(pathwise) if score else ()
@@ -554,9 +557,10 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     if per_photon:
         res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
                    photon_steps=photon[CH + 1].long())
+    total_steps, lane_steps = steps.tolist()
     last_trace.update(
-        threads=info[0], **_placement(info), total_steps=int(total_steps.item()),
-        ms=start.elapsed_time(stop),
+        threads=info[0], **_placement(info), total_steps=total_steps, lane_steps=lane_steps,
+        lane_efficiency=total_steps / max(lane_steps, 1), ms=start.elapsed_time(stop),
     )
     launch_ms["pvt_trace"] += last_trace["ms"]
     if name != "pvt_trace":

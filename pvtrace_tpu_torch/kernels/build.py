@@ -9,13 +9,14 @@ instantiations with pathwise channels, ``pvt_pathwise``) and ``diff``
 a hash of the sources and flags, so a build happens at first use and
 again only when a source changes; ``build_all`` starts one nvcc per
 library, all at once. Run ``python -m pvtrace_tpu_torch.kernels.build``
-to build ahead of use and print nvcc's register and spill report.
+to build ahead of use and print nvcc's registers, stack frame and spills
+of every function (``ptxas_rows``).
 """
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-import sys
 import tempfile
 from pathlib import Path
 
@@ -88,8 +89,48 @@ def build(name="tracer"):
     return build_all((name,))[name]
 
 
+def short_name(mangled):
+    """A function's name from its mangled one (an anonymous namespace
+    left out), a trace instantiation's with its template flags:
+    ``trace_kernel<0,0,0,0,0,0>``."""
+    at = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", mangled[at:])
+        if not m:
+            return mangled
+        k, at = int(m.group()), at + m.end()
+        name, at = mangled[at:at + k], at + k
+        if not name.startswith("_GLOBAL__N"):
+            break
+    flags = re.match(r"I((?:Lb[01]E)+)E", mangled[at:])
+    return name + (f"<{','.join(re.findall(r'Lb([01])E', flags.group(1)))}>" if flags else "")
+
+
+def ptxas_rows(report):
+    """nvcc's ``-Xptxas -v`` report as one row a function: (name,
+    registers or None for a function kept out of line, stack frame bytes,
+    spill stores, spill loads)."""
+    order, regs, frames, current = [], {}, {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            current = m.group(1)
+            if current not in order:
+                order.append(current)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and current:
+            frames[current] = tuple(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            regs[current] = int(m.group(1))
+    return [(short_name(f), regs.get(f), *frames.get(f, (0, 0, 0))) for f in order]
+
+
 if __name__ == "__main__":
     for name, (path, report) in build_all().items():
         print(path)
-        if report:
-            print(report, file=sys.stderr)
+        for fn, regs, stack, stores, loads in ptxas_rows(report or ""):
+            print(f"  {fn}: {regs if regs is not None else '-'} registers, {stack} bytes stack, "
+                  f"{stores} bytes spill stores, {loads} bytes spill loads")

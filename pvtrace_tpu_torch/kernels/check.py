@@ -478,6 +478,7 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
         "longest": longest,
         "twin_steps": steps,
         "total_steps": kernels.last_trace["total_steps"],
+        "lane_efficiency": kernels.last_trace["lane_efficiency"],
         "shared_bins": bool(kernels.last_trace["shared_bins"]),
         "ms": kernels.last_trace["ms"],
         "wrapper_ms": wrapper_ms,
@@ -513,6 +514,18 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
         report["crossings"] = int(got_t["cross"][:R].sum())
         report["bin_adds"] = int(got_t["bins"].sum())
     return report
+
+
+def per_photon_loop_efficiency(photon_steps, warp=32):
+    """The lane efficiency a loop per photon would have on these photons
+    (each photon's steps, in photon-id order): a warp's lanes take `warp`
+    consecutive ids together and all wait for the longest, so the steps
+    traced over the lane-steps paid are the mean steps over the mean of
+    each group's longest. pvt_trace's loop before it stepped every lane
+    each turn; its ``last_trace["lane_efficiency"]`` stands beside this."""
+    steps = photon_steps.double()
+    steps = steps[:steps.numel() // warp * warp].view(-1, warp)
+    return float(steps.mean() / steps.max(1).values.mean())
 
 
 def check_chunks(st, seed_words, data, n, chunk=1 << 20):

@@ -15,7 +15,9 @@ namespace {
 // Blocks of the trace kernel resident per SM, which caps a thread at 128
 // registers: left free, nvcc gives the main path's instantiation and the
 // heavier ones more and one block per SM, which ran slower than two
-// blocks that spill a little (an A/B build on the H100). A block's shared
+// blocks that spill a little (an A/B build on the H100; again with the
+// step-a-turn loop: as fast on pvt_trace, slower with score or pathwise
+// channels; PERF.md, section 6). A block's shared
 // memory, kSharedTallyLimit, and its layout (trace_layout) are in
 // tracer.cuh.
 constexpr int kMinBlocks = 2;
@@ -133,43 +135,62 @@ cudaError_t allow_shared(K kernel, size_t bytes) {
 enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 
 // Replaces _run, the while_loop of body_fast (and of body) steps and its
-// lane regeneration (pvtrace_tpu/engine/tracer.py): K1-K12 in one kernel.
-// Persistent: each thread takes the next photon id from a 64-bit atomic
-// counter, keys and emits the photon, steps it in registers until it
-// dies, and takes another, until `total`. Every photon's streams are a
-// pure function of (seed, pid, its own step count), so which thread
-// traces which pid cannot change the result, and there is no host loop,
-// no per-step sync and no refill prefix sum. Bound by divergence and
-// registers (the physics step per thread); the atomic is one per photon.
-// Fates and steps stay in registers, are reduced per block in shared
-// memory and added to the int64 counters, one atomic each. With
+// lane regeneration (pvtrace_tpu/engine/tracer.py): K1-K13 in one kernel,
+// persistent, with no host loop and no per-step sync. Each turn of a
+// warp's loop is one step of every lane that holds a live photon
+// (photon_step, tracer.cuh). At the top of a turn the lanes whose photon
+// has died, or that hold none, take the next photon ids, the JAX
+// package's regeneration at warp scope: a ballot finds them, one lane adds
+// their number to the 64-bit counter (one atomic a warp), and each takes
+// the id at its rank among them (lane_rank), keys and emits
+// its photon (photon_start) and steps with the others in the same turn.
+// The warp leaves when no lane holds a photon. Every photon's streams are
+// a pure function of (seed, pid, its own step count), so which lane
+// traces which pid, and when, changes no result.
+//
+// What bounds it: a warp's 32 lanes run one instruction stream, so a lane
+// without a photon idles through its warp's turns. A loop per photon (a
+// lane took a new photon only when all 32 of its warp's had died, the
+// design before) spent 0.42 of a warp's lane-steps on photons on the
+// slab: a photon takes 4.76 steps on average, the longest of 32 about 11.
+// Now a lane idles only in the run's last turns (lane_steps: kWarp a turn
+// of each warp; 0.999 of them trace a photon at 2^27 photons, 0.92 at
+// 2^20), and the refilled lanes' emission branch, which the others wait
+// through, costs less than waiting for more lanes to refill together
+// would. Past that the step itself bounds it: its arithmetic, divergence
+// inside step_one (lanes hold photons at different stages) and registers
+// (128 a thread at two blocks an SM); with score channels and no
+// recorders, the fold's float64 shared-memory atomics (PERF.md, section 6).
+//
+// Fates, steps and turns stay in registers, are reduced per block in
+// shared memory and added to the int64 counters, one atomic each. With
 // recorders (kTally), each photon's events go to the block's shared
-// accumulators (a per-thread `seen` bitset marks the recorders the
-// photon has matched), flushed once at the end, the moment sums also
-// every SUMS_FLUSH distinct rays of a recorder. The instantiation
-// without recorders computes no selectors and takes no normal on EXIT.
-// With the event log (kLog, K11; replaces _record and the log calls of
-// body), a recorded photon's thread writes its records to the photon's
-// own row with plain stores, its record count in a register: the thread
-// traces the photon from emission to death, so no two threads share a
-// row and nothing needs an atomic. With score channels (kScore, K12;
-// replaces the score block of body), the photon's score lives in the
-// thread's own row of `score.rows` (any number of channels; a step
-// touches the container's components and two node channels), and is
-// folded in float64 into the block's shared [fate, channel] sums, which
-// go to the totals at the end; the rows are the block's, in shared memory
-// where they fit (trace_layout), so a step's reads and writes of them stay
-// on the SM. The instantiations without the log carry
-// none of its code, those without meshes (kMesh) none of K10's, those
-// without scores none of K12's. With pathwise channels (kPath, K13, only
-// with kScore; replaces the pathwise block of body), the photon's tangents
-// live in the thread's own rows of `score.tang` beside its score row, and
-// each step's tangent map and hybrid terms run after the primal step
-// (pathwise_step); only the instantiations of pathwise.cu carry that code.
-// With kBundle (K8's trace_bundle entry) each photon starts from its row of
-// a host bundle in place of emit_one: a template axis, not a runtime branch,
-// because a branch on the bundle in every instantiation moved the
-// registers and spills of nearly all of them (PERF.md, section 6).
+// accumulators (the lane's `seen` bitset marks the recorders the photon
+// has matched), flushed once at the end, the moment sums also every
+// SUMS_FLUSH distinct rays of a recorder. The instantiation without
+// recorders computes no selectors and takes no normal on EXIT. With the
+// event log (kLog, K11; replaces _record and the log calls of body), a
+// recorded photon's lane writes its records to the photon's own row with
+// plain stores, its record count in a register: one lane traces the
+// photon from emission to death, so no two threads share a row and
+// nothing needs an atomic. With score channels (kScore, K12; replaces the
+// score block of body), the photon's score lives in the thread's own row
+// of `score.rows` (any number of channels; a step touches the container's
+// components and two node channels), zeroed at each start, and is folded
+// in float64 into the block's shared [fate, channel] sums, which go to the
+// totals at the end; the rows are the block's, in shared memory where
+// they fit (trace_layout), so a step's reads and writes of them stay on
+// the SM. The instantiations without the log carry none of its code,
+// those without meshes (kMesh) none of K10's, those without scores none of
+// K12's. With pathwise channels (kPath, K13, only with kScore; replaces
+// the pathwise block of body), the photon's tangents live in the thread's
+// own rows of `score.tang` beside its score row, and each step's tangent
+// map and hybrid terms run after the primal step (pathwise_step); only
+// the instantiations of pathwise.cu carry that code. With kBundle (K8's
+// trace_bundle entry) each photon starts from its row of a host bundle in
+// place of emit_one: a template axis, not a runtime branch, because a
+// branch on the bundle in every instantiation moved the registers and
+// spills of nearly all of them (PERF.md, section 6).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
           bool kBundle = false>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
@@ -177,10 +198,10 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
              PvtScore score, PvtBundle bundle, int cheb_at) {
-  __shared__ unsigned long long block_fates[6];
+  __shared__ unsigned long long block_fates[7];
   __shared__ int block_max;
   extern __shared__ __align__(16) unsigned char smem[];
-  if (threadIdx.x < 6) block_fates[threadIdx.x] = 0ull;
+  if (threadIdx.x < 7) block_fates[threadIdx.x] = 0ull;
   if (threadIdx.x == 0) block_max = 0;
   PvtTally acc;
   if (kTally) acc = tally_block_init(sc, smem, shared_bins, tout);
@@ -194,12 +215,31 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 
   FateCounts f = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
   int longest = 0;
+  unsigned long long turns = 0ull;
+  const int lane = threadIdx.x % kWarp;
+  bool exhausted = false;
+  TraceLane L;
+  L.p.alive = false;
   for (;;) {
-    const unsigned long long id = atomicAdd(next, 1ull);
-    if (id >= total) break;
-    longest = max(longest, trace_photon<kTally, kLog, kMesh, kScore, kPath, kBundle>(
-                               sc, cheb, s0, s1, (uint32_t)id, f, &acc, &lg,
-                               kScore ? &sa : nullptr, bundle));
+    const uint32_t dead = __ballot_sync(0xffffffffu, !L.p.alive);
+    if (!exhausted && dead) {
+      const int leader = __ffs(dead) - 1;
+      unsigned long long base = 0ull;
+      if (lane == leader) base = atomicAdd(next, (unsigned long long)__popc(dead));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      exhausted = base + __popc(dead) >= total;
+      const unsigned long long id = base + lane_rank(dead, lane);
+      if (!L.p.alive && id < total)
+        photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, L,
+                                                           &lg, kScore ? &sa : nullptr, bundle);
+    }
+    if (!__any_sync(0xffffffffu, L.p.alive)) break;
+    ++turns;
+    if (L.p.alive) {
+      photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, &acc, &lg,
+                                                      kScore ? &sa : nullptr);
+      if (!L.p.alive) longest = max(longest, photon_finish(L, f));
+    }
   }
 
   atomicAdd(&block_fates[0], f.exit);
@@ -208,6 +248,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   atomicAdd(&block_fates[3], f.kill);
   atomicAdd(&block_fates[4], f.no_hit);
   atomicAdd(&block_fates[5], f.steps);
+  atomicAdd(&block_fates[6], turns);
   atomicMax(&block_max, longest);
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -215,6 +256,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     for (int k = 0; k < 5; ++k)
       if (block_fates[k]) atomicAdd(&fates[slot[k]], block_fates[k]);
     atomicAdd(steps, block_fates[5]);
+    atomicAdd(steps + 1, block_fates[6]);
     atomicMax(max_count, block_max);
   }
   if (kTally) tally_block_flush(sc, acc, tout);

@@ -150,8 +150,11 @@ int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const floa
 // memory of a block, info[2] 1 when the recorder bins were in shared
 // memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
 // K5a table was, info[5] 1 when the threads' score rows were (0 here).
-// With sc->n_rec == 0
-// the tally outputs are not touched, with log->n_slots == 0 the log. With
+// fates [11], max_count and steps [2] (zeroed by the caller) get the fate
+// counts, the longest photon's steps, the photons' steps in all and the
+// lane-steps of the warps' turns (kWarp a turn of each warp). With
+// sc->n_rec == 0 the tally outputs are not touched, with log->n_slots == 0
+// the log. With
 // bundle->rows set, photon pid starts from column pid - bundle->first of
 // the host bundle (K8's trace_bundle entry; the caller sets next to
 // bundle->first and total to first + n), else it is emitted on the device.

@@ -14,6 +14,9 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 #ifdef __CUDACC__
 #define PVT_FN __host__ __device__ __forceinline__
@@ -2216,94 +2219,211 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
                o.adjacent, -1, p.source, pos, d_out, o.wn, p.wav, p.trav, p.dur);
 }
 
-// pvt_trace: key, emit and step photon `pid` until it dies, adding its
-// fates and steps to f, with kTally its recorder events to *acc, and with
-// kLog, when it is recorded, its events to *lg: GENERATE at emission,
-// then each step's records, and the event-budget KILL (a recorded photon
-// with max_events - 1 records or more dies before its next step, counted
-// in f.kill). kMesh false: the scene has no mesh. With kScore the photon's
-// path score lives in the thread's row of *sa: zeroed at emission, the
-// step's contributions added after each step, folded at its fate where
-// the step terminated it (or at KILL by the event budget), its record
-// written where the run keeps them, and added by the recorders at a
-// first match. With kPath (and kScore) the photon's pathwise tangents
-// live in the thread's rows of sa->tang, zeroed at emission, and each step
-// adds the pathwise channels' contributions (pathwise_step, with the
-// photon's wavelength-tangent flag) before the fold. With kBundle the photon starts from its row of the host bundle
-// (load_one) in place of emit_one; its keys are the same. Returns its step
-// count.
+// ---------------------------------------------------------------------
+// K7/K8: a photon's trace in three pieces, start, step and finish, which
+// pvt_trace's loop (trace_kernel.cuh) runs one step a turn on every lane
+// of a warp and trace_photon runs back to back. What a lane carries from
+// one step to the next: the photon, its keys and id, with kTally the
+// recorders it has matched (`seen`), with kLog its log slot (-1: not
+// recorded) and record count, with kPath its wavelength-tangent flag.
+struct TraceLane {
+  Photon p;
+  uint32_t k0, k1, pid;
+  uint32_t seen[SEEN_WORDS];
+  long long slot;
+  int nev;
+  bool dwav;
+};
+
+// start: key and emit photon `pid` into lane L (kBundle: its row of the
+// host bundle, load_one, in place of emit_one; its keys are the same),
+// clear its `seen` bits, with kScore zero its score row (kPath: and its
+// tangent rows) in *sa, and with kLog, when it is recorded, write its
+// GENERATE record. Every photon starts alive.
+template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
+PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+                         uint32_t pid, TraceLane& L, const PvtLog* lg, const ScoreAcc* sa,
+                         const PvtBundle& bundle) {
+  L.pid = pid;
+  threefry(s0, s1, pid, 0u, L.k0, L.k1);
+  if (kBundle)
+    load_one(bundle, pid, L.p);
+  else
+    emit_one(sc, cheb, L.k0, L.k1, pid, L.p);
+  if (kTally)
+    for (int k = 0; k < SEEN_WORDS; ++k) L.seen[k] = 0u;
+  if (kScore)
+    for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
+  if (kPath)
+    for (int k = 0; k < 7 * sa->n_path; ++k) sa->tang[k * sa->stride] = 0.0f;
+  L.dwav = false;
+  L.slot = -1;
+  L.nev = 0;
+  if (kLog && pid % lg->every == 0) {
+    L.slot = (long long)(((unsigned long long)pid - lg->first) / lg->every);
+    if (L.slot >= lg->n_slots) L.slot = -1;
+  }
+  if (kLog && L.slot >= 0) {
+    const Photon& p = L.p;
+    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+    log_record(*lg, L.slot, L.nev, EV_GENERATE, -1, -1, -1, -1, -1, pos, dir, nullptr, p.wav,
+               0.0f, 0.0f);
+  }
+}
+
+// step: one step of lane L's live photon, adding its fates to f, with
+// kTally its recorder events to *acc, with kLog, when it is recorded, the
+// step's records to *lg, or the event-budget KILL (a recorded photon with
+// max_events - 1 records or more dies before its next step, counted in
+// f.kill). kMesh false: the scene has no mesh. With kScore the step's
+// contributions go to the photon's score row, which is folded at its fate
+// where the step ended it (or at KILL by the event budget) with its record
+// written where the run keeps them, and added by the recorders at a first
+// match; with kPath (and kScore) the pathwise channels' contributions
+// (pathwise_step, with the photon's wavelength-tangent flag) before the
+// fold. When the photon dies, L.p.alive is false.
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath>
+PVT_FN void photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateCounts& f,
+                        const PvtTally* acc, const PvtLog* lg, const ScoreAcc* sa) {
+  Photon& p = L.p;
+  p.count += 1;
+  if (kLog && L.slot >= 0 && L.nev >= lg->max_events - 1) {
+    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+    log_record(*lg, L.slot, L.nev, EV_KILL, -1, -1, -1, -1, p.source, pos, dir, nullptr, p.wav,
+               p.trav, p.dur);
+    f.kill += 1;
+    if (kScore) {
+      score_add(*sa, sa->fate, N_FATES, EV_KILL);
+      score_record(*sa, L.pid, EV_KILL, p.count);
+    }
+    p.alive = false;
+    return;
+  }
+  const float d_in[3] = {p.dx, p.dy, p.dz};
+  const float wav_in = p.wav;
+  const int src_in = p.source;
+  const float p_in[3] = {p.px, p.py, p.pz};
+  float u[8];
+  pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
+  StepOut o;
+  step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o);
+  f.exit += o.exit_mask;
+  f.nonrad += o.losing;
+  f.react += o.reacting;
+  f.kill += o.kills;
+  f.no_hit += o.no_hit_term;
+  if (kScore) {
+    score_step(sc, cheb, o, wav_in, *sa);
+    if (kPath) pathwise_step(sc, cheb, o, p_in, d_in, wav_in, u, *sa, L.dwav);
+    const int fate = score_fate(o);
+    if (fate >= 0) {
+      score_add(*sa, sa->fate, N_FATES, fate);
+      score_record(*sa, L.pid, fate, p.count);
+    }
+  }
+  if (kTally) tally_event(sc, *acc, L.seen, o, p, kScore ? sa : nullptr);
+  if (kLog && L.slot >= 0) log_step(*lg, L.slot, L.nev, o, p, d_in, wav_in, src_in);
+}
+
+// finish: adds lane L's dead photon's steps to f and returns them.
+PVT_FN int photon_finish(const TraceLane& L, FateCounts& f) {
+  f.steps += (unsigned long long)L.p.count;
+  return L.p.count;
+}
+
+// Photon `pid` from emission to death, the three pieces back to back:
+// start, step while it lives, finish. Returns its step count.
 template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
           bool kBundle = false>
 PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
                         uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
-  uint32_t k0, k1;
-  threefry(s0, s1, pid, 0u, k0, k1);
-  Photon p;
-  if (kBundle)
-    load_one(bundle, pid, p);
-  else
-    emit_one(sc, cheb, k0, k1, pid, p);
-  uint32_t seen[SEEN_WORDS];
-  if (kTally)
-    for (int k = 0; k < SEEN_WORDS; ++k) seen[k] = 0u;
-  if (kScore)
-    for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
-  if (kPath)
-    for (int k = 0; k < 7 * sa->n_path; ++k) sa->tang[k * sa->stride] = 0.0f;
-  bool dwav = false;
-  long long slot = -1;
-  int nev = 0;
-  if (kLog && pid % lg->every == 0) {
-    slot = (long long)(((unsigned long long)pid - lg->first) / lg->every);
-    if (slot >= lg->n_slots) slot = -1;
-  }
-  if (kLog && slot >= 0) {
-    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
-    log_record(*lg, slot, nev, EV_GENERATE, -1, -1, -1, -1, -1, pos, dir, nullptr, p.wav, 0.0f,
-               0.0f);
-  }
-  while (p.alive) {
-    p.count += 1;
-    if (kLog && slot >= 0 && nev >= lg->max_events - 1) {
-      const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
-      log_record(*lg, slot, nev, EV_KILL, -1, -1, -1, -1, p.source, pos, dir, nullptr, p.wav,
-                 p.trav, p.dur);
-      f.kill += 1;
-      if (kScore) {
-        score_add(*sa, sa->fate, N_FATES, EV_KILL);
-        score_record(*sa, pid, EV_KILL, p.count);
-      }
-      break;
-    }
-    const float d_in[3] = {p.dx, p.dy, p.dz};
-    const float wav_in = p.wav;
-    const int src_in = p.source;
-    const float p_in[3] = {p.px, p.py, p.pz};
-    float u[8];
-    pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
-    StepOut o;
-    step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o);
-    f.exit += o.exit_mask;
-    f.nonrad += o.losing;
-    f.react += o.reacting;
-    f.kill += o.kills;
-    f.no_hit += o.no_hit_term;
-    if (kScore) {
-      score_step(sc, cheb, o, wav_in, *sa);
-      if (kPath) pathwise_step(sc, cheb, o, p_in, d_in, wav_in, u, *sa, dwav);
-      const int fate = score_fate(o);
-      if (fate >= 0) {
-        score_add(*sa, sa->fate, N_FATES, fate);
-        score_record(*sa, pid, fate, p.count);
-      }
-    }
-    if (kTally) tally_event(sc, *acc, seen, o, p, kScore ? sa : nullptr);
-    if (kLog && slot >= 0) log_step(*lg, slot, nev, o, p, d_in, wav_in, src_in);
-  }
-  f.steps += (unsigned long long)p.count;
-  return p.count;
+  TraceLane L;
+  photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, pid, L, lg, sa, bundle);
+  while (L.p.alive) photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, acc, lg, sa);
+  return photon_finish(L, f);
 }
+
+// The warp's refill, as pvt_trace's loop takes it (the JAX package's
+// regeneration at warp scope): at the top of every turn in which some lane
+// holds no live photon, the lanes that hold none (`dead`, a bit a lane)
+// take the next ids of the run's counter, one atomic for the warp, lane l
+// the id at its rank among them. Waiting for 4, 8 or 16 dead lanes before
+// a refill gained 3 % at most (at 2^20 photons) and lost 4-10 % on the
+// main path and the mesh LSC at full size (PERF.md, section 6).
+constexpr int kWarp = 32;
+
+PVT_FN int pvt_popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// Lane l's rank among the lanes of `dead`: how many of them are below it.
+PVT_FN int lane_rank(uint32_t dead, int l) { return pvt_popc(dead & ((1u << l) - 1u)); }
+
+#ifndef __CUDACC__
+// The host build's model of pvt_trace's loop, for the CPU tests: `warps`
+// warps of kWarp lanes (lane k's score rows at sa[k]) take turns in
+// order, each turn as a warp of the kernel takes it (the refill by
+// lane_rank, the ids from *next up to `total`), until none holds a
+// photon. Adds the photons' fates and steps to f, kWarp a turn of each
+// warp to *lane_steps, and one to started[pid - first] at each photon's
+// start (started may be null); returns the longest photon's steps.
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
+int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+                unsigned long long* next, unsigned long long total, int warps, FateCounts& f,
+                const PvtTally* acc, const PvtLog* lg, const ScoreAcc* sa,
+                const PvtBundle& bundle, unsigned long long* lane_steps, unsigned* started,
+                unsigned long long first) {
+  std::vector<TraceLane> lanes(warps * kWarp);
+  std::vector<char> exhausted(warps, 0), done(warps, 0);
+  for (TraceLane& L : lanes) L.p.alive = false;
+  int longest = 0, running = warps;
+  while (running > 0) {
+    for (int w = 0; w < warps; ++w) {
+      if (done[w]) continue;
+      TraceLane* L = lanes.data() + w * kWarp;
+      const ScoreAcc* wsa = kScore ? sa + w * kWarp : nullptr;
+      uint32_t dead = 0u;
+      for (int l = 0; l < kWarp; ++l)
+        if (!L[l].p.alive) dead |= 1u << l;
+      if (!exhausted[w] && dead) {
+        const unsigned long long base = *next;
+        *next += (unsigned long long)pvt_popc(dead);
+        exhausted[w] = base + pvt_popc(dead) >= total;
+        for (int l = 0; l < kWarp; ++l) {
+          const unsigned long long id = base + lane_rank(dead, l);
+          if (!(dead >> l & 1u) || id >= total) continue;
+          photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, L[l],
+                                                             lg, kScore ? wsa + l : nullptr, bundle);
+          if (started) started[id - first] += 1;
+        }
+      }
+      bool any = false;
+      for (int l = 0; l < kWarp; ++l) any = any || L[l].p.alive;
+      if (!any) {
+        done[w] = 1;
+        --running;
+        continue;
+      }
+      *lane_steps += kWarp;
+      for (int l = 0; l < kWarp; ++l) {
+        if (!L[l].p.alive) continue;
+        photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L[l], f, acc, lg,
+                                                        kScore ? wsa + l : nullptr);
+        if (!L[l].p.alive) {
+          const int steps = photon_finish(L[l], f);
+          if (steps > longest) longest = steps;
+        }
+      }
+    }
+  }
+  return longest;
+}
+#endif
 
 // pvt_mesh: nearest two hits of ray i (o, d: [B, 3] in the node's local
 // frame) against the node's triangles.

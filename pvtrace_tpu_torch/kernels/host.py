@@ -49,6 +49,57 @@ PvtBundle h_bundle(const PvtBundle* b) {
   const PvtBundle none = {nullptr, 0, 0};
   return b ? *b : none;
 }
+// Photons [off, total): with warps > 0 through trace_warps (pvt_trace's
+// loop, `warps` warps of 32 lanes, lane k's rows at sa[k]), else one
+// photon at a time through trace_photon (rows at sa[0]). out gets the
+// steps in all, the lane-steps (warps only) and the longest photon.
+template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
+void h_warp_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+              unsigned long long total, int warps, const PvtLog* lg, FateCounts& f,
+              const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b,
+              unsigned long long* out, unsigned* started) {
+  if (warps > 0) {
+    unsigned long long next = off;
+    out[2] = (unsigned long long)trace_warps<kTally, kLog, true, kScore, kPath, kBundle>(
+        *sc, sc->cheb_pack, s0, s1, &next, total, warps, f, acc, lg, sa, b, out + 1, started,
+        off);
+  } else {
+    for (unsigned long long id = off; id < total; ++id) {
+      const int steps = trace_photon<kTally, kLog, true, kScore, kPath, kBundle>(
+          *sc, sc->cheb_pack, s0, s1, (uint32_t)id, f, acc, lg, sa, b);
+      if ((unsigned long long)steps > out[2]) out[2] = (unsigned long long)steps;
+      if (started) started[id - off] += 1;
+    }
+  }
+  out[0] = f.steps;
+}
+template <bool kTally, bool kLog, bool kScore, bool kPath>
+void h_warp_b(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+              unsigned long long total, int warps, const PvtLog* lg, FateCounts& f,
+              const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b,
+              unsigned long long* out, unsigned* started) {
+  if (b.rows)
+    h_warp_t<kTally, kLog, kScore, kPath, true>(sc, s0, s1, off, total, warps, lg, f, acc, sa, b,
+                                                out, started);
+  else
+    h_warp_t<kTally, kLog, kScore, kPath, false>(sc, s0, s1, off, total, warps, lg, f, acc, sa,
+                                                 b, out, started);
+}
+template <bool kTally, bool kLog>
+void h_warp_s(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+              unsigned long long total, int warps, const PvtLog* lg, FateCounts& f,
+              const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b,
+              unsigned long long* out, unsigned* started) {
+  if (!sa)
+    h_warp_b<kTally, kLog, false, false>(sc, s0, s1, off, total, warps, lg, f, acc, sa, b, out,
+                                         started);
+  else if (sa->n_path > 0)
+    h_warp_b<kTally, kLog, true, true>(sc, s0, s1, off, total, warps, lg, f, acc, sa, b, out,
+                                       started);
+  else
+    h_warp_b<kTally, kLog, true, false>(sc, s0, s1, off, total, warps, lg, f, acc, sa, b, out,
+                                        started);
+}
 extern "C" {
 void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
             long long B, const PvtState* out) {
@@ -149,6 +200,41 @@ void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long l
                        row, ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path,
                        nullptr);
 }
+// The trace of photons [off, total) through pvt_trace's loop on `warps`
+// emulated warps (0: one photon at a time, trace_photon), with recorders
+// when sc->n_rec > 0, the log when lg->n_slots > 0, score channels when
+// `rows` is set (n_path of them pathwise; lane k's score and tangent rows
+// at rows + k and tang + k, stride max(32 warps, 1)), from `bundle` when
+// it is set: fates, tallies and scores as h_trace_score_rows's; out [3]
+// the steps in all, the lane-steps and the longest photon; started [n]
+// (may be null) each photon's starts.
+void h_trace_warp(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                  unsigned long long total, int warps, const PvtLog* lg, long long* fates,
+                  unsigned long long* cross, float* sums, unsigned* distinct,
+                  unsigned long long* bins, double* sums64, float* rows, int ch, int n_comps,
+                  double* fate_scores, double* rec_scores, float* photon, float* tang,
+                  const int* path, int n_path, const PvtBundle* bundle, unsigned long long* out,
+                  unsigned* started) {
+  FateCounts f = {0, 0, 0, 0, 0, 0};
+  const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
+  const long long stride = warps > 0 ? 32LL * warps : 1;
+  std::vector<ScoreAcc> sa;
+  for (long long k = 0; rows && k < stride; ++k)
+    sa.push_back({rows + k, fate_scores, rec_scores, stride, ch, n_comps, sc->n_rec, photon,
+                  (long long)(total - off), tang ? tang + k : nullptr, path, n_path});
+  const ScoreAcc* sap = rows ? sa.data() : nullptr;
+  const PvtBundle b = h_bundle(bundle);
+  out[0] = out[1] = out[2] = 0;
+  if (sc->n_rec > 0) {
+    if (lg->n_slots > 0) h_warp_s<true, true>(sc, s0, s1, off, total, warps, lg, f, &acc, sap, b, out, started);
+    else h_warp_s<true, false>(sc, s0, s1, off, total, warps, lg, f, &acc, sap, b, out, started);
+  } else {
+    if (lg->n_slots > 0) h_warp_s<false, true>(sc, s0, s1, off, total, warps, lg, f, &acc, sap, b, out, started);
+    else h_warp_s<false, false>(sc, s0, s1, off, total, warps, lg, f, &acc, sap, b, out, started);
+  }
+  fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
+  fates[9] += f.kill; fates[10] += f.no_hit;
+}
 // pvt_layout's twin (tracer.cu).
 void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
   layout_info(trace_layout(*sc, tally != 0, score), info);
@@ -210,13 +296,15 @@ def build_library(directory):
                                 i32, vp, vp, vp, vp, vp, i32]
     h.h_trace_score_bundle.argtypes = h.h_trace_score.argtypes + [vp]
     h.h_trace_score_rows.argtypes = h.h_trace_score_bundle.argtypes + [i64]
+    h.h_trace_warp.argtypes = [vp, u32, u32, u64, u64, i32, vp, vp, vp, vp, vp, vp, vp, vp,
+                               i32, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     h.h_layout.argtypes = [vp, i32, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
                h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
-               h.h_trace_score_rows, h.h_layout, h.h_pathwise, h.h_fresnel, h.h_absorbed):
+               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_pathwise, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h
 

@@ -8,7 +8,8 @@ On the CPU:
   ``trace_photon``, host-callable by design) is compiled with the host
   C++ compiler (``kernels/host.py``) and held against the eager twin, at
   the scene's defaults (Chebyshev spectra, K5a) and with the table lerp
-  (K5b, ``PVTRACE_TPU_NO_CHEB``);
+  (K5b, ``PVTRACE_TPU_NO_CHEB``); pvt_trace's loop on emulated warps
+  (``trace_warps``) equals ``trace_photon`` one photon at a time;
 * the wrappers take the twin for CPU tensors and count no launch.
 
 On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9,
@@ -29,13 +30,17 @@ from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.kernels import check  # noqa: E402
 from pvtrace_tpu_torch.engine import compile_scene, physics, rng, simulate, tables, tally, tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import build, host  # noqa: E402
+from pvtrace_tpu_torch.engine import score as score_ch  # noqa: E402
+from pvtrace_tpu_torch.engine.emit import emit_bundle  # noqa: E402
 from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab,
     lsc_slab_heatmap,
+    lsc_slab_host,
     lsc_slab_recorders,
     lsc_tiles,
     mesh_lsc,
     mesh_slab_fine,
+    mesh_small,
     mixed_scene,
 )
 
@@ -188,6 +193,123 @@ def test_device_code_with_many_components_matches_twin_on_host(host_lib):
     ref, _, _, _ = tracer.trace_eager(st, seed, 4096, lanes=512)
     assert int(fates.sum()) == 4096
     assert int((fates - ref).abs().max()) <= 2, (fates.tolist(), ref.tolist())
+
+
+# The host model of pvt_trace's loop (``trace_warps``) against one photon
+# at a time: each case's float32 scene and what its runs take (first
+# photon id, the event log's (record_every, max_events), score channels, a
+# host bundle).
+WARP_CASES = {
+    "slab": dict(make=lsc_slab),
+    "slab-host-bundle": dict(make=lsc_slab_host, bundle=True, off=5),
+    "mesh_small-log": dict(make=mesh_small, off=2, log=(2, 8)),
+    "slab-R32-score": dict(make=lambda: lsc_slab_recorders(32), score=True),
+}
+
+
+@pytest.fixture(scope="module")
+def warp_scenes():
+    return {}
+
+
+def _warp_scene(warp_scenes, case, n):
+    """Scene tensors, first id and host bundle ([7, n] or None) of `case`."""
+    spec = WARP_CASES[case]
+    if case not in warp_scenes:
+        scene = spec["make"]()
+        warp_scenes[case] = (scene, tables.scene_tensors(compile_scene(scene),
+                                                         dtype=torch.float32))
+    scene, st = warp_scenes[case]
+    bundle = None
+    if spec.get("bundle"):
+        np.random.seed(3)
+        bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(scene, n)[:3], np.float32))
+    return st, spec.get("off", 0), bundle
+
+
+def _host_warp_run(h, st, seed, off, n, warps, log=None, score=False, bundle=None):
+    """``h_trace_warp``: photons [off, off + n) on `warps` emulated warps
+    (0: one photon at a time); every output as tensors."""
+    R, CH = max(st["meta"]["n_rec"], 1), score_ch.n_channels(st) if score else 0
+    every, events = log or (0, 128)
+    lg, desc = kernels.empty_log(n, every, events, off, "cpu")
+    t = {"fates": torch.zeros(11, dtype=torch.int64), "cross": torch.zeros(R, dtype=torch.int64),
+         "distinct": torch.zeros(R, dtype=torch.int32), "sums": torch.zeros(8 * R),
+         "bins": torch.zeros(max(st["meta"]["total_bins"], 1), dtype=torch.int64),
+         "sums64": torch.zeros(8 * R, dtype=torch.float64),
+         "fate_scores": torch.zeros((2, 11, max(CH, 1)), dtype=torch.float64),
+         "rec_scores": torch.zeros((2, R, max(CH, 1)), dtype=torch.float64),
+         "photon": torch.zeros((CH + 2, n)), "out": torch.zeros(3, dtype=torch.int64),
+         "started": torch.zeros(n, dtype=torch.int32)}
+    rows = torch.zeros(max(CH, 1) * (32 * warps if warps else 1))
+    bdesc = kernels._Bundle(bundle.data_ptr(), n, off) if bundle is not None else None
+    h.h_trace_warp(
+        ctypes.byref(kernels._scene(st, 1000, 0, float("inf"))), seed[0], seed[1], off, off + n,
+        warps, ctypes.byref(desc), t["fates"].data_ptr(), t["cross"].data_ptr(),
+        t["sums"].data_ptr(), t["distinct"].data_ptr(), t["bins"].data_ptr(),
+        t["sums64"].data_ptr(), rows.data_ptr() if score else None, CH, st["meta"]["n_comps"],
+        t["fate_scores"].data_ptr(), t["rec_scores"].data_ptr(),
+        t["photon"].data_ptr() if score else None, None, None, 0,
+        ctypes.byref(bdesc) if bdesc is not None else None, t["out"].data_ptr(),
+        t["started"].data_ptr(),
+    )
+    t.update(log=lg, steps=int(t["out"][0]), lane_steps=int(t["out"][1]),
+             longest=int(t["out"][2]))
+    return t
+
+
+@pytest.mark.parametrize("n, warps", [(1, 1), (31, 1), (32, 1), (33, 2), (4096, 3)])
+@pytest.mark.parametrize("case", list(WARP_CASES))
+def test_warp_loop_equals_photon_loop_on_host(host_lib, warp_scenes, case, n, warps):
+    """pvt_trace's loop (one step a turn on every lane, dead lanes refilled
+    from one counter by rank: ``trace_warps``, host-built) against
+    ``trace_photon`` one photon at a time, the run of ``h_trace``: every
+    photon started once, and fates, steps, the longest photon, integer
+    tallies, every log field and every photon's score record bit for bit;
+    float sums within two orders' bounds (``check.SUMS_RUNS_RTOL``,
+    ``check.score_runs_bound``)."""
+    spec = WARP_CASES[case]
+    st, off, bundle = _warp_scene(warp_scenes, case, n)
+    seed, log, score = rng.key_words(8), spec.get("log"), spec.get("score", False)
+    ref = _host_warp_run(host_lib, st, seed, off, n, 0, log, score, bundle)
+    got = _host_warp_run(host_lib, st, seed, off, n, warps, log, score, bundle)
+    assert torch.equal(got["started"], torch.ones(n, dtype=torch.int32))
+    assert int(got["fates"].sum()) == n and torch.equal(got["fates"], ref["fates"])
+    assert (got["steps"], got["longest"]) == (ref["steps"], ref["longest"])
+    assert got["steps"] <= got["lane_steps"] and got["lane_steps"] % 32 == 0
+    # The serial run is h_trace's (fates; with the log, the log too).
+    if not score:
+        fates = torch.zeros(11, dtype=torch.int64)
+        lg, desc = kernels.empty_log(n, *(log or (0, 128)), off, "cpu")
+        sc = ctypes.byref(kernels._scene(st, 1000, 0, float("inf")))
+        bdesc = kernels._Bundle(bundle.data_ptr(), n, off) if bundle is not None else None
+        host_lib.h_trace_bundle(sc, seed[0], seed[1], off, off + n, ctypes.byref(desc),
+                                fates.data_ptr(), ctypes.byref(bdesc) if bdesc else None)
+        assert torch.equal(fates, ref["fates"])
+        if log:
+            assert torch.equal(lg["ints"], ref["log"]["ints"])
+    if log:
+        assert int((got["log"]["ints"][..., 0] >= 0).sum()) >= 2
+        for key in ("ints", "floats"):
+            assert torch.equal(got["log"][key].view(torch.int32),
+                               ref["log"][key].view(torch.int32)), key
+    if st["meta"]["n_rec"]:
+        for name in ("distinct", "cross", "bins"):
+            assert torch.equal(got[name], ref[name]), name
+        total = {k: t["sums64"] + t["sums"].double() for k, t in (("got", got), ("ref", ref))}
+        assert torch.allclose(total["got"], total["ref"], rtol=check.SUMS_RUNS_RTOL, atol=0)
+    if score:
+        assert torch.equal(got["photon"].view(torch.int32), ref["photon"].view(torch.int32))
+        assert bool((ref["photon"][-2] >= 0).all())
+        for name, m in (("fate_scores", ref["fates"].double()),
+                        ("rec_scores", ref["distinct"].double())):
+            allow = check.score_runs_bound(m[:, None], ref[name][1])
+            assert bool(((got[name] - ref[name]).abs() <= allow).all()), name
+        if n == 4096:
+            # The loop's lane-steps against the per-photon loop's it
+            # replaces, from the same photons' steps.
+            parent = check.per_photon_loop_efficiency(ref["photon"][-1])
+            assert got["steps"] / got["lane_steps"] > parent
 
 
 @pytest.mark.parametrize("make", [lsc_slab, mixed_scene, lsc_tiles],
