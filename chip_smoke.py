@@ -155,7 +155,15 @@ each:
     integers equal, score sums and gradients within the float64
     accumulation bound, the step within float32 rounding. The all-reduce's
     time and bytes per call on each backend (no multi-GPU speed can be
-    measured on one card).
+    measured on one card);
+27. K1's and K2's draws as pvt_trace makes them (a step's four pairs; a
+    refill's keys and the emission pairs the scene's lamps read, not all
+    three): pvt_draws on 2**20 lanes with random keys, step counts, read
+    masks and dead lanes, for lamps that read three emission pairs, none
+    and the slab lamp's one, against the twin's threefry words
+    (``rng.warp_draws``) bit for bit, and the threefry calls each warp's
+    refill made (counted in the kernel where it makes them) against the
+    twin's count.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -193,6 +201,7 @@ SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/pathwise.cu"
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/diff.cu"
                for name in ("pvt_absorbed", "pvt_absorbed_grad")})
 SOURCE["pvt_trace_bundle"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
+SOURCE["pvt_draws"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
 SOURCE["all_reduce_tallies"] = "pvtrace_tpu_torch/parallel/shard.py"
 REPLACES = {
     "pvt_emit": "pvtrace_tpu/engine/tracer.py:762",
@@ -210,6 +219,7 @@ REPLACES = {
     "pvt_absorbed": "pvtrace_tpu/diff/transport.py:214",
     "pvt_absorbed_grad": "pvtrace_tpu/diff/transport.py:284",
     "pvt_trace_bundle": "pvtrace_tpu/engine/tracer.py:936",
+    "pvt_draws": "pvtrace_tpu/engine/tracer.py:100",
     "all_reduce_tallies": "pvtrace_tpu/parallel/shard.py:48",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
@@ -1224,6 +1234,18 @@ def main():
         flush=True,
     )
 
+    # 27. K1's and K2's draws against the twin's words
+    draws_rep = check.check_draws("cuda", N_CHECK)
+    calls = draws_rep["refill_calls_per_warp"]
+    print(
+        f"phase 27 pvt_draws vs twin: {N_CHECK} lanes, keys, emission and step words bit for bit "
+        f"for emission pairs 7, 0 and 4; threefry calls a warp's refill made (counted in the "
+        f"kernel, equal to the twin's) {calls}; kernel "
+        f"{draws_rep['ms']:.4f} ms, twin {draws_rep['plain_ms']:.4f} ms, bound "
+        f"{draws_rep['bound_ms']:.5f} ms ({draws_rep['bound_by']}) | {smi}",
+        flush=True,
+    )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -1317,6 +1339,8 @@ def main():
                                    max_abs_err=absorbed_rep["grad_abs_err"]), {"n": N_SLAB}),
     ]
     rows += [
+        ("pvt_draws", draws_rep, {"n": N_CHECK, "refill_calls_per_warp": calls,
+                                  "runs_inside": "pvt_trace (emit_draws, pvt_draw)"}),
         ("pvt_trace_bundle", bundle_rep, {
             "n": N_CHECK, "scene": "lsc_slab_host(n_rec=4)",
             "lane_efficiency": bundle_rep["lane_efficiency"],
@@ -1344,7 +1368,7 @@ def main():
         pvt_pathwise=path_launches["pvt_pathwise"],
         pvt_trace_pathwise=path_launches["pvt_trace_pathwise"],
         pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"],
-        pvt_trace_bundle=host_launches["pvt_trace_bundle"])
+        pvt_trace_bundle=host_launches["pvt_trace_bundle"], pvt_draws=main_launches["pvt_draws"])
     print(smi)
     print(json.dumps({"kernels": [
         {

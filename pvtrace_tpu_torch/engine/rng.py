@@ -74,3 +74,35 @@ def photon_keys(seed_words, pids):
     """Photon keys threefry(seed, pid, 0) for int64 photon ids."""
     s0, s1 = seed_words
     return threefry2x32(s0, s1, pids, torch.zeros_like(pids))
+
+
+WARP = 32
+
+
+def warp_draws(seed_words, base, dead, need, k0, k1, count, mask, dtype=torch.float32):
+    """The plain twin of ``pvt_draws`` (kernels/csrc/tracer.cu): B lanes,
+    each WARP of them a warp. Per warp w a refill: its dead lanes (`dead`,
+    bool [B]) take photons base[w] + their rank among them, their keys
+    threefry(seed, (pid, 0)) and the emission pairs of `need` (bit j: pair
+    j, threefry(key, (0, 16 + j))). Per lane the step words of `mask` (bit
+    k: word k of ``draw8``) with key (k0, k1) at step `count`. Returns
+    (keys [B, 2] int64, 0 on live lanes; emit [B, 6] and words [B, 8], -1
+    where not drawn or not in the mask; calls [B / WARP] int32: the
+    threefry calls each warp's refill should make, the key's and one a
+    pair of `need` where a lane refills, else 0, which the kernel counts
+    where it makes them)."""
+    dead, count, mask = dead.bool(), count.long(), mask.long()
+    d = dead.view(-1, WARP).long()
+    pk0, pk1 = photon_keys(seed_words, (base.view(-1, 1) + torch.cumsum(d, 1) - d).reshape(-1))
+    live = ~dead
+    keys = torch.stack([pk0.masked_fill(live, 0), pk1.masked_fill(live, 0)], 1)
+    emit = torch.full((dead.numel(), 6), -1.0, dtype=dtype, device=dead.device)
+    for j in range(3):
+        if need >> j & 1:
+            w0, w1 = threefry2x32(pk0, pk1, torch.zeros_like(pk0), torch.full_like(pk0, 16 + j))
+            emit[:, 2 * j] = torch.where(dead, uniform32(w0, dtype), -1.0)
+            emit[:, 2 * j + 1] = torch.where(dead, uniform32(w1, dtype), -1.0)
+    u = draw8(k0, k1, count, dtype)
+    words = torch.stack([torch.where((mask >> k) & 1 == 1, u[k], -1.0) for k in range(8)], 1)
+    calls = torch.where(d.sum(1) > 0, 1 + bin(need).count("1"), 0).int()
+    return keys, emit, words, calls

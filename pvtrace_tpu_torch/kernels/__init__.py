@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from pvtrace_tpu_torch.engine import absorb, chebyshev, device_emit, eventlog, geometry, physics
-from pvtrace_tpu_torch.engine import tally, tracer
+from pvtrace_tpu_torch.engine import rng, tally, tracer
 from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import score as score_ch
 from pvtrace_tpu_torch.engine import tables as T
@@ -41,7 +41,7 @@ from pvtrace_tpu_torch.kernels import build
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
-            "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0}
+            "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "total_steps": 0, "lane_steps": 0,
@@ -144,6 +144,8 @@ _ENTRIES = {
         "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
         "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
         "pvt_layout": [_VP, _I32, _VP, _VP],
+        "pvt_draws": [_U32, _U32, _VP, _VP, _U32, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP,
+                      _VP],
     },
     "score": {
         "pvt_score": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
@@ -297,6 +299,40 @@ def emit(st, seed_words, index_offset, B):
     _raise_on(rc, "pvt_emit")
     launches["pvt_emit"] += 1
     return out
+
+
+def draws(seed_words, base, dead, need, k0, k1, count, mask):
+    """The trace kernel's draws on B lanes, each 32 a warp (the twin:
+    ``rng.warp_draws``, whose arguments and results these are): per warp
+    the refill of its `dead` lanes (photons base[w] + rank: keys and the
+    emission pairs of `need`), per lane the words of `mask` of its step.
+    Tensors: base int64 [B / 32], dead bool, k0 and k1 int64, count int32,
+    mask uint8, each [B]."""
+    if dead.device.type == "cpu":
+        return rng.warp_draws(seed_words, base, dead, need, k0, k1, count, mask)
+    B, dev = dead.numel(), dead.device
+    if B % rng.WARP:
+        raise ValueError(f"draws: {B} lanes, not a multiple of {rng.WARP}")
+    given = {"dead": (dead, torch.bool), "k0": (k0, torch.int64), "k1": (k1, torch.int64),
+             "count": (count, torch.int32), "mask": (mask, torch.uint8)}
+    for name, (t, dtype) in given.items():
+        if t.shape != (B,) or t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"draws: {name} needs contiguous {dtype} [{B}] on {dev}")
+    W = B // rng.WARP
+    if base.shape != (W,) or base.dtype != torch.int64 or base.device != dev:
+        raise ValueError(f"draws: base needs int64 [{W}] on {dev}")
+    keys = torch.empty((B, 2), device=dev, dtype=torch.int64)
+    emit = torch.empty((B, 6), device=dev, dtype=torch.float32)
+    words = torch.empty((B, 8), device=dev, dtype=torch.float32)
+    calls = torch.empty(W, device=dev, dtype=torch.int32)
+    rc = library().pvt_draws(
+        seed_words[0], seed_words[1], base.contiguous().data_ptr(), dead.data_ptr(), need,
+        k0.data_ptr(), k1.data_ptr(), count.data_ptr(), mask.data_ptr(), B, keys.data_ptr(),
+        emit.data_ptr(), words.data_ptr(), calls.data_ptr(), _stream(),
+    )
+    _raise_on(rc, "pvt_draws")
+    launches["pvt_draws"] += 1
+    return keys, emit, words, calls
 
 
 def step(st, s, maxsteps=1000, emit_method=0, maxpathlength=float("inf")):

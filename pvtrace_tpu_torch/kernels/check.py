@@ -10,10 +10,11 @@ import numpy as np
 import torch
 
 from pvtrace_tpu_torch import kernels
-from pvtrace_tpu_torch.engine import absorb, chebyshev, geometry, history_tally, physics, tally
+from pvtrace_tpu_torch.engine import absorb, chebyshev, geometry, history_tally, physics, rng, tally
 from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import tracer
 from pvtrace_tpu_torch.engine import score as score_ch
+from pvtrace_tpu_torch.engine import compiler as comp
 from pvtrace_tpu_torch.engine import tables as T
 
 # Discrete outcomes of a step that must agree lane by lane.
@@ -39,18 +40,27 @@ SUMS_RTOL = 1e-4
 SUMS_RUNS_RTOL = 2 * SUMS_BOUND + 2.0 ** -24
 
 # The card's peaks for the bound (H100 SXM data sheet, at 700 W): HBM
-# bytes/s and float32 operations/s outside the tensor cores. Integer
-# operations are counted at the float32 rate, which can only make the
-# bound lower.
+# bytes/s and float32 operations/s outside the tensor cores; and 32-bit
+# integer instructions, 64 a clock an SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) on 132 SMs at
+# the 1.98 GHz boost clock, on each of two pipes: shifts and logic (SHF,
+# LOP3, LEA) issue on the ALU pipe alone, adds on it (IADD3) or on the FMA
+# pipe (IMAD.IADD).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_INT_OPS_PER_S = 64 * 132 * 1.98e9
 
 # Operations per unit of work, counted from tracer.cuh (add, multiply,
 # compare, select and shift each count one; an FMA two; exp, log1p, sqrt,
-# acos, sin and cos ten each):
-OPS_THREEFRY = 123  # 20 rounds of add, rotate (3), xor, + key schedule
-OPS_STEP = 4 * OPS_THREEFRY + 24 + 420  # draws, uniforms, one LSC-slab step
-OPS_EMIT = 4 * OPS_THREEFRY + 80  # key, three draws, samplers, transform
+# acos, sin and cos ten each), the draws apart. The draws are integer
+# instructions, counted as the SASS of threefry issues them (``python -m
+# pvtrace_tpu_torch.kernels.variants --sass``: 20 SHF.L.W a call) and only
+# those a run's words need (``step_draws``, ``emit_draws``):
+OPS_THREEFRY_ALU = 40  # 20 funnel shifts (a rotate each), 20 xors
+OPS_THREEFRY_ADD = 26  # 20 rounds, 5 key injections into x1, the last into x0 (others fuse)
+OPS_UNIFORM_ALU = 1  # a word to [1, 2): one LEA.HI (the float subtract not counted)
+OPS_STEP = 420  # one LSC-slab step, its draws apart
+OPS_EMIT = 80  # samplers, transform, the draws apart
 OPS_CHEB_SEARCH = 4  # one halving step of the segment search: load, compare, select, shift
 OPS_CHEB_DEGREE = 4  # one Clenshaw step
 OPS_CHEB_EVAL = 24  # affine map, final step, exp on a log segment
@@ -167,11 +177,76 @@ def require(ok, message):
         raise AssertionError(message)
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of `ops` at the float32 peak and
-    `nbytes` at the memory rate, and which of the two it is."""
-    t_ops, t_bytes = ops / PEAK_OPS_PER_S, nbytes / PEAK_BYTES_PER_S
+def bound(ops, nbytes, draws=(0, 0)):
+    """(bound_ms, bound_by): the largest of `ops` float operations at the
+    float32 peak, the integer instructions of `draws` ((ALU, add), as
+    ``threefry_draws`` counts them: the ALU's alone at one pipe's rate, or
+    all of them over both pipes, whichever is longer) and `nbytes` at the
+    memory rate, and which of operations and bytes it is."""
+    alu, add = draws
+    t_int = max(alu, (alu + add) / 2) / PEAK_INT_OPS_PER_S
+    t_ops = max(ops / PEAK_OPS_PER_S, t_int)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def threefry_draws(calls, words):
+    """(ALU, add) instructions of `calls` threefry calls, `words` of whose
+    words become uniforms."""
+    return (calls * OPS_THREEFRY_ALU + words * OPS_UNIFORM_ALU, calls * OPS_THREEFRY_ADD)
+
+
+def add_draws(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+# Fate slots (light.event.Event values; 10: left without a hit).
+FATE_EXIT, FATE_KILL, FATE_NO_HIT = 7, 9, 10
+
+
+def step_draws(steps, events):
+    """The draws that `steps` steps, `events` of them at a volume or surface
+    event, read at least: pair 0 each step, the event's first pair (1 or 3)
+    at each event (re-emissions, lifetimes and Lambertian reflections read
+    more, not counted; the kernel draws all four, pvt_draw)."""
+    pairs = steps + events
+    return threefry_draws(pairs, 2 * pairs)
+
+
+def trace_events(total_steps, fates):
+    """The steps of a trace at a volume or surface event: all but a
+    photon's last step where it left (EXIT), was killed or hit nothing."""
+    f = [int(x) for x in fates]
+    return max(total_steps - f[FATE_EXIT] - f[FATE_KILL] - f[FATE_NO_HIT], 0)
+
+
+def light_pairs(st):
+    """The emission pairs each lamp of `st` reads (bit j: pair j), as
+    tracer.cuh's light_pairs finds them: pair 0 for a spectrum's wavelength
+    or a position, pair 1 for a position, pair 2 for a direction."""
+    C = comp.CompiledScene
+    masks = []
+    for row in st["light_i"].view(-1, T.LIGHT_I).cpu().tolist():
+        pos = row[T.LI_POS] != C.POS_DEFAULT
+        masks.append(int(row[T.LI_WAV] != C.WAV_CONST or pos) | int(pos) << 1
+                     | int(row[T.LI_DIR] != C.DIR_DEFAULT) << 2)
+    return masks
+
+
+def emit_draws(st, n, index_offset=0, bundle=False):
+    """The draws that start photons [index_offset, index_offset + n) read
+    at least: each photon's key and, emitted on the card, the emission
+    pairs its own lamp reads (light pid mod the lamps; the kernel draws
+    those of every lamp of the scene for each photon, emit_pairs)."""
+    if bundle:
+        return threefry_draws(n, 0)
+    masks = light_pairs(st)
+    pairs = 0
+    for li, mask in enumerate(masks):
+        first = (li - index_offset) % len(masks)
+        photons = (n - first + len(masks) - 1) // len(masks) if n > first else 0
+        pairs += photons * bin(mask).count("1")
+    return threefry_draws(n + pairs, 2 * pairs)
 
 
 def cuda_ms(fn, reps=10, warmup=1):
@@ -234,7 +309,8 @@ def check_emit(st, seed_words, B, index_offset=0, atol=1e-5, reps=10):
         "plain_ms": cuda_ms(lambda: tracer.initial_state(st, seed_words, pids), reps),
     }
     # 14 lane outputs: 11 of 4 bytes, alive 1, the two int64 keys 16.
-    report["bound_ms"], report["bound_by"] = bound(B * OPS_EMIT, B * 61)
+    report["bound_ms"], report["bound_by"] = bound(B * OPS_EMIT, B * 61,
+                                                   emit_draws(st, B, index_offset))
     return twin, report
 
 
@@ -249,6 +325,11 @@ def check_step(st, state, steps=8, max_discrete=1e-4, rtol=1e-4, atol=1e-5,
     s = state
     for k in range(steps):
         twin = tracer.step_state(st, s, maxsteps, emit_method)
+        if k == 0:
+            # The timed step's draws: pair 0 a live lane, the first pair
+            # of each event.
+            none = twin["exit_mask"] | twin["kills"] | twin["no_hit_term"]
+            draws = step_draws(int(s["alive"].sum()), int((s["alive"] & ~none).sum()))
         got = kernels.step(st, s, maxsteps, emit_method)
         torch.cuda.synchronize()
         bad = torch.zeros(B, dtype=torch.bool, device=s["px"].device)
@@ -279,7 +360,74 @@ def check_step(st, state, steps=8, max_discrete=1e-4, rtol=1e-4, atol=1e-5,
         ),
     }
     # Reads the 14 lane inputs (61 bytes), writes them and 17 flags (45 bytes).
-    report["bound_ms"], report["bound_by"] = bound(B * OPS_STEP, B * (2 * 61 + 45))
+    report["bound_ms"], report["bound_by"] = bound(B * OPS_STEP, B * (2 * 61 + 45), draws)
+    return report
+
+
+def draw_inputs(B, seed, device, need=7, starts=None):
+    """Random inputs of ``kernels.draws`` for B lanes (numpy's generator
+    seeded with `seed`): per warp `starts` dead lanes, or a number from 0
+    to 32, at random places, and a density of the step words its lanes
+    read (0.05, 0.3 or 0.9); per lane a random key and step count. Returns
+    the argument tuple after the seed words, with `need`."""
+    rs = np.random.default_rng(seed)
+    W = B // rng.WARP
+    starts = rs.integers(0, rng.WARP + 1, W) if starts is None else np.full(W, starts)
+    dead = rs.random((W, rng.WARP)).argsort(1).argsort(1) < starts[:, None]
+    density = rs.choice([0.05, 0.3, 0.9], W).repeat(rng.WARP)
+    mask = (rs.random((B, 8)) < density[:, None]) @ (1 << np.arange(8))
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return (t(rs.integers(0, 2 ** 31, W), torch.int64), t(dead.reshape(-1), torch.bool), need,
+            t(rs.integers(0, 2 ** 32, B), torch.int64), t(rs.integers(0, 2 ** 32, B), torch.int64),
+            t(rs.integers(1, 1001, B), torch.int32), t(mask, torch.uint8))
+
+
+def draws_bound(args, calls):
+    """(bound_ms, bound_by) of pvt_draws on `args` (``draw_inputs``'s): the
+    threefry calls whose words are read (each pair of a step word in a
+    lane's mask, each dead lane's key and emission pairs) at the integer
+    rate, and its inputs read and outputs written once."""
+    base, dead, need, _, _, _, mask = args
+    B = dead.numel()
+    m = mask.long()
+    pairs = sum(int(((m >> (2 * j)) & 3 != 0).sum()) for j in range(4))
+    words = sum(int(((m >> k) & 1).sum()) for k in range(8))
+    drawn = bin(need).count("1")
+    draws = add_draws(threefry_draws(pairs, words),
+                      threefry_draws(int(dead.sum()) * (1 + drawn), int(dead.sum()) * 2 * drawn))
+    nbytes = B * (8 + 8 + 4 + 1 + 1) + 8 * base.numel() + B * (16 + 24 + 32) + calls.numel() * 4
+    return bound(0, nbytes, draws)
+
+
+def check_draws(device, B=1 << 20, seed=27, reps=10):
+    """pvt_draws against its twin (``rng.warp_draws``: pvt_draw's words) on
+    ``draw_inputs`` for each emission mask of a run (every pair; none; the
+    bench slab's lamp, pair 2 alone, which it then times): keys, emission
+    and step words bit for bit (the words drawn and read; -1 elsewhere in
+    both), and the threefry calls each warp's refill made, as the kernel
+    counts them where it makes them, against the twin's count."""
+    seed_words = rng.key_words(seed)
+    report = {"refill_calls_per_warp": {}}
+    for need in (7, 0, 4):
+        args = draw_inputs(B, seed + need, device, need)
+        got = kernels.draws(seed_words, *args)
+        ref = rng.warp_draws(seed_words, *args)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("keys", "emit", "words", "calls"), got, ref):
+            g = g.view(torch.int32) if g.dtype == torch.float32 else g.long()
+            r = r.view(torch.int32) if r.dtype == torch.float32 else r.long()
+            bad = int((g != r).sum())
+            require(bad == 0, f"pvt_draws, emission pairs {need}: {name} differs in {bad} places")
+        report["refill_calls_per_warp"][need] = float(got[3].float().mean())
+    report.update(
+        max_abs_err=0.0, lanes=B,
+        ms=cuda_ms(lambda: kernels.draws(seed_words, *args), reps),
+        plain_ms=cuda_ms(lambda: rng.warp_draws(seed_words, *args), reps),
+    )
+    report["bound_ms"], report["bound_by"] = draws_bound(args, got[3])
     return report
 
 
@@ -401,17 +549,21 @@ def check_tally(st, state, steps=8, maxsteps=1000, emit_method=0, reps=10):
     return report
 
 
-def trace_bound(st, n, total_steps, tallies=None, bundle=False):
+def trace_bound(st, n, total_steps, tallies=None, bundle=False, fates=None):
     """(bound_ms, bound_by) of pvt_trace for `n` photons that took
     `total_steps` steps in all, with this run's recorder tallies: emission
     per photon (with a host `bundle`, the key alone and the bundle's 28
     bytes a photon read), the step per step (not counting K5a's segment
     search and Clenshaw chains, which only lowers the bound) with a test of
-    every mesh triangle, and each crossing, distinct ray and bin add.
+    every mesh triangle, and each crossing, distinct ray and bin add; the
+    draws (integer operations) the photons' keys, emission and steps read
+    at least, the events counted from this run's `fates` (none without).
     Bytes: the scene tensors read once and the fates, counts and tallies
     written once."""
-    ops = n * (OPS_THREEFRY if bundle else OPS_EMIT) \
+    ops = n * (0 if bundle else OPS_EMIT) \
         + total_steps * (OPS_STEP + st["meta"]["n_tris"] * OPS_TRIANGLE)
+    events = trace_events(total_steps, fates) if fates is not None else 0
+    draws = add_draws(emit_draws(st, n, bundle=bundle), step_draws(total_steps, events))
     nbytes = sum(
         v.numel() * v.element_size() for v in st.values() if isinstance(v, torch.Tensor)
     ) + 8 * physics.N_FATES + (28 * n if bundle else 0)
@@ -420,7 +572,7 @@ def trace_bound(st, n, total_steps, tallies=None, bundle=False):
                 + int(tallies["distinct"].sum()) * OPS_TALLY_NEW
                 + int(tallies["bins"].sum()) * OPS_TALLY_BIN)
         nbytes += sum(v.numel() * v.element_size() for v in tallies.values())
-    return bound(ops, nbytes)
+    return bound(ops, nbytes, draws)
 
 
 def lerp_bound(st, total_steps):
@@ -486,7 +638,7 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
         "tally_max_diff": 0,
     }
     report["bound_ms"], report["bound_by"] = trace_bound(
-        st, n, report["total_steps"], got_t, bundle is not None
+        st, n, report["total_steps"], got_t, bundle is not None, got
     )
     R = st["meta"]["n_rec"]
     if R:
@@ -704,7 +856,8 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
         "tallies": got_t,
         "log": got_log,
     }
-    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t, bundle is not None)
+    ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t, bundle is not None,
+                             got)
     # The log adds its records' bytes (written once) to the trace's.
     log_ms = records * 4 * (T.LOG_I + T.LOG_F) / PEAK_BYTES_PER_S * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms, by) if ops_ms >= log_ms else (log_ms, "bytes")
@@ -899,7 +1052,7 @@ def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_metho
     }
     # pvt_step's bytes, and each lane's CH scores read and written.
     report["bound_ms"], report["bound_by"] = bound(
-        B * (OPS_STEP + OPS_SCORE_STEP), B * (2 * 61 + 45 + 8 * CH)
+        B * (OPS_STEP + OPS_SCORE_STEP), B * (2 * 61 + 45 + 8 * CH), step_draws(B, 0)
     )
     return report
 
@@ -1005,7 +1158,7 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
                   shared_rows=kernels.last_trace["shared_rows"],
                   shared_cheb=kernels.last_trace["shared_cheb"])
     ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t if R else None,
-                             bundle is not None)
+                             bundle is not None, got)
     C = len(pathwise)
     CH = score_ch.n_channels(st, C)
     per_step = OPS_SCORE_STEP + (OPS_PATH_STEP + C * OPS_PATH_CHANNEL if C else 0)
@@ -1141,7 +1294,7 @@ def check_pathwise(st, state, specs, steps=8, max_discrete=1e-4, maxsteps=1000, 
     # 7 written, PATH_J map values and one contribution written.
     report["bound_ms"], report["bound_by"] = bound(
         B * (OPS_STEP + OPS_PATH_STEP + C * OPS_PATH_CHANNEL),
-        B * (2 * 61 + 45 + 4 * C * (7 + 7 + T.PATH_J + 1)),
+        B * (2 * 61 + 45 + 4 * C * (7 + 7 + T.PATH_J + 1)), step_draws(B, 0),
     )
     return report
 

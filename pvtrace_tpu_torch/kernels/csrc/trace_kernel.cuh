@@ -220,6 +220,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
   bool exhausted = false;
   TraceLane L;
   L.p.alive = false;
+  const unsigned need = kBundle ? 0u : start_pairs<kPath>(sc);
   for (;;) {
     const uint32_t dead = __ballot_sync(0xffffffffu, !L.p.alive);
     if (!exhausted && dead) {
@@ -230,8 +231,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
       exhausted = base + __popc(dead) >= total;
       const unsigned long long id = base + lane_rank(dead, lane);
       if (!L.p.alive && id < total)
-        photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, L,
-                                                           &lg, kScore ? &sa : nullptr, bundle);
+        photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, need,
+                                                           L, &lg, kScore ? &sa : nullptr, bundle);
     }
     if (!__any_sync(0xffffffffu, L.p.alive)) break;
     ++turns;

@@ -16,9 +16,11 @@
 namespace {
 
 // Replaces _photon_keys and _device_emit_flat (pvtrace_tpu/engine/
-// tracer.py). Bound by integer ALU: four threefry evaluations (80 rounds
-// of add/rotate/xor) per photon against a few dozen float operations and
-// 60 bytes written. One thread per photon; nothing to share.
+// tracer.py). Bound by integer ALU: the key and the emission pairs the
+// scene's lamps read (emit_draws: up to four threefry evaluations of 20
+// rounds of add, rotate and xor) per photon against a few dozen float
+// operations and 61 bytes written. One thread per photon; nothing to
+// share.
 __global__ void __launch_bounds__(kBlock)
 emit_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long offset,
             long long B, PvtState out) {
@@ -86,9 +88,50 @@ mesh_kernel(const float* tri, int n_tris, float eps, const float* o, const float
   if (i < B) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
 
+// The trace's draws on B lanes (B a multiple of kWarp), each kWarp of
+// them a warp, against the words pvt_draw gives: a step's four pairs and a
+// refill's keys and the emission pairs the scene's lamps read
+// (draws_lane). Not on the main path (the same functions run inside
+// pvt_trace); it lets the card hold them to the twin (engine/rng.py,
+// warp_draws) word by word. Bound by the threefry calls (integer
+// operations).
+__global__ void __launch_bounds__(kBlock)
+draws_kernel(uint32_t s0, uint32_t s1, const long long* base, const unsigned char* dead,
+             unsigned need, const long long* k0, const long long* k1, const int* count,
+             const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
+             int* calls) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;  // whole warps: B is a multiple of kWarp
+  const int lane = threadIdx.x % kWarp;
+  const uint32_t deadm = __ballot_sync(0xffffffffu, dead[i] != 0);
+  const int made = draws_lane(s0, s1, (unsigned long long)base[i / kWarp], dead[i] != 0,
+                              lane_rank(deadm, lane), need, k0, k1, count, mask, i, keys, emit,
+                              words);
+  // The warp's refill issued the most calls any of its lanes made.
+  const unsigned most = __reduce_max_sync(0xffffffffu, (unsigned)made);
+  if (lane == 0) calls[i / kWarp] = (int)most;
+}
+
 }  // namespace
 
 extern "C" {
+
+// pvt_draws: per warp w of the B lanes, a refill of the lanes `dead` marks
+// from photon base[w] (their keys into keys [B, 2] and the emission pairs
+// of `need` into emit [B, 6], -1 where not drawn; 0 and -1 on live lanes),
+// and per lane the words of mask[i] (bit k: u[k]) of the step with key
+// (k0[i], k1[i]) at count[i] (into words [B, 8], -1 where not in the
+// mask); calls [B / kWarp] gets the threefry calls each warp's refill
+// issued, counted where draws_lane makes them.
+int pvt_draws(unsigned int s0, unsigned int s1, const long long* base, const unsigned char* dead,
+              unsigned int need, const long long* k0, const long long* k1, const int* count,
+              const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
+              int* calls, void* stream) {
+  if (B % kWarp) return (int)cudaErrorInvalidValue;
+  draws_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
+      s0, s1, base, dead, need, k0, k1, count, mask, B, keys, emit, words, calls);
+  return (int)cudaGetLastError();
+}
 
 int pvt_emit(const PvtScene* sc, unsigned int s0, unsigned int s1,
              unsigned long long offset, long long B, const PvtState* out, void* stream) {

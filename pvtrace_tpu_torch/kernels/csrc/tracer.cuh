@@ -543,15 +543,63 @@ PVT_FN float pvt_uniform(uint32_t bits) {
 #endif
 }
 
-// 2n uniforms from counters (c0, first + j), j < n.
-PVT_FN void pvt_draw(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t first,
-                     int n, float* u) {
+// 2n uniforms from counters (c0, first + j), j < n. Returns the threefry
+// calls it made (pvt_draws counts them; unused elsewhere).
+PVT_FN int pvt_draw(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t first,
+                    int n, float* u) {
+  int calls = 0;
   for (int j = 0; j < n; ++j) {
     uint32_t w0, w1;
     threefry(k0, k1, c0, first + (uint32_t)j, w0, w1);
+    ++calls;
     u[2 * j] = pvt_uniform(w0);
     u[2 * j + 1] = pvt_uniform(w1);
   }
+  return calls;
+}
+
+// K2's draws: emission pair j of a photon is threefry(key, (0, 16 + j)),
+// emit_one's u[2j], u[2j + 1]; the JAX package draws all three
+// (_device_emit_flat). light_pairs gives the pairs a lamp reads (bit j:
+// pair j): pair 0 for a spectrum's wavelength (u[0]) or a position (u[1]),
+// pair 1 for a position (u[2], u[3]), pair 2 for a direction (u[4], u[5]);
+// kernels/check.py's light_pairs mirrors it for the bound, and the CPU
+// tests hold the two equal. emit_pairs gives those of every lamp of the
+// scene, one mask for every photon, so that the lanes of a warp, whatever
+// their lamps, draw the same pairs; the others are never read, and every
+// word read is pvt_draw's bit for bit. The bench slab's lamp (one
+// wavelength, from a point, in a cone) reads pair 2 alone: a refill makes
+// two threefry calls, the key and one pair, where it made four (PERF.md,
+// section 6).
+PVT_FN unsigned light_pairs(const int* lk) {
+  const bool pos = lk[LI_POS] != POS_DEFAULT;
+  return (lk[LI_WAV] != WAV_CONST || pos ? 1u : 0u) | (pos ? 2u : 0u) |
+         (lk[LI_DIR] != DIR_DEFAULT ? 4u : 0u);
+}
+
+PVT_FN unsigned emit_pairs(const PvtScene& sc) {
+  unsigned need = 0u;
+  for (int li = 0; li < sc.n_lights; ++li) need |= light_pairs(sc.light_i + li * LIGHT_I);
+  return need;
+}
+
+// The emission uniforms of the pairs of `need` (key k0, k1) into u[6]: all
+// three as pvt_draw draws them (three chains the compiler interleaves; a
+// pair at a time ran 1.9 % slower on the mixed scene, whose lamps read all
+// three), else the pairs one by one. Returns the threefry calls it made.
+PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, float* u) {
+  if (need == 7u) return pvt_draw(k0, k1, 0u, 16u, 3, u);
+  int calls = 0;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (!(need >> j & 1u)) continue;
+    uint32_t w0, w1;
+    threefry(k0, k1, 0u, 16u + (uint32_t)j, w0, w1);
+    ++calls;
+    u[2 * j] = pvt_uniform(w0);
+    u[2 * j + 1] = pvt_uniform(w1);
+  }
+  return calls;
 }
 
 // ---------------------------------------------------------------------
@@ -741,11 +789,12 @@ PVT_FN float hg_mu(float g, float s) {
 }
 
 // ---------------------------------------------------------------------
-// K2: emission of photon `pid` with key (k0, k1).
+// K2: emission of photon `pid` with key (k0, k1), from the emission pairs
+// of `need` (emit_draws), which hold every pair its lamp reads.
 PVT_FN void emit_one(const PvtScene& sc, const int* cheb, uint32_t k0, uint32_t k1,
-                     uint32_t pid, Photon& p) {
+                     uint32_t pid, unsigned need, Photon& p) {
   float u[6];
-  pvt_draw(k0, k1, 0u, 16u, 3, u);
+  emit_draws(k0, k1, need, u);
   const int li = (int)(pid % (uint32_t)sc.n_lights);
   const float* lf = sc.light_f + li * LIGHT_F;
   const int* lk = sc.light_i + li * LIGHT_I;
@@ -1573,7 +1622,7 @@ PVT_FN void emit_lane(const PvtScene& sc, uint32_t s0, uint32_t s1,
   uint32_t k0, k1;
   threefry(s0, s1, pid, 0u, k0, k1);
   Photon p;
-  emit_one(sc, sc.cheb_pack, k0, k1, pid, p);
+  emit_one(sc, sc.cheb_pack, k0, k1, pid, emit_pairs(sc), p);
   store_lane(out, i, p, k0, k1);
 }
 
@@ -2239,17 +2288,18 @@ struct TraceLane {
 // host bundle, load_one, in place of emit_one; its keys are the same),
 // clear its `seen` bits, with kScore zero its score row (kPath: and its
 // tangent rows) in *sa, and with kLog, when it is recorded, write its
-// GENERATE record. Every photon starts alive.
+// GENERATE record. Every photon starts alive. It draws the emission pairs
+// of `need` (start_pairs).
 template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
 PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
-                         uint32_t pid, TraceLane& L, const PvtLog* lg, const ScoreAcc* sa,
-                         const PvtBundle& bundle) {
+                         uint32_t pid, unsigned need, TraceLane& L, const PvtLog* lg,
+                         const ScoreAcc* sa, const PvtBundle& bundle) {
   L.pid = pid;
   threefry(s0, s1, pid, 0u, L.k0, L.k1);
   if (kBundle)
     load_one(bundle, pid, L.p);
   else
-    emit_one(sc, cheb, L.k0, L.k1, pid, L.p);
+    emit_one(sc, cheb, L.k0, L.k1, pid, need, L.p);
   if (kTally)
     for (int k = 0; k < SEEN_WORDS; ++k) L.seen[k] = 0u;
   if (kScore)
@@ -2331,6 +2381,15 @@ PVT_FN int photon_finish(const TraceLane& L, FateCounts& f) {
   return L.p.count;
 }
 
+// The emission pairs a trace's photon_start draws, found once a run: those
+// the scene's lamps read (emit_pairs), but with kPath all three (drawing
+// fewer ran 3.5 % slower on the mesh LSC's pathwise trace, whose
+// instantiation spills; PERF.md, section 6).
+template <bool kPath>
+PVT_FN unsigned start_pairs(const PvtScene& sc) {
+  return kPath ? 7u : emit_pairs(sc);
+}
+
 // Photon `pid` from emission to death, the three pieces back to back:
 // start, step while it lives, finish. Returns its step count.
 template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
@@ -2339,7 +2398,8 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
                         uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
   TraceLane L;
-  photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, pid, L, lg, sa, bundle);
+  photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, pid,
+                                                     start_pairs<kPath>(sc), L, lg, sa, bundle);
   while (L.p.alive) photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, acc, lg, sa);
   return photon_finish(L, f);
 }
@@ -2364,7 +2424,55 @@ PVT_FN int pvt_popc(uint32_t x) {
 // Lane l's rank among the lanes of `dead`: how many of them are below it.
 PVT_FN int lane_rank(uint32_t dead, int l) { return pvt_popc(dead & ((1u << l) - 1u)); }
 
+// pvt_draws (tracer.cu), lane i: the words of mask[i] (bit k: u[k]) of its
+// step (pvt_draw's four pairs, as photon_step draws them; -1 for the words
+// not in the mask) into words[8 i ..], and where the lane refills, rank
+// `rank` among its warp's dead lanes, the key and the emission pairs of
+// `need` of photon base + rank (emit_draws; -1 for the pairs not drawn)
+// into keys[2 i ..] and emit[6 i ..]; 0 and -1 where it does not. Returns
+// the threefry calls its refill made, counted where they are made.
+PVT_FN int draws_lane(uint32_t s0, uint32_t s1, unsigned long long base, bool dead, int rank,
+                      unsigned need, const long long* k0, const long long* k1,
+                      const int* count, const unsigned char* mask, long long i,
+                      long long* keys, float* emit, float* words) {
+  float u[8];
+  pvt_draw((uint32_t)k0[i], (uint32_t)k1[i], (uint32_t)count[i], 0u, 4, u);
+  for (int k = 0; k < 8; ++k) words[8 * i + k] = mask[i] >> k & 1u ? u[k] : -1.0f;
+  uint32_t pk0 = 0u, pk1 = 0u;
+  float eu[6];
+  for (int k = 0; k < 6; ++k) eu[k] = -1.0f;
+  int calls = 0;
+  if (dead) {
+    threefry(s0, s1, (uint32_t)(base + (unsigned long long)rank), 0u, pk0, pk1);
+    calls = 1 + emit_draws(pk0, pk1, need, eu);
+  }
+  keys[2 * i] = pk0;
+  keys[2 * i + 1] = pk1;
+  for (int k = 0; k < 6; ++k) emit[6 * i + k] = eu[k];
+  return calls;
+}
+
 #ifndef __CUDACC__
+// pvt_draws on the host: lanes [w kWarp, (w + 1) kWarp) of the arrays as
+// one emulated warp; calls[w] gets the threefry calls its refill issued,
+// the most any of its lanes made (a warp's lanes make them together).
+void draws_warp(uint32_t s0, uint32_t s1, const long long* base, const unsigned char* dead,
+                unsigned need, const long long* k0, const long long* k1, const int* count,
+                const unsigned char* mask, long long w, long long* keys, float* emit,
+                float* words, int* calls) {
+  uint32_t deadm = 0u;
+  for (int l = 0; l < kWarp; ++l)
+    if (dead[w * kWarp + l]) deadm |= 1u << l;
+  int most = 0;
+  for (int l = 0; l < kWarp; ++l) {
+    const int made = draws_lane(s0, s1, (unsigned long long)base[w], deadm >> l & 1u,
+                                lane_rank(deadm, l), need, k0, k1, count, mask, w * kWarp + l,
+                                keys, emit, words);
+    if (made > most) most = made;
+  }
+  calls[w] = most;
+}
+
 // The host build's model of pvt_trace's loop, for the CPU tests: `warps`
 // warps of kWarp lanes (lane k's score rows at sa[k]) take turns in
 // order, each turn as a warp of the kernel takes it (the refill by
@@ -2381,6 +2489,7 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
   std::vector<TraceLane> lanes(warps * kWarp);
   std::vector<char> exhausted(warps, 0), done(warps, 0);
   for (TraceLane& L : lanes) L.p.alive = false;
+  const unsigned need = start_pairs<kPath>(sc);
   int longest = 0, running = warps;
   while (running > 0) {
     for (int w = 0; w < warps; ++w) {
@@ -2397,8 +2506,9 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
         for (int l = 0; l < kWarp; ++l) {
           const unsigned long long id = base + lane_rank(dead, l);
           if (!(dead >> l & 1u) || id >= total) continue;
-          photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, L[l],
-                                                             lg, kScore ? wsa + l : nullptr, bundle);
+          photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, need,
+                                                             L[l], lg, kScore ? wsa + l : nullptr,
+                                                             bundle);
           if (started) started[id - first] += 1;
         }
       }

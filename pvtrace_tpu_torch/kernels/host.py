@@ -105,6 +105,25 @@ void h_emit(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off
             long long B, const PvtState* out) {
   for (long long i = 0; i < B; ++i) emit_lane(*sc, s0, s1, off, i, *out);
 }
+// h_emit with the emission pairs of `need` in place of the scene's
+// (emit_pairs): 7 draws all three, as the JAX package does.
+void h_emit_need(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                 long long B, unsigned need, const PvtState* out) {
+  for (long long i = 0; i < B; ++i) {
+    const uint32_t pid = (uint32_t)(off + (unsigned long long)i);
+    uint32_t k0, k1;
+    threefry(s0, s1, pid, 0u, k0, k1);
+    Photon p;
+    emit_one(*sc, sc->cheb_pack, k0, k1, pid, need, p);
+    store_lane(*out, i, p, k0, k1);
+  }
+}
+// The emission pairs lamp li reads (light_pairs) and the scene's
+// (emit_pairs), as the kernels find them.
+unsigned h_light_pairs(const PvtScene* sc, int li) {
+  return light_pairs(sc->light_i + li * LIGHT_I);
+}
+unsigned h_emit_pairs(const PvtScene* sc) { return emit_pairs(*sc); }
 void h_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
             const PvtFlags* fl, long long B) {
   for (long long i = 0; i < B; ++i) step_lane(*sc, *in, *out, *fl, i);
@@ -235,6 +254,14 @@ void h_trace_warp(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long lo
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
 }
+// pvt_draws' twin (tracer.cu): each kWarp lanes an emulated warp.
+void h_draws(unsigned s0, unsigned s1, const long long* base, const unsigned char* dead,
+             unsigned need, const long long* k0, const long long* k1, const int* count,
+             const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
+             int* calls) {
+  for (long long w = 0; w < B / kWarp; ++w)
+    draws_warp(s0, s1, base, dead, need, k0, k1, count, mask, w, keys, emit, words, calls);
+}
 // pvt_layout's twin (tracer.cu).
 void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
   layout_info(trace_layout(*sc, tally != 0, score), info);
@@ -284,6 +311,10 @@ def build_library(directory):
         ctypes.c_void_p, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong
     )
     h.h_emit.argtypes = [vp, u32, u32, u64, i64, vp]
+    h.h_emit_need.argtypes = [vp, u32, u32, u64, i64, u32, vp]
+    h.h_light_pairs.argtypes = [vp, i32]
+    h.h_emit_pairs.argtypes = [vp]
+    h.h_light_pairs.restype = h.h_emit_pairs.restype = u32
     h.h_step.argtypes = [vp, vp, vp, vp, i64]
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_cheb_seg.argtypes = h.h_cheb.argtypes + [vp]
@@ -299,12 +330,14 @@ def build_library(directory):
     h.h_trace_warp.argtypes = [vp, u32, u32, u64, u64, i32, vp, vp, vp, vp, vp, vp, vp, vp,
                                i32, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     h.h_layout.argtypes = [vp, i32, vp, vp]
+    h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
+    for fn in (h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
                h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
-               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_pathwise, h.h_fresnel, h.h_absorbed):
+               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_draws, h.h_pathwise,
+               h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h
 

@@ -12,14 +12,23 @@ flags to every build (``--flags=-fmad=false``). ``--lib`` picks the
 library: ``tracer`` (pvt_trace), ``score`` (pvt_trace_score) or
 ``pathwise`` (pvt_trace_pathwise). Each build is one nvcc, all started
 together, into a temporary directory under ``_build/``; ``--sass`` also
-prints, from ``cuobjdump -sass``, each trace instantiation's instruction
-count and its local-memory loads and stores and shared-memory atomics.
+prints, from ``cuobjdump -sass``, each function's instruction count and
+its count of each opcode of SASS_OPS (local-memory loads and stores,
+shared-memory atomics, the integer adds, logic and shifts of the ALU pipe
+against the multiply-adds of the FMA pipe, global and shared loads).
 Then every run of the library's (the slab at 2**20 and at its path's
-full size, K5b, the mesh LSC, recorders, the host-lit slab's bundle)
+full size, K5b, the mesh LSC, recorders, the host-lit slab's bundle, the
+mixed scene's Lambertian facet, lifetimes and two lamps), or those of
+``--only``,
 goes through each build in turns, ``--rounds`` times: the kernel's time
 (``last_trace["ms"]``), its lane efficiency and its fates and recorders'
 distinct rays. Prints one line a run and build, and the card's
 nvidia-smi line; exits non-zero when the builds' fates or rays differ.
+``--entries`` times, in place of the runs, the tracer library's
+standalone entries as ``chip_smoke.py`` does (pvt_emit and pvt_step on
+2**20 lanes of the slab; the K11 row, pvt_trace with the event log on
+2**14 photons of the mesh LSC at ``record_every=1``), ``--reps`` calls
+a build in turns, ``--rounds`` times, which build goes first alternating.
 Needs a CUDA device.
 """
 import argparse
@@ -39,8 +48,9 @@ from pvtrace_tpu_torch import kernels
 from pvtrace_tpu_torch.diff import transport
 from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, tracer
 from pvtrace_tpu_torch.engine.emit import emit_bundle
-from pvtrace_tpu_torch.kernels import build
-from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_host, lsc_slab_recorders, mesh_lsc
+from pvtrace_tpu_torch.kernels import build, check
+from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_host, lsc_slab_recorders, mesh_lsc,
+                                      mixed_scene)
 
 # Each library's runs: (label, scene, photons, PVTRACE_TPU_NO_CHEB, host
 # bundle, seed). The score and pathwise runs trace with score channels,
@@ -56,6 +66,7 @@ RUNS = {
         ("slab R=4", lambda: lsc_slab_recorders(4), 1 << 27, False, False, 4),
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 24, False, False, 1),
         ("host-lit slab, bundle", lsc_slab_host, 1 << 20, False, True, 1),
+        ("mixed", mixed_scene, 1 << 24, False, False, 1),
     ),
     "score": (
         ("slab", lsc_slab, 1 << 20, False, False, 1),
@@ -67,7 +78,8 @@ RUNS = {
 RUNS["pathwise"] = RUNS["score"]
 PATHWISE = {"mesh LSC": [("n", "plate")]}
 SLAB_PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
-SASS_OPS = ("LDL", "STL", "ATOMS")
+SASS_OPS = ("LDL", "STL", "ATOMS", "IADD3", "LOP3", "SHF", "IMAD", "IMAD.IADD", "FFMA", "MUFU",
+            "SHFL", "LDG", "LDS", "BRA")
 
 
 def _sources(directory, name=None, value=None):
@@ -104,6 +116,8 @@ def build_variants(variants, lib, flags=()):
             raise RuntimeError(f"nvcc failed for {label}:\n{out}")
         handle = ctypes.CDLL(str(path))
         for entry, argtypes in kernels._ENTRIES[lib].items():
+            if not hasattr(handle, entry):
+                continue  # an entry another checkout's sources do not have
             fn = getattr(handle, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[label] = (handle, path)
@@ -111,8 +125,9 @@ def build_variants(variants, lib, flags=()):
 
 
 def sass_counts(path):
-    """{trace instantiation: Counter of its SASS: "all" instructions and
-    the opcodes of SASS_OPS} of the library at `path`."""
+    """{function: Counter of its SASS: "all" instructions and the opcodes of
+    SASS_OPS, by base name ("IMAD") and, where listed, with a modifier
+    ("IMAD.IADD")} of the library at `path`."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=600).stdout
@@ -123,12 +138,46 @@ def sass_counts(path):
             name = build.short_name(m.group(1))
             counts[name] = collections.Counter()
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)((?:\.\w+)*)",
+                     line)
         if m and name:
             counts[name]["all"] += 1
-            if m.group(1) in SASS_OPS:
-                counts[name][m.group(1)] += 1
-    return {k: v for k, v in counts.items() if k.startswith("trace_kernel")}
+            op, mods = m.group(1), m.group(2).split(".")
+            for key in {op, ".".join([op] + mods[1:2])}:
+                if key in SASS_OPS:
+                    counts[name][key] += 1
+    return counts
+
+
+def time_entries(libs, rounds, reps):
+    """pvt_emit, pvt_step and the log trace (``--entries``) of each build
+    in `libs`, in turns: {entry: {label: [mean ms of `reps` calls, a
+    round]}}."""
+    seed = rng.key_words(1)
+    st = scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device="cuda")
+    st_log = scene_tensors(compile_scene(mesh_lsc()), dtype=torch.float32, device="cuda")
+    state = tracer.initial_state(st, seed, torch.arange(1 << 20, device="cuda"))
+
+    def log_ms():
+        total = 0.0
+        for _ in range(reps):
+            kernels.trace(st_log, seed, 1 << 14, record_every=1, max_events=128)
+            total += kernels.last_trace["ms"]
+        return total / reps
+
+    entries = {
+        "pvt_emit": lambda: check.cuda_ms(lambda: kernels.emit(st, seed, 0, 1 << 20), reps),
+        "pvt_step": lambda: check.cuda_ms(lambda: kernels.step(st, state), reps),
+        "pvt_trace_log": log_ms,
+    }
+    ms = {e: {v: [] for v in libs} for e in entries}
+    for r in range(rounds):
+        for e, fn in entries.items():
+            # Every other round in the reverse order, so no build always goes first.
+            for v, (handle, _) in list(libs.items())[::-1 if r % 2 else 1]:
+                kernels._libs["tracer"] = handle
+                ms[e][v].append(fn())
+    return ms
 
 
 def main():
@@ -139,6 +188,10 @@ def main():
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--sass", action="store_true")
     parser.add_argument("--flags", default="", help="extra nvcc flags, space-separated")
+    parser.add_argument("--only", default=None,
+                        help="LABEL:LOG2N,.. runs to take (default: every run of --lib)")
+    parser.add_argument("--entries", action="store_true")
+    parser.add_argument("--reps", type=int, default=50)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs a CUDA device")
@@ -158,8 +211,15 @@ def main():
             for fn, c in sass_counts(path).items():
                 print(f"sass {args.lib} {v} {fn}: {c['all']} instructions, "
                       + ", ".join(f"{op} {c[op]}" for op in SASS_OPS), flush=True)
+    if args.entries:
+        for e, by_build in time_entries(libs, args.rounds, args.reps).items():
+            for v, t in by_build.items():
+                print(f"entry {e}, {v}: ms {t} ({args.reps} calls a round)", flush=True)
+    only = set() if args.entries else None if args.only is None else set(args.only.split(","))
     differ = []
     for label, make, n, no_cheb, host, seed_value in RUNS[args.lib]:
+        if only is not None and f"{label}:{n.bit_length() - 1}" not in only:
+            continue
         seed = rng.key_words(seed_value)
         if no_cheb:
             os.environ["PVTRACE_TPU_NO_CHEB"] = "1"

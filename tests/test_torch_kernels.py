@@ -198,12 +198,16 @@ def test_device_code_with_many_components_matches_twin_on_host(host_lib):
 # The host model of pvt_trace's loop (``trace_warps``) against one photon
 # at a time: each case's float32 scene and what its runs take (first
 # photon id, the event log's (record_every, max_events), score channels, a
-# host bundle).
+# host bundle). The mixed scene's Lambertian facet and lifetimes read u[3],
+# u[4] at a surface event and u[6] at a volume event, and its two lamps all
+# three emission pairs, which the slab's never do.
 WARP_CASES = {
     "slab": dict(make=lsc_slab),
     "slab-host-bundle": dict(make=lsc_slab_host, bundle=True, off=5),
     "mesh_small-log": dict(make=mesh_small, off=2, log=(2, 8)),
     "slab-R32-score": dict(make=lambda: lsc_slab_recorders(32), score=True),
+    "mixed": dict(make=mixed_scene, off=7),
+    "mixed-log-score": dict(make=mixed_scene, score=True, log=(3, 16)),
 }
 
 
@@ -419,6 +423,15 @@ def test_trace_kernel_matches_twin_on_card(monkeypatch, spectra):
     st = _cuda_spectra_scene(monkeypatch, spectra)
     rep = check.check_trace(st, rng.key_words(1), 1 << 16, lanes=1 << 14)
     assert sum(rep["fates"]) == 1 << 16
+
+
+@pytest.mark.gpu
+def test_draws_kernel_matches_twin_on_card():
+    """pvt_draws (phase 27) at 2**14 lanes: every word bit-equal to the twin's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rep = check.check_draws("cuda", 1 << 14, reps=1)
+    assert rep["max_abs_err"] == 0.0 and kernels.launches["pvt_draws"] >= 3
 
 
 @pytest.mark.gpu
