@@ -15,7 +15,8 @@ each:
    score, pathwise, diff) started together: build time, and one line a
    function, every instantiation and every function kept out of line,
    with its registers, stack frame and spills (``trace_kernel<..>`` by
-   its template flags);
+   its template flags), and one line of the instantiations with recorders
+   (K9) or meshes (K10) and of pvt_tally's and pvt_mesh's kernels;
 2. pvt_emit against the twin on 2**20 photons;
 3. pvt_step against the twin for 8 steps from the emitted state;
 4. pvt_trace against the eager twin, 2**20 photons, at the scene's
@@ -40,9 +41,14 @@ each:
    ``scenes.lsc_tiles``, whose K5a table is larger than a block's shared
    budget: pvt_cheb and pvt_trace (2**16 photons) against the twin with
    the table in device memory;
-7. pvt_tally against the twin on phase 3's lanes, 32 recorders, 8 steps;
-8. pvt_trace with 32 and with 256 recorders (the full width: all eight
-   seen words, over 48 KB of shared memory a block), 2**20 photons,
+7. pvt_tally against the twin on phase 3's lanes for 8 steps, by the rule
+   pvt_trace takes for each scene: with 32 recorders (groups of 8, each
+   lane its own event: tally_event), with 256 (groups of up to 64, the
+   warp's together: tally_warp) and with the heatmap's bins past shared
+   memory (global 64-bit bins, tally_event): integer tallies and seen bits
+   equal after every step;
+8. pvt_trace with 32 and with 256 recorders (the full width: 10 facet
+   groups, the warp rule, over 48 KB of shared memory a block), 2**20 photons,
    against the twin: distinct rays, crossings and bins per entry, mean
    wavelengths; simulate's RecorderResults against the kernel's tallies;
 9. a recorder scene whose bins exceed a block's shared memory, so the
@@ -54,7 +60,8 @@ each:
     each read around its own run: photons/s, and launches of pvt_trace
     with no eager run; at 32, its tallies against the same photons in
     128 runs of 2**20 (integers equal, sums within the stated bound);
-12. pvt_mesh (K10) against the twin, 2**20 random rays against the hex
+12. pvt_mesh (K10, the triangles staged in shared memory as pvt_trace's
+    blocks stage them) against the twin, 2**20 random rays against the hex
     plate (24 triangles) and the tessellated slab (140): hit counts equal
     except on rays near an edge, t1 and t2 within 1e-5 relative, the
     nearest hit's normals equal;
@@ -116,9 +123,9 @@ each:
 21. pvt_trace_pathwise against the eager twin photon by photon, 2**20
     photons, on the slab and the slab with 32 recorders with ("n", "lsc")
     and ("size", "lsc", 2), and on the mesh LSC with ("n", plate): as
-    phase 17, the rows forced into device memory too; then the slab with
-    256 recorders, where the rows with two channels do not fit a block's
-    budget (they took device memory), and with one channel fit only
+    phase 17, the rows forced into device memory too; then two channels
+    on the slab with 256 recorders, where the rows do not fit a block's
+    budget (they took device memory), and with 224, where they fit only
     without the K5a table: each against the twin photon by photon at
     2**16 photons (as above), then at 2**20 rows in shared memory and the
     table in device memory against the reverse, records bit-equal, timed
@@ -392,6 +399,14 @@ def main():
         for fn, regs, stack, stores, loads in build.ptxas_rows(report or ""):
             print(f"  ptxas {name} {fn}: {regs if regs is not None else '-'} registers, {stack} "
                   f"bytes stack, {stores} bytes spill stores, {loads} bytes spill loads")
+    # The instantiations with recorders (K9, first flag) or meshes (K10,
+    # third flag), and the two entries that run K9's and K10's code alone.
+    k9_k10 = [f"{fn} {regs}/{stack}/{stores}" for name, (_, report) in built.items()
+              for fn, regs, stack, stores, _ in build.ptxas_rows(report or "")
+              if fn.startswith(("trace_kernel<1", "tally_kernel", "mesh_kernel"))
+              or fn.startswith("trace_kernel<") and fn[17:18] == "1"]
+    print(f"phase 1 K9 and K10 (registers/stack bytes/spill bytes): {'; '.join(k9_k10)}",
+          flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -553,22 +568,34 @@ def main():
         flush=True,
     )
 
-    # 7. K9 lane by lane: phase 3's lanes in the scene with 32 recorders
+    # 7. K9 lane by lane: phase 3's lanes with 32 and 256 recorders and
+    # with the heatmap's bins past shared memory
     rec32 = compile_scene(lsc_slab_recorders(32))
     st32 = scene_tensors(rec32, dtype=torch.float32, device="cuda")
-    tally_rep = check.check_tally(st32, state, steps=8)
-    print(
-        f"phase 7 pvt_tally vs twin: {N_CHECK} lanes x 8 steps, 32 recorders, "
-        f"{tally_rep['events_per_step']:.0f} events a step, integer tallies equal, "
-        f"sums max rel err {tally_rep['max_rel_err']:.3g} (limit {check.SUMS_RTOL}), "
-        f"shared bins {tally_rep['shared_bins']}; kernel {tally_rep['ms']:.4f} ms, "
-        f"twin {tally_rep['plain_ms']:.4f} ms, bound {tally_rep['bound_ms']:.5f} ms | {smi}",
-        flush=True,
-    )
-
-    # 8. the recorder path against the eager twin, at 32 and 256 recorders
     st256 = scene_tensors(compile_scene(lsc_slab_recorders(256)), dtype=torch.float32,
                           device="cuda")
+    st_heat = scene_tensors(compile_scene(lsc_slab_heatmap()), dtype=torch.float32,
+                            device="cuda")
+    tally_reps = {}
+    for label, st_r, shared in (("32 recorders", st32, True), ("256 recorders", st256, True),
+                                ("heatmap", st_heat, False)):
+        rep = tally_reps[label] = check.check_tally(st_r, state, steps=8)
+        rep["rule"] = kernels.tally_rule(st_r["meta"])
+        if rep["shared_bins"] != shared:
+            fail(f"pvt_tally, {label}: bins in shared memory {rep['shared_bins']}, not {shared}")
+        print(
+            f"phase 7 pvt_tally vs twin, {label}: {N_CHECK} lanes x 8 steps, "
+            f"{st_r['meta']['n_grp']} facet groups, {rep['rule']}, "
+            f"{rep['events_per_step']:.0f} events a step, "
+            f"integer tallies and seen bits equal after every step, sums max rel err "
+            f"{rep['max_rel_err']:.3g} (limit {check.SUMS_RTOL}), shared bins "
+            f"{rep['shared_bins']}; kernel {rep['ms']:.4f} ms, twin {rep['plain_ms']:.4f} ms, "
+            f"bound {rep['bound_ms']:.5f} ms | {smi}",
+            flush=True,
+        )
+    tally_rep = tally_reps["32 recorders"]
+
+    # 8. the recorder path against the eager twin, at 32 and 256 recorders
     for R, st_r in ((32, st32), (256, st256)):
         rep = check.check_trace(st_r, seed, N_CHECK)
         shared_bytes = kernels.last_trace["shared_bytes"]
@@ -605,8 +632,6 @@ def main():
           f"{len(rec32.recorder_names)} recorders match the kernel's tallies", flush=True)
 
     # 9. bins beyond shared memory: the global-atomic path
-    st_heat = scene_tensors(compile_scene(lsc_slab_heatmap()), dtype=torch.float32,
-                            device="cuda")
     heat_rep = check.check_trace(st_heat, seed, N_CHECK)
     if heat_rep["shared_bins"]:
         fail("heatmap scene: the bins took the shared-memory path")
@@ -981,27 +1006,29 @@ def main():
             f"{rep['rows']['ms_placed']} / device {rep['rows']['ms_device']} | {smi}",
             flush=True,
         )
-    # Past the budget: 256 recorders, where two channels' rows do not fit
-    # and one channel's fit only if the K5a table goes to device memory.
+    # Past the budget: two channels on 256 recorders, whose rows do not
+    # fit, and on 224, whose rows fit only if the K5a table goes to device
+    # memory.
     # Each placement against the twin at N_BUDGET photons, then timed at
     # N_CHECK as placed and with the rows forced into device memory (which
     # gives the one-channel run the K5a table in shared memory instead).
-    rec256 = compile_scene(lsc_slab_recorders(256))
     budget = {}
-    for label, specs in (("two channels", PATHWISE), ("one channel", PATHWISE[:1])):
-        resolved = transport.resolve_pathwise_params(rec256, specs)
-        rep = check.check_trace_scores(st256, seed, N_BUDGET, pathwise=resolved)
-        placed = kernels.trace_layout(st256, True, len(resolved))
-        want = (0, 1) if len(resolved) == 2 else (1, 0)
+    for R, want in ((256, (0, 1)), (224, (1, 0))):
+        label = f"{R} recorders"
+        rec_r = compile_scene(lsc_slab_recorders(R))
+        st_r = st256 if R == 256 else scene_tensors(rec_r, dtype=torch.float32, device="cuda")
+        resolved = transport.resolve_pathwise_params(rec_r, PATHWISE)
+        rep = check.check_trace_scores(st_r, seed, N_BUDGET, pathwise=resolved)
+        placed = kernels.trace_layout(st_r, True, len(resolved))
         if (placed["shared_rows"], placed["shared_cheb"]) != want:
-            fail(f"256 recorders, {label}: rows and K5a table placed {placed}")
-        fates256, _, t256, _ = kernels.trace(st256, seed, N_CHECK, score=True, per_photon=True,
-                                             pathwise=resolved)
-        if int(fates256.sum()) != N_CHECK:
-            fail(f"256 recorders, {label}: fates {fates256.tolist()} do not sum to {N_CHECK}")
-        budget[label] = check.check_rows_placement(st256, seed, N_CHECK, t256, resolved, reps=3)
+            fail(f"{label}, two channels: rows and K5a table placed {placed}")
+        fates_r, _, t_r, _ = kernels.trace(st_r, seed, N_CHECK, score=True, per_photon=True,
+                                           pathwise=resolved)
+        if int(fates_r.sum()) != N_CHECK:
+            fail(f"{label}, two channels: fates {fates_r.tolist()} do not sum to {N_CHECK}")
+        budget[label] = check.check_rows_placement(st_r, seed, N_CHECK, t_r, resolved, reps=3)
         print(
-            f"phase 21 256 recorders, {label} ({list(resolved)}): block {placed}; vs twin at "
+            f"phase 21 {label}, two channels ({list(resolved)}): block {placed}; vs twin at "
             f"{N_BUDGET} photons, fates {rep['fates']} vs {rep['twin_fates']}, {rep['parted']} "
             f"parted, {rep['saturated']} saturated (limit each "
             f"{check.SCORE_PARTED * N_BUDGET:g}), the others' scores at "
@@ -1276,8 +1303,13 @@ def main():
                                   - np.mean([N_MAIN / r for r in rates["K5b"]])),
             "tiles": {"table_bytes": 4 * st_tiles["meta"]["cheb_words"],
                       "trace_ms": tiles_rep["ms"], "trace_fates": tiles_rep["fates"]}}),
-        ("pvt_tally", tally_rep, {"n": N_CHECK, "recorders": 32,
-                                  "runs_inside": "pvt_trace (tally_event)"}),
+        ("pvt_tally", tally_rep, {"n": N_CHECK, "recorders": 32, "rule": tally_rep["rule"],
+                                  "runs_inside": f"pvt_trace (tally_event; tally_warp past "
+                                                 f"{kernels.WARP_GROUP} recorders a group)",
+                                  **{label.replace(" ", "_"): {k: rep[k] for k in (
+                                      "ms", "plain_ms", "bound_ms", "max_rel_err", "rule")}
+                                     for label, rep in tally_reps.items()
+                                     if label != "32 recorders"}}),
         ("pvt_mesh", mesh_reps["hex plate"], {
             "n": N_CHECK, "triangles": mesh_reps["hex plate"]["triangles"],
             "runs_inside": "pvt_trace (mesh_nearest_two)",
@@ -1326,7 +1358,7 @@ def main():
             "rows": {"shared_rows": path_trace_reps["slab"]["shared_rows"],
                      "ms_shared": path_trace_reps["slab"]["rows"]["ms_placed"],
                      "ms_device": path_trace_reps["slab"]["rows"]["ms_device"],
-                     "budget_256_recorders": {k: {q: v[q] for q in ("placed", "ms_placed",
+                     "budget_two_channels": {k: {q: v[q] for q in ("placed", "ms_placed",
                                                                     "ms_device")}
                                               for k, v in budget.items()}},
             "main_path_photons_per_s": rate, "analytic": path_analytic,

@@ -55,7 +55,14 @@ aside):
   ``hist_f`` [H, HIST_F] and ``hist_i`` [H, HIST_I] (the compiler's
   ``hist_specs``), and an index from (node, selector) to the recorders
   that can match it, in CSR form: the recorders of key ``node * N_SEL +
-  sel`` are ``rec_ids[rec_csr[key]:rec_csr[key + 1]]``.
+  sel`` are ``rec_ids[rec_csr[key]:rec_csr[key + 1]]``. Within a key
+  they come in groups that share one facet test (no facet, or the same
+  normal and tolerance), in order of first appearance: the key's groups
+  are ``rec_grp[key]:rec_grp[key + 1]``, and group g's recorders
+  ``rec_ids[grp_pos[g]:grp_pos[g + 1]]`` (``meta["n_grp"]`` groups),
+  its facet test ``grp_f`` [G, GRP_F] (the normal, its tolerance, and 1
+  where there is a facet, 0 where every event passes). Every event that
+  matches one recorder of a group matches them all.
 
 ``meta`` says which lookups take K5a: a lookup takes its Chebyshev fits
 when the compiler made them and ``PVTRACE_TPU_NO_CHEB`` is unset, the JAX
@@ -183,6 +190,13 @@ RI_FACET = 2  # 1 when the recorder has a facet filter
 RI_HIST0 = 3  # first hist row
 RI_NHIST = 4
 REC_I = 5
+
+# grp_f columns: a facet group's normal, tolerance, and 1.0 where its
+# recorders have a facet (0.0: every event passes)
+GF_NX = 0
+GF_ATOL = 3
+GF_FACET = 4
+GRP_F = 5
 
 # hist_f columns: lower edge and width (hi - lo, taken in float64) per axis
 HF_LO_A = 0
@@ -357,30 +371,44 @@ def _cheb_records(compiled):
 
 
 def _recorder_records(compiled):
-    """rec_*, hist_* and the (node, selector) CSR index of `compiled`."""
+    """rec_*, hist_* and the (node, selector) CSR index of `compiled`, with
+    each key's recorders grouped by their facet test."""
     R, N = compiled.n_recorders, len(compiled.nodes)
     if R > MAX_RECORDERS:
         raise ValueError(f"at most {MAX_RECORDERS} recorders, got {R}")
     rec_f = np.zeros((max(R, 1), REC_F))
     rec_i = np.zeros((max(R, 1), REC_I), np.int32)
-    keys = [[] for _ in range(N * N_SEL)]
+    # Per key, its recorders by facet test (first appearance order): a
+    # recorder without a facet, or the facet's normal and tolerance.
+    keys = [{} for _ in range(N * N_SEL)]
     for r in range(R):
         rec_f[r, RF_NX:RF_NX + 3] = compiled.rec_facet[r]
         rec_f[r, RF_ATOL] = compiled.rec_atol[r]
         rec_i[r] = (compiled.rec_node[r], compiled.rec_event[r], compiled.rec_has_facet[r],
                     compiled.rec_hist_start[r], compiled.rec_hist_n[r])
-        keys[compiled.rec_node[r] * N_SEL + compiled.rec_event[r]].append(r)
+        test = (tuple(float(x) for x in compiled.rec_facet[r]), float(compiled.rec_atol[r])) \
+            if compiled.rec_has_facet[r] else None
+        keys[compiled.rec_node[r] * N_SEL + compiled.rec_event[r]].setdefault(test, []).append(r)
     specs = compiled.hist_specs
     hist_f = np.zeros((max(len(specs), 1), HIST_F))
     hist_i = np.zeros((max(len(specs), 1), HIST_I), np.int32)
     for h, (r, pa, pb, na, nb, lo_a, hi_a, lo_b, hi_b, offset) in enumerate(specs):
         hist_f[h] = (lo_a, hi_a - lo_a, lo_b, hi_b - lo_b)
         hist_i[h] = (r, pa, pb, na, nb, offset)
-    csr = np.cumsum([0] + [len(k) for k in keys]).astype(np.int32)
-    ids = np.asarray([r for k in keys for r in k] or [0], np.int32)
+    groups = [g for k in keys for g in k.values()]
+    tests = [t for k in keys for t in k]
+    grp_f = np.zeros((max(len(groups), 1), GRP_F))
+    for g, test in enumerate(tests):
+        if test is not None:
+            grp_f[g] = (*test[0], test[1], 1.0)
+    csr = np.cumsum([0] + [sum(len(g) for g in k.values()) for k in keys]).astype(np.int32)
+    ids = np.asarray([r for g in groups for r in g] or [0], np.int32)
     return {
         "rec_f": rec_f, "rec_i": rec_i, "hist_f": hist_f, "hist_i": hist_i,
         "rec_csr": csr, "rec_ids": ids,
+        "rec_grp": np.cumsum([0] + [len(k) for k in keys]).astype(np.int32),
+        "grp_pos": np.cumsum([0] + [len(g) for g in groups]).astype(np.int32),
+        "grp_f": grp_f,
     }
 
 
@@ -484,6 +512,8 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
             "grid_x0": float(compiled.grid_x0),
             "grid_dx": float(compiled.grid_dx),
             "n_rec": int(compiled.n_recorders),
+            "n_grp": int(recs["grp_pos"].size - 1),
+            "grp_max": int(np.diff(recs["grp_pos"]).max(initial=0)),
             "total_bins": int(compiled.total_bins),
             **cheb_meta,
         },

@@ -31,9 +31,10 @@ from pvtrace_tpu_torch.kernels import build
 # the trace launches' summed time on the card (ms, as in last_trace, by
 # the same names: "pvt_trace" all of them). What the last pvt_trace launch
 # reported: its thread count, the dynamic shared memory of a block,
-# whether the recorder bins, the score sums, the K5a table ("shared_cheb")
-# and the threads' score and tangent rows ("shared_rows") were in shared
-# memory (else in device memory), the steps its photons took in all, the
+# whether the recorder bins, the score sums, the K5a table ("shared_cheb"),
+# the threads' score and tangent rows ("shared_rows") and the mesh
+# triangles ("shared_tris") were in shared memory (else in device memory),
+# the steps its photons took in all, the
 # lane-steps of its warps' turns (32 a turn of each warp: a lane without a
 # photon idles through its warp's turn) and the share of them that traced
 # a photon (``lane_efficiency``), and its time on the card (CUDA events,
@@ -44,13 +45,20 @@ launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_ta
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
-              "shared_cheb": 0, "shared_rows": 0, "total_steps": 0, "lane_steps": 0,
-              "lane_efficiency": 0.0, "ms": 0.0}
+              "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
+              "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0}
 last_cheb = {"shared_cheb": 0}
 # A trace block's threads (tracer.cuh's kBlock).
 BLOCK = 256
-# What a trace launch's info[1..5] report (tracer.cuh's layout_info).
-_PLACEMENT = ("shared_bytes", "shared_bins", "shared_scores", "shared_cheb", "shared_rows")
+# tracer.cuh's kWarpGroup: pvt_tally, and pvt_trace's launch with
+# recorders alone, add a scene's recorder events by the warp rule
+# (tally_warp) when one of its facet groups holds more recorders than
+# this, else each lane its own (tally_event); every other trace launch
+# takes the lane rule (tally_rule, trace_rule).
+WARP_GROUP = 12
+# What a trace launch's info[1..6] report (tracer.cuh's layout_info).
+_PLACEMENT = ("shared_bytes", "shared_bins", "shared_scores", "shared_cheb", "shared_rows",
+              "shared_tris")
 
 _SCENE_PTRS = (
     "node_f", "node_i", "comp_f", "comp_i", "ovr_f", "ovr_i", "tri_f", "light_f",
@@ -64,6 +72,8 @@ _SCENE_INTS = (
 _SCENE_META_INTS = (
     "n_nodes", "root_id", "n_lights", "n_lum", "grid_n", "icdf_n", "pack_width", "n_tris",
 )
+# K9's facet groups, at the end of the struct (the first two int32).
+_SCENE_GROUPS = ("rec_grp", "grp_pos", "grp_f")
 _STATE_PTRS = physics.STATE_FLOATS + ("source", "count", "alive", "k0", "k1")
 _FLAG_PTRS = ("hit", "container") + physics.FLAGS + physics.SELECTORS \
     + physics.EVENT_FLAGS + physics.SURFACE
@@ -79,7 +89,8 @@ class _Scene(ctypes.Structure):
     ] + [
         (name, ctypes.c_float)
         for name in ("grid_x0", "grid_dx", "maxpathlength", "cheb_tscale")
-    ]
+    ] + [(name, ctypes.c_void_p) for name in _SCENE_GROUPS] + [
+        (name, ctypes.c_int) for name in ("n_grp", "grp_max")]
 
 
 class _State(ctypes.Structure):
@@ -166,6 +177,13 @@ _ENTRIES = {
 _libs = {}
 
 
+def tally_rule(meta):
+    """The rule by which pvt_tally adds the events of a scene whose
+    tensors have `meta`: "tally_warp" or "tally_event" (tracer.cuh's
+    tally_rule)."""
+    return "tally_warp" if meta["grp_max"] > WARP_GROUP else "tally_event"
+
+
 def reset():
     for name in launches:
         launches[name] = 0
@@ -199,9 +217,9 @@ def _check_scene(st):
         raise NotImplementedError(
             "the CUDA kernels cover float32 only; use float32 scene tensors"
         )
-    for name in _SCENE_PTRS:
+    for name in _SCENE_PTRS + _SCENE_GROUPS:
         t = st[name]
-        want = torch.int32 if name in _SCENE_INTS else torch.float32
+        want = torch.int32 if name in _SCENE_INTS + _SCENE_GROUPS[:2] else torch.float32
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"scene tensor {name}: need contiguous {want} on {dev}")
     if st["cheb_pack"].data_ptr() % 16:
@@ -218,7 +236,8 @@ def _scene(st, maxsteps, emit_method, maxpathlength):
         meta["cheb_icdf0"], meta["cheb_light0"], meta["cheb_words"], meta["n_rec"],
         meta["total_bins"],
         meta["grid_x0"], meta["grid_dx"], float(maxpathlength),
-        2.0 / (meta["grid_n"] - 1),
+        2.0 / (meta["grid_n"] - 1), *(st[name].data_ptr() for name in _SCENE_GROUPS),
+        meta["n_grp"], meta["grp_max"],
     )
 
 
@@ -558,7 +577,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     steps = torch.zeros(2, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
-    info = (ctypes.c_longlong * 6)()
+    info = (ctypes.c_longlong * 7)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
@@ -620,7 +639,7 @@ def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
     ``score_sums`` counts them."""
     desc = _Score(ch=score_ch.n_channels(st, n_path), n_path=n_path,
                   shared_rows=int(shared_rows))
-    info = (ctypes.c_longlong * 6)()
+    info = (ctypes.c_longlong * 7)()
     (entry or library("tracer").pvt_layout)(
         ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
         ctypes.byref(desc) if score else None, info)

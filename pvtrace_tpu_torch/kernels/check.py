@@ -27,10 +27,13 @@ CHEB_RTOL = 1e-5
 # The kernels' moment sums: a block adds each recorder's eight moments
 # (all non-negative) into float32 partials, which move into the float64
 # totals every SUMS_FLUSH distinct rays of that recorder and at the end.
-# A partial holds at most SUMS_FLUSH addends plus one in flight from each
-# of the block's other 255 threads, so it is off by at most that many
-# roundings, (SUMS_FLUSH + 255) * 2**-24 = 7.6e-5 of its value, however
-# many photons the block traces; so is their total.
+# A warp adds its fresh lanes' moments as one sum (in lane order, at most
+# 31 roundings of itself), so a partial takes at most SUMS_FLUSH adds
+# between two moves plus one in flight from each of the block's other 7
+# warps: it is off by at most (SUMS_FLUSH + 38) roundings of its value,
+# within (SUMS_FLUSH + 255) * 2**-24 = 7.6e-5 (the bound of one add a
+# thread, kept), however many photons the block traces; so is their
+# total.
 SUMS_BOUND = (T.SUMS_FLUSH + 255) * 2.0 ** -24
 # pvt_tally's sums against the twin's, which adds one float32 reduction
 # over the lanes (about log2(lanes) roundings) per step: SUMS_BOUND and

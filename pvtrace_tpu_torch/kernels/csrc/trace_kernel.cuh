@@ -28,20 +28,22 @@ bool bins_fit_shared(const PvtScene& sc) {
 
 // Points a block's accumulators into dynamic shared memory and zeroes
 // them (the caller synchronises). Per-block distinct and bins are 32-bit:
-// they are bounded by the photons the block traces; crossings (up to
-// maxsteps per photon) are 64-bit.
+// they are bounded by the photons the block traces; so are crossings (up
+// to maxsteps per photon), moved into the 64-bit totals before they could
+// wrap (recorder_add).
 __device__ PvtTally tally_block_init(const PvtScene& sc, unsigned char* smem, int shared_bins,
                                      const PvtTallyOut& out) {
   PvtTally acc;
-  acc.cross = reinterpret_cast<unsigned long long*>(smem);
-  acc.sums = reinterpret_cast<float*>(smem + 8 * (size_t)sc.n_rec);
-  acc.distinct = reinterpret_cast<unsigned int*>(smem + 40 * (size_t)sc.n_rec);
-  acc.bins32 = shared_bins ? reinterpret_cast<unsigned int*>(smem + 44 * (size_t)sc.n_rec)
+  acc.cross = out.cross;
+  acc.cross32 = reinterpret_cast<unsigned int*>(smem);
+  acc.sums = reinterpret_cast<float*>(smem + 4 * (size_t)sc.n_rec);
+  acc.distinct = reinterpret_cast<unsigned int*>(smem + 36 * (size_t)sc.n_rec);
+  acc.bins32 = shared_bins ? reinterpret_cast<unsigned int*>(smem + 40 * (size_t)sc.n_rec)
                            : nullptr;
   acc.bins64 = shared_bins ? nullptr : out.bins;
   acc.sums64 = out.sums;
   for (int r = threadIdx.x; r < sc.n_rec; r += blockDim.x) {
-    acc.cross[r] = 0ull;
+    acc.cross32[r] = 0u;
     acc.distinct[r] = 0u;
   }
   for (int k = threadIdx.x; k < 8 * sc.n_rec; k += blockDim.x) acc.sums[k] = 0.0f;
@@ -56,7 +58,7 @@ __device__ PvtTally tally_block_init(const PvtScene& sc, unsigned char* smem, in
 __device__ void tally_block_flush(const PvtScene& sc, const PvtTally& acc,
                                   const PvtTallyOut& out) {
   for (int r = threadIdx.x; r < sc.n_rec; r += blockDim.x) {
-    if (acc.cross[r]) atomicAdd(out.cross + r, acc.cross[r]);
+    if (acc.cross32[r]) atomicAdd(out.cross + r, (unsigned long long)acc.cross32[r]);
     if (acc.distinct[r]) atomicAdd(out.distinct + r, (unsigned long long)acc.distinct[r]);
   }
   for (int k = threadIdx.x; k < 8 * sc.n_rec; k += blockDim.x)
@@ -122,6 +124,16 @@ __device__ const int* stage_cheb(const PvtScene& sc, unsigned char* dst) {
   return reinterpret_cast<const int*>(dst);
 }
 
+// Copies the scene's mesh triangles (tri_f, n_tris rows of TRI_F floats)
+// into a block's shared memory at `dst` (16-byte aligned), 16 bytes a
+// thread at a time, and returns them there (the caller synchronises).
+__device__ const float* stage_tris(const float* tri_f, int n_tris, unsigned char* dst) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  const float4* src = reinterpret_cast<const float4*>(tri_f);
+  for (int k = threadIdx.x; k < n_tris * TRI_F / 4; k += blockDim.x) d[k] = src[k];
+  return reinterpret_cast<const float*>(dst);
+}
+
 unsigned int grid_for(long long n) { return (unsigned int)((n + kBlock - 1) / kBlock); }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it
@@ -164,10 +176,16 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 //
 // Fates, steps and turns stay in registers, are reduced per block in
 // shared memory and added to the int64 counters, one atomic each. With
-// recorders (kTally), each photon's events go to the block's shared
-// accumulators (the lane's `seen` bitset marks the recorders the photon
-// has matched), flushed once at the end, the moment sums also every
-// SUMS_FLUSH distinct rays of a recorder. The instantiation without
+// recorders (kTally), each turn's events go to the block's shared
+// accumulators, each lane its own (tally_event) or, with kWarpTally, the
+// warp's together (tally_warp; only pvt_trace's launch with recorders
+// alone takes it, by the scene's facet groups: trace_rule, launch_for);
+// a lane's `seen` bits mark the groups its photon has
+// matched. They are flushed once at the end, the moment sums also every
+// SUMS_FLUSH distinct rays of a recorder. With
+// meshes (kMesh) a block first copies the triangles into its shared
+// memory where they fit (trace_layout), and every step's K10 reads them
+// there. The instantiation without
 // recorders computes no selectors and takes no normal on EXIT. With the
 // event log (kLog, K11; replaces _record and the log calls of body), a
 // recorded photon's lane writes its records to the photon's own row with
@@ -192,12 +210,13 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // branch on the bundle in every instantiation moved the registers and
 // spills of nearly all of them (PERF.md, section 6).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
-          bool kBundle = false>
+          bool kBundle = false, bool kWarpTally = false>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
-             PvtScore score, PvtBundle bundle, int cheb_at) {
+             PvtScore score, PvtBundle bundle, int cheb_at, int tris_at) {
+  static_assert(!kWarpTally || !kScore, "the warp rule adds no scores");
   __shared__ unsigned long long block_fates[7];
   __shared__ int block_max;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -211,6 +230,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
                           smem + rows_offset(sc, kTally, shared_bins, score),
                           (long long)blockIdx.x * blockDim.x + threadIdx.x);
   const int* cheb = cheb_at >= 0 ? stage_cheb(sc, smem + cheb_at) : sc.cheb_pack;
+  const float* tris = nullptr;
+  if (kMesh && tris_at >= 0) tris = stage_tris(sc.tri_f, sc.n_tris, smem + tris_at);
   __syncthreads();
 
   FateCounts f = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
@@ -236,11 +257,18 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     }
     if (!__any_sync(0xffffffffu, L.p.alive)) break;
     ++turns;
+    StepOut o;
+    bool stepped = false;
     if (L.p.alive) {
-      photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, &acc, &lg,
-                                                      kScore ? &sa : nullptr);
+      stepped = photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, &lg,
+                                                                kScore ? &sa : nullptr, o, tris);
       if (!L.p.alive) longest = max(longest, photon_finish(L, f));
     }
+    // Every lane of the warp is here: the loop leaves only by the warp's
+    // vote above.
+    if (kTally && kWarpTally) tally_warp(sc, acc, L.seen, o, L.p, stepped);
+    if (kTally && !kWarpTally && stepped)
+      tally_event(sc, acc, L.seen, o, L.p, kScore ? &sa : nullptr);
   }
 
   atomicAdd(&block_fates[0], f.exit);
@@ -265,14 +293,15 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 }
 
 // One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore,
-// kPath, kBundle>, sized to the card's resident capacity (see pvt_trace),
+// kPath, kBundle, kWarpTally>, sized to the card's resident capacity (see pvt_trace),
 // and with scores to at most score.stride threads (the rows there are).
 // Without a bundle every photon is emitted on the device, which a scene
 // without device lights cannot do: refused. info gets the thread count, a
 // block's dynamic shared memory, and whether the recorder bins, the score
 // sums, the K5a table and the threads' rows were placed there
 // (trace_layout).
-template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle,
+          bool kWarpTally = false>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          unsigned long long total, long long max_threads,
                          unsigned long long* next, unsigned long long* fates, int* max_count,
@@ -293,7 +322,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath, kBundle>;
+  const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath, kBundle, kWarpTally>;
   if (err == cudaSuccess && bytes > 0) err = allow_shared(kernel, bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, bytes);
@@ -307,7 +336,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   layout_info(L, info);
   kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(sc, s0, s1, total, next, fates,
                                                            max_count, steps, tally, shared_bins,
-                                                           lg, score, bundle, cheb_at);
+                                                           lg, score, bundle, cheb_at, L.tris_at);
   return cudaGetLastError();
 }
 
@@ -320,9 +349,14 @@ using LaunchTrace = cudaError_t (*)(const PvtScene&, unsigned int, unsigned int,
 
 // The launch_trace instantiation of a run with scores (kScore) and
 // pathwise channels (kPath): by whether it starts from a bundle, has
-// recorders, writes the log, and has meshes.
+// recorders, writes the log, and has meshes; and by the rule that adds
+// the recorder events (trace_rule): the warp rule only in pvt_trace's
+// launch with recorders alone, the lane rule in every other.
 template <bool kScore, bool kPath>
 LaunchTrace launch_for(const PvtScene& sc, const PvtLog& lg, const PvtBundle& bundle) {
+  if constexpr (!kScore)
+    if (trace_rule(sc, lg.n_slots > 0, kScore, bundle.rows != nullptr) == 2)
+      return launch_trace<true, false, false, false, false, false, true>;
 #define PVT_LAUNCH(b, t, l) \
   {launch_trace<t, l, false, kScore, kPath, b>, launch_trace<t, l, true, kScore, kPath, b>}
   const LaunchTrace launch[2][2][2][2] = {

@@ -61,10 +61,13 @@ cheb_kernel(PvtScene sc, int staged, const float* t, long long n_t, long long n,
 }
 
 // Replaces _tally and the tally frame of body_fast (pvtrace_tpu/engine/
-// tracer.py) for one step of B lanes: one thread per lane walks the CSR
-// list of its (tnode, sel), accumulating per block in shared memory as
-// pvt_trace does. Not on the main path; it lets the card hold K9 to its
-// twin lane by lane. Bound by shared-memory atomics on hot recorders.
+// tracer.py) for one step of B lanes, one thread a lane, by the rule
+// pvt_trace's launch with recorders alone takes for the scene (tally_rule:
+// each lane its own event, or the warp's together, tally_warp),
+// accumulating per block in shared memory as pvt_trace does. Not on the
+// main path; it lets the card hold K9 to its twin lane by lane. Bound by
+// shared-memory atomics on hot recorders.
+template <bool kWarpTally>
 __global__ void __launch_bounds__(kBlock)
 tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
              PvtTallyOut out, int shared_bins) {
@@ -72,7 +75,15 @@ tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
   const PvtTally acc = tally_block_init(sc, smem, shared_bins, out);
   __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) tally_lane(sc, s, fl, seen, i, acc);
+  StepOut o;
+  Photon p;
+  Seen bits;
+  if (i < B) tally_lane_load(sc, s, fl, seen, i, o, p, bits);
+  if (kWarpTally)
+    tally_warp(sc, acc, bits, o, p, i < B);  // every lane, those past B without an event
+  else if (i < B)
+    tally_event(sc, acc, bits, o, p);
+  if (i < B) seen_to_words(sc, bits, seen + i * SEEN_WORDS);
   __syncthreads();
   tally_block_flush(sc, acc, out);
 }
@@ -80,12 +91,20 @@ tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
 // Replaces _mesh_nearest_two (pvtrace_tpu/engine/tracer.py) for B rays
 // against one mesh node, one thread each. Not on the main path
 // (mesh_nearest_two runs inside pvt_trace); it lets the card hold K10 to
-// its twin ray by ray. Bound by operations, about 60 a triangle.
+// its twin ray by ray. With `staged` each block first copies the
+// triangles into its shared memory, as pvt_trace's blocks do. Bound by
+// operations, about 60 a triangle.
 __global__ void __launch_bounds__(kBlock)
-mesh_kernel(const float* tri, int n_tris, float eps, const float* o, const float* d,
+mesh_kernel(const float* tri, int n_tris, int staged, float eps, const float* o, const float* d,
             long long B, float* t1, float* t2, int* cnt, float* nrm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float* tris = tri;
+  if (staged) {
+    tris = stage_tris(tri, n_tris, smem);
+    __syncthreads();
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
+  if (i < B) mesh_lane(tris, tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
 
 // The trace's draws on B lanes (B a multiple of kWarp), each kWarp of
@@ -172,19 +191,28 @@ int pvt_tally(const PvtScene* sc, const PvtState* state, const PvtFlags* flags,
               void* stream) {
   *shared_bins = bins_fit_shared(*sc) ? 1 : 0;
   const size_t bytes = tally_bytes(*sc, *shared_bins);
-  cudaError_t err = allow_shared(tally_kernel, bytes);
+  const auto kernel = tally_rule(*sc) == 2 ? tally_kernel<true> : tally_kernel<false>;
+  cudaError_t err = allow_shared(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  tally_kernel<<<grid_for(B), kBlock, bytes, (cudaStream_t)stream>>>(
-      *sc, *state, *flags, seen, B, *out, *shared_bins);
+  kernel<<<grid_for(B), kBlock, bytes, (cudaStream_t)stream>>>(*sc, *state, *flags, seen, B,
+                                                                *out, *shared_bins);
   return (int)cudaGetLastError();
 }
 
 // B rays (o, d: [B, 3], the node's local frame) against n_tris triangles
-// (rows of TRI_F): t1, t2, cnt [B] and the nearest hit's normal nrm [B, 3].
+// (rows of TRI_F, 16-byte aligned): t1, t2, cnt [B] and the nearest hit's
+// normal nrm [B, 3]. The blocks stage the triangles in shared memory
+// where they fit a trace block's budget, as pvt_trace does.
 int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
              long long B, float* t1, float* t2, int* cnt, float* nrm, void* stream) {
-  mesh_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(tri, n_tris, eps, o, d, B, t1,
-                                                                 t2, cnt, nrm);
+  const size_t bytes = 4 * TRI_F * (size_t)n_tris;
+  const int staged = bytes <= kSharedTallyLimit ? 1 : 0;
+  if (staged) {
+    const cudaError_t err = allow_shared(mesh_kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mesh_kernel<<<grid_for(B), kBlock, staged ? bytes : 0, (cudaStream_t)stream>>>(
+      tri, n_tris, staged, eps, o, d, B, t1, t2, cnt, nrm);
   return (int)cudaGetLastError();
 }
 
@@ -192,7 +220,8 @@ int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const floa
 // whole blocks. info[0] gets their number, info[1] the dynamic shared
 // memory of a block, info[2] 1 when the recorder bins were in shared
 // memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
-// K5a table was, info[5] 1 when the threads' score rows were (0 here).
+// K5a table was, info[5] 1 when the threads' score rows were (0 here),
+// info[6] 1 when the mesh triangles were.
 // fates [11], max_count and steps [2] (zeroed by the caller) get the fate
 // counts, the longest photon's steps, the photons' steps in all and the
 // lane-steps of the warps' turns (kWarp a turn of each warp). With

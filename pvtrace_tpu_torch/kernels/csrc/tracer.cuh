@@ -100,6 +100,11 @@
 #define RF_ATOL 3
 #define REC_F 4
 
+#define GF_NX 0
+#define GF_ATOL 3
+#define GF_FACET 4
+#define GRP_F 5
+
 #define RI_NODE 0
 #define RI_EVENT 1
 #define RI_FACET 2
@@ -173,12 +178,14 @@ enum { EV_GENERATE = 0, EV_REFLECT = 1, EV_TRANSMIT = 2, EV_ABSORB = 3, EV_NONRA
 #define PVT_ADD(p, v) (*(p) += (v))
 #endif
 
-// Adds 1 to *p and returns the new value.
-PVT_FN unsigned int pvt_inc(unsigned int* p) {
+// Adds v to *p and returns the value before.
+PVT_FN unsigned int pvt_add(unsigned int* p, unsigned int v) {
 #ifdef __CUDA_ARCH__
-  return atomicAdd(p, 1u) + 1u;
+  return atomicAdd(p, v);
 #else
-  return ++*p;
+  const unsigned int before = *p;
+  *p += v;
+  return before;
 #endif
 }
 
@@ -194,8 +201,64 @@ PVT_FN float pvt_take(float* p) {
 #endif
 }
 
+PVT_FN unsigned int pvt_take(unsigned int* p) {
+#ifdef __CUDA_ARCH__
+  return atomicExch(p, 0u);
+#else
+  const unsigned int v = *p;
+  *p = 0u;
+  return v;
+#endif
+}
+
+// A block counts a recorder's crossings in a 32-bit word, a native
+// shared atomic where a 64-bit add is a compare-and-swap loop (2-6 %
+// faster with one recorder a facet group; PERF.md, section 6), and moves
+// them into the 64-bit totals whenever they pass a multiple of
+// kCrossFlush, so the word never wraps.
+constexpr unsigned int kCrossFlush = 1u << 30;
+
+// Adds v[k] to p[k], k < 8, where v[k] is not 0 (the moment sums: all
+// non-negative, so a 0 changes nothing). On the card a float32 atomicAdd
+// to shared memory is a compare-and-swap loop (ATOMS.CAST.SPIN); eight of
+// them in a row wait for eight round trips. Here the eight compare-and-
+// swaps (ATOMS.CAS) run side by side: a lane waits for one round trip,
+// and retries only where another lane's add came between. Where lanes of
+// one warp add to one address, as tally_event's do, it measured far
+// slower than atomicAdd (PERF.md, section 6): only tally_warp, whose
+// lanes add to different recorders, takes it.
+PVT_FN void pvt_add8(float* p, const float* v) {
+#ifdef __CUDA_ARCH__
+  unsigned int* w = reinterpret_cast<unsigned int*>(p);
+  unsigned int held[8];
+  unsigned int todo = 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    held[k] = reinterpret_cast<volatile unsigned int*>(w)[k];
+    if (v[k] != 0.0f) todo |= 1u << k;
+  }
+  while (todo) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (!(todo >> k & 1u)) continue;
+      const unsigned int got =
+          atomicCAS(w + k, held[k], __float_as_uint(__uint_as_float(held[k]) + v[k]));
+      if (got == held[k]) todo &= ~(1u << k);
+      held[k] = got;
+    }
+  }
+#else
+  for (int k = 0; k < 8; ++k)
+    if (v[k] != 0.0f) p[k] += v[k];
+#endif
+}
+
 // Scene tensors and run constants (field order mirrored by the ctypes
-// Structure in pvtrace_tpu_torch/kernels/__init__.py).
+// Structure in pvtrace_tpu_torch/kernels/__init__.py). K9's facet groups
+// (engine/tables.py) come last: key k's groups are [rec_grp[k],
+// rec_grp[k + 1]), group g's recorders rec_ids[grp_pos[g] .. grp_pos[g +
+// 1]) and its facet test grp_f[g] (GF_*), and every event that matches
+// one of a group's recorders matches them all.
 struct PvtScene {
   const float* node_f;
   const int* node_i;
@@ -240,6 +303,11 @@ struct PvtScene {
   float grid_dx;
   float maxpathlength;
   float cheb_tscale;
+  const int* rec_grp;
+  const int* grp_pos;
+  const float* grp_f;
+  int n_grp;
+  int grp_max;
 };
 
 struct Photon {
@@ -301,10 +369,12 @@ struct FateCounts {
 
 // K9 accumulators of one block (shared memory) or of the host harness:
 // crossings, moment sums and distinct rays per recorder, and the bins,
-// in bins32 when they fit in shared memory, else straight in bins64.
-// The float32 sums of a recorder move into the float64 sums64 at every
-// SUMS_FLUSH-th distinct ray, so none holds more than about SUMS_FLUSH
-// addends however many photons the block traces.
+// in bins32 when they fit in shared memory, else straight in bins64. A
+// block counts crossings in cross32 and moves them into `cross`, the
+// totals (the host adds to `cross`, cross32 null). The float32 sums of a
+// recorder move into the float64 sums64 whenever its distinct rays pass
+// a multiple of SUMS_FLUSH (recorder_add), so none holds more than
+// SUMS_FLUSH addends however many photons the block traces.
 struct PvtTally {
   unsigned long long* cross;
   float* sums;
@@ -312,6 +382,7 @@ struct PvtTally {
   unsigned int* bins32;
   unsigned long long* bins64;
   double* sums64;
+  unsigned int* cross32;
 };
 
 // K9 results in device memory (field order mirrored by ctypes).
@@ -407,8 +478,9 @@ struct ScoreAcc {
 // memory holds, in this order and each while it fits kSharedTallyLimit
 // after the ones before it: the recorder tallies (K9), the float64 score
 // sums (K12), its threads' score and tangent rows (K12, K13), the K5a
-// table. What does not fit stays in device memory, read and written by
-// the same code through the same generic pointers. Host-callable: the
+// table, the mesh triangles (K10). What does not fit stays in device
+// memory, read and written by the same code through the same generic
+// pointers. Host-callable: the
 // launch, pvt_layout (tracer.cu) and the host build's tests share it.
 
 // Threads of a block, in every kernel of the port.
@@ -419,10 +491,10 @@ constexpr int kBlock = 256;
 // device memory.
 constexpr size_t kSharedTallyLimit = 96 * 1024;
 
-// Bytes of a block's K9 accumulators: crossings u64 [R], sums f32 [8R],
+// Bytes of a block's K9 accumulators: crossings u32 [R], sums f32 [8R],
 // distinct u32 [R], then the bins u32 [total_bins] when they are shared.
 PVT_FN size_t tally_bytes(const PvtScene& sc, bool shared_bins) {
-  return 44 * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
+  return 40 * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
 }
 
 // Bytes of a block's K12 accumulators when they are shared: float64
@@ -464,11 +536,14 @@ PVT_FN size_t cheb_bytes(const PvtScene& sc) {
   return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? 4 * (size_t)sc.cheb_words : 0;
 }
 
+// Bytes of the scene's mesh triangles (tri_f).
+PVT_FN size_t tris_bytes(const PvtScene& sc) { return 4 * TRI_F * (size_t)sc.n_tris; }
+
 // A trace block's placement: whether the recorder bins, the score sums and
-// the rows are in shared memory, where the K5a table starts there (-1: in
-// device memory), and the block's dynamic shared bytes.
+// the rows are in shared memory, where the K5a table and the triangles
+// start there (-1: in device memory), and the block's dynamic shared bytes.
 struct TraceLayout {
-  int shared_bins, shared_scores, shared_rows, cheb_at;
+  int shared_bins, shared_scores, shared_rows, cheb_at, tris_at;
   size_t bytes;
 };
 
@@ -494,19 +569,24 @@ PVT_FN TraceLayout trace_layout(const PvtScene& sc, bool tally, const PvtScore* 
   const size_t cheb_start = (end + 15) / 16 * 16;
   const bool cheb = cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= kSharedTallyLimit;
   L.cheb_at = cheb ? (int)cheb_start : -1;
-  L.bytes = cheb ? cheb_start + cheb_bytes(sc) : end;
+  if (cheb) end = cheb_start + cheb_bytes(sc);
+  const size_t tris_start = (end + 15) / 16 * 16;
+  const bool tris = sc.n_tris > 0 && tris_start + tris_bytes(sc) <= kSharedTallyLimit;
+  L.tris_at = tris ? (int)tris_start : -1;
+  L.bytes = tris ? tris_start + tris_bytes(sc) : end;
   return L;
 }
 
 // A placement as a launch's info reports it: info[1] the block's dynamic
-// shared bytes, info[2..5] 1 where the recorder bins, the score sums, the
-// K5a table and the rows are in shared memory, else 0.
+// shared bytes, info[2..6] 1 where the recorder bins, the score sums, the
+// K5a table, the rows and the mesh triangles are in shared memory, else 0.
 PVT_FN void layout_info(const TraceLayout& L, long long* info) {
   info[1] = (long long)L.bytes;
   info[2] = L.shared_bins;
   info[3] = L.shared_scores;
   info[4] = L.cheb_at >= 0 ? 1 : 0;
   info[5] = L.shared_rows;
+  info[6] = L.tris_at >= 0 ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------
@@ -948,21 +1028,20 @@ PVT_FN int intersect_node(int gtype, const float* gp, const float* o,
 // function's: |det| > 1e-14, u, v >= -1e-12, u + v <= 1 + 1e-12 (1 in
 // float32), t > eps; no dedup of a hit on a shared edge. Replaces
 // _mesh_nearest_two (pvtrace_tpu/engine/tracer.py). Bound by operations:
-// about 60 per triangle, 48 bytes of it read through L1 (a node's
-// triangles are shared by every thread); kept out of line, so a scene
-// without meshes pays a call site it never takes.
-PVT_CALLED_FN int mesh_nearest_two(const float* tri, int n_tris, const float* o,
-                                   const float* d, float eps, float* t1_out, float* t2_out,
-                                   int* first_out) {
+// about 60 per triangle. A warp's lanes take the same triangle together,
+// so its 12 floats are one broadcast a load: `tri` points into the block's
+// shared copy (stage_tris, trace_kernel.cuh) where it fit, else into
+// device memory, read through the same generic loads. Inlined: only the
+// kMesh instantiations and pvt_mesh call it.
+PVT_FN int mesh_nearest_two(const float* tri, int n_tris, const float* o, const float* d,
+                            float eps, float* t1_out, float* t2_out, int* first_out) {
   float t1 = PVT_INF, t2 = PVT_INF;
   int cnt = 0, first = -1;
   for (int k = 0; k < n_tris; ++k) {
     const float* r = tri + (size_t)k * TRI_F;
-    const float a0 = PVT_LDG(r + TF_V0), a1 = PVT_LDG(r + TF_V0 + 1), a2 = PVT_LDG(r + TF_V0 + 2);
-    const float e10 = PVT_LDG(r + TF_E1), e11 = PVT_LDG(r + TF_E1 + 1);
-    const float e12 = PVT_LDG(r + TF_E1 + 2);
-    const float e20 = PVT_LDG(r + TF_E2), e21 = PVT_LDG(r + TF_E2 + 1);
-    const float e22 = PVT_LDG(r + TF_E2 + 2);
+    const float a0 = r[TF_V0], a1 = r[TF_V0 + 1], a2 = r[TF_V0 + 2];
+    const float e10 = r[TF_E1], e11 = r[TF_E1 + 1], e12 = r[TF_E1 + 2];
+    const float e20 = r[TF_E2], e21 = r[TF_E2 + 1], e22 = r[TF_E2 + 2];
     const float pvx = d[1] * e22 - d[2] * e21;
     const float pvy = d[2] * e20 - d[0] * e22;
     const float pvz = d[0] * e21 - d[1] * e20;
@@ -1017,9 +1096,11 @@ struct Hits {
 // node's candidates are its nearest two triangle hits, and all its hits
 // count; without, the scene has no mesh and the code has no mesh branch
 // (it would cost the other scenes registers: an A/B build on the H100).
-// With kPath it also keeps the hit's candidate.
+// With kPath it also keeps the hit's candidate. `tris`: the scene's
+// triangles where a block staged them, null for sc.tri_f.
 template <bool kMesh, bool kPath = false>
-PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
+PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
+                            const float* tris = nullptr) {
   float t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
   int n1 = 0, n2 = 0, cont_n = 0, nhits = 0;
   for (int n = 0; n < sc.n_nodes; ++n) {
@@ -1035,8 +1116,8 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h) {
     }
     int nc, cnt_n = 0;
     if (kMesh && ni[NI_GEOM] == GEOM_MESH) {
-      cnt_n = mesh_nearest_two(sc.tri_f + (size_t)ni[NI_TRI0] * TRI_F, ni[NI_NTRI], o, d,
-                               nf[NF_EPS], &t[0], &t[1], &tri);
+      const float* rows = (tris ? tris : sc.tri_f) + (size_t)ni[NI_TRI0] * TRI_F;
+      cnt_n = mesh_nearest_two(rows, ni[NI_NTRI], o, d, nf[NF_EPS], &t[0], &t[1], &tri);
       if (tri >= 0) tri += ni[NI_TRI0];
       v[0] = cnt_n >= 1;
       v[1] = cnt_n >= 2;
@@ -1132,10 +1213,10 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
           bool kPath = false>
 PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float* u,
-                     StepOut& out) {
+                     StepOut& out, const float* tris = nullptr) {
   constexpr bool kExtras = kLog || kScore;
   Hits h;
-  intersect_nodes<kMesh, kPath>(sc, p, h);
+  intersect_nodes<kMesh, kPath>(sc, p, h, tris);
   if (kPath) {
     out.t0 = h.t0;
     out.cand = h.cand;
@@ -1511,73 +1592,362 @@ PVT_FN void score_record(const ScoreAcc& sa, uint32_t pid, int fate, int steps) 
 }
 
 // ---------------------------------------------------------------------
-// K9: add one event of a photon (step output o, post-step state p) to the
-// recorders that match it. The (tnode, sel) CSR index lists the
-// candidates; a facet recorder also needs the world normal within atol
-// on all three axes. Every match adds a crossing; the photon's first
-// match of a recorder (its bit in `seen`) adds a distinct ray, the eight
-// moments and the recorder's histogram bins. Replaces _tally and the tally
-// frame of body_fast (pvtrace_tpu/engine/tracer.py): the [B, R] match
-// matrix becomes a walk over the few recorders of this (node, event).
-// Bound by atomics: threads of a block add to the same few addresses.
-// With score channels (sa), a first match also adds the photon's path
-// score to the recorder's rec_scores.
-PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, uint32_t* seen,
-                        const StepOut& o, const Photon& p, const ScoreAcc* sa = nullptr) {
+// K9: recorder tallies. Replaces _tally and the tally frame of body_fast
+// (pvtrace_tpu/engine/tracer.py): the [B, R] match matrix becomes a walk
+// over the few recorders of an event's (node, event) key, in the facet
+// groups of engine/tables.py (one facet test a group: the recorders of a
+// group match the same events). Every match of a recorder adds a
+// crossing; a photon's first match of it (its group's bit in `seen`) adds
+// a distinct ray, the eight moments and the recorder's histogram bins.
+// Each recorder keeps its own tallies. With score channels (sa), a first
+// match also adds the photon's path score to the recorder's rec_scores.
+//
+// A lane's seen bits, one a facet group: bit g % 32 of word g / 32. A
+// scene of at most 32 groups (256 recorders of the benchmark slab make
+// 10) kept in one word that no run-time index reaches measured no faster
+// (PERF.md, section 6).
+struct Seen {
+  uint32_t w[SEEN_WORDS];
+};
+
+PVT_FN void seen_clear(Seen& seen) {
+  for (int k = 0; k < SEEN_WORDS; ++k) seen.w[k] = 0u;
+}
+
+// Sets group g's bit and returns whether it was set before.
+PVT_FN bool seen_test_set(Seen& seen, int g) {
+  const uint32_t bit = 1u << (g & 31);
+  const bool had = (seen.w[g >> 5] & bit) != 0u;
+  seen.w[g >> 5] |= bit;
+  return had;
+}
+
+// A lane's group bits from the recorder bits of pvt_tally's seen words
+// (bit r % 32 of word r / 32: recorder r), and back (or-ed in).
+PVT_FN void seen_from_words(const PvtScene& sc, const uint32_t* words, Seen& seen) {
+  seen_clear(seen);
+  for (int g = 0; g < sc.n_grp; ++g) {
+    const int r = sc.rec_ids[sc.grp_pos[g]];
+    if (words[r >> 5] >> (r & 31) & 1u) seen_test_set(seen, g);
+  }
+}
+
+PVT_FN void seen_to_words(const PvtScene& sc, Seen seen, uint32_t* words) {
+  for (int g = 0; g < sc.n_grp; ++g) {
+    if (!seen_test_set(seen, g)) continue;
+    for (int q = sc.grp_pos[g]; q < sc.grp_pos[g + 1]; ++q)
+      words[sc.rec_ids[q] >> 5] |= 1u << (sc.rec_ids[q] & 31);
+  }
+}
+
+// Which rule adds a trace's recorder events: 0 none (no recorders), 1
+// each lane its own (tally_event), 2 the warp's together (tally_warp),
+// where some facet group has more than kWarpGroup recorders. The warp rule
+// measured 16 % slower than the lane rule at 8 recorders a group (R = 32),
+// 3 % faster at 16 (R = 64) and 2.0-2.4 times faster at 32 and 64 (R =
+// 128, 256), and 1.6-1.8 times slower with one a group (R = 4, the
+// heatmap, the mesh LSC); the threshold lies between the first two
+// (PERF.md, section 6). Each rule is its own template instantiation
+// (kWarpTally): compiled into one, the unused rule slowed the other by up
+// to 19 %. pvt_tally takes this rule.
+constexpr int kWarpGroup = 12;
+
+PVT_FN int tally_rule(const PvtScene& sc) {
+  return sc.n_rec == 0 ? 0 : sc.grp_max > kWarpGroup ? 2 : 1;
+}
+
+// The rule of a trace launch on sc: tally_rule's in the launch it was
+// timed in, pvt_trace's with recorders and without the event log, meshes,
+// score channels or a bundle; the lane rule in every other, which carries
+// no copy of the warp rule (trace_kernel.cuh, launch_for).
+PVT_FN int trace_rule(const PvtScene& sc, bool log, bool score, bool bundle) {
+  const int rule = tally_rule(sc);
+  return rule == 2 && (log || score || bundle || sc.n_tris > 0) ? 1 : rule;
+}
+
+// The groups [*g0, *g1) of a step's event (step output o), none without
+// one.
+PVT_FN void tally_groups(const PvtScene& sc, const StepOut& o, int* g0, int* g1) {
+  *g0 = *g1 = 0;
   if (o.sel < 0) return;
   const int key = o.tnode * N_SEL + o.sel;
-  const int q1 = sc.rec_csr[key + 1];
-  int q = sc.rec_csr[key];
-  if (q == q1) return;
+  *g0 = sc.rec_grp[key];
+  *g1 = sc.rec_grp[key + 1];
+}
+
+// Whether the event passes group g's facet test: its recorders have no
+// facet, or the world normal is within atol of theirs on all three axes.
+PVT_FN bool group_passes(const PvtScene& sc, int g, const StepOut& o) {
+  const float* gf = sc.grp_f + g * GRP_F;
+  if (gf[GF_FACET] == 0.0f) return true;
+  const float atol = gf[GF_ATOL];
+  return o.have_n && fabsf(o.wn[0] - gf[GF_NX]) <= atol &&
+         fabsf(o.wn[1] - gf[GF_NX + 1]) <= atol && fabsf(o.wn[2] - gf[GF_NX + 2]) <= atol;
+}
+
+// An event's eight moments and its histogram properties
+// (engine/recorder.py PROPERTIES; x, y, z in the tnode's local frame).
+PVT_FN void tally_values(const PvtScene& sc, const StepOut& o, const Photon& p, float* moments,
+                         float* props) {
   const float angle = o.surface_event ? acosf(o.c_in) : 0.0f;
-  const float moments[8] = {p.wav, p.wav * p.wav, angle, angle * angle,
-                            p.dur, p.dur * p.dur, p.trav, p.trav * p.trav};
-  // Histogram properties (engine/recorder.py PROPERTIES); x, y, z in the
-  // tnode's local frame.
+  const float m[8] = {p.wav, p.wav * p.wav, angle, angle * angle,
+                      p.dur, p.dur * p.dur, p.trav, p.trav * p.trav};
+  for (int k = 0; k < 8; ++k) moments[k] = m[k];
   const float* W = sc.node_f + o.tnode * NODE_F + NF_W2L;
-  float props[7] = {p.wav, angle, p.dur, p.trav};
+  props[0] = p.wav;
+  props[1] = angle;
+  props[2] = p.dur;
+  props[3] = p.trav;
   for (int k = 0; k < 3; ++k)
     props[4 + k] = W[4 * k] * p.px + W[4 * k + 1] * p.py + W[4 * k + 2] * p.pz + W[4 * k + 3];
-  for (; q < q1; ++q) {
-    const int r = sc.rec_ids[q];
-    const int* ri = sc.rec_i + r * REC_I;
-    if (ri[RI_FACET]) {
-      const float* rf = sc.rec_f + r * REC_F;
-      const float atol = rf[RF_ATOL];
-      if (!(o.have_n && fabsf(o.wn[0] - rf[RF_NX]) <= atol &&
-            fabsf(o.wn[1] - rf[RF_NX + 1]) <= atol && fabsf(o.wn[2] - rf[RF_NX + 2]) <= atol))
-        continue;
+}
+
+// Adds to recorder r `cross` crossings and, when `fresh` > 0, `fresh`
+// distinct rays whose moments sum to `sums`. Its float32 sums move into
+// the float64 sums64 when its distinct rays pass a multiple of SUMS_FLUSH
+// (with one ray an add, at every SUMS_FLUSH-th ray). Between two moves a
+// partial takes at most SUMS_FLUSH adds, and at most one more in flight
+// from each of the block's other threads (tally_event) or warps
+// (tally_warp, whose add of a warp's rays is their sum in lane order, at
+// most 31 roundings of itself): within check.SUMS_BOUND's (SUMS_FLUSH +
+// 255) roundings of its value either way. `side_by_side`: pvt_add8.
+PVT_FN void recorder_add(const PvtTally& acc, int r, unsigned cross, unsigned fresh,
+                         const float* sums, bool side_by_side = false) {
+  if (acc.cross32) {
+    const unsigned before = pvt_add(acc.cross32 + r, cross);
+    if (before / kCrossFlush != (before + cross) / kCrossFlush)
+      PVT_ADD(acc.cross + r, (unsigned long long)pvt_take(acc.cross32 + r));
+  } else {
+    PVT_ADD(acc.cross + r, (unsigned long long)cross);
+  }
+  if (!fresh) return;
+  const unsigned before = pvt_add(acc.distinct + r, fresh);
+  if (side_by_side)
+    pvt_add8(acc.sums + 8 * r, sums);
+  else
+    for (int k = 0; k < 8; ++k) PVT_ADD(acc.sums + 8 * r + k, sums[k]);
+  if (before / SUMS_FLUSH != (before + fresh) / SUMS_FLUSH)
+    for (int k = 0; k < 8; ++k)
+      PVT_ADD(acc.sums64 + 8 * r + k, (double)pvt_take(acc.sums + 8 * r + k));
+}
+
+// Adds one photon (properties props) to recorder r's histogram bins.
+PVT_FN void recorder_bins(const PvtScene& sc, const PvtTally& acc, int r, const float* props) {
+  const int* ri = sc.rec_i + r * REC_I;
+  for (int hh = ri[RI_HIST0]; hh < ri[RI_HIST0] + ri[RI_NHIST]; ++hh) {
+    const int* hi = sc.hist_i + hh * HIST_I;
+    const float* hf = sc.hist_f + hh * HIST_F;
+    const int na = hi[HI_NA], nb = hi[HI_NB];
+    const float fa = floorf((props[hi[HI_PROP_A]] - hf[HF_LO_A]) / hf[HF_W_A] * (float)na);
+    if (!(fa >= 0.0f && fa < (float)na)) continue;
+    int ib = 0;
+    if (hi[HI_PROP_B] >= 0) {
+      const float fb = floorf((props[hi[HI_PROP_B]] - hf[HF_LO_B]) / hf[HF_W_B] * (float)nb);
+      if (!(fb >= 0.0f && fb < (float)nb)) continue;
+      ib = (int)fb;
     }
-    PVT_ADD(acc.cross + r, 1ull);
-    const uint32_t bit = 1u << (r & 31);
-    if (seen[r >> 5] & bit) continue;
-    seen[r >> 5] |= bit;
-    const unsigned int rays = pvt_inc(acc.distinct + r);
-    if (sa) score_add(*sa, sa->rec, sa->n_rec, r);
-    for (int k = 0; k < 8; ++k) PVT_ADD(acc.sums + 8 * r + k, moments[k]);
-    if (rays % SUMS_FLUSH == 0)
-      for (int k = 0; k < 8; ++k)
-        PVT_ADD(acc.sums64 + 8 * r + k, (double)pvt_take(acc.sums + 8 * r + k));
-    for (int hh = ri[RI_HIST0]; hh < ri[RI_HIST0] + ri[RI_NHIST]; ++hh) {
-      const int* hi = sc.hist_i + hh * HIST_I;
-      const float* hf = sc.hist_f + hh * HIST_F;
-      const int na = hi[HI_NA], nb = hi[HI_NB];
-      const float fa = floorf((props[hi[HI_PROP_A]] - hf[HF_LO_A]) / hf[HF_W_A] * (float)na);
-      if (!(fa >= 0.0f && fa < (float)na)) continue;
-      int ib = 0;
-      if (hi[HI_PROP_B] >= 0) {
-        const float fb = floorf((props[hi[HI_PROP_B]] - hf[HF_LO_B]) / hf[HF_W_B] * (float)nb);
-        if (!(fb >= 0.0f && fb < (float)nb)) continue;
-        ib = (int)fb;
-      }
-      const int bin = hi[HI_OFF] + (int)fa * nb + ib;
-      if (acc.bins32)
-        PVT_ADD(acc.bins32 + bin, 1u);
-      else
-        PVT_ADD(acc.bins64 + bin, 1ull);
+    const int bin = hi[HI_OFF] + (int)fa * nb + ib;
+    if (acc.bins32)
+      PVT_ADD(acc.bins32 + bin, 1u);
+    else
+      PVT_ADD(acc.bins64 + bin, 1ull);
+  }
+}
+
+// One lane's event (step output o, post-step state p) added to the
+// recorders that match it: the rule for one photon, which trace_photon
+// takes and the warp rule below is held to.
+PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, Seen& seen, const StepOut& o,
+                        const Photon& p, const ScoreAcc* sa = nullptr) {
+  int g0, g1;
+  tally_groups(sc, o, &g0, &g1);
+  if (g0 == g1) return;
+  float moments[8], props[7];
+  tally_values(sc, o, p, moments, props);
+  for (int g = g0; g < g1; ++g) {
+    if (!group_passes(sc, g, o)) continue;
+    const bool fresh = !seen_test_set(seen, g);
+    for (int q = sc.grp_pos[g]; q < sc.grp_pos[g + 1]; ++q) {
+      const int r = sc.rec_ids[q];
+      recorder_add(acc, r, 1u, fresh ? 1u : 0u, moments);
+      if (!fresh) continue;
+      if (sa) score_add(*sa, sa->rec, sa->n_rec, r);
+      recorder_bins(sc, acc, r, props);
     }
   }
 }
+
+// The warp's events of one turn, as pvt_trace and pvt_tally add them in
+// a scene with a facet group of more than kWarpGroup recorders
+// (tally_rule, trace_rule). The lanes whose events share a key (`peers`,
+// __match_any_sync) walk its groups together, while lanes of other keys
+// walk theirs beside them; for each group a ballot among the peers gives
+// those that pass its test (`passed`) and those that pass it for the
+// first time (`fresh`). Then each peer takes its part of the group's adds
+// (warp_group_adds), so a group of many recorders is added by many lanes
+// at once, and no two lanes of the warp meet on an address. The sums are
+// the same values in another order, the integers the same.
+//
+// On the card every lane of the warp calls tally_warp together (event: it
+// holds a step's output). The host build's tally_warp_host takes the same
+// steps over kWarp lanes in turn, the ballots and the match computed from
+// the lanes' own tests, and each peer's part by the same warp_group_adds:
+// only the intrinsics differ.
+constexpr int kWarp = 32;
+
+PVT_FN int pvt_popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// The lane of the i-th set bit of m (i from 0).
+PVT_FN int nth_lane(uint32_t m, int i) {
+  for (int k = 0; k < i; ++k) m &= m - 1u;
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// Lane l's rank among the lanes of `dead`: how many of them are below it.
+PVT_FN int lane_rank(uint32_t dead, int l) { return pvt_popc(dead & ((1u << l) - 1u)); }
+
+// The key of a lane's event in the warp rule: a key's groups [g0, g1) are
+// its own, so the same first group is the same key; -1 without groups.
+PVT_FN int warp_key(int g0, int g1) { return g0 < g1 ? g0 : -1; }
+
+// What a lane reads of its peers' events: their moments and properties,
+// on the card by shuffles among the peers (moments, props: the lane's
+// own), on the host from the warp's rows ([kWarp][8], [kWarp][7]).
+struct PeerReads {
+  uint32_t peers;
+  const float* moments;
+  const float* props;
+
+  PVT_FN float moment(int l, int k) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(peers, moments[k], l);
+#else
+    return moments[8 * l + k];
+#endif
+  }
+  PVT_FN float prop(int l, int k) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(peers, props[k], l);
+#else
+    return props[7 * l + k];
+#endif
+  }
+};
+
+// Lane `lane`'s part of group g's adds in the warp rule, rank `rank` of
+// its n_peers peers: `passed` are the peers whose event passes g's test,
+// `fresh_m` those that pass it first, `fresh` whether this lane is one
+// (its moments, props). The fresh lanes' moments are summed in lane order.
+// Recorder j of the group's n is added by the peer of rank j % n_peers:
+// popc(passed) crossings and popc(fresh_m) distinct rays with the sums,
+// one add each (recorder_add, the eight moment adds side by side:
+// pvt_add8). The (fresh lane, recorder) pairs of the histograms, pair
+// i * n + j (the i-th fresh lane, recorder j), go to the peer of rank
+// (i * n + j) % n_peers, which reads that lane's properties. Every peer
+// runs the same loops, so the shuffles in them are taken by all the peers
+// together. No launch with score channels takes this rule (trace_rule),
+// so it adds no scores.
+PVT_FN void warp_group_adds(const PvtScene& sc, const PvtTally& acc, int g, int lane, int rank,
+                            int n_peers, uint32_t passed, uint32_t fresh_m, bool fresh,
+                            const PeerReads& peer, const float* moments, const float* props) {
+  float sums[8];
+  for (int k = 0; k < 8; ++k) sums[k] = n_peers == 1 && fresh ? moments[k] : 0.0f;
+  if (n_peers > 1)
+    for (uint32_t m = fresh_m; m; m &= m - 1u) {
+      const int l = nth_lane(m, 0);
+      for (int k = 0; k < 8; ++k) sums[k] += peer.moment(l, k);
+    }
+  const int q0 = sc.grp_pos[g], n = sc.grp_pos[g + 1] - q0;
+  for (int j = rank; j < n; j += n_peers)
+    recorder_add(acc, sc.rec_ids[q0 + j], pvt_popc(passed), pvt_popc(fresh_m), sums, true);
+  if (!fresh_m || !sc.total_bins) return;
+  if (n_peers == 1) {
+    for (int j = 0; j < n; ++j) recorder_bins(sc, acc, sc.rec_ids[q0 + j], props);
+    return;
+  }
+  const int pairs = pvt_popc(fresh_m) * n;
+  for (int c0 = 0; c0 < pairs; c0 += n_peers) {
+    const int c = c0 + rank;
+    const int src = c < pairs ? nth_lane(fresh_m, c / n) : lane;
+    float pr[7];
+    for (int k = 0; k < 7; ++k) pr[k] = peer.prop(src, k);
+    if (c < pairs) recorder_bins(sc, acc, sc.rec_ids[q0 + c % n], pr);
+  }
+}
+
+#ifdef __CUDACC__
+__device__ __forceinline__ void tally_warp(const PvtScene& sc, const PvtTally& acc, Seen& seen,
+                                           const StepOut& o, const Photon& p, bool event) {
+  const int lane = threadIdx.x % kWarp;
+  int g0 = 0, g1 = 0;
+  if (event) tally_groups(sc, o, &g0, &g1);
+  const uint32_t peers = __match_any_sync(0xffffffffu, warp_key(g0, g1));
+  if (g0 == g1) return;
+  const int rank = lane_rank(peers, lane), n_peers = pvt_popc(peers);
+  float moments[8], props[7];
+  tally_values(sc, o, p, moments, props);
+  const PeerReads peer = {peers, moments, props};
+  for (int g = g0; g < g1; ++g) {
+    const bool pass = group_passes(sc, g, o);
+    const uint32_t passed = __ballot_sync(peers, pass);
+    if (!passed) continue;
+    const bool fresh = pass && !seen_test_set(seen, g);
+    warp_group_adds(sc, acc, g, lane, rank, n_peers, passed, __ballot_sync(peers, fresh), fresh,
+                    peer, moments, props);
+  }
+}
+#else
+// The warp rule on the host: lanes l of `events` (a bit a lane) hold
+// step outputs o[l] and post-step photons p[l], their seen bits seen[l].
+// The keys' peers take their turns from the lowest lane up.
+inline void tally_warp_host(const PvtScene& sc, const PvtTally& acc, Seen* seen,
+                            const StepOut* o, const Photon* p, uint32_t events) {
+  int g0[kWarp], g1[kWarp];
+  float moments[kWarp][8], props[kWarp][7];
+  uint32_t pending = 0u;
+  for (int l = 0; l < kWarp; ++l) {
+    g0[l] = g1[l] = 0;
+    if (events >> l & 1u) tally_groups(sc, o[l], &g0[l], &g1[l]);
+    if (g0[l] == g1[l]) continue;
+    pending |= 1u << l;
+    tally_values(sc, o[l], p[l], moments[l], props[l]);
+  }
+  while (pending) {
+    const int first = nth_lane(pending, 0);
+    uint32_t peers = 0u;  // __match_any_sync
+    for (uint32_t m = pending; m; m &= m - 1u)
+      if (warp_key(g0[nth_lane(m, 0)], g1[nth_lane(m, 0)]) == warp_key(g0[first], g1[first]))
+        peers |= 1u << nth_lane(m, 0);
+    pending &= ~peers;
+    const PeerReads peer = {peers, &moments[0][0], &props[0][0]};
+    for (int g = g0[first]; g < g1[first]; ++g) {
+      uint32_t passed = 0u, fresh_m = 0u;  // __ballot_sync
+      for (uint32_t m = peers; m; m &= m - 1u) {
+        const int l = nth_lane(m, 0);
+        if (!group_passes(sc, g, o[l])) continue;
+        passed |= 1u << l;
+        if (!seen_test_set(seen[l], g)) fresh_m |= 1u << l;
+      }
+      if (!passed) continue;
+      for (uint32_t m = peers; m; m &= m - 1u) {
+        const int l = nth_lane(m, 0);
+        warp_group_adds(sc, acc, g, l, lane_rank(peers, l), pvt_popc(peers), passed, fresh_m,
+                        (fresh_m >> l & 1u) != 0u, peer, moments[l], props[l]);
+      }
+    }
+  }
+}
+#endif
 
 // ---------------------------------------------------------------------
 // Per-lane bodies of the kernels.
@@ -2190,13 +2560,13 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   }
 }
 
-// pvt_tally: add the event of lane i (post-step state s, selectors fl)
-// to acc; `seen` holds SEEN_WORDS words per lane, read and written back.
-PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl,
-                       uint32_t* seen, long long i, const PvtTally& acc) {
-  Photon p;
+// pvt_tally's lane i: its event (post-step state s into p, selectors and
+// normal fl into o) and its seen bits (SEEN_WORDS words a lane of
+// recorder bits, as groups).
+PVT_FN void tally_lane_load(const PvtScene& sc, const PvtState& s, const PvtFlags& fl,
+                            const uint32_t* seen, long long i, StepOut& o, Photon& p,
+                            Seen& bits) {
   load_lane(s, i, p);
-  StepOut o;
   o.sel = fl.sel[i];
   o.tnode = fl.tnode[i];
   o.have_n = fl.have_n[i] != 0;
@@ -2205,10 +2575,19 @@ PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl
   o.wn[1] = fl.wny[i];
   o.wn[2] = fl.wnz[i];
   o.c_in = fl.c_in[i];
-  uint32_t words[SEEN_WORDS];
-  for (int k = 0; k < SEEN_WORDS; ++k) words[k] = seen[i * SEEN_WORDS + k];
-  tally_event(sc, acc, words, o, p);
-  for (int k = 0; k < SEEN_WORDS; ++k) seen[i * SEEN_WORDS + k] = words[k];
+  seen_from_words(sc, seen + i * SEEN_WORDS, bits);
+}
+
+// pvt_tally on the host, one lane at a time: lane i's event added to acc
+// by tally_event, its seen words written back.
+PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl,
+                       uint32_t* seen, long long i, const PvtTally& acc) {
+  StepOut o;
+  Photon p;
+  Seen bits;
+  tally_lane_load(sc, s, fl, seen, i, o, p, bits);
+  tally_event(sc, acc, bits, o, p);
+  seen_to_words(sc, bits, seen + i * SEEN_WORDS);
 }
 
 // K11: one record of photon slot `slot`, its nev-th, unless the row is
@@ -2273,12 +2652,12 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // pvt_trace's loop (trace_kernel.cuh) runs one step a turn on every lane
 // of a warp and trace_photon runs back to back. What a lane carries from
 // one step to the next: the photon, its keys and id, with kTally the
-// recorders it has matched (`seen`), with kLog its log slot (-1: not
+// facet groups it has matched (`seen`), with kLog its log slot (-1: not
 // recorded) and record count, with kPath its wavelength-tangent flag.
 struct TraceLane {
   Photon p;
   uint32_t k0, k1, pid;
-  uint32_t seen[SEEN_WORDS];
+  Seen seen;
   long long slot;
   int nev;
   bool dwav;
@@ -2300,8 +2679,7 @@ PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint3
     load_one(bundle, pid, L.p);
   else
     emit_one(sc, cheb, L.k0, L.k1, pid, need, L.p);
-  if (kTally)
-    for (int k = 0; k < SEEN_WORDS; ++k) L.seen[k] = 0u;
+  if (kTally) seen_clear(L.seen);
   if (kScore)
     for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
   if (kPath)
@@ -2322,19 +2700,22 @@ PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint3
 }
 
 // step: one step of lane L's live photon, adding its fates to f, with
-// kTally its recorder events to *acc, with kLog, when it is recorded, the
-// step's records to *lg, or the event-budget KILL (a recorded photon with
-// max_events - 1 records or more dies before its next step, counted in
-// f.kill). kMesh false: the scene has no mesh. With kScore the step's
-// contributions go to the photon's score row, which is folded at its fate
-// where the step ended it (or at KILL by the event budget) with its record
-// written where the run keeps them, and added by the recorders at a first
-// match; with kPath (and kScore) the pathwise channels' contributions
+// kLog, when it is recorded, the step's records to *lg, or the
+// event-budget KILL (a recorded photon with max_events - 1 records or more
+// dies before its next step, counted in f.kill). kMesh false: the scene
+// has no mesh; `tris` its triangles where a block staged them, else
+// null (sc.tri_f). With kScore the step's contributions go to the photon's
+// score row, which is folded at its fate where the step ended it (or at
+// KILL by the event budget) with its record written where the run keeps
+// them; with kPath (and kScore) the pathwise channels' contributions
 // (pathwise_step, with the photon's wavelength-tangent flag) before the
-// fold. When the photon dies, L.p.alive is false.
+// fold. When the photon dies, L.p.alive is false. Returns whether it took
+// a step, whose output is then in o: the caller adds its recorder event
+// (kTally; tally_event, or the warp's with tally_warp).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath>
-PVT_FN void photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateCounts& f,
-                        const PvtTally* acc, const PvtLog* lg, const ScoreAcc* sa) {
+PVT_FN bool photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateCounts& f,
+                        const PvtLog* lg, const ScoreAcc* sa, StepOut& o,
+                        const float* tris = nullptr) {
   Photon& p = L.p;
   p.count += 1;
   if (kLog && L.slot >= 0 && L.nev >= lg->max_events - 1) {
@@ -2347,7 +2728,7 @@ PVT_FN void photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateC
       score_record(*sa, L.pid, EV_KILL, p.count);
     }
     p.alive = false;
-    return;
+    return false;
   }
   const float d_in[3] = {p.dx, p.dy, p.dz};
   const float wav_in = p.wav;
@@ -2355,8 +2736,7 @@ PVT_FN void photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateC
   const float p_in[3] = {p.px, p.py, p.pz};
   float u[8];
   pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
-  StepOut o;
-  step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o);
+  step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o, tris);
   f.exit += o.exit_mask;
   f.nonrad += o.losing;
   f.react += o.reacting;
@@ -2371,8 +2751,8 @@ PVT_FN void photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateC
       score_record(*sa, L.pid, fate, p.count);
     }
   }
-  if (kTally) tally_event(sc, *acc, L.seen, o, p, kScore ? sa : nullptr);
   if (kLog && L.slot >= 0) log_step(*lg, L.slot, L.nev, o, p, d_in, wav_in, src_in);
+  return true;
 }
 
 // finish: adds lane L's dead photon's steps to f and returns them.
@@ -2400,7 +2780,11 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
   TraceLane L;
   photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, pid,
                                                      start_pairs<kPath>(sc), L, lg, sa, bundle);
-  while (L.p.alive) photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, acc, lg, sa);
+  while (L.p.alive) {
+    StepOut o;
+    if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, lg, sa, o) && kTally)
+      tally_event(sc, *acc, L.seen, o, L.p, kScore ? sa : nullptr);
+  }
   return photon_finish(L, f);
 }
 
@@ -2408,21 +2792,9 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
 // regeneration at warp scope): at the top of every turn in which some lane
 // holds no live photon, the lanes that hold none (`dead`, a bit a lane)
 // take the next ids of the run's counter, one atomic for the warp, lane l
-// the id at its rank among them. Waiting for 4, 8 or 16 dead lanes before
+// the id at its rank among them (lane_rank). Waiting for 4, 8 or 16 dead lanes before
 // a refill gained 3 % at most (at 2^20 photons) and lost 4-10 % on the
 // main path and the mesh LSC at full size (PERF.md, section 6).
-constexpr int kWarp = 32;
-
-PVT_FN int pvt_popc(uint32_t x) {
-#ifdef __CUDA_ARCH__
-  return __popc(x);
-#else
-  return __builtin_popcount(x);
-#endif
-}
-
-// Lane l's rank among the lanes of `dead`: how many of them are below it.
-PVT_FN int lane_rank(uint32_t dead, int l) { return pvt_popc(dead & ((1u << l) - 1u)); }
 
 // pvt_draws (tracer.cu), lane i: the words of mask[i] (bit k: u[k]) of its
 // step (pvt_draw's four pairs, as photon_step draws them; -1 for the words
@@ -2520,14 +2892,31 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
         continue;
       }
       *lane_steps += kWarp;
+      StepOut o[kWarp];
+      Photon p[kWarp];
+      Seen seen[kWarp];
+      uint32_t events = 0u;
       for (int l = 0; l < kWarp; ++l) {
         if (!L[l].p.alive) continue;
-        photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L[l], f, acc, lg,
-                                                        kScore ? wsa + l : nullptr);
+        if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L[l], f, lg,
+                                                            kScore ? wsa + l : nullptr, o[l]))
+          events |= 1u << l;
         if (!L[l].p.alive) {
           const int steps = photon_finish(L[l], f);
           if (steps > longest) longest = steps;
         }
+      }
+      if (kTally && trace_rule(sc, kLog, kScore, kBundle) == 2) {
+        for (int l = 0; l < kWarp; ++l) {
+          p[l] = L[l].p;
+          seen[l] = L[l].seen;
+        }
+        tally_warp_host(sc, *acc, seen, o, p, events);
+        for (int l = 0; l < kWarp; ++l) L[l].seen = seen[l];
+      } else if (kTally) {
+        for (int l = 0; l < kWarp; ++l)
+          if (events >> l & 1u)
+            tally_event(sc, *acc, L[l].seen, o[l], L[l].p, kScore ? wsa + l : nullptr);
       }
     }
   }
@@ -2536,10 +2925,11 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
 #endif
 
 // pvt_mesh: nearest two hits of ray i (o, d: [B, 3] in the node's local
-// frame) against the node's triangles.
-PVT_FN void mesh_lane(const float* tri, int n_tris, float eps, const float* o, const float* d,
-                      long long i, float* t1, float* t2, int* cnt, float* nrm) {
+// frame) against the node's triangles, read at `tris` (a block's shared
+// copy, or `tri`), the nearest's normal from `tri` in device memory.
+PVT_FN void mesh_lane(const float* tris, const float* tri, int n_tris, float eps, const float* o,
+                      const float* d, long long i, float* t1, float* t2, int* cnt, float* nrm) {
   int first;
-  cnt[i] = mesh_nearest_two(tri, n_tris, o + 3 * i, d + 3 * i, eps, t1 + i, t2 + i, &first);
+  cnt[i] = mesh_nearest_two(tris, n_tris, o + 3 * i, d + 3 * i, eps, t1 + i, t2 + i, &first);
   mesh_normal(tri, first, nrm + 3 * i);
 }

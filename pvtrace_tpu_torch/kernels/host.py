@@ -142,6 +142,28 @@ void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
   for (long long i = 0; i < B; ++i) tally_lane(*sc, *s, *fl, seen, i, acc);
 }
+// pvt_tally's warp rule: lanes [w kWarp, (w + 1) kWarp) of the B lanes
+// as one warp (tally_warp_host), in turn; h_tally's arguments.
+void h_tally_warp(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
+                  long long B, unsigned long long* cross, float* sums, unsigned* distinct,
+                  unsigned long long* bins, double* sums64) {
+  const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
+  for (long long w = 0; w * kWarp < B; ++w) {
+    StepOut o[kWarp];
+    Photon p[kWarp];
+    Seen bits[kWarp];
+    uint32_t events = 0u;
+    for (int l = 0; l < kWarp; ++l) {
+      const long long i = w * kWarp + l;
+      if (i >= B) continue;
+      tally_lane_load(*sc, *s, *fl, seen, i, o[l], p[l], bits[l]);
+      events |= 1u << l;
+    }
+    tally_warp_host(*sc, acc, bits, o, p, events);
+    for (int l = 0; l < kWarp && w * kWarp + l < B; ++l)
+      seen_to_words(*sc, bits[l], seen + (w * kWarp + l) * SEEN_WORDS);
+  }
+}
 void h_trace_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                     unsigned long long total, const PvtLog* lg, long long* fates,
                     const PvtBundle* bundle) {
@@ -169,9 +191,13 @@ void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long of
              unsigned long long total, const PvtLog* lg, long long* fates) {
   h_trace_bundle(sc, s0, s1, off, total, lg, fates, nullptr);
 }
-void h_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
+// pvt_mesh; with `staged` the triangles are read from a copy, as a block
+// of the card reads its shared one.
+void h_mesh(const float* tri, int n_tris, int staged, float eps, const float* o, const float* d,
             long long B, float* t1, float* t2, int* cnt, float* nrm) {
-  for (long long i = 0; i < B; ++i) mesh_lane(tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
+  const std::vector<float> copy(tri, tri + (size_t)n_tris * TRI_F);
+  const float* tris = staged ? copy.data() : tri;
+  for (long long i = 0; i < B; ++i) mesh_lane(tris, tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
 void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
              long long B, float* rows, int ch, int n_comps, double* fate_scores, int* comp) {
@@ -318,10 +344,10 @@ def build_library(directory):
     h.h_step.argtypes = [vp, vp, vp, vp, i64]
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_cheb_seg.argtypes = h.h_cheb.argtypes + [vp]
-    h.h_tally.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
+    h.h_tally.argtypes = h.h_tally_warp.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
     h.h_trace_bundle.argtypes = h.h_trace.argtypes + [vp]
-    h.h_mesh.argtypes = [vp, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
+    h.h_mesh.argtypes = [vp, i32, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
     h.h_score.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32, vp, vp]
     h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                 i32, vp, vp, vp, vp, vp, i32]
@@ -334,7 +360,8 @@ def build_library(directory):
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally, h.h_trace,
+    for fn in (h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
+               h.h_tally_warp, h.h_trace,
                h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
                h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_draws, h.h_pathwise,
                h.h_fresnel, h.h_absorbed):

@@ -17,19 +17,23 @@ its count of each opcode of SASS_OPS (local-memory loads and stores,
 shared-memory atomics, the integer adds, logic and shifts of the ALU pipe
 against the multiply-adds of the FMA pipe, global and shared loads).
 Then every run of the library's (the slab at 2**20 and at its path's
-full size, K5b, the mesh LSC, recorders, the host-lit slab's bundle, the
-mixed scene's Lambertian facet, lifetimes and two lamps), or those of
-``--only``,
-goes through each build in turns, ``--rounds`` times: the kernel's time
-(``last_trace["ms"]``), its lane efficiency and its fates and recorders'
-distinct rays. Prints one line a run and build, and the card's
-nvidia-smi line; exits non-zero when the builds' fates or rays differ.
-``--entries`` times, in place of the runs, the tracer library's
-standalone entries as ``chip_smoke.py`` does (pvt_emit and pvt_step on
-2**20 lanes of the slab; the K11 row, pvt_trace with the event log on
-2**14 photons of the mesh LSC at ``record_every=1``), ``--reps`` calls
-a build in turns, ``--rounds`` times, which build goes first alternating.
-Needs a CUDA device.
+full size, K5b, the mesh LSC, recorders up to 256 and the heatmap's
+global bins, the tessellated slab's 140 triangles, the host-lit slab's
+bundle, the mixed scene's Lambertian facet, lifetimes and two lamps), or
+those of ``--only``, goes through each build in turns, ``--rounds``
+times: the kernel's time (``last_trace["ms"]``), its lane efficiency,
+steps and lane-steps, its fates, longest photon and recorder tallies.
+Prints one line a run and build (the atomics of ``--sass`` by full
+opcode, ``ATOMS.CAST.SPIN`` being a compare-and-swap loop), and the
+card's nvidia-smi line; exits non-zero when the builds' fates, longest
+photon, distinct rays, crossings or bins differ, or their moment sums
+part by more than ``check.SUMS_RUNS_RTOL``. ``--entries`` times, in
+place of the runs, the tracer library's standalone entries as
+``chip_smoke.py`` does (pvt_emit and pvt_step on 2**20 lanes of the
+slab, pvt_tally with 32 recorders, pvt_mesh on 24 and 140 triangles, the
+K11 row: pvt_trace with the event log on 2**14 photons of the mesh LSC
+at ``record_every=1``), ``--reps`` calls a build in turns, ``--rounds``
+times, which build goes first alternating. Needs a CUDA device.
 """
 import argparse
 import collections
@@ -46,11 +50,11 @@ import torch
 
 from pvtrace_tpu_torch import kernels
 from pvtrace_tpu_torch.diff import transport
-from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, tracer
+from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, tally, tracer
 from pvtrace_tpu_torch.engine.emit import emit_bundle
 from pvtrace_tpu_torch.kernels import build, check
-from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_host, lsc_slab_recorders, mesh_lsc,
-                                      mixed_scene)
+from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_heatmap, lsc_slab_host,
+                                      lsc_slab_recorders, mesh_lsc, mesh_slab_fine, mixed_scene)
 
 # Each library's runs: (label, scene, photons, PVTRACE_TPU_NO_CHEB, host
 # bundle, seed). The score and pathwise runs trace with score channels,
@@ -65,6 +69,9 @@ RUNS = {
         ("mesh LSC", mesh_lsc, 1 << 27, False, False, 15),
         ("slab R=4", lambda: lsc_slab_recorders(4), 1 << 27, False, False, 4),
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 24, False, False, 1),
+        ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 24, False, False, 1),
+        ("heatmap", lsc_slab_heatmap, 1 << 24, False, False, 1),
+        ("fine slab", mesh_slab_fine, 1 << 24, False, False, 1),
         ("host-lit slab, bundle", lsc_slab_host, 1 << 20, False, True, 1),
         ("mixed", mixed_scene, 1 << 24, False, False, 1),
     ),
@@ -146,17 +153,36 @@ def sass_counts(path):
             for key in {op, ".".join([op] + mods[1:2])}:
                 if key in SASS_OPS:
                     counts[name][key] += 1
+            if op.startswith(("ATOM", "RED")):
+                counts[name]["atomic " + op + ".".join(mods)] += 1
     return counts
 
 
 def time_entries(libs, rounds, reps):
-    """pvt_emit, pvt_step and the log trace (``--entries``) of each build
-    in `libs`, in turns: {entry: {label: [mean ms of `reps` calls, a
-    round]}}."""
+    """The tracer library's standalone entries (``--entries``) of each
+    build in `libs`, in turns, as chip_smoke.py times them: pvt_emit and
+    pvt_step on 2**20 lanes of the slab, pvt_tally (phase 7: the events of
+    the eighth step of those lanes with 32 recorders, after seven), pvt_mesh
+    (phase 12: 2**20 rays against the hex plate's 24 triangles and the
+    tessellated slab's 140) and the log trace: {entry: {label: [mean ms of
+    `reps` calls, a round]}}."""
     seed = rng.key_words(1)
     st = scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device="cuda")
     st_log = scene_tensors(compile_scene(mesh_lsc()), dtype=torch.float32, device="cuda")
+    st32 = scene_tensors(compile_scene(lsc_slab_recorders(32)), dtype=torch.float32,
+                         device="cuda")
     state = tracer.initial_state(st, seed, torch.arange(1 << 20, device="cuda"))
+    events, t32 = state, tally.empty(st32, 1 << 20)
+    for step in range(8):
+        events = tracer.step_state(st32, events, 1000, 0)
+        if step < 7:
+            tally.tally(t32, st32, events)
+    words, res = kernels.pack_seen(t32["seen"]).contiguous(), kernels.zero_tally_out(st32)
+    meshes = {}
+    for label, make in (("24", mesh_lsc), ("140", mesh_slab_fine)):
+        st_m = st_log if label == "24" else scene_tensors(compile_scene(make()),
+                                                          dtype=torch.float32, device="cuda")
+        meshes[label] = (st_m, *check.mesh_rays(st_m, 1, 1 << 20, seed=12))
 
     def log_ms():
         total = 0.0
@@ -168,6 +194,10 @@ def time_entries(libs, rounds, reps):
     entries = {
         "pvt_emit": lambda: check.cuda_ms(lambda: kernels.emit(st, seed, 0, 1 << 20), reps),
         "pvt_step": lambda: check.cuda_ms(lambda: kernels.step(st, state), reps),
+        "pvt_tally R=32": lambda: check.cuda_ms(
+            lambda: kernels.launch_tally(st32, events, words, res), reps),
+        **{f"pvt_mesh {label} triangles": (lambda m=m: check.cuda_ms(
+            lambda: kernels.mesh(m[0], 1, m[1], m[2]), reps)) for label, m in meshes.items()},
         "pvt_trace_log": log_ms,
     }
     ms = {e: {v: [] for v in libs} for e in entries}
@@ -209,8 +239,10 @@ def main():
     if args.sass:
         for v, (_, path) in libs.items():
             for fn, c in sass_counts(path).items():
+                atomics = sorted(k for k in c if k.startswith("atomic "))
                 print(f"sass {args.lib} {v} {fn}: {c['all']} instructions, "
-                      + ", ".join(f"{op} {c[op]}" for op in SASS_OPS), flush=True)
+                      + ", ".join(f"{op} {c[op]}" for op in SASS_OPS)
+                      + "".join(f", {k[7:]} {c[k]}" for k in atomics), flush=True)
     if args.entries:
         for e, by_build in time_entries(libs, args.rounds, args.reps).items():
             for v, t in by_build.items():
@@ -240,22 +272,31 @@ def main():
         if args.lib == "pathwise":
             run["pathwise"] = transport.resolve_pathwise_params(
                 compiled, PATHWISE.get(label, SLAB_PATHWISE))
-        ms, eff, fates = {v: [] for v in libs}, {}, {}
+        ms, eff, fates, sums, steps = {v: [] for v in libs}, {}, {}, {}, {}
+        R = st["meta"]["n_rec"]
         for _ in range(args.rounds):
             for v, (handle, _) in libs.items():
                 kernels._libs[args.lib] = handle
-                got, _, t, _ = kernels.trace(st, seed, n, **run)
+                got, longest, t, _ = kernels.trace(st, seed, n, **run)
                 ms[v].append(kernels.last_trace["ms"])
                 eff[v] = kernels.last_trace["lane_efficiency"] \
                     if kernels.last_trace["lane_steps"] else float("nan")
-                fates[v] = (got.cpu().tolist(), t["distinct"][:st["meta"]["n_rec"]].cpu().tolist())
-        first = next(iter(fates.values()))
+                steps[v] = (kernels.last_trace["total_steps"], kernels.last_trace["lane_steps"])
+                fates[v] = (got.cpu().tolist(), longest,
+                            *(t[k][:R].cpu().tolist() for k in ("distinct", "cross")),
+                            t["bins"].cpu().tolist())
+                sums[v] = t["sums"][:R].double().cpu()
+        first, first_sums = next(iter(fates.values())), next(iter(sums.values()))
         for v in libs:
+            rel = float(((sums[v] - first_sums).abs()
+                         / first_sums.abs().clamp(min=1e-30)).max()) if R else 0.0
+            bad = fates[v] != first or rel > check.SUMS_RUNS_RTOL
             print(f"{args.lib} {label}, {n} photons, {v}: kernel ms {ms[v]}, lane efficiency "
-                  f"{eff[v]:.4f}, fates {fates[v][0]}, distinct {fates[v][1][:8]}"
-                  f"{'' if fates[v] == first else ' DIFFER'}", flush=True)
-        if any(f != first for f in fates.values()):
-            differ.append(label)
+                  f"{eff[v]:.4f} (steps {steps[v][0]}, lane-steps {steps[v][1]}), fates "
+                  f"{fates[v][0]}, longest {fates[v][1]}, distinct {fates[v][2][:8]}, sums "
+                  f"within {rel:.3g} of the first build's{' DIFFER' if bad else ''}", flush=True)
+            if bad and label not in differ:
+                differ.append(label)
     for csrc in variants.values():
         shutil.rmtree(csrc, ignore_errors=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -206,6 +206,9 @@ WARP_CASES = {
     "slab-host-bundle": dict(make=lsc_slab_host, bundle=True, off=5),
     "mesh_small-log": dict(make=mesh_small, off=2, log=(2, 8)),
     "slab-R32-score": dict(make=lambda: lsc_slab_recorders(32), score=True),
+    # groups of up to 64 recorders and no scores: the warp rule
+    # (tally_warp_host; trace_rule)
+    "slab-R256": dict(make=lambda: lsc_slab_recorders(256)),
     "mixed": dict(make=mixed_scene, off=7),
     "mixed-log-score": dict(make=mixed_scene, score=True, log=(3, 16)),
 }
@@ -503,7 +506,37 @@ def test_mesh_kernel_matches_twin_on_card(make):
 @pytest.mark.gpu
 def test_mesh_trace_matches_twin_on_card():
     rep = check.check_trace(_cuda_tensors(mesh_lsc), rng.key_words(1), 1 << 16, lanes=1 << 14)
-    assert sum(rep["fates"]) == 1 << 16
+    assert sum(rep["fates"]) == 1 << 16 and kernels.last_trace["shared_tris"] == 1
+
+
+def _many_groups_slab():
+    """The slab with 64 "escaping" recorders on the axis facets, each with
+    its own tolerance: 64 facet groups, past one seen word a lane."""
+    from pvtrace_tpu_torch.engine.recorder import Histogram, Recorder
+    from pvtrace_tpu_torch.scenes import _slab_node
+
+    scene = lsc_slab()
+    faces = [(0, 0, 1), (0, 0, -1), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0)]
+    _slab_node(scene).recorders = [
+        Recorder(f"g{r:02d}", event="escaping", facet=faces[r % 6], atol=1e-6 * (1 + r),
+                 histograms=[Histogram("wavelength", 400.0, 800.0, 8)]) for r in range(64)]
+    return scene
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [lambda: lsc_slab_recorders(256), lsc_slab_heatmap,
+                                  _many_groups_slab], ids=["R256", "heatmap", "groups"])
+def test_tally_warp_matches_twin_on_card(make):
+    """pvt_tally, by the rule pvt_trace takes for the scene: with 256
+    recorders in 10 facet groups (the warp rule, tally_warp), with the
+    heatmap's global 64-bit bins and with 64 groups of one recorder (the
+    lane rule; seen bits past one word), on lanes that leave the last warp
+    partial: integer tallies and seen bits equal to the twin's after every
+    step, sums within SUMS_RTOL."""
+    st = _cuda_tensors(make)
+    state = tracer.initial_state(st, rng.key_words(1), torch.arange((1 << 14) + 5, device="cuda"))
+    rep = check.check_tally(st, state, steps=8, reps=2)
+    assert rep["max_rel_err"] <= check.SUMS_RTOL
 
 
 @pytest.mark.gpu
@@ -602,20 +635,19 @@ def test_score_rows_placements_on_card(specs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_path, rows, cheb", [(2, 0, 1), (1, 1, 0)], ids=["two", "one"])
-def test_score_rows_past_the_budget_on_card(n_path, rows, cheb):
-    """At 256 recorders two pathwise channels' rows do not fit a block's
-    budget (device memory), and one channel's fit with the K5a table in
-    device memory; either way the launch reports ``trace_layout``'s
-    placement and the fates account for every photon."""
+@pytest.mark.parametrize("R, rows, cheb", [(256, 0, 1), (224, 1, 0)], ids=["R256", "R224"])
+def test_score_rows_past_the_budget_on_card(R, rows, cheb):
+    """Two pathwise channels' rows do not fit a block's budget at 256
+    recorders (device memory), and fit with the K5a table in device memory
+    at 224; either way the launch reports ``trace_layout``'s placement and
+    the fates account for every photon."""
     from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
 
-    make = lambda: lsc_slab_recorders(256)  # noqa: E731
+    make = lambda: lsc_slab_recorders(R)  # noqa: E731
     st = _cuda_tensors(make)
-    resolved = resolve_pathwise_params(compile_scene(make()),
-                                       [("n", "lsc"), ("size", "lsc", 2)][:n_path])
+    resolved = resolve_pathwise_params(compile_scene(make()), [("n", "lsc"), ("size", "lsc", 2)])
     fates, _, _, _ = kernels.trace(st, rng.key_words(2), 1 << 14, score=True, pathwise=resolved)
-    placed = check.check_layout(st, True, n_path)
+    placed = check.check_layout(st, True, 2)
     assert (placed["shared_rows"], placed["shared_cheb"]) == (rows, cheb)
     assert int(fates.sum()) == 1 << 14
 

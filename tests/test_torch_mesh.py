@@ -102,17 +102,21 @@ def host_lib(tmp_path_factory):
     return host.build_library(tmp_path_factory.mktemp("host"))
 
 
+@pytest.mark.parametrize("staged", [0, 1], ids=["device_memory", "staged"])
 @pytest.mark.parametrize("name", sorted(MESHES))
-def test_device_mesh_nearest_two_matches_twin_on_host(host_lib, name):
-    """mesh_lane (the body of pvt_mesh), host-built without FMA
-    contraction, equals the float32 twin ray for ray."""
+def test_device_mesh_nearest_two_matches_twin_on_host(host_lib, name, staged):
+    """mesh_lane (the body of pvt_mesh; mesh_nearest_two inlined, as the
+    mesh instantiations of pvt_trace take it), host-built without FMA
+    contraction, equals the float32 twin ray for ray, reading the
+    triangles where they lie and from a staged copy, as a block reads its
+    shared one."""
     st = tables.scene_tensors(compile_scene(MESHES[name]()), dtype=torch.float32)
     tri, eps = kernels.mesh_rows(st, 1)
     o, d = check.mesh_rays(st, 1, N_RAYS, seed=7)
     t1, t2, nrm = torch.empty(N_RAYS), torch.empty(N_RAYS), torch.empty((N_RAYS, 3))
     cnt = torch.empty(N_RAYS, dtype=torch.int32)
-    host_lib.h_mesh(tri.data_ptr(), tri.shape[0], eps, o.data_ptr(), d.data_ptr(), N_RAYS,
-                    t1.data_ptr(), t2.data_ptr(), cnt.data_ptr(), nrm.data_ptr())
+    host_lib.h_mesh(tri.data_ptr(), tri.shape[0], staged, eps, o.data_ptr(), d.data_ptr(),
+                    N_RAYS, t1.data_ptr(), t2.data_ptr(), cnt.data_ptr(), nrm.data_ptr())
     ref = kernels.mesh(st, 1, o, d)
     assert int((ref[2] >= 1).sum()) > N_RAYS // 4
     for got, want in zip((t1, t2, cnt, nrm), ref):

@@ -30,6 +30,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab,
     lsc_slab_recorders,
     lsc_tiles,
+    mesh_lsc,
     mesh_small,
     mixed_scene,
 )
@@ -306,7 +307,7 @@ def test_score_records_equal_at_any_row_stride(host_lib, make):
 
 LAYOUT_SCENES = {
     "slab": lsc_slab, "recorders-32": lambda: lsc_slab_recorders(32),
-    "recorders-256": lambda: lsc_slab_recorders(256), "tiles": lsc_tiles,
+    "recorders-256": lambda: lsc_slab_recorders(256), "tiles": lsc_tiles, "mesh": mesh_lsc,
 }
 
 
@@ -321,19 +322,20 @@ SHARED_LIMIT = 96 * 1024
 
 def _budget_rule(st, score_, n_path, rows_allowed):
     """A block's placement by the budget's rule, stated apart from the
-    device code: the recorder tallies (44 bytes a recorder, then the bins
+    device code: the recorder tallies (40 bytes a recorder, then the bins
     while they fit), the float64 score sums (8-byte aligned), the threads'
     rows (16-byte aligned, 256 threads of CH + 7 n_path floats), the K5a
-    table (16-byte aligned), each in shared memory while it fits after the
-    ones before it."""
+    table (16-byte aligned), the mesh triangles (16-byte aligned, 48 bytes
+    a triangle), each in shared memory while it fits after the ones before
+    it."""
     meta = st["meta"]
     R, CH = meta["n_rec"], score.n_channels(st, n_path)
 
     def align(x, a):
         return (x + a - 1) // a * a
 
-    bins = int(R > 0 and 44 * R + 4 * meta["total_bins"] <= SHARED_LIMIT)
-    end = 44 * R + 4 * meta["total_bins"] * bins
+    bins = int(R > 0 and 40 * R + 4 * meta["total_bins"] <= SHARED_LIMIT)
+    end = 40 * R + 4 * meta["total_bins"] * bins
     sums = rows = 0
     if score_:
         at, size = align(end, 8), 16 * CH * (11 + R)
@@ -345,8 +347,12 @@ def _budget_rule(st, score_, n_path, rows_allowed):
     size = 4 * meta["cheb_words"] if meta["cheb_spec"] or meta["cheb_icdf"] or \
         meta["cheb_light"] else 0
     cheb = int(size > 0 and align(end, 16) + size <= SHARED_LIMIT)
-    return {"shared_bytes": align(end, 16) + size if cheb else end, "shared_bins": bins,
-            "shared_scores": sums, "shared_cheb": cheb, "shared_rows": rows}
+    end = align(end, 16) + size if cheb else end
+    size = 48 * meta["n_tris"]
+    tris = int(size > 0 and align(end, 16) + size <= SHARED_LIMIT)
+    return {"shared_bytes": align(end, 16) + size if tris else end, "shared_bins": bins,
+            "shared_scores": sums, "shared_cheb": cheb, "shared_rows": rows,
+            "shared_tris": tris}
 
 
 @pytest.mark.parametrize("scene", list(LAYOUT_SCENES))
@@ -366,7 +372,7 @@ def test_trace_layout_follows_the_budget_rule(host_lib, layout_tensors, scene):
 def test_trace_layout_budget(host_lib):
     """The budget's order (tallies, score sums, rows, K5a table) at its
     edges: the slab's rows and table fit; at 256 recorders two pathwise
-    channels' rows do not, and one channel's fit only with the table in
+    channels' rows do not, and at 224 they fit only with the table in
     device memory (the rows take the budget first); ``lsc_tiles``' table
     never fits; rows forced out of shared memory leave the table there."""
     def layout(make, *args):
@@ -376,11 +382,11 @@ def test_trace_layout_budget(host_lib):
     slab = layout(lsc_slab, True, 2)
     assert slab["shared_rows"] == slab["shared_cheb"] == slab["shared_scores"] == 1
     assert slab["shared_bytes"] <= SHARED_LIMIT
-    wide = lambda: lsc_slab_recorders(256)  # noqa: E731
-    two, one = layout(wide, True, 2), layout(wide, True, 1)
+    wide, edge = (lambda: lsc_slab_recorders(256)), (lambda: lsc_slab_recorders(224))
+    two, one = layout(wide, True, 2), layout(edge, True, 2)
     assert (two["shared_rows"], two["shared_cheb"]) == (0, 1)
     assert (one["shared_rows"], one["shared_cheb"]) == (1, 0)
-    forced = layout(wide, True, 1, False)
+    forced = layout(edge, True, 2, False)
     assert (forced["shared_rows"], forced["shared_cheb"]) == (0, 1)
     assert layout(lsc_tiles, True, 0)["shared_cheb"] == 0
     assert layout(lsc_slab, False)["shared_bytes"] == 4 * tables.scene_tensors(
