@@ -71,15 +71,22 @@ each:
     standard error;
 14. the event log (K11) against the twin's, photon by photon, on the
     mesh LSC and the slab, record_every=1, 2**14 photons, max_events 128
-    and on the mesh LSC 8 (the event-budget kill); then simulate's
-    recorder tallies against the tallies recomputed from its own log
-    (``history_tally``), on the mesh LSC and on the slab with 8
+    and on the mesh LSC 8 (the event-budget kill), the kernel's counts
+    against the twin's rows; pvt_log_pack against ``eventlog.pack`` on
+    each of those logs, bit-equal, timed beside the plain version and the
+    two boolean-mask gathers; simulate's dense log (pack, copy, unpack)
+    against the CPU twin's on the mesh LSC at max_events 128 and 8; then
+    simulate's recorder tallies against the tallies recomputed from its
+    own log (``history_tally``), on the mesh LSC and on the slab with 8
     recorders;
 15. full width: the mesh LSC at 2**27 photons (record_every=0), at 2**27
     with record_every=1000 and at 2**17 with record_every=1, each read
-    around its own run (photons/s, the log's bytes, launches of pvt_trace
-    and pvt_trace_log with no eager run); the slab at 2**27 again, beside
-    phase 5;
+    around its own run (photons/s, the log's bytes, launches of pvt_trace,
+    pvt_trace_log and pvt_log_pack with no eager run; with the log the
+    fetch's parts: the pack, the copy of the records and counts with its
+    GB/s, the unpack, the bytes copied against the dense bytes);
+    pvt_log_pack against ``eventlog.pack`` on a log of 1 in 1000 at
+    2**27, bit-equal and timed; the slab at 2**27 again, beside phase 5;
 16. pvt_score (K12, one step with score channels) against the twin on
     phase 3's lanes for 8 steps, on the slab and on the mixed scene:
     discrete outcomes on all but 1e-4 of the lanes, path scores within
@@ -209,6 +216,7 @@ SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/diff.cu"
                for name in ("pvt_absorbed", "pvt_absorbed_grad")})
 SOURCE["pvt_trace_bundle"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
 SOURCE["pvt_draws"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
+SOURCE["pvt_log_pack"] = "pvtrace_tpu_torch/kernels/csrc/tracer.cu"
 SOURCE["all_reduce_tallies"] = "pvtrace_tpu_torch/parallel/shard.py"
 REPLACES = {
     "pvt_emit": "pvtrace_tpu/engine/tracer.py:762",
@@ -227,6 +235,7 @@ REPLACES = {
     "pvt_absorbed_grad": "pvtrace_tpu/diff/transport.py:284",
     "pvt_trace_bundle": "pvtrace_tpu/engine/tracer.py:936",
     "pvt_draws": "pvtrace_tpu/engine/tracer.py:100",
+    "pvt_log_pack": "pvtrace_tpu/engine/api.py:560",
     "all_reduce_tallies": "pvtrace_tpu/parallel/shard.py:48",
 }
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
@@ -355,7 +364,8 @@ def main():
 
     from pvtrace_tpu_torch import kernels
     from pvtrace_tpu_torch.diff import transport
-    from pvtrace_tpu_torch.engine import absorb, compile_scene, rng, scene_tensors, simulate, tracer
+    from pvtrace_tpu_torch.engine import absorb, api, compile_scene, rng, scene_tensors, simulate
+    from pvtrace_tpu_torch.engine import tracer
     from pvtrace_tpu_torch.kernels import build, check
     from pvtrace_tpu_torch.light.event import Event
     from pvtrace_tpu_torch.engine.emit import emit_bundle
@@ -746,6 +756,24 @@ def main():
             f"{rep['ms']:.2f} ms, twin {rep['plain_ms']:.2f} ms | {smi}",
             flush=True,
         )
+        pack = rep["pack"]
+        print(
+            f"phase 14 pvt_log_pack vs eventlog.pack, {label}, max_events {events}: "
+            f"{pack['records']} records of {pack['slots']} slots bit-equal, counts equal to the "
+            f"twin's rows on the {rep['slots'] - rep['diverged']} photons that did not diverge; "
+            f"kernel {pack['ms']:.4f} ms, plain {pack['plain_ms']:.4f} ms, two mask gathers "
+            f"{pack['library_ms']:.4f} ms, bound {pack['bound_ms']:.5f} ms | {smi}",
+            flush=True,
+        )
+    for label, make, events in (("mesh LSC", mesh_lsc, 128), ("mesh LSC", mesh_lsc, 8)):
+        rep = check.check_fetch(make(), N_LOG, max_events=events)
+        print(
+            f"phase 14 simulate's dense log vs the CPU twin's, {label}, max_events {events}: "
+            f"{rep['slots']} photons, {rep['records']} records, {rep['diverged']} diverged, "
+            f"counts equal, floats within {rep['max_rel_err']:.3g} of their column's scale "
+            f"(limit {check.LOG_RTOL}) | {smi}",
+            flush=True,
+        )
     for label, make in (("mesh LSC", mesh_lsc), ("slab R=8", lambda: lsc_slab_recorders(8))):
         log_scene = make()
         res = simulate(log_scene, N_LOG, seed=14, record_every=1, dtype=np.float32)
@@ -777,15 +805,42 @@ def main():
         }
         if every and res.num_recorded != -(-n // every):
             fail(f"{label}: {res.num_recorded} recorded photons, not {-(-n // every)}")
+        fetch = ""
+        if every:
+            if full_launches["pvt_log_pack"] != 1:
+                fail(f"{label}: the log was not packed by pvt_log_pack: {full_launches}")
+            if not np.array_equal(res.data["counts"], (res.data["kind"] >= 0).sum(1)):
+                fail(f"{label}: counts differ from the dense log's rows")
+            part = dict(api.last_fetch)
+            full[label]["fetch"] = part
+            fetch = (
+                f"; fetch: pack {part['pack_s'] * 1e3:.2f} ms (kernel {part['pack_ms']:.4f} "
+                f"ms), copy {part['copy_s'] * 1e3:.2f} ms of {part['bytes']} bytes "
+                f"({part['bytes'] / part['copy_s'] / 1e9:.3f} GB/s), unpack "
+                f"{part['unpack_s'] * 1e3:.2f} ms into {part['dense_bytes']} dense bytes "
+                f"({part['bytes'] / part['dense_bytes']:.4f} of them copied)"
+            )
         print(
             f"phase 15 {label}: {n} photons, {res.elapsed:.4f} s, {n / res.elapsed:.6g} "
             f"photons/s, pvt_trace {kernels.last_trace['ms']:.2f} ms, fates "
             f"{np.asarray(res.data['fates']).tolist()}, {full[label]['slots']} slots, "
-            f"{full[label]['records']} records, log {log_bytes} bytes, "
+            f"{full[label]['records']} records, log {log_bytes} bytes{fetch}, "
             f"{efficiency(label, kernels.last_trace, mesh_estimate)}, launches {full_launches} "
             f"| {smi}",
             flush=True,
         )
+    # pvt_log_pack at the history path's width: a log of 1 in 1000 at 2**27
+    _, _, _, full_log = kernels.trace(st_mesh, rng.key_words(15), N_MAIN, record_every=1000)
+    pack_rep = check.check_log_pack(full_log)
+    del full_log
+    print(
+        f"phase 15 pvt_log_pack vs eventlog.pack, log 1000 at {N_MAIN}: {pack_rep['records']} "
+        f"records of {pack_rep['slots']} slots bit-equal, {pack_rep['packed_bytes']} of "
+        f"{pack_rep['dense_bytes']} bytes; kernel {pack_rep['ms']:.4f} ms, plain "
+        f"{pack_rep['plain_ms']:.4f} ms, two mask gathers {pack_rep['library_ms']:.4f} ms, "
+        f"bound {pack_rep['bound_ms']:.5f} ms | {smi}",
+        flush=True,
+    )
     res, _ = drive(scene, compiled, 2)
     full["slab again"] = {"n": N_MAIN, "photons_per_s": N_MAIN / res.elapsed,
                           "kernel_ms": kernels.last_trace["ms"]}
@@ -1319,8 +1374,17 @@ def main():
         }),
         ("pvt_trace_log", log_reps[("mesh LSC", 128)], {
             "n": N_LOG, "record_every": 1, "max_events": 128,
-            "full_width": {k: {q: v[q] for q in ("n", "photons_per_s", "kernel_ms", "log_bytes")}
+            "full_width": {k: {q: v[q] for q in ("n", "photons_per_s", "kernel_ms", "log_bytes",
+                                                 "fetch")}
                            for k, v in full.items() if "record_every" in k},
+        }),
+        ("pvt_log_pack", pack_rep, {
+            "n": N_MAIN, "record_every": 1000, "library_ms": pack_rep["library_ms"],
+            "library_is": "two boolean-mask gathers, ints[mask] and floats[mask]",
+            **{k: pack_rep[k] for k in ("records", "slots", "packed_bytes", "dense_bytes")},
+            "small": {f"{label}, max_events {events}": {
+                k: rep["pack"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "records")}
+                for (label, events), rep in log_reps.items()},
         }),
     ]
     rows += [
@@ -1394,8 +1458,10 @@ def main():
         "bound_ms": 2 * nccl_bytes / check.PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "bytes_per_call": nccl_bytes, "backend": "nccl, world of one",
     }
-    launches_of = dict(main_launches, pvt_trace_log=full["mesh, record_every=1000"]["launches"][
-        "pvt_trace_log"], pvt_trace_score=grad_launches["pvt_trace_score"],
+    history_launches = full["mesh, record_every=1000"]["launches"]
+    launches_of = dict(main_launches, pvt_trace_log=history_launches["pvt_trace_log"],
+        pvt_log_pack=history_launches["pvt_log_pack"],
+        pvt_trace_score=grad_launches["pvt_trace_score"],
         pvt_absorbed=sgd_launches["pvt_absorbed"],
         pvt_pathwise=path_launches["pvt_pathwise"],
         pvt_trace_pathwise=path_launches["pvt_trace_pathwise"],

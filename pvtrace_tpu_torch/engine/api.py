@@ -21,6 +21,13 @@ from pvtrace_tpu_torch.engine.tables import scene_tensors
 
 _U32 = 2 ** 32 - 1
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+# The last fetch_log: host seconds of the pack (its wrapper; the kernel
+# runs on while the copies wait for it), of the copies to host memory with
+# their synchronize, and of the numpy unpack; the pack kernel's time on
+# the card (ms, 0 on the CPU); the records and the bytes copied, and the
+# dense log's bytes.
+last_fetch = {"pack_s": 0.0, "copy_s": 0.0, "unpack_s": 0.0, "pack_ms": 0.0, "records": 0,
+              "bytes": 0, "dense_bytes": 0}
 
 
 def _check_budget(num_rays, index_offset):
@@ -33,6 +40,39 @@ def _check_budget(num_rays, index_offset):
             f"photon ids [{index_offset}, {index_offset + num_rays}) must "
             f"lie in [0, {_U32}): they label the per-photon random streams."
         )
+
+
+def fetch_log(log, np_dtype):
+    """A trace's event `log` as the dense numpy arrays of the JAX layout:
+    (ints [S, E, LOG_I] int32, floats [S, E, LOG_F] in `np_dtype`, counts
+    [S] int32). The written records are packed where the log lies
+    (``kernels.log_pack``: ``pvt_log_pack`` on the card), copied to host
+    memory (on the card: pinned, non-blocking, one synchronize) with the
+    counts, and unpacked (``eventlog.unpack``)."""
+    from pvtrace_tpu_torch import kernels
+
+    S, E = log["ints"].shape[:2]
+    tic = time.perf_counter()
+    packed = (log["counts"], *kernels.log_pack(log))
+    packed_at = time.perf_counter()
+    if log["counts"].is_cuda:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in packed]
+        for h, t in zip(host, packed):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        packed = host
+    counts, ints, floats = (t.numpy() for t in packed)
+    counts = counts.copy()
+    copied_at = time.perf_counter()
+    dense = eventlog.unpack(counts, ints, floats, S, E, np_dtype)
+    last_fetch.update(
+        pack_s=packed_at - tic, copy_s=copied_at - packed_at,
+        unpack_s=time.perf_counter() - copied_at,
+        pack_ms=kernels.pack_ms() if log["counts"].is_cuda else 0.0, records=len(ints),
+        bytes=counts.nbytes + ints.nbytes + floats.nbytes,
+        dense_bytes=dense[0].nbytes + dense[1].nbytes,
+    )
+    return (*dense, counts)
 
 
 def tally_data(compiled, fates, steps, tallies, np_dtype, score):
@@ -112,6 +152,9 @@ def simulate(
       and ``rec_bins`` are int64, and ``index_offset + num_rays`` may
       reach ``2**32 - 1``. ``rec_sums`` is in the run's dtype (the
       kernel adds per-block float32 sums in float64).
+    * With a log, `elapsed` ends once the dense numpy log exists: the
+      written records are packed on the device and copied with their
+      counts, then unpacked on the host (``fetch_log``).
     * The spectra take the Chebyshev fits (K5a) or the table lerp (K5b)
       by the JAX package's rule, ``PVTRACE_TPU_NO_CHEB`` included, read
       on every call.
@@ -150,12 +193,13 @@ def simulate(
     if log is None:
         log_ints = np.full((0, max_events, eventlog.LOG_I), -1, np.int32)
         log_floats = np.zeros((0, max_events, eventlog.LOG_F), np_dtype)
+        counts = np.zeros(0, np.int32)
     else:
-        log_ints, log_floats = log["ints"].cpu().numpy(), log["floats"].cpu().numpy()
+        log_ints, log_floats, counts = fetch_log(log, np_dtype)
     elapsed = time.perf_counter() - tic
 
     data = tally_data(compiled, fates, steps, tallies, np_dtype, score)
-    data["counts"] = (log_ints[..., 0] >= 0).sum(axis=1).astype(np.int32)
+    data["counts"] = counts
     for i, name in enumerate(eventlog.LOG_INTS):
         data[name] = log_ints[..., i]
     for i, name in enumerate(eventlog.LOG_VECS):

@@ -7,11 +7,20 @@ first_rec) // k`` of ``ceil(n / k)`` slots, ``first_rec`` being the first
 multiple of k at or after the run's ``index_offset``. A slot's row holds
 up to ``max_events`` packed records, six ints (``LOG_INTS``) and twelve
 floats (``LOG_VECS`` then ``LOG_SCALARS``); ints are -1 and floats 0
-where nothing was written. ``nevents`` counts a lane's records; a
-record is written only where ``slot < S`` and ``nevents < max_events``
-(the JAX package's log has one more row, where its scatter sends the
-lanes that write nothing).
+where nothing was written, and ``counts`` [S] holds each row's records.
+``nevents`` counts a lane's records; a record is written only where
+``slot < S`` and ``nevents < max_events`` (the JAX package's log has one
+more row, where its scatter sends the lanes that write nothing).
+
+A row's records are a prefix of it, so a log travels packed: ``pack``
+keeps the first ``counts[s]`` records of each slot s, in slot order
+(the plain version of the kernel ``pvt_log_pack``), and ``unpack`` builds
+the dense layout again in numpy.
 """
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 import torch
 
 from pvtrace_tpu_torch.engine.tables import LOG_F, LOG_I
@@ -41,11 +50,59 @@ def slots(pids, record_every, first_rec, S):
 
 
 def empty(S, max_events, dtype, device):
-    """A log of S slots: ints -1, floats 0."""
+    """A log of S slots: ints -1, floats 0, counts 0."""
     return {
         "ints": torch.full((S, max_events, LOG_I), -1, dtype=torch.int32, device=device),
         "floats": torch.zeros((S, max_events, LOG_F), dtype=dtype, device=device),
+        "counts": torch.zeros(S, dtype=torch.int32, device=device),
     }
+
+
+def pack(log, counts):
+    """The first ``counts[s]`` records of each slot s of `log`, in slot
+    order: (ints [N, LOG_I], floats [N, LOG_F]), N = ``counts.sum()``."""
+    E = log["ints"].shape[1]
+    used = torch.arange(E, device=counts.device) < counts[:, None]
+    return log["ints"][used], log["floats"][used]
+
+
+# unpack's threads, made at its first call.
+_POOL = None
+
+
+def _pool():
+    global _POOL
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(os.cpu_count() or 1)
+    return _POOL
+
+
+def unpack(counts, ints, floats, S, max_events, np_dtype):
+    """``pack``'s output (numpy `ints` [N, LOG_I], `floats` [N, LOG_F] and
+    `counts` [S]) as the dense numpy log: (ints [S, max_events, LOG_I]
+    int32, -1 past each slot's count; floats [S, max_events, LOG_F] in
+    `np_dtype`, 0 there). The arrays are fresh memory, most of it written
+    only here, so ranges of slots are filled and scattered into by a
+    thread each: the pages' first touch is most of the time."""
+    E = max_events
+    ends = np.cumsum(counts, dtype=np.int64)
+    starts = ends - counts
+    dense_ints = np.empty((S, E, LOG_I), np.int32)
+    dense_floats = np.empty((S, E, LOG_F), np_dtype)
+    flat_ints, flat_floats = dense_ints.reshape(S * E, LOG_I), dense_floats.reshape(S * E, LOG_F)
+
+    def rows(lo, hi):
+        dense_ints[lo:hi] = -1
+        dense_floats[lo:hi] = 0
+        a, b = starts[lo], ends[hi - 1]
+        dst = np.repeat(np.arange(lo, hi, dtype=np.int64) * E - starts[lo:hi], counts[lo:hi])
+        dst += np.arange(a, b)
+        flat_ints[dst] = ints[a:b]
+        flat_floats[dst] = floats[a:b]
+
+    cuts = np.linspace(0, S, min(S, os.cpu_count() or 1) + 1).astype(np.int64)
+    list(_pool().map(rows, cuts[:-1], cuts[1:]))
+    return dense_ints, dense_floats
 
 
 def _lanes(value, like):
@@ -72,6 +129,7 @@ def record(log, nevents, slot, mask, kind, hit, container, adjacent, component, 
         row, col = slot[idx].long(), nevents[idx].long()
         log["ints"][row, col] = ints
         log["floats"][row, col] = floats.to(log["floats"].dtype)
+        log["counts"][row] = (col + 1).to(torch.int32)
     return nevents + write.to(torch.int32)
 
 

@@ -1,7 +1,8 @@
 """ctypes wrappers of the hand-written CUDA kernels (csrc/tracer.cu,
 csrc/score.cu, csrc/pathwise.cu, csrc/diff.cu).
 
-Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``:
+Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``
+(``log_pack`` a trace's event log):
 
 * on the CPU it runs the kernel's plain-PyTorch twin;
 * on a CUDA device it checks device, dtype, shape and contiguity,
@@ -42,12 +43,15 @@ from pvtrace_tpu_torch.kernels import build
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
-            "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0}
+            "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0, "pvt_log_pack": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
               "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0}
 last_cheb = {"shared_cheb": 0}
+# CUDA events around the last pvt_log_pack launch (its time once the
+# stream has passed them: ``pack_ms``).
+last_pack = {"events": None}
 # A trace block's threads (tracer.cuh's kBlock).
 BLOCK = 256
 # tracer.cuh's kWarpGroup: pvt_tally, and pvt_trace's launch with
@@ -109,6 +113,7 @@ class _Log(ctypes.Structure):
     _fields_ = [
         ("ints", ctypes.c_void_p), ("floats", ctypes.c_void_p), ("n_slots", ctypes.c_longlong),
         ("max_events", ctypes.c_int), ("every", ctypes.c_uint), ("first", ctypes.c_ulonglong),
+        ("counts", ctypes.c_void_p),
     ]
 
 
@@ -157,6 +162,7 @@ _ENTRIES = {
         "pvt_layout": [_VP, _I32, _VP, _VP],
         "pvt_draws": [_U32, _U32, _VP, _VP, _U32, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP,
                       _VP],
+        "pvt_log_pack": [_VP, _VP, _VP, _VP, _VP],
     },
     "score": {
         "pvt_score": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
@@ -508,16 +514,72 @@ def mesh(st, node, o, d):
     return t1, t2, cnt, nrm
 
 
-def empty_log(n, record_every, max_events, index_offset, device):
+def _log_desc(log, record_every=1, first=0):
+    S, E = log["ints"].shape[:2]
+    return _Log(log["ints"].data_ptr(), log["floats"].data_ptr(), S, E, max(record_every, 1),
+                first, log["counts"].data_ptr())
+
+
+def empty_log(n, record_every, max_events, index_offset, device, fill=True):
     """The kernel's event log for a run of n photons from `index_offset`:
-    (the log dict, ints -1 and floats 0 of ``ceil(n / record_every)``
-    slots, and its ctypes descriptor); no slots without a log."""
+    (the log dict of ``ceil(n / record_every)`` slots, and its ctypes
+    descriptor); no slots without a log. The counts are zeroed; the ints
+    and floats are -1 and 0 (``eventlog.empty``), or with `fill` False
+    left as ``torch.empty`` gives them, as a launch takes them: nothing
+    past a row's count is written or read."""
     S = eventlog.n_slots(n, record_every)
-    log = eventlog.empty(S, max_events, torch.float32, device)
+    if fill:
+        log = eventlog.empty(S, max_events, torch.float32, device)
+    else:
+        log = {
+            "ints": torch.empty((S, max_events, T.LOG_I), dtype=torch.int32, device=device),
+            "floats": torch.empty((S, max_events, T.LOG_F), dtype=torch.float32, device=device),
+            "counts": torch.zeros(S, dtype=torch.int32, device=device),
+        }
     first = eventlog.first_recorded(index_offset, record_every) if S else 0
-    desc = _Log(log["ints"].data_ptr(), log["floats"].data_ptr(), S, max_events,
-                max(record_every, 1), first)
-    return log, desc
+    return log, _log_desc(log, record_every, first)
+
+
+def log_pack(log):
+    """The first ``counts[s]`` records of each slot s of the event `log`
+    (a trace's, with ``counts``), in slot order: (ints [N, LOG_I] int32,
+    floats [N, LOG_F]). On the CPU ``eventlog.pack``; on the card the
+    kernel ``pvt_log_pack`` (float32), which copies only those records
+    (the offsets, the counts' exclusive sum, by ``torch.cumsum``)."""
+    counts = log["counts"]
+    if counts.device.type == "cpu":
+        return eventlog.pack(log, counts)
+    S, E = log["ints"].shape[:2]
+    dev = counts.device
+    for name, dtype, shape in (("ints", torch.int32, (S, E, T.LOG_I)),
+                               ("floats", torch.float32, (S, E, T.LOG_F)),
+                               ("counts", torch.int32, (S,))):
+        t = log[name]
+        if t.shape != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"log_pack: {name} needs contiguous {dtype} {list(shape)} on {dev}, "
+                             "16-byte aligned")
+    offsets = torch.cumsum(counts, 0)
+    N = int(offsets[-1]) if S else 0
+    offsets -= counts
+    ints = torch.empty((N, T.LOG_I), dtype=torch.int32, device=dev)
+    floats = torch.empty((N, T.LOG_F), dtype=torch.float32, device=dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    rc = library().pvt_log_pack(ctypes.byref(_log_desc(log)), offsets.data_ptr(),
+                                ints.data_ptr(), floats.data_ptr(), _stream())
+    _raise_on(rc, "pvt_log_pack")
+    stop.record()
+    launches["pvt_log_pack"] += 1
+    last_pack["events"] = (start, stop)
+    return ints, floats
+
+
+def pack_ms():
+    """The last pvt_log_pack launch's time on the card (ms); waits for it."""
+    start, stop = last_pack["events"]
+    stop.synchronize()
+    return start.elapsed_time(stop)
 
 
 def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
@@ -533,7 +595,9 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     into float64 totals every ``tables.SUMS_FLUSH`` distinct rays of a
     recorder and at the end (``check.SUMS_BOUND``). With ``record_every >
     0`` the kernel writes the event log of every record_every-th photon
-    (``eventlog``'s layout, S rows). With `score` the launch is
+    (``eventlog``'s layout, S rows, and ``counts``): the rows are not
+    filled, so only the first ``counts[s]`` records of row s are set
+    (``log_pack`` takes them). With `score` the launch is
     ``pvt_trace_score``, and the tallies also hold ``fate_scores`` [11, CH]
     and ``rec_scores`` [max(R, 1), CH] (float64 sums of float32 path
     scores) and ``fate_abs``, ``rec_abs``, the sums of their addends'
@@ -576,7 +640,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     longest = torch.zeros(1, device=dev, dtype=torch.int32)
     steps = torch.zeros(2, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
-    log, log_desc = empty_log(n, record_every, max_events, index_offset, dev)
+    log, log_desc = empty_log(n, record_every, max_events, index_offset, dev, fill=False)
     info = (ctypes.c_longlong * 7)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (

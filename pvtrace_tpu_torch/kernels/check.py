@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 from pvtrace_tpu_torch import kernels
-from pvtrace_tpu_torch.engine import absorb, chebyshev, geometry, history_tally, physics, rng, tally
+from pvtrace_tpu_torch.engine import absorb, chebyshev, eventlog, geometry, history_tally, physics
+from pvtrace_tpu_torch.engine import rng, tally
 from pvtrace_tpu_torch.engine import pathwise as path
 from pvtrace_tpu_torch.engine import tracer
 from pvtrace_tpu_torch.engine import score as score_ch
@@ -809,14 +810,55 @@ def _log_rel(got, ref):
     return float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
 
 
+def dense_log(log):
+    """A kernel's event `log` as the twin keeps it: (ints, floats) with -1
+    and 0 past each row's count, where the kernel leaves them unset."""
+    used = (torch.arange(log["ints"].shape[1], device=log["ints"].device)
+            < log["counts"][:, None])[..., None]
+    return torch.where(used, log["ints"], -1), torch.where(used, log["floats"], 0.0)
+
+
+def check_log_pack(log, reps=10):
+    """pvt_log_pack against its plain version ``eventlog.pack`` on a
+    kernel's event `log` (on the card): both outputs bit-equal. Returns
+    the report: ``ms`` the kernel alone (CUDA events around each launch,
+    the mean of `reps`), ``plain_ms`` the plain version, ``library_ms``
+    the two boolean-mask gathers alone (the mask built beforehand), the
+    bound (the packed records read once and written once), the records
+    and the packed and dense bytes."""
+    counts = log["counts"]
+    ints, floats = kernels.log_pack(log)
+    ref_ints, ref_floats = eventlog.pack(log, counts)
+    require(torch.equal(ints, ref_ints)
+            and torch.equal(floats.view(torch.int32), ref_floats.view(torch.int32)),
+            "pvt_log_pack: the packed records differ from eventlog.pack's")
+    ms = 0.0
+    for _ in range(reps):
+        kernels.log_pack(log)
+        ms += kernels.pack_ms() / reps
+    used = torch.arange(log["ints"].shape[1], device=counts.device) < counts[:, None]
+    packed = ints.numel() * 4 + floats.numel() * 4
+    report = {
+        "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": cuda_ms(lambda: eventlog.pack(log, counts), reps),
+        "library_ms": cuda_ms(lambda: (log["ints"][used], log["floats"][used]), reps),
+        "records": len(ints), "slots": len(counts), "packed_bytes": packed,
+        "dense_bytes": log["ints"].numel() * 4 + log["floats"].numel() * 4,
+    }
+    report["bound_ms"], report["bound_by"] = bound(0, 2 * packed)
+    return report
+
+
 def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, bundle=None):
     """pvt_trace with the event log against the twin (on the card), n
     photons: fates within max(20, 0.2% of n); the recorded photons'
     records compared photon by photon, at most a fraction LOG_DIVERGED of
-    them diverged (ints differing anywhere), the others' records (and so
-    their record counts) equal in the ints and within LOG_RTOL in the
-    floats. Returns the report, with the kernel's tallies and log. With a
-    host `bundle` both start from it."""
+    them diverged (ints differing anywhere), the others' records and
+    record counts (the kernel's ``counts`` against the twin's rows) equal
+    in the ints and within LOG_RTOL in the floats; the kernel's log packed
+    by pvt_log_pack as by the plain version (``check_log_pack``, report
+    ``pack``). Returns the report, with the kernel's tallies and log. With
+    a host `bundle` both start from it."""
     start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
     got, _, got_t, got_log = kernels.trace(st, seed_words, n, record_every=record_every,
@@ -834,30 +876,36 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     require(fate_err <= tol, f"pvt_trace (log): fates {got.tolist()} vs twin {ref.tolist()}")
     S = got_log["ints"].shape[0]
     require(ref_log["ints"].shape == got_log["ints"].shape, "pvt_trace (log): log shapes differ")
-    diverged = (got_log["ints"] != ref_log["ints"]).flatten(1).any(1)
+    got_ints, got_floats = dense_log(got_log)
+    diverged = (got_ints != ref_log["ints"]).flatten(1).any(1)
     frac = float(diverged.sum()) / S
     require(frac <= LOG_DIVERGED,
             f"pvt_trace (log): {int(diverged.sum())} of {S} recorded photons diverged")
     keep = ~diverged
-    rel = _log_rel(got_log["floats"][keep], ref_log["floats"][keep])
+    counts = got_log["counts"]
+    ref_counts = (ref_log["ints"][..., 0] >= 0).sum(1).to(torch.int32)
+    require(torch.equal(ref_log["counts"], ref_counts), "the twin's counts differ from its rows")
+    require(torch.equal(counts[keep], ref_counts[keep]),
+            "pvt_trace (log): counts differ from the twin's rows")
+    rel = _log_rel(got_floats[keep], ref_log["floats"][keep])
     require(rel <= LOG_RTOL, f"pvt_trace (log): floats off by {rel:.3g} relative > {LOG_RTOL}")
-    counts = (got_log["ints"][..., 0] >= 0).sum(1)
     records = int(counts.sum())
     report = {
-        "max_abs_err": float((got_log["floats"][keep] - ref_log["floats"][keep]).abs().max()),
+        "max_abs_err": float((got_floats[keep] - ref_log["floats"][keep]).abs().max()),
         "max_rel_err": rel,
         "slots": S,
         "diverged": int(diverged.sum()),
         "records": records,
         "full_rows": int((counts == max_events).sum()),
-        "budget_kills": int(((got_log["ints"][..., 0] == 9) & (got_log["ints"][..., 1] < 0)
-                             & (got_log["ints"][..., 2] < 0)).sum()),
+        "budget_kills": int(((got_ints[..., 0] == 9) & (got_ints[..., 1] < 0)
+                             & (got_ints[..., 2] < 0)).sum()),
         "fates": got.tolist(),
         "twin_fates": ref.tolist(),
         "ms": start.elapsed_time(mid),
         "plain_ms": mid.elapsed_time(stop),
         "tallies": got_t,
         "log": got_log,
+        "pack": check_log_pack(got_log),
     }
     ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t, bundle is not None,
                              got)
@@ -865,6 +913,40 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     log_ms = records * 4 * (T.LOG_I + T.LOG_F) / PEAK_BYTES_PER_S * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms, by) if ops_ms >= log_ms else (log_ms, "bytes")
     return report
+
+
+def check_fetch(scene, n, seed=4, max_events=128, lanes=1 << 10):
+    """``simulate(record_every=1)`` of `scene` on the card (float32:
+    ``pvt_trace`` with the log, ``pvt_log_pack``, the copies and the numpy
+    unpack) against the CPU twin's dense arrays, n photons: at most a
+    fraction LOG_DIVERGED of the photons differ in any int, the others'
+    counts equal and floats within LOG_RTOL of their column's scale; the
+    counts equal the rows' records. Returns the report."""
+    from pvtrace_tpu_torch.engine import api
+
+    kernels.reset()
+    got = api.simulate(scene, n, seed=seed, record_every=1, max_events=max_events).data
+    require(kernels.launches["pvt_log_pack"] == 1 and kernels.launches["pvt_trace_log"] == 1,
+            f"simulate with the log: launches {kernels.launches}")
+    ref = api.simulate(scene, n, seed=seed, record_every=1, max_events=max_events, lanes=lanes,
+                       device="cpu").data
+    ints, floats = (
+        [np.stack([d[k] for k in eventlog.LOG_INTS], -1) for d in (got, ref)],
+        [np.concatenate([d[k] for k in eventlog.LOG_VECS]
+                        + [d[k][..., None] for k in eventlog.LOG_SCALARS], -1)
+         for d in (got, ref)],
+    )
+    same = (ints[0] == ints[1]).reshape(len(ints[0]), -1).all(1)
+    require(int((~same).sum()) <= LOG_DIVERGED * len(same),
+            f"simulate's log: {int((~same).sum())} of {len(same)} photons differ from the twin's")
+    require(np.array_equal(got["counts"], (got["kind"] >= 0).sum(1)),
+            "simulate's log: counts differ from its rows")
+    require(np.array_equal(got["counts"][same], ref["counts"][same]),
+            "simulate's log: counts differ from the twin's")
+    rel = _log_rel(torch.from_numpy(floats[0][same]), torch.from_numpy(floats[1][same]))
+    require(rel <= LOG_RTOL, f"simulate's log: floats off by {rel:.3g} relative > {LOG_RTOL}")
+    return {"slots": len(same), "diverged": int((~same).sum()),
+            "records": int(got["counts"].sum()), "max_rel_err": rel}
 
 
 def check_log_tallies(scene, result, rtol=LOG_SUMS_RTOL):

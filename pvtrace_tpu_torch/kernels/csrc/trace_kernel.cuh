@@ -189,9 +189,11 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // recorders computes no selectors and takes no normal on EXIT. With the
 // event log (kLog, K11; replaces _record and the log calls of body), a
 // recorded photon's lane writes its records to the photon's own row with
-// plain stores, its record count in a register: one lane traces the
-// photon from emission to death, so no two threads share a row and
-// nothing needs an atomic. With score channels (kScore, K12; replaces the
+// plain vector stores, its record count in a register and, at the
+// photon's death, in the log's counts: one lane traces the photon from
+// emission to death, so no two threads share a row and nothing needs an
+// atomic; the rows are not filled beforehand (pvt_log_pack copies only
+// what the counts cover). With score channels (kScore, K12; replaces the
 // score block of body), the photon's score lives in the thread's own row
 // of `score.rows` (any number of channels; a step touches the container's
 // components and two node channels), zeroed at each start, and is folded
@@ -262,7 +264,7 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     if (L.p.alive) {
       stepped = photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, &lg,
                                                                 kScore ? &sa : nullptr, o, tris);
-      if (!L.p.alive) longest = max(longest, photon_finish(L, f));
+      if (!L.p.alive) longest = max(longest, photon_finish<kLog>(L, f, &lg));
     }
     // Every lane of the warp is here: the loop leaves only by the warp's
     // vote above.

@@ -1,7 +1,7 @@
 // The Hopper kernels of pvtrace_tpu_torch: emission, one physics step,
 // the persistent trace kernel of the main path (with recorders, an event
-// log, or both), and the standalone K5a, K9 and K10 entries that let the
-// card hold those device functions to their twins. The score
+// log, or both), the event log's pack, and the standalone K5a, K9 and K10
+// entries that let the card hold those device functions to their twins. The score
 // instantiations of the trace kernel are in score.cu, the Beer–Lambert
 // surrogate in diff.cu.
 //
@@ -131,9 +131,36 @@ draws_kernel(uint32_t s0, uint32_t s1, const long long* base, const unsigned cha
   if (lane == 0) calls[i / kWarp] = (int)most;
 }
 
+// K11's pack of the event log: slot s's first counts[s] records to
+// record offsets[s] of the packed arrays (log_pack_slot), one warp a
+// slot, the slots strided over the grid's warps. Replaces no JAX function
+// (the JAX package fetches its whole log): it lets the fetch copy only the
+// records written, about 5 % of the dense rows on the mesh LSC. Bound by
+// bytes: every record read once and written once; the rows' unwritten
+// tails are never touched.
+__global__ void __launch_bounds__(kBlock)
+log_pack_kernel(PvtLog lg, const long long* offsets, int* ints, float* floats) {
+  const int lane = threadIdx.x % kWarp;
+  const long long warps = (long long)gridDim.x * (kBlock / kWarp);
+  for (long long s = ((long long)blockIdx.x * kBlock + threadIdx.x) / kWarp; s < lg.n_slots;
+       s += warps)
+    log_pack_slot(lg, s, offsets[s], lane, kWarp, ints, floats);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The records of log->counts[s] of each of the log's n_slots rows, in
+// slot order, into ints [N, LOG_I] and floats [N, LOG_F] (N the counts'
+// sum), slot s's from record offsets[s] (the counts' exclusive sum).
+int pvt_log_pack(const PvtLog* log, const long long* offsets, int* ints, float* floats,
+                 void* stream) {
+  if (log->n_slots <= 0) return 0;
+  log_pack_kernel<<<grid_for(log->n_slots * kWarp), kBlock, 0, (cudaStream_t)stream>>>(
+      *log, offsets, ints, floats);
+  return (int)cudaGetLastError();
+}
 
 // pvt_draws: per warp w of the B lanes, a refill of the lanes `dead` marks
 // from photon base[w] (their keys into keys [B, 2] and the emission pairs

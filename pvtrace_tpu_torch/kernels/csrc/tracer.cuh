@@ -394,8 +394,11 @@ struct PvtTallyOut {
 // K11: the event log of every `every`-th photon, n_slots rows of
 // max_events records, LOG_I ints and LOG_F floats each (engine/
 // eventlog.py); photon pid's slot is (pid - first) / every, `first` being
-// the first multiple of `every` at or after the run's first pid. Field
-// order mirrored by ctypes.
+// the first multiple of `every` at or after the run's first pid. A
+// recorded photon writes its records from the start of its row and, when
+// it dies, their number to counts[slot]; nothing past a row's count is
+// written or read, so the launch neither fills the rows nor zeroes more
+// than the counts. Field order mirrored by ctypes.
 struct PvtLog {
   int* ints;
   float* floats;
@@ -403,6 +406,7 @@ struct PvtLog {
   int max_events;
   unsigned int every;
   unsigned long long first;
+  int* counts;
 };
 
 // K12: a score run's accumulators (field order mirrored by ctypes):
@@ -2590,30 +2594,40 @@ PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl
   seen_to_words(sc, bits, seen + i * SEEN_WORDS);
 }
 
+// Eight bytes of ints and sixteen of floats, moved as one access each on
+// the card (a log record is three of each).
+#ifdef __CUDACC__
+typedef int2 PvtInt2;
+typedef float4 PvtFloat4;
+#else
+struct alignas(8) PvtInt2 {
+  int x, y;
+};
+struct alignas(16) PvtFloat4 {
+  float x, y, z, w;
+};
+#endif
+
 // K11: one record of photon slot `slot`, its nev-th, unless the row is
 // full (engine/eventlog.py record). `nrm` may be null (zeros). The
-// photon owns its row, so these are plain stores.
+// photon owns its row, so these are plain stores: three 8-byte and three
+// 16-byte ones on the card (a record's ints start 8-byte and its floats
+// 16-byte aligned), which ran 15 % faster than 18 scalar stores where
+// every photon is recorded (PERF.md, section 6).
 PVT_FN void log_record(const PvtLog& lg, long long slot, int& nev, int kind, int hit,
                        int container, int adjacent, int component, int source, const float* pos,
                        const float* dir, const float* nrm, float wav, float trav, float dur) {
   if (nev >= lg.max_events) return;
   const long long at = slot * lg.max_events + nev;
-  int* ri = lg.ints + at * LOG_I;
-  ri[0] = kind;
-  ri[1] = hit;
-  ri[2] = container;
-  ri[3] = adjacent;
-  ri[4] = component;
-  ri[5] = source;
-  float* rf = lg.floats + at * LOG_F;
-  for (int k = 0; k < 3; ++k) {
-    rf[k] = pos[k];
-    rf[3 + k] = dir[k];
-    rf[6 + k] = nrm ? nrm[k] : 0.0f;
-  }
-  rf[9] = wav;
-  rf[10] = trav;
-  rf[11] = dur;
+  const float n0 = nrm ? nrm[0] : 0.0f, n1 = nrm ? nrm[1] : 0.0f, n2 = nrm ? nrm[2] : 0.0f;
+  PvtInt2* ri = reinterpret_cast<PvtInt2*>(lg.ints + at * LOG_I);
+  ri[0] = PvtInt2{kind, hit};
+  ri[1] = PvtInt2{container, adjacent};
+  ri[2] = PvtInt2{component, source};
+  PvtFloat4* rf = reinterpret_cast<PvtFloat4*>(lg.floats + at * LOG_F);
+  rf[0] = PvtFloat4{pos[0], pos[1], pos[2], dir[0]};
+  rf[1] = PvtFloat4{dir[1], dir[2], n0, n1};
+  rf[2] = PvtFloat4{n2, wav, trav, dur};
   ++nev;
 }
 
@@ -2645,6 +2659,27 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
   if (o.reflecting || o.transmitting)
     log_record(lg, slot, nev, o.reflecting ? EV_REFLECT : EV_TRANSMIT, o.hit, o.container,
                o.adjacent, -1, p.source, pos, d_out, o.wn, p.wav, p.trav, p.dur);
+}
+
+// K11's pack (pvt_log_pack, tracer.cu), slot s: its first counts[s]
+// records, a prefix of its row, to records offset.. of the packed ints
+// [N, LOG_I] and floats [N, LOG_F]. Worker `lane` of `width` moves every
+// width-th of the slot's 8-byte int pairs and 16-byte float quads, so a
+// warp's lanes read and write neighbouring words. A row and a packed
+// record start 8-byte aligned in the ints and 16-byte aligned in the
+// floats (LOG_I 6, LOG_F 12, the arrays' bases 16-byte aligned).
+PVT_FN void log_pack_slot(const PvtLog& lg, long long s, long long offset, int lane, int width,
+                          int* ints, float* floats) {
+  const int words = 3 * lg.counts[s];
+  const long long row = s * lg.max_events;
+  const PvtInt2* si = reinterpret_cast<const PvtInt2*>(lg.ints + row * LOG_I);
+  const PvtFloat4* sf = reinterpret_cast<const PvtFloat4*>(lg.floats + row * LOG_F);
+  PvtInt2* di = reinterpret_cast<PvtInt2*>(ints + offset * LOG_I);
+  PvtFloat4* df = reinterpret_cast<PvtFloat4*>(floats + offset * LOG_F);
+  for (int k = lane; k < words; k += width) {
+    di[k] = si[k];
+    df[k] = sf[k];
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -2755,9 +2790,13 @@ PVT_FN bool photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateC
   return true;
 }
 
-// finish: adds lane L's dead photon's steps to f and returns them.
-PVT_FN int photon_finish(const TraceLane& L, FateCounts& f) {
+// finish: adds lane L's dead photon's steps to f and returns them; with
+// kLog, when it is recorded, writes its record count to the log's counts
+// (one site for every death, the event budget's KILL included).
+template <bool kLog>
+PVT_FN int photon_finish(const TraceLane& L, FateCounts& f, const PvtLog* lg) {
   f.steps += (unsigned long long)L.p.count;
+  if (kLog && L.slot >= 0) lg->counts[L.slot] = L.nev;
   return L.p.count;
 }
 
@@ -2785,7 +2824,7 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
     if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, lg, sa, o) && kTally)
       tally_event(sc, *acc, L.seen, o, L.p, kScore ? sa : nullptr);
   }
-  return photon_finish(L, f);
+  return photon_finish<kLog>(L, f, lg);
 }
 
 // The warp's refill, as pvt_trace's loop takes it (the JAX package's
@@ -2902,7 +2941,7 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
                                                             kScore ? wsa + l : nullptr, o[l]))
           events |= 1u << l;
         if (!L[l].p.alive) {
-          const int steps = photon_finish(L[l], f);
+          const int steps = photon_finish<kLog>(L[l], f, lg);
           if (steps > longest) longest = steps;
         }
       }

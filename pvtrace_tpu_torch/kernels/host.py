@@ -288,6 +288,13 @@ void h_draws(unsigned s0, unsigned s1, const long long* base, const unsigned cha
   for (long long w = 0; w < B / kWarp; ++w)
     draws_warp(s0, s1, base, dead, need, k0, k1, count, mask, w, keys, emit, words, calls);
 }
+// pvt_log_pack's twin (tracer.cu): slot s as one emulated warp, its
+// kWarp lanes in turn (log_pack_slot).
+void h_log_pack(const PvtLog* lg, const long long* offsets, int* ints, float* floats) {
+  for (long long s = 0; s < lg->n_slots; ++s)
+    for (int lane = 0; lane < kWarp; ++lane)
+      log_pack_slot(*lg, s, offsets[s], lane, kWarp, ints, floats);
+}
 // pvt_layout's twin (tracer.cu).
 void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
   layout_info(trace_layout(*sc, tally != 0, score), info);
@@ -356,6 +363,7 @@ def build_library(directory):
     h.h_trace_warp.argtypes = [vp, u32, u32, u64, u64, i32, vp, vp, vp, vp, vp, vp, vp, vp,
                                i32, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     h.h_layout.argtypes = [vp, i32, vp, vp]
+    h.h_log_pack.argtypes = [vp, vp, vp, vp]
     h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
@@ -363,8 +371,8 @@ def build_library(directory):
     for fn in (h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
                h.h_tally_warp, h.h_trace,
                h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
-               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_draws, h.h_pathwise,
-               h.h_fresnel, h.h_absorbed):
+               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_log_pack, h.h_draws,
+               h.h_pathwise, h.h_fresnel, h.h_absorbed):
         fn.restype = None
     return h
 

@@ -17,12 +17,14 @@ its count of each opcode of SASS_OPS (local-memory loads and stores,
 shared-memory atomics, the integer adds, logic and shifts of the ALU pipe
 against the multiply-adds of the FMA pipe, global and shared loads).
 Then every run of the library's (the slab at 2**20 and at its path's
-full size, K5b, the mesh LSC, recorders up to 256 and the heatmap's
+full size, K5b, the mesh LSC without and with the event log (at
+``record_every`` 1000 and 1), recorders up to 256 and the heatmap's
 global bins, the tessellated slab's 140 triangles, the host-lit slab's
 bundle, the mixed scene's Lambertian facet, lifetimes and two lamps), or
 those of ``--only``, goes through each build in turns, ``--rounds``
-times: the kernel's time (``last_trace["ms"]``), its lane efficiency,
-steps and lane-steps, its fates, longest photon and recorder tallies.
+times, every other round in the reverse order: the kernel's time
+(``last_trace["ms"]``), its lane efficiency, steps and lane-steps, its
+fates, longest photon and recorder tallies.
 Prints one line a run and build (the atomics of ``--sass`` by full
 opcode, ``ATOMS.CAST.SPIN`` being a compare-and-swap loop), and the
 card's nvidia-smi line; exits non-zero when the builds' fates, longest
@@ -57,16 +59,19 @@ from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_heatmap, lsc_slab_host,
                                       lsc_slab_recorders, mesh_lsc, mesh_slab_fine, mixed_scene)
 
 # Each library's runs: (label, scene, photons, PVTRACE_TPU_NO_CHEB, host
-# bundle, seed). The score and pathwise runs trace with score channels,
-# the pathwise ones with the slab's index and thickness channels too (the
-# mesh LSC's plate index). The slab with 4 recorders and the mesh LSC at
-# 2**27 take chip_smoke.py's seeds of phases 11 and 15.
+# bundle, seed[, record_every]). The score and pathwise runs trace with
+# score channels, the pathwise ones with the slab's index and thickness
+# channels too (the mesh LSC's plate index). The slab with 4 recorders and
+# the mesh LSC at 2**27, with and without the event log, take
+# chip_smoke.py's seeds of phases 11 and 15.
 RUNS = {
     "tracer": (
         ("slab", lsc_slab, 1 << 20, False, False, 1),
         ("slab", lsc_slab, 1 << 27, False, False, 1),
         ("slab K5b", lsc_slab, 1 << 27, True, False, 1),
         ("mesh LSC", mesh_lsc, 1 << 27, False, False, 15),
+        ("mesh LSC log=1000", mesh_lsc, 1 << 27, False, False, 15, 1000),
+        ("mesh LSC log=1", mesh_lsc, 1 << 17, False, False, 15, 1),
         ("slab R=4", lambda: lsc_slab_recorders(4), 1 << 27, False, False, 4),
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 24, False, False, 1),
         ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 24, False, False, 1),
@@ -249,7 +254,7 @@ def main():
                 print(f"entry {e}, {v}: ms {t} ({args.reps} calls a round)", flush=True)
     only = set() if args.entries else None if args.only is None else set(args.only.split(","))
     differ = []
-    for label, make, n, no_cheb, host, seed_value in RUNS[args.lib]:
+    for label, make, n, no_cheb, host, seed_value, *every in RUNS[args.lib]:
         if only is not None and f"{label}:{n.bit_length() - 1}" not in only:
             continue
         seed = rng.key_words(seed_value)
@@ -266,7 +271,7 @@ def main():
             np.random.seed(24)
             bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(scene, n)[:3],
                                                          np.float32)).cuda()
-        run = {"bundle": bundle}
+        run = {"bundle": bundle, "record_every": every[0] if every else 0}
         if args.lib != "tracer":
             run["score"] = True
         if args.lib == "pathwise":
@@ -274,8 +279,9 @@ def main():
                 compiled, PATHWISE.get(label, SLAB_PATHWISE))
         ms, eff, fates, sums, steps = {v: [] for v in libs}, {}, {}, {}, {}
         R = st["meta"]["n_rec"]
-        for _ in range(args.rounds):
-            for v, (handle, _) in libs.items():
+        for r in range(args.rounds):
+            # Every other round in the reverse order, so no build always goes first.
+            for v, (handle, _) in list(libs.items())[::-1 if r % 2 else 1]:
                 kernels._libs[args.lib] = handle
                 got, longest, t, _ = kernels.trace(st, seed, n, **run)
                 ms[v].append(kernels.last_trace["ms"])

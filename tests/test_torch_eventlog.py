@@ -15,8 +15,12 @@ tallies, every log field with ``counts``, and ``histories()``. The
 port's own tallies are also held to the tallies ``history_tally``
 recomputes from its log (no JAX run), its logs to the lane count, and the
 device code's logging ``trace_photon`` (``tracer.cuh``, built for the
-host) to the twin. On the card ``test_torch_kernels.py`` (``gpu``) holds
-the kernel's log to the twin's and its tallies to its own log.
+host) to the twin, counts too. The fetch's pack and unpack
+(``eventlog.pack``, ``eventlog.unpack``) give the twin's dense log back bit
+for bit, and the device code's per-slot pack (``log_pack_slot``, built for
+the host) equals ``eventlog.pack``. On the card ``test_torch_kernels.py``
+(``gpu``) holds the kernel's log to the twin's, ``pvt_log_pack`` to
+``eventlog.pack`` and its tallies to its own log.
 """
 import ctypes
 
@@ -28,11 +32,11 @@ torch = pytest.importorskip("torch")
 import pvtrace_tpu  # noqa: E402
 from pvtrace_tpu import engine as jax_engine  # noqa: E402
 from pvtrace_tpu_torch import kernels  # noqa: E402
-from pvtrace_tpu_torch.engine import compile_scene, eventlog, rng, simulate, tables, tracer  # noqa: E402
+from pvtrace_tpu_torch.engine import api, compile_scene, eventlog, rng, simulate, tables, tracer  # noqa: E402
 from pvtrace_tpu_torch.engine.history_tally import tally_histories  # noqa: E402
 from pvtrace_tpu_torch.kernels import host  # noqa: E402
 from pvtrace_tpu_torch.light.event import Event  # noqa: E402
-from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders, mesh_small  # noqa: E402
+from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders, mesh_lsc, mesh_small  # noqa: E402
 
 torch.set_num_threads(1)
 N = 1 << 10
@@ -173,4 +177,79 @@ def test_device_log_matches_twin_on_host(host_lib, make, events):
     same = (log["ints"] == ref["ints"]).flatten(1).all(1)
     assert int((~same).sum()) <= 2 and int((log["ints"][..., 0] >= 0).sum(1).min()) >= 2
     torch.testing.assert_close(log["floats"][same], ref["floats"][same], rtol=1e-5, atol=1e-5)
+    # The counts each recorded photon wrote at its death: its row's records.
+    assert torch.equal(log["counts"], (log["ints"][..., 0] >= 0).sum(1).to(torch.int32))
+    assert torch.equal(log["counts"][same], ref["counts"][same])
+
+
+def _bits(x):
+    return x.view(np.int32 if x.dtype == np.float32 else np.int64)
+
+
+# Twin logs the pack and unpack see: the mesh LSC with the event-budget
+# kill, the slab, and every third photon from 5 (a row with no photon of
+# its own stays empty).
+ROUNDTRIP = {
+    "mesh_lsc-8": dict(make=mesh_lsc, n=512, every=1, offset=0, events=8, dtype=torch.float32),
+    "lsc_slab-128": dict(make=lsc_slab, n=512, every=1, offset=0, events=128,
+                         dtype=torch.float32),
+    "mesh_small-every3-offset5": dict(make=mesh_small, n=800, every=3, offset=5, events=16,
+                                      dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUNDTRIP))
+def test_pack_unpack_roundtrip(case):
+    """The fetch's path on the twin's log: ``counts`` equals the rows'
+    records, ``unpack(pack(log, counts))`` gives the dense log bit for bit
+    (``api.fetch_log`` too), and the packed records are the rows' prefixes
+    in slot order."""
+    spec = ROUNDTRIP[case]
+    st = tables.scene_tensors(compile_scene(spec["make"]()), dtype=spec["dtype"])
+    fates, _, _, log = tracer.trace_eager(st, rng.key_words(6), spec["n"], spec["offset"], 128,
+                                          record_every=spec["every"], max_events=spec["events"])
+    S, E = log["ints"].shape[:2]
+    counts = log["counts"]
+    assert counts.dtype == torch.int32
+    assert torch.equal(counts, (log["ints"][..., 0] >= 0).sum(1).to(torch.int32))
+    if spec["events"] == 8:
+        assert int((counts == 8).sum()) > 0 and int(fates[9]) > 0  # the event budget killed
+    ints, floats = eventlog.pack(log, counts)
+    first, last = int(counts[0]), int(counts[-1])
+    assert ints.shape == (int(counts.sum()), eventlog.LOG_I)
+    assert torch.equal(ints[:first], log["ints"][0, :first])
+    assert torch.equal(floats[len(floats) - last:], log["floats"][-1, :last])
+    np_dtype = np.float32 if spec["dtype"] == torch.float32 else np.float64
+    dense = eventlog.unpack(counts.numpy(), ints.numpy(), floats.numpy(), S, E, np_dtype)
+    fetched = api.fetch_log(log, np_dtype)
+    for got in (dense, fetched):
+        assert got[0].dtype == np.int32 and got[1].dtype == np_dtype
+        np.testing.assert_array_equal(got[0], log["ints"].numpy())
+        np.testing.assert_array_equal(_bits(got[1]), _bits(log["floats"].numpy()))
+    np.testing.assert_array_equal(fetched[2], counts.numpy())
+    assert api.last_fetch["records"] == int(counts.sum())
+
+
+@pytest.mark.parametrize("make, events", [(mesh_small, 8), (lsc_slab, 128)],
+                         ids=["mesh_small-8", "lsc_slab-128"])
+def test_device_log_pack_matches_pack_on_host(host_lib, make, events):
+    """``log_pack_slot`` (pvt_log_pack's per-slot copy, each slot as a warp
+    of 32 lanes), host-built, against ``eventlog.pack`` on the host build's
+    own log, its rows left unfilled as on the card: bit-equal."""
+    st, seed, n = tables.scene_tensors(compile_scene(make())), rng.key_words(7), 512
+    log, desc = kernels.empty_log(n, 1, events, 0, "cpu", fill=False)
+    fates = torch.zeros(11, dtype=torch.int64)
+    host_lib.h_trace(ctypes.byref(kernels._scene(st, 1000, 0, float("inf"))), seed[0],
+                     seed[1], 0, n, ctypes.byref(desc), fates.data_ptr())
+    counts = log["counts"]
+    assert int(counts.min()) >= 2 and int(fates.sum()) == n
+    ref_ints, ref_floats = eventlog.pack(log, counts)
+    offsets = torch.cumsum(counts, 0) - counts
+    N = int(counts.sum())
+    ints = torch.full((N, eventlog.LOG_I), 7, dtype=torch.int32)
+    floats = torch.full((N, eventlog.LOG_F), 7.0)
+    host_lib.h_log_pack(ctypes.byref(desc), offsets.data_ptr(), ints.data_ptr(),
+                        floats.data_ptr())
+    assert torch.equal(ints, ref_ints)
+    assert torch.equal(floats.view(torch.int32), ref_floats.view(torch.int32))
 

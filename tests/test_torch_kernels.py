@@ -28,7 +28,8 @@ torch = pytest.importorskip("torch")
 
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.kernels import check  # noqa: E402
-from pvtrace_tpu_torch.engine import compile_scene, physics, rng, simulate, tables, tally, tracer  # noqa: E402
+from pvtrace_tpu_torch.engine import compile_scene, eventlog, physics, rng, simulate, tables, tally  # noqa: E402
+from pvtrace_tpu_torch.engine import tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import build, host  # noqa: E402
 from pvtrace_tpu_torch.engine import score as score_ch  # noqa: E402
 from pvtrace_tpu_torch.engine.emit import emit_bundle  # noqa: E402
@@ -373,6 +374,9 @@ def test_wrappers_run_the_twin_on_cpu(bench_f32):
     assert torch.equal(stepped["alive"], tracer.step_state(st, state, 1000, 0)["alive"])
     fates, _, _, _ = kernels.trace(st, seed, 300, lanes=64)
     assert torch.equal(fates, tracer.trace_eager(st, seed, 300, lanes=64)[0])
+    _, _, _, log = kernels.trace(st, seed, 300, lanes=64, record_every=2, max_events=16)
+    for got, ref in zip(kernels.log_pack(log), eventlog.pack(log, log["counts"])):
+        assert got.shape[0] == int(log["counts"].sum()) and torch.equal(got, ref)
     values = kernels.cheb(st, torch.linspace(-1.0, 1.0, 5))
     assert values.shape == (st["meta"]["cheb_n_fits"], 5)
     rec = tables.scene_tensors(compile_scene(lsc_slab_recorders(8)))
@@ -544,6 +548,24 @@ def test_tally_warp_matches_twin_on_card(make):
 def test_log_kernel_matches_twin_on_card(make, events):
     rep = check.check_log(_cuda_tensors(make), rng.key_words(1), 1 << 12, max_events=events)
     assert rep["diverged"] <= check.LOG_DIVERGED * rep["slots"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, events", [(mesh_lsc, 128), (mesh_lsc, 8), (lsc_slab, 128)])
+def test_log_pack_and_fetch_match_twin_on_card(make, events):
+    """pvt_log_pack against eventlog.pack on the kernel's log (bit-equal),
+    the kernel's counts against its rows, and simulate(record_every=1)'s
+    dense arrays against the CPU twin's: photons whose ints differ at most
+    LOG_DIVERGED of them, the others' floats within LOG_RTOL of their
+    column's scale, counts equal."""
+    st = _cuda_tensors(make)
+    _, _, _, log = kernels.trace(st, rng.key_words(3), 1 << 12, record_every=1,
+                                 max_events=events)
+    rep = check.check_log_pack(log, reps=2)
+    assert kernels.launches["pvt_log_pack"] > 0 and rep["records"] == int(log["counts"].sum())
+    ints, _ = check.dense_log(log)
+    assert torch.equal(log["counts"], (ints[..., 0] >= 0).sum(1).to(torch.int32))
+    assert check.check_fetch(make(), 1 << 12, max_events=events)["slots"] == 1 << 12
 
 
 @pytest.mark.gpu
