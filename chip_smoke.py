@@ -7,8 +7,9 @@ against its plain-PyTorch twin on the card, then drives the port's main
 paths: ``engine.simulate`` of the LSC benchmark scene without and with
 recorders, of the hex-plate mesh LSC, and with event-log histories, and
 the gradient paths of ``diff.transport`` (score channels, pathwise
-channels, the Beer–Lambert surrogate), at full width. Phases, one line
-each:
+channels, the Beer–Lambert surrogate), and the entry points above
+``simulate`` (``simulate_stream``, ``simulate_checkpointed``, the LSC
+device API), at full width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
@@ -169,7 +170,12 @@ each:
     integers equal, score sums and gradients within the float64
     accumulation bound, the step within float32 rounding. The all-reduce's
     time and bytes per call on each backend (no multi-GPU speed can be
-    measured on one card);
+    measured on one card). On the world of one also ``LSC.gradient(mesh=)``
+    (2**23 photons, one bundle) against its run without a mesh (distinct
+    counts and efficiency equal, score sums within two runs' float64
+    bound) and ``simulate_checkpointed(mesh=)`` (the slab with 4 recorders,
+    2**24 in two bundles) against its run without one (integers equal),
+    their all-reduces counted;
 27. K1's and K2's draws as pvt_trace makes them (a step's four pairs; a
     refill's keys and the emission pairs the scene's lamps read, not all
     three): pvt_draws on 2**20 lanes with random keys, step counts, read
@@ -177,9 +183,47 @@ each:
     and the slab lamp's one, against the twin's threefry words
     (``rng.warp_draws``) bit for bit, and the threefry calls each warp's
     refill made (counted in the kernel where it makes them) against the
-    twin's count.
+    twin's count;
+28. ``simulate_stream`` of the slab at 2**27 in bundles of 2**24 and at
+    2**22 in the JAX package's default bundles of 50,000, each against one
+    ``simulate`` of the same seed: fates bit for bit (a photon's draws are
+    a function of (seed, global id)); pvt_trace launches read around the
+    stream (one a bundle, no eager run), its summed ``elapsed``, its host
+    seconds from the first next() to the last, photons/s of each and the
+    host time a bundle (the scene tensors are rebuilt every call);
+29. ``simulate_checkpointed`` at 2**27 in bundles of 2**24: three bundles,
+    then a resume without ``bundle=`` (the stored one), against an
+    uninterrupted run, on the slab with 32 recorders (integers equal, sums
+    within two runs' bound) and on the slab with ``score=True``
+    (fate_scores of both within the float64 accumulation bound of the same
+    photons traced by pvt_trace_score in bundles); launches read around
+    the two calls, the save's seconds a bundle;
+30. ``LSC((5, 5, 1)).simulate`` at its defaults (histories: pvt_trace with
+    the event log and pvt_log_pack, launches read around it) at 2**14
+    against ``device="cpu"`` (float32, the same seed and np.random state):
+    the counts table and the exit events within max(20, 0.2% of n), one
+    entrance row a recorded photon; at 2**16 timed: the trace and fetch
+    (``elapsed``) apart from the host loops of ``histories()`` and of the
+    dataframe, the loop's ends marked by ``LSC.simulate``'s progress
+    calls;
+31. ``LSC.gradient`` with solar cells on the four edges at 2**27,
+    ``wrt="concentration"`` (pvt_trace_score) and ``wrt="n"``
+    (pvt_trace_pathwise), 9 launches each in bundles of 16,000,000, and at
+    2**20 against ``device="cpu"``: distinct counts within max(20, 0.2% of
+    n), the cells' and the incident row's score sums within phase 17's
+    bound (SCORE_RTOL of the twin's sum of |score| plus its slack, and
+    twice the channel's largest |score| for each photon whose record
+    parted from the CPU twin's, compared photon by photon on the same
+    inputs), the gradient within that bound carried through the ratio;
+    and the gradient run's scene and channel (its recorders, the resolved
+    pathwise spec) through pvt_trace_score or pvt_trace_pathwise against
+    the twin on the card photon by photon, phase 17's and 21's check.
 
-Then the card's nvidia-smi line, one JSON line of per-kernel numbers,
+Then the card's nvidia-smi line, one JSON line of per-kernel numbers
+(each row with ``reached_from``: the entry points above ``simulate`` whose
+run in phases 26 and 28-31 launched it or, for device code inside the
+trace kernels, launched a kernel whose loop runs it on a scene that needs
+it),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before the last line; without a CUDA device nothing runs.
 
@@ -205,6 +249,10 @@ N_SLAB = 1 << 24
 N_OPT = 400_000
 N_HOST = 1 << 24
 N_BUDGET = 1 << 16
+N_BUNDLE = 1 << 24
+N_SMALL_STREAM, SMALL_BUNDLE = 1 << 22, 50000
+N_LSC_LOG = 1 << 16
+N_LSC_MESH = 1 << 23  # one bundle of LSC.gradient's 16,000,000
 RANKS = 2
 SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
@@ -238,9 +286,55 @@ REPLACES = {
     "pvt_log_pack": "pvtrace_tpu/engine/api.py:560",
     "all_reduce_tallies": "pvtrace_tpu/parallel/shard.py:48",
 }
+# The rows whose device code runs inside the trace kernels' loop
+# (``tracer.cuh``: photon_start, photon_step), their own wrappers being
+# launched only by their checks: the kernels whose loop runs it, and the
+# scene-tensor meta entry that must be non-zero for it to run.
+INSIDE = {
+    "pvt_emit": (("pvt_trace",), None),
+    "pvt_draws": (("pvt_trace",), None),
+    "pvt_step": (("pvt_trace",), None),
+    "pvt_cheb": (("pvt_trace",), "cheb_n_fits"),
+    "pvt_tally": (("pvt_trace",), "n_rec"),
+    "pvt_mesh": (("pvt_trace",), "n_tris"),
+    "pvt_score": (("pvt_trace_score", "pvt_trace_pathwise"), None),
+    "pvt_fresnel": (("pvt_trace_score", "pvt_trace_pathwise"), None),
+    "pvt_pathwise": (("pvt_trace_pathwise",), None),
+}
+# What each entry point above simulate launched in phases 26 and 28-31
+# (the counts read around its call) and its scene's meta, by label; the
+# kernels line's reached_from is read from these.
+ENTRY_RUNS = {}
+
+
+def entry_run(label, launched, compiled):
+    """Record what the entry point `label` launched on `compiled`."""
+    from pvtrace_tpu_torch.engine import scene_tensors
+
+    ENTRY_RUNS[label] = ({k: int(v) for k, v in launched.items()},
+                         scene_tensors(compiled, device="cpu")["meta"])
+
+
+def reached_from(name):
+    """The entry points whose run launched `name`, or a trace kernel whose
+    loop runs its device code on a scene that needs it (``INSIDE``)."""
+    kernels_of, need = INSIDE.get(name, ((), None))
+    out = []
+    for label, (launched, meta) in ENTRY_RUNS.items():
+        via = [k for k in kernels_of if launched.get(k, 0) > 0]
+        if launched.get(name, 0) > 0:
+            out.append(label)
+        elif via and (need is None or meta.get(need, 0) > 0):
+            out.append(f"{label} (inside {', '.join(via)})")
+    return out
+
+
 # Fate slots of the LSC slab's photons: NONRADIATIVE, EXIT, KILL.
 LSC_FATES = (4, 7, 9)
 PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
+# LSC.gradient's solar cells, and its recorders' order: the four cells
+# (sorted), then the incident row.
+LSC_CELLS = ("far", "left", "near", "right")
 
 
 def oblique_analytic(n, theta0, alpha, L):
@@ -265,6 +359,66 @@ def oblique_analytic(n, theta0, alpha, L):
 
 def fail(message):
     raise SystemExit(f"chip_smoke: FAILED: {message}")
+
+
+def lsc_with_cells():
+    """The LSC device API's default 5x5x1 plate with solar cells on its
+    four edges."""
+    from pvtrace_tpu_torch.device.lsc import LSC
+
+    lsc = LSC((5.0, 5.0, 1.0))
+    lsc.add_solar_cell(LSC_CELLS)
+    return lsc
+
+
+def lsc_gradient(wrt, n, seed, **kwargs):
+    """``LSC.gradient`` of ``lsc_with_cells()``: (its result, the recorder
+    totals of its engine runs as ``rec_distinct`` and ``rec_scores``, host
+    seconds, and the compiled scene with its recorders and the resolved
+    pathwise specs those runs were given)."""
+    lsc = lsc_with_cells()
+    tic = time.perf_counter()
+    out = lsc.gradient(n=n, seed=seed, wrt=wrt, **kwargs)
+    seconds = time.perf_counter() - tic
+    run = lsc._last_gradient
+    return (out, {"rec_distinct": run["distinct"], "rec_scores": run["scores"]}, seconds,
+            run["compiled"], run["pathwise"])
+
+
+def lsc_channel(result):
+    """The score channel of an ``LSC.gradient`` result: the luminophore's
+    (the first component) or, for wrt="n", the one pathwise channel, the
+    last."""
+    return -1 if result["component"] == "n" else 0
+
+
+def share_of_bound(off, allow):
+    """The largest share of its bound an entry took (an entry whose bound
+    is 0 must be 0 itself and counts as 0)."""
+    import numpy as np
+
+    off, allow = np.asarray(off, dtype=np.float64), np.asarray(allow, dtype=np.float64)
+    return float(np.max(np.where(allow > 0, off / np.where(allow > 0, allow, 1.0),
+                                 np.where(off > 0, np.inf, 0.0)), initial=0.0))
+
+
+def lsc_gradient_bound(n, got, ref, allow):
+    """How far ``LSC.gradient``'s (d(A/I), A/I) may lie from another run's
+    of the same n photons: `got` and `ref` are (result, data) of the two,
+    `allow` [5] the bound of each recorder's score sum in the gradient's
+    channel (the four cells, then the incident row). The gradient (dC * I
+    - C * dI) / I**2 is carried to first order through the score sums'
+    bounds and the distinct counts' observed differences."""
+    import numpy as np
+
+    d_got = np.asarray(got[1]["rec_distinct"], dtype=np.float64)
+    d_ref = np.asarray(ref[1]["rec_distinct"], dtype=np.float64)
+    dd = np.abs(d_got - d_ref) / n
+    C, I = d_ref[:4].sum() / n, d_ref[4] / n
+    scores = np.asarray(ref[1]["rec_scores"], dtype=np.float64)[:, lsc_channel(ref[0])]
+    dC, dI = scores[:4].sum() / n, scores[4] / n
+    return (allow[:4].sum() / n / I + C * allow[4] / n / I ** 2 + abs(dI) * dd[:4].sum() / I ** 2
+            + (abs(dC) / I ** 2 + 2 * C * abs(dI) / I ** 3) * dd[4])
 
 
 def shard_runs(mesh):
@@ -364,7 +518,9 @@ def main():
 
     from pvtrace_tpu_torch import kernels
     from pvtrace_tpu_torch.diff import transport
+    from pvtrace_tpu_torch.device.lsc import LSC
     from pvtrace_tpu_torch.engine import absorb, api, compile_scene, rng, scene_tensors, simulate
+    from pvtrace_tpu_torch.engine import simulate_checkpointed, simulate_stream
     from pvtrace_tpu_torch.engine import tracer
     from pvtrace_tpu_torch.kernels import build, check
     from pvtrace_tpu_torch.light.event import Event
@@ -1244,6 +1400,48 @@ def main():
         if nccl["calls"] != 3 or nccl_launches["pvt_trace"] != 1:
             fail(f"NCCL world of one: {nccl['calls']} all-reduces, launches {nccl_launches}")
         one = json.loads(json.dumps(shard_runs(mesh)))
+        # The new entry points on the same world: LSC.gradient(mesh=) and
+        # simulate_checkpointed(mesh=) against their runs without a mesh
+        shard.reduce_stats.update(calls=0, bytes=0)
+        kernels.reset()
+        meshed = lsc_gradient("concentration", N_LSC_MESH, 26, mesh=mesh)
+        lsc_reduces = shard.reduce_stats["calls"]
+        entry_run("LSC.gradient(mesh=)", dict(kernels.launches, all_reduce_tallies=lsc_reduces),
+                  meshed[3])
+        alone = lsc_gradient("concentration", N_LSC_MESH, 26)
+        lsc_m = meshed[1]["rec_distinct"][:5]
+        # The sums of |score| the two runs added: the same photons traced once more
+        _, _, lsc_t, _ = kernels.trace(scene_tensors(meshed[3], dtype=torch.float32,
+                                                     device="cuda"),
+                                       rng.key_words(26), N_LSC_MESH, score=True)
+        lsc_allow = 2 * check.score_runs_bound(lsc_m, lsc_t["rec_abs"][:5, 0].double().cpu().numpy())
+        lsc_off = np.abs(meshed[1]["rec_scores"][:, 0].astype(np.float64)
+                         - alone[1]["rec_scores"][:, 0])
+        lsc_bound = lsc_gradient_bound(N_LSC_MESH, meshed[:2], alone[:2], lsc_allow)
+        if not np.array_equal(lsc_m, alone[1]["rec_distinct"][:5]) \
+                or meshed[0]["optical_efficiency"] != alone[0]["optical_efficiency"] \
+                or not (lsc_off <= lsc_allow).all() \
+                or not abs(meshed[0]["gradient"] - alone[0]["gradient"]) <= lsc_bound \
+                or lsc_reduces != 3:
+            fail(f"LSC.gradient(mesh=) on the world of one: {meshed[0]} against {alone[0]}, "
+                 f"score sums off {lsc_off.tolist()} (bound {lsc_allow.tolist()}), "
+                 f"{lsc_reduces} all-reduces")
+        shard.reduce_stats.update(calls=0, bytes=0)
+        kernels.reset()
+        ckpt_meshed = simulate_checkpointed(rec4, N_SLAB, None, bundle=N_SLAB // 2, seed=26,
+                                            mesh=mesh, record_every=0, dtype=np.float32,
+                                            compiled=rec4_compiled)
+        ckpt_reduces = shard.reduce_stats["calls"]
+        entry_run("simulate_checkpointed(mesh=)",
+                  dict(kernels.launches, all_reduce_tallies=ckpt_reduces), rec4_compiled)
+        ckpt_alone = simulate_checkpointed(rec4, N_SLAB, None, bundle=N_SLAB // 2, seed=26,
+                                           record_every=0, dtype=np.float32,
+                                           compiled=rec4_compiled)
+        for key in ("_fates", "_distinct", "_crossings", "_bins"):
+            if not np.array_equal(getattr(ckpt_meshed, key), getattr(ckpt_alone, key)):
+                fail(f"simulate_checkpointed(mesh=) on the world of one: {key} differs")
+        if ckpt_reduces != 6:
+            fail(f"simulate_checkpointed(mesh=): {ckpt_reduces} all-reduces, not 6")
     finally:
         shutdown_distributed()
     nccl_ms, nccl_bytes = one["reduce_ms"], one["reduce_bytes"]
@@ -1254,6 +1452,15 @@ def main():
         f"{check.SUMS_RUNS_RTOL:.3g}, two runs' bound); {nccl['calls']} all-reduces of "
         f"{nccl['bytes']} bytes in all on the card in that run; {nccl_ms:.4f} ms per call of "
         f"{nccl_bytes:.0f} bytes (the score run's tallies, 150 calls after the first) | {smi}",
+        flush=True,
+    )
+    print(
+        f"phase 26 NCCL world of one, the new entry points: LSC.gradient(n={N_LSC_MESH}, mesh=) "
+        f"{meshed[0]} against no mesh {alone[0]['gradient']!r}: distinct equal, score sums at "
+        f"{share_of_bound(lsc_off, lsc_allow):.3g} of two runs' bound, {lsc_reduces} "
+        f"all-reduces; "
+        f"simulate_checkpointed(slab with 4 recorders, {N_SLAB}, bundle={N_SLAB // 2}, mesh=) "
+        f"integers equal to the run without a mesh, {ckpt_reduces} all-reduces | {smi}",
         flush=True,
     )
     port, tmp = free_port(), tempfile.mkdtemp()
@@ -1328,6 +1535,259 @@ def main():
         flush=True,
     )
 
+    # 28. simulate_stream at full width against one simulate
+    def stream_run(n, bundle, seed_value):
+        """The stream's fates, summed elapsed, host seconds from the first
+        next() to the last, bundles and launches read around it."""
+        kernels.reset()
+        tracer.eager_runs = 0
+        stream = simulate_stream(scene, n, bundle=bundle, seed=seed_value, record_every=0,
+                                 dtype=np.float32, compiled=compiled)
+        fates, elapsed, bundles = np.zeros(11, np.int64), 0.0, 0
+        tic = time.perf_counter()
+        for res, traced in stream:
+            fates += res.data["fates"]
+            elapsed += res.elapsed
+            bundles += 1
+        host = time.perf_counter() - tic
+        launches, kernel_ms = dict(kernels.launches), kernels.launch_ms["pvt_trace"]
+        if traced != n or launches["pvt_trace"] != bundles or tracer.eager_runs:
+            fail(f"simulate_stream({n}, bundle={bundle}) did not run through pvt_trace: "
+                 f"{traced} traced, launches {launches}, eager runs {tracer.eager_runs}")
+        entry_run("simulate_stream", launches, compiled)
+        one = simulate(scene, n, seed=seed_value, record_every=0, dtype=np.float32,
+                       compiled=compiled)
+        if not np.array_equal(fates, one.data["fates"]):
+            fail(f"simulate_stream({n}, bundle={bundle}): fates {fates.tolist()} against one "
+                 f"simulate's {one.data['fates'].tolist()}")
+        return {"n": n, "bundle": bundle, "bundles": bundles, "elapsed_s": elapsed,
+                "host_s": host, "kernel_ms": kernel_ms, "launches": launches["pvt_trace"],
+                "photons_per_s": n / host, "one_photons_per_s": n / one.elapsed,
+                "one_elapsed_s": one.elapsed, "fates": fates.tolist()}
+
+    streams = [stream_run(N_MAIN, N_BUNDLE, 28), stream_run(N_SMALL_STREAM, SMALL_BUNDLE, 28)]
+    if streams[0]["launches"] != -(-N_MAIN // N_BUNDLE):
+        fail(f"simulate_stream: {streams[0]['launches']} pvt_trace launches")
+    for run in streams:
+        print(
+            f"phase 28 simulate_stream(slab, {run['n']}, bundle={run['bundle']}): fates "
+            f"{run['fates']} equal one simulate's bit for bit; {run['bundles']} bundles, "
+            f"{run['launches']} pvt_trace launches ({run['kernel_ms']:.2f} ms), summed elapsed "
+            f"{run['elapsed_s']:.4f} s, {run['host_s']:.4f} s from the first next() to the last, "
+            f"{run['photons_per_s']:.6g} photons/s (one simulate: {run['one_elapsed_s']:.4f} s, "
+            f"{run['one_photons_per_s']:.6g}); per bundle "
+            f"{run['host_s'] / run['bundles'] * 1e3:.3f} ms on the host clock, of it "
+            f"{run['kernel_ms'] / run['bundles']:.3f} ms of kernel | {smi}",
+            flush=True,
+        )
+
+    # 29. simulate_checkpointed at full width: three bundles, a resume
+    # without bundle=, against an uninterrupted run
+    ckpt_dir = tempfile.mkdtemp()
+
+    def checkpointed(run_scene, run_compiled, path, seed_value, **kwargs):
+        return simulate_checkpointed(run_scene, N_MAIN, path, seed=seed_value, record_every=0,
+                                     dtype=np.float32, compiled=run_compiled, **kwargs)
+
+    ckpt = {}
+    for label, run_scene, run_compiled, score in (
+            ("slab R=32", lsc_slab_recorders(32), rec32, False),
+            ("slab, score", scene, compiled, True)):
+        path = os.path.join(ckpt_dir, f"run{len(ckpt)}.npz")
+        kernels.reset()
+        tracer.eager_runs = 0
+        tic = time.perf_counter()
+        partial = checkpointed(run_scene, run_compiled, path, 29, bundle=N_BUNDLE,
+                               stop_after_bundles=3, score=score)
+        resumed = checkpointed(run_scene, run_compiled, path, 29, score=score)
+        wall = time.perf_counter() - tic
+        launches = dict(kernels.launches)
+        name = "pvt_trace_score" if score else "pvt_trace"
+        if partial.traced != 3 * N_BUNDLE or not resumed.complete or resumed.bundle != N_BUNDLE \
+                or launches[name] != -(-N_MAIN // N_BUNDLE) or tracer.eager_runs:
+            fail(f"simulate_checkpointed, {label}: traced {partial.traced}, then "
+                 f"{resumed.traced} (bundle {resumed.bundle}), launches {launches}")
+        entry_run("simulate_checkpointed(score=True)" if score else "simulate_checkpointed",
+                  launches, run_compiled)
+        uninterrupted = checkpointed(run_scene, run_compiled, None, 29, bundle=N_BUNDLE,
+                                     score=score)
+        for a, b, key in ((resumed._fates, uninterrupted._fates, "fates"),
+                          (resumed._distinct, uninterrupted._distinct, "rec_distinct"),
+                          (resumed._crossings, uninterrupted._crossings, "rec_crossings"),
+                          (resumed._bins, uninterrupted._bins, "rec_bins")):
+            if not np.array_equal(a, b):
+                fail(f"simulate_checkpointed, {label}: resumed {key} differs from the "
+                     f"uninterrupted run's")
+        saves = []
+        for _ in range(3):
+            tic = time.perf_counter()
+            resumed.save(os.path.join(ckpt_dir, "again.npz"))
+            saves.append(time.perf_counter() - tic)
+        rep = {"wall_s": wall, "elapsed_s": resumed.elapsed, "save_s": saves,
+               "photons_per_s": N_MAIN / wall, "launches": launches[name],
+               "fates": resumed._fates.tolist()}
+        if score:
+            rep["sums_used"] = max(
+                check.check_chunk_scores(st, rng.key_words(29), {"fates": r._fates,
+                                                                 "fate_scores": r._fate_scores},
+                                         N_MAIN, N_BUNDLE)
+                for r in (resumed, uninterrupted))
+            sums = f"fate_scores at {rep['sums_used']:.3g} of their float64 accumulation bound"
+        else:
+            rel = float(np.max(np.abs(resumed._sums - uninterrupted._sums)
+                               / np.maximum(np.abs(uninterrupted._sums), 1e-30)))
+            if not rel <= check.SUMS_RUNS_RTOL:
+                fail(f"simulate_checkpointed, {label}: sums off the uninterrupted run's by {rel}")
+            rep["sums_rel"] = rel
+            sums = f"rec_sums within {rel:.3g} (limit {check.SUMS_RUNS_RTOL:.3g})"
+        ckpt[label] = rep
+        print(
+            f"phase 29 simulate_checkpointed({label}, {N_MAIN}, bundle={N_BUNDLE}): 3 bundles, "
+            f"then a resume without bundle= (took the stored {resumed.bundle}): integers equal "
+            f"to the uninterrupted run's, {sums}; {launches[name]} {name} launches, "
+            f"{wall:.4f} s for both calls ({N_MAIN / wall:.6g} photons/s; summed elapsed "
+            f"{resumed.elapsed:.4f} s), a save {np.mean(saves) * 1e3:.3f} ms "
+            f"({[round(t * 1e3, 3) for t in saves]}) a bundle | {smi}",
+            flush=True,
+        )
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # 30. LSC.simulate: histories through pvt_trace with the log and
+    # pvt_log_pack, the dataframe built on the host
+    def lsc_simulate(n, **kwargs):
+        """LSC.simulate of the default 5x5x1 plate at seed 30 (np.random
+        at 30): (lsc, dataframe, engine result, seconds to the end of the
+        engine run, of the histories' host loop, of the dataframe,
+        launches). Its `progress` calls, one after each history, mark
+        where the host loop begins and ends."""
+        marks = []
+
+        def progress(i):
+            if i == 1 or i == n:
+                marks.append(time.perf_counter())
+
+        kernels.reset()
+        tracer.eager_runs = 0
+        np.random.seed(30)
+        lsc = LSC((5.0, 5.0, 1.0))
+        tic = time.perf_counter()
+        df = lsc.simulate(n, seed=30, progress=progress, **kwargs)
+        end = time.perf_counter()
+        return (lsc, df, lsc._last_result, marks[0] - tic, marks[-1] - marks[0],
+                end - marks[-1], dict(kernels.launches))
+
+    card = lsc_simulate(N_LOG)
+    if not compile_scene(card[0]._scene).lights_supported:
+        fail("LSC: the default lamp was not lowered to a device sampler")
+    if card[6]["pvt_trace_log"] != 1 or card[6]["pvt_log_pack"] != 1 or tracer.eager_runs:
+        fail(f"LSC.simulate did not run through pvt_trace with the log: {card[6]}")
+    twin = lsc_simulate(N_LOG, device="cpu")
+    tol = max(20, N_LOG // 500)
+    counts_off = int((card[0].counts() - twin[0].counts()).abs().to_numpy().max())
+    fates_k = card[1][card[1]["kind"] == "exit"]["event"].value_counts()
+    fates_t = twin[1][twin[1]["kind"] == "exit"]["event"].value_counts()
+    fates_off = int(fates_k.sub(fates_t, fill_value=0).abs().max())
+    entrance = int((card[1]["kind"] == "entrance").sum())
+    if counts_off > tol or fates_off > tol:
+        fail(f"LSC.simulate on the card against the CPU twin: counts off by {counts_off}, "
+             f"fates by {fates_off} (limit {tol})")
+    if entrance != card[2].num_recorded or card[2].num_recorded != N_LOG:
+        fail(f"LSC.simulate: {entrance} entrance rows for {card[2].num_recorded} recorded photons")
+    entry_run("LSC.simulate", card[6], card[2].compiled)
+    print(
+        f"phase 30 LSC.simulate({N_LOG}) on the card against device='cpu' (float32, seed 30): "
+        f"counts table within {counts_off}, exit rows' events "
+        f"{ {k: int(v) for k, v in fates_k.items()} } within {fates_off} "
+        f"(limit {tol}); {entrance} entrance rows for {card[2].num_recorded} recorded photons, "
+        f"{len(card[1])} rows; launches {card[6]} | {smi}",
+        flush=True,
+    )
+    big = lsc_simulate(N_LSC_LOG)
+    if big[6]["pvt_trace_log"] != 1 or big[6]["pvt_log_pack"] != 1:
+        fail(f"LSC.simulate({N_LSC_LOG}) did not run through pvt_trace with the log: {big[6]}")
+    total = big[3] + big[4] + big[5]
+    lsc_times = {"elapsed_s": big[2].elapsed, "to_first_history_s": big[3],
+                 "histories_s": big[4], "dataframe_s": big[5], "total_s": total,
+                 "host_share": 1.0 - big[2].elapsed / total, "rows": len(big[1]),
+                 "launches": big[6], "fetch": dict(api.last_fetch)}
+    print(
+        f"phase 30 LSC.simulate({N_LSC_LOG}) on the card: {total:.4f} s, of it trace and fetch "
+        f"(elapsed) {big[2].elapsed:.4f} s; {big[3]:.4f} s to the first history's progress "
+        f"call, the histories' host loop {big[4]:.4f} s, dataframe {big[5]:.4f} s, "
+        f"{len(big[1])} rows; host share (all but elapsed) {lsc_times['host_share']:.4f}; "
+        f"launches pvt_trace_log "
+        f"{big[6]['pvt_trace_log']}, pvt_log_pack {big[6]['pvt_log_pack']} | {smi}",
+        flush=True,
+    )
+
+    # 31. LSC.gradient at full width, then against the CPU twin
+    lsc_grads = {}
+    for wrt, name in (("concentration", "pvt_trace_score"), ("n", "pvt_trace_pathwise")):
+        kernels.reset()
+        tracer.eager_runs = 0
+        full_grad = lsc_gradient(wrt, N_MAIN, 31)
+        launches = dict(kernels.launches)
+        if launches[name] != -(-N_MAIN // 16_000_000) or tracer.eager_runs \
+                or not np.isfinite(full_grad[0]["gradient"]):
+            fail(f"LSC.gradient(wrt={wrt!r}) did not run through {name}: {launches}, "
+                 f"{full_grad[0]}")
+        entry_run(f"LSC.gradient(wrt={wrt!r})", launches, full_grad[3])
+        card_g = lsc_gradient(wrt, N_CHECK, 32)
+        twin_g = lsc_gradient(wrt, N_CHECK, 32, device="cpu")
+        # The same photons' records, kernel against the twin on the card
+        st_lsc = scene_tensors(card_g[3], dtype=torch.float32, device="cuda")
+        photons = check.check_trace_scores(st_lsc, rng.key_words(32), N_CHECK,
+                                           pathwise=card_g[4])
+        # and the kernel's records against the CPU twin's: the photons that
+        # parted between the two runs compared below, and the twin's sums
+        # of |score| and slack
+        _, _, cpu_t, _ = tracer.trace_eager(
+            scene_tensors(card_g[3], dtype=torch.float32, device="cpu"), rng.key_words(32),
+            N_CHECK, score=True, per_photon=True, pathwise=card_g[4])
+        cpu_photons = check.compare_score_records(photons["tallies"], cpu_t,
+                                                  torch.as_tensor(photons["fates"]), N_CHECK,
+                                                  check.SCORE_PARTED * N_CHECK)
+        tol = max(20, N_CHECK // 500)
+        d_off = int(np.abs(card_g[1]["rec_distinct"] - twin_g[1]["rec_distinct"]).max())
+        ch = lsc_channel(twin_g[0])
+        allow = (check.SCORE_RTOL * cpu_t["rec_abs"][:5, ch].double() + cpu_t["rec_slack"][:5, ch]
+                 + cpu_photons["parted_allow"][ch]).numpy()
+        off = np.abs(card_g[1]["rec_scores"][:, ch].astype(np.float64)
+                     - twin_g[1]["rec_scores"][:, ch])
+        bound = lsc_gradient_bound(N_CHECK, card_g[:2], twin_g[:2], allow)
+        g_off = abs(card_g[0]["gradient"] - twin_g[0]["gradient"])
+        if d_off > tol or not (off <= allow).all() or not g_off <= bound:
+            fail(f"LSC.gradient(wrt={wrt!r}) on the card against the CPU twin: distinct off by "
+                 f"{d_off} (limit {tol}), score sums {off.tolist()} (bound {allow.tolist()}), "
+                 f"gradient {card_g[0]} against {twin_g[0]} (bound {bound})")
+        lsc_grads[wrt] = {"photons_per_s": N_MAIN / full_grad[2], "seconds": full_grad[2],
+                          "launches": launches[name], "kernel_ms": kernels.launch_ms[name],
+                          "result": full_grad[0], "check": {
+                              "card": card_g[0], "cpu": twin_g[0], "distinct_off": d_off,
+                              "sums_used": share_of_bound(off, allow), "gradient_off": g_off,
+                              "bound": bound, "cpu_s": twin_g[2],
+                              "parted_from_cpu": cpu_photons["parted"],
+                              "saturated_from_cpu": cpu_photons["saturated"]},
+                          "photon_by_photon": {k: photons[k] for k in (
+                              "parted", "saturated", "record_used", "sums_used", "ms",
+                              "plain_ms", "bound_ms")}}
+        print(
+            f"phase 31 LSC.gradient(n={N_MAIN}, wrt={wrt!r}), cells on four edges: {full_grad[0]}"
+            f" in {full_grad[2]:.4f} s, {N_MAIN / full_grad[2]:.6g} photons/s, "
+            f"{launches[name]} {name} launches ({kernels.launch_ms[name]:.2f} ms); at {N_CHECK} "
+            f"against device='cpu' ({twin_g[2]:.1f} s): distinct within {d_off} (limit {tol}), "
+            f"score sums at {share_of_bound(off, allow):.3g} of their bound, gradient "
+            f"{card_g[0]['gradient']:.6f} against {twin_g[0]['gradient']:.6f} (|diff| "
+            f"{g_off:.3g}, bound {bound:.3g}; photon by photon {cpu_photons['parted']} parted "
+            f"from the CPU twin, {cpu_photons['saturated']} saturated); {name} against the twin "
+            f"on the card photon by "
+            f"photon (phase {17 if wrt == 'concentration' else 21}'s check): {photons['parted']} "
+            f"parted, {photons['saturated']} saturated (limit each "
+            f"{check.SCORE_PARTED * N_CHECK:g}), records at {photons['record_used']:.3g} and "
+            f"sums at {photons['sums_used']:.3g} of their bounds | {smi}",
+            flush=True,
+        )
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -1350,6 +1810,7 @@ def main():
             "photons_per_s_K5a": rates["K5a"], "photons_per_s_K5b": rates["K5b"],
             "photons_per_s_by_recorders": rec_rates,
             "launches_by_recorders": {R: v["pvt_trace"] for R, v in rec_launches.items()},
+            "simulate_stream": streams, "simulate_checkpointed": ckpt["slab R=32"],
         }),
         ("pvt_cheb", cheb_rep, {
             "n_fits": cheb_rep["n_fits"], "n_t": cheb_rep["n_t"],
@@ -1377,6 +1838,7 @@ def main():
             "full_width": {k: {q: v[q] for q in ("n", "photons_per_s", "kernel_ms", "log_bytes",
                                                  "fetch")}
                            for k, v in full.items() if "record_every" in k},
+            "lsc_simulate": lsc_times,
         }),
         ("pvt_log_pack", pack_rep, {
             "n": N_MAIN, "record_every": 1000, "library_ms": pack_rep["library_ms"],
@@ -1407,7 +1869,8 @@ def main():
                      "ms_device": trace_score_reps["slab"]["rows"]["ms_device"]},
             "mesh_score_photons_per_s": mesh_score_rate,
             "mesh_score_launches": mesh_score_launches["pvt_trace_score"],
-            "analytic": analytic,
+            "analytic": analytic, "lsc_gradient": lsc_grads["concentration"],
+            "simulate_checkpointed": ckpt["slab, score"],
         }),
         ("pvt_pathwise", path_rep, {
             "n": N_CHECK, "channels": path_rep["channels"], "left_out": path_rep["left_out"],
@@ -1426,6 +1889,7 @@ def main():
                                                                     "ms_device")}
                                               for k, v in budget.items()}},
             "main_path_photons_per_s": rate, "analytic": path_analytic,
+            "lsc_gradient": lsc_grads["n"],
         }),
         ("pvt_absorbed", absorbed_rep, {"n": N_SLAB}),
         ("pvt_absorbed_grad", dict(absorbed_rep, ms=absorbed_rep["grad_ms"],
@@ -1457,6 +1921,9 @@ def main():
         f"world of {RANKS} on one card, per call",
         "bound_ms": 2 * nccl_bytes / check.PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None, "bytes_per_call": nccl_bytes, "backend": "nccl, world of one",
+        "reached_from": reached_from("all_reduce_tallies"),
+        "new_entry_points_reduces": {"LSC.gradient": lsc_reduces,
+                                     "simulate_checkpointed": ckpt_reduces},
     }
     history_launches = full["mesh, record_every=1000"]["launches"]
     launches_of = dict(main_launches, pvt_trace_log=history_launches["pvt_trace_log"],
@@ -1474,7 +1941,8 @@ def main():
             "replaces": REPLACES[name], "launches": launches_of[name],
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-            "bound_by": rep["bound_by"], "library_ms": None, **extra,
+            "bound_by": rep["bound_by"], "library_ms": None,
+            "reached_from": reached_from(name), **extra,
         }
         for name, rep, extra in rows
     ] + [collective]}))

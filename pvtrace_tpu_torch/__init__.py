@@ -15,11 +15,14 @@ plain-PyTorch twin of every kernel for CPU tensors, from lights emitted
 on the device or, where the compiler cannot lower them, on the host
 (``engine.emit``). ``pvtrace_tpu_torch.parallel`` shards a run over a
 ``torch.distributed`` process group, one process per device;
-``pvtrace_tpu_torch.diff.transport`` has the gradients.
+``pvtrace_tpu_torch.diff.transport`` has the gradients. ``LSC`` (the
+device API, ``device.lsc``) and ``MeshcatRenderer`` (``scene.renderer``)
+are imported on first use.
 
 Importing this package imports ``torch``, never ``jax``, and nothing of
 ``pvtrace_tpu``.
 """
+from pvtrace_tpu_torch.algorithm import photon_tracer
 from pvtrace_tpu_torch.data import fluro_red, lumogen_f_red_305
 from pvtrace_tpu_torch.engine.recorder import Heatmap, Histogram, Recorder
 from pvtrace_tpu_torch.geometry.box import Box
@@ -62,3 +65,16 @@ from pvtrace_tpu_torch.scene.scene import Scene
 from pvtrace_tpu_torch import engine
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # Lazy imports that pull in heavier optional machinery.
+    if name == "LSC":
+        from pvtrace_tpu_torch.device.lsc import LSC
+
+        return LSC
+    if name == "MeshcatRenderer":
+        from pvtrace_tpu_torch.scene.renderer import MeshcatRenderer
+
+        return MeshcatRenderer
+    raise AttributeError(f"module 'pvtrace_tpu_torch' has no attribute {name!r}")

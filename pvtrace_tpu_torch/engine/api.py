@@ -6,9 +6,12 @@ pathwise channels (``pathwise=``), with the lights emitted on the device
 where the compiler lowered them to samplers, else on the host
 (``engine/emit.py::emit_bundle``) and traced as a bundle. The result is
 the port's copy of the JAX package's ``EngineResult`` with the same
-``data`` layout.
+``data`` layout. ``simulate_stream`` traces a budget in bundles whose
+union equals one ``simulate``; ``is_available`` says whether the card can
+run the kernels.
 """
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -28,6 +31,14 @@ _TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torc
 # dense log's bytes.
 last_fetch = {"pack_s": 0.0, "copy_s": 0.0, "unpack_s": 0.0, "pack_ms": 0.0, "records": 0,
               "bytes": 0, "dense_bytes": 0}
+
+
+def is_available():
+    """True when the port can run on the card: CUDA is available and
+    device 0 has compute capability 9.x (the kernels are built for
+    sm_90a). The JAX package's ``is_available`` is True whenever jax
+    imports."""
+    return torch.cuda.is_available() and torch.cuda.get_device_capability(0)[0] == 9
 
 
 def _check_budget(num_rays, index_offset):
@@ -208,3 +219,61 @@ def simulate(
         data[name] = log_floats[..., 9 + i]
     return EngineResult(compiled, data, sources, max_events, record_every, elapsed)
 
+
+def simulate_stream(scene, num_rays, bundle=50000, seed=None, device="cuda", **kwargs):
+    """Trace in bundles, yielding (EngineResult, rays_traced_so_far).
+
+    Port of ``pvtrace_tpu.engine.simulate_stream``. Every bundle shares
+    ONE base seed and passes its global start as ``index_offset``, and
+    each photon's random stream is a pure function of (seed, global
+    photon id), so the union of the streamed results equals
+    one ``simulate(num_rays)`` of the same seed: integer tallies (counts,
+    crossings, histogram bins, fates) bit for bit, float moment sums up to
+    summation order, and recorded histories cover the same global
+    every-k-th photons. Sum the ``rec_*`` arrays to accumulate recorder
+    tallies. `kwargs` are ``simulate``'s; the run is on `device` (the card
+    unless "cpu").
+
+    Unlike the JAX package's, the arguments are checked when the function
+    is called, before the generator is returned: `num_rays` must be
+    positive, `bundle` a positive integer, and every photon id
+    ``[0, num_rays)`` below 2**32 - 1 (``_check_budget``; the JAX package
+    lets the ids reach 2**32).
+
+    The next bundle runs in one worker thread while the caller consumes
+    the current one. Every result depends only on its arguments, whatever
+    the prefetch does; but the module-level reports (``kernels.last_trace``,
+    ``kernels.launches``, ``last_fetch``) are written by whichever bundle
+    finished last, so read them only once the stream is exhausted.
+    """
+    _check_budget(num_rays, 0)
+    if int(bundle) != bundle or bundle <= 0:
+        raise ValueError(f"bundle must be a positive integer, got {bundle}")
+    bundle = int(bundle)
+    if seed is None:
+        seed = int(np.random.randint(0, 2 ** 31 - 1))
+    compiled = kwargs.pop("compiled", None)
+    if compiled is None:
+        compiled = compile_scene(scene)
+
+    def run(start, n):
+        return simulate(scene, n, seed=int(seed), index_offset=start,
+                        compiled=compiled, device=device, **kwargs)
+
+    def stream():
+        pool = ThreadPoolExecutor(max_workers=1)
+        try:
+            traced = 0
+            n = min(bundle, num_rays)
+            pending = pool.submit(run, traced, n)
+            while traced < num_rays:
+                result = pending.result()
+                traced += n
+                if traced < num_rays:
+                    n = min(bundle, num_rays - traced)
+                    pending = pool.submit(run, traced, n)
+                yield result, traced
+        finally:
+            pool.shutdown(wait=True)
+
+    return stream()

@@ -997,7 +997,10 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     saturate (the pathwise channels, PATH_RTOL above). Returns a dict:
     ``parted`` and ``saturated`` photons, ``record_used`` and
     ``sums_used``, the largest share of its bound a record and a sum took,
-    and ``max_abs_err`` of the fate_scores against the twin's."""
+    ``parted_allow`` [CH], the part of each sum's bound those photons
+    take (twice the channel's largest |score| for each parted photon,
+    and the saturated photons' own scores), and ``max_abs_err`` of the
+    fate_scores against the twin's."""
     dev = ref_t["fate_scores"].device
     kf, tf = got_t["photon_fate"].to(dev), ref_t["photon_fate"]
     require(bool((kf >= 0).all()), "pvt_trace (score): a photon never folded its score")
@@ -1032,6 +1035,8 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     require(bool((own_off <= own_allow).all()),
             f"pvt_trace (score): fate_scores off their records by "
             f"{float((own_off - own_allow).max()):.3g} past the bound")
+    # What the parted and saturated photons may move each sum by, per channel
+    parted_allow = n_parted * 2.0 * smax + sat
     sums_used = 0.0
     pairs = [("fate_scores", "fate_abs", "fate_slack")]
     if ref_t["rec_scores"].shape[0]:
@@ -1039,15 +1044,14 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     for name, abs_name, slack_name in pairs:
         a, b = got_t[name].to(dev).double(), ref_t[name].double()
         a = a[:b.shape[0]]
-        bound_ = SCORE_RTOL * ref_t[abs_name].double() + ref_t[slack_name] \
-            + n_parted * 2.0 * smax + sat
+        bound_ = SCORE_RTOL * ref_t[abs_name].double() + ref_t[slack_name] + parted_allow
         d = (a - b).abs()
         require(bool((d <= bound_).all()),
                 f"pvt_trace (score): {name} off the twin's by "
                 f"{float((d - bound_).max()):.3g} past the bound")
         sums_used = max(sums_used, float((d / bound_.clamp(min=1e-30)).max()))
     return {"parted": n_parted, "saturated": n_sat, "record_used": record_used,
-            "sums_used": sums_used,
+            "sums_used": sums_used, "parted_allow": parted_allow.tolist(),
             "max_abs_err": float((got["fate_scores"] - ref_t["fate_scores"].double())
                                  .abs().max())}
 

@@ -205,6 +205,29 @@ def absorber_slab(alpha=0.8, ns=None):
     ))
 
 
+def absorbing_box(ns=None):
+    """A 2x2x1 absorbing box (n = 1.5, 0.5 cm^-1) in a 10 cm world sphere
+    under a 555 nm lamp, with an escaping recorder (a 40-bin wavelength
+    histogram) and a lost one: the scene of the JAX package's
+    ``tests/test_checkpoint.py::make_scene``, on which streams and
+    checkpoints are checked."""
+    p = api(ns)
+    world = p.Node(name="world",
+                   geometry=p.Sphere(radius=10.0, material=p.Material(refractive_index=1.0)))
+    box = p.Node(name="box", parent=world, geometry=p.Box(
+        (2.0, 2.0, 1.0), material=p.Material(refractive_index=1.5, components=[p.Absorber(0.5)])))
+    box.recorders = [
+        p.Recorder("escape", event="escaping",
+                   histograms=[p.Histogram("wavelength", 400, 800, 40)]),
+        p.Recorder("lost", event="lost"),
+    ]
+    light = p.Node(name="light", parent=world,
+                   light=p.Light(wavelength=p.ConstantWavelengthMask(555.0)))
+    light.translate((0.0, 0.0, 3.0))
+    light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
 def fresnel_slab(n_slab=1.5, alpha=0.5, ns=None):
     """Collimated normal-incidence light on a Fresnel slab with an
     absorber: every surface coin is R = ((n-1)/(n+1))^2 and the path

@@ -22,6 +22,8 @@ import ctypes
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import pvtrace_tpu  # noqa: E402
@@ -35,7 +37,7 @@ from pvtrace_tpu_torch.engine.emit import emit_bundle  # noqa: E402
 from pvtrace_tpu_torch.kernels import check, host  # noqa: E402
 from pvtrace_tpu_torch.scenes import api, lsc_slab, lsc_slab_host, lsc_slab_recorders, tetrahedron  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 ULP_PHOTONS = 4
 RTOL = 1e-9
 SCORE_RTOL = 1e-9

@@ -18,6 +18,8 @@ import ctypes
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -33,7 +35,7 @@ from pvtrace_tpu_torch.engine import chebyshev, compile_scene, simulate, tables 
 from pvtrace_tpu_torch.kernels import check, host  # noqa: E402
 from pvtrace_tpu_torch.scenes import lsc_slab, mixed_scene  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 SCENES = {"bench": lsc_slab, "mixed": mixed_scene}
 # |port - JAX| over the fit's largest |value| on the t grid, per dtype:
 # the same Clenshaw operations in the same order; exp and the rounding

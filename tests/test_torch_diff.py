@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import pvtrace_tpu  # noqa: E402
@@ -32,7 +34,7 @@ from pvtrace_tpu_torch.kernels import host  # noqa: E402
 from pvtrace_tpu_torch.light.event import Event  # noqa: E402
 from pvtrace_tpu_torch.scenes import absorber_slab, api, fresnel_slab, lsc_slab  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N_SLAB, BUNDLES = 2 ** 15, 16
 N_LSC, LANES = 2 ** 12, 2 ** 10
 OPT = dict(target=0.55, num_rays=N_LSC, iters=2, lr=8.0, seed=11, component=1,

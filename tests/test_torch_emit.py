@@ -6,6 +6,8 @@ set, and the lamp spectrum's Chebyshev fit (K5a) at the defaults."""
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -17,7 +19,7 @@ from pvtrace_tpu_torch.engine import compile_scene, rng, tracer  # noqa: E402
 from pvtrace_tpu_torch.engine.tables import scene_tensors  # noqa: E402
 from pvtrace_tpu_torch.scenes import api, lsc_slab  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 B = 4096
 ATOL = 1e-12
 

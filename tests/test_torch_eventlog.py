@@ -27,6 +27,8 @@ import ctypes
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import pvtrace_tpu  # noqa: E402
@@ -38,7 +40,7 @@ from pvtrace_tpu_torch.kernels import host  # noqa: E402
 from pvtrace_tpu_torch.light.event import Event  # noqa: E402
 from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders, mesh_lsc, mesh_small  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N = 1 << 10
 RUNS = {
     "a": dict(record_every=1, max_events=128, lanes=256, index_offset=0),

@@ -2,6 +2,8 @@
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
@@ -10,7 +12,7 @@ from pvtrace_tpu.engine import compiler as comp  # noqa: E402
 from pvtrace_tpu.engine import tracer as jt  # noqa: E402
 from pvtrace_tpu_torch.engine import geometry  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N = 4096
 EPS = 2.2e-12
 RTOL = 1e-12

@@ -24,6 +24,8 @@ import re
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 from pvtrace_tpu_torch import kernels  # noqa: E402
@@ -45,7 +47,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     mixed_scene,
 )
 
-torch.set_num_threads(1)
+cap_threads()
 HEADER = (build.CSRC / "tracer.cuh").read_text()
 
 

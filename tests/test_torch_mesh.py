@@ -27,6 +27,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -41,7 +43,7 @@ from pvtrace_tpu_torch.engine import compile_scene, geometry, rng, simulate, tab
 from pvtrace_tpu_torch.kernels import check, host  # noqa: E402
 from pvtrace_tpu_torch.scenes import mesh_lsc, mesh_slab_fine, mesh_small  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N_RAYS = 1 << 12
 MESHES = {"hex_plate": mesh_lsc, "fine_slab": mesh_slab_fine}
 # float32 against float32: the same operations; XLA and PyTorch may round

@@ -30,6 +30,8 @@ import sys
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 N = 8000
 N_HOST = 4000
 LANES = 256
@@ -121,7 +123,7 @@ def port_runs(mesh):
     from pvtrace_tpu_torch.parallel import shard, shard_simulate
     from pvtrace_tpu_torch.scenes import absorber_slab
 
-    torch.set_num_threads(1)
+    cap_threads()
     scene = lsc_scene()
     compiled = compile_scene(scene)
     f64 = dict(dtype=np.float64, device="cpu", compiled=compiled)
@@ -202,7 +204,7 @@ def world2(tmp_path_factory):
     """The two ranks' results of a gloo world of two."""
     tmp = tmp_path_factory.mktemp("world2")
     port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):

@@ -16,6 +16,8 @@ import ctypes
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -39,7 +41,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     tilted_fresnel_slab,
 )
 
-torch.set_num_threads(1)
+cap_threads()
 N, LANES = 2 ** 12, 2 ** 10
 SCORE_RTOL = 1e-9
 SCENES = {

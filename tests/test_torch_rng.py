@@ -2,6 +2,8 @@
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -10,7 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 from pvtrace_tpu.engine import tracer as jt  # noqa: E402
 from pvtrace_tpu_torch.engine import rng  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N = 4096
 
 

@@ -17,6 +17,8 @@ import ctypes
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import pvtrace_tpu  # noqa: E402
@@ -35,7 +37,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     mixed_scene,
 )
 
-torch.set_num_threads(1)
+cap_threads()
 N, LANES = 2 ** 12, 2 ** 10
 SCORE_RTOL = 1e-9
 SCENES = {"recorders": lambda ns=None: lsc_slab_recorders(4, ns), "mixed": mixed_scene}

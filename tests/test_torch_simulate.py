@@ -12,6 +12,8 @@ packages at their defaults (K5a).
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -26,7 +28,7 @@ from pvtrace_tpu_torch.scenes import (  # noqa: E402
     mixed_scene,
 )
 
-torch.set_num_threads(1)
+cap_threads()
 FATE_NAMES = {4: "NONRADIATIVE", 7: "EXIT", 8: "REACT", 9: "KILL", 10: "NO_HIT"}
 
 

@@ -21,6 +21,8 @@ import re
 import numpy as np
 import pytest
 
+from _torch_threads import cap_threads
+
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
@@ -36,7 +38,7 @@ from pvtrace_tpu_torch.engine.compiler import VOLUME_EVENTS  # noqa: E402
 from pvtrace_tpu_torch.engine.recorder import EVENTS, Histogram, Recorder  # noqa: E402
 from pvtrace_tpu_torch.scenes import _slab_node, lsc_slab, lsc_slab_heatmap, lsc_slab_recorders  # noqa: E402
 
-torch.set_num_threads(1)
+cap_threads()
 N, N32, LANES = 2 ** 12, 2 ** 13, 2 ** 10
 # Photons whose discrete outcome an ulp may flip between the packages.
 ULP_PHOTONS = 4
