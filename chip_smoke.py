@@ -9,7 +9,9 @@ recorders, of the hex-plate mesh LSC, and with event-log histories, and
 the gradient paths of ``diff.transport`` (score channels, pathwise
 channels, the Beer–Lambert surrogate), and the entry points above
 ``simulate`` (``simulate_stream``, ``simulate_checkpointed``, the LSC
-device API), at full width. Phases, one line each:
+device API) and the user's entry points above those (the CLI with
+``--watch``, the studio's live run, the profiling utilities), at full
+width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
@@ -217,11 +219,34 @@ device API), at full width. Phases, one line each:
     inputs), the gradient within that bound carried through the ratio;
     and the gradient run's scene and channel (its recorders, the resolved
     pathwise spec) through pvt_trace_score or pvt_trace_pathwise against
-    the twin on the card photon by photon, phase 17's and 21's check.
+    the twin on the card photon by photon, phase 17's and 21's check;
+32. the CLI: ``simulate tests/data/lsc.yml -n 100000 --seed 3`` (the
+    README's command; pvt_trace with the log and pvt_log_pack, launches
+    read around it): wall seconds, the trace kernels' ms, and of the
+    command's host time the waits on the stream, ``histories()`` and
+    SQLite (``cli_clocks``, timed from outside the command);
+    the rays written and the events by kind; ``count``, ``spectrum`` and
+    ``time`` of the plate's escaping rays; then the same command at 2**12
+    on the card and with ``--device cpu``, photon by photon
+    (``check.compare_databases``: at most LOG_DIVERGED of the photons
+    parted, the others' floats within LOG_RTOL);
+33. ``simulate --watch`` at 2**16 with a viewer on ``/api/watch``: the
+    messages in order, the last bundle's recorder integers equal to one
+    ``simulate``'s of the seed;
+34. the studio: ``create_server(port=0)``, the document PUT, ``/api/run``
+    at its defaults (100,000 rays, bundles of 25,000, record_every 1000,
+    200 paths) and at 2**24 in bundles of 2**22: the recorder integers
+    equal to a summed ``simulate_stream``'s, paths sent, rays/s as the
+    server sends it and on the client's clock, launches; a second
+    ``/api/run`` during the 2**24 run refused with 409;
+35. ``utils.trace_profile`` around ``simulate(lsc_slab(), 2**20)``: the
+    torch.profiler trace must name the ``trace_kernel`` instantiation
+    that ran (CUPTI sees the ctypes launches), its time beside the CUDA
+    events'; ``device_memory_stats()`` before (the peak reset) and after.
 
 Then the card's nvidia-smi line, one JSON line of per-kernel numbers
 (each row with ``reached_from``: the entry points above ``simulate`` whose
-run in phases 26 and 28-31 launched it or, for device code inside the
+run in phases 26 and 28-34 launched it or, for device code inside the
 trace kernels, launched a kernel whose loop runs it on a scene that needs
 it),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -232,6 +257,7 @@ exits non-zero before the last line; without a CUDA device nothing runs.
 is one rank of phase 26's gloo world: it joins ``tcp://localhost:P``,
 runs the sharded runs on the card and writes them to FILE as JSON.
 """
+import contextlib
 import json
 import os
 import shutil
@@ -301,7 +327,7 @@ INSIDE = {
     "pvt_fresnel": (("pvt_trace_score", "pvt_trace_pathwise"), None),
     "pvt_pathwise": (("pvt_trace_pathwise",), None),
 }
-# What each entry point above simulate launched in phases 26 and 28-31
+# What each entry point above simulate launched in phases 26 and 28-34
 # (the counts read around its call) and its scene's meta, by label; the
 # kernels line's reached_from is read from these.
 ENTRY_RUNS = {}
@@ -505,6 +531,333 @@ def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+N_CLI = 100_000  # the README's budget for the CLI
+N_CLI_CHECK = 1 << 12
+N_WATCH = 1 << 16
+N_STUDIO, STUDIO_BUNDLE = 1 << 24, 1 << 22
+N_PROFILE = 1 << 20
+HERE = os.path.dirname(os.path.abspath(__file__))
+LSC_YML = os.path.join(HERE, "tests", "data", "lsc.yml")
+STUDIO_YML = os.path.join(HERE, "tests", "data", "lsc_scene_studio.yml")
+
+
+@contextlib.contextmanager
+def cli_clocks(cli):
+    """Host clocks of the CLI's ``simulate`` runs inside the block, taken
+    from outside the command: the seconds its loop waits on
+    ``simulate_stream``'s bundles, spends in ``EngineResult.histories()``,
+    and spends in SQLite (``write_history`` and the connection's commits).
+    Yields the dict, filled as the runs go."""
+    from unittest import mock
+
+    from pvtrace_tpu_torch import engine
+    from pvtrace_tpu_torch.engine.result import EngineResult
+
+    clocks = {"stream_s": 0.0, "histories_s": 0.0, "sqlite_s": 0.0}
+
+    def timed_items(items, clock):
+        items = iter(items)
+        while True:
+            tic = time.perf_counter()
+            try:
+                item = next(items)
+            except StopIteration:
+                return
+            finally:
+                clocks[clock] += time.perf_counter() - tic
+            yield item
+
+    def timed(fn, clock):
+        def call(*args, **kwargs):
+            tic = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                clocks[clock] += time.perf_counter() - tic
+        return call
+
+    class Connection:
+        def __init__(self, connection):
+            self._connection = connection
+            self.commit = timed(connection.commit, "sqlite_s")
+
+        def __getattr__(self, name):
+            return getattr(self._connection, name)
+
+    stream, histories = engine.simulate_stream, EngineResult.histories
+    prepare = cli.prepare_database
+    with mock.patch.object(engine, "simulate_stream",
+                           lambda *a, **k: timed_items(stream(*a, **k), "stream_s")), \
+            mock.patch.object(EngineResult, "histories",
+                              lambda self: timed_items(histories(self), "histories_s")), \
+            mock.patch.object(cli, "write_history", timed(cli.write_history, "sqlite_s")), \
+            mock.patch.object(cli, "prepare_database", lambda path: Connection(prepare(path))):
+        yield clocks
+
+
+def entry_point_phases(smi):
+    """Phases 32-35 on the card: the CLI, ``simulate --watch``, the studio
+    and the profiling utilities, through the entry points a user calls.
+    Returns their reports."""
+    import glob
+    import sqlite3
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.cli import main as cli
+    from pvtrace_tpu_torch.cli.parse import parse
+    from pvtrace_tpu_torch.engine import compile_scene, simulate, simulate_stream, tracer
+    from pvtrace_tpu_torch.kernels import check
+    from pvtrace_tpu_torch.scenes import lsc_slab
+    from pvtrace_tpu_torch.studio.client import (
+        captured,
+        recorder_ints,
+        sse_messages,
+        tally_ints,
+        watch_run,
+    )
+    from pvtrace_tpu_torch.studio.server import create_server
+    from pvtrace_tpu_torch.utils import device_memory_stats, trace_profile
+
+    work = tempfile.mkdtemp()
+    reports = {}
+
+    def launched_through(launched, what, names=("pvt_trace_log", "pvt_log_pack")):
+        if any(launched[k] == 0 for k in names) or tracer.eager_runs:
+            fail(f"{what} did not run through {', '.join(names)}: launches {launched}, eager "
+                 f"runs {tracer.eager_runs}")
+
+    def cli_simulate(n, db, *extra):
+        """The CLI's simulate of lsc.yml at seed 3 into `db`: (seconds,
+        launches, the trace kernels' summed ms, the host clocks)."""
+        kernels.reset()
+        tracer.eager_runs = 0
+        with cli_clocks(cli) as clocks:
+            tic = time.perf_counter()
+            rc, said = captured(cli.app, ["simulate", LSC_YML, "-n", str(n), "--seed", "3",
+                                          "--database", db, *extra])
+            wall = time.perf_counter() - tic
+        if rc != 0 or f"Wrote {n} ray histories" not in said:
+            fail(f"simulate -n {n}: rc {rc}, {said!r}")
+        return wall, dict(kernels.launches), kernels.launch_ms["pvt_trace"], clocks
+
+    # 32. the CLI at the README's budget, its queries, and at N_CLI_CHECK
+    # against --device cpu photon by photon
+    scene = parse(LSC_YML)
+    compiled = compile_scene(scene)
+    db = os.path.join(work, "lsc.sqlite3")
+    wall, launched, kernel_ms, host = cli_simulate(N_CLI, db)
+    launched_through(launched, "the CLI's simulate")
+    entry_run("CLI simulate", launched, compiled)
+    with contextlib.closing(sqlite3.connect(db)) as connection:
+        rays = connection.execute("SELECT COUNT(DISTINCT throw_id) FROM ray").fetchone()[0]
+        kinds = dict(connection.execute("SELECT kind, COUNT(*) FROM event GROUP BY kind"))
+    if rays != N_CLI:
+        fail(f"simulate -n {N_CLI}: {rays} rays in the database")
+    queries = {}
+    for command in ("count", "spectrum", "time"):
+        tic = time.perf_counter()
+        rc, said = captured(cli.app, [command, db, "lsc", "escaping"]
+                            + ([] if command == "count" else ["--output", "json"]))
+        seconds = time.perf_counter() - tic
+        values = [int(said)] if command == "count" else json.loads(said)
+        if rc != 0 or not values:
+            fail(f"{command} {db} lsc escaping: rc {rc}, {said[:200]!r}")
+        queries[command] = {"s": seconds, "rows": len(values),
+                            "mean": float(np.mean(values))}
+    if not queries["spectrum"]["rows"] >= queries["count"]["mean"] > 0 \
+            or queries["time"]["rows"] < queries["count"]["mean"]:
+        fail(f"the queries disagree: {queries}")
+    small = {}
+    for label, extra in (("card", ()), ("cpu", ("--device", "cpu"))):
+        small[label] = os.path.join(work, f"{label}.sqlite3")
+        cli_simulate(N_CLI_CHECK, small[label], *extra)
+    parted = check.compare_databases(small["card"], small["cpu"])
+    if parted["parted"] > check.LOG_DIVERGED * N_CLI_CHECK \
+            or parted["max_rel_err"] > check.LOG_RTOL:
+        fail(f"the CLI on the card against --device cpu at {N_CLI_CHECK}: {parted}")
+    rest_s = wall - host["stream_s"] - host["histories_s"] - host["sqlite_s"]
+    reports["cli"] = {"n": N_CLI, "wall_s": wall, "kernel_ms": kernel_ms,
+                      "pack_launches": launched["pvt_log_pack"],
+                      "trace_launches": launched["pvt_trace_log"], **host, "rest_s": rest_s,
+                      "rays": rays, "events": kinds, "queries": queries,
+                      "check": {"n": N_CLI_CHECK, **parted}}
+    shown = {k: (v["rows"], float(f"{v['mean']:.6g}"), round(v["s"], 4))
+             for k, v in queries.items()}
+    print(
+        f"phase 32 CLI simulate lsc.yml -n {N_CLI} --seed 3: {wall:.4f} s wall, "
+        f"pvt_trace_log {launched['pvt_trace_log']} launches ({kernel_ms:.2f} ms), "
+        f"pvt_log_pack {launched['pvt_log_pack']}; waits on the stream {host['stream_s']:.4f} s, "
+        f"histories() {host['histories_s']:.4f} s, SQLite {host['sqlite_s']:.4f} s, the rest "
+        f"{rest_s:.4f} s; {rays} rays written, events {kinds}; count/spectrum/time of lsc "
+        f"escaping {shown} (rows, mean, s); at {N_CLI_CHECK} against --device cpu: "
+        f"{parted['parted']} photons parted (limit {check.LOG_DIVERGED * N_CLI_CHECK:g}), "
+        f"the others' floats within "
+        f"{parted['max_rel_err']:.3g} of their column's scale (limit {check.LOG_RTOL}) | {smi}",
+        flush=True,
+    )
+
+    # 33. simulate --watch: a viewer on the watch server, its last bundle
+    # against one simulate of the seed
+    kernels.reset()
+    tracer.eager_runs = 0
+    tic = time.perf_counter()
+    rc, said, messages = watch_run(cli.app, [
+        "simulate", LSC_YML, "-n", str(N_WATCH), "--seed", "3", "--database",
+        os.path.join(work, "watch.sqlite3"), "--watch", "--no-browser", "--port", "0"])
+    wall = time.perf_counter() - tic
+    launched = dict(kernels.launches)
+    launched_through(launched, "simulate --watch")
+    entry_run("CLI simulate --watch", launched, compiled)
+    kinds = [m["type"] for m in messages]
+    bundles = -(-N_WATCH // 50000)
+    if rc != 0 or kinds != ["started"] + ["bundle"] * bundles + ["done"]:
+        fail(f"simulate --watch: rc {rc}, messages {kinds}")
+    one = simulate(scene, N_WATCH, seed=3, record_every=1, compiled=compiled)
+    want = tally_ints(compiled, one.data["rec_distinct"], one.data["rec_crossings"],
+                      one.data["rec_bins"])
+    if recorder_ints(messages[-2]["recorders"]) != want:
+        fail("simulate --watch: the last bundle's recorders differ from one simulate's")
+    reports["watch"] = {"n": N_WATCH, "wall_s": wall, "messages": len(messages),
+                        "rays_per_second": messages[-2]["rays_per_second"],
+                        "paths": sum(len(m["paths"]) for m in messages[1:-1])}
+    print(
+        f"phase 33 simulate --watch -n {N_WATCH}: {wall:.4f} s, a viewer read {kinds}; the last "
+        f"bundle's recorders ({sum(v[0] for v in want.values())} rays over "
+        f"{len(want)} recorders) equal one simulate's integer for integer; "
+        f"{reports['watch']['paths']} paths, rays/s as sent "
+        f"{messages[-2]['rays_per_second']:.6g}; launches pvt_trace_log "
+        f"{launched['pvt_trace_log']}, pvt_log_pack {launched['pvt_log_pack']} | {smi}",
+        flush=True,
+    )
+
+    # 34. the studio: a document, /api/run at its defaults and at N_STUDIO,
+    # a second run refused while one goes. The launches and the kernel ms
+    # are read as the run's stream ends, before the reference runs.
+    httpd = create_server(port=0)
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    base = "http://127.0.0.1:%d" % httpd.server_address[1]
+    try:
+        with open(STUDIO_YML) as fh:
+            body = json.dumps({"text": fh.read()}).encode()
+        put = urllib.request.Request(base + "/api/document", data=body, method="PUT",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(put) as response:
+            if response.status != 200 or not json.loads(response.read())["scene"]["nodes"]:
+                fail("PUT /api/document did not apply the document")
+        studio_scene = httpd.studio.scene
+        studio_compiled = compile_scene(studio_scene)
+        studio_runs = {}
+        for label, query, n, bundle, seed in (
+                ("defaults", "seed=34", 100_000, 25_000, 34),
+                (f"{N_STUDIO}", f"rays={N_STUDIO}&bundle={STUDIO_BUNDLE}&seed=35", N_STUDIO,
+                 STUDIO_BUNDLE, 35)):
+            kernels.reset()
+            tracer.eager_runs = 0
+            started, refused = threading.Event(), []
+            got = []
+            tic = time.perf_counter()
+            reader = threading.Thread(target=lambda: got.extend(
+                sse_messages(f"{base}/api/run?{query}", started)))
+            reader.start()
+            if label != "defaults":
+                if not started.wait(600):
+                    fail("/api/run sent nothing")
+                try:
+                    urllib.request.urlopen(f"{base}/api/run?rays=10", timeout=60)
+                    refused.append(200)
+                except urllib.error.HTTPError as error:
+                    refused.append(error.code)
+            reader.join(timeout=600)
+            client_s = time.perf_counter() - tic
+            launched = dict(kernels.launches)
+            kernel_ms = kernels.launch_ms["pvt_trace"]
+            kinds = [m["type"] for m in got]
+            if kinds != ["started"] + ["bundle"] * -(-n // bundle) + ["done"]:
+                fail(f"/api/run?{query}: messages {kinds}")
+            if refused and refused != [409]:
+                fail(f"a second /api/run while one streamed got {refused}, not 409")
+            launched_through(launched, f"/api/run?{query}")
+            if label == "defaults":
+                entry_run("studio /api/run", launched, studio_compiled)
+            totals = [np.zeros(k, np.int64) for k in (studio_compiled.n_recorders,) * 2
+                      + (int(studio_compiled.total_bins),)]
+            for result, _ in simulate_stream(studio_scene, n, bundle=bundle, seed=seed,
+                                             record_every=1000, compiled=studio_compiled):
+                for total, key in zip(totals, ("rec_distinct", "rec_crossings", "rec_bins")):
+                    total += result.data[key]
+            paths = sum(len(m["paths"]) for m in got[1:-1])
+            if recorder_ints(got[-2]["recorders"]) != tally_ints(studio_compiled, *totals) \
+                    or not paths:
+                fail(f"/api/run?{query}: the recorders differ from a summed simulate_stream's, "
+                     f"or no paths ({paths})")
+            studio_runs[label] = {
+                "n": n, "bundle": bundle, "client_s": client_s, "rays_per_second_client":
+                n / client_s, "rays_per_second_server": got[-2]["rays_per_second"],
+                "server_elapsed_s": got[-1]["elapsed"], "kernel_ms": kernel_ms,
+                "launches": {k: launched[k] for k in ("pvt_trace_log", "pvt_log_pack")},
+                "paths": paths, "second_run": refused[0] if refused else None}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serving.join(timeout=30)
+    reports["studio"] = studio_runs
+    for label, run in studio_runs.items():
+        print(
+            f"phase 34 studio /api/run ({label}: {run['n']} rays, bundle {run['bundle']}, "
+            f"record_every 1000): recorders equal a summed simulate_stream's integer for "
+            f"integer, {run['paths']} paths; rays/s as the server sends "
+            f"{run['rays_per_second_server']:.6g}, on the client's clock "
+            f"{run['rays_per_second_client']:.6g} ({run['client_s']:.4f} s); "
+            f"launches {run['launches']} ({run['kernel_ms']:.2f} ms)"
+            + (f"; a second /api/run meanwhile: {run['second_run']}" if run["second_run"] else "")
+            + f" | {smi}",
+            flush=True,
+        )
+
+    # 35. trace_profile around one simulate of the slab; device memory
+    slab = lsc_slab()
+    slab_compiled = compile_scene(slab)
+    simulate(slab, N_PROFILE, seed=35, record_every=0, compiled=slab_compiled)
+    torch.cuda.reset_peak_memory_stats()
+    before = device_memory_stats()
+    profile_dir = os.path.join(work, "profile")
+    kernels.reset()
+    with trace_profile(profile_dir):
+        simulate(slab, N_PROFILE, seed=35, record_every=0, compiled=slab_compiled)
+    after = device_memory_stats()
+    files = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"trace_profile wrote {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    traced = sorted({e["name"] for e in on_card if "trace_kernel" in e["name"]})
+    if not traced:
+        fail(f"trace_profile's trace names no trace_kernel instantiation (CUPTI saw "
+             f"{sorted({e['name'] for e in on_card})[:10]})")
+    trace_us = sum(e.get("dur", 0) for e in on_card if "trace_kernel" in e["name"])
+    reports["profile"] = {"n": N_PROFILE, "trace_bytes": os.path.getsize(files[0]),
+                          "kernel_events": len(on_card), "trace_kernel": traced,
+                          "trace_kernel_us": trace_us, "events_ms": kernels.launch_ms["pvt_trace"],
+                          "memory_before": before, "memory_after": after}
+    print(
+        f"phase 35 trace_profile(simulate(slab, {N_PROFILE})): {os.path.getsize(files[0])} bytes "
+        f"of trace, {len(on_card)} kernel events, {traced} for {trace_us / 1e3:.3f} ms (CUDA "
+        f"events: {kernels.launch_ms['pvt_trace']:.3f} ms); device_memory_stats before "
+        f"{before}, after {after} | {smi}",
+        flush=True,
+    )
+    shutil.rmtree(work, ignore_errors=True)
+    return reports
 
 
 def main():
@@ -1788,6 +2141,8 @@ def main():
             flush=True,
         )
 
+    entry = entry_point_phases(smi)
+
     stray = sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith("jax.") or m == "pvtrace_tpu"
@@ -1811,6 +2166,7 @@ def main():
             "photons_per_s_by_recorders": rec_rates,
             "launches_by_recorders": {R: v["pvt_trace"] for R, v in rec_launches.items()},
             "simulate_stream": streams, "simulate_checkpointed": ckpt["slab R=32"],
+            "trace_profile": entry["profile"],
         }),
         ("pvt_cheb", cheb_rep, {
             "n_fits": cheb_rep["n_fits"], "n_t": cheb_rep["n_t"],
@@ -1838,7 +2194,8 @@ def main():
             "full_width": {k: {q: v[q] for q in ("n", "photons_per_s", "kernel_ms", "log_bytes",
                                                  "fetch")}
                            for k, v in full.items() if "record_every" in k},
-            "lsc_simulate": lsc_times,
+            "lsc_simulate": lsc_times, "cli": entry["cli"], "cli_watch": entry["watch"],
+            "studio_run": entry["studio"],
         }),
         ("pvt_log_pack", pack_rep, {
             "n": N_MAIN, "record_every": 1000, "library_ms": pack_rep["library_ms"],

@@ -41,6 +41,19 @@ def is_available():
     return torch.cuda.is_available() and torch.cuda.get_device_capability(0)[0] == 9
 
 
+def require_device(device):
+    """`device` as a ``torch.device``, which for CUDA must exist. The
+    port's entry points run on the card unless the caller asks for the
+    CPU, and none falls back to the CPU without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card and torch sees none; "
+            "pass device='cpu' for the eager PyTorch twin"
+        )
+    return device
+
+
 def _check_budget(num_rays, index_offset):
     """Photon ids ``index_offset + [0, num_rays)`` must fit in uint32;
     counters and budget arithmetic are 64-bit."""

@@ -23,7 +23,7 @@ numpy tables for a Cython kernel) — re-designed for TPU execution:
 
 Scenes with unrecognised surface delegates, custom phase functions or
 histogram-sampled spectra raise ``UnsupportedSceneError`` so callers
-can fall back to ``pvtrace_tpu.algorithm.photon_tracer``.
+can fall back to ``pvtrace_tpu_torch.algorithm.photon_tracer``.
 """
 import numpy as np
 

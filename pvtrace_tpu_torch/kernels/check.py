@@ -970,6 +970,60 @@ def check_log_tallies(scene, result, rtol=LOG_SUMS_RTOL):
     return worst
 
 
+# A CLI database's columns (``data/schema.sql``), a ray row joined with
+# its event: the discrete ones, then the floats.
+DB_DISCRETE = ("source", "kind", "component", "hit", "container", "adjacent", "facet")
+DB_FLOATS = ("x", "y", "z", "i", "j", "k", "wavelength", "travelled", "duration", "ni", "nj",
+             "nk")
+
+
+def database_photons(path):
+    """The histories of a database the CLI's ``simulate`` wrote, by
+    throw_id: (discrete rows, float rows [events, len(DB_FLOATS)]). A
+    discrete row holds DB_DISCRETE and which floats are NULL (the normal
+    of a volume event); a NULL float reads 0."""
+    import contextlib
+    import sqlite3
+
+    columns = ", ".join(("throw_id",) + DB_DISCRETE + DB_FLOATS)
+    with contextlib.closing(sqlite3.connect(path)) as connection:
+        rows = connection.execute(
+            f"SELECT {columns} FROM ray JOIN event ON ray.rowid = event.ray_id "
+            "ORDER BY ray.rowid").fetchall()
+    by_photon = {}
+    for row in rows:
+        by_photon.setdefault(row[0], []).append(row[1:])
+    cut = len(DB_DISCRETE)
+    return {
+        throw_id: ([r[:cut] + tuple(v is None for v in r[cut:]) for r in history],
+                   np.array([[0.0 if v is None else v for v in r[cut:]] for r in history]))
+        for throw_id, history in by_photon.items()
+    }
+
+
+def compare_databases(got, ref):
+    """Two CLI databases (paths) of the same photons, photon by photon:
+    a photon whose discrete rows differ (an event, a node, a component,
+    a source, the number of events) has parted; of the others, the
+    largest |got - ref| of a float over its column's largest |ref| (the
+    scale of ``check_log``'s LOG_RTOL). Returns {"photons", "parted",
+    "parted_ids" (the first 20), "max_rel_err"}; the caller holds them to
+    its allowance."""
+    g, r = database_photons(got), database_photons(ref)
+    require(sorted(g) == sorted(r), "the databases hold different throw_ids")
+    scale = np.max(np.abs(np.concatenate([f for _, f in r.values()])), axis=0)
+    scale = np.maximum(scale, 1e-30)
+    parted, worst = [], 0.0
+    for throw_id, (ref_rows, ref_floats) in r.items():
+        got_rows, got_floats = g[throw_id]
+        if got_rows != ref_rows:
+            parted.append(throw_id)
+            continue
+        worst = max(worst, float((np.abs(got_floats - ref_floats) / scale).max()))
+    return {"photons": len(r), "parted": len(parted), "parted_ids": parted[:20],
+            "max_rel_err": worst}
+
+
 def score_runs_bound(m, S):
     """``simulate``'s float32 score sums against float64 totals of the
     same photons added in another order: m addends, S the sum of their

@@ -4,7 +4,8 @@ Parity: reference ``pvtrace/scene/scene.py`` — round-robin light
 emission, forward-filtered distance-sorted intersections, and the
 multiprocessing `simulate` entry point with per-worker reseeding. The
 multiprocessing path exists for oracle-tracer compatibility; large runs
-should use ``pvtrace_tpu.engine.simulate`` which traces on the TPU.
+should use ``pvtrace_tpu_torch.engine.simulate``, which traces on the
+card.
 """
 from __future__ import annotations
 

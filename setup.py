@@ -21,6 +21,9 @@ setup(
         "pvtrace_tpu.studio": ["static/*"],
         "pvtrace_tpu.native": ["*.cpp"],
         "pvtrace_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"],
+        "pvtrace_tpu_torch.cli": ["schema.json"],
+        "pvtrace_tpu_torch.data": ["schema.sql"],
+        "pvtrace_tpu_torch.studio": ["static/*"],
     },
     python_requires=">=3.10",
     install_requires=[
@@ -38,6 +41,7 @@ setup(
     entry_points={
         "console_scripts": [
             "pvtrace-tpu-cli = pvtrace_tpu.cli.main:app",
+            "pvtrace-tpu-torch-cli = pvtrace_tpu_torch.cli.main:app",
         ]
     },
 )
