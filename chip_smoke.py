@@ -15,7 +15,8 @@ width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
-   score, pathwise, diff) started together: build time, and one line a
+   score, pathwise, diff, and tracer_f64, the float64 build of tracer.cu)
+   started together: build time, and one line a
    function, every instantiation and every function kept out of line,
    with its registers, stack frame and spills (``trace_kernel<..>`` by
    its template flags), and one line of the instantiations with recorders
@@ -242,13 +243,30 @@ width. Phases, one line each:
 35. ``utils.trace_profile`` around ``simulate(lsc_slab(), 2**20)``: the
     torch.profiler trace must name the ``trace_kernel`` instantiation
     that ran (CUPTI sees the ctypes launches), its time beside the CUDA
-    events'; ``device_memory_stats()`` before (the peak reset) and after.
+    events'; ``device_memory_stats()`` before (the peak reset) and after;
+36. float64 (``tracer_f64``): each float64 entry against the float64
+    twin on the card at 2**20 (pvt_emit, pvt_step for 8 steps, pvt_cheb
+    in both placements, pvt_draws bit for bit, pvt_tally with 32 and 256
+    recorders, pvt_mesh; pvt_trace on the slab, with 32 and 256
+    recorders, the mesh LSC and the host-lit slab's bundle: fates and
+    integer tallies within ``check.F64_PARTED``, sums within the float64
+    summation bound; the event log at record_every=1 on 2**14 photon by
+    photon, at most F64_PARTED parted, and its pvt_log_pack, and
+    simulate's dense float64 log against the CPU twin's); then
+    ``simulate(dtype=np.float64)`` at full width (the slab at 2**27, with
+    32 recorders, the mesh LSC, its history at record_every=1000, the
+    host-lit slab at 2**24; launches read around each, tracer_f64's and no
+    eager run), photons/s beside the float32 phases'; a float64
+    ``simulate_stream`` union against one ``simulate`` at 2**20, integer by
+    integer; and ``simulate(score=True)``, ``fate_gradients`` and
+    ``pvt_absorbed`` in float64 on the card refused by name.
 
-Then the card's nvidia-smi line, one JSON line of per-kernel numbers
-(each row with ``reached_from``: the entry points above ``simulate`` whose
-run in phases 26 and 28-34 launched it or, for device code inside the
-trace kernels, launched a kernel whose loop runs it on a scene that needs
-it),
+Then the script's seconds, the card's nvidia-smi line, one JSON line of
+per-kernel numbers (each row with ``reached_from``: the entry points above
+``simulate`` whose run in phases 26 and 28-34 launched it or, for device
+code inside the trace kernels, launched a kernel whose loop runs it on a
+scene that needs it; the float64 entries' rows, named ``*_f64``, from
+phase 36, their bounds at the FP64 rate),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before the last line; without a CUDA device nothing runs.
 
@@ -860,6 +878,212 @@ def entry_point_phases(smi):
     return reports
 
 
+def float64_phases(smi, f32_rates):
+    """Phase 36 on the card: the float64 build (``tracer_f64``) against the
+    float64 twin, entry by entry, then ``simulate(dtype=np.float64)`` at
+    full width through the main, recorder, mesh, history and host-emission
+    paths, a float64 stream against one ``simulate``, and the float64
+    refusals of the gradient kernels. `f32_rates` are phase 5's, 11's, 15's
+    and 25's float32 photons/s by path. Returns (the kernels line's rows of
+    the float64 entries, a summary)."""
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.diff import transport
+    from pvtrace_tpu_torch.engine import api, compile_scene, rng, scene_tensors, simulate
+    from pvtrace_tpu_torch.engine import simulate_stream, tracer
+    from pvtrace_tpu_torch.engine.emit import emit_bundle
+    from pvtrace_tpu_torch.kernels import check
+    from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_host, lsc_slab_recorders, mesh_lsc
+
+    tic = time.perf_counter()
+    F64 = torch.float64
+    seed = rng.key_words(36)
+    tol = check.F64_PARTED
+
+    def tensors(scene):
+        return scene_tensors(compile_scene(scene), dtype=F64, device="cuda")
+
+    # The float64 entries against the float64 twin on the card.
+    st = tensors(lsc_slab())
+    state, emit_rep = check.check_emit(st, seed, N_CHECK)
+    step_rep = check.check_step(st, state, steps=8)
+    cheb_rep = check.check_cheb(st)
+    cheb_dev = check.check_cheb(st, shared=False)
+    draws_rep = check.check_draws("cuda", N_CHECK, seed=36, dtype=F64)
+    st32, st256 = tensors(lsc_slab_recorders(32)), tensors(lsc_slab_recorders(256))
+    tally_rep = check.check_tally(st32, tracer.initial_state(st32, seed, torch.arange(
+        N_CHECK, device="cuda")))
+    tally256 = check.check_tally(st256, tracer.initial_state(st256, seed, torch.arange(
+        N_CHECK, device="cuda")))
+    mesh_scene = mesh_lsc()
+    st_mesh = tensors(mesh_scene)
+    mesh_rep = check.check_mesh(st_mesh, 1, N_CHECK, seed=36)
+    traces = {label: check.check_trace(st_t, seed, N_CHECK) for label, st_t in (
+        ("slab", st), ("slab R=32", st32), ("slab R=256", st256), ("mesh LSC", st_mesh))}
+    for label, rep in traces.items():
+        if rep["max_abs_err"] > tol or rep["tally_max_diff"] > tol:
+            fail(f"phase 36 {label}: fates or tallies off by more than {tol}")
+    host_scene = lsc_slab_host(n_rec=4)
+    st_host = scene_tensors(compile_scene(host_scene), dtype=F64, device="cuda")
+    np.random.seed(36)
+    bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(host_scene, N_CHECK)[:3],
+                                                 np.float64)).cuda()
+    bundle_rep = check.check_trace(st_host, seed, N_CHECK, bundle=bundle)
+    log_rep = check.check_log(st_mesh, seed, N_LOG)
+    fetch_rep = check.check_fetch(mesh_scene, N_LOG, seed=36, dtype=np.float64)
+    if kernels.last_trace["library"] != "tracer_f64":
+        fail(f"phase 36: the float64 runs did not launch tracer_f64: {kernels.last_trace}")
+    print(
+        f"phase 36 float64 entries vs the float64 twin: pvt_emit max abs err "
+        f"{emit_rep['max_abs_err']:.3g}, kernel {emit_rep['ms']:.4f} ms (bound "
+        f"{emit_rep['bound_ms']:.4f}); pvt_step discrete mismatch {step_rep['discrete_frac']:.2e}, "
+        f"max abs err {step_rep['max_abs_err']:.3g}, {step_rep['ms']:.4f} ms (bound "
+        f"{step_rep['bound_ms']:.4f}); pvt_cheb max rel err {cheb_rep['max_rel_err']:.3g} "
+        f"(limit {check.CHEB_RTOL_F64}), {cheb_rep['ms']:.5f} ms shared, {cheb_dev['ms']:.5f} "
+        f"device; pvt_draws bit for bit, {draws_rep['ms']:.4f} ms; pvt_tally R=32 sums within "
+        f"{tally_rep['max_rel_err']:.3g}, {tally_rep['ms']:.4f} ms, R=256 {tally256['ms']:.4f} "
+        f"ms; pvt_mesh t within {mesh_rep['max_rel_err']:.3g} (limit {check.MESH_RTOL_F64}), "
+        f"counts differ on {mesh_rep['count_diffs']} rays, {mesh_rep['ms']:.4f} ms | {smi}",
+        flush=True)
+    for label, rep in list(traces.items()) + [("host-lit slab bundle", bundle_rep)]:
+        print(
+            f"phase 36 float64 pvt_trace vs twin, {label}: {N_CHECK} photons, fates "
+            f"{rep['fates']} vs {rep['twin_fates']}, max diff {rep['max_abs_err']}, tallies max "
+            f"diff {rep['tally_max_diff']} (limit {tol}), sums at "
+            f"{rep.get('sums_used', 0.0):.3g} of their bound; kernel {rep['ms']:.4f} ms, "
+            f"twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms "
+            f"({rep['bound_by']}), lane efficiency {rep['lane_efficiency']:.4f} | {smi}",
+            flush=True)
+    print(
+        f"phase 36 float64 event log vs twin, mesh LSC, {N_LOG} photons: {log_rep['diverged']} "
+        f"parted (limit {tol}), floats within {log_rep['max_rel_err']:.3g} of their scale, "
+        f"{log_rep['records']} records; pvt_log_pack bit-equal, {log_rep['pack']['ms']:.4f} ms, "
+        f"mask gathers {log_rep['pack']['library_ms']:.4f} ms; simulate's dense float64 log "
+        f"against the CPU twin's: {fetch_rep['diverged']} parted | {smi}", flush=True)
+
+    # Full width, each run's launches read around it alone.
+    def drive(label, scene, n, record_every=0, want=("pvt_trace",)):
+        compiled = compile_scene(scene)
+        kernels.reset()
+        tracer.eager_runs = 0
+        res = simulate(scene, n, seed=36, record_every=record_every, dtype=np.float64,
+                       compiled=compiled)
+        launched, launched64 = dict(kernels.launches), dict(kernels.launches_f64)
+        fates = np.asarray(res.data["fates"])
+        if int(fates.sum()) != n or tracer.eager_runs \
+                or any(launched64[k] != 1 or launched[k] != 1 for k in want):
+            fail(f"phase 36 {label}: fates {fates.tolist()}, launches {launched}, float64 "
+                 f"launches {launched64}, eager runs {tracer.eager_runs}")
+        if res.data["rec_sums"].dtype != np.float64 or (
+                record_every and res.data["position"].dtype != np.float64):
+            fail(f"phase 36 {label}: results not float64")
+        run = {"n": n, "photons_per_s": n / res.elapsed, "elapsed_s": res.elapsed,
+               "kernel_ms": kernels.last_trace["ms"], "threads": kernels.last_trace["threads"],
+               "lane_efficiency": kernels.last_trace["lane_efficiency"],
+               "shared_bytes": kernels.last_trace["shared_bytes"],
+               "shared_cheb": kernels.last_trace["shared_cheb"], "launches_f64": launched64,
+               "fates": fates.tolist()}
+        if record_every:
+            run["fetch"] = dict(api.last_fetch)
+        print(
+            f"phase 36 float64 {label}: simulate({n}, dtype=float64) {res.elapsed:.4f} s, "
+            f"{run['photons_per_s']:.6g} photons/s (float32: {f32_rates[label]:.6g}, ratio "
+            f"{f32_rates[label] / run['photons_per_s']:.3f}), pvt_trace {run['kernel_ms']:.2f} "
+            f"ms, {run['threads']} threads, {run['shared_bytes']} shared bytes a block, lane "
+            f"efficiency {run['lane_efficiency']:.4f}, fates {run['fates']}, float64 launches "
+            f"{ {k: v for k, v in launched64.items() if v} } | {smi}", flush=True)
+        return run
+
+    full = {
+        "main path": drive("main path", lsc_slab(), N_MAIN),
+        "recorders R=32": drive("recorders R=32", lsc_slab_recorders(32), N_MAIN),
+        "mesh": drive("mesh", mesh_scene, N_MAIN),
+        "history": drive("history", mesh_scene, N_MAIN, 1000,
+                         ("pvt_trace", "pvt_trace_log", "pvt_log_pack")),
+        "host emission": drive("host emission", lsc_slab_host(), N_HOST,
+                               want=("pvt_trace", "pvt_trace_bundle")),
+    }
+
+    # One float64 stream against one simulate, integer by integer.
+    rec32 = lsc_slab_recorders(32)
+    compiled32 = compile_scene(rec32)
+    kernels.reset()
+    tracer.eager_runs = 0
+    union = None
+    for res, _ in simulate_stream(rec32, N_CHECK, bundle=N_CHECK // 4, seed=36,
+                                  record_every=0, dtype=np.float64, compiled=compiled32):
+        part = {k: np.asarray(res.data[k]) for k in ("fates", "rec_distinct", "rec_crossings",
+                                                     "rec_bins")}
+        union = part if union is None else {k: union[k] + part[k] for k in union}
+    stream_launches = kernels.launches_f64["pvt_trace"]
+    one = simulate(rec32, N_CHECK, seed=36, record_every=0, dtype=np.float64,
+                   compiled=compiled32).data
+    if stream_launches != 4 or tracer.eager_runs or any(
+            not np.array_equal(union[k], one[k]) for k in union):
+        fail(f"phase 36: the float64 stream's union differs from one simulate (float64 "
+             f"launches {stream_launches})")
+    print(f"phase 36 float64 simulate_stream(slab R=32, {N_CHECK}, bundle={N_CHECK // 4}): "
+          f"fates, distinct rays, crossings and bins equal one simulate's, integer by integer, "
+          f"{stream_launches} float64 launches | {smi}", flush=True)
+
+    # The gradient kernels refuse float64 on the card, by name.
+    refused = []
+    attempts = (
+        ("simulate(score=True)", lambda: simulate(lsc_slab(), 1 << 10, seed=1, record_every=0,
+                                                  dtype=np.float64, score=True)),
+        ("fate_gradients", lambda: transport.fate_gradients(lsc_slab(), 1 << 10, seed=1,
+                                                            dtype=np.float64)),
+        ("pvt_absorbed", lambda: kernels.absorbed(
+            {"node_f": st["node_f"]}, state["px"].new_zeros((4, 3)), state["px"].new_zeros((4, 3)),
+            state["px"].new_zeros(4), state["px"].new_ones(1))),
+    )
+    for label, attempt in attempts:
+        try:
+            attempt()
+        except NotImplementedError as err:
+            if "float64 gradients" not in str(err):
+                fail(f"phase 36 {label}: refused without naming the float64-gradients item")
+            refused.append(label)
+        else:
+            fail(f"phase 36 {label} ran in float64 on the card")
+    print(f"phase 36 float64 refused by the gradient kernels: {', '.join(refused)}; phase 36 "
+          f"took {time.perf_counter() - tic:.1f} s | {smi}", flush=True)
+
+    def inside(label):
+        return [f"simulate(dtype=float64) (inside pvt_trace, {label})"]
+
+    main_f64 = full["main path"]["launches_f64"]
+    history = full["history"]["launches_f64"]
+    host = full["host emission"]["launches_f64"]
+    rows = [
+        ("pvt_emit", emit_rep, main_f64["pvt_emit"], inside("main path"), {"n": N_CHECK}),
+        ("pvt_step", step_rep, main_f64["pvt_step"], inside("main path"), {"n": N_CHECK}),
+        ("pvt_cheb", cheb_rep, main_f64["pvt_cheb"], inside("main path"),
+         {"device_memory_ms": cheb_dev["ms"], "n_fits": cheb_rep["n_fits"]}),
+        ("pvt_draws", draws_rep, main_f64["pvt_draws"], inside("main path"), {"n": N_CHECK}),
+        ("pvt_tally", tally_rep, full["recorders R=32"]["launches_f64"]["pvt_tally"],
+         inside("recorders R=32"), {"n": N_CHECK, "recorders": 32, "R256_ms": tally256["ms"]}),
+        ("pvt_mesh", mesh_rep, full["mesh"]["launches_f64"]["pvt_mesh"], inside("mesh"),
+         {"n": N_CHECK, "triangles": mesh_rep["triangles"]}),
+        ("pvt_trace", traces["slab"], main_f64["pvt_trace"],
+         ["simulate(dtype=float64)", "simulate_stream(dtype=float64)"],
+         {"n": N_CHECK, "full_width": full,
+          **{k.replace(" ", "_"): {q: v[q] for q in ("ms", "plain_ms", "bound_ms", "fates")}
+             for k, v in traces.items() if k != "slab"}}),
+        ("pvt_trace_bundle", bundle_rep, host["pvt_trace_bundle"], ["simulate(dtype=float64)"],
+         {"n": N_CHECK, "scene": "lsc_slab_host(n_rec=4)"}),
+        ("pvt_trace_log", log_rep, history["pvt_trace_log"], ["simulate(dtype=float64)"],
+         {"n": N_LOG, "record_every": 1, "diverged": log_rep["diverged"]}),
+        ("pvt_log_pack", dict(log_rep["pack"], max_abs_err=0.0), history["pvt_log_pack"],
+         ["simulate(dtype=float64)"],
+         {"n": N_LOG, "library_ms": log_rep["pack"]["library_ms"],
+          "library_is": "two boolean-mask gathers, ints[mask] and floats[mask]"}),
+    ]
+    return rows, {"seconds": time.perf_counter() - tic, "refused": refused}
+
+
 def main():
     start_s = time.perf_counter()
     import torch
@@ -922,10 +1146,15 @@ def main():
     # third flag), and the two entries that run K9's and K10's code alone.
     k9_k10 = [f"{fn} {regs}/{stack}/{stores}" for name, (_, report) in built.items()
               for fn, regs, stack, stores, _ in build.ptxas_rows(report or "")
-              if fn.startswith(("trace_kernel<1", "tally_kernel", "mesh_kernel"))
-              or fn.startswith("trace_kernel<") and fn[17:18] == "1"]
+              if name != "tracer_f64"
+              and (fn.startswith(("trace_kernel<1", "tally_kernel", "mesh_kernel"))
+                   or fn.startswith("trace_kernel<") and fn[17:18] == "1")]
     print(f"phase 1 K9 and K10 (registers/stack bytes/spill bytes): {'; '.join(k9_k10)}",
           flush=True)
+    f64_fns = [f"{fn} {regs}/{stack}/{stores}/{loads}" for fn, regs, stack, stores, loads
+               in build.ptxas_rows(built["tracer_f64"][1] or "")]
+    print(f"phase 1 tracer_f64, the float64 build (registers/stack bytes/spill stores/spill "
+          f"loads): {'; '.join(f64_fns)}", flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -2142,6 +2371,9 @@ def main():
         )
 
     entry = entry_point_phases(smi)
+    f64_rows, f64_summary = float64_phases(smi, {
+        "main path": rate, "recorders R=32": rec_rates[32], "mesh": full["mesh"]["photons_per_s"],
+        "history": full["mesh, record_every=1000"]["photons_per_s"], "host emission": host_rate})
 
     stray = sorted(
         m for m in sys.modules
@@ -2291,6 +2523,8 @@ def main():
         pvt_trace_pathwise=path_launches["pvt_trace_pathwise"],
         pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"],
         pvt_trace_bundle=host_launches["pvt_trace_bundle"], pvt_draws=main_launches["pvt_draws"])
+    print(f"the script: {time.perf_counter() - start_s:.1f} s, of it phase 36 "
+          f"{f64_summary['seconds']:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": [
         {
@@ -2302,6 +2536,15 @@ def main():
             "reached_from": reached_from(name), **extra,
         }
         for name, rep, extra in rows
+    ] + [
+        {
+            "name": f"{name}_f64", "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "library": "tracer_f64", "launches": launched,
+            "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": extra.pop("library_ms", None), "reached_from": reached, **extra,
+        }
+        for name, rep, launched, reached, extra in f64_rows
     ] + [collective]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

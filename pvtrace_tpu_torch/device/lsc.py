@@ -325,8 +325,9 @@ class LSC(object):
         The run is on `device`: on the card (the default) through
         ``pvt_trace_score``, or ``pvt_trace_pathwise`` for the pathwise
         parameters; ``"cpu"`` runs the eager twin. `dtype` None means
-        float32 (the card's only dtype); the twin also takes float64.
-        With a mesh, `device` must name the mesh's device.
+        float32, the card's only dtype for gradients (float64 on the card
+        raises NotImplementedError); the twin also takes float64. With a
+        mesh, `device` must name the mesh's device.
         """
         if not self._solar_cell_surfaces:
             raise ValueError(
@@ -463,9 +464,10 @@ class LSC(object):
         The engine runs every photon's history (``record_every=1``) on
         `device`: on the card (the default) ``pvt_trace`` with the event
         log, packed by ``pvt_log_pack`` and copied to host memory;
-        ``"cpu"`` runs the eager twin. `dtype` None means float32 (the
-        card's only dtype); the twin also takes float64. The dataframe
-        is built on the host from the dense log.
+        ``"cpu"`` runs the eager twin. `dtype` None means float32; float64
+        runs the float64 build of the kernels on the card
+        (``tracer_f64``), or the twin in float64. The dataframe is built
+        on the host from the dense log.
         """
         if self._scene is None:
             self._make_scene()

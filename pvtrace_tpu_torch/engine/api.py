@@ -144,16 +144,20 @@ def simulate(
     Arguments are those of ``pvtrace_tpu.engine.simulate``; what differs:
 
     * `device` (default "cuda") holds the run. On a CUDA device the trace
-      is the kernel ``pvt_trace`` (float32 only); on "cpu" it is the
+      is the kernel ``pvt_trace``, of the float32 library or, for
+      ``dtype=np.float64``, of its float64 build ``tracer_f64`` (every
+      real a double; score and pathwise channels are float32 only on the
+      card and raise NotImplementedError in float64); on "cpu" it is the
       eager PyTorch twin, in float32 or float64. There is no fallback
-      from one to the other.
+      from one to the other, nor from float64 to float32.
     * `dtype` None means float32.
     * Lights the compiler cannot lower to device samplers (a histogram
       spectrum, a custom delegate) are emitted on the host, as in the JAX
       package: ``emit_bundle(scene, num_rays)`` draws from the global
       ``np.random`` stream, the bundle goes to `device` in the run's dtype
-      and is traced without regeneration (`lanes` ignored; on the card
-      ``pvt_trace`` in bundle mode). `elapsed` counts the upload, the
+      (28 bytes a photon in float32, 56 in float64) and is traced without
+      regeneration (`lanes` ignored; on the card ``pvt_trace`` in bundle
+      mode). `elapsed` counts the upload, the
       trace and the fetch, not the sampling, and the result's sources are
       the bundle's. `workers` is accepted and unused.
     * With `score`, ``data["fate_scores"]`` [11, CH] and, with recorders,
@@ -175,7 +179,8 @@ def simulate(
     * Fate counts and the recorders' ``rec_distinct``, ``rec_crossings``
       and ``rec_bins`` are int64, and ``index_offset + num_rays`` may
       reach ``2**32 - 1``. ``rec_sums`` is in the run's dtype (the
-      kernel adds per-block float32 sums in float64).
+      float32 kernel adds per-block float32 sums in float64, the float64
+      kernel adds doubles throughout).
     * With a log, `elapsed` ends once the dense numpy log exists: the
       written records are packed on the device and copied with their
       counts, then unpacked on the host (``fetch_log``).

@@ -37,18 +37,21 @@ aside):
   components' fits). Fits are numbered components first, then the
   non-``cum`` slot fits, the emission ICDFs (from ``meta["cheb_icdf0"]``)
   and the lamp ICDFs (from ``meta["cheb_light0"]``). The eager twin reads
-  these; the kernels read the same fits packed into ``cheb_pack``, int32
-  words (float32 values by their bits) in 16-byte records, which a block
-  of the trace kernels copies into its shared memory: a record per fit
-  (``FR_*``: segment count, word offsets of its first segment record and
-  of its breakpoints, ``off``), a record per segment (``SR_*``: a,
-  2 / (b - a), the word offset of its coefficients, and its degree with
-  ``SEG_LOG`` and ``SEG_MAP``), every piecewise fit's interior
-  breakpoints b_0 .. b_{n-2} (float32, as the segment records hold them),
-  and each segment's coefficients from the highest degree down, from a
-  16-byte boundary and padded with zeros to one (``meta["cheb_words"]``
-  words in all). Every piecewise fit must partition [-1, 1] (contiguous,
-  sorted, from -1 to 1), as the compiler builds them: the kernel's search
+  these; the kernels read the same fits packed into ``cheb_pack``, words
+  of the run's real type (float32: int32 words holding float32 bits;
+  float64: int64 words holding float64 bits, for the float64 build of the
+  kernels) in records of four words, which a block of the trace kernels
+  copies into its shared memory: a record per fit (``FR_*``: segment
+  count, word offsets of its first segment record and of its
+  breakpoints, ``off``), a record per segment (``SR_*``: a, 2 / (b - a),
+  the word offset of its coefficients, and its degree with ``SEG_LOG`` and
+  ``SEG_MAP``), every piecewise fit's interior breakpoints b_0 .. b_{n-2}
+  (in the run's dtype, as the segment records hold them), and each
+  segment's coefficients from the highest degree down, from a four-word
+  boundary and padded with zeros to one (``meta["cheb_words"]`` words in
+  all; the same count in either dtype, the records 16 or 32 bytes).
+  Every piecewise fit must partition [-1, 1] (contiguous, sorted, from
+  -1 to 1), as the compiler builds them: the kernel's search
   over the breakpoints then finds the one segment the reference's masks
   select;
 * K9, the recorders: ``rec_f`` [R, REC_F] and ``rec_i`` [R, REC_I],
@@ -161,8 +164,8 @@ CHEB_SEG_I = 3
 
 # cheb_pack: words of a fit or segment record; the fit record's segment
 # count, word offsets of its first segment record and of its breakpoints,
-# and off (float bits); the segment record's a and 2 / (b - a) (float
-# bits), word offset of its coefficients, and its degree with the flags
+# and off (a real's bits); the segment record's a and 2 / (b - a) (a
+# real's bits), word offset of its coefficients, and its degree with the flags
 # SEG_LOG (a log segment: exp(v) - off) and SEG_MAP (a piecewise fit's
 # segment: t is mapped onto it).
 CHEB_REC = 4
@@ -287,12 +290,14 @@ class _Fits:
             self.seg_coef.append(c)
         return len(self.fit_i) - 1
 
-    def pack(self):
-        """The fits as ``cheb_pack``'s int32 words (module doc)."""
+    def pack(self, real=np.float32):
+        """The fits as ``cheb_pack``'s words for reals of type `real`
+        (module doc): int32 words for float32, int64 for float64."""
         F, S = len(self.fit_i), len(self.seg_i)
+        word = np.int64 if real == np.float64 else np.int32
 
         def bits(x):
-            return int(np.float32(x).view(np.int32))
+            return int(np.asarray(x, real).view(word))
 
         brk = [bits(self.seg_f[s][SF_B]) for _, nseg, seg0 in self.fit_i if nseg > 1
                for s in range(seg0, seg0 + nseg - 1)]
@@ -310,11 +315,12 @@ class _Fits:
                     bits(self.seg_f[s][SF_A]), bits(self.seg_f[s][SF_SCALE]), len(words), flags)
                 c = [bits(x) for x in self.seg_coef[s][::-1]]
                 words += c + [0] * (-len(c) % 4)
-        return np.asarray(words or [0] * CHEB_REC, np.int32)
+        return np.asarray(words or [0] * CHEB_REC, word)
 
 
-def _cheb_records(compiled):
-    """cheb_* arrays and meta of `compiled`'s fits (empty when it has none)."""
+def _cheb_records(compiled, real=np.float32):
+    """cheb_* arrays and meta of `compiled`'s fits (empty when it has none),
+    ``cheb_pack`` for reals of type `real`."""
     N, W = len(compiled.nodes), compiled.pack_width
     fits = _Fits()
     comp_fit = [fits.add(f, f"component {c}") for c, f in enumerate(compiled.cheb_comp or ())]
@@ -354,7 +360,7 @@ def _cheb_records(compiled):
         "cheb_coef": np.asarray(fits.coef or [0.0]),
         "cheb_slot": slots,
         "cheb_ref": np.asarray(refs or [0], np.int32),
-        "cheb_pack": fits.pack(),
+        "cheb_pack": fits.pack(real),
     }
     meta = {
         "cheb_spec": spec is not None and compiled.cheb_comp is not None and not no_cheb,
@@ -482,7 +488,7 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
     def i(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
-    cheb, cheb_meta = _cheb_records(compiled)
+    cheb, cheb_meta = _cheb_records(compiled, np_dtype)
     recs = _recorder_records(compiled)
     out = {
         "node_f": f(node_f),
@@ -497,7 +503,8 @@ def scene_tensors(compiled, dtype=torch.float32, device="cpu"):
         "spec_pack": f(compiled.spec_pack),
         "ems_icdf_pairs": f(compiled.ems_icdf_pairs),
         "light_icdf_pairs": f(compiled.light_icdf_pairs),
-        **{k: (i(v) if v.dtype == np.int32 else f(v)) for k, v in cheb.items()},
+        **{k: (torch.as_tensor(v, device=device) if k == "cheb_pack" else i(v)
+               if v.dtype == np.int32 else f(v)) for k, v in cheb.items()},
         **{k: (i(v) if v.dtype == np.int32 else f(v)) for k, v in recs.items()},
         "meta": {
             "n_nodes": N,

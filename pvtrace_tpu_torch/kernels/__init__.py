@@ -10,9 +10,15 @@ Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``
   raises if the launch failed, and adds one to ``launches[name]``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
-The kernels cover float32 only; float64 CUDA tensors raise
-NotImplementedError. Each library is built by ``build.build()`` at its
-first launch.
+The dtype of the scene tensors picks the library: float32 launches the
+float32 libraries, float64 the float64 build of the trace library
+(``tracer_f64``: ``pvt_emit``, ``pvt_step``, ``pvt_trace`` in every mode
+without scores, ``pvt_cheb``, ``pvt_tally``, ``pvt_mesh``, ``pvt_draws``,
+``pvt_log_pack``), whose launches count under the same names. The score,
+pathwise and K15 kernels cover float32 only: their wrappers raise
+NotImplementedError for float64 CUDA tensors (ROADMAP queue 1, float64
+gradients). Nothing converts a float64 run to float32 or moves it to the
+CPU. Each library is built by ``build.build()`` at its first launch.
 """
 import ctypes
 
@@ -45,9 +51,14 @@ launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_ta
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0, "pvt_log_pack": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
+# Of those, the launches of the float64 build (``tracer_f64``), by the same
+# names.
+launches_f64 = {name: 0 for name in ("pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb",
+                                     "pvt_tally", "pvt_mesh", "pvt_trace_log", "pvt_trace_bundle",
+                                     "pvt_draws", "pvt_log_pack")}
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
-              "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0}
+              "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0, "library": ""}
 last_cheb = {"shared_cheb": 0}
 # CUDA events around the last pvt_log_pack launch (its time once the
 # stream has passed them: ``pack_ms``).
@@ -84,17 +95,26 @@ _FLAG_PTRS = ("hit", "container") + physics.FLAGS + physics.SELECTORS \
 _TALLY_PTRS = ("distinct", "cross", "bins", "sums")
 
 
-class _Scene(ctypes.Structure):
-    _fields_ = [(name, ctypes.c_void_p) for name in _SCENE_PTRS] + [
+def _scene_fields(real):
+    """PvtScene's fields, its reals of ctypes type `real`."""
+    return [(name, ctypes.c_void_p) for name in _SCENE_PTRS] + [
         (name, ctypes.c_int) for name in _SCENE_META_INTS + (
             "maxsteps", "emit_method", "cheb_spec", "cheb_icdf", "cheb_light",
             "cheb_icdf0", "cheb_light0", "cheb_words", "n_rec", "total_bins",
         )
     ] + [
-        (name, ctypes.c_float)
-        for name in ("grid_x0", "grid_dx", "maxpathlength", "cheb_tscale")
+        (name, real) for name in ("grid_x0", "grid_dx", "maxpathlength", "cheb_tscale")
     ] + [(name, ctypes.c_void_p) for name in _SCENE_GROUPS] + [
         (name, ctypes.c_int) for name in ("n_grp", "grp_max")]
+
+
+class _Scene(ctypes.Structure):
+    _fields_ = _scene_fields(ctypes.c_float)
+
+
+class _Scene64(ctypes.Structure):
+    """PvtScene of the float64 build (tracer.cuh with -DPVT_F64)."""
+    _fields_ = _scene_fields(ctypes.c_double)
 
 
 class _State(ctypes.Structure):
@@ -180,7 +200,16 @@ _ENTRIES = {
         "pvt_absorbed_grad": [_VP, _VP, _VP, _I64, _I32, _VP, _VP],
     },
 }
+# The float64 build of the trace library: the same entries, pvt_mesh's
+# tolerance a double.
+_ENTRIES["tracer_f64"] = dict(
+    _ENTRIES["tracer"],
+    pvt_mesh=[_VP, _I32, ctypes.c_double, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP])
 _libs = {}
+# What float64 is refused by: the libraries without a float64 build.
+F64_GRADIENTS = ("float64 on the card covers pvt_trace and the kernels of tracer.cu only; the "
+                 "score, pathwise and Beer-Lambert kernels are float32 (ROADMAP queue 1, "
+                 "float64 gradients): use float32, or device='cpu' for the float64 twin")
 
 
 def tally_rule(meta):
@@ -191,8 +220,9 @@ def tally_rule(meta):
 
 
 def reset():
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_f64):
+        for name in counts:
+            counts[name] = 0
     for name in launch_ms:
         launch_ms[name] = 0.0
 
@@ -215,27 +245,45 @@ def _on_cpu(st):
     return st["node_f"].device.type == "cpu"
 
 
-def _check_scene(st):
-    dev = st["node_f"].device
+def tracer_library(dtype):
+    """The trace library of real type `dtype`: "tracer" (float32) or
+    "tracer_f64" (float64)."""
+    if dtype == torch.float32:
+        return "tracer"
+    if dtype == torch.float64:
+        return "tracer_f64"
+    raise ValueError(f"the kernels take float32 or float64, got {dtype}")
+
+
+def _check_scene(st, lib="tracer"):
+    """Check CUDA scene tensors `st` for the library of `lib`'s kind
+    ("tracer", or a float32-only one: "score", "pathwise"); returns the
+    library to launch, by the tensors' dtype."""
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     if dev.type != "cuda":
         raise ValueError(f"kernels need CUDA tensors, got {dev}")
-    if st["node_f"].dtype != torch.float32:
-        raise NotImplementedError(
-            "the CUDA kernels cover float32 only; use float32 scene tensors"
-        )
+    traced = tracer_library(dtype)
+    if dtype == torch.float64 and lib != "tracer":
+        raise NotImplementedError(F64_GRADIENTS)
+    lib = traced if lib == "tracer" else lib
+    word = torch.int64 if dtype == torch.float64 else torch.int32
     for name in _SCENE_PTRS + _SCENE_GROUPS:
         t = st[name]
-        want = torch.int32 if name in _SCENE_INTS + _SCENE_GROUPS[:2] else torch.float32
+        want = word if name == "cheb_pack" else torch.int32 \
+            if name in _SCENE_INTS + _SCENE_GROUPS[:2] else dtype
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"scene tensor {name}: need contiguous {want} on {dev}")
     if st["cheb_pack"].data_ptr() % 16:
         raise ValueError("scene tensor cheb_pack: the kernels read it 16 bytes at a time; "
                          "need it 16-byte aligned")
+    return lib
 
 
 def _scene(st, maxsteps, emit_method, maxpathlength):
+    """The PvtScene of scene tensors `st`, of the build of their dtype."""
     meta = st["meta"]
-    return _Scene(
+    cls = _Scene64 if st["node_f"].dtype == torch.float64 else _Scene
+    return cls(
         *(st[name].data_ptr() for name in _SCENE_PTRS),
         *(meta[name] for name in _SCENE_META_INTS), int(maxsteps), int(emit_method),
         int(meta["cheb_spec"]), int(meta["cheb_icdf"]), int(meta["cheb_light"]),
@@ -247,8 +295,8 @@ def _scene(st, maxsteps, emit_method, maxpathlength):
     )
 
 
-def _empty_state(B, device):
-    f = dict(device=device, dtype=torch.float32)
+def _empty_state(B, device, dtype=torch.float32):
+    f = dict(device=device, dtype=dtype)
     s = {name: torch.empty(B, **f) for name in physics.STATE_FLOATS}
     s["source"] = torch.empty(B, device=device, dtype=torch.int32)
     s["count"] = torch.empty(B, device=device, dtype=torch.int32)
@@ -258,12 +306,12 @@ def _empty_state(B, device):
     return s
 
 
-def _empty_flags(B, device):
+def _empty_flags(B, device, real=torch.float32):
     flags = {}
     for names, dtype in (
         (("hit", "container") + physics.SELECTORS, torch.int32),
         (physics.FLAGS + physics.EVENT_FLAGS, torch.bool),
-        (physics.SURFACE, torch.float32),
+        (physics.SURFACE, real),
     ):
         flags.update({name: torch.empty(B, device=device, dtype=dtype) for name in names})
     return flags
@@ -302,6 +350,13 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} failed to launch: CUDA error {rc}")
 
 
+def _launched(name, lib):
+    """Count a launch of `name` from library `lib`."""
+    launches[name] += 1
+    if lib == "tracer_f64":
+        launches_f64[name] += 1
+
+
 def _check_device_lights(st):
     """Device emission needs the scene's lights as device samplers."""
     if not st["meta"]["n_lights"]:
@@ -313,50 +368,52 @@ def emit(st, seed_words, index_offset, B):
     if _on_cpu(st):
         pids = index_offset + torch.arange(B, dtype=torch.int64)
         return tracer.initial_state(st, seed_words, pids)
-    _check_scene(st)
+    lib = _check_scene(st)
     _check_device_lights(st)
-    out = _empty_state(B, st["node_f"].device)
+    out = _empty_state(B, st["node_f"].device, st["node_f"].dtype)
     sc = _scene(st, 0, 0, float("inf"))
-    rc = library().pvt_emit(
+    rc = library(lib).pvt_emit(
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset, B,
         ctypes.byref(_struct(_State, out, _STATE_PTRS)), _stream(),
     )
     _raise_on(rc, "pvt_emit")
-    launches["pvt_emit"] += 1
+    _launched("pvt_emit", lib)
     return out
 
 
-def draws(seed_words, base, dead, need, k0, k1, count, mask):
+def draws(seed_words, base, dead, need, k0, k1, count, mask, dtype=torch.float32):
     """The trace kernel's draws on B lanes, each 32 a warp (the twin:
     ``rng.warp_draws``, whose arguments and results these are): per warp
     the refill of its `dead` lanes (photons base[w] + rank: keys and the
     emission pairs of `need`), per lane the words of `mask` of its step.
     Tensors: base int64 [B / 32], dead bool, k0 and k1 int64, count int32,
-    mask uint8, each [B]."""
+    mask uint8, each [B]. The uniforms come in `dtype`, the real type of
+    the build that draws them (``tracer_f64`` for float64: the float32
+    uniforms widened)."""
     if dead.device.type == "cpu":
-        return rng.warp_draws(seed_words, base, dead, need, k0, k1, count, mask)
+        return rng.warp_draws(seed_words, base, dead, need, k0, k1, count, mask, dtype)
     B, dev = dead.numel(), dead.device
     if B % rng.WARP:
         raise ValueError(f"draws: {B} lanes, not a multiple of {rng.WARP}")
     given = {"dead": (dead, torch.bool), "k0": (k0, torch.int64), "k1": (k1, torch.int64),
              "count": (count, torch.int32), "mask": (mask, torch.uint8)}
-    for name, (t, dtype) in given.items():
-        if t.shape != (B,) or t.dtype != dtype or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"draws: {name} needs contiguous {dtype} [{B}] on {dev}")
+    for name, (t, want) in given.items():
+        if t.shape != (B,) or t.dtype != want or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"draws: {name} needs contiguous {want} [{B}] on {dev}")
     W = B // rng.WARP
     if base.shape != (W,) or base.dtype != torch.int64 or base.device != dev:
         raise ValueError(f"draws: base needs int64 [{W}] on {dev}")
     keys = torch.empty((B, 2), device=dev, dtype=torch.int64)
-    emit = torch.empty((B, 6), device=dev, dtype=torch.float32)
-    words = torch.empty((B, 8), device=dev, dtype=torch.float32)
+    emit = torch.empty((B, 6), device=dev, dtype=dtype)
+    words = torch.empty((B, 8), device=dev, dtype=dtype)
     calls = torch.empty(W, device=dev, dtype=torch.int32)
-    rc = library().pvt_draws(
+    rc = library(tracer_library(dtype)).pvt_draws(
         seed_words[0], seed_words[1], base.contiguous().data_ptr(), dead.data_ptr(), need,
         k0.data_ptr(), k1.data_ptr(), count.data_ptr(), mask.data_ptr(), B, keys.data_ptr(),
         emit.data_ptr(), words.data_ptr(), calls.data_ptr(), _stream(),
     )
     _raise_on(rc, "pvt_draws")
-    launches["pvt_draws"] += 1
+    _launched("pvt_draws", tracer_library(dtype))
     return keys, emit, words, calls
 
 
@@ -366,20 +423,20 @@ def step(st, s, maxsteps=1000, emit_method=0, maxpathlength=float("inf")):
     twin's ``tracer.step_state``)."""
     if _on_cpu(st):
         return tracer.step_state(st, s, maxsteps, emit_method, maxpathlength)
-    _check_scene(st)
-    dev = st["node_f"].device
+    lib = _check_scene(st)
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     B = s["px"].shape[0]
-    want = _empty_state(B, dev)
+    want = _empty_state(B, dev, dtype)
     _check_lanes(s, want, B, dev)
-    flags = _empty_flags(B, dev)
+    flags = _empty_flags(B, dev, dtype)
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
-    rc = library().pvt_step(
+    rc = library(lib).pvt_step(
         ctypes.byref(sc), ctypes.byref(_struct(_State, s, _STATE_PTRS)),
         ctypes.byref(_struct(_State, want, _STATE_PTRS)),
         ctypes.byref(_struct(_Flags, flags, _FLAG_PTRS)), B, _stream(),
     )
     _raise_on(rc, "pvt_step")
-    launches["pvt_step"] += 1
+    _launched("pvt_step", lib)
     return dict(want, **flags)
 
 
@@ -396,19 +453,20 @@ def cheb(st, t, shared=True, segments=False):
         out = chebyshev.eval_fits(st, fit, t.repeat(F)).reshape(F, -1)
         return (out, chebyshev._segment(st, fit, t.repeat(F)).reshape(F, -1)) if segments \
             else out
-    _check_scene(st)
-    if t.dtype != torch.float32 or t.device != st["node_f"].device or t.dim() != 1 \
+    lib = _check_scene(st)
+    dtype = st["node_f"].dtype
+    if t.dtype != dtype or t.device != st["node_f"].device or t.dim() != 1 \
             or not t.is_contiguous():
-        raise ValueError("t: need a contiguous float32 vector on the scene's device")
-    out = torch.empty((F, t.shape[0]), device=t.device, dtype=torch.float32)
+        raise ValueError(f"t: need a contiguous {dtype} vector on the scene's device")
+    out = torch.empty((F, t.shape[0]), device=t.device, dtype=dtype)
     seg = torch.empty((F, t.shape[0]), device=t.device, dtype=torch.int32) if segments else None
     placed = ctypes.c_int(0)
     sc = _scene(st, 0, 0, float("inf"))
-    rc = library().pvt_cheb(ctypes.byref(sc), F, t.data_ptr(), t.shape[0], out.data_ptr(),
+    rc = library(lib).pvt_cheb(ctypes.byref(sc), F, t.data_ptr(), t.shape[0], out.data_ptr(),
                             seg.data_ptr() if segments else None, int(shared),
                             ctypes.byref(placed), _stream())
     _raise_on(rc, "pvt_cheb")
-    launches["pvt_cheb"] += 1
+    _launched("pvt_cheb", lib)
     last_cheb["shared_cheb"] = placed.value
     return (out, seg.long()) if segments else out
 
@@ -460,22 +518,22 @@ def launch_tally(st, out, words, res):
     """Launch pvt_tally on the events `out` with the seen words `words`
     ([B, SEEN_WORDS] int32, updated) into `res` (``zero_tally_out``'s
     dict, added to). Returns whether the bins were in shared memory."""
-    _check_scene(st)
-    dev = st["node_f"].device
+    lib = _check_scene(st)
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     B = out["px"].shape[0]
-    _check_lanes(out, dict(_empty_state(B, dev), **_empty_flags(B, dev)), B, dev)
+    _check_lanes(out, dict(_empty_state(B, dev, dtype), **_empty_flags(B, dev, dtype)), B, dev)
     if words.shape != (B, T.SEEN_WORDS) or words.dtype != torch.int32 \
             or not words.is_contiguous():
         raise ValueError(f"seen words: need contiguous int32 [{B}, {T.SEEN_WORDS}]")
     shared = ctypes.c_int(0)
     sc = _scene(st, 0, 0, float("inf"))
-    rc = library().pvt_tally(
+    rc = library(lib).pvt_tally(
         ctypes.byref(sc), ctypes.byref(_struct(_State, out, _STATE_PTRS)),
         ctypes.byref(_struct(_Flags, out, _FLAG_PTRS)), words.data_ptr(), B,
         ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(shared), _stream(),
     )
     _raise_on(rc, "pvt_tally")
-    launches["pvt_tally"] += 1
+    _launched("pvt_tally", lib)
     return bool(shared.value)
 
 
@@ -496,21 +554,21 @@ def mesh(st, node, o, d):
     if _on_cpu(st):
         t1, t2, cnt, nrm = geometry.mesh_nearest_two(tri, o.unbind(1), d.unbind(1), eps)
         return t1, t2, cnt, torch.stack(nrm, dim=1)
-    _check_scene(st)
+    lib = _check_scene(st)
     B = o.shape[0]
     for name, t in (("o", o), ("d", d)):
-        if t.shape != (B, 3) or t.dtype != torch.float32 or t.device != tri.device \
+        if t.shape != (B, 3) or t.dtype != tri.dtype or t.device != tri.device \
                 or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 [B, 3] on {tri.device}")
-    f = dict(device=o.device, dtype=torch.float32)
+            raise ValueError(f"{name}: need a contiguous {tri.dtype} [B, 3] on {tri.device}")
+    f = dict(device=o.device, dtype=tri.dtype)
     t1, t2, nrm = torch.empty(B, **f), torch.empty(B, **f), torch.empty((B, 3), **f)
     cnt = torch.empty(B, device=o.device, dtype=torch.int32)
-    rc = library().pvt_mesh(
+    rc = library(lib).pvt_mesh(
         tri.data_ptr(), tri.shape[0], eps, o.data_ptr(), d.data_ptr(), B, t1.data_ptr(),
         t2.data_ptr(), cnt.data_ptr(), nrm.data_ptr(), _stream(),
     )
     _raise_on(rc, "pvt_mesh")
-    launches["pvt_mesh"] += 1
+    _launched("pvt_mesh", lib)
     return t1, t2, cnt, nrm
 
 
@@ -520,20 +578,22 @@ def _log_desc(log, record_every=1, first=0):
                 first, log["counts"].data_ptr())
 
 
-def empty_log(n, record_every, max_events, index_offset, device, fill=True):
+def empty_log(n, record_every, max_events, index_offset, device, fill=True,
+              dtype=torch.float32):
     """The kernel's event log for a run of n photons from `index_offset`:
-    (the log dict of ``ceil(n / record_every)`` slots, and its ctypes
-    descriptor); no slots without a log. The counts are zeroed; the ints
-    and floats are -1 and 0 (``eventlog.empty``), or with `fill` False
-    left as ``torch.empty`` gives them, as a launch takes them: nothing
-    past a row's count is written or read."""
+    (the log dict of ``ceil(n / record_every)`` slots, its floats in
+    `dtype`, and its ctypes descriptor); no slots without a log. The
+    counts are zeroed; the ints and floats are -1 and 0
+    (``eventlog.empty``), or with `fill` False left as ``torch.empty``
+    gives them, as a launch takes them: nothing past a row's count is
+    written or read."""
     S = eventlog.n_slots(n, record_every)
     if fill:
-        log = eventlog.empty(S, max_events, torch.float32, device)
+        log = eventlog.empty(S, max_events, dtype, device)
     else:
         log = {
             "ints": torch.empty((S, max_events, T.LOG_I), dtype=torch.int32, device=device),
-            "floats": torch.empty((S, max_events, T.LOG_F), dtype=torch.float32, device=device),
+            "floats": torch.empty((S, max_events, T.LOG_F), dtype=dtype, device=device),
             "counts": torch.zeros(S, dtype=torch.int32, device=device),
         }
     first = eventlog.first_recorded(index_offset, record_every) if S else 0
@@ -544,15 +604,17 @@ def log_pack(log):
     """The first ``counts[s]`` records of each slot s of the event `log`
     (a trace's, with ``counts``), in slot order: (ints [N, LOG_I] int32,
     floats [N, LOG_F]). On the CPU ``eventlog.pack``; on the card the
-    kernel ``pvt_log_pack`` (float32), which copies only those records
-    (the offsets, the counts' exclusive sum, by ``torch.cumsum``)."""
+    kernel ``pvt_log_pack`` of the build of the floats' dtype, which
+    copies only those records (the offsets, the counts' exclusive sum, by
+    ``torch.cumsum``)."""
     counts = log["counts"]
     if counts.device.type == "cpu":
         return eventlog.pack(log, counts)
     S, E = log["ints"].shape[:2]
-    dev = counts.device
+    dev, real = counts.device, log["floats"].dtype
+    lib = tracer_library(real)
     for name, dtype, shape in (("ints", torch.int32, (S, E, T.LOG_I)),
-                               ("floats", torch.float32, (S, E, T.LOG_F)),
+                               ("floats", real, (S, E, T.LOG_F)),
                                ("counts", torch.int32, (S,))):
         t = log[name]
         if t.shape != shape or t.dtype != dtype or t.device != dev or not t.is_contiguous() \
@@ -563,14 +625,14 @@ def log_pack(log):
     N = int(offsets[-1]) if S else 0
     offsets -= counts
     ints = torch.empty((N, T.LOG_I), dtype=torch.int32, device=dev)
-    floats = torch.empty((N, T.LOG_F), dtype=torch.float32, device=dev)
+    floats = torch.empty((N, T.LOG_F), dtype=real, device=dev)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    rc = library().pvt_log_pack(ctypes.byref(_log_desc(log)), offsets.data_ptr(),
+    rc = library(lib).pvt_log_pack(ctypes.byref(_log_desc(log)), offsets.data_ptr(),
                                 ints.data_ptr(), floats.data_ptr(), _stream())
     _raise_on(rc, "pvt_log_pack")
     stop.record()
-    launches["pvt_log_pack"] += 1
+    _launched("pvt_log_pack", lib)
     last_pack["events"] = (start, stop)
     return ints, floats
 
@@ -591,9 +653,12 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     On the card, `lanes` caps the persistent kernel's thread count (None:
     the resident capacity), `steps` is the largest per-photon step count,
     where the eager twin reports its number of wavefront steps, and the
-    tallies have no ``seen``. Their sums are float32 per block, moved
+    tallies have no ``seen``. Float32 scene tensors launch the float32
+    library, float64 ones ``tracer_f64`` (``last_trace["library"]``; no
+    score channels). The float32 build's sums are float32 per block, moved
     into float64 totals every ``tables.SUMS_FLUSH`` distinct rays of a
-    recorder and at the end (``check.SUMS_BOUND``). With ``record_every >
+    recorder and at the end (``check.SUMS_BOUND``); the float64 build adds
+    its float64 sums a block and then into the totals. With ``record_every >
     0`` the kernel writes the event log of every record_every-th photon
     (``eventlog``'s layout, S rows, and ``counts``): the rows are not
     filled, so only the first ``counts[s]`` records of row s are set
@@ -613,7 +678,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     its threads' rows in shared memory where they fit
     (``trace_layout``; ``last_trace["shared_rows"]``); `shared_rows`
     False keeps them in device memory, for the checks. With a `bundle`
-    (``tracer.check_bundle``'s [7, n], contiguous float32 on the card)
+    (``tracer.check_bundle``'s [7, n], contiguous, in the scene's dtype on
+    the card)
     photon ``index_offset + k`` starts from its column k in place of
     device emission (K8's trace_bundle entry); without one, a scene
     without device lights is refused."""
@@ -624,15 +690,18 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         )
     if per_photon and (not score or index_offset):
         raise ValueError("per_photon: needs score=True and index_offset 0")
-    _check_scene(st)
-    dev = st["node_f"].device
+    specs = tuple(pathwise) if score else ()
+    name = "pvt_trace_pathwise" if specs else "pvt_trace_score" if score else "pvt_trace"
+    lib = _check_scene(st, {"pvt_trace": "tracer", "pvt_trace_score": "score",
+                            "pvt_trace_pathwise": "pathwise"}[name])
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     if bundle is None:
         _check_device_lights(st)
         rows = _Bundle(None, 0, 0)
     else:
-        tracer.check_bundle(bundle, n, torch.float32, dev)
+        tracer.check_bundle(bundle, n, dtype, dev)
         if not bundle.is_contiguous():
-            raise ValueError(f"bundle: need a contiguous float32 [7, {n}] on {dev}")
+            raise ValueError(f"bundle: need a contiguous {dtype} [7, {n}] on {dev}")
         rows = _Bundle(bundle.data_ptr(), n, index_offset)
     threads = n if lanes is None else min(lanes, n)
     nxt = torch.full((1,), index_offset, device=dev, dtype=torch.int64)
@@ -640,7 +709,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     longest = torch.zeros(1, device=dev, dtype=torch.int32)
     steps = torch.zeros(2, device=dev, dtype=torch.int64)
     res = zero_tally_out(st)
-    log, log_desc = empty_log(n, record_every, max_events, index_offset, dev, fill=False)
+    log, log_desc = empty_log(n, record_every, max_events, index_offset, dev, fill=False,
+                              dtype=dtype)
     info = (ctypes.c_longlong * 7)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
@@ -648,7 +718,6 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         nxt.data_ptr(), fates.data_ptr(), longest.data_ptr(), steps.data_ptr(),
         ctypes.byref(_struct(_TallyOut, res, _TALLY_PTRS)), ctypes.byref(log_desc),
     )
-    specs = tuple(pathwise) if score else ()
     if score:
         sums, desc = score_sums(st, resident_threads(dev, threads), specs)
         desc.shared_rows = int(shared_rows)
@@ -660,16 +729,14 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         args += (ctypes.byref(desc),)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    name = "pvt_trace_pathwise" if specs else "pvt_trace_score" if score else "pvt_trace"
-    lib = {"pvt_trace": "tracer", "pvt_trace_score": "score", "pvt_trace_pathwise": "pathwise"}
-    rc = getattr(library(lib[name]), name)(*args, ctypes.byref(rows), info, _stream())
+    rc = getattr(library(lib), name)(*args, ctypes.byref(rows), info, _stream())
     _raise_on(rc, name)
     stop.record()
-    launches["pvt_trace"] += 1
+    _launched("pvt_trace", lib)
     if bundle is not None:
-        launches["pvt_trace_bundle"] += 1
+        _launched("pvt_trace_bundle", lib)
     if log_desc.n_slots:
-        launches["pvt_trace_log"] += 1
+        _launched("pvt_trace_log", lib)
     if name != "pvt_trace":
         launches[name] += 1
         res.update(score_results(sums))
@@ -680,6 +747,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     last_trace.update(
         threads=info[0], **_placement(info), total_steps=total_steps, lane_steps=lane_steps,
         lane_efficiency=total_steps / max(lane_steps, 1), ms=start.elapsed_time(stop),
+        library=lib,
     )
     launch_ms["pvt_trace"] += last_trace["ms"]
     if name != "pvt_trace":
@@ -704,7 +772,7 @@ def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
     desc = _Score(ch=score_ch.n_channels(st, n_path), n_path=n_path,
                   shared_rows=int(shared_rows))
     info = (ctypes.c_longlong * 7)()
-    (entry or library("tracer").pvt_layout)(
+    (entry or library(tracer_library(st["node_f"].dtype)).pvt_layout)(
         ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
         ctypes.byref(desc) if score else None, info)
     return _placement(info)
@@ -759,7 +827,7 @@ def score_step(st, s, scores, maxsteps=1000, emit_method=0, maxpathlength=float(
     CH = score_ch.n_channels(st)
     if _on_cpu(st):
         return score_step_twin(st, s, scores, maxsteps, emit_method, maxpathlength)
-    _check_scene(st)
+    _check_scene(st, "score")
     dev = st["node_f"].device
     B = s["px"].shape[0]
     want = _empty_state(B, dev)
@@ -807,6 +875,7 @@ def fresnel(n1, n2, c):
     ``score.fresnel_dR`` on the CPU, ``pvt_fresnel`` (float32) on the card."""
     if n1.device.type == "cpu":
         return score_ch.fresnel_dR(n1, n2, c)
+    _refuse_f64(n1, n2, c)
     for t in (n1, n2, c):
         if t.dtype != torch.float32 or t.dim() != 1 or t.shape != n1.shape \
                 or not t.is_contiguous() or t.device != n1.device:
@@ -819,7 +888,14 @@ def fresnel(n1, n2, c):
     return d1, d2
 
 
+def _refuse_f64(*tensors):
+    """Float64 CUDA tensors have no kernel of the gradient libraries."""
+    if any(t.dtype == torch.float64 for t in tensors):
+        raise NotImplementedError(F64_GRADIENTS)
+
+
 def _check_photons(tab, pos, direction, wav):
+    _refuse_f64(tab["node_f"], pos, direction, wav)
     P, dev = wav.shape[0], tab["node_f"].device
     for name, t, shape in (("pos", pos, (P, 3)), ("dir", direction, (P, 3)), ("wav", wav, (P,))):
         if t.shape != shape or t.dtype != torch.float32 or t.device != dev \
@@ -857,6 +933,7 @@ def absorbed_grad(dep, grad_w, c):
     CPU, ``pvt_absorbed_grad`` (float64 sum) on the card."""
     if dep.device.type == "cpu":
         return absorb.grad_log_concentration(c, dep, grad_w).reshape(1)
+    _refuse_f64(dep, grad_w, c)
     for name, t in (("depth", dep), ("grad", grad_w)):
         if t.dtype != torch.float32 or t.shape != dep.shape or t.dim() != 1 \
                 or not t.is_contiguous() or t.device != dep.device:
@@ -881,7 +958,7 @@ def pathwise_step(st, s, tang, specs, maxsteps=1000, emit_method=0,
     (``pathwise_step_twin``) on the CPU, ``pvt_pathwise`` on the card."""
     if _on_cpu(st):
         return pathwise_step_twin(st, s, tang, specs, maxsteps, emit_method, maxpathlength)
-    _check_scene(st)
+    _check_scene(st, "pathwise")
     dev = st["node_f"].device
     B, C = s["px"].shape[0], len(specs)
     want = _empty_state(B, dev)

@@ -4,7 +4,9 @@ Four libraries, one per translation unit of ``csrc/``: ``tracer`` (the
 score-free kernels), ``score`` (K12: the score instantiations of the trace
 kernel, ``pvt_score``, ``pvt_fresnel``), ``pathwise`` (K13: the
 instantiations with pathwise channels, ``pvt_pathwise``) and ``diff``
-(K15). They go to
+(K15); and a fifth, ``tracer_f64``, the float64 build of ``tracer.cu``
+(``-DPVT_F64``: every real of ``tracer.cuh`` a double), which float64
+scene tensors launch. They go to
 ``pvtrace_tpu_torch/kernels/_build/`` (listed in ``.gitignore``), named by
 a hash of the sources and flags, so a build happens at first use and
 again only when a source changes; ``build_all`` starts one nvcc per
@@ -24,7 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # Library name -> its translation unit; every one includes headers of csrc/.
 LIBRARIES = {"tracer": "tracer.cu", "score": "score.cu", "pathwise": "pathwise.cu",
-             "diff": "diff.cu"}
+             "diff": "diff.cu", "tracer_f64": "tracer.cu"}
+# Flags a library adds to NVCC_FLAGS.
+LIBRARY_FLAGS = {"tracer_f64": ("-DPVT_F64",)}
 SOURCES = ("tracer.cu", "score.cu", "pathwise.cu", "diff.cu", "tracer.cuh", "trace_kernel.cuh",
            "diff.cuh")
 # No --use_fast_math: log1p, sqrt and division stay IEEE.
@@ -43,7 +47,8 @@ def nvcc_path():
 
 def library_path(name="tracer"):
     """Path of library `name` for the current sources (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + name.encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBRARY_FLAGS.get(name, ())).encode()
+                       + name.encode())
     for source in SOURCES:
         h.update((CSRC / source).read_bytes())
     prefix = "libpvtrace_kernels" if name == "tracer" else f"libpvtrace_{name}"
@@ -55,7 +60,8 @@ def _start(name):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / LIBRARIES[name])]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o", tmp,
+           str(CSRC / LIBRARIES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, cmd
 

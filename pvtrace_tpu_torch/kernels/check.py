@@ -42,6 +42,43 @@ SUMS_BOUND = (T.SUMS_FLUSH + 255) * 2.0 ** -24
 SUMS_RTOL = 1e-4
 # Two kernel runs of the same photons, one result cast to float32.
 SUMS_RUNS_RTOL = 2 * SUMS_BOUND + 2.0 ** -24
+# The float64 build adds each addend to its recorder's double sum (in a
+# block's shared memory, then into the totals), as the twin adds them in
+# float64 in another order. The moments are non-negative, so a sum of m of
+# them in any order is within (m - 1) 2**-53 of its value (the bound of
+# recursive summation); the kernel's and the twin's each, and each addend
+# may differ by two ulps (an angle's acos of a cosine an ulp apart), so
+# they agree within ``sums_bound_f64(m)`` relative, m a recorder's
+# distinct rays.
+F64_ULP = 2.0 ** -53
+
+
+def sums_bound_f64(m):
+    """Relative bound of two float64 sums of the same m non-negative
+    addends in two orders, each addend within two ulps (tensor or
+    number)."""
+    return (2 * m + 4) * F64_ULP
+
+
+# The float64 build against the float64 twin, both on the card: FMA
+# contraction moves the kernel by ulps (2**-53 relative), which a few
+# steps carry on through divisions by small distances (5e-11 found after
+# 8 steps at 2**20 lanes); F64_RTOL is twenty times that, and five orders
+# below float32's 1e-4. K5a's Clenshaw chains of up to degree 64 grow an
+# ulp by a few hundred, as CHEB_RTOL is float32's 2**-24 grown. K10's t is
+# a quotient by the determinant, small at grazing incidence, which grows
+# the contracted cross and dot products' ulps (1.5e-11 found at 2**20
+# rays): F64_RTOL too. A hit count may differ only on a ray within
+# EDGE_TOL_F64 (barycentric) of an edge, FMA's reach in float64.
+F64_RTOL, F64_ATOL = 1e-9, 1e-12
+CHEB_RTOL_F64 = 1e-12
+MESH_RTOL_F64 = F64_RTOL
+EDGE_TOL_F64 = 1e-12
+# A float64 trace against the twin: a discrete outcome flips only where a
+# value lies within an ulp or so of a threshold, about 1e-9 of float32's
+# chance, so fates and integer tallies agree within F64_PARTED at 2**20
+# photons, and records photon by photon with at most F64_PARTED parted.
+F64_PARTED = 4
 
 # The card's peaks for the bound (H100 SXM data sheet, at 700 W): HBM
 # bytes/s and float32 operations/s outside the tensor cores; and 32-bit
@@ -53,6 +90,9 @@ SUMS_RUNS_RTOL = 2 * SUMS_BOUND + 2.0 ** -24
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_INT_OPS_PER_S = 64 * 132 * 1.98e9
+# Float64 operations/s outside the tensor cores (the same data sheet):
+# the float64 build's float work is taken at this rate.
+PEAK_F64_OPS_PER_S = 34e12
 
 # Operations per unit of work, counted from tracer.cuh (add, multiply,
 # compare, select and shift each count one; an FMA two; exp, log1p, sqrt,
@@ -181,15 +221,17 @@ def require(ok, message):
         raise AssertionError(message)
 
 
-def bound(ops, nbytes, draws=(0, 0)):
+def bound(ops, nbytes, draws=(0, 0), dtype=torch.float32):
     """(bound_ms, bound_by): the largest of `ops` float operations at the
-    float32 peak, the integer instructions of `draws` ((ALU, add), as
-    ``threefry_draws`` counts them: the ALU's alone at one pipe's rate, or
-    all of them over both pipes, whichever is longer) and `nbytes` at the
-    memory rate, and which of operations and bytes it is."""
+    peak of `dtype` (float32's, or float64's for the float64 build), the
+    integer instructions of `draws` ((ALU, add), as ``threefry_draws``
+    counts them: the ALU's alone at one pipe's rate, or all of them over
+    both pipes, whichever is longer) and `nbytes` at the memory rate, and
+    which of operations and bytes it is."""
     alu, add = draws
     t_int = max(alu, (alu + add) / 2) / PEAK_INT_OPS_PER_S
-    t_ops = max(ops / PEAK_OPS_PER_S, t_int)
+    peak = PEAK_F64_OPS_PER_S if dtype == torch.float64 else PEAK_OPS_PER_S
+    t_ops = max(ops / peak, t_int)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -290,9 +332,18 @@ def graph_ms(fn, reps=10):
     return start.elapsed_time(stop) / reps
 
 
-def check_emit(st, seed_words, B, index_offset=0, atol=1e-5, reps=10):
+def _real(st):
+    """The scene's dtype and the bytes of one of its reals."""
+    dtype = st["node_f"].dtype
+    return dtype, torch.empty(0, dtype=dtype).element_size()
+
+
+def check_emit(st, seed_words, B, index_offset=0, atol=None, reps=10):
     """pvt_emit against the twin for B photons: keys and integer state
-    bit-equal, floats within `atol`. Returns (state, report)."""
+    bit-equal, floats within `atol` (None: 1e-5 in float32, F64_ATOL in
+    float64). Returns (state, report)."""
+    dtype, real = _real(st)
+    atol = (F64_ATOL if dtype == torch.float64 else 1e-5) if atol is None else atol
     dev = st["node_f"].device
     pids = index_offset + torch.arange(B, device=dev, dtype=torch.int64)
     twin = tracer.initial_state(st, seed_words, pids)
@@ -312,18 +363,24 @@ def check_emit(st, seed_words, B, index_offset=0, atol=1e-5, reps=10):
         "ms": cuda_ms(lambda: kernels.emit(st, seed_words, index_offset, B), reps),
         "plain_ms": cuda_ms(lambda: tracer.initial_state(st, seed_words, pids), reps),
     }
-    # 14 lane outputs: 11 of 4 bytes, alive 1, the two int64 keys 16.
-    report["bound_ms"], report["bound_by"] = bound(B * OPS_EMIT, B * 61,
-                                                   emit_draws(st, B, index_offset))
+    # 14 lane outputs: 9 reals, 2 ints of 4 bytes, alive 1, the two int64
+    # keys 16 (61 bytes in float32).
+    report["bound_ms"], report["bound_by"] = bound(B * OPS_EMIT, B * (9 * real + 25),
+                                                   emit_draws(st, B, index_offset), dtype)
     return twin, report
 
 
-def check_step(st, state, steps=8, max_discrete=1e-4, rtol=1e-4, atol=1e-5,
+def check_step(st, state, steps=8, max_discrete=1e-4, rtol=None, atol=None,
                maxsteps=1000, emit_method=0, reps=10):
     """pvt_step against the twin for `steps` steps, both fed the twin's
     previous output. Discrete outcomes may differ on at most a fraction
     `max_discrete` of lanes (FMA contraction moves floats by ulps); the
-    other lanes' floats must agree within rtol/atol."""
+    other lanes' floats must agree within rtol/atol (None: 1e-4 and 1e-5
+    in float32, F64_RTOL and F64_ATOL in float64)."""
+    dtype, real = _real(st)
+    f64 = dtype == torch.float64
+    rtol = (F64_RTOL if f64 else 1e-4) if rtol is None else rtol
+    atol = (F64_ATOL if f64 else 1e-5) if atol is None else atol
     B = state["px"].shape[0]
     worst_frac, err = 0.0, 0.0
     s = state
@@ -363,8 +420,11 @@ def check_step(st, state, steps=8, max_discrete=1e-4, rtol=1e-4, atol=1e-5,
             lambda: tracer.step_state(st, state, maxsteps, emit_method), reps
         ),
     }
-    # Reads the 14 lane inputs (61 bytes), writes them and 17 flags (45 bytes).
-    report["bound_ms"], report["bound_by"] = bound(B * OPS_STEP, B * (2 * 61 + 45), draws)
+    # Reads the 14 lane inputs (61 bytes in float32, 9 of them reals),
+    # writes them and 17 flags (45 bytes in float32, 4 of them reals).
+    lane, flags = 61 + 9 * (real - 4), 45 + 4 * (real - 4)
+    report["bound_ms"], report["bound_by"] = bound(B * OPS_STEP, B * (2 * lane + flags), draws,
+                                                   dtype)
     return report
 
 
@@ -389,11 +449,12 @@ def draw_inputs(B, seed, device, need=7, starts=None):
             t(rs.integers(1, 1001, B), torch.int32), t(mask, torch.uint8))
 
 
-def draws_bound(args, calls):
+def draws_bound(args, calls, real=4):
     """(bound_ms, bound_by) of pvt_draws on `args` (``draw_inputs``'s): the
     threefry calls whose words are read (each pair of a step word in a
     lane's mask, each dead lane's key and emission pairs) at the integer
-    rate, and its inputs read and outputs written once."""
+    rate, and its inputs read and outputs written once (`real` bytes a
+    uniform)."""
     base, dead, need, _, _, _, mask = args
     B = dead.numel()
     m = mask.long()
@@ -402,64 +463,73 @@ def draws_bound(args, calls):
     drawn = bin(need).count("1")
     draws = add_draws(threefry_draws(pairs, words),
                       threefry_draws(int(dead.sum()) * (1 + drawn), int(dead.sum()) * 2 * drawn))
-    nbytes = B * (8 + 8 + 4 + 1 + 1) + 8 * base.numel() + B * (16 + 24 + 32) + calls.numel() * 4
+    nbytes = B * (8 + 8 + 4 + 1 + 1) + 8 * base.numel() + B * (16 + 14 * real) \
+        + calls.numel() * 4
     return bound(0, nbytes, draws)
 
 
-def check_draws(device, B=1 << 20, seed=27, reps=10):
+def check_draws(device, B=1 << 20, seed=27, reps=10, dtype=torch.float32):
     """pvt_draws against its twin (``rng.warp_draws``: pvt_draw's words) on
     ``draw_inputs`` for each emission mask of a run (every pair; none; the
     bench slab's lamp, pair 2 alone, which it then times): keys, emission
     and step words bit for bit (the words drawn and read; -1 elsewhere in
     both), and the threefry calls each warp's refill made, as the kernel
-    counts them where it makes them, against the twin's count."""
+    counts them where it makes them, against the twin's count. With
+    `dtype` float64 the float64 build's draws, against the twin's float32
+    words widened."""
     seed_words = rng.key_words(seed)
     report = {"refill_calls_per_warp": {}}
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
     for need in (7, 0, 4):
         args = draw_inputs(B, seed + need, device, need)
-        got = kernels.draws(seed_words, *args)
+        got = kernels.draws(seed_words, *args, dtype=dtype)
         ref = rng.warp_draws(seed_words, *args)
         torch.cuda.synchronize()
         for name, g, r in zip(("keys", "emit", "words", "calls"), got, ref):
-            g = g.view(torch.int32) if g.dtype == torch.float32 else g.long()
-            r = r.view(torch.int32) if r.dtype == torch.float32 else r.long()
+            g = g.view(bits) if g.dtype.is_floating_point else g.long()
+            r = r.to(dtype).view(bits) if r.dtype.is_floating_point else r.long()
             bad = int((g != r).sum())
             require(bad == 0, f"pvt_draws, emission pairs {need}: {name} differs in {bad} places")
         report["refill_calls_per_warp"][need] = float(got[3].float().mean())
     report.update(
         max_abs_err=0.0, lanes=B,
-        ms=cuda_ms(lambda: kernels.draws(seed_words, *args), reps),
+        ms=cuda_ms(lambda: kernels.draws(seed_words, *args, dtype=dtype), reps),
         plain_ms=cuda_ms(lambda: rng.warp_draws(seed_words, *args), reps),
     )
-    report["bound_ms"], report["bound_by"] = draws_bound(args, got[3])
+    report["bound_ms"], report["bound_by"] = draws_bound(
+        args, got[3], torch.empty(0, dtype=dtype).element_size())
     return report
 
 
 def cheb_points(st):
-    """The float32 t values where K5a's masks switch: every breakpoint of
-    every piecewise fit, its float32 neighbours on both sides, -1, 1 and
-    NaN."""
-    seg_f = st["cheb_seg_f"].cpu().float()
-    edges = torch.cat([seg_f[:, T.SF_A], seg_f[:, T.SF_B], torch.tensor([-1.0, 1.0])])
-    t = torch.cat([edges, torch.nextafter(edges, torch.tensor(-np.inf)),
-                   torch.nextafter(edges, torch.tensor(np.inf))]).unique()
-    return torch.cat([t, torch.tensor([float("nan")])]).to(st["node_f"].device)
+    """The t values, in the scene's dtype, where K5a's masks switch: every
+    breakpoint of every piecewise fit, its neighbours in that dtype on
+    both sides, -1, 1 and NaN."""
+    seg_f = st["cheb_seg_f"].cpu()
+    f = dict(dtype=seg_f.dtype)
+    edges = torch.cat([seg_f[:, T.SF_A], seg_f[:, T.SF_B], torch.tensor([-1.0, 1.0], **f)])
+    t = torch.cat([edges, torch.nextafter(edges, torch.tensor(-np.inf, **f)),
+                   torch.nextafter(edges, torch.tensor(np.inf, **f))]).unique()
+    return torch.cat([t, torch.tensor([float("nan")], **f)]).to(st["node_f"].device)
 
 
 def check_cheb(st, n_t=4096, reps=10, shared=True):
     """pvt_cheb against the twin: every fit of the scene at `n_t` values of
     t evenly spaced on [-1, 1] and at ``cheb_points`` (every breakpoint,
     its neighbours, the ends and NaN): each value's segment equal to the
-    twin's, its value within CHEB_RTOL of the fit's scale on the grid (NaN
+    twin's, its value within CHEB_RTOL (CHEB_RTOL_F64 for a float64 scene)
+    of the fit's scale on the grid (NaN
     where the twin's is). With `shared` the blocks stage the table in
     shared memory where it fits (``shared_cheb`` says whether it did), else
     they read it in device memory. Times the grid on the card alone
     (``graph_ms``) and through the wrapper, host work between launches
     included (``wrapper_ms``)."""
     dev = st["node_f"].device
+    dtype, real = _real(st)
+    rtol = CHEB_RTOL_F64 if dtype == torch.float64 else CHEB_RTOL
     F = st["meta"]["cheb_n_fits"]
     require(F > 0, "pvt_cheb: the scene has no Chebyshev fits")
-    grid = torch.linspace(-1.0, 1.0, n_t, device=dev, dtype=torch.float32)
+    grid = torch.linspace(-1.0, 1.0, n_t, device=dev, dtype=dtype)
     t = torch.cat([grid, cheb_points(st)])
     got, seg = kernels.cheb(st, t, shared=shared, segments=True)
     placed = kernels.last_cheb["shared_cheb"]
@@ -476,7 +546,7 @@ def check_cheb(st, n_t=4096, reps=10, shared=True):
     scale = twin[:, :n_t].abs().amax(1).clamp(min=1e-30)
     diff = (got - twin).abs().masked_fill(nan, 0.0)
     rel = float((diff / scale[:, None]).max())
-    require(rel <= CHEB_RTOL, f"pvt_cheb: max relative error {rel:.3g} > {CHEB_RTOL}")
+    require(rel <= rtol, f"pvt_cheb: max relative error {rel:.3g} > {rtol}")
     report = {
         "max_abs_err": float(diff.max()),
         "max_rel_err": rel,
@@ -501,8 +571,8 @@ def check_cheb(st, n_t=4096, reps=10, shared=True):
         mean_deg = float(((b - a) / 2.0 * deg).sum())
         steps = int(np.ceil(np.log2(nseg)))
         ops += n_t * (OPS_CHEB_SEARCH * steps + OPS_CHEB_DEGREE * mean_deg + OPS_CHEB_EVAL)
-    nbytes = 4 * n_t + 4 * F * n_t + st["cheb_pack"].numel() * 4
-    report["bound_ms"], report["bound_by"] = bound(ops, nbytes)
+    nbytes = real * (n_t + F * n_t + st["cheb_pack"].numel())
+    report["bound_ms"], report["bound_by"] = bound(ops, nbytes, dtype=dtype)
     return report
 
 
@@ -513,8 +583,11 @@ def _copy(t):
 def check_tally(st, state, steps=8, maxsteps=1000, emit_method=0, reps=10):
     """pvt_tally against the twin for `steps` steps of the lanes `state`,
     both fed the twin's physics step: distinct, crossings, bins and the
-    seen bits equal after every step, moment sums within SUMS_RTOL."""
+    seen bits equal after every step, moment sums within SUMS_RTOL (a
+    float64 scene: each recorder's within ``sums_bound_f64`` of its
+    distinct rays)."""
     require(st["meta"]["n_rec"] > 0, "pvt_tally: the scene has no recorders")
+    dtype, real = _real(st)
     B = state["px"].shape[0]
     twin_t, kern_t = tally.empty(st, B), tally.empty(st, B)
     s, shared, work = state, None, [0, 0, 0, 0]
@@ -534,8 +607,13 @@ def check_tally(st, state, steps=8, maxsteps=1000, emit_method=0, reps=10):
         s = out
     ref, got = twin_t["sums"].double(), kern_t["sums"].double()
     words, res = kernels.pack_seen(kern_t["seen"]), kernels.zero_tally_out(st)
-    rel = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
-    require(rel <= SUMS_RTOL, f"pvt_tally: sums off by {rel:.3g} relative > {SUMS_RTOL}")
+    rel_each = (got - ref).abs() / ref.abs().clamp(min=1e-30)
+    rel = float(rel_each.max())
+    if dtype == torch.float64:
+        used = float((rel_each / sums_bound_f64(twin_t["distinct"].double())[:, None]).max())
+        require(used <= 1.0, f"pvt_tally: float64 sums at {used:.3g} of their bound")
+    else:
+        require(rel <= SUMS_RTOL, f"pvt_tally: sums off by {rel:.3g} relative > {SUMS_RTOL}")
     report = {
         "max_abs_err": float((got - ref).abs().max()),
         "max_rel_err": rel,
@@ -543,12 +621,14 @@ def check_tally(st, state, steps=8, maxsteps=1000, emit_method=0, reps=10):
         "ms": cuda_ms(lambda: kernels.launch_tally(st, out, words, res), reps),
         "plain_ms": cuda_ms(lambda: tally.tally(_copy(twin_t), st, out), reps),
     }
-    # Per step and lane: reads 6 floats, 2 ints, 2 flags, 4 normal floats
-    # and the 32-byte seen words, writes the seen words back.
+    # Per step and lane: reads 6 reals, 2 ints, 2 flags, 4 normal reals
+    # and the 32-byte seen words (50 bytes in float32 besides the seen
+    # words), writes the seen words back.
     lanes, matches, new, bins = (w / steps for w in work)
     ops = (B * OPS_TALLY_LANE + matches * OPS_TALLY_MATCH + new * OPS_TALLY_NEW
            + bins * OPS_TALLY_BIN)
-    report["bound_ms"], report["bound_by"] = bound(ops, B * (50 + 2 * 32))
+    report["bound_ms"], report["bound_by"] = bound(ops, B * (50 + 10 * (real - 4) + 2 * 32),
+                                                   dtype=dtype)
     report["events_per_step"] = lanes
     return report
 
@@ -568,15 +648,16 @@ def trace_bound(st, n, total_steps, tallies=None, bundle=False, fates=None):
         + total_steps * (OPS_STEP + st["meta"]["n_tris"] * OPS_TRIANGLE)
     events = trace_events(total_steps, fates) if fates is not None else 0
     draws = add_draws(emit_draws(st, n, bundle=bundle), step_draws(total_steps, events))
+    dtype, real = _real(st)
     nbytes = sum(
         v.numel() * v.element_size() for v in st.values() if isinstance(v, torch.Tensor)
-    ) + 8 * physics.N_FATES + (28 * n if bundle else 0)
+    ) + 8 * physics.N_FATES + (7 * real * n if bundle else 0)
     if tallies is not None and st["meta"]["n_rec"]:
         ops += (int(tallies["cross"].sum()) * OPS_TALLY_MATCH
                 + int(tallies["distinct"].sum()) * OPS_TALLY_NEW
                 + int(tallies["bins"].sum()) * OPS_TALLY_BIN)
         nbytes += sum(v.numel() * v.element_size() for v in tallies.values())
-    return bound(ops, nbytes, draws)
+    return bound(ops, nbytes, draws, dtype)
 
 
 def lerp_bound(st, total_steps):
@@ -584,9 +665,9 @@ def lerp_bound(st, total_steps):
     steps: one table lerp a step (the container's attenuation, which every
     step takes; the roulette's, p1's and the emission ICDF's lerps only
     raise it), and the lerp tables read once."""
-    nbytes = sum(st[name].numel() * 4
+    nbytes = sum(st[name].numel() * st[name].element_size()
                  for name in ("spec_pack", "ems_icdf_pairs", "light_icdf_pairs"))
-    return bound(total_steps * OPS_LERP, nbytes)
+    return bound(total_steps * OPS_LERP, nbytes, dtype=st["node_f"].dtype)
 
 
 def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, bundle=None):
@@ -598,8 +679,12 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
     wavelength agrees within its standard error, or within SUMS_RTOL of
     itself where that is larger (a recorder that sees one wavelength,
     like the mesh LSC's top face under a 555 nm lamp, has none; its
-    float32 sums still round). With a host `bundle` ([7, n] float32 on
-    the card) both start from it (K8's trace_bundle entry). ``ms`` is the
+    float32 sums still round). A float64 scene (``tracer_f64``): every
+    fate count and integer tally within F64_PARTED, and where the integer
+    tallies are equal (the same photons' events) each recorder's moment
+    sums within ``sums_bound_f64`` of its distinct rays. With a host
+    `bundle` ([7, n] in the scene's dtype on the card) both start from it
+    (K8's trace_bundle entry). ``ms`` is the
     kernel's own time (``last_trace["ms"]``) in a second launch, whose
     fates must equal the first's; ``wrapper_ms`` the first call of
     ``kernels.trace`` whole (its allocations, scene descriptor and result
@@ -624,7 +709,8 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
     require(torch.equal(again.cpu(), got), "pvt_trace: fates differ between two runs")
     require(int(got.sum()) == n, f"pvt_trace: fates sum to {int(got.sum())}, not {n}")
     require(int(ref.sum()) == n, f"twin: fates sum to {int(ref.sum())}, not {n}")
-    tol = max(20, n // 500)
+    f64 = st["node_f"].dtype == torch.float64
+    tol = F64_PARTED if f64 else max(20, n // 500)
     err = int((got - ref).abs().max())
     require(err <= tol, f"pvt_trace: fates {got.tolist()} vs twin {ref.tolist()}")
     report = {
@@ -665,6 +751,12 @@ def check_trace(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_method=0, 
                     f"standard error {se}")
             worst = max(worst, abs(mk - mt) / se if se else 0.0)
         report["mean_wavelength_worst_se"] = worst
+        if f64 and report["tally_max_diff"] == 0:
+            used = float(((got_t["sums"][:R] - ref_t["sums"][:R]).abs()
+                          / ref_t["sums"][:R].abs().clamp(min=1e-300)
+                          / sums_bound_f64(ref_t["distinct"][:R].double())[:, None]).max())
+            require(used <= 1.0, f"pvt_trace: float64 sums at {used:.3g} of their bound")
+            report["sums_used"] = used
         report["distinct"] = got_t["distinct"][:R].tolist()
         report["tallies"] = got_t
         report["crossings"] = int(got_t["cross"][:R].sum())
@@ -710,11 +802,13 @@ def check_chunks(st, seed_words, data, n, chunk=1 << 20):
 
 
 def mesh_rays(st, node, B, seed):
-    """B float32 rays in the local frame of mesh node `node`: origins
-    uniform in its bounding box grown by a fifth on every side, directions
-    isotropic (a torch.Generator seeded with `seed`, on the scene's device)."""
+    """B rays in the local frame of mesh node `node`: origins uniform in
+    its bounding box grown by a fifth on every side, directions isotropic
+    (a torch.Generator seeded with `seed`, on the scene's device), drawn in
+    float32 and given in the scene's dtype."""
     tri, _ = kernels.mesh_rows(st, node)
     g = torch.Generator(device=tri.device).manual_seed(seed)
+    dtype, tri = tri.dtype, tri.float()
     v0 = tri[:, T.TF_V0:T.TF_V0 + 3]
     corners = torch.cat([v0, v0 + tri[:, T.TF_E1:T.TF_E1 + 3], v0 + tri[:, T.TF_E2:T.TF_E2 + 3]])
     lo, hi = corners.min(0).values, corners.max(0).values
@@ -722,7 +816,7 @@ def mesh_rays(st, node, B, seed):
     f = dict(generator=g, device=tri.device, dtype=torch.float32)
     o = lo + (hi - lo) * torch.rand((B, 3), **f)
     d = torch.randn((B, 3), **f)
-    return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
+    return o.to(dtype).contiguous(), (d / d.norm(dim=1, keepdim=True)).to(dtype).contiguous()
 
 
 def near_edge(tri, o, d, tol=EDGE_TOL, chunk=1 << 16):
@@ -753,8 +847,12 @@ def check_mesh(st, node, B=1 << 20, seed=0, reps=10, chunk=1 << 17):
     """pvt_mesh against the twin for B random rays (``mesh_rays``) against
     mesh node `node`: hit counts equal except on rays near an edge,
     t1 and t2 within MESH_RTOL where the counts agree, and there the
-    nearest hit's normal equal (ties only happen on edges)."""
+    nearest hit's normal equal (ties only happen on edges); a float64
+    scene's within MESH_RTOL_F64, near an edge within EDGE_TOL_F64."""
     tri, eps = kernels.mesh_rows(st, node)
+    dtype, real = _real(st)
+    f64 = dtype == torch.float64
+    rtol, edge_tol = (MESH_RTOL_F64, EDGE_TOL_F64) if f64 else (MESH_RTOL, EDGE_TOL)
     o, d = mesh_rays(st, node, B, seed)
     got = kernels.mesh(st, node, o, d)
 
@@ -766,7 +864,7 @@ def check_mesh(st, node, B=1 << 20, seed=0, reps=10, chunk=1 << 17):
 
     ref = twin()
     torch.cuda.synchronize()
-    edge = near_edge(tri, o, d)
+    edge = near_edge(tri, o, d, edge_tol)
     differ = got[2] != ref[2]
     stray = int((differ & ~edge).sum())
     require(stray == 0, f"pvt_mesh: hit counts differ on {stray} rays away from any edge")
@@ -780,7 +878,7 @@ def check_mesh(st, node, B=1 << 20, seed=0, reps=10, chunk=1 << 17):
         if diff.numel():
             err = max(err, float(diff.max()))
             rel = max(rel, float((diff / b[fin].abs().clamp(min=1e-30)).max()))
-    require(rel <= MESH_RTOL, f"pvt_mesh: t off by {rel:.3g} relative > {MESH_RTOL}")
+    require(rel <= rtol, f"pvt_mesh: t off by {rel:.3g} relative > {rtol}")
     keep = same & ~edge
     bad_n = int((got[3][keep] != ref[3][keep]).any(1).sum())
     require(bad_n == 0, f"pvt_mesh: the nearest hit's normal differs on {bad_n} rays")
@@ -795,10 +893,11 @@ def check_mesh(st, node, B=1 << 20, seed=0, reps=10, chunk=1 << 17):
         "ms": cuda_ms(lambda: kernels.mesh(st, node, o, d), reps),
         "plain_ms": cuda_ms(twin, max(1, reps // 5)),
     }
-    # Reads o, d (24 bytes a ray) and the triangles, writes t1, t2, the
-    # count and the normal (24 bytes a ray).
+    # Reads o, d (6 reals a ray) and the triangles, writes t1, t2, the
+    # count and the normal (5 reals and 4 bytes a ray; 48 bytes a ray in
+    # float32).
     report["bound_ms"], report["bound_by"] = bound(
-        B * tri.shape[0] * OPS_TRIANGLE, B * 48 + tri.numel() * 4
+        B * tri.shape[0] * OPS_TRIANGLE, B * (11 * real + 4) + tri.numel() * real, dtype=dtype
     )
     return report
 
@@ -829,21 +928,23 @@ def check_log_pack(log, reps=10):
     counts = log["counts"]
     ints, floats = kernels.log_pack(log)
     ref_ints, ref_floats = eventlog.pack(log, counts)
+    bits = torch.int64 if floats.dtype == torch.float64 else torch.int32
     require(torch.equal(ints, ref_ints)
-            and torch.equal(floats.view(torch.int32), ref_floats.view(torch.int32)),
+            and torch.equal(floats.view(bits), ref_floats.view(bits)),
             "pvt_log_pack: the packed records differ from eventlog.pack's")
     ms = 0.0
     for _ in range(reps):
         kernels.log_pack(log)
         ms += kernels.pack_ms() / reps
     used = torch.arange(log["ints"].shape[1], device=counts.device) < counts[:, None]
-    packed = ints.numel() * 4 + floats.numel() * 4
+    real = floats.element_size()
+    packed = ints.numel() * 4 + floats.numel() * real
     report = {
         "max_abs_err": 0.0, "ms": ms,
         "plain_ms": cuda_ms(lambda: eventlog.pack(log, counts), reps),
         "library_ms": cuda_ms(lambda: (log["ints"][used], log["floats"][used]), reps),
         "records": len(ints), "slots": len(counts), "packed_bytes": packed,
-        "dense_bytes": log["ints"].numel() * 4 + log["floats"].numel() * 4,
+        "dense_bytes": log["ints"].numel() * 4 + log["floats"].numel() * real,
     }
     report["bound_ms"], report["bound_by"] = bound(0, 2 * packed)
     return report
@@ -857,8 +958,12 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     record counts (the kernel's ``counts`` against the twin's rows) equal
     in the ints and within LOG_RTOL in the floats; the kernel's log packed
     by pvt_log_pack as by the plain version (``check_log_pack``, report
-    ``pack``). Returns the report, with the kernel's tallies and log. With
-    a host `bundle` both start from it."""
+    ``pack``). A float64 scene: fates within F64_PARTED, at most
+    F64_PARTED photons diverged, floats within F64_RTOL. Returns the
+    report, with the kernel's tallies and log. With a host `bundle` both
+    start from it."""
+    dtype, real = _real(st)
+    f64 = dtype == torch.float64
     start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
     got, _, got_t, got_log = kernels.trace(st, seed_words, n, record_every=record_every,
@@ -870,7 +975,7 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     stop.record()
     torch.cuda.synchronize()
     got, ref = got.cpu(), ref.cpu()
-    tol = max(20, n // 500)
+    tol = F64_PARTED if f64 else max(20, n // 500)
     fate_err = int((got - ref).abs().max())
     require(int(got.sum()) == n, f"pvt_trace (log): fates sum to {int(got.sum())}, not {n}")
     require(fate_err <= tol, f"pvt_trace (log): fates {got.tolist()} vs twin {ref.tolist()}")
@@ -879,7 +984,7 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     got_ints, got_floats = dense_log(got_log)
     diverged = (got_ints != ref_log["ints"]).flatten(1).any(1)
     frac = float(diverged.sum()) / S
-    require(frac <= LOG_DIVERGED,
+    require(int(diverged.sum()) <= F64_PARTED if f64 else frac <= LOG_DIVERGED,
             f"pvt_trace (log): {int(diverged.sum())} of {S} recorded photons diverged")
     keep = ~diverged
     counts = got_log["counts"]
@@ -888,7 +993,8 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     require(torch.equal(counts[keep], ref_counts[keep]),
             "pvt_trace (log): counts differ from the twin's rows")
     rel = _log_rel(got_floats[keep], ref_log["floats"][keep])
-    require(rel <= LOG_RTOL, f"pvt_trace (log): floats off by {rel:.3g} relative > {LOG_RTOL}")
+    rtol = F64_RTOL if f64 else LOG_RTOL
+    require(rel <= rtol, f"pvt_trace (log): floats off by {rel:.3g} relative > {rtol}")
     records = int(counts.sum())
     report = {
         "max_abs_err": float((got_floats[keep] - ref_log["floats"][keep]).abs().max()),
@@ -910,26 +1016,30 @@ def check_log(st, seed_words, n, record_every=1, max_events=128, lanes=1 << 18, 
     ops_ms, by = trace_bound(st, n, kernels.last_trace["total_steps"], got_t, bundle is not None,
                              got)
     # The log adds its records' bytes (written once) to the trace's.
-    log_ms = records * 4 * (T.LOG_I + T.LOG_F) / PEAK_BYTES_PER_S * 1e3
+    log_ms = records * (4 * T.LOG_I + real * T.LOG_F) / PEAK_BYTES_PER_S * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms, by) if ops_ms >= log_ms else (log_ms, "bytes")
     return report
 
 
-def check_fetch(scene, n, seed=4, max_events=128, lanes=1 << 10):
-    """``simulate(record_every=1)`` of `scene` on the card (float32:
-    ``pvt_trace`` with the log, ``pvt_log_pack``, the copies and the numpy
+def check_fetch(scene, n, seed=4, max_events=128, lanes=1 << 10, dtype=np.float32):
+    """``simulate(record_every=1)`` of `scene` on the card in `dtype`
+    (``pvt_trace`` with the log, ``pvt_log_pack``, the copies and the numpy
     unpack) against the CPU twin's dense arrays, n photons: at most a
-    fraction LOG_DIVERGED of the photons differ in any int, the others'
-    counts equal and floats within LOG_RTOL of their column's scale; the
-    counts equal the rows' records. Returns the report."""
+    fraction LOG_DIVERGED of the photons differ in any int (float64: at
+    most F64_PARTED photons), the others' counts equal and floats within
+    LOG_RTOL (float64: F64_RTOL) of their column's scale; the counts equal
+    the rows' records. Returns the report."""
     from pvtrace_tpu_torch.engine import api
 
+    f64 = np.dtype(dtype) == np.float64
     kernels.reset()
-    got = api.simulate(scene, n, seed=seed, record_every=1, max_events=max_events).data
-    require(kernels.launches["pvt_log_pack"] == 1 and kernels.launches["pvt_trace_log"] == 1,
+    got = api.simulate(scene, n, seed=seed, record_every=1, max_events=max_events,
+                       dtype=dtype).data
+    require(kernels.launches["pvt_log_pack"] == 1 and kernels.launches["pvt_trace_log"] == 1
+            and kernels.launches_f64["pvt_log_pack"] == int(f64),
             f"simulate with the log: launches {kernels.launches}")
     ref = api.simulate(scene, n, seed=seed, record_every=1, max_events=max_events, lanes=lanes,
-                       device="cpu").data
+                       dtype=dtype, device="cpu").data
     ints, floats = (
         [np.stack([d[k] for k in eventlog.LOG_INTS], -1) for d in (got, ref)],
         [np.concatenate([d[k] for k in eventlog.LOG_VECS]
@@ -937,14 +1047,16 @@ def check_fetch(scene, n, seed=4, max_events=128, lanes=1 << 10):
          for d in (got, ref)],
     )
     same = (ints[0] == ints[1]).reshape(len(ints[0]), -1).all(1)
-    require(int((~same).sum()) <= LOG_DIVERGED * len(same),
+    require(int((~same).sum()) <= (F64_PARTED if f64 else LOG_DIVERGED * len(same)),
             f"simulate's log: {int((~same).sum())} of {len(same)} photons differ from the twin's")
     require(np.array_equal(got["counts"], (got["kind"] >= 0).sum(1)),
             "simulate's log: counts differ from its rows")
     require(np.array_equal(got["counts"][same], ref["counts"][same]),
             "simulate's log: counts differ from the twin's")
     rel = _log_rel(torch.from_numpy(floats[0][same]), torch.from_numpy(floats[1][same]))
-    require(rel <= LOG_RTOL, f"simulate's log: floats off by {rel:.3g} relative > {LOG_RTOL}")
+    rtol = F64_RTOL if f64 else LOG_RTOL
+    require(floats[0].dtype == np.dtype(dtype), f"simulate's log: floats in {floats[0].dtype}")
+    require(rel <= rtol, f"simulate's log: floats off by {rel:.3g} relative > {rtol}")
     return {"slots": len(same), "diverged": int((~same).sum()),
             "records": int(got["counts"].sum()), "max_rel_err": rel}
 

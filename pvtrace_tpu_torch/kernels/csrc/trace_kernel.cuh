@@ -35,10 +35,10 @@ __device__ PvtTally tally_block_init(const PvtScene& sc, unsigned char* smem, in
                                      const PvtTallyOut& out) {
   PvtTally acc;
   acc.cross = out.cross;
-  acc.cross32 = reinterpret_cast<unsigned int*>(smem);
-  acc.sums = reinterpret_cast<float*>(smem + 4 * (size_t)sc.n_rec);
-  acc.distinct = reinterpret_cast<unsigned int*>(smem + 36 * (size_t)sc.n_rec);
-  acc.bins32 = shared_bins ? reinterpret_cast<unsigned int*>(smem + 40 * (size_t)sc.n_rec)
+  acc.cross32 = reinterpret_cast<unsigned int*>(smem + kTallyCross * (size_t)sc.n_rec);
+  acc.sums = reinterpret_cast<pvt_real*>(smem + kTallySums * (size_t)sc.n_rec);
+  acc.distinct = reinterpret_cast<unsigned int*>(smem + kTallyDistinct * (size_t)sc.n_rec);
+  acc.bins32 = shared_bins ? reinterpret_cast<unsigned int*>(smem + kTallyBins * (size_t)sc.n_rec)
                            : nullptr;
   acc.bins64 = shared_bins ? nullptr : out.bins;
   acc.sums64 = out.sums;
@@ -54,7 +54,8 @@ __device__ PvtTally tally_block_init(const PvtScene& sc, unsigned char* smem, in
 
 // Adds a block's accumulators to device memory, one atomic per non-zero
 // entry; the float32 sums left since their last move (tally_event) are
-// added in float64 (the caller synchronises first).
+// added in float64, the float64 build's whole sums likewise (the caller
+// synchronises first).
 __device__ void tally_block_flush(const PvtScene& sc, const PvtTally& acc,
                                   const PvtTallyOut& out) {
   for (int r = threadIdx.x; r < sc.n_rec; r += blockDim.x) {
@@ -77,7 +78,7 @@ __device__ ScoreAcc score_block_init(const PvtScene& sc, const PvtScore& s, unsi
                                      unsigned char* rows, long long lane) {
   ScoreAcc a;
   if (s.shared_rows) {
-    a.row = reinterpret_cast<float*>(rows) + threadIdx.x;
+    a.row = reinterpret_cast<pvt_real*>(rows) + threadIdx.x;
     a.stride = kBlock;
     a.tang = a.row + (size_t)s.ch * kBlock;
   } else {
@@ -117,21 +118,21 @@ __device__ void score_block_flush(const PvtScene& sc, const PvtScore& s, const S
 // Copies the scene's K5a table into a block's shared memory at `dst`
 // (16-byte aligned), 16 bytes a thread at a time, and returns it there
 // (the caller synchronises). A block of a persistent kernel copies it once.
-__device__ const int* stage_cheb(const PvtScene& sc, unsigned char* dst) {
+__device__ const pvt_word* stage_cheb(const PvtScene& sc, unsigned char* dst) {
   int4* d = reinterpret_cast<int4*>(dst);
   const int4* src = reinterpret_cast<const int4*>(sc.cheb_pack);
-  for (int k = threadIdx.x; k < sc.cheb_words / 4; k += blockDim.x) d[k] = src[k];
-  return reinterpret_cast<const int*>(dst);
+  for (int k = threadIdx.x; k < sc.cheb_words / kWords16; k += blockDim.x) d[k] = src[k];
+  return reinterpret_cast<const pvt_word*>(dst);
 }
 
-// Copies the scene's mesh triangles (tri_f, n_tris rows of TRI_F floats)
+// Copies the scene's mesh triangles (tri_f, n_tris rows of TRI_F reals)
 // into a block's shared memory at `dst` (16-byte aligned), 16 bytes a
 // thread at a time, and returns them there (the caller synchronises).
-__device__ const float* stage_tris(const float* tri_f, int n_tris, unsigned char* dst) {
-  float4* d = reinterpret_cast<float4*>(dst);
-  const float4* src = reinterpret_cast<const float4*>(tri_f);
-  for (int k = threadIdx.x; k < n_tris * TRI_F / 4; k += blockDim.x) d[k] = src[k];
-  return reinterpret_cast<const float*>(dst);
+__device__ const pvt_real* stage_tris(const pvt_real* tri_f, int n_tris, unsigned char* dst) {
+  PvtReal16* d = reinterpret_cast<PvtReal16*>(dst);
+  const PvtReal16* src = reinterpret_cast<const PvtReal16*>(tri_f);
+  for (int k = threadIdx.x; k < n_tris * TRI_F / kReals16; k += blockDim.x) d[k] = src[k];
+  return reinterpret_cast<const pvt_real*>(dst);
 }
 
 unsigned int grid_for(long long n) { return (unsigned int)((n + kBlock - 1) / kBlock); }
@@ -231,8 +232,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     sa = score_block_init(sc, score, smem + score_offset(sc, kTally, shared_bins),
                           smem + rows_offset(sc, kTally, shared_bins, score),
                           (long long)blockIdx.x * blockDim.x + threadIdx.x);
-  const int* cheb = cheb_at >= 0 ? stage_cheb(sc, smem + cheb_at) : sc.cheb_pack;
-  const float* tris = nullptr;
+  const pvt_word* cheb = cheb_at >= 0 ? stage_cheb(sc, smem + cheb_at) : sc.cheb_pack;
+  const pvt_real* tris = nullptr;
   if (kMesh && tris_at >= 0) tris = stage_tris(sc.tri_f, sc.n_tris, smem + tris_at);
   __syncthreads();
 

@@ -7,7 +7,10 @@
 //
 // Built by pvtrace_tpu_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// (no fast-math) and bound with ctypes. Every entry point launches on the
+// (no fast-math) and bound with ctypes, twice: the float32 library, and
+// with -DPVT_F64 the float64 one (tracer_f64: every real a double,
+// tracer.cuh's pvt_real), whose entry points have the same names and
+// arguments, the reals' pointers to doubles. Every entry point launches on the
 // stream it is given, allocates nothing, and returns a CUDA error code.
 // The per-lane bodies live in tracer.cuh, the trace kernel in
 // trace_kernel.cuh.
@@ -48,10 +51,10 @@ step_kernel(PvtScene sc, PvtState in, PvtState out, PvtFlags fl, long long B) {
 // copies it into shared memory, else it is read in device memory. Bound by
 // the segment search and the Clenshaw chain (operations).
 __global__ void __launch_bounds__(kBlock)
-cheb_kernel(PvtScene sc, int staged, const float* t, long long n_t, long long n, float* out,
+cheb_kernel(PvtScene sc, int staged, const pvt_real* t, long long n_t, long long n, pvt_real* out,
             int* seg) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int* tab = sc.cheb_pack;
+  const pvt_word* tab = sc.cheb_pack;
   if (staged) {
     tab = stage_cheb(sc, smem);
     __syncthreads();
@@ -95,10 +98,10 @@ tally_kernel(PvtScene sc, PvtState s, PvtFlags fl, uint32_t* seen, long long B,
 // triangles into its shared memory, as pvt_trace's blocks do. Bound by
 // operations, about 60 a triangle.
 __global__ void __launch_bounds__(kBlock)
-mesh_kernel(const float* tri, int n_tris, int staged, float eps, const float* o, const float* d,
-            long long B, float* t1, float* t2, int* cnt, float* nrm) {
+mesh_kernel(const pvt_real* tri, int n_tris, int staged, pvt_real eps, const pvt_real* o,
+            const pvt_real* d, long long B, pvt_real* t1, pvt_real* t2, int* cnt, pvt_real* nrm) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const float* tris = tri;
+  const pvt_real* tris = tri;
   if (staged) {
     tris = stage_tris(tri, n_tris, smem);
     __syncthreads();
@@ -117,8 +120,8 @@ mesh_kernel(const float* tri, int n_tris, int staged, float eps, const float* o,
 __global__ void __launch_bounds__(kBlock)
 draws_kernel(uint32_t s0, uint32_t s1, const long long* base, const unsigned char* dead,
              unsigned need, const long long* k0, const long long* k1, const int* count,
-             const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
-             int* calls) {
+             const unsigned char* mask, long long B, long long* keys, pvt_real* emit,
+             pvt_real* words, int* calls) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;  // whole warps: B is a multiple of kWarp
   const int lane = threadIdx.x % kWarp;
@@ -139,7 +142,7 @@ draws_kernel(uint32_t s0, uint32_t s1, const long long* base, const unsigned cha
 // bytes: every record read once and written once; the rows' unwritten
 // tails are never touched.
 __global__ void __launch_bounds__(kBlock)
-log_pack_kernel(PvtLog lg, const long long* offsets, int* ints, float* floats) {
+log_pack_kernel(PvtLog lg, const long long* offsets, int* ints, pvt_real* floats) {
   const int lane = threadIdx.x % kWarp;
   const long long warps = (long long)gridDim.x * (kBlock / kWarp);
   for (long long s = ((long long)blockIdx.x * kBlock + threadIdx.x) / kWarp; s < lg.n_slots;
@@ -154,7 +157,7 @@ extern "C" {
 // The records of log->counts[s] of each of the log's n_slots rows, in
 // slot order, into ints [N, LOG_I] and floats [N, LOG_F] (N the counts'
 // sum), slot s's from record offsets[s] (the counts' exclusive sum).
-int pvt_log_pack(const PvtLog* log, const long long* offsets, int* ints, float* floats,
+int pvt_log_pack(const PvtLog* log, const long long* offsets, int* ints, pvt_real* floats,
                  void* stream) {
   if (log->n_slots <= 0) return 0;
   log_pack_kernel<<<grid_for(log->n_slots * kWarp), kBlock, 0, (cudaStream_t)stream>>>(
@@ -171,8 +174,8 @@ int pvt_log_pack(const PvtLog* log, const long long* offsets, int* ints, float* 
 // issued, counted where draws_lane makes them.
 int pvt_draws(unsigned int s0, unsigned int s1, const long long* base, const unsigned char* dead,
               unsigned int need, const long long* k0, const long long* k1, const int* count,
-              const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
-              int* calls, void* stream) {
+              const unsigned char* mask, long long B, long long* keys, pvt_real* emit,
+              pvt_real* words, int* calls, void* stream) {
   if (B % kWarp) return (int)cudaErrorInvalidValue;
   draws_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
       s0, s1, base, dead, need, k0, k1, count, mask, B, keys, emit, words, calls);
@@ -196,10 +199,10 @@ int pvt_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
 // t: out is [n_fits, n_t], and seg, when not null, each one's segment (-1
 // for none). With `shared` the blocks stage the table in shared memory
 // when it fits the trace kernel's budget; *placed gets 1 when they did.
-int pvt_cheb(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out,
+int pvt_cheb(const PvtScene* sc, int n_fits, const pvt_real* t, long long n_t, pvt_real* out,
              int* seg, int shared, int* placed, void* stream) {
   const long long n = (long long)n_fits * n_t;
-  const size_t bytes = 4 * (size_t)sc->cheb_words;
+  const size_t bytes = sizeof(pvt_word) * (size_t)sc->cheb_words;
   *placed = shared && bytes <= kSharedTallyLimit ? 1 : 0;
   if (*placed) {
     const cudaError_t err = allow_shared(cheb_kernel, bytes);
@@ -230,9 +233,9 @@ int pvt_tally(const PvtScene* sc, const PvtState* state, const PvtFlags* flags,
 // (rows of TRI_F, 16-byte aligned): t1, t2, cnt [B] and the nearest hit's
 // normal nrm [B, 3]. The blocks stage the triangles in shared memory
 // where they fit a trace block's budget, as pvt_trace does.
-int pvt_mesh(const float* tri, int n_tris, float eps, const float* o, const float* d,
-             long long B, float* t1, float* t2, int* cnt, float* nrm, void* stream) {
-  const size_t bytes = 4 * TRI_F * (size_t)n_tris;
+int pvt_mesh(const pvt_real* tri, int n_tris, pvt_real eps, const pvt_real* o, const pvt_real* d,
+             long long B, pvt_real* t1, pvt_real* t2, int* cnt, pvt_real* nrm, void* stream) {
+  const size_t bytes = sizeof(pvt_real) * TRI_F * (size_t)n_tris;
   const int staged = bytes <= kSharedTallyLimit ? 1 : 0;
   if (staged) {
     const cudaError_t err = allow_shared(mesh_kernel, bytes);

@@ -3,9 +3,10 @@
 // One photon per thread, all state in registers. Every function is a
 // line-for-line port of the eager twin in pvtrace_tpu_torch/engine
 // (rng.py, emit.py, geometry.py, spectral.py, chebyshev.py, physics.py,
-// tally.py, eventlog.py, score.py), which in turn ports pvtrace_tpu/engine/tracer.py. float32
-// only; no fast-math: log1p, sqrt, exp, acos and division stay IEEE
-// (nvcc's default FMA contraction moves results by ulps).
+// tally.py, eventlog.py, score.py), which in turn ports pvtrace_tpu/engine/tracer.py. In
+// the real type pvt_real below (float, or double in the float64 build); no
+// fast-math: log1p, sqrt, exp, acos and division stay IEEE (nvcc's default
+// FMA contraction moves results by ulps).
 //
 // The functions are also host-callable (PVT_FN), so the arithmetic can
 // be compiled by a host C++ compiler and checked without a card.
@@ -28,6 +29,57 @@
 #define PVT_FN inline
 #define PVT_CALLED_FN inline
 #endif
+
+// The real type of a build, chosen when it is compiled: float, or double
+// under -DPVT_F64 (the tracer_f64 library and the float64 host harness,
+// kernels/build.py and kernels/host.py), so the float32 library's code is
+// the same whichever build exists. The JAX package traces in the run's
+// dtype throughout; so does a build, but for the random words: threefry
+// and pvt_uniform are the same in both, a uniform made in float32 and then
+// widened, as the JAX package's _uniform32 makes it. pvt_word is a word
+// of the K5a table (engine/tables.py packs it in the run's dtype: int32
+// words holding float32 bits, or int64 words holding float64 bits).
+// PVT_R(x) is the literal x in the build's type; pvt_sqrt and the rest are
+// the math library's functions of that type.
+#ifdef PVT_F64
+typedef double pvt_real;
+typedef long long pvt_word;
+#define PVT_R(x) x
+#define PVT_REAL_MAX DBL_MAX
+// Functions of doubles, so that a float argument (a literal such as
+// 0.0f) is converted: a call of the math library's fmax(double, float)
+// would take the host's template in device code.
+PVT_FN double pvt_sqrt(double x) { return sqrt(x); }
+PVT_FN double pvt_fabs(double x) { return fabs(x); }
+PVT_FN double pvt_fmin(double a, double b) { return fmin(a, b); }
+PVT_FN double pvt_fmax(double a, double b) { return fmax(a, b); }
+PVT_FN double pvt_log1p(double x) { return log1p(x); }
+PVT_FN double pvt_expm1(double x) { return expm1(x); }
+PVT_FN double pvt_exp(double x) { return exp(x); }
+PVT_FN double pvt_cos(double x) { return cos(x); }
+PVT_FN double pvt_sin(double x) { return sin(x); }
+PVT_FN double pvt_acos(double x) { return acos(x); }
+PVT_FN double pvt_floor(double x) { return floor(x); }
+#else
+typedef float pvt_real;
+typedef int pvt_word;
+#define PVT_R(x) x##f
+#define PVT_REAL_MAX FLT_MAX
+#define pvt_sqrt sqrtf
+#define pvt_fabs fabsf
+#define pvt_fmin fminf
+#define pvt_fmax fmaxf
+#define pvt_log1p log1pf
+#define pvt_expm1 expm1f
+#define pvt_exp expf
+#define pvt_cos cosf
+#define pvt_sin sinf
+#define pvt_acos acosf
+#define pvt_floor floorf
+#endif
+// Reals, and K5a table words, in 16 bytes: one vector load or store.
+constexpr int kReals16 = (int)(16 / sizeof(pvt_real));
+constexpr int kWords16 = (int)(16 / sizeof(pvt_word));
 
 // ---------------------------------------------------------------------
 // Record layout: mirrors pvtrace_tpu_torch/engine/tables.py (a CPU test
@@ -163,9 +215,9 @@ enum { EV_GENERATE = 0, EV_REFLECT = 1, EV_TRANSMIT = 2, EV_ABSORB = 3, EV_NONRA
        EV_SCATTER = 5, EV_EMIT = 6, EV_EXIT = 7, EV_REACT = 8, EV_KILL = 9 };
 
 #define PVT_INF INFINITY
-#define PVT_TWO_PI 6.283185307179586f
-#define PVT_C_CM_PER_S 2.99792458e10f
-#define PVT_ALPHA_ZERO 1e-8f
+#define PVT_TWO_PI PVT_R(6.283185307179586)
+#define PVT_C_CM_PER_S PVT_R(2.99792458e10)
+#define PVT_ALPHA_ZERO PVT_R(1e-8)
 
 // Reads of the triangles go through the read-only data path: lanes read
 // different rows, which the constant cache would serialise.
@@ -191,6 +243,7 @@ PVT_FN unsigned int pvt_add(unsigned int* p, unsigned int v) {
 
 // Returns *p and sets it to 0, in one atomic step on the card: an add
 // that races with it lands either in the value returned or in the new 0.
+#ifndef PVT_F64
 PVT_FN float pvt_take(float* p) {
 #ifdef __CUDA_ARCH__
   return atomicExch(p, 0.0f);
@@ -200,6 +253,7 @@ PVT_FN float pvt_take(float* p) {
   return v;
 #endif
 }
+#endif
 
 PVT_FN unsigned int pvt_take(unsigned int* p) {
 #ifdef __CUDA_ARCH__
@@ -226,23 +280,33 @@ constexpr unsigned int kCrossFlush = 1u << 30;
 // and retries only where another lane's add came between. Where lanes of
 // one warp add to one address, as tally_event's do, it measured far
 // slower than atomicAdd (PERF.md, section 6): only tally_warp, whose
-// lanes add to different recorders, takes it.
-PVT_FN void pvt_add8(float* p, const float* v) {
+// lanes add to different recorders, takes it. The float64 build's
+// compare-and-swaps are of 64-bit words.
+#ifdef PVT_F64
+typedef unsigned long long PvtRealBits;
+#define PVT_REAL_BITS(x) __double_as_longlong(x)
+#define PVT_BITS_REAL(x) __longlong_as_double(x)
+#else
+typedef unsigned int PvtRealBits;
+#define PVT_REAL_BITS(x) __float_as_uint(x)
+#define PVT_BITS_REAL(x) __uint_as_float(x)
+#endif
+PVT_FN void pvt_add8(pvt_real* p, const pvt_real* v) {
 #ifdef __CUDA_ARCH__
-  unsigned int* w = reinterpret_cast<unsigned int*>(p);
-  unsigned int held[8];
+  PvtRealBits* w = reinterpret_cast<PvtRealBits*>(p);
+  PvtRealBits held[8];
   unsigned int todo = 0u;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    held[k] = reinterpret_cast<volatile unsigned int*>(w)[k];
+    held[k] = reinterpret_cast<volatile PvtRealBits*>(w)[k];
     if (v[k] != 0.0f) todo |= 1u << k;
   }
   while (todo) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       if (!(todo >> k & 1u)) continue;
-      const unsigned int got =
-          atomicCAS(w + k, held[k], __float_as_uint(__uint_as_float(held[k]) + v[k]));
+      const PvtRealBits got =
+          atomicCAS(w + k, held[k], (PvtRealBits)PVT_REAL_BITS(PVT_BITS_REAL(held[k]) + v[k]));
       if (got == held[k]) todo &= ~(1u << k);
       held[k] = got;
     }
@@ -260,24 +324,24 @@ PVT_FN void pvt_add8(float* p, const float* v) {
 // 1]) and its facet test grp_f[g] (GF_*), and every event that matches
 // one of a group's recorders matches them all.
 struct PvtScene {
-  const float* node_f;
+  const pvt_real* node_f;
   const int* node_i;
-  const float* comp_f;
+  const pvt_real* comp_f;
   const int* comp_i;
-  const float* ovr_f;
+  const pvt_real* ovr_f;
   const int* ovr_i;
-  const float* tri_f;
-  const float* light_f;
+  const pvt_real* tri_f;
+  const pvt_real* light_f;
   const int* light_i;
-  const float* spec_pack;
-  const float* ems_icdf_pairs;
-  const float* light_icdf_pairs;
+  const pvt_real* spec_pack;
+  const pvt_real* ems_icdf_pairs;
+  const pvt_real* light_icdf_pairs;
   const int* cheb_slot;
   const int* cheb_ref;
-  const int* cheb_pack;
-  const float* rec_f;
+  const pvt_word* cheb_pack;
+  const pvt_real* rec_f;
   const int* rec_i;
-  const float* hist_f;
+  const pvt_real* hist_f;
   const int* hist_i;
   const int* rec_csr;
   const int* rec_ids;
@@ -299,19 +363,19 @@ struct PvtScene {
   int cheb_words;
   int n_rec;
   int total_bins;
-  float grid_x0;
-  float grid_dx;
-  float maxpathlength;
-  float cheb_tscale;
+  pvt_real grid_x0;
+  pvt_real grid_dx;
+  pvt_real maxpathlength;
+  pvt_real cheb_tscale;
   const int* rec_grp;
   const int* grp_pos;
-  const float* grp_f;
+  const pvt_real* grp_f;
   int n_grp;
   int grp_max;
 };
 
 struct Photon {
-  float px, py, pz, dx, dy, dz, wav, trav, dur;
+  pvt_real px, py, pz, dx, dy, dz, wav, trav, dur;
   int source, count;
   bool alive;
 };
@@ -322,34 +386,34 @@ constexpr int kHeldSlots = 2;
 struct StepOut {
   int hit, container, sel, tnode;
   bool exit_mask, losing, reacting, kills, no_hit_term, have_n, surface_event;
-  float wn[3], c_in;  // hit surface's world normal and |cos| on surface events
+  pvt_real wn[3], c_in;  // hit surface's world normal and |cos| on surface events
   // What the event log records besides (step_one with kLog), and what the
   // score channels read (with kScore; the shared fields with either)
   int adjacent, comp, source_pre;
   bool kill_max, adj_bad, absorbed, emitting, scattering, reflecting, transmitting;
-  float dur_adv;
+  pvt_real dur_adv;
   // The score channels' inputs (kScore): alive after the no-hit and kill
   // masks, the distance moved, the container's total attenuation, and on
   // a surface event the two indices, the reflectivity after the overrides
   // and whether the reflect/transmit was a Fresnel coin.
   bool moving, fres_coin;
-  float advance, alpha, n1r, n2r, refl_r;
+  pvt_real advance, alpha, n1r, n2r, refl_r;
   // What the pathwise channels' tangent map reads besides (kPath): the
   // nearest hit's distance, its candidate and a mesh hit's triangle, the
   // facet override (-1 for none), TIR, and whether the volume event was
   // radiative (and with `emitting`, an emission).
-  float t0;
+  pvt_real t0;
   int cand, tri, mode;
   bool tir, radiative;
   // The container's cumulative K5a slots 0 .. kHeldSlots - 1 at the
   // incoming wavelength (alpha_slot; read by the roulette and kScore).
-  float held[kHeldSlots];
+  pvt_real held[kHeldSlots];
 };
 
 // Structure-of-arrays lane state and flags of pvt_emit / pvt_step (field
 // order mirrored by the ctypes Structures of kernels/__init__.py).
 struct PvtState {
-  float *px, *py, *pz, *dx, *dy, *dz, *wav, *trav, *dur;
+  pvt_real *px, *py, *pz, *dx, *dy, *dz, *wav, *trav, *dur;
   int *source, *count;
   unsigned char* alive;
   long long *k0, *k1;
@@ -360,7 +424,7 @@ struct PvtFlags {
   unsigned char *exit_mask, *losing, *reacting, *kills, *no_hit_term;
   int *sel, *tnode;
   unsigned char *have_n, *surface_event;
-  float *wnx, *wny, *wnz, *c_in;
+  pvt_real *wnx, *wny, *wnz, *c_in;
 };
 
 struct FateCounts {
@@ -374,10 +438,12 @@ struct FateCounts {
 // totals (the host adds to `cross`, cross32 null). The float32 sums of a
 // recorder move into the float64 sums64 whenever its distinct rays pass
 // a multiple of SUMS_FLUSH (recorder_add), so none holds more than
-// SUMS_FLUSH addends however many photons the block traces.
+// SUMS_FLUSH addends however many photons the block traces. The float64
+// build adds straight into its double sums, as the JAX package adds in
+// the run's dtype, and moves nothing (sums64 unused).
 struct PvtTally {
   unsigned long long* cross;
-  float* sums;
+  pvt_real* sums;
   unsigned int* distinct;
   unsigned int* bins32;
   unsigned long long* bins64;
@@ -401,7 +467,7 @@ struct PvtTallyOut {
 // than the counts. Field order mirrored by ctypes.
 struct PvtLog {
   int* ints;
-  float* floats;
+  pvt_real* floats;
   long long n_slots;
   int max_events;
   unsigned int every;
@@ -432,16 +498,16 @@ struct PvtLog {
 // (score and tangents) in its shared memory; set by the launch, whether
 // they are there (trace_layout), `rows` and `tang` then left unused.
 struct PvtScore {
-  float* rows;
+  pvt_real* rows;
   double* fate_scores;
   double* rec_scores;
   long long stride;
   int ch;
   int n_comps;
   int shared;
-  float* photon;
+  pvt_real* photon;
   long long photon_n;
-  float* tang;
+  pvt_real* tang;
   const int* path;
   int n_path;
   int shared_rows;
@@ -453,7 +519,7 @@ struct PvtScore {
 // loads of a warp's consecutive pids coalesce). rows null: each photon is
 // emitted on the device (emit_one). Field order mirrored by ctypes.
 struct PvtBundle {
-  const float* rows;
+  const pvt_real* rows;
   long long n;
   unsigned long long first;
 };
@@ -463,16 +529,16 @@ struct PvtBundle {
 // rows are a column of `rows` and `tang` (stride s.stride), or of the
 // block's shared copy (stride kBlock): channel c at row[c * stride].
 struct ScoreAcc {
-  float* row;
+  pvt_real* row;
   double* fate;
   double* rec;
   long long stride;
   int ch;
   int n_comps;
   int n_rec;
-  float* photon;
+  pvt_real* photon;
   long long photon_n;
-  float* tang;
+  pvt_real* tang;
   const int* path;
   int n_path;
 };
@@ -495,10 +561,17 @@ constexpr int kBlock = 256;
 // device memory.
 constexpr size_t kSharedTallyLimit = 96 * 1024;
 
-// Bytes of a block's K9 accumulators: crossings u32 [R], sums f32 [8R],
-// distinct u32 [R], then the bins u32 [total_bins] when they are shared.
+// Bytes of a block's K9 accumulators: crossings u32 [R], sums [8R] of
+// pvt_real, distinct u32 [R], then the bins u32 [total_bins] when they are
+// shared; the float64 build keeps its 8-byte sums first, aligned. Their
+// offsets, in bytes per recorder:
+#ifdef PVT_F64
+constexpr size_t kTallySums = 0, kTallyCross = 64, kTallyDistinct = 68, kTallyBins = 72;
+#else
+constexpr size_t kTallyCross = 0, kTallySums = 4, kTallyDistinct = 36, kTallyBins = 40;
+#endif
 PVT_FN size_t tally_bytes(const PvtScene& sc, bool shared_bins) {
-  return 40 * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
+  return kTallyBins * (size_t)sc.n_rec + (shared_bins ? 4 * (size_t)sc.total_bins : 0);
 }
 
 // Bytes of a block's K12 accumulators when they are shared: float64
@@ -525,7 +598,7 @@ PVT_FN size_t score_offset(const PvtScene& sc, bool tally, int shared_bins) {
 // of its threads, thread-minor (thread t's channel c at c * kBlock + t, so
 // a warp's accesses fall in 32 banks).
 PVT_FN size_t rows_bytes(const PvtScore& s) {
-  return 4 * (size_t)kBlock * ((size_t)s.ch + 7 * (size_t)s.n_path);
+  return sizeof(pvt_real) * (size_t)kBlock * ((size_t)s.ch + 7 * (size_t)s.n_path);
 }
 
 // Offset of the rows: after the score sums (s.shared placed), 16-byte
@@ -537,11 +610,14 @@ PVT_FN size_t rows_offset(const PvtScene& sc, bool tally, int shared_bins, const
 // Bytes of the scene's K5a table (cheb_pack) when a run reads it: some
 // lookup takes K5a.
 PVT_FN size_t cheb_bytes(const PvtScene& sc) {
-  return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? 4 * (size_t)sc.cheb_words : 0;
+  return sc.cheb_spec || sc.cheb_icdf || sc.cheb_light ? sizeof(pvt_word) * (size_t)sc.cheb_words
+                                                       : 0;
 }
 
 // Bytes of the scene's mesh triangles (tri_f).
-PVT_FN size_t tris_bytes(const PvtScene& sc) { return 4 * TRI_F * (size_t)sc.n_tris; }
+PVT_FN size_t tris_bytes(const PvtScene& sc) {
+  return sizeof(pvt_real) * TRI_F * (size_t)sc.n_tris;
+}
 
 // A trace block's placement: whether the recorder bins, the score sums and
 // the rows are in shared memory, where the K5a table and the triangles
@@ -616,6 +692,8 @@ PVT_FN void threefry(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
   o1 = x1;
 }
 
+// A uniform in [0, 1) from a word's top 23 bits, in float32 in every
+// build (the JAX package's _uniform32).
 PVT_FN float pvt_uniform(uint32_t bits) {
   uint32_t f = (bits >> 9) | 0x3F800000u;
 #ifdef __CUDA_ARCH__
@@ -630,7 +708,7 @@ PVT_FN float pvt_uniform(uint32_t bits) {
 // 2n uniforms from counters (c0, first + j), j < n. Returns the threefry
 // calls it made (pvt_draws counts them; unused elsewhere).
 PVT_FN int pvt_draw(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t first,
-                    int n, float* u) {
+                    int n, pvt_real* u) {
   int calls = 0;
   for (int j = 0; j < n; ++j) {
     uint32_t w0, w1;
@@ -671,7 +749,7 @@ PVT_FN unsigned emit_pairs(const PvtScene& sc) {
 // three as pvt_draw draws them (three chains the compiler interleaves; a
 // pair at a time ran 1.9 % slower on the mixed scene, whose lamps read all
 // three), else the pairs one by one. Returns the threefry calls it made.
-PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, float* u) {
+PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, pvt_real* u) {
   if (need == 7u) return pvt_draw(k0, k1, 0u, 16u, 3, u);
   int calls = 0;
 #pragma unroll
@@ -688,29 +766,32 @@ PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, float* u) {
 
 // ---------------------------------------------------------------------
 // K5b: lerps in the spectral tables.
-PVT_FN float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+PVT_FN pvt_real clampf(pvt_real x, pvt_real lo, pvt_real hi) {
+  return pvt_fmin(pvt_fmax(x, lo), hi);
+}
 
 // Inverse-CDF lerp in rows [base, base + M) of a pairs table (fraction
 // not clipped; the float is clamped before the integer cast).
-PVT_FN float lerp_pairs(const float* pairs, int base, int M, float gamma) {
-  float g = gamma * (float)(M - 1);
-  int j0 = (int)clampf(g, 0.0f, (float)(M - 2));
-  float gfrac = g - (float)j0;
-  const float* p = pairs + 2 * (size_t)(base + j0);
+PVT_FN pvt_real lerp_pairs(const pvt_real* pairs, int base, int M, pvt_real gamma) {
+  pvt_real g = gamma * (pvt_real)(M - 1);
+  int j0 = (int)clampf(g, 0.0f, (pvt_real)(M - 2));
+  pvt_real gfrac = g - (pvt_real)j0;
+  const pvt_real* p = pairs + 2 * (size_t)(base + j0);
   return p[0] + gfrac * (p[1] - p[0]);
 }
 
 // Slot w of spec_pack row `row` at fraction `frac`.
-PVT_FN float spec_lerp(const PvtScene& sc, int row, int w, float frac) {
-  const float* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
+PVT_FN pvt_real spec_lerp(const PvtScene& sc, int row, int w, pvt_real frac) {
+  const pvt_real* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
   return p[0] + frac * (p[1] - p[0]);
 }
 
 // ---------------------------------------------------------------------
 // K5a: piecewise-Chebyshev fits (engine/chebyshev.py), read from the
-// packed table cheb_pack (engine/tables.py): 16-byte fit and segment
-// records, each piecewise fit's interior breakpoints, and each segment's
-// coefficients from the highest degree down from a 16-byte boundary.
+// packed table cheb_pack (engine/tables.py): fit and segment records of
+// four words (16 bytes; 32 in the float64 build, whose words are 8),
+// each piecewise fit's interior breakpoints, and each segment's
+// coefficients from the highest degree down from a record's boundary.
 // Replaces _clenshaw / _eval_fit (pvtrace_tpu/engine/tracer.py). The
 // trace kernels copy the table into a block's shared memory when it fits
 // there, else read it in device memory (trace_kernel.cuh); `tab` points at
@@ -721,31 +802,41 @@ PVT_FN float spec_lerp(const PvtScene& sc, int row, int w, float frac) {
 // of ceil(log2 nseg) steps in place of a scan of every segment. NaN t
 // selects none (0.0) in a fit of more than one segment, as the masks do.
 // Then one Clenshaw chain of the segment's degree, four coefficients to a
-// 16-byte load ahead of their dependent FMAs. Bound by operations (the
+// 16-byte load (two in the float64 build) ahead of their dependent FMAs. Bound by operations (the
 // search's steps and the chain's FMAs; about a third fewer instructions a
 // fit than the scan took); the table stays in shared memory or L1.
 
-// A word of the K5a table as the float whose bits it holds.
-PVT_FN float pvt_word_float(int w) {
-#ifdef __CUDA_ARCH__
+// A word of the K5a table as the real whose bits it holds.
+PVT_FN pvt_real pvt_word_real(pvt_word w) {
+#if defined(__CUDA_ARCH__) && defined(PVT_F64)
+  return __longlong_as_double(w);
+#elif defined(__CUDA_ARCH__)
   return __int_as_float(w);
 #else
-  float v;
+  pvt_real v;
   memcpy(&v, &w, sizeof v);
   return v;
 #endif
 }
 
-// Four words of the K5a table from a 16-byte boundary, as floats.
-PVT_FN void pvt_load4(const int* p, float* c) {
-#ifdef __CUDA_ARCH__
+// Four words of the K5a table from a 16-byte boundary, as reals: one
+// 16-byte load, two in the float64 build.
+PVT_FN void pvt_load4(const pvt_word* p, pvt_real* c) {
+#if defined(__CUDA_ARCH__) && defined(PVT_F64)
+  const double2 q0 = *reinterpret_cast<const double2*>(p);
+  const double2 q1 = *reinterpret_cast<const double2*>(p + 2);
+  c[0] = q0.x;
+  c[1] = q0.y;
+  c[2] = q1.x;
+  c[3] = q1.y;
+#elif defined(__CUDA_ARCH__)
   const float4 q = *reinterpret_cast<const float4*>(p);
   c[0] = q.x;
   c[1] = q.y;
   c[2] = q.z;
   c[3] = q.w;
 #else
-  memcpy(c, p, 4 * sizeof(float));
+  memcpy(c, p, 4 * sizeof(pvt_real));
 #endif
 }
 
@@ -760,42 +851,43 @@ PVT_FN int pvt_top_pow2(int n) {
 
 // Word offset in `tab` of fit `fit`'s segment record for t (-1: none):
 // the count of its interior breakpoints <= t, by halving steps.
-PVT_FN int cheb_segment(const int* tab, int fit, float t) {
-  const int* fr = tab + CHEB_REC * fit;
-  const int nb = fr[FR_NSEG] - 1;
+PVT_FN int cheb_segment(const pvt_word* tab, int fit, pvt_real t) {
+  const pvt_word* fr = tab + CHEB_REC * fit;
+  const int nb = (int)fr[FR_NSEG] - 1;
   int s = 0;
   if (nb > 0) {
     if (t != t) return -1;
-    const int* brk = tab + fr[FR_BRK];
+    const pvt_word* brk = tab + fr[FR_BRK];
     for (int step = pvt_top_pow2(nb); step > 0; step >>= 1) {
       const int j = s + step;
-      if (j <= nb && pvt_word_float(brk[j - 1]) <= t) s = j;
+      if (j <= nb && pvt_word_real(brk[j - 1]) <= t) s = j;
     }
   }
-  return fr[FR_SEG] + CHEB_REC * s;
+  return (int)fr[FR_SEG] + CHEB_REC * s;
 }
 
 // One Clenshaw step with coefficient c.
-PVT_FN void cheb_step(float ts, float c, float& b1, float& b2) {
-  const float nb = 2.0f * ts * b1 - b2 + c;
+PVT_FN void cheb_step(pvt_real ts, pvt_real c, pvt_real& b1, pvt_real& b2) {
+  const pvt_real nb = 2.0f * ts * b1 - b2 + c;
   b2 = b1;
   b1 = nb;
 }
 
 // Fit `fit` of the table `tab` at t: its segment's Clenshaw chain in whole
-// 16-byte chunks of four steps, then the last deg mod 4 steps and c_0.
-PVT_CALLED_FN float cheb_eval(const int* tab, int fit, float t) {
+// chunks of four steps (a record's width), then the last deg mod 4 steps
+// and c_0.
+PVT_CALLED_FN pvt_real cheb_eval(const pvt_word* tab, int fit, pvt_real t) {
   const int s = cheb_segment(tab, fit, t);
   if (s < 0) return 0.0f;
-  const int* sr = tab + s;
-  const int info = sr[SR_DEG], deg = info & SEG_DEG_MASK;
-  const float ts =
+  const pvt_word* sr = tab + s;
+  const int info = (int)sr[SR_DEG], deg = info & SEG_DEG_MASK;
+  const pvt_real ts =
       info & SEG_MAP
-          ? clampf((t - pvt_word_float(sr[SR_A])) * pvt_word_float(sr[SR_SCALE]) - 1.0f, -1.0f,
+          ? clampf((t - pvt_word_real(sr[SR_A])) * pvt_word_real(sr[SR_SCALE]) - 1.0f, -1.0f,
                    1.0f)
           : t;
-  const int* c = tab + sr[SR_COEF];
-  float b1 = 0.0f, b2 = 0.0f, q[4];
+  const pvt_word* c = tab + sr[SR_COEF];
+  pvt_real b1 = 0.0f, b2 = 0.0f, q[4];
   int j = 0;
   for (; j + 4 <= deg; j += 4) {
     pvt_load4(c + j, q);
@@ -803,30 +895,31 @@ PVT_CALLED_FN float cheb_eval(const int* tab, int fit, float t) {
     for (int e = 0; e < 4; ++e) cheb_step(ts, q[e], b1, b2);
   }
   pvt_load4(c + j, q);  // the last deg - j < 4 steps, then c_0
-  float c0 = q[0];
+  pvt_real c0 = q[0];
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     if (j + e < deg) cheb_step(ts, q[e], b1, b2);
     if (j + e + 1 == deg) c0 = q[e + 1];
   }
-  float v = ts * b1 - b2 + c0;
-  if (info & SEG_LOG) v = expf(v) - pvt_word_float(tab[CHEB_REC * fit + FR_OFF]);
+  pvt_real v = ts * b1 - b2 + c0;
+  if (info & SEG_LOG) v = pvt_exp(v) - pvt_word_real(tab[CHEB_REC * fit + FR_OFF]);
   return v;
 }
 
 // The sum of the fits of K5a slot w of `container` at t, in the slot's
 // order (a cumulative slot lists its components' fits).
-PVT_FN float slot_fits(const PvtScene& sc, const int* cheb, int container, int w, float t) {
+PVT_FN pvt_real slot_fits(const PvtScene& sc, const pvt_word* cheb, int container, int w,
+                          pvt_real t) {
   const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
-  float v = 0.0f;
+  pvt_real v = 0.0f;
   for (int q = 0; q < slot[1]; ++q) v += cheb_eval(cheb, sc.cheb_ref[slot[0] + q], t);
   return v;
 }
 
 // Spectral slot w of the lane's container: K5a (the sum of the slot's
 // fits at t) when the scene takes it, else K5b (the lerp in row `row`).
-PVT_FN float spec_slot(const PvtScene& sc, const int* cheb, int container, int row, int w,
-                       float frac, float t) {
+PVT_FN pvt_real spec_slot(const PvtScene& sc, const pvt_word* cheb, int container, int row, int w,
+                          pvt_real frac, pvt_real t) {
   return sc.cheb_spec ? slot_fits(sc, cheb, container, w, t) : spec_lerp(sc, row, w, frac);
 }
 
@@ -836,11 +929,11 @@ PVT_FN float spec_slot(const PvtScene& sc, const int* cheb, int container, int r
 // slot k the first k + 1 of slot K - 1's fits, in the same order; the host
 // checks it), and held[k] keeps it for k < kHeldSlots: the roulette and
 // the score channels read those (cum_slot) and evaluate nothing again.
-PVT_FN float alpha_slot(const PvtScene& sc, const int* cheb, int container, int row, int K,
-                        float frac, float t, float* held) {
+PVT_FN pvt_real alpha_slot(const PvtScene& sc, const pvt_word* cheb, int container, int row, int K,
+                           pvt_real frac, pvt_real t, pvt_real* held) {
   if (!sc.cheb_spec) return spec_lerp(sc, row, K - 1, frac);
   const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + K - 1);
-  float v = 0.0f;
+  pvt_real v = 0.0f;
   for (int q = 0; q < slot[1]; ++q) {
     v += cheb_eval(cheb, sc.cheb_ref[slot[0] + q], t);
 #pragma unroll
@@ -855,11 +948,11 @@ PVT_FN float alpha_slot(const PvtScene& sc, const int* cheb, int container, int 
 // node of more than kHeldSlots + 1 components slot k's fits evaluated
 // again (registers hold kHeldSlots values; an array indexed by k would
 // live in local memory on every step).
-PVT_FN float cum_slot(const PvtScene& sc, const int* cheb, const float* held, int container,
-                      int row, int k, float frac, float t) {
+PVT_FN pvt_real cum_slot(const PvtScene& sc, const pvt_word* cheb, const pvt_real* held,
+                         int container, int row, int k, pvt_real frac, pvt_real t) {
   if (!sc.cheb_spec) return spec_lerp(sc, row, k, frac);
   if (k >= kHeldSlots) return slot_fits(sc, cheb, container, k, t);
-  float v = held[0];
+  pvt_real v = held[0];
 #pragma unroll
   for (int j = 1; j < kHeldSlots; ++j)
     if (k == j) v = held[j];
@@ -867,63 +960,63 @@ PVT_FN float cum_slot(const PvtScene& sc, const int* cheb, const float* held, in
 }
 
 // Henyey-Greenstein cosine for s = 2u - 1 (|g| >= 1e-12).
-PVT_FN float hg_mu(float g, float s) {
-  float q = (1.0f - g * g) / (1.0f + g * s);
+PVT_FN pvt_real hg_mu(pvt_real g, pvt_real s) {
+  pvt_real q = (1.0f - g * g) / (1.0f + g * s);
   return clampf((1.0f + g * g - q * q) / (2.0f * g), -1.0f, 1.0f);
 }
 
 // ---------------------------------------------------------------------
 // K2: emission of photon `pid` with key (k0, k1), from the emission pairs
 // of `need` (emit_draws), which hold every pair its lamp reads.
-PVT_FN void emit_one(const PvtScene& sc, const int* cheb, uint32_t k0, uint32_t k1,
+PVT_FN void emit_one(const PvtScene& sc, const pvt_word* cheb, uint32_t k0, uint32_t k1,
                      uint32_t pid, unsigned need, Photon& p) {
-  float u[6];
+  pvt_real u[6];
   emit_draws(k0, k1, need, u);
   const int li = (int)(pid % (uint32_t)sc.n_lights);
-  const float* lf = sc.light_f + li * LIGHT_F;
+  const pvt_real* lf = sc.light_f + li * LIGHT_F;
   const int* lk = sc.light_i + li * LIGHT_I;
-  float w = lf[LF_WAV];
+  pvt_real w = lf[LF_WAV];
   if (lk[LI_WAV] != WAV_CONST)
     w = sc.cheb_light ? cheb_eval(cheb, sc.cheb_light0 + lk[LI_ROW], 2.0f * u[0] - 1.0f)
                       : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n, sc.icdf_n, u[0]);
-  const float a = lf[LF_POS], b = lf[LF_POS + 1], c = lf[LF_POS + 2];
-  float lx = 0.0f, ly = 0.0f, lz = 0.0f;
+  const pvt_real a = lf[LF_POS], b = lf[LF_POS + 1], c = lf[LF_POS + 2];
+  pvt_real lx = 0.0f, ly = 0.0f, lz = 0.0f;
   if (lk[LI_POS] == POS_RECT) {
     lx = (2.0f * u[1] - 1.0f) * a;
     ly = (2.0f * u[2] - 1.0f) * b;
   } else if (lk[LI_POS] == POS_CIRCLE) {
-    float r = sqrtf(u[1]) * a;
-    float ang = PVT_TWO_PI * u[2];
-    lx = r * cosf(ang);
-    ly = r * sinf(ang);
+    pvt_real r = pvt_sqrt(u[1]) * a;
+    pvt_real ang = PVT_TWO_PI * u[2];
+    lx = r * pvt_cos(ang);
+    ly = r * pvt_sin(ang);
   } else if (lk[LI_POS] != POS_DEFAULT) {
     lx = (2.0f * u[1] - 1.0f) * a;
     ly = (2.0f * u[2] - 1.0f) * b;
     lz = (2.0f * u[3] - 1.0f) * c;
   }
-  float ldx = 0.0f, ldy = 0.0f, ldz = 1.0f;
+  pvt_real ldx = 0.0f, ldy = 0.0f, ldz = 1.0f;
   const int dk = lk[LI_DIR];
   if (dk != DIR_DEFAULT) {
-    float mu, st;
+    pvt_real mu, st;
     if (dk == DIR_CONE) {
-      st = sqrtf(u[4]) * lf[LF_SIN_DIR];
-      mu = sqrtf(fmaxf(1.0f - st * st, 0.0f));
+      st = pvt_sqrt(u[4]) * lf[LF_SIN_DIR];
+      mu = pvt_sqrt(pvt_fmax(1.0f - st * st, 0.0f));
     } else if (dk == DIR_ISOTROPIC) {
       mu = 2.0f * u[4] - 1.0f;
-      st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+      st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
     } else if (dk == DIR_LAMBERTIAN) {
-      st = sqrtf(u[4]);
-      mu = sqrtf(fmaxf(1.0f - u[4], 0.0f));
+      st = pvt_sqrt(u[4]);
+      mu = pvt_sqrt(pvt_fmax(1.0f - u[4], 0.0f));
     } else {
       mu = hg_mu(lf[LF_DIR], 2.0f * u[4] - 1.0f);
-      st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
+      st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
     }
-    float phi = PVT_TWO_PI * u[5];
-    ldx = st * cosf(phi);
-    ldy = st * sinf(phi);
+    pvt_real phi = PVT_TWO_PI * u[5];
+    ldx = st * pvt_cos(phi);
+    ldy = st * pvt_sin(phi);
     ldz = mu;
   }
-  const float* m = lf + LF_MAT;
+  const pvt_real* m = lf + LF_MAT;
   p.px = m[0] * lx + m[1] * ly + m[2] * lz + m[3];
   p.py = m[4] * lx + m[5] * ly + m[6] * lz + m[7];
   p.pz = m[8] * lx + m[9] * ly + m[10] * lz + m[11];
@@ -941,7 +1034,7 @@ PVT_FN void emit_one(const PvtScene& sc, const int* cheb, uint32_t k0, uint32_t 
 // K8's host-bundle start: photon pid's row of the bundle, in the state
 // emit_one leaves (source -1, count 0, alive; _run's init).
 PVT_FN void load_one(const PvtBundle& b, uint32_t pid, Photon& p) {
-  const float* r = b.rows + ((unsigned long long)pid - b.first);
+  const pvt_real* r = b.rows + ((unsigned long long)pid - b.first);
   p.px = r[0];
   p.py = r[b.n];
   p.pz = r[2 * b.n];
@@ -959,21 +1052,21 @@ PVT_FN void load_one(const PvtBundle& b, uint32_t pid, Photon& p) {
 // ---------------------------------------------------------------------
 // K3: forward-hit candidates of one node in its local frame. Writes up
 // to four (t, valid) pairs in candidate order and returns their number.
-PVT_FN int intersect_node(int gtype, const float* gp, const float* o,
-                          const float* d, float eps, float* t, bool* v) {
+PVT_FN int intersect_node(int gtype, const pvt_real* gp, const pvt_real* o,
+                          const pvt_real* d, pvt_real eps, pvt_real* t, bool* v) {
   if (gtype == GEOM_BOX) {
-    float tmin = -PVT_INF, tmax = PVT_INF;
+    pvt_real tmin = -PVT_INF, tmax = PVT_INF;
     bool miss = false;
     for (int k = 0; k < 3; ++k) {
-      const float h = 0.5f * gp[k], oo = o[k], dd = d[k];
-      const bool par = fabsf(dd) < 1e-30f;
-      const float inv = 1.0f / (par ? 1.0f : dd);
-      const float t1 = (-h - oo) * inv, t2 = (h - oo) * inv;
-      const float lo = par ? -PVT_INF : fminf(t1, t2);
-      const float hi = par ? PVT_INF : fmaxf(t1, t2);
+      const pvt_real h = 0.5f * gp[k], oo = o[k], dd = d[k];
+      const bool par = pvt_fabs(dd) < PVT_R(1e-30);
+      const pvt_real inv = 1.0f / (par ? 1.0f : dd);
+      const pvt_real t1 = (-h - oo) * inv, t2 = (h - oo) * inv;
+      const pvt_real lo = par ? -PVT_INF : pvt_fmin(t1, t2);
+      const pvt_real hi = par ? PVT_INF : pvt_fmax(t1, t2);
       miss = miss || (par && (oo < -h || oo > h));
-      tmin = fmaxf(tmin, lo);
-      tmax = fminf(tmax, hi);
+      tmin = pvt_fmax(tmin, lo);
+      tmax = pvt_fmin(tmax, hi);
     }
     const bool ok = tmax >= tmin && !miss;
     t[0] = tmin;
@@ -983,40 +1076,40 @@ PVT_FN int intersect_node(int gtype, const float* gp, const float* o,
     return 2;
   }
   if (gtype == GEOM_SPHERE) {
-    const float r = gp[0];
-    const float a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-    const float b = 2.0f * (d[0] * o[0] + d[1] * o[1] + d[2] * o[2]);
-    const float c = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - r * r;
-    const float disc = b * b - 4.0f * a * c;
+    const pvt_real r = gp[0];
+    const pvt_real a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    const pvt_real b = 2.0f * (d[0] * o[0] + d[1] * o[1] + d[2] * o[2]);
+    const pvt_real c = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] - r * r;
+    const pvt_real disc = b * b - 4.0f * a * c;
     const bool ok = disc >= 0.0f;
-    const float sq = sqrtf(ok ? disc : 0.0f);
+    const pvt_real sq = pvt_sqrt(ok ? disc : 0.0f);
     t[0] = (-b - sq) / (2.0f * a);
     t[1] = (-b + sq) / (2.0f * a);
     v[0] = ok && t[0] > eps;
     v[1] = ok && t[1] > eps;
     return 2;
   }
-  const float half = 0.5f * gp[0], r = gp[1];
-  const float a = d[0] * d[0] + d[1] * d[1];
-  const bool hasb = a > 1e-30f;
-  const float sa = hasb ? a : 1.0f;
-  const float b = 2.0f * (o[0] * d[0] + o[1] * d[1]);
-  const float c = o[0] * o[0] + o[1] * o[1] - r * r;
-  const float disc = b * b - 4.0f * a * c;
+  const pvt_real half = 0.5f * gp[0], r = gp[1];
+  const pvt_real a = d[0] * d[0] + d[1] * d[1];
+  const bool hasb = a > PVT_R(1e-30);
+  const pvt_real sa = hasb ? a : 1.0f;
+  const pvt_real b = 2.0f * (o[0] * d[0] + o[1] * d[1]);
+  const pvt_real c = o[0] * o[0] + o[1] * o[1] - r * r;
+  const pvt_real disc = b * b - 4.0f * a * c;
   const bool ok = hasb && disc >= 0.0f;
-  const float sq = sqrtf(disc >= 0.0f ? disc : 0.0f);
+  const pvt_real sq = pvt_sqrt(disc >= 0.0f ? disc : 0.0f);
   t[0] = (-b - sq) / (2.0f * sa);
   t[1] = (-b + sq) / (2.0f * sa);
   for (int k = 0; k < 2; ++k) {
-    const float z = o[2] + t[k] * d[2];
+    const pvt_real z = o[2] + t[k] * d[2];
     v[k] = ok && z > -half && z < half && t[k] > eps;
   }
-  const bool hasc = fabsf(d[2]) > 1e-30f;
-  const float sdz = hasc ? d[2] : 1.0f;
+  const bool hasc = pvt_fabs(d[2]) > PVT_R(1e-30);
+  const pvt_real sdz = hasc ? d[2] : 1.0f;
   for (int k = 0; k < 2; ++k) {
-    const float zcap = k == 0 ? -half : half;
-    const float tc = (zcap - o[2]) / sdz;
-    const float x = o[0] + tc * d[0], y = o[1] + tc * d[1];
+    const pvt_real zcap = k == 0 ? -half : half;
+    const pvt_real tc = (zcap - o[2]) / sdz;
+    const pvt_real x = o[0] + tc * d[0], y = o[1] + tc * d[1];
     t[2 + k] = tc;
     v[2 + k] = hasc && x * x + y * y <= r * r && tc > eps;
   }
@@ -1037,32 +1130,32 @@ PVT_FN int intersect_node(int gtype, const float* gp, const float* o,
 // shared copy (stage_tris, trace_kernel.cuh) where it fit, else into
 // device memory, read through the same generic loads. Inlined: only the
 // kMesh instantiations and pvt_mesh call it.
-PVT_FN int mesh_nearest_two(const float* tri, int n_tris, const float* o, const float* d,
-                            float eps, float* t1_out, float* t2_out, int* first_out) {
-  float t1 = PVT_INF, t2 = PVT_INF;
+PVT_FN int mesh_nearest_two(const pvt_real* tri, int n_tris, const pvt_real* o, const pvt_real* d,
+                            pvt_real eps, pvt_real* t1_out, pvt_real* t2_out, int* first_out) {
+  pvt_real t1 = PVT_INF, t2 = PVT_INF;
   int cnt = 0, first = -1;
   for (int k = 0; k < n_tris; ++k) {
-    const float* r = tri + (size_t)k * TRI_F;
-    const float a0 = r[TF_V0], a1 = r[TF_V0 + 1], a2 = r[TF_V0 + 2];
-    const float e10 = r[TF_E1], e11 = r[TF_E1 + 1], e12 = r[TF_E1 + 2];
-    const float e20 = r[TF_E2], e21 = r[TF_E2 + 1], e22 = r[TF_E2 + 2];
-    const float pvx = d[1] * e22 - d[2] * e21;
-    const float pvy = d[2] * e20 - d[0] * e22;
-    const float pvz = d[0] * e21 - d[1] * e20;
-    const float det = e10 * pvx + e11 * pvy + e12 * pvz;
-    const bool ok = fabsf(det) > 1e-14f;
-    const float inv = 1.0f / (ok ? det : 1.0f);
-    const float tvx = o[0] - a0, tvy = o[1] - a1, tvz = o[2] - a2;
-    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-    const float qvx = tvy * e12 - tvz * e11;
-    const float qvy = tvz * e10 - tvx * e12;
-    const float qvz = tvx * e11 - tvy * e10;
-    const float v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
-    const float th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv;
-    const bool hit = ok && u >= -1e-12f && v >= -1e-12f && u + v <= (float)(1.0 + 1e-12) &&
-                     th > eps;
+    const pvt_real* r = tri + (size_t)k * TRI_F;
+    const pvt_real a0 = r[TF_V0], a1 = r[TF_V0 + 1], a2 = r[TF_V0 + 2];
+    const pvt_real e10 = r[TF_E1], e11 = r[TF_E1 + 1], e12 = r[TF_E1 + 2];
+    const pvt_real e20 = r[TF_E2], e21 = r[TF_E2 + 1], e22 = r[TF_E2 + 2];
+    const pvt_real pvx = d[1] * e22 - d[2] * e21;
+    const pvt_real pvy = d[2] * e20 - d[0] * e22;
+    const pvt_real pvz = d[0] * e21 - d[1] * e20;
+    const pvt_real det = e10 * pvx + e11 * pvy + e12 * pvz;
+    const bool ok = pvt_fabs(det) > PVT_R(1e-14);
+    const pvt_real inv = 1.0f / (ok ? det : 1.0f);
+    const pvt_real tvx = o[0] - a0, tvy = o[1] - a1, tvz = o[2] - a2;
+    const pvt_real u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+    const pvt_real qvx = tvy * e12 - tvz * e11;
+    const pvt_real qvy = tvz * e10 - tvx * e12;
+    const pvt_real qvz = tvx * e11 - tvy * e10;
+    const pvt_real v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
+    const pvt_real th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv;
+    const bool hit = ok && u >= -PVT_R(1e-12) && v >= -PVT_R(1e-12) &&
+                     u + v <= (pvt_real)(1.0 + 1e-12) && th > eps;
     cnt += hit;
-    const float tv = hit ? th : PVT_INF;
+    const pvt_real tv = hit ? th : PVT_INF;
     if (tv < t1) {
       t2 = t1;
       t1 = tv;
@@ -1078,19 +1171,19 @@ PVT_FN int mesh_nearest_two(const float* tri, int n_tris, const float* o, const 
 }
 
 // The face normal of triangle `first` of `tri`, (0, 0, 1) for -1.
-PVT_FN void mesh_normal(const float* tri, int first, float* nrm) {
+PVT_FN void mesh_normal(const pvt_real* tri, int first, pvt_real* nrm) {
   for (int k = 0; k < 3; ++k)
     nrm[k] = first >= 0 ? PVT_LDG(tri + (size_t)first * TRI_F + TF_N + k) : (k == 2 ? 1.0f : 0.0f);
 }
 
 struct Hits {
-  float t0;        // nearest forward hit distance
+  pvt_real t0;        // nearest forward hit distance
   int hit;         // its node
   int container;   // node the photon is in
   int adjacent;    // node across the hit surface (-1 when there is none)
   int nhits;       // forward hits over all nodes
-  float lo[3];     // ray in the hit node's local frame
-  float ld[3];
+  pvt_real lo[3];     // ray in the hit node's local frame
+  pvt_real ld[3];
   int tri;         // a mesh hit node's nearest triangle (its row in tri_f)
   int cand;        // the candidate of the hit node that gave t0 (kPath)
 };
@@ -1104,14 +1197,14 @@ struct Hits {
 // triangles where a block staged them, null for sc.tri_f.
 template <bool kMesh, bool kPath = false>
 PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
-                            const float* tris = nullptr) {
-  float t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
+                            const pvt_real* tris = nullptr) {
+  pvt_real t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
   int n1 = 0, n2 = 0, cont_n = 0, nhits = 0;
   for (int n = 0; n < sc.n_nodes; ++n) {
-    const float* nf = sc.node_f + n * NODE_F;
+    const pvt_real* nf = sc.node_f + n * NODE_F;
     const int* ni = sc.node_i + n * NODE_I;
-    const float* R = nf + NF_W2L;
-    float o[3], d[3], t[4];
+    const pvt_real* R = nf + NF_W2L;
+    pvt_real o[3], d[3], t[4];
     bool v[4];
     int tri = -1;
     for (int k = 0; k < 3; ++k) {
@@ -1120,7 +1213,7 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
     }
     int nc, cnt_n = 0;
     if (kMesh && ni[NI_GEOM] == GEOM_MESH) {
-      const float* rows = (tris ? tris : sc.tri_f) + (size_t)ni[NI_TRI0] * TRI_F;
+      const pvt_real* rows = (tris ? tris : sc.tri_f) + (size_t)ni[NI_TRI0] * TRI_F;
       cnt_n = mesh_nearest_two(rows, ni[NI_NTRI], o, d, nf[NF_EPS], &t[0], &t[1], &tri);
       if (tri >= 0) tri += ni[NI_TRI0];
       v[0] = cnt_n >= 1;
@@ -1130,10 +1223,10 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
       nc = intersect_node(ni[NI_GEOM], nf + NF_GP, o, d, nf[NF_EPS], t, v);
       for (int c = 0; c < nc; ++c) cnt_n += v[c];
     }
-    float tmin_n = PVT_INF;
+    pvt_real tmin_n = PVT_INF;
     for (int c = 0; c < nc; ++c) {
-      const float tv = v[c] ? t[c] : PVT_INF;
-      tmin_n = fminf(tmin_n, tv);
+      const pvt_real tv = v[c] ? t[c] : PVT_INF;
+      tmin_n = pvt_fmin(tmin_n, tv);
       if (tv < t1) {
         t2 = t1;
         n2 = n1;
@@ -1171,13 +1264,13 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
 
 // K4: outward local normal at local point q (box: first face of least
 // distance in the order -x, +x, -y, +y, -z, +z).
-PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm) {
+PVT_FN void local_normal(int gtype, const pvt_real* gp, const pvt_real* q, pvt_real* nrm) {
   if (gtype == GEOM_BOX) {
-    float best = PVT_INF;
+    pvt_real best = PVT_INF;
     int face = 0;
     for (int k = 0; k < 6; ++k) {
-      const float h = 0.5f * gp[k / 2];
-      const float dist = fabsf(k % 2 == 0 ? q[k / 2] + h : q[k / 2] - h);
+      const pvt_real h = 0.5f * gp[k / 2];
+      const pvt_real dist = pvt_fabs(k % 2 == 0 ? q[k / 2] + h : q[k / 2] - h);
       if (k == 0 || dist < best) {
         face = k;
         best = dist;
@@ -1188,17 +1281,17 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
     return;
   }
   if (gtype == GEOM_SPHERE) {
-    float mag = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
+    pvt_real mag = pvt_sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
     mag = mag == 0.0f ? 1.0f : mag;
     for (int k = 0; k < 3; ++k) nrm[k] = q[k] / mag;
     return;
   }
-  const float half = 0.5f * gp[0];
-  const float atol = 1e-8f + 1e-5f * fabsf(half);
-  const bool bottom = fabsf(q[2] + half) <= atol;
-  const bool top = fabsf(q[2] - half) <= atol;
-  const float r = sqrtf(q[0] * q[0] + q[1] * q[1]);
-  const float sr = r == 0.0f ? 1.0f : r;
+  const pvt_real half = 0.5f * gp[0];
+  const pvt_real atol = PVT_R(1e-8) + PVT_R(1e-5) * pvt_fabs(half);
+  const bool bottom = pvt_fabs(q[2] + half) <= atol;
+  const bool top = pvt_fabs(q[2] - half) <= atol;
+  const pvt_real r = pvt_sqrt(q[0] * q[0] + q[1] * q[1]);
+  const pvt_real sr = r == 0.0f ? 1.0f : r;
   nrm[0] = (bottom || top) ? 0.0f : q[0] / sr;
   nrm[1] = (bottom || top) ? 0.0f : q[1] / sr;
   nrm[2] = bottom ? -1.0f : (top ? 1.0f : 0.0f);
@@ -1216,8 +1309,8 @@ PVT_FN void local_normal(int gtype, const float* gp, const float* q, float* nrm)
 // kPath (only with kScore) what the pathwise channels' tangent map reads.
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
           bool kPath = false>
-PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float* u,
-                     StepOut& out, const float* tris = nullptr) {
+PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const pvt_real* u,
+                     StepOut& out, const pvt_real* tris = nullptr) {
   constexpr bool kExtras = kLog || kScore;
   Hits h;
   intersect_nodes<kMesh, kPath>(sc, p, h, tris);
@@ -1239,24 +1332,24 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
   const bool kill_max = alive && (p.count > sc.maxsteps || p.trav > sc.maxpathlength);
   alive = alive && !kill_max;
 
-  const float* cf_node = sc.node_f + h.container * NODE_F;
+  const pvt_real* cf_node = sc.node_f + h.container * NODE_F;
   const int* ci_node = sc.node_i + h.container * NODE_I;
-  const float n_cont = cf_node[NF_NIDX];
+  const pvt_real n_cont = cf_node[NF_NIDX];
   const bool exit_mask = alive && h.hit == sc.root_id;
 
   // Free path against the boundary distance.
-  const float posf = (p.wav - sc.grid_x0) / sc.grid_dx;
-  const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
-  const float frac = clampf(posf - (float)i0, 0.0f, 1.0f);
+  const pvt_real posf = (p.wav - sc.grid_x0) / sc.grid_dx;
+  const int i0 = (int)clampf(posf, 0.0f, (pvt_real)(sc.grid_n - 2));
+  const pvt_real frac = clampf(posf - (pvt_real)i0, 0.0f, 1.0f);
   const int row = h.container * sc.grid_n + i0;
-  const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
+  const pvt_real t = ((pvt_real)i0 + frac) * sc.cheb_tscale - 1.0f;
   const int K = ci_node[NI_NCOMP];
-  const float alpha =
+  const pvt_real alpha =
       K > 0 ? alpha_slot(sc, cheb, h.container, row, K, frac, t, out.held) : 0.0f;
-  const float depth =
-      alpha > PVT_ALPHA_ZERO ? -log1pf(-u[0]) / fmaxf(alpha, 1e-30f) : PVT_INF;
+  const pvt_real depth =
+      alpha > PVT_ALPHA_ZERO ? -pvt_log1p(-u[0]) / pvt_fmax(alpha, PVT_R(1e-30)) : PVT_INF;
   const bool absorbed = alive && !exit_mask && depth < h.t0;
-  const float advance = absorbed ? depth : h.t0;
+  const pvt_real advance = absorbed ? depth : h.t0;
   if (kScore) {
     out.moving = alive;
     out.advance = advance;
@@ -1283,12 +1376,12 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
   // Volume event: component roulette, quantum-yield coin, re-emission.
   bool nonrad = false;
   if (absorbed) {
-    const float target = u[1] * alpha;
+    const pvt_real target = u[1] * alpha;
     int ordinal = 0;
     for (int k = 0; k < K - 1; ++k)
       ordinal += cum_slot(sc, cheb, out.held, h.container, row, k, frac, t) < target;
     const int cid = ci_node[NI_COMP0] + ordinal;
-    const float* cf = sc.comp_f + cid * COMP_F;
+    const pvt_real* cf = sc.comp_f + cid * COMP_F;
     const int* ci = sc.comp_i + cid * COMP_I;
     const int ctype = ci[CI_TYPE];
     const bool is_lum = ctype == COMP_LUMINOPHORE;
@@ -1303,37 +1396,37 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
       out.emitting = radiative && is_lum;
     }
     if (radiative) {
-      float mu;
+      pvt_real mu;
       if (ci[CI_PHASE] == PHASE_HG) {
         mu = hg_mu(cf[CF_PHASE], 2.0f * u[3] - 1.0f);
       } else if (ci[CI_PHASE] == PHASE_CONE) {
-        const float s = sqrtf(u[3]) * cf[CF_SIN_PHASE];
-        mu = sqrtf(fmaxf(1.0f - s * s, 0.0f));
+        const pvt_real s = pvt_sqrt(u[3]) * cf[CF_SIN_PHASE];
+        mu = pvt_sqrt(pvt_fmax(1.0f - s * s, 0.0f));
       } else {
         mu = 2.0f * u[3] - 1.0f;
       }
-      const float st = sqrtf(fmaxf(1.0f - mu * mu, 0.0f));
-      const float phi = PVT_TWO_PI * u[4];
+      const pvt_real st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
+      const pvt_real phi = PVT_TWO_PI * u[4];
       if (is_lum) {
-        float p1 = 0.0f;
+        pvt_real p1 = 0.0f;
         if (sc.emit_method != EMIT_FULL)
           p1 = spec_slot(sc, cheb, h.container, row,
                          ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1), frac, t);
-        const float gamma = p1 + (1.0f - p1) * u[5];
+        const pvt_real gamma = p1 + (1.0f - p1) * u[5];
         p.wav = sc.cheb_icdf
                     ? cheb_eval(cheb, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f)
                     : lerp_pairs(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
-        const float tau = cf[CF_TAU_RAD];
-        p.dur = p.dur + (tau > 0.0f ? -log1pf(-u[6]) * tau : 0.0f);
+        const pvt_real tau = cf[CF_TAU_RAD];
+        p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-u[6]) * tau : 0.0f);
       }
-      p.dx = st * cosf(phi);
-      p.dy = st * sinf(phi);
+      p.dx = st * pvt_cos(phi);
+      p.dy = st * pvt_sin(phi);
       p.dz = mu;
       p.source = cid;
     } else {
       nonrad = true;
-      const float tau = cf[CF_TAU_NR];
-      p.dur = p.dur + (tau > 0.0f ? -log1pf(-u[6]) * tau : 0.0f);
+      const pvt_real tau = cf[CF_TAU_NR];
+      p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-u[6]) * tau : 0.0f);
       out.reacting = ctype == COMP_REACTOR;
       out.losing = !out.reacting;
     }
@@ -1346,22 +1439,22 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
   surf = surf && !adj_bad;
   bool reflecting = false;
   if (surf || (kTally && exit_mask)) {
-    const float* hf = sc.node_f + h.hit * NODE_F;
+    const pvt_real* hf = sc.node_f + h.hit * NODE_F;
     const int* hi = sc.node_i + h.hit * NODE_I;
-    float ln[3];
+    pvt_real ln[3];
     if (kMesh && hi[NI_GEOM] == GEOM_MESH) {
       mesh_normal(sc.tri_f, h.tri, ln);
     } else {
-      float q[3];
+      pvt_real q[3];
       for (int k = 0; k < 3; ++k) q[k] = h.lo[k] + h.t0 * h.ld[k];
       local_normal(hi[NI_GEOM], hf + NF_GP, q, ln);
     }
-    const float* Rw = hf + NF_L2W;
-    const float wnx = Rw[0] * ln[0] + Rw[1] * ln[1] + Rw[2] * ln[2];
-    const float wny = Rw[3] * ln[0] + Rw[4] * ln[1] + Rw[5] * ln[2];
-    const float wnz = Rw[6] * ln[0] + Rw[7] * ln[1] + Rw[8] * ln[2];
-    const float ddot = wnx * p.dx + wny * p.dy + wnz * p.dz;
-    const float c_in = clampf(fabsf(ddot), 0.0f, 1.0f);
+    const pvt_real* Rw = hf + NF_L2W;
+    const pvt_real wnx = Rw[0] * ln[0] + Rw[1] * ln[1] + Rw[2] * ln[2];
+    const pvt_real wny = Rw[3] * ln[0] + Rw[4] * ln[1] + Rw[5] * ln[2];
+    const pvt_real wnz = Rw[6] * ln[0] + Rw[7] * ln[1] + Rw[8] * ln[2];
+    const pvt_real ddot = wnx * p.dx + wny * p.dy + wnz * p.dz;
+    const pvt_real c_in = clampf(pvt_fabs(ddot), 0.0f, 1.0f);
     out.wn[0] = wnx;
     out.wn[1] = wny;
     out.wn[2] = wnz;
@@ -1369,25 +1462,25 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
     if (surf) {
       int mode = -1;
       for (int o = hi[NI_OVR0]; o < hi[NI_OVR0] + hi[NI_NOVR] && mode < 0; ++o) {
-        const float* of = sc.ovr_f + o * OVR_F;
-        if (fabsf(ln[0] - of[0]) <= of[3] && fabsf(ln[1] - of[1]) <= of[3] &&
-            fabsf(ln[2] - of[2]) <= of[3])
+        const pvt_real* of = sc.ovr_f + o * OVR_F;
+        if (pvt_fabs(ln[0] - of[0]) <= of[3] && pvt_fabs(ln[1] - of[1]) <= of[3] &&
+            pvt_fabs(ln[2] - of[2]) <= of[3])
           mode = sc.ovr_i[o];
       }
-      const float flip = ddot < 0.0f ? -1.0f : 1.0f;
-      const float nax = wnx * flip, nay = wny * flip, naz = wnz * flip;
-      const float n1r = n_cont;
-      const float n2r = sc.node_f[h.adjacent * NODE_F + NF_NIDX];
+      const pvt_real flip = ddot < 0.0f ? -1.0f : 1.0f;
+      const pvt_real nax = wnx * flip, nay = wny * flip, naz = wnz * flip;
+      const pvt_real n1r = n_cont;
+      const pvt_real n2r = sc.node_f[h.adjacent * NODE_F + NF_NIDX];
       const bool is_fresnel = hi[NI_SURF] == SURF_FRESNEL;
-      const float s2 = clampf(1.0f - c_in * c_in, 0.0f, 1.0f);
-      const float ratio = n1r / n2r;
-      float r = 0.0f;
+      const pvt_real s2 = clampf(1.0f - c_in * c_in, 0.0f, 1.0f);
+      const pvt_real ratio = n1r / n2r;
+      pvt_real r = 0.0f;
       bool tir = false;
       if (is_fresnel) {
         tir = n2r < n1r && s2 * ratio * ratio > 1.0f;
-        const float kterm = sqrtf(fmaxf(1.0f - ratio * ratio * s2, 0.0f));
-        const float rs = (n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm);
-        const float rp = (n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in);
+        const pvt_real kterm = pvt_sqrt(pvt_fmax(1.0f - ratio * ratio * s2, 0.0f));
+        const pvt_real rs = (n1r * c_in - n2r * kterm) / (n1r * c_in + n2r * kterm);
+        const pvt_real rp = (n1r * kterm - n2r * c_in) / (n1r * kterm + n2r * c_in);
         r = tir ? 1.0f : clampf(0.5f * (rs * rs + rp * rp), 0.0f, 1.0f);
       }
       if (mode == OVR_MIRROR || mode == OVR_LAMBERTIAN) r = 1.0f;
@@ -1403,18 +1496,18 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
       }
       reflecting = u[7] < r;
       if (reflecting) {
-        const float two_d = 2.0f * c_in;
+        const pvt_real two_d = 2.0f * c_in;
         if (mode == OVR_LAMBERTIAN) {
-          const float st_l = sqrtf(u[3]);
-          const float ct_l = sqrtf(fmaxf(1.0f - u[3], 0.0f));
-          const float phi_l = PVT_TWO_PI * u[4];
-          const float lx = st_l * cosf(phi_l), ly = st_l * sinf(phi_l);
-          const float axx = -nax, axy = -nay, axz = -naz;
-          const float sign = axz >= 0.0f ? 1.0f : -1.0f;
-          const float a_ = -1.0f / (sign + axz);
-          const float b_ = axx * axy * a_;
-          const float t1x = 1.0f + sign * axx * axx * a_, t1y = sign * b_, t1z = -sign * axx;
-          const float t2x = b_, t2y = sign + axy * axy * a_, t2z = -axy;
+          const pvt_real st_l = pvt_sqrt(u[3]);
+          const pvt_real ct_l = pvt_sqrt(pvt_fmax(1.0f - u[3], 0.0f));
+          const pvt_real phi_l = PVT_TWO_PI * u[4];
+          const pvt_real lx = st_l * pvt_cos(phi_l), ly = st_l * pvt_sin(phi_l);
+          const pvt_real axx = -nax, axy = -nay, axz = -naz;
+          const pvt_real sign = axz >= 0.0f ? 1.0f : -1.0f;
+          const pvt_real a_ = -1.0f / (sign + axz);
+          const pvt_real b_ = axx * axy * a_;
+          const pvt_real t1x = 1.0f + sign * axx * axx * a_, t1y = sign * b_, t1z = -sign * axx;
+          const pvt_real t2x = b_, t2y = sign + axy * axy * a_, t2z = -axy;
           p.dx = lx * t1x + ly * t2x + ct_l * axx;
           p.dy = lx * t1y + ly * t2y + ct_l * axy;
           p.dz = lx * t1z + ly * t2z + ct_l * axz;
@@ -1424,8 +1517,9 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
           p.dz = p.dz - two_d * naz;
         }
       } else if (is_fresnel && mode != OVR_ABSORB) {
-        const float cterm = sqrtf(fmaxf(1.0f - ratio * ratio * (1.0f - c_in * c_in), 0.0f));
-        const float scale = cterm - ratio * c_in;
+        const pvt_real cterm =
+            pvt_sqrt(pvt_fmax(1.0f - ratio * ratio * (1.0f - c_in * c_in), 0.0f));
+        const pvt_real scale = cterm - ratio * c_in;
         p.dx = ratio * p.dx + scale * nax;
         p.dy = ratio * p.dy + scale * nay;
         p.dz = ratio * p.dz + scale * naz;
@@ -1483,10 +1577,10 @@ PVT_FN void step_one(const PvtScene& sc, const int* cheb, Photon& p, const float
 // tracer.py); the reference takes dR/dn with jax.vmap(jax.grad), the port
 // writes the partials out in the twin's order.
 
-// NaN to 0 and +-inf to +-FLT_MAX (jnp.nan_to_num in float32).
-PVT_FN float pvt_nan_to_num(float x) {
+// NaN to 0 and +-inf to the largest finite real (jnp.nan_to_num).
+PVT_FN pvt_real pvt_nan_to_num(pvt_real x) {
   if (isnan(x)) return 0.0f;
-  if (isinf(x)) return x > 0.0f ? FLT_MAX : -FLT_MAX;
+  if (isinf(x)) return x > 0.0f ? PVT_REAL_MAX : -PVT_REAL_MAX;
   return x;
 }
 
@@ -1494,26 +1588,26 @@ PVT_FN float pvt_nan_to_num(float x) {
 // n2 at incidence cosine c, with the reference's rule for the clip of
 // 1 - ratio^2 s2 at 0 (slope 1 above, 1/2 at the tie, 0 below): inf or
 // NaN where that term is 0, as the reference's are.
-PVT_FN void fresnel_dR(float n1, float n2, float c, float* d) {
-  const float s2 = clampf(1.0f - c * c, 0.0f, 1.0f);
-  const float ratio = n1 / n2;
-  const float x = 1.0f - ratio * ratio * s2;
-  const float slope = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
-  const float k = sqrtf(fmaxf(x, 0.0f));
-  const float half_over_k = 0.5f / k;
-  const float A = n1 * c - n2 * k, B = n1 * c + n2 * k;
-  const float C = n1 * k - n2 * c, D = n1 * k + n2 * c;
-  const float qs = A / B, qp = C / D;
+PVT_FN void fresnel_dR(pvt_real n1, pvt_real n2, pvt_real c, pvt_real* d) {
+  const pvt_real s2 = clampf(1.0f - c * c, 0.0f, 1.0f);
+  const pvt_real ratio = n1 / n2;
+  const pvt_real x = 1.0f - ratio * ratio * s2;
+  const pvt_real slope = x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+  const pvt_real k = pvt_sqrt(pvt_fmax(x, 0.0f));
+  const pvt_real half_over_k = 0.5f / k;
+  const pvt_real A = n1 * c - n2 * k, B = n1 * c + n2 * k;
+  const pvt_real C = n1 * k - n2 * c, D = n1 * k + n2 * c;
+  const pvt_real qs = A / B, qp = C / D;
   for (int j = 0; j < 2; ++j) {
-    const float dratio = j == 0 ? 1.0f / n2 : -n1 / (n2 * n2);
-    const float dn1 = j == 0 ? 1.0f : 0.0f, dn2 = j == 0 ? 0.0f : 1.0f;
-    const float dk = slope * (-(2.0f * ratio * dratio) * s2) * half_over_k;
-    const float dA = dn1 * c - (dn2 * k + n2 * dk);
-    const float dB = dn1 * c + (dn2 * k + n2 * dk);
-    const float dC = (dn1 * k + n1 * dk) - dn2 * c;
-    const float dD = (dn1 * k + n1 * dk) + dn2 * c;
-    const float dqs = dA / B - dB * A / (B * B);
-    const float dqp = dC / D - dD * C / (D * D);
+    const pvt_real dratio = j == 0 ? 1.0f / n2 : -n1 / (n2 * n2);
+    const pvt_real dn1 = j == 0 ? 1.0f : 0.0f, dn2 = j == 0 ? 0.0f : 1.0f;
+    const pvt_real dk = slope * (-(2.0f * ratio * dratio) * s2) * half_over_k;
+    const pvt_real dA = dn1 * c - (dn2 * k + n2 * dk);
+    const pvt_real dB = dn1 * c + (dn2 * k + n2 * dk);
+    const pvt_real dC = (dn1 * k + n1 * dk) - dn2 * c;
+    const pvt_real dD = (dn1 * k + n1 * dk) + dn2 * c;
+    const pvt_real dqs = dA / B - dB * A / (B * B);
+    const pvt_real dqp = dC / D - dD * C / (D * D);
     d[j] = 0.5f * (2.0f * qs * dqs + 2.0f * qp * dqp);
   }
 }
@@ -1526,34 +1620,34 @@ PVT_FN void fresnel_dR(float n1, float n2, float c, float* d) {
 // channels of the container and the adjacent node on a Fresnel coin:
 // nan_to_num(dR/dn * branch), branch 1/max(R, 1e-12) on a reflection and
 // -1/max(1 - R, 1e-12) on a transmission. Touches at most K + 2 channels.
-PVT_FN void score_step(const PvtScene& sc, const int* cheb, const StepOut& o, float wav_in,
+PVT_FN void score_step(const PvtScene& sc, const pvt_word* cheb, const StepOut& o, pvt_real wav_in,
                        const ScoreAcc& sa) {
   if (o.moving) {
     const int* ci = sc.node_i + o.container * NODE_I;
     const int K = ci[NI_NCOMP], comp0 = ci[NI_COMP0];
     if (K > 0) {
-      const float posf = (wav_in - sc.grid_x0) / sc.grid_dx;
-      const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
-      const float frac = clampf(posf - (float)i0, 0.0f, 1.0f);
+      const pvt_real posf = (wav_in - sc.grid_x0) / sc.grid_dx;
+      const int i0 = (int)clampf(posf, 0.0f, (pvt_real)(sc.grid_n - 2));
+      const pvt_real frac = clampf(posf - (pvt_real)i0, 0.0f, 1.0f);
       const int row = o.container * sc.grid_n + i0;
-      const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
-      float prev = 0.0f;
+      const pvt_real t = ((pvt_real)i0 + frac) * sc.cheb_tscale - 1.0f;
+      pvt_real prev = 0.0f;
       for (int k = 0; k < K; ++k) {
-        const float cum =
+        const pvt_real cum =
             k == K - 1 ? o.alpha : cum_slot(sc, cheb, o.held, o.container, row, k, frac, t);
-        const float a = k > 0 ? cum - prev : cum;
+        const pvt_real a = k > 0 ? cum - prev : cum;
         prev = cum;
-        float ds = -a * o.advance;
+        pvt_real ds = -a * o.advance;
         if (o.absorbed && o.comp == comp0 + k) ds += 1.0f;
         sa.row[(comp0 + k) * sa.stride] += ds;
       }
     }
   }
   if (o.fres_coin && (o.reflecting || o.transmitting)) {
-    float d[2];
+    pvt_real d[2];
     fresnel_dR(o.n1r, o.n2r, o.c_in, d);
-    const float branch =
-        o.reflecting ? 1.0f / fmaxf(o.refl_r, 1e-12f) : -1.0f / fmaxf(1.0f - o.refl_r, 1e-12f);
+    const pvt_real branch = o.reflecting ? 1.0f / pvt_fmax(o.refl_r, PVT_R(1e-12))
+                                      : -1.0f / pvt_fmax(1.0f - o.refl_r, PVT_R(1e-12));
     sa.row[(sa.n_comps + o.container) * sa.stride] += pvt_nan_to_num(d[0] * branch);
     if (o.adjacent >= 0)
       sa.row[(sa.n_comps + o.adjacent) * sa.stride] += pvt_nan_to_num(d[1] * branch);
@@ -1578,10 +1672,10 @@ PVT_FN int score_fate(const StepOut& o) {
 // skipped.
 PVT_FN void score_add(const ScoreAcc& sa, double* acc, int n, int slot) {
   for (int c = 0; c < sa.ch; ++c) {
-    const float v = sa.row[c * sa.stride];
+    const pvt_real v = sa.row[c * sa.stride];
     if (v == 0.0f) continue;
     PVT_ADD(acc + slot * sa.ch + c, (double)v);
-    PVT_ADD(acc + (n + slot) * sa.ch + c, (double)fabsf(v));
+    PVT_ADD(acc + (n + slot) * sa.ch + c, (double)pvt_fabs(v));
   }
 }
 
@@ -1591,8 +1685,8 @@ PVT_FN void score_record(const ScoreAcc& sa, uint32_t pid, int fate, int steps) 
   if (!sa.photon || (long long)pid >= sa.photon_n) return;
   const long long n = sa.photon_n;
   for (int c = 0; c < sa.ch; ++c) sa.photon[c * n + pid] = sa.row[c * sa.stride];
-  sa.photon[sa.ch * n + pid] = (float)fate;
-  sa.photon[(sa.ch + 1) * n + pid] = (float)steps;
+  sa.photon[sa.ch * n + pid] = (pvt_real)fate;
+  sa.photon[(sa.ch + 1) * n + pid] = (pvt_real)steps;
 }
 
 // ---------------------------------------------------------------------
@@ -1682,22 +1776,22 @@ PVT_FN void tally_groups(const PvtScene& sc, const StepOut& o, int* g0, int* g1)
 // Whether the event passes group g's facet test: its recorders have no
 // facet, or the world normal is within atol of theirs on all three axes.
 PVT_FN bool group_passes(const PvtScene& sc, int g, const StepOut& o) {
-  const float* gf = sc.grp_f + g * GRP_F;
+  const pvt_real* gf = sc.grp_f + g * GRP_F;
   if (gf[GF_FACET] == 0.0f) return true;
-  const float atol = gf[GF_ATOL];
-  return o.have_n && fabsf(o.wn[0] - gf[GF_NX]) <= atol &&
-         fabsf(o.wn[1] - gf[GF_NX + 1]) <= atol && fabsf(o.wn[2] - gf[GF_NX + 2]) <= atol;
+  const pvt_real atol = gf[GF_ATOL];
+  return o.have_n && pvt_fabs(o.wn[0] - gf[GF_NX]) <= atol &&
+         pvt_fabs(o.wn[1] - gf[GF_NX + 1]) <= atol && pvt_fabs(o.wn[2] - gf[GF_NX + 2]) <= atol;
 }
 
 // An event's eight moments and its histogram properties
 // (engine/recorder.py PROPERTIES; x, y, z in the tnode's local frame).
-PVT_FN void tally_values(const PvtScene& sc, const StepOut& o, const Photon& p, float* moments,
-                         float* props) {
-  const float angle = o.surface_event ? acosf(o.c_in) : 0.0f;
-  const float m[8] = {p.wav, p.wav * p.wav, angle, angle * angle,
+PVT_FN void tally_values(const PvtScene& sc, const StepOut& o, const Photon& p, pvt_real* moments,
+                         pvt_real* props) {
+  const pvt_real angle = o.surface_event ? pvt_acos(o.c_in) : 0.0f;
+  const pvt_real m[8] = {p.wav, p.wav * p.wav, angle, angle * angle,
                       p.dur, p.dur * p.dur, p.trav, p.trav * p.trav};
   for (int k = 0; k < 8; ++k) moments[k] = m[k];
-  const float* W = sc.node_f + o.tnode * NODE_F + NF_W2L;
+  const pvt_real* W = sc.node_f + o.tnode * NODE_F + NF_W2L;
   props[0] = p.wav;
   props[1] = angle;
   props[2] = p.dur;
@@ -1714,9 +1808,10 @@ PVT_FN void tally_values(const PvtScene& sc, const StepOut& o, const Photon& p, 
 // from each of the block's other threads (tally_event) or warps
 // (tally_warp, whose add of a warp's rays is their sum in lane order, at
 // most 31 roundings of itself): within check.SUMS_BOUND's (SUMS_FLUSH +
-// 255) roundings of its value either way. `side_by_side`: pvt_add8.
+// 255) roundings of its value either way. The float64 build's sums take
+// every add (PvtTally). `side_by_side`: pvt_add8.
 PVT_FN void recorder_add(const PvtTally& acc, int r, unsigned cross, unsigned fresh,
-                         const float* sums, bool side_by_side = false) {
+                         const pvt_real* sums, bool side_by_side = false) {
   if (acc.cross32) {
     const unsigned before = pvt_add(acc.cross32 + r, cross);
     if (before / kCrossFlush != (before + cross) / kCrossFlush)
@@ -1730,24 +1825,29 @@ PVT_FN void recorder_add(const PvtTally& acc, int r, unsigned cross, unsigned fr
     pvt_add8(acc.sums + 8 * r, sums);
   else
     for (int k = 0; k < 8; ++k) PVT_ADD(acc.sums + 8 * r + k, sums[k]);
+#ifdef PVT_F64
+  (void)before;
+#else
   if (before / SUMS_FLUSH != (before + fresh) / SUMS_FLUSH)
     for (int k = 0; k < 8; ++k)
       PVT_ADD(acc.sums64 + 8 * r + k, (double)pvt_take(acc.sums + 8 * r + k));
+#endif
 }
 
 // Adds one photon (properties props) to recorder r's histogram bins.
-PVT_FN void recorder_bins(const PvtScene& sc, const PvtTally& acc, int r, const float* props) {
+PVT_FN void recorder_bins(const PvtScene& sc, const PvtTally& acc, int r, const pvt_real* props) {
   const int* ri = sc.rec_i + r * REC_I;
   for (int hh = ri[RI_HIST0]; hh < ri[RI_HIST0] + ri[RI_NHIST]; ++hh) {
     const int* hi = sc.hist_i + hh * HIST_I;
-    const float* hf = sc.hist_f + hh * HIST_F;
+    const pvt_real* hf = sc.hist_f + hh * HIST_F;
     const int na = hi[HI_NA], nb = hi[HI_NB];
-    const float fa = floorf((props[hi[HI_PROP_A]] - hf[HF_LO_A]) / hf[HF_W_A] * (float)na);
-    if (!(fa >= 0.0f && fa < (float)na)) continue;
+    const pvt_real fa = pvt_floor((props[hi[HI_PROP_A]] - hf[HF_LO_A]) / hf[HF_W_A] * (pvt_real)na);
+    if (!(fa >= 0.0f && fa < (pvt_real)na)) continue;
     int ib = 0;
     if (hi[HI_PROP_B] >= 0) {
-      const float fb = floorf((props[hi[HI_PROP_B]] - hf[HF_LO_B]) / hf[HF_W_B] * (float)nb);
-      if (!(fb >= 0.0f && fb < (float)nb)) continue;
+      const pvt_real fb =
+          pvt_floor((props[hi[HI_PROP_B]] - hf[HF_LO_B]) / hf[HF_W_B] * (pvt_real)nb);
+      if (!(fb >= 0.0f && fb < (pvt_real)nb)) continue;
       ib = (int)fb;
     }
     const int bin = hi[HI_OFF] + (int)fa * nb + ib;
@@ -1766,7 +1866,7 @@ PVT_FN void tally_event(const PvtScene& sc, const PvtTally& acc, Seen& seen, con
   int g0, g1;
   tally_groups(sc, o, &g0, &g1);
   if (g0 == g1) return;
-  float moments[8], props[7];
+  pvt_real moments[8], props[7];
   tally_values(sc, o, p, moments, props);
   for (int g = g0; g < g1; ++g) {
     if (!group_passes(sc, g, o)) continue;
@@ -1829,17 +1929,17 @@ PVT_FN int warp_key(int g0, int g1) { return g0 < g1 ? g0 : -1; }
 // own), on the host from the warp's rows ([kWarp][8], [kWarp][7]).
 struct PeerReads {
   uint32_t peers;
-  const float* moments;
-  const float* props;
+  const pvt_real* moments;
+  const pvt_real* props;
 
-  PVT_FN float moment(int l, int k) const {
+  PVT_FN pvt_real moment(int l, int k) const {
 #ifdef __CUDA_ARCH__
     return __shfl_sync(peers, moments[k], l);
 #else
     return moments[8 * l + k];
 #endif
   }
-  PVT_FN float prop(int l, int k) const {
+  PVT_FN pvt_real prop(int l, int k) const {
 #ifdef __CUDA_ARCH__
     return __shfl_sync(peers, props[k], l);
 #else
@@ -1863,8 +1963,8 @@ struct PeerReads {
 // so it adds no scores.
 PVT_FN void warp_group_adds(const PvtScene& sc, const PvtTally& acc, int g, int lane, int rank,
                             int n_peers, uint32_t passed, uint32_t fresh_m, bool fresh,
-                            const PeerReads& peer, const float* moments, const float* props) {
-  float sums[8];
+                            const PeerReads& peer, const pvt_real* moments, const pvt_real* props) {
+  pvt_real sums[8];
   for (int k = 0; k < 8; ++k) sums[k] = n_peers == 1 && fresh ? moments[k] : 0.0f;
   if (n_peers > 1)
     for (uint32_t m = fresh_m; m; m &= m - 1u) {
@@ -1883,7 +1983,7 @@ PVT_FN void warp_group_adds(const PvtScene& sc, const PvtTally& acc, int g, int 
   for (int c0 = 0; c0 < pairs; c0 += n_peers) {
     const int c = c0 + rank;
     const int src = c < pairs ? nth_lane(fresh_m, c / n) : lane;
-    float pr[7];
+    pvt_real pr[7];
     for (int k = 0; k < 7; ++k) pr[k] = peer.prop(src, k);
     if (c < pairs) recorder_bins(sc, acc, sc.rec_ids[q0 + c % n], pr);
   }
@@ -1898,7 +1998,7 @@ __device__ __forceinline__ void tally_warp(const PvtScene& sc, const PvtTally& a
   const uint32_t peers = __match_any_sync(0xffffffffu, warp_key(g0, g1));
   if (g0 == g1) return;
   const int rank = lane_rank(peers, lane), n_peers = pvt_popc(peers);
-  float moments[8], props[7];
+  pvt_real moments[8], props[7];
   tally_values(sc, o, p, moments, props);
   const PeerReads peer = {peers, moments, props};
   for (int g = g0; g < g1; ++g) {
@@ -1917,7 +2017,7 @@ __device__ __forceinline__ void tally_warp(const PvtScene& sc, const PvtTally& a
 inline void tally_warp_host(const PvtScene& sc, const PvtTally& acc, Seen* seen,
                             const StepOut* o, const Photon* p, uint32_t events) {
   int g0[kWarp], g1[kWarp];
-  float moments[kWarp][8], props[kWarp][7];
+  pvt_real moments[kWarp][8], props[kWarp][7];
   uint32_t pending = 0u;
   for (int l = 0; l < kWarp; ++l) {
     g0[l] = g1[l] = 0;
@@ -2020,11 +2120,12 @@ PVT_FN void store_flags(const PvtFlags& fl, long long i, const StepOut& o) {
 
 // pvt_cheb: fit `fit` of the table `tab` at t into out[i], and with `seg`
 // its segment's index (the row of cheb_seg_f; -1 for none) into seg[i].
-PVT_FN void cheb_lane(const int* tab, int fit, float t, long long i, float* out, int* seg) {
+PVT_FN void cheb_lane(const pvt_word* tab, int fit, pvt_real t, long long i, pvt_real* out,
+                      int* seg) {
   out[i] = cheb_eval(tab, fit, t);
   if (seg) {
     const int s = cheb_segment(tab, fit, t);
-    seg[i] = s < 0 ? -1 : (s - tab[FR_SEG]) / CHEB_REC;
+    seg[i] = s < 0 ? -1 : (s - (int)tab[FR_SEG]) / CHEB_REC;
   }
 }
 
@@ -2035,7 +2136,7 @@ PVT_FN void step_lane(const PvtScene& sc, const PvtState& in, const PvtState& ou
   load_lane(in, i, p);
   p.count += p.alive ? 1 : 0;
   const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
-  float u[8];
+  pvt_real u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
   step_one<true>(sc, sc.cheb_pack, p, u, o);
@@ -2053,8 +2154,8 @@ PVT_FN void score_lane(const PvtScene& sc, const PvtState& in, const PvtState& o
   load_lane(in, i, p);
   p.count += p.alive ? 1 : 0;
   const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
-  const float wav_in = p.wav;
-  float u[8];
+  const pvt_real wav_in = p.wav;
+  pvt_real u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
   step_one<true, false, true, true>(sc, sc.cheb_pack, p, u, o);
@@ -2080,29 +2181,30 @@ PVT_FN void score_lane(const PvtScene& sc, const PvtState& in, const PvtState& o
 // nan_to_num of every tangent, as the reference does.
 
 // Slope of jnp.clip(x, lo, hi) in x.
-PVT_FN float clip_slope(float x, float lo, float hi) {
+PVT_FN pvt_real clip_slope(pvt_real x, pvt_real lo, pvt_real hi) {
   if (x > lo && x < hi) return 1.0f;
   return (x == lo || x == hi) ? 0.5f : 0.0f;
 }
 
 // Slope of jnp.maximum(x, 0) (jnp.clip(x, 0, None)) in x.
-PVT_FN float max0_slope(float x) { return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f); }
+PVT_FN pvt_real max0_slope(pvt_real x) { return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f); }
 
 // min(a, b) and max(a, b) with their tangents (1/2 of each at a tie).
-PVT_FN void min_t(float a, float da, float b, float db, float& m, float& dm) {
-  m = fminf(a, b);
+PVT_FN void min_t(pvt_real a, pvt_real da, pvt_real b, pvt_real db, pvt_real& m, pvt_real& dm) {
+  m = pvt_fmin(a, b);
   dm = a < b ? da : (b < a ? db : 0.5f * (da + db));
 }
 
-PVT_FN void max_t(float a, float da, float b, float db, float& m, float& dm) {
-  m = fmaxf(a, b);
+PVT_FN void max_t(pvt_real a, pvt_real da, pvt_real b, pvt_real db, pvt_real& m, pvt_real& dm) {
+  m = pvt_fmax(a, b);
   dm = a > b ? da : (b > a ? db : 0.5f * (da + db));
 }
 
 // One Clenshaw step with coefficient c, and of its derivative recurrence.
-PVT_FN void cheb_step_d(float ts, float c, float& b1, float& b2, float& d1, float& d2) {
-  const float nb = 2.0f * ts * b1 - b2 + c;
-  const float nd = 2.0f * b1 + 2.0f * ts * d1 - d2;
+PVT_FN void cheb_step_d(pvt_real ts, pvt_real c, pvt_real& b1, pvt_real& b2, pvt_real& d1,
+                        pvt_real& d2) {
+  const pvt_real nb = 2.0f * ts * b1 - b2 + c;
+  const pvt_real nd = 2.0f * b1 + 2.0f * ts * d1 - d2;
   b2 = b1;
   b1 = nb;
   d2 = d1;
@@ -2112,21 +2214,21 @@ PVT_FN void cheb_step_d(float ts, float c, float& b1, float& b2, float& d1, floa
 // cheb_eval of fit `fit` at t and its derivative in t (the same segment
 // search; the segment's affine map and clip, the Clenshaw derivative
 // recurrence, exp on a log segment).
-PVT_CALLED_FN float cheb_eval_d(const int* tab, int fit, float t, float* dv_dt) {
+PVT_CALLED_FN pvt_real cheb_eval_d(const pvt_word* tab, int fit, pvt_real t, pvt_real* dv_dt) {
   const int s = cheb_segment(tab, fit, t);
   *dv_dt = 0.0f;
   if (s < 0) return 0.0f;
-  const int* sr = tab + s;
-  const int info = sr[SR_DEG], deg = info & SEG_DEG_MASK;
-  float ts = t, dts = 1.0f;
+  const pvt_word* sr = tab + s;
+  const int info = (int)sr[SR_DEG], deg = info & SEG_DEG_MASK;
+  pvt_real ts = t, dts = 1.0f;
   if (info & SEG_MAP) {
-    const float scale = pvt_word_float(sr[SR_SCALE]);
-    const float x = (t - pvt_word_float(sr[SR_A])) * scale - 1.0f;
+    const pvt_real scale = pvt_word_real(sr[SR_SCALE]);
+    const pvt_real x = (t - pvt_word_real(sr[SR_A])) * scale - 1.0f;
     ts = clampf(x, -1.0f, 1.0f);
     dts = clip_slope(x, -1.0f, 1.0f) * scale;
   }
-  const int* c = tab + sr[SR_COEF];
-  float b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f, q[4];
+  const pvt_word* c = tab + sr[SR_COEF];
+  pvt_real b1 = 0.0f, b2 = 0.0f, d1 = 0.0f, d2 = 0.0f, q[4];
   int j = 0;
   for (; j + 4 <= deg; j += 4) {
     pvt_load4(c + j, q);
@@ -2134,17 +2236,17 @@ PVT_CALLED_FN float cheb_eval_d(const int* tab, int fit, float t, float* dv_dt) 
     for (int e = 0; e < 4; ++e) cheb_step_d(ts, q[e], b1, b2, d1, d2);
   }
   pvt_load4(c + j, q);  // the last deg - j < 4 steps, then c_0
-  float c0 = q[0];
+  pvt_real c0 = q[0];
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     if (j + e < deg) cheb_step_d(ts, q[e], b1, b2, d1, d2);
     if (j + e + 1 == deg) c0 = q[e + 1];
   }
-  float v = ts * b1 - b2 + c0;
-  float dv = b1 + ts * d1 - d2;
+  pvt_real v = ts * b1 - b2 + c0;
+  pvt_real dv = b1 + ts * d1 - d2;
   if (info & SEG_LOG) {
-    const float e = expf(v);
-    v = e - pvt_word_float(tab[CHEB_REC * fit + FR_OFF]);
+    const pvt_real e = pvt_exp(v);
+    v = e - pvt_word_real(tab[CHEB_REC * fit + FR_OFF]);
     dv = e * dv;
   }
   *dv_dt = dv * dts;
@@ -2156,18 +2258,19 @@ PVT_CALLED_FN float cheb_eval_d(const int* tab, int fit, float t, float* dv_dt) 
 // their derivatives in t, each fit evaluated once, or K5b's lerp and its
 // slope, through t = (i0 + frac) * tscale - 1 and frac = clip(posf - i0,
 // 0, 1) (its slope fr_s), posf = (wav - x0) / dx.
-PVT_FN float spec_slot_slope(const PvtScene& sc, const int* cheb, int container, int row, int w,
-                             float frac, float t, float fr_s, float* value) {
-  float d_frac;
+PVT_FN pvt_real spec_slot_slope(const PvtScene& sc, const pvt_word* cheb, int container,
+                                int row, int w, pvt_real frac, pvt_real t, pvt_real fr_s,
+                                pvt_real* value) {
+  pvt_real d_frac;
   if (!sc.cheb_spec) {
-    const float* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
+    const pvt_real* p = sc.spec_pack + (size_t)row * 2 * sc.pack_width + 2 * w;
     *value = p[0] + frac * (p[1] - p[0]);
     d_frac = p[1] - p[0];
   } else {
     const int* slot = sc.cheb_slot + 2 * (container * sc.pack_width + w);
-    float v = 0.0f, d_t = 0.0f;
+    pvt_real v = 0.0f, d_t = 0.0f;
     for (int q = 0; q < slot[1]; ++q) {
-      float d;
+      pvt_real d;
       v += cheb_eval_d(cheb, sc.cheb_ref[slot[0] + q], t, &d);
       d_t += d;
     }
@@ -2178,42 +2281,42 @@ PVT_FN float spec_slot_slope(const PvtScene& sc, const int* cheb, int container,
 }
 
 // Slope of lerp_pairs in gamma: (M - 1) times the row's difference.
-PVT_FN float lerp_pairs_slope(const float* pairs, int base, int M, float gamma) {
-  const float g = gamma * (float)(M - 1);
-  const int j0 = (int)clampf(g, 0.0f, (float)(M - 2));
-  const float* p = pairs + 2 * (size_t)(base + j0);
-  return (float)(M - 1) * (p[1] - p[0]);
+PVT_FN pvt_real lerp_pairs_slope(const pvt_real* pairs, int base, int M, pvt_real gamma) {
+  const pvt_real g = gamma * (pvt_real)(M - 1);
+  const int j0 = (int)clampf(g, 0.0f, (pvt_real)(M - 2));
+  const pvt_real* p = pairs + 2 * (size_t)(base + j0);
+  return (pvt_real)(M - 1) * (p[1] - p[0]);
 }
 
 // What a step's tangent map shares between its channels: the slopes of the
 // container's attenuation and of p1 in the incoming wavelength, and of the
 // emitted wavelength in gamma (K5a or K5b, evaluated once per step).
 struct PathSlopes {
-  float dalpha, dp1, dnew;
+  pvt_real dalpha, dp1, dnew;
 };
 
-PVT_FN PathSlopes path_slopes(const PvtScene& sc, const int* cheb, const StepOut& o,
-                              float wav_in, const float* u) {
+PVT_FN PathSlopes path_slopes(const PvtScene& sc, const pvt_word* cheb, const StepOut& o,
+                              pvt_real wav_in, const pvt_real* u) {
   PathSlopes ps = {0.0f, 0.0f, 0.0f};
   const int K = sc.node_i[o.container * NODE_I + NI_NCOMP];
   if (K == 0) return ps;
-  const float posf = (wav_in - sc.grid_x0) / sc.grid_dx;
-  const int i0 = (int)clampf(posf, 0.0f, (float)(sc.grid_n - 2));
-  const float fr = posf - (float)i0;
-  const float frac = clampf(fr, 0.0f, 1.0f);
-  const float fr_s = clip_slope(fr, 0.0f, 1.0f);
+  const pvt_real posf = (wav_in - sc.grid_x0) / sc.grid_dx;
+  const int i0 = (int)clampf(posf, 0.0f, (pvt_real)(sc.grid_n - 2));
+  const pvt_real fr = posf - (pvt_real)i0;
+  const pvt_real frac = clampf(fr, 0.0f, 1.0f);
+  const pvt_real fr_s = clip_slope(fr, 0.0f, 1.0f);
   const int row = o.container * sc.grid_n + i0;
-  const float t = ((float)i0 + frac) * sc.cheb_tscale - 1.0f;
-  float alpha;
+  const pvt_real t = ((pvt_real)i0 + frac) * sc.cheb_tscale - 1.0f;
+  pvt_real alpha;
   ps.dalpha = spec_slot_slope(sc, cheb, o.container, row, K - 1, frac, t, fr_s, &alpha);
   if (o.emitting) {
     const int* ci = sc.comp_i + o.comp * COMP_I;
-    float p1 = 0.0f;
+    pvt_real p1 = 0.0f;
     if (sc.emit_method != EMIT_FULL) {
       const int w = ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1);
       ps.dp1 = spec_slot_slope(sc, cheb, o.container, row, w, frac, t, fr_s, &p1);
     }
-    const float gamma = p1 + (1.0f - p1) * u[5];
+    const pvt_real gamma = p1 + (1.0f - p1) * u[5];
     if (sc.cheb_icdf) {
       cheb_eval_d(cheb, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f, &ps.dnew);
       ps.dnew *= 2.0f;
@@ -2228,19 +2331,19 @@ PVT_FN PathSlopes path_slopes(const PvtScene& sc, const int* cheb, const StepOut
 // formulas, or Möller–Trumbore on triangle row `tri` of a mesh), for the
 // ray (o, d) with tangents (dO, dD) and the geometry's parameter tangents
 // dgp.
-PVT_FN float hit_tangent(const PvtScene& sc, int gtype, const float* gp, const float* dgp,
-                         const float* o, const float* d, const float* dO, const float* dD,
-                         int cand, int tri) {
+PVT_FN pvt_real hit_tangent(const PvtScene& sc, int gtype, const pvt_real* gp,
+                            const pvt_real* dgp, const pvt_real* o, const pvt_real* d,
+                            const pvt_real* dO, const pvt_real* dD, int cand, int tri) {
   if (gtype == GEOM_BOX) {
-    float tmin = -PVT_INF, tmax = PVT_INF, dmin = 0.0f, dmax = 0.0f;
+    pvt_real tmin = -PVT_INF, tmax = PVT_INF, dmin = 0.0f, dmax = 0.0f;
     for (int k = 0; k < 3; ++k) {
-      const float h = 0.5f * gp[k], dh = 0.5f * dgp[k];
-      float lo = -PVT_INF, hi = PVT_INF, dlo = 0.0f, dhi = 0.0f;
-      if (!(fabsf(d[k]) < 1e-30f)) {
-        const float inv = 1.0f / d[k], dinv = -dD[k] * inv * inv;
-        const float t1 = (-h - o[k]) * inv, t2 = (h - o[k]) * inv;
-        const float dt1 = (-dh - dO[k]) * inv + (-h - o[k]) * dinv;
-        const float dt2 = (dh - dO[k]) * inv + (h - o[k]) * dinv;
+      const pvt_real h = 0.5f * gp[k], dh = 0.5f * dgp[k];
+      pvt_real lo = -PVT_INF, hi = PVT_INF, dlo = 0.0f, dhi = 0.0f;
+      if (!(pvt_fabs(d[k]) < PVT_R(1e-30))) {
+        const pvt_real inv = 1.0f / d[k], dinv = -dD[k] * inv * inv;
+        const pvt_real t1 = (-h - o[k]) * inv, t2 = (h - o[k]) * inv;
+        const pvt_real dt1 = (-dh - dO[k]) * inv + (-h - o[k]) * dinv;
+        const pvt_real dt2 = (dh - dO[k]) * inv + (h - o[k]) * dinv;
         min_t(t1, dt1, t2, dt2, lo, dlo);
         max_t(t1, dt1, t2, dt2, hi, dhi);
       }
@@ -2251,9 +2354,9 @@ PVT_FN float hit_tangent(const PvtScene& sc, int gtype, const float* gp, const f
   }
   if (gtype == GEOM_SPHERE || (gtype == GEOM_CYLINDER && cand < 2)) {
     const bool sphere = gtype == GEOM_SPHERE;
-    const float r = sphere ? gp[0] : gp[1], dr = sphere ? dgp[0] : dgp[1];
+    const pvt_real r = sphere ? gp[0] : gp[1], dr = sphere ? dgp[0] : dgp[1];
     const int m = sphere ? 3 : 2;
-    float a = 0.0f, da = 0.0f, b = 0.0f, db = 0.0f, c = 0.0f, dc = 0.0f;
+    pvt_real a = 0.0f, da = 0.0f, b = 0.0f, db = 0.0f, c = 0.0f, dc = 0.0f;
     for (int k = 0; k < m; ++k) {
       a += d[k] * d[k];
       da += 2.0f * d[k] * dD[k];
@@ -2266,66 +2369,66 @@ PVT_FN float hit_tangent(const PvtScene& sc, int gtype, const float* gp, const f
     db *= 2.0f;
     c -= r * r;
     dc -= 2.0f * r * dr;
-    const float disc = b * b - 4.0f * a * c;
-    const float ddisc = 2.0f * b * db - 4.0f * (da * c + a * dc);
-    const float sq = sqrtf(disc >= 0.0f ? disc : 0.0f);
-    const float dsq = ddisc * (0.5f / sq);
-    const bool has = sphere || a > 1e-30f;
-    const float y = 2.0f * (has ? a : 1.0f), dy = has ? 2.0f * da : 0.0f;
-    const float x = cand == 0 ? -b - sq : -b + sq, dx = cand == 0 ? -db - dsq : -db + dsq;
+    const pvt_real disc = b * b - 4.0f * a * c;
+    const pvt_real ddisc = 2.0f * b * db - 4.0f * (da * c + a * dc);
+    const pvt_real sq = pvt_sqrt(disc >= 0.0f ? disc : 0.0f);
+    const pvt_real dsq = ddisc * (0.5f / sq);
+    const bool has = sphere || a > PVT_R(1e-30);
+    const pvt_real y = 2.0f * (has ? a : 1.0f), dy = has ? 2.0f * da : 0.0f;
+    const pvt_real x = cand == 0 ? -b - sq : -b + sq, dx = cand == 0 ? -db - dsq : -db + dsq;
     return dx / y - x * dy / (y * y);
   }
   if (gtype == GEOM_CYLINDER) {
-    const float zcap = cand == 2 ? -0.5f * gp[0] : 0.5f * gp[0];
-    const float dz = cand == 2 ? -0.5f * dgp[0] : 0.5f * dgp[0];
-    const bool hasc = fabsf(d[2]) > 1e-30f;
-    const float y = hasc ? d[2] : 1.0f, dy = hasc ? dD[2] : 0.0f;
+    const pvt_real zcap = cand == 2 ? -0.5f * gp[0] : 0.5f * gp[0];
+    const pvt_real dz = cand == 2 ? -0.5f * dgp[0] : 0.5f * dgp[0];
+    const bool hasc = pvt_fabs(d[2]) > PVT_R(1e-30);
+    const pvt_real y = hasc ? d[2] : 1.0f, dy = hasc ? dD[2] : 0.0f;
     return (dz - dO[2]) / y - (zcap - o[2]) * dy / (y * y);
   }
-  const float* rw = sc.tri_f + (size_t)tri * TRI_F;
-  const float* e1 = rw + TF_E1;
-  const float* e2 = rw + TF_E2;
-  const float pv[3] = {d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
+  const pvt_real* rw = sc.tri_f + (size_t)tri * TRI_F;
+  const pvt_real* e1 = rw + TF_E1;
+  const pvt_real* e2 = rw + TF_E2;
+  const pvt_real pv[3] = {d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
                        d[0] * e2[1] - d[1] * e2[0]};
-  const float dpv[3] = {dD[1] * e2[2] - dD[2] * e2[1], dD[2] * e2[0] - dD[0] * e2[2],
+  const pvt_real dpv[3] = {dD[1] * e2[2] - dD[2] * e2[1], dD[2] * e2[0] - dD[0] * e2[2],
                         dD[0] * e2[1] - dD[1] * e2[0]};
-  const float det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2];
-  const float ddet = e1[0] * dpv[0] + e1[1] * dpv[1] + e1[2] * dpv[2];
-  const float inv = 1.0f / det, dinv = -ddet * inv * inv;
-  const float tv[3] = {o[0] - rw[TF_V0], o[1] - rw[TF_V0 + 1], o[2] - rw[TF_V0 + 2]};
-  const float qv[3] = {tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+  const pvt_real det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2];
+  const pvt_real ddet = e1[0] * dpv[0] + e1[1] * dpv[1] + e1[2] * dpv[2];
+  const pvt_real inv = 1.0f / det, dinv = -ddet * inv * inv;
+  const pvt_real tv[3] = {o[0] - rw[TF_V0], o[1] - rw[TF_V0 + 1], o[2] - rw[TF_V0 + 2]};
+  const pvt_real qv[3] = {tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
                        tv[0] * e1[1] - tv[1] * e1[0]};
-  const float dqv[3] = {dO[1] * e1[2] - dO[2] * e1[1], dO[2] * e1[0] - dO[0] * e1[2],
+  const pvt_real dqv[3] = {dO[1] * e1[2] - dO[2] * e1[1], dO[2] * e1[0] - dO[0] * e1[2],
                         dO[0] * e1[1] - dO[1] * e1[0]};
-  const float num = e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2];
-  const float dnum = e2[0] * dqv[0] + e2[1] * dqv[1] + e2[2] * dqv[2];
+  const pvt_real num = e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2];
+  const pvt_real dnum = e2[0] * dqv[0] + e2[1] * dqv[1] + e2[2] * dqv[2];
   return dnum * inv + num * dinv;
 }
 
 // Tangent dn of the outward local normal at local point q (tangent dq):
 // zero on a box face, a cylinder's cap and a mesh face; the sphere's and
 // the barrel's q / |q| otherwise.
-PVT_FN void normal_tangent(int gtype, const float* gp, const float* q, const float* dq,
-                           float* dn) {
+PVT_FN void normal_tangent(int gtype, const pvt_real* gp, const pvt_real* q, const pvt_real* dq,
+                           pvt_real* dn) {
   dn[0] = dn[1] = dn[2] = 0.0f;
   if (gtype == GEOM_SPHERE) {
-    const float mag = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
+    const pvt_real mag = pvt_sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
     if (mag == 0.0f) {
       for (int k = 0; k < 3; ++k) dn[k] = dq[k];
       return;
     }
-    const float dmag =
+    const pvt_real dmag =
         2.0f * (q[0] * dq[0] + q[1] * dq[1] + q[2] * dq[2]) * (0.5f / mag);
     for (int k = 0; k < 3; ++k) dn[k] = dq[k] / mag - q[k] * dmag / (mag * mag);
     return;
   }
   if (gtype != GEOM_CYLINDER) return;
-  const float half = 0.5f * gp[0];
-  const float atol = 1e-8f + 1e-5f * fabsf(half);
-  if (fabsf(q[2] + half) <= atol || fabsf(q[2] - half) <= atol) return;
-  const float r = sqrtf(q[0] * q[0] + q[1] * q[1]);
-  const float sr = r == 0.0f ? 1.0f : r;
-  const float dsr = r == 0.0f ? 0.0f : 2.0f * (q[0] * dq[0] + q[1] * dq[1]) * (0.5f / r);
+  const pvt_real half = 0.5f * gp[0];
+  const pvt_real atol = PVT_R(1e-8) + PVT_R(1e-5) * pvt_fabs(half);
+  if (pvt_fabs(q[2] + half) <= atol || pvt_fabs(q[2] - half) <= atol) return;
+  const pvt_real r = pvt_sqrt(q[0] * q[0] + q[1] * q[1]);
+  const pvt_real sr = r == 0.0f ? 1.0f : r;
+  const pvt_real dsr = r == 0.0f ? 0.0f : 2.0f * (q[0] * dq[0] + q[1] * dq[1]) * (0.5f / r);
   for (int k = 0; k < 2; ++k) dn[k] = dq[k] / sr - q[k] * dsr / (sr * sr);
 }
 
@@ -2336,37 +2439,37 @@ PVT_FN void normal_tangent(int gtype, const float* gp, const float* q, const flo
 // the step. Writes j[PATH_J]: the new coordinates' tangents, then those of
 // t0, alpha and the reflectivity (0 off a surface event), raw: infinite or
 // NaN where the reference's are.
-PVT_FN void step_tangent(const PvtScene& sc, const float* pp, const float* pd, const StepOut& o,
-                         const PathSlopes& ps, const float* u, const int* spec,
-                         const float* tin, float* j) {
+PVT_FN void step_tangent(const PvtScene& sc, const pvt_real* pp, const pvt_real* pd,
+                         const StepOut& o, const PathSlopes& ps, const pvt_real* u, const int* spec,
+                         const pvt_real* tin, pvt_real* j) {
   const int kind = spec[PATH_KIND], pnode = spec[PATH_NODE];
-  const float dn1 = kind == PATH_N && pnode == o.container ? 1.0f : 0.0f;
-  const float dn2 = kind == PATH_N && o.adjacent >= 0 && pnode == o.adjacent ? 1.0f : 0.0f;
-  const float din[3] = {tin[3], tin[4], tin[5]};
+  const pvt_real dn1 = kind == PATH_N && pnode == o.container ? 1.0f : 0.0f;
+  const pvt_real dn2 = kind == PATH_N && o.adjacent >= 0 && pnode == o.adjacent ? 1.0f : 0.0f;
+  const pvt_real din[3] = {tin[3], tin[4], tin[5]};
   // The hit node's local ray and its tangent, t0's tangent.
   const int h = o.hit;
-  const float* nf = sc.node_f + h * NODE_F;
+  const pvt_real* nf = sc.node_f + h * NODE_F;
   const int gtype = sc.node_i[h * NODE_I + NI_GEOM];
-  const float* R = nf + NF_W2L;
-  float lo[3], ld[3], dlo[3], dld[3];
+  const pvt_real* R = nf + NF_W2L;
+  pvt_real lo[3], ld[3], dlo[3], dld[3];
   for (int k = 0; k < 3; ++k) {
     lo[k] = R[4 * k] * pp[0] + R[4 * k + 1] * pp[1] + R[4 * k + 2] * pp[2] + R[4 * k + 3];
     ld[k] = R[4 * k] * pd[0] + R[4 * k + 1] * pd[1] + R[4 * k + 2] * pd[2];
     dlo[k] = R[4 * k] * tin[0] + R[4 * k + 1] * tin[1] + R[4 * k + 2] * tin[2];
     dld[k] = R[4 * k] * tin[3] + R[4 * k + 1] * tin[4] + R[4 * k + 2] * tin[5];
   }
-  float dgp[3] = {0.0f, 0.0f, 0.0f};
+  pvt_real dgp[3] = {0.0f, 0.0f, 0.0f};
   if (kind == PATH_GEOM && pnode == h) dgp[spec[PATH_PARAM]] = 1.0f;
-  const float dt0 = isfinite(o.t0)
+  const pvt_real dt0 = isfinite(o.t0)
                         ? hit_tangent(sc, gtype, nf + NF_GP, dgp, lo, ld, dlo, dld, o.cand, o.tri)
                         : 0.0f;
   // Attenuation, free path and the advance.
-  const float dalpha = ps.dalpha * tin[6];
-  float dp[3] = {tin[0], tin[1], tin[2]};
-  float dd[3] = {din[0], din[1], din[2]};
-  float dw = tin[6];
+  const pvt_real dalpha = ps.dalpha * tin[6];
+  pvt_real dp[3] = {tin[0], tin[1], tin[2]};
+  pvt_real dd[3] = {din[0], din[1], din[2]};
+  pvt_real dw = tin[6];
   if (o.moving) {
-    const float dadv = o.absorbed ? log1pf(-u[0]) * dalpha / (o.alpha * o.alpha) : dt0;
+    const pvt_real dadv = o.absorbed ? pvt_log1p(-u[0]) * dalpha / (o.alpha * o.alpha) : dt0;
     for (int k = 0; k < 3; ++k) dp[k] = tin[k] + din[k] * o.advance + pd[k] * dadv;
   }
   // Volume event: a new direction drawn from u alone; re-emission at gamma.
@@ -2375,73 +2478,74 @@ PVT_FN void step_tangent(const PvtScene& sc, const float* pp, const float* pd, c
     if (o.emitting) dw = ps.dnew * (ps.dp1 * tin[6] * (1.0f - u[5]));
   }
   // Surface event at the hit node.
-  float dr = 0.0f;
+  pvt_real dr = 0.0f;
   if (o.reflecting || o.transmitting) {
-    float q[3], dq[3], dln[3];
+    pvt_real q[3], dq[3], dln[3];
     for (int k = 0; k < 3; ++k) {
       q[k] = lo[k] + o.t0 * ld[k];
       dq[k] = dlo[k] + dt0 * ld[k] + o.t0 * dld[k];
     }
     normal_tangent(gtype, nf + NF_GP, q, dq, dln);
-    const float* Rw = nf + NF_L2W;
-    float dwn[3];
+    const pvt_real* Rw = nf + NF_L2W;
+    pvt_real dwn[3];
     for (int k = 0; k < 3; ++k)
       dwn[k] = Rw[3 * k] * dln[0] + Rw[3 * k + 1] * dln[1] + Rw[3 * k + 2] * dln[2];
-    const float* wn = o.wn;
-    const float ddot = wn[0] * pd[0] + wn[1] * pd[1] + wn[2] * pd[2];
-    const float dddot = dwn[0] * pd[0] + dwn[1] * pd[1] + dwn[2] * pd[2] + wn[0] * din[0] +
+    const pvt_real* wn = o.wn;
+    const pvt_real ddot = wn[0] * pd[0] + wn[1] * pd[1] + wn[2] * pd[2];
+    const pvt_real dddot = dwn[0] * pd[0] + dwn[1] * pd[1] + dwn[2] * pd[2] + wn[0] * din[0] +
                         wn[1] * din[1] + wn[2] * din[2];
-    const float c = o.c_in;
-    const float dc = clip_slope(fabsf(ddot), 0.0f, 1.0f) * (ddot >= 0.0f ? dddot : -dddot);
-    const float flip = ddot < 0.0f ? -1.0f : 1.0f;
-    const float na[3] = {wn[0] * flip, wn[1] * flip, wn[2] * flip};
-    const float dna[3] = {dwn[0] * flip, dwn[1] * flip, dwn[2] * flip};
-    const float n1 = o.n1r, n2 = o.n2r;
-    const float ratio = n1 / n2, dratio = dn1 / n2 - n1 * dn2 / (n2 * n2);
+    const pvt_real c = o.c_in;
+    const pvt_real dc = clip_slope(pvt_fabs(ddot), 0.0f, 1.0f) * (ddot >= 0.0f ? dddot : -dddot);
+    const pvt_real flip = ddot < 0.0f ? -1.0f : 1.0f;
+    const pvt_real na[3] = {wn[0] * flip, wn[1] * flip, wn[2] * flip};
+    const pvt_real dna[3] = {dwn[0] * flip, dwn[1] * flip, dwn[2] * flip};
+    const pvt_real n1 = o.n1r, n2 = o.n2r;
+    const pvt_real ratio = n1 / n2, dratio = dn1 / n2 - n1 * dn2 / (n2 * n2);
     if (o.fres_coin) {
-      const float s2r = 1.0f - c * c;
-      const float s2 = clampf(s2r, 0.0f, 1.0f);
-      const float ds2 = clip_slope(s2r, 0.0f, 1.0f) * (-2.0f * c * dc);
-      const float ur = 1.0f - ratio * ratio * s2;
-      const float dur = max0_slope(ur) * -(2.0f * ratio * dratio * s2 + ratio * ratio * ds2);
-      const float k = sqrtf(fmaxf(ur, 0.0f));
-      const float dk = dur * (0.5f / k);
-      const float A = n1 * c - n2 * k, B = n1 * c + n2 * k;
-      const float dA = dn1 * c + n1 * dc - (dn2 * k + n2 * dk);
-      const float dB = dn1 * c + n1 * dc + (dn2 * k + n2 * dk);
-      const float C = n1 * k - n2 * c, D = n1 * k + n2 * c;
-      const float dC = dn1 * k + n1 * dk - (dn2 * c + n2 * dc);
-      const float dD2 = dn1 * k + n1 * dk + (dn2 * c + n2 * dc);
-      const float qs = A / B, qp = C / D;
-      const float dqs = dA / B - A * dB / (B * B), dqp = dC / D - C * dD2 / (D * D);
+      const pvt_real s2r = 1.0f - c * c;
+      const pvt_real s2 = clampf(s2r, 0.0f, 1.0f);
+      const pvt_real ds2 = clip_slope(s2r, 0.0f, 1.0f) * (-2.0f * c * dc);
+      const pvt_real ur = 1.0f - ratio * ratio * s2;
+      const pvt_real dur = max0_slope(ur) * -(2.0f * ratio * dratio * s2 + ratio * ratio * ds2);
+      const pvt_real k = pvt_sqrt(pvt_fmax(ur, 0.0f));
+      const pvt_real dk = dur * (0.5f / k);
+      const pvt_real A = n1 * c - n2 * k, B = n1 * c + n2 * k;
+      const pvt_real dA = dn1 * c + n1 * dc - (dn2 * k + n2 * dk);
+      const pvt_real dB = dn1 * c + n1 * dc + (dn2 * k + n2 * dk);
+      const pvt_real C = n1 * k - n2 * c, D = n1 * k + n2 * c;
+      const pvt_real dC = dn1 * k + n1 * dk - (dn2 * c + n2 * dc);
+      const pvt_real dD2 = dn1 * k + n1 * dk + (dn2 * c + n2 * dc);
+      const pvt_real qs = A / B, qp = C / D;
+      const pvt_real dqs = dA / B - A * dB / (B * B), dqp = dC / D - C * dD2 / (D * D);
       dr = clip_slope(0.5f * (qs * qs + qp * qp), 0.0f, 1.0f) * (qs * dqs + qp * dqp);
     }
     if (o.reflecting) {
       if (o.mode == OVR_LAMBERTIAN) {
-        const float st_l = sqrtf(u[3]);
-        const float ct_l = sqrtf(fmaxf(1.0f - u[3], 0.0f));
-        const float phi_l = PVT_TWO_PI * u[4];
-        const float lx = st_l * cosf(phi_l), ly = st_l * sinf(phi_l);
-        const float ax = -na[0], ay = -na[1], az = -na[2];
-        const float dax = -dna[0], day = -dna[1], daz = -dna[2];
-        const float sign = az >= 0.0f ? 1.0f : -1.0f;
-        const float den = sign + az;
-        const float a_ = -1.0f / den, da_ = daz / (den * den);
-        const float db_ = dax * ay * a_ + ax * day * a_ + ax * ay * da_;
-        const float dt1[3] = {sign * (2.0f * ax * dax * a_ + ax * ax * da_), sign * db_,
+        const pvt_real st_l = pvt_sqrt(u[3]);
+        const pvt_real ct_l = pvt_sqrt(pvt_fmax(1.0f - u[3], 0.0f));
+        const pvt_real phi_l = PVT_TWO_PI * u[4];
+        const pvt_real lx = st_l * pvt_cos(phi_l), ly = st_l * pvt_sin(phi_l);
+        const pvt_real ax = -na[0], ay = -na[1], az = -na[2];
+        const pvt_real dax = -dna[0], day = -dna[1], daz = -dna[2];
+        const pvt_real sign = az >= 0.0f ? 1.0f : -1.0f;
+        const pvt_real den = sign + az;
+        const pvt_real a_ = -1.0f / den, da_ = daz / (den * den);
+        const pvt_real db_ = dax * ay * a_ + ax * day * a_ + ax * ay * da_;
+        const pvt_real dt1[3] = {sign * (2.0f * ax * dax * a_ + ax * ax * da_), sign * db_,
                               -sign * dax};
-        const float dt2[3] = {db_, 2.0f * ay * day * a_ + ay * ay * da_, -day};
-        const float dax3[3] = {dax, day, daz};
+        const pvt_real dt2[3] = {db_, 2.0f * ay * day * a_ + ay * ay * da_, -day};
+        const pvt_real dax3[3] = {dax, day, daz};
         for (int k = 0; k < 3; ++k) dd[k] = lx * dt1[k] + ly * dt2[k] + ct_l * dax3[k];
       } else {
         for (int k = 0; k < 3; ++k) dd[k] = din[k] - 2.0f * (dc * na[k] + c * dna[k]);
       }
     } else if (sc.node_i[h * NODE_I + NI_SURF] == SURF_FRESNEL && o.mode != OVR_ABSORB) {
-      const float cr = 1.0f - ratio * ratio * (1.0f - c * c);
-      const float dcr = -(2.0f * ratio * dratio * (1.0f - c * c)) + ratio * ratio * 2.0f * c * dc;
-      const float cterm = sqrtf(fmaxf(cr, 0.0f));
-      const float dct = max0_slope(cr) * dcr * (0.5f / cterm);
-      const float scale = cterm - ratio * c, dscale = dct - (dratio * c + ratio * dc);
+      const pvt_real cr = 1.0f - ratio * ratio * (1.0f - c * c);
+      const pvt_real dcr =
+          -(2.0f * ratio * dratio * (1.0f - c * c)) + ratio * ratio * 2.0f * c * dc;
+      const pvt_real cterm = pvt_sqrt(pvt_fmax(cr, 0.0f));
+      const pvt_real dct = max0_slope(cr) * dcr * (0.5f / cterm);
+      const pvt_real scale = cterm - ratio * c, dscale = dct - (dratio * c + ratio * dc);
       for (int k = 0; k < 3; ++k)
         dd[k] = dratio * pd[k] + ratio * din[k] + dscale * na[k] + scale * dna[k];
     }
@@ -2459,7 +2563,7 @@ PVT_FN void step_tangent(const PvtScene& sc, const float* pp, const float* pd, c
 // What the hybrid terms of a step share between channels.
 struct PathTerms {
   bool surv, coll, coin;
-  float t0_fin, a_t0, coll_denom, rep_fac, branch;
+  pvt_real t0_fin, a_t0, coll_denom, rep_fac, branch;
 };
 
 PVT_FN PathTerms path_terms(const StepOut& o) {
@@ -2468,13 +2572,13 @@ PVT_FN PathTerms path_terms(const StepOut& o) {
   const bool finite_t0 = isfinite(o.t0);
   pt.t0_fin = finite_t0 ? o.t0 : 0.0f;
   pt.a_t0 = o.alpha * pt.t0_fin;
-  pt.coll_denom = fmaxf(-expm1f(-pt.a_t0), 1e-12f);
+  pt.coll_denom = pvt_fmax(-pvt_expm1(-pt.a_t0), PVT_R(1e-12));
   pt.coll = o.absorbed && finite_t0;
-  pt.rep_fac = expf(fminf(o.alpha * (o.advance - pt.t0_fin), 0.0f)) *
-               (-expm1f(-o.alpha * o.advance)) / pt.coll_denom;
+  pt.rep_fac = pvt_exp(pvt_fmin(o.alpha * (o.advance - pt.t0_fin), 0.0f)) *
+               (-pvt_expm1(-o.alpha * o.advance)) / pt.coll_denom;
   pt.coin = o.fres_coin && (o.reflecting || o.transmitting);
-  pt.branch = o.reflecting ? 1.0f / fmaxf(o.refl_r, 1e-12f)
-                           : -1.0f / fmaxf(1.0f - o.refl_r, 1e-12f);
+  pt.branch = o.reflecting ? 1.0f / pvt_fmax(o.refl_r, PVT_R(1e-12))
+                           : -1.0f / pvt_fmax(1.0f - o.refl_r, PVT_R(1e-12));
   return pt;
 }
 
@@ -2483,14 +2587,14 @@ PVT_FN PathTerms path_terms(const StepOut& o) {
 // on lanes that reached a boundary, collision e^{-a t0} d(alpha t0) /
 // max(-expm1(-a t0), 1e-12) on absorbed lanes, the coin nan_to_num(dR *
 // branch); the absorption point moved by dt0 * rep_fac along pd.
-PVT_FN float path_contribution(const PathTerms& pt, const StepOut& o, const float* j,
-                               const float* pd, float* tout) {
-  const float dt0 = pvt_nan_to_num(j[7]);
-  const float d_at0 = pvt_nan_to_num(j[8]) * pt.t0_fin + o.alpha * dt0;
-  const float ds = (pt.surv ? -d_at0 : 0.0f) +
-                   (pt.coll ? expf(-pt.a_t0) * d_at0 / pt.coll_denom : 0.0f) +
+PVT_FN pvt_real path_contribution(const PathTerms& pt, const StepOut& o, const pvt_real* j,
+                                  const pvt_real* pd, pvt_real* tout) {
+  const pvt_real dt0 = pvt_nan_to_num(j[7]);
+  const pvt_real d_at0 = pvt_nan_to_num(j[8]) * pt.t0_fin + o.alpha * dt0;
+  const pvt_real ds = (pt.surv ? -d_at0 : 0.0f) +
+                   (pt.coll ? pvt_exp(-pt.a_t0) * d_at0 / pt.coll_denom : 0.0f) +
                    (pt.coin ? pvt_nan_to_num(j[9] * pt.branch) : 0.0f);
-  const float shift = pt.coll ? dt0 * pt.rep_fac : 0.0f;
+  const pvt_real shift = pt.coll ? dt0 * pt.rep_fac : 0.0f;
   for (int k = 0; k < 7; ++k) tout[k] = pvt_nan_to_num(j[k]);
   for (int k = 0; k < 3; ++k) tout[k] += shift * pd[k];
   return ds;
@@ -2504,16 +2608,16 @@ PVT_FN float path_contribution(const PathTerms& pt, const StepOut& o, const floa
 // read and set again: the spectral slopes multiply that tangent, so they
 // are skipped while it is 0 everywhere (no parameter moves a wavelength,
 // so it stays 0 from emission on; the K5a fits' slopes are finite).
-PVT_FN void pathwise_step(const PvtScene& sc, const int* cheb, const StepOut& o, const float* pp,
-                          const float* pd, float wav_in, const float* u, const ScoreAcc& sa,
-                          bool& dwav) {
+PVT_FN void pathwise_step(const PvtScene& sc, const pvt_word* cheb, const StepOut& o,
+                          const pvt_real* pp, const pvt_real* pd, pvt_real wav_in,
+                          const pvt_real* u, const ScoreAcc& sa, bool& dwav) {
   const PathSlopes ps = dwav ? path_slopes(sc, cheb, o, wav_in, u) : PathSlopes{0.0f, 0.0f, 0.0f};
   const PathTerms pt = path_terms(o);
   const int first = sa.ch - sa.n_path;
   dwav = false;
   for (int ci = 0; ci < sa.n_path; ++ci) {
-    float* row = sa.tang + (size_t)ci * 7 * sa.stride;
-    float tin[7], j[PATH_J], tout[7];
+    pvt_real* row = sa.tang + (size_t)ci * 7 * sa.stride;
+    pvt_real tin[7], j[PATH_J], tout[7];
     for (int k = 0; k < 7; ++k) tin[k] = row[k * sa.stride];
     step_tangent(sc, pp, pd, o, ps, u, sa.path + ci * PATH_I, tin, j);
     sa.row[(first + ci) * sa.stride] += path_contribution(pt, o, j, pd, tout);
@@ -2529,10 +2633,10 @@ PVT_FN void pathwise_step(const PvtScene& sc, const int* cheb, const StepOut& o,
 struct PvtPath {
   const int* path;
   int n;
-  const float* tin;
-  float* tout;
-  float* jv;
-  float* ds;
+  const pvt_real* tin;
+  pvt_real* tout;
+  pvt_real* jv;
+  pvt_real* ds;
 };
 
 // pvt_pathwise: lane i's step (as pvt_step's), then every channel's map,
@@ -2544,8 +2648,8 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   load_lane(in, i, p);
   p.count += p.alive ? 1 : 0;
   const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
-  const float pp[3] = {p.px, p.py, p.pz}, pd[3] = {p.dx, p.dy, p.dz}, wav_in = p.wav;
-  float u[8];
+  const pvt_real pp[3] = {p.px, p.py, p.pz}, pd[3] = {p.dx, p.dy, p.dz}, wav_in = p.wav;
+  pvt_real u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
   step_one<true, false, true, true, true>(sc, sc.cheb_pack, p, u, o);
@@ -2555,7 +2659,7 @@ PVT_FN void pathwise_lane(const PvtScene& sc, const PvtState& in, const PvtState
   const PathSlopes ps = path_slopes(sc, sc.cheb_pack, o, wav_in, u);
   const PathTerms pt = path_terms(o);
   for (int ci = 0; ci < pw.n; ++ci) {
-    float tin[7], j[PATH_J], tout[7];
+    pvt_real tin[7], j[PATH_J], tout[7];
     for (int k = 0; k < 7; ++k) tin[k] = pw.tin[(ci * 7 + k) * B + i];
     step_tangent(sc, pp, pd, o, ps, u, pw.path + ci * PATH_I, tin, j);
     pw.ds[ci * B + i] = path_contribution(pt, o, j, pd, tout);
@@ -2594,40 +2698,56 @@ PVT_FN void tally_lane(const PvtScene& sc, const PvtState& s, const PvtFlags& fl
   seen_to_words(sc, bits, seen + i * SEEN_WORDS);
 }
 
-// Eight bytes of ints and sixteen of floats, moved as one access each on
-// the card (a log record is three of each).
-#ifdef __CUDACC__
+// Eight bytes of ints and sixteen of reals, moved as one access each on
+// the card (a log record is three of ints and three of reals, six in the
+// float64 build).
+#if defined(__CUDACC__) && defined(PVT_F64)
 typedef int2 PvtInt2;
-typedef float4 PvtFloat4;
+typedef double2 PvtReal16;
+#elif defined(__CUDACC__)
+typedef int2 PvtInt2;
+typedef float4 PvtReal16;
 #else
 struct alignas(8) PvtInt2 {
   int x, y;
 };
-struct alignas(16) PvtFloat4 {
-  float x, y, z, w;
+struct alignas(16) PvtReal16 {
+  pvt_real v[kReals16];
 };
 #endif
+// 16-byte pieces of a record's LOG_F reals.
+constexpr int kLogPieces = LOG_F / kReals16;
 
 // K11: one record of photon slot `slot`, its nev-th, unless the row is
 // full (engine/eventlog.py record). `nrm` may be null (zeros). The
 // photon owns its row, so these are plain stores: three 8-byte and three
-// 16-byte ones on the card (a record's ints start 8-byte and its floats
-// 16-byte aligned), which ran 15 % faster than 18 scalar stores where
-// every photon is recorded (PERF.md, section 6).
+// 16-byte ones on the card (six in the float64 build; a record's ints
+// start 8-byte and its reals 16-byte aligned), which ran 15 % faster than
+// 18 scalar stores where every photon is recorded (PERF.md, section 6).
 PVT_FN void log_record(const PvtLog& lg, long long slot, int& nev, int kind, int hit,
-                       int container, int adjacent, int component, int source, const float* pos,
-                       const float* dir, const float* nrm, float wav, float trav, float dur) {
+                       int container, int adjacent, int component, int source,
+                       const pvt_real* pos, const pvt_real* dir, const pvt_real* nrm, pvt_real wav,
+                       pvt_real trav, pvt_real dur) {
   if (nev >= lg.max_events) return;
   const long long at = slot * lg.max_events + nev;
-  const float n0 = nrm ? nrm[0] : 0.0f, n1 = nrm ? nrm[1] : 0.0f, n2 = nrm ? nrm[2] : 0.0f;
+  const pvt_real n0 = nrm ? nrm[0] : 0.0f, n1 = nrm ? nrm[1] : 0.0f, n2 = nrm ? nrm[2] : 0.0f;
   PvtInt2* ri = reinterpret_cast<PvtInt2*>(lg.ints + at * LOG_I);
   ri[0] = PvtInt2{kind, hit};
   ri[1] = PvtInt2{container, adjacent};
   ri[2] = PvtInt2{component, source};
-  PvtFloat4* rf = reinterpret_cast<PvtFloat4*>(lg.floats + at * LOG_F);
-  rf[0] = PvtFloat4{pos[0], pos[1], pos[2], dir[0]};
-  rf[1] = PvtFloat4{dir[1], dir[2], n0, n1};
-  rf[2] = PvtFloat4{n2, wav, trav, dur};
+  PvtReal16* rf = reinterpret_cast<PvtReal16*>(lg.floats + at * LOG_F);
+#ifdef PVT_F64
+  rf[0] = PvtReal16{pos[0], pos[1]};
+  rf[1] = PvtReal16{pos[2], dir[0]};
+  rf[2] = PvtReal16{dir[1], dir[2]};
+  rf[3] = PvtReal16{n0, n1};
+  rf[4] = PvtReal16{n2, wav};
+  rf[5] = PvtReal16{trav, dur};
+#else
+  rf[0] = PvtReal16{pos[0], pos[1], pos[2], dir[0]};
+  rf[1] = PvtReal16{dir[1], dir[2], n0, n1};
+  rf[2] = PvtReal16{n2, wav, trav, dur};
+#endif
   ++nev;
 }
 
@@ -2635,9 +2755,9 @@ PVT_FN void log_record(const PvtLog& lg, long long slot, int& nev, int kind, int
 // wavelength and source before it), in the JAX package's order
 // (engine/eventlog.py record_step).
 PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& o,
-                     const Photon& p, const float* d_in, float wav_in, int src_in) {
-  const float pos[3] = {p.px, p.py, p.pz};
-  const float d_out[3] = {p.dx, p.dy, p.dz};
+                     const Photon& p, const pvt_real* d_in, pvt_real wav_in, int src_in) {
+  const pvt_real pos[3] = {p.px, p.py, p.pz};
+  const pvt_real d_out[3] = {p.dx, p.dy, p.dz};
   if (o.kill_max)
     log_record(lg, slot, nev, EV_KILL, -1, o.container, -1, -1, src_in, pos, d_in, nullptr,
                p.wav, p.trav, p.dur);
@@ -2664,22 +2784,27 @@ PVT_FN void log_step(const PvtLog& lg, long long slot, int& nev, const StepOut& 
 // K11's pack (pvt_log_pack, tracer.cu), slot s: its first counts[s]
 // records, a prefix of its row, to records offset.. of the packed ints
 // [N, LOG_I] and floats [N, LOG_F]. Worker `lane` of `width` moves every
-// width-th of the slot's 8-byte int pairs and 16-byte float quads, so a
-// warp's lanes read and write neighbouring words. A row and a packed
+// width-th of the slot's 8-byte int pairs and 16-byte pieces of reals
+// (float quads, or double pairs in the float64 build), so a warp's lanes
+// read and write neighbouring words. A row and a packed
 // record start 8-byte aligned in the ints and 16-byte aligned in the
 // floats (LOG_I 6, LOG_F 12, the arrays' bases 16-byte aligned).
 PVT_FN void log_pack_slot(const PvtLog& lg, long long s, long long offset, int lane, int width,
-                          int* ints, float* floats) {
+                          int* ints, pvt_real* floats) {
   const int words = 3 * lg.counts[s];
   const long long row = s * lg.max_events;
   const PvtInt2* si = reinterpret_cast<const PvtInt2*>(lg.ints + row * LOG_I);
-  const PvtFloat4* sf = reinterpret_cast<const PvtFloat4*>(lg.floats + row * LOG_F);
+  const PvtReal16* sf = reinterpret_cast<const PvtReal16*>(lg.floats + row * LOG_F);
   PvtInt2* di = reinterpret_cast<PvtInt2*>(ints + offset * LOG_I);
-  PvtFloat4* df = reinterpret_cast<PvtFloat4*>(floats + offset * LOG_F);
+  PvtReal16* df = reinterpret_cast<PvtReal16*>(floats + offset * LOG_F);
   for (int k = lane; k < words; k += width) {
     di[k] = si[k];
     df[k] = sf[k];
   }
+#ifdef PVT_F64
+  // The other half of the records' 16-byte pieces of reals.
+  for (int k = words + lane; k < kLogPieces * lg.counts[s]; k += width) df[k] = sf[k];
+#endif
 }
 
 // ---------------------------------------------------------------------
@@ -2705,7 +2830,7 @@ struct TraceLane {
 // GENERATE record. Every photon starts alive. It draws the emission pairs
 // of `need` (start_pairs).
 template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
-PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t s1,
                          uint32_t pid, unsigned need, TraceLane& L, const PvtLog* lg,
                          const ScoreAcc* sa, const PvtBundle& bundle) {
   L.pid = pid;
@@ -2728,7 +2853,7 @@ PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint3
   }
   if (kLog && L.slot >= 0) {
     const Photon& p = L.p;
-    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+    const pvt_real pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
     log_record(*lg, L.slot, L.nev, EV_GENERATE, -1, -1, -1, -1, -1, pos, dir, nullptr, p.wav,
                0.0f, 0.0f);
   }
@@ -2748,13 +2873,13 @@ PVT_FN void photon_start(const PvtScene& sc, const int* cheb, uint32_t s0, uint3
 // a step, whose output is then in o: the caller adds its recorder event
 // (kTally; tally_event, or the warp's with tally_warp).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath>
-PVT_FN bool photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateCounts& f,
+PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, FateCounts& f,
                         const PvtLog* lg, const ScoreAcc* sa, StepOut& o,
-                        const float* tris = nullptr) {
+                        const pvt_real* tris = nullptr) {
   Photon& p = L.p;
   p.count += 1;
   if (kLog && L.slot >= 0 && L.nev >= lg->max_events - 1) {
-    const float pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
+    const pvt_real pos[3] = {p.px, p.py, p.pz}, dir[3] = {p.dx, p.dy, p.dz};
     log_record(*lg, L.slot, L.nev, EV_KILL, -1, -1, -1, -1, p.source, pos, dir, nullptr, p.wav,
                p.trav, p.dur);
     f.kill += 1;
@@ -2765,11 +2890,11 @@ PVT_FN bool photon_step(const PvtScene& sc, const int* cheb, TraceLane& L, FateC
     p.alive = false;
     return false;
   }
-  const float d_in[3] = {p.dx, p.dy, p.dz};
-  const float wav_in = p.wav;
+  const pvt_real d_in[3] = {p.dx, p.dy, p.dz};
+  const pvt_real wav_in = p.wav;
   const int src_in = p.source;
-  const float p_in[3] = {p.px, p.py, p.pz};
-  float u[8];
+  const pvt_real p_in[3] = {p.px, p.py, p.pz};
+  pvt_real u[8];
   pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
   step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o, tris);
   f.exit += o.exit_mask;
@@ -2813,7 +2938,7 @@ PVT_FN unsigned start_pairs(const PvtScene& sc) {
 // start, step while it lives, finish. Returns its step count.
 template <bool kTally, bool kLog, bool kMesh, bool kScore = false, bool kPath = false,
           bool kBundle = false>
-PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+PVT_FN int trace_photon(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t s1,
                         uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
   TraceLane L;
@@ -2845,12 +2970,12 @@ PVT_FN int trace_photon(const PvtScene& sc, const int* cheb, uint32_t s0, uint32
 PVT_FN int draws_lane(uint32_t s0, uint32_t s1, unsigned long long base, bool dead, int rank,
                       unsigned need, const long long* k0, const long long* k1,
                       const int* count, const unsigned char* mask, long long i,
-                      long long* keys, float* emit, float* words) {
-  float u[8];
+                      long long* keys, pvt_real* emit, pvt_real* words) {
+  pvt_real u[8];
   pvt_draw((uint32_t)k0[i], (uint32_t)k1[i], (uint32_t)count[i], 0u, 4, u);
   for (int k = 0; k < 8; ++k) words[8 * i + k] = mask[i] >> k & 1u ? u[k] : -1.0f;
   uint32_t pk0 = 0u, pk1 = 0u;
-  float eu[6];
+  pvt_real eu[6];
   for (int k = 0; k < 6; ++k) eu[k] = -1.0f;
   int calls = 0;
   if (dead) {
@@ -2869,8 +2994,8 @@ PVT_FN int draws_lane(uint32_t s0, uint32_t s1, unsigned long long base, bool de
 // the most any of its lanes made (a warp's lanes make them together).
 void draws_warp(uint32_t s0, uint32_t s1, const long long* base, const unsigned char* dead,
                 unsigned need, const long long* k0, const long long* k1, const int* count,
-                const unsigned char* mask, long long w, long long* keys, float* emit,
-                float* words, int* calls) {
+                const unsigned char* mask, long long w, long long* keys, pvt_real* emit,
+                pvt_real* words, int* calls) {
   uint32_t deadm = 0u;
   for (int l = 0; l < kWarp; ++l)
     if (dead[w * kWarp + l]) deadm |= 1u << l;
@@ -2892,7 +3017,7 @@ void draws_warp(uint32_t s0, uint32_t s1, const long long* base, const unsigned 
 // warp to *lane_steps, and one to started[pid - first] at each photon's
 // start (started may be null); returns the longest photon's steps.
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle>
-int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
+int trace_warps(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t s1,
                 unsigned long long* next, unsigned long long total, int warps, FateCounts& f,
                 const PvtTally* acc, const PvtLog* lg, const ScoreAcc* sa,
                 const PvtBundle& bundle, unsigned long long* lane_steps, unsigned* started,
@@ -2966,8 +3091,9 @@ int trace_warps(const PvtScene& sc, const int* cheb, uint32_t s0, uint32_t s1,
 // pvt_mesh: nearest two hits of ray i (o, d: [B, 3] in the node's local
 // frame) against the node's triangles, read at `tris` (a block's shared
 // copy, or `tri`), the nearest's normal from `tri` in device memory.
-PVT_FN void mesh_lane(const float* tris, const float* tri, int n_tris, float eps, const float* o,
-                      const float* d, long long i, float* t1, float* t2, int* cnt, float* nrm) {
+PVT_FN void mesh_lane(const pvt_real* tris, const pvt_real* tri, int n_tris, pvt_real eps,
+                      const pvt_real* o, const pvt_real* d, long long i, pvt_real* t1, pvt_real* t2,
+                      int* cnt, pvt_real* nrm) {
   int first;
   cnt[i] = mesh_nearest_two(tris, n_tris, o + 3 * i, d + 3 * i, eps, t1 + i, t2 + i, &first);
   mesh_normal(tri, first, nrm + 3 * i);

@@ -5,7 +5,11 @@ host C++ compiler can build them into a small library with a plain C
 interface, one loop per kernel body over the lanes. The CPU tests hold
 it to the eager twins: the one check of the kernels' arithmetic that
 runs without a card. Built with ``-ffp-contract=off``: the host code
-rounds every operation, as the twin does.
+rounds every operation, as the twin does. ``build_library(f64=True)``
+builds it with ``-DPVT_F64``, as the card's ``tracer_f64`` library is
+built: every real a double (the entries' float arguments and the scene
+descriptor's reals too, ``kernels._Scene64``), without K15
+(``h_absorbed``, float32 only).
 """
 import ctypes
 import shutil
@@ -18,7 +22,9 @@ from pvtrace_tpu_torch.kernels import build
 
 HARNESS = r"""
 #include "tracer.cuh"
+#ifndef PVT_F64
 #include "diff.cuh"
+#endif
 template <bool kTally, bool kLog, bool kPath>
 void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                      unsigned long long total, const PvtLog* lg, FateCounts& f,
@@ -128,16 +134,16 @@ void h_step(const PvtScene* sc, const PvtState* in, const PvtState* out,
             const PvtFlags* fl, long long B) {
   for (long long i = 0; i < B; ++i) step_lane(*sc, *in, *out, *fl, i);
 }
-void h_cheb_seg(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out,
+void h_cheb_seg(const PvtScene* sc, int n_fits, const pvt_real* t, long long n_t, pvt_real* out,
                 int* seg) {
   for (int f = 0; f < n_fits; ++f)
     for (long long j = 0; j < n_t; ++j) cheb_lane(sc->cheb_pack, f, t[j], f * n_t + j, out, seg);
 }
-void h_cheb(const PvtScene* sc, int n_fits, const float* t, long long n_t, float* out) {
+void h_cheb(const PvtScene* sc, int n_fits, const pvt_real* t, long long n_t, pvt_real* out) {
   h_cheb_seg(sc, n_fits, t, n_t, out, nullptr);
 }
 void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
-             long long B, unsigned long long* cross, float* sums, unsigned* distinct,
+             long long B, unsigned long long* cross, pvt_real* sums, unsigned* distinct,
              unsigned long long* bins, double* sums64) {
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
   for (long long i = 0; i < B; ++i) tally_lane(*sc, *s, *fl, seen, i, acc);
@@ -145,7 +151,7 @@ void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned
 // pvt_tally's warp rule: lanes [w kWarp, (w + 1) kWarp) of the B lanes
 // as one warp (tally_warp_host), in turn; h_tally's arguments.
 void h_tally_warp(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
-                  long long B, unsigned long long* cross, float* sums, unsigned* distinct,
+                  long long B, unsigned long long* cross, pvt_real* sums, unsigned* distinct,
                   unsigned long long* bins, double* sums64) {
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
   for (long long w = 0; w * kWarp < B; ++w) {
@@ -193,14 +199,14 @@ void h_trace(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long of
 }
 // pvt_mesh; with `staged` the triangles are read from a copy, as a block
 // of the card reads its shared one.
-void h_mesh(const float* tri, int n_tris, int staged, float eps, const float* o, const float* d,
-            long long B, float* t1, float* t2, int* cnt, float* nrm) {
-  const std::vector<float> copy(tri, tri + (size_t)n_tris * TRI_F);
-  const float* tris = staged ? copy.data() : tri;
+void h_mesh(const pvt_real* tri, int n_tris, int staged, pvt_real eps, const pvt_real* o,
+            const pvt_real* d, long long B, pvt_real* t1, pvt_real* t2, int* cnt, pvt_real* nrm) {
+  const std::vector<pvt_real> copy(tri, tri + (size_t)n_tris * TRI_F);
+  const pvt_real* tris = staged ? copy.data() : tri;
   for (long long i = 0; i < B; ++i) mesh_lane(tris, tri, n_tris, eps, o, d, i, t1, t2, cnt, nrm);
 }
 void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
-             long long B, float* rows, int ch, int n_comps, double* fate_scores, int* comp) {
+             long long B, pvt_real* rows, int ch, int n_comps, double* fate_scores, int* comp) {
   for (long long i = 0; i < B; ++i) {
     const ScoreAcc sa = {rows + i, fate_scores, nullptr, B, ch, n_comps, 0};
     score_lane(*sc, *in, *out, *fl, i, sa, comp);
@@ -211,10 +217,10 @@ void h_score(const PvtScene* sc, const PvtState* in, const PvtState* out, const 
 // threads) or of a block's shared copy (stride kBlock).
 void h_trace_score_rows(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                         unsigned long long total, const PvtLog* lg, long long* fates,
-                        unsigned long long* cross, float* sums, unsigned* distinct,
-                        unsigned long long* bins, double* sums64, float* row, int ch,
-                        int n_comps, double* fate_scores, double* rec_scores, float* photon,
-                        float* tang, const int* path, int n_path, const PvtBundle* bundle,
+                        unsigned long long* cross, pvt_real* sums, unsigned* distinct,
+                        unsigned long long* bins, double* sums64, pvt_real* row, int ch,
+                        int n_comps, double* fate_scores, double* rec_scores, pvt_real* photon,
+                        pvt_real* tang, const int* path, int n_path, const PvtBundle* bundle,
                         long long stride) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
   const PvtTally acc = {cross, sums, distinct, nullptr, bins, sums64};
@@ -228,18 +234,18 @@ void h_trace_score_rows(const PvtScene* sc, unsigned s0, unsigned s1, unsigned l
 }
 void h_trace_score_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                    unsigned long long total, const PvtLog* lg, long long* fates,
-                   unsigned long long* cross, float* sums, unsigned* distinct,
-                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
-                   double* fate_scores, double* rec_scores, float* photon, float* tang,
+                   unsigned long long* cross, pvt_real* sums, unsigned* distinct,
+                   unsigned long long* bins, double* sums64, pvt_real* row, int ch, int n_comps,
+                   double* fate_scores, double* rec_scores, pvt_real* photon, pvt_real* tang,
                    const int* path, int n_path, const PvtBundle* bundle) {
   h_trace_score_rows(sc, s0, s1, off, total, lg, fates, cross, sums, distinct, bins, sums64, row,
                      ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path, bundle, 1);
 }
 void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                    unsigned long long total, const PvtLog* lg, long long* fates,
-                   unsigned long long* cross, float* sums, unsigned* distinct,
-                   unsigned long long* bins, double* sums64, float* row, int ch, int n_comps,
-                   double* fate_scores, double* rec_scores, float* photon, float* tang,
+                   unsigned long long* cross, pvt_real* sums, unsigned* distinct,
+                   unsigned long long* bins, double* sums64, pvt_real* row, int ch, int n_comps,
+                   double* fate_scores, double* rec_scores, pvt_real* photon, pvt_real* tang,
                    const int* path, int n_path) {
   h_trace_score_bundle(sc, s0, s1, off, total, lg, fates, cross, sums, distinct, bins, sums64,
                        row, ch, n_comps, fate_scores, rec_scores, photon, tang, path, n_path,
@@ -255,9 +261,9 @@ void h_trace_score(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long l
 // (may be null) each photon's starts.
 void h_trace_warp(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                   unsigned long long total, int warps, const PvtLog* lg, long long* fates,
-                  unsigned long long* cross, float* sums, unsigned* distinct,
-                  unsigned long long* bins, double* sums64, float* rows, int ch, int n_comps,
-                  double* fate_scores, double* rec_scores, float* photon, float* tang,
+                  unsigned long long* cross, pvt_real* sums, unsigned* distinct,
+                  unsigned long long* bins, double* sums64, pvt_real* rows, int ch, int n_comps,
+                  double* fate_scores, double* rec_scores, pvt_real* photon, pvt_real* tang,
                   const int* path, int n_path, const PvtBundle* bundle, unsigned long long* out,
                   unsigned* started) {
   FateCounts f = {0, 0, 0, 0, 0, 0};
@@ -283,14 +289,14 @@ void h_trace_warp(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long lo
 // pvt_draws' twin (tracer.cu): each kWarp lanes an emulated warp.
 void h_draws(unsigned s0, unsigned s1, const long long* base, const unsigned char* dead,
              unsigned need, const long long* k0, const long long* k1, const int* count,
-             const unsigned char* mask, long long B, long long* keys, float* emit, float* words,
-             int* calls) {
+             const unsigned char* mask, long long B, long long* keys, pvt_real* emit,
+             pvt_real* words, int* calls) {
   for (long long w = 0; w < B / kWarp; ++w)
     draws_warp(s0, s1, base, dead, need, k0, k1, count, mask, w, keys, emit, words, calls);
 }
 // pvt_log_pack's twin (tracer.cu): slot s as one emulated warp, its
 // kWarp lanes in turn (log_pack_slot).
-void h_log_pack(const PvtLog* lg, const long long* offsets, int* ints, float* floats) {
+void h_log_pack(const PvtLog* lg, const long long* offsets, int* ints, pvt_real* floats) {
   for (long long s = 0; s < lg->n_slots; ++s)
     for (int lane = 0; lane < kWarp; ++lane)
       log_pack_slot(*lg, s, offsets[s], lane, kWarp, ints, floats);
@@ -303,15 +309,16 @@ void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, con
                 long long B, const PvtPath* pw, int* comp) {
   for (long long i = 0; i < B; ++i) pathwise_lane(*sc, *in, *out, *fl, i, B, *pw, comp);
 }
-void h_fresnel(const float* n1, const float* n2, const float* c, long long n, float* d1,
-               float* d2) {
+void h_fresnel(const pvt_real* n1, const pvt_real* n2, const pvt_real* c, long long n, pvt_real* d1,
+               pvt_real* d2) {
   for (long long i = 0; i < n; ++i) {
-    float d[2];
+    pvt_real d[2];
     fresnel_dR(n1[i], n2[i], c[i], d);
     d1[i] = d[0];
     d2[i] = d[1];
   }
 }
+#ifndef PVT_F64
 void h_absorbed(const PvtAbsorbers* a, const float* pos, const float* dir, const float* wav,
                 const float* c, long long P, float* w, float* depth, const float* grad_w,
                 float* grad) {
@@ -320,6 +327,7 @@ void h_absorbed(const PvtAbsorbers* a, const float* pos, const float* dir, const
     grad[i] = absorbed_grad_lane(depth, grad_w, *c, i);
   }
 }
+#endif
 }
 """
 
@@ -329,17 +337,21 @@ def compiler():
     return shutil.which("g++")
 
 
-def build_library(directory):
-    """Build the harness in `directory` and load it with its argtypes."""
-    src = Path(directory) / "harness.cpp"
+def build_library(directory, f64=False):
+    """Build the harness in `directory` and load it with its argtypes;
+    with `f64`, the float64 build (``h.f64`` says which)."""
+    name = "harness_f64" if f64 else "harness"
+    src = Path(directory) / f"{name}.cpp"
     src.write_text(HARNESS)
     lib = src.with_suffix(".so")
     subprocess.run(
         [compiler(), "-std=c++17", "-O1", "-shared", "-fPIC", "-ffp-contract=off",
-         "-I", str(build.CSRC), "-o", str(lib), str(src)],
+         *(["-DPVT_F64"] if f64 else []), "-I", str(build.CSRC), "-o", str(lib), str(src)],
         check=True, capture_output=True, timeout=300,
     )
     h = ctypes.CDLL(str(lib))
+    h.f64 = f64
+    real = ctypes.c_double if f64 else ctypes.c_float
     vp, u32, u64, i32, i64 = (
         ctypes.c_void_p, ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_longlong
     )
@@ -354,7 +366,7 @@ def build_library(directory):
     h.h_tally.argtypes = h.h_tally_warp.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
     h.h_trace_bundle.argtypes = h.h_trace.argtypes + [vp]
-    h.h_mesh.argtypes = [vp, i32, i32, ctypes.c_float, vp, vp, i64, vp, vp, vp, vp]
+    h.h_mesh.argtypes = [vp, i32, i32, real, vp, vp, i64, vp, vp, vp, vp]
     h.h_score.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32, vp, vp]
     h.h_trace_score.argtypes = [vp, u32, u32, u64, u64, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                 i32, vp, vp, vp, vp, vp, i32]
@@ -367,12 +379,14 @@ def build_library(directory):
     h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
-    h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    for fn in (h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
-               h.h_tally_warp, h.h_trace,
-               h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score, h.h_trace_score_bundle,
-               h.h_trace_score_rows, h.h_trace_warp, h.h_layout, h.h_log_pack, h.h_draws,
-               h.h_pathwise, h.h_fresnel, h.h_absorbed):
+    entries = [h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
+               h.h_tally_warp, h.h_trace, h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score,
+               h.h_trace_score_bundle, h.h_trace_score_rows, h.h_trace_warp, h.h_layout,
+               h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel]
+    if not f64:
+        h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
+        entries.append(h.h_absorbed)
+    for fn in entries:
         fn.restype = None
     return h
 

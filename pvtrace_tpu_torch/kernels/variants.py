@@ -117,8 +117,8 @@ def build_variants(variants, lib, flags=()):
     jobs = {}
     for label, csrc in variants.items():
         path = csrc / f"lib{lib}.so"
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(path),
-               str(csrc / build.LIBRARIES[lib])]
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *build.LIBRARY_FLAGS.get(lib, ()), *flags,
+               "-o", str(path), str(csrc / build.LIBRARIES[lib])]
         jobs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), path)
     libs = {}

@@ -13,10 +13,10 @@ On the CPU:
 * the wrappers take the twin for CPU tensors and count no launch.
 
 On the card (marked ``gpu``, skipped without CUDA): phases 2-4, 6-9,
-12-14, 16-22 and 24-25 of ``chip_smoke.py`` at a small size, on both
-spectral paths, and the float64, device-emission and bad-bundle
-refusals. This file imports no JAX, so it runs there with
-``--noconftest``.
+12-14, 16-22, 24-25 and 36 (float64, ``tracer_f64``) of
+``chip_smoke.py`` at a small size, on both spectral paths, and the
+float64 gradients', device-emission and bad-bundle refusals. This file
+imports no JAX, so it runs there with ``--noconftest``.
 """
 import ctypes
 import re
@@ -86,7 +86,8 @@ def test_header_event_kinds_match_event():
 
 
 @pytest.mark.parametrize("struct, cls", [
-    ("PvtScene", kernels._Scene), ("PvtState", kernels._State), ("PvtFlags", kernels._Flags),
+    ("PvtScene", kernels._Scene), ("PvtScene", kernels._Scene64), ("PvtState", kernels._State),
+    ("PvtFlags", kernels._Flags),
     ("PvtTallyOut", kernels._TallyOut), ("PvtLog", kernels._Log), ("PvtScore", kernels._Score),
     ("PvtAbsorbers", kernels._Absorbers), ("PvtPath", kernels._Path),
 ])
@@ -108,14 +109,14 @@ def bench_f32():
     return tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device="cpu")
 
 
-def _spectra_scene(monkeypatch, spectra, device="cpu"):
-    """The bench slab's float32 tensors on spectral path `spectra` (K5a:
-    the defaults; K5b: ``PVTRACE_TPU_NO_CHEB`` set)."""
+def _spectra_scene(monkeypatch, spectra, device="cpu", dtype=torch.float32):
+    """The bench slab's tensors (float32 unless `dtype`) on spectral path
+    `spectra` (K5a: the defaults; K5b: ``PVTRACE_TPU_NO_CHEB`` set)."""
     if spectra == "K5b":
         monkeypatch.setenv("PVTRACE_TPU_NO_CHEB", "1")
     else:
         monkeypatch.delenv("PVTRACE_TPU_NO_CHEB", raising=False)
-    st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device=device)
+    st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=dtype, device=device)
     cheb = spectra == "K5a"
     assert st["meta"]["cheb_spec"] == cheb and st["meta"]["cheb_icdf"] == cheb
     return st
@@ -410,10 +411,10 @@ def cuda_scene():
     return tables.scene_tensors(compiled, dtype=torch.float32, device="cuda")
 
 
-def _cuda_spectra_scene(monkeypatch, spectra):
+def _cuda_spectra_scene(monkeypatch, spectra, dtype=torch.float32):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return _spectra_scene(monkeypatch, spectra, "cuda")
+    return _spectra_scene(monkeypatch, spectra, "cuda", dtype)
 
 
 @pytest.mark.gpu
@@ -496,10 +497,10 @@ def test_simulate_on_card_goes_through_the_kernel(cuda_scene):
     assert kernels.launches["pvt_trace"] == 1 and tracer.eager_runs == 0
 
 
-def _cuda_tensors(make):
+def _cuda_tensors(make, dtype=torch.float32):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return tables.scene_tensors(compile_scene(make()), dtype=torch.float32, device="cuda")
+    return tables.scene_tensors(compile_scene(make()), dtype=dtype, device="cuda")
 
 
 @pytest.mark.gpu
@@ -588,10 +589,99 @@ def test_mesh_and_log_on_card_go_through_the_kernel():
 
 
 @pytest.mark.gpu
-def test_float64_on_card_is_refused(cuda_scene):
+@pytest.mark.parametrize("make", [lsc_slab, lambda: lsc_slab_recorders(256), mesh_lsc],
+                         ids=["slab", "R256", "mesh_lsc"])
+def test_float64_trace_matches_twin_on_card(make):
+    """pvt_trace of the float64 build (``tracer_f64``) against the float64
+    twin at 2**16 photons: fates and integer tallies within
+    ``check.F64_PARTED``, the sums within the float64 summation bound;
+    simulate(dtype=float64) launches tracer_f64 and no eager run."""
+    st = _cuda_tensors(make, torch.float64)
+    kernels.reset()
+    rep = check.check_trace(st, rng.key_words(1), 1 << 16, lanes=1 << 14)
+    assert kernels.last_trace["library"] == "tracer_f64" and kernels.launches_f64["pvt_trace"] == 2
+    assert rep["max_abs_err"] <= check.F64_PARTED and rep["tally_max_diff"] <= check.F64_PARTED
+    kernels.reset()
+    tracer.eager_runs = 0
+    result = simulate(make(), 1 << 14, seed=3, record_every=0, dtype=np.float64)
+    assert result.data["rec_sums"].dtype == np.float64 and tracer.eager_runs == 0
+    assert kernels.launches_f64["pvt_trace"] == kernels.launches["pvt_trace"] == 1
+
+
+@pytest.mark.gpu
+def test_float64_gradients_on_card_are_refused(cuda_scene):
+    """The score, pathwise and K15 kernels have no float64 build: float64
+    on the card raises NotImplementedError naming the float64-gradients
+    item, and nothing falls back to float32 or to the CPU."""
+    from pvtrace_tpu_torch.diff import transport
+
     st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float64, device="cuda")
-    with pytest.raises(NotImplementedError):
-        kernels.trace(st, rng.key_words(1), 10)
+    for attempt in (
+        lambda: kernels.trace(st, rng.key_words(1), 10, score=True),
+        lambda: simulate(lsc_slab(), 1 << 10, seed=1, dtype=np.float64, score=True),
+        lambda: transport.fate_gradients(lsc_slab(), 1 << 10, seed=1, dtype=np.float64),
+    ):
+        kernels.reset()
+        tracer.eager_runs = 0
+        with pytest.raises(NotImplementedError, match="float64 gradients"):
+            attempt()
+        assert kernels.launches["pvt_trace_score"] == 0 and tracer.eager_runs == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spectra", ["K5a", "K5b"])
+def test_float64_emit_and_step_kernels_match_twin_on_card(monkeypatch, spectra):
+    st = _cuda_spectra_scene(monkeypatch, spectra, torch.float64)
+    state, rep = check.check_emit(st, rng.key_words(1), 1 << 16, reps=2)
+    assert rep["max_abs_err"] <= check.F64_ATOL and state["px"].dtype == torch.float64
+    rep = check.check_step(st, state, steps=8, reps=2)
+    assert rep["discrete_frac"] <= 1e-4 and kernels.launches_f64["pvt_step"] > 0
+
+
+@pytest.mark.gpu
+def test_float64_draws_kernel_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rep = check.check_draws("cuda", 1 << 14, reps=1, dtype=torch.float64)
+    assert rep["max_abs_err"] == 0.0 and kernels.launches_f64["pvt_draws"] >= 3
+
+
+@pytest.mark.gpu
+def test_float64_cheb_and_tally_kernels_match_twin_on_card():
+    """pvt_cheb of the float64 build in both placements (segments at every
+    float64 breakpoint, values within CHEB_RTOL_F64) and pvt_tally with 32
+    and 256 recorders (integers equal, sums within sums_bound_f64)."""
+    st = _cuda_tensors(lsc_slab, torch.float64)
+    for shared in (True, False):
+        rep = check.check_cheb(st, n_t=4096, reps=2, shared=shared)
+        assert rep["shared_cheb"] == shared and rep["max_rel_err"] <= check.CHEB_RTOL_F64
+    for R in (32, 256):
+        st = _cuda_tensors(lambda: lsc_slab_recorders(R), torch.float64)
+        state = tracer.initial_state(st, rng.key_words(1), torch.arange(1 << 14, device="cuda"))
+        check.check_tally(st, state, steps=8, reps=2)
+    assert kernels.launches_f64["pvt_tally"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [mesh_lsc, mesh_slab_fine], ids=["hex_plate", "fine_slab"])
+def test_float64_mesh_kernel_matches_twin_on_card(make):
+    rep = check.check_mesh(_cuda_tensors(make, torch.float64), 1, 1 << 16, seed=1, reps=2)
+    assert rep["max_rel_err"] <= check.MESH_RTOL_F64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make, events", [(mesh_lsc, 128), (mesh_lsc, 8), (lsc_slab, 128)])
+def test_float64_log_and_log_pack_match_twin_on_card(make, events):
+    """The float64 build's event log against the float64 twin photon by
+    photon (at most F64_PARTED parted), its pvt_log_pack bit-equal to
+    eventlog.pack, and simulate(record_every=1, dtype=float64)'s dense
+    float64 arrays against the CPU twin's."""
+    st = _cuda_tensors(make, torch.float64)
+    rep = check.check_log(st, rng.key_words(1), 1 << 12, max_events=events)
+    assert rep["diverged"] <= check.F64_PARTED and rep["log"]["floats"].dtype == torch.float64
+    assert rep["pack"]["records"] == rep["records"] and kernels.launches_f64["pvt_log_pack"] > 0
+    fetched = check.check_fetch(make(), 1 << 12, max_events=events, dtype=np.float64)
+    assert fetched["diverged"] <= check.F64_PARTED
 
 
 @pytest.mark.gpu
