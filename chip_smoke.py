@@ -15,8 +15,8 @@ width. Phases, one line each:
 
 0. the card (nvidia-smi name and power limit, torch's device name);
 1. build the kernels with nvcc (sm_90a), one nvcc per library (tracer,
-   score, pathwise, diff, and tracer_f64, the float64 build of tracer.cu)
-   started together: build time, and one line a
+   score, pathwise, diff, and their float64 builds tracer_f64, score_f64,
+   pathwise_f64, diff_f64) started together: build time, and one line a
    function, every instantiation and every function kept out of line,
    with its registers, stack frame and spills (``trace_kernel<..>`` by
    its template flags), and one line of the instantiations with recorders
@@ -178,7 +178,10 @@ width. Phases, one line each:
     counts and efficiency equal, score sums within two runs' float64
     bound) and ``simulate_checkpointed(mesh=)`` (the slab with 4 recorders,
     2**24 in two bundles) against its run without one (integers equal),
-    their all-reduces counted;
+    their all-reduces counted, and in float64 ``fate_gradients(mesh=)``
+    (2**23 photons, ``score_f64``) against its run without a mesh
+    (fractions equal, gradients within two float64 runs' bound) and a
+    ``make_training_step`` step on 2**24 float64 photons (``diff_f64``);
 27. K1's and K2's draws as pvt_trace makes them (a step's four pairs; a
     refill's keys and the emission pairs the scene's lamps read, not all
     three): pvt_draws on 2**20 lanes with random keys, step counts, read
@@ -212,7 +215,7 @@ width. Phases, one line each:
 31. ``LSC.gradient`` with solar cells on the four edges at 2**27,
     ``wrt="concentration"`` (pvt_trace_score) and ``wrt="n"``
     (pvt_trace_pathwise), 9 launches each in bundles of 16,000,000, and at
-    2**20 against ``device="cpu"``: distinct counts within max(20, 0.2% of
+    2**18 against ``device="cpu"``: distinct counts within max(20, 0.2% of
     n), the cells' and the incident row's score sums within phase 17's
     bound (SCORE_RTOL of the twin's sum of |score| plus its slack, and
     twice the channel's largest |score| for each photon whose record
@@ -258,15 +261,35 @@ width. Phases, one line each:
     host-lit slab at 2**24; launches read around each, tracer_f64's and no
     eager run), photons/s beside the float32 phases'; a float64
     ``simulate_stream`` union against one ``simulate`` at 2**20, integer by
-    integer; and ``simulate(score=True)``, ``fate_gradients`` and
-    ``pvt_absorbed`` in float64 on the card refused by name.
+    integer;
+37. float64 gradients (``score_f64``, ``pathwise_f64``, ``diff_f64``):
+    pvt_score for 8 steps and pvt_pathwise (the mixed scene's four
+    channels) for 8 steps at 2**20 lanes, and pvt_fresnel at 2**20
+    points, against the float64 twin lane by lane; pvt_trace_score at
+    2**16 and pvt_trace_pathwise at 2**14 photon by photon on the slab,
+    with 32 recorders and on the mesh LSC, the rows where
+    ``trace_layout`` puts them and forced into device memory (records
+    bit-equal); pvt_absorbed and pvt_absorbed_grad at 2**24, 5 SGD steps
+    of ``absorbed_fraction_fn`` against the plain version's and 2 of
+    ``make_training_step`` (all with ``check.gradient_bounds``' float64
+    bounds); then at 2**27 ``fate_gradients(lsc_slab(), wrt="all")``,
+    with the slab's two pathwise channels, ``simulate(mesh_lsc(),
+    score=True)``, ``LSC.gradient`` (concentration and n) and
+    ``simulate_checkpointed(score=True)`` (its sums against runs of 2**24
+    within the float64 accumulation bound), each in float64, launches read
+    around it (the float64 builds' alone, no eager run), photons/s beside
+    phases 18's, 23's, 29's and 31's float32 figures; and
+    ``optimize_concentration`` for two iterations.
 
 Then the script's seconds, the card's nvidia-smi line, one JSON line of
 per-kernel numbers (each row with ``reached_from``: the entry points above
 ``simulate`` whose run in phases 26 and 28-34 launched it or, for device
 code inside the trace kernels, launched a kernel whose loop runs it on a
 scene that needs it; the float64 entries' rows, named ``*_f64``, from
-phase 36, their bounds at the FP64 rate),
+phases 36 and 37, their bounds at the FP64 rate, each with its
+``library``; a float64 gradient row whose entry runs only inside a trace
+kernel counts its own launches, 0 on the path, and names that kernel in
+``runs_inside``, as the float32 rows do),
 and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before the last line; without a CUDA device nothing runs.
 
@@ -297,6 +320,7 @@ N_BUNDLE = 1 << 24
 N_SMALL_STREAM, SMALL_BUNDLE = 1 << 22, 50000
 N_LSC_LOG = 1 << 16
 N_LSC_MESH = 1 << 23  # one bundle of LSC.gradient's 16,000,000
+N_F64_SCORE, N_F64_PATH = 1 << 16, 1 << 14
 RANKS = 2
 SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
@@ -882,15 +906,14 @@ def float64_phases(smi, f32_rates):
     """Phase 36 on the card: the float64 build (``tracer_f64``) against the
     float64 twin, entry by entry, then ``simulate(dtype=np.float64)`` at
     full width through the main, recorder, mesh, history and host-emission
-    paths, a float64 stream against one ``simulate``, and the float64
-    refusals of the gradient kernels. `f32_rates` are phase 5's, 11's, 15's
+    paths, and a float64 stream against one ``simulate``. `f32_rates` are
+    phase 5's, 11's, 15's
     and 25's float32 photons/s by path. Returns (the kernels line's rows of
     the float64 entries, a summary)."""
     import numpy as np
     import torch
 
     from pvtrace_tpu_torch import kernels
-    from pvtrace_tpu_torch.diff import transport
     from pvtrace_tpu_torch.engine import api, compile_scene, rng, scene_tensors, simulate
     from pvtrace_tpu_torch.engine import simulate_stream, tracer
     from pvtrace_tpu_torch.engine.emit import emit_bundle
@@ -1028,28 +1051,7 @@ def float64_phases(smi, f32_rates):
           f"fates, distinct rays, crossings and bins equal one simulate's, integer by integer, "
           f"{stream_launches} float64 launches | {smi}", flush=True)
 
-    # The gradient kernels refuse float64 on the card, by name.
-    refused = []
-    attempts = (
-        ("simulate(score=True)", lambda: simulate(lsc_slab(), 1 << 10, seed=1, record_every=0,
-                                                  dtype=np.float64, score=True)),
-        ("fate_gradients", lambda: transport.fate_gradients(lsc_slab(), 1 << 10, seed=1,
-                                                            dtype=np.float64)),
-        ("pvt_absorbed", lambda: kernels.absorbed(
-            {"node_f": st["node_f"]}, state["px"].new_zeros((4, 3)), state["px"].new_zeros((4, 3)),
-            state["px"].new_zeros(4), state["px"].new_ones(1))),
-    )
-    for label, attempt in attempts:
-        try:
-            attempt()
-        except NotImplementedError as err:
-            if "float64 gradients" not in str(err):
-                fail(f"phase 36 {label}: refused without naming the float64-gradients item")
-            refused.append(label)
-        else:
-            fail(f"phase 36 {label} ran in float64 on the card")
-    print(f"phase 36 float64 refused by the gradient kernels: {', '.join(refused)}; phase 36 "
-          f"took {time.perf_counter() - tic:.1f} s | {smi}", flush=True)
+    print(f"phase 36 took {time.perf_counter() - tic:.1f} s | {smi}", flush=True)
 
     def inside(label):
         return [f"simulate(dtype=float64) (inside pvt_trace, {label})"]
@@ -1081,7 +1083,244 @@ def float64_phases(smi, f32_rates):
          {"n": N_LOG, "library_ms": log_rep["pack"]["library_ms"],
           "library_is": "two boolean-mask gathers, ints[mask] and floats[mask]"}),
     ]
-    return rows, {"seconds": time.perf_counter() - tic, "refused": refused}
+    return rows, {"seconds": time.perf_counter() - tic}
+
+
+def float64_gradient_phases(smi, f32):
+    """Phase 37 on the card: the float64 builds of K12, K13 and K15
+    (``score_f64``, ``pathwise_f64``, ``diff_f64``) against the float64
+    twin, entry by entry, then the float64 gradient paths at full width.
+    `f32` holds the float32 photons/s of phases 18, 23, 29 and 31 by path.
+    Returns (the kernels line's rows of the float64 gradient entries, a
+    summary)."""
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.diff import transport
+    from pvtrace_tpu_torch.engine import absorb, compile_scene, rng, scene_tensors, simulate
+    from pvtrace_tpu_torch.engine import simulate_checkpointed, tracer
+    from pvtrace_tpu_torch.kernels import check
+    from pvtrace_tpu_torch.light.event import Event
+    from pvtrace_tpu_torch.parallel import make_photon_mesh
+    from pvtrace_tpu_torch.scenes import lsc_slab, lsc_slab_recorders, mesh_lsc, mixed_scene
+
+    tic = time.perf_counter()
+    F64 = torch.float64
+    seed = rng.key_words(37)
+    scenes = {label: compile_scene(make()) for label, make in (
+        ("slab", lsc_slab), ("slab R=32", lambda: lsc_slab_recorders(32)), ("mesh LSC", mesh_lsc),
+        ("mixed", mixed_scene))}
+    st = {label: scene_tensors(c, dtype=F64, device="cuda") for label, c in scenes.items()}
+
+    # K12 and K13 lane by lane, K15 photon by photon.
+    lanes, _ = check.check_emit(st["slab"], seed, N_CHECK, reps=1)
+    score_rep = check.check_score(st["slab"], lanes, steps=8, reps=3)
+    fresnel_rep = check.check_fresnel("cuda", reps=3, dtype=F64, n=N_CHECK)
+    mixed_specs = transport.resolve_pathwise_params(scenes["mixed"], [
+        ("n", "plate"), ("size", "plate", 2), ("radius", "rod"), ("length", "rod")])
+    lanes_mixed, _ = check.check_emit(st["mixed"], seed, N_CHECK, reps=1)
+    path_rep = check.check_pathwise(st["mixed"], lanes_mixed, mixed_specs, steps=8, reps=2)
+    print(
+        f"phase 37 float64 pvt_score vs twin, slab: {N_CHECK} lanes x 8 steps, discrete mismatch "
+        f"{score_rep['discrete_frac']:.2e}, path scores at {score_rep['bound_used']:.3g} of their "
+        f"bound ({check.F64_RTOL} of the channel's scale plus {check.F64_SLACK:g} of the "
+        f"slack; {score_rep['grazing']} grazing lanes left out), folds within "
+        f"{score_rep['fold_rel_err']:.3g} of their magnitudes, kernel {score_rep['ms']:.4f} ms, "
+        f"twin {score_rep['plain_ms']:.4f}, bound {score_rep['bound_ms']:.5f}; pvt_fresnel "
+        f"{fresnel_rep['points']} points, max err {fresnel_rep['max_abs_err']:.3g} (limit "
+        f"{check.F64_RTOL}), kernel {fresnel_rep['ms']:.4f} ms, twin "
+        f"{fresnel_rep['plain_ms']:.4f}; pvt_pathwise, mixed, channels {list(mixed_specs)}: "
+        f"discrete mismatch {path_rep['discrete_frac']:.2e}, at {path_rep['bound_used']:.3g} of "
+        f"the bound ({path_rep['left_out']} lane-steps left out, {path_rep['saturated']} "
+        f"saturated; worst: {path_rep['worst_lane']}), kernel {path_rep['ms']:.4f} ms, twin "
+        f"{path_rep['plain_ms']:.4f}, bound {path_rep['bound_ms']:.5f} | {smi}", flush=True)
+
+    # The trace kernels photon by photon, the rows where trace_layout puts
+    # them and forced into device memory.
+    traces = {}
+    for label, specs, n in (("slab", (), N_F64_SCORE), ("slab R=32", (), N_F64_SCORE),
+                            ("mesh LSC", (), N_F64_SCORE), ("slab", PATHWISE, N_F64_PATH),
+                            ("slab R=32", PATHWISE, N_F64_PATH),
+                            ("mesh LSC", [("n", scenes["mesh LSC"].node_names[1])], N_F64_PATH)):
+        resolved = transport.resolve_pathwise_params(scenes[label], specs)
+        rep = check.check_trace_scores(st[label], seed, n, pathwise=resolved)
+        want = "pathwise_f64" if resolved else "score_f64"
+        if kernels.last_trace["library"] != want:
+            fail(f"phase 37 {label}: launched {kernels.last_trace['library']}, not {want}")
+        rep["rows"] = check.check_rows_placement(st[label], seed, n, rep["tallies"], resolved)
+        key = f"{label}, pathwise" if resolved else label
+        traces[key] = rep
+        print(
+            f"phase 37 float64 {'pvt_trace_pathwise' if resolved else 'pvt_trace_score'} vs "
+            f"twin, {label}: {n} photons, channels {list(resolved)}, fates {rep['fates']} vs "
+            f"{rep['twin_fates']}, {rep['parted']} parted, {rep['saturated']} saturated (limit "
+            f"each {check.F64_PARTED}), the others' scores at {rep['record_used']:.3g} of "
+            f"their bound, score sums at {rep['sums_used']:.3g} of theirs; kernel "
+            f"{rep['ms']:.4f} ms, twin {rep['plain_ms']:.2f} ms, bound {rep['bound_ms']:.4f} ms; "
+            f"rows {rep['rows']['placed']}, forced into device memory records bit-equal, kernel "
+            f"ms in turns placed {rep['rows']['ms_placed']} / device "
+            f"{rep['rows']['ms_device']} | {smi}", flush=True)
+
+    tab = absorb.table(scenes["slab"], "cuda", F64)
+    pos, direction, wav = check.absorbed_photons(st["slab"], seed, N_SLAB)
+    absorbed_rep = check.check_absorbed(tab, pos, direction, wav)
+    weight = transport.absorbed_fraction_fn(scenes["slab"])
+    kernels.reset()
+    sgd = check.surrogate_sgd(lambda lc, p, d, w: weight({"log_concentration": lc}, p, d, w),
+                              pos, direction, wav)
+    sgd_launches = dict(kernels.launches_f64)
+    plain_sgd = check.surrogate_sgd(
+        lambda lc, p, d, w: absorb.weight(torch.exp(lc), absorb.depth(tab, p, d, w)),
+        pos, direction, wav)
+    for k, (a, b) in enumerate(zip(sgd, plain_sgd)):
+        if not np.allclose(a, b, rtol=check.F64_RTOL, atol=1e-15):
+            fail(f"phase 37 float64 surrogate SGD step {k}: kernel {a} against plain {b}")
+    if sgd_launches["pvt_absorbed"] != 5 or sgd_launches["pvt_absorbed_grad"] != 5:
+        fail(f"phase 37 float64 surrogate SGD did not run through diff_f64: {sgd_launches}")
+    step = transport.make_training_step(scenes["slab"], make_photon_mesh(device="cuda"))
+    params = {"log_concentration": torch.zeros((), device="cuda", dtype=F64)}
+    kernels.reset()
+    for _ in range(2):
+        params, loss = step(params, pos, direction, wav)
+    train_launches = dict(kernels.launches_f64)
+    if train_launches["pvt_absorbed"] != 2 or params["log_concentration"].dtype != F64 \
+            or not torch.isfinite(loss):
+        fail(f"phase 37 float64 make_training_step: launches {train_launches}, {params}")
+    print(
+        f"phase 37 float64 pvt_absorbed vs plain: {N_SLAB} photons, weights within "
+        f"{absorbed_rep['max_rel_err']:.3g} (limit {check.F64_RTOL}), gradient within "
+        f"{absorbed_rep['grad_rel_err']:.3g} (limit {check.F64_RTOL}); forward "
+        f"{absorbed_rep['ms']:.4f} ms (plain {absorbed_rep['plain_ms']:.4f}, bound "
+        f"{absorbed_rep['bound_ms']:.4f}), backward {absorbed_rep['grad_ms']:.4f} ms (plain "
+        f"{absorbed_rep['grad_plain_ms']:.4f}, bound {absorbed_rep['grad_bound_ms']:.4f}); 5 SGD "
+        f"steps equal the plain version's, float64 launches {sgd_launches['pvt_absorbed']} + "
+        f"{sgd_launches['pvt_absorbed_grad']}; make_training_step 2 steps, log c "
+        f"{float(params['log_concentration']):.9g}, loss {float(loss):.9g} | {smi}", flush=True)
+
+    # Full width, each run's launches read around it alone, each entry
+    # called as its float32 phase calls it.
+    def drive(label, name, want, rate_of, call):
+        kernels.reset()
+        tracer.eager_runs = 0
+        start = time.perf_counter()
+        out = call()
+        seconds = time.perf_counter() - start
+        launched, launched64 = dict(kernels.launches), dict(kernels.launches_f64)
+        if launched64[name] != want or launched[name] != want or tracer.eager_runs \
+                or launched64["pvt_trace"] != launched["pvt_trace"]:
+            fail(f"phase 37 {label}: launches {launched}, float64 launches {launched64}, eager "
+                 f"runs {tracer.eager_runs}")
+        run = {"n": N_MAIN, "seconds": seconds, "photons_per_s": N_MAIN / seconds,
+               "launches_f64": launched64[name], "launched64": launched64,
+               "kernel_ms": kernels.launch_ms[name],
+               "shared_rows": kernels.last_trace["shared_rows"],
+               "library": kernels.last_trace["library"], "float32_photons_per_s": f32[rate_of]}
+        print(
+            f"phase 37 float64 {label}: {N_MAIN} photons in {seconds:.4f} s, "
+            f"{run['photons_per_s']:.6g} photons/s (float32, {rate_of}: {f32[rate_of]:.6g}, "
+            f"ratio {f32[rate_of] / run['photons_per_s']:.3f}), {want} {name} launches of "
+            f"{run['library']} ({run['kernel_ms']:.2f} ms, rows in shared memory: "
+            f"{run['shared_rows']}), eager runs 0 | {smi}", flush=True)
+        return run, out
+
+    full = {}
+    full["gradient path"], (fractions, gradients) = drive(
+        "gradient path: fate_gradients(slab, wrt='all')", "pvt_trace_score", 9, "phase 18",
+        lambda: transport.fate_gradients(lsc_slab(), N_MAIN, seed=37, wrt="all",
+                                         dtype=np.float64))
+    full["pathwise"], (_, path_gradients) = drive(
+        f"pathwise gradient path: fate_gradients(slab, wrt='all', pathwise={PATHWISE})",
+        "pvt_trace_pathwise", 9, "phase 23",
+        lambda: transport.fate_gradients(lsc_slab(), N_MAIN, seed=37, wrt="all",
+                                         pathwise=PATHWISE, dtype=np.float64))
+    full["mesh"], mesh_res = drive(
+        "simulate(mesh LSC, score=True)", "pvt_trace_score", 1, "phase 18 mesh",
+        lambda: simulate(mesh_lsc(), N_MAIN, seed=37, record_every=0, score=True,
+                         dtype=np.float64, compiled=scenes["mesh LSC"]))
+    for g in list(gradients.values()) + list(path_gradients.values()):
+        if not np.isfinite(g).all():
+            fail(f"phase 37 float64 gradients not finite: {gradients}, {path_gradients}")
+    if mesh_res.data["fate_scores"].dtype != np.float64 \
+            or not np.isfinite(mesh_res.data["rec_scores"]).all():
+        fail("phase 37 float64 mesh LSC score run: scores not float64 or not finite")
+    lsc_results = {}
+    for wrt, name in (("concentration", "pvt_trace_score"), ("n", "pvt_trace_pathwise")):
+        full[f"LSC.gradient {wrt}"], lsc_results[wrt] = drive(
+            f"LSC.gradient(wrt={wrt!r})", name, 9, f"phase 31 {wrt}",
+            lambda wrt=wrt: lsc_gradient(wrt, N_MAIN, 37, dtype=np.float64))
+        if not np.isfinite(lsc_results[wrt][0]["gradient"]):
+            fail(f"phase 37 float64 LSC.gradient(wrt={wrt!r}): {lsc_results[wrt][0]}")
+    ckpt_dir = tempfile.mkdtemp()
+    full["checkpoint"], ckpt = drive(
+        "simulate_checkpointed(slab, score=True)", "pvt_trace_score", N_MAIN // N_BUNDLE,
+        "phase 29", lambda: simulate_checkpointed(
+            lsc_slab(), N_MAIN, os.path.join(ckpt_dir, "f64.npz"), seed=37, record_every=0,
+            bundle=N_BUNDLE, score=True, dtype=np.float64, compiled=scenes["slab"]))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    full["checkpoint"]["sums_used"] = check.check_chunk_scores(
+        st["slab"], seed, {"fates": ckpt._fates, "fate_scores": ckpt._fate_scores}, N_MAIN,
+        N_BUNDLE)
+    kernels.reset()
+    log_scale, history = transport.optimize_concentration(
+        lambda scale: lsc_slab(scale_bg=scale), 0.55, num_rays=N_OPT, iters=2, lr=8.0, seed=11,
+        component=1, event=Event.NONRADIATIVE, dtype=np.float64)
+    if kernels.launches_f64["pvt_trace_score"] != 2 or not np.isfinite(log_scale):
+        fail(f"phase 37 float64 optimize_concentration: {kernels.launches_f64}, {history}")
+    print(
+        f"phase 37 float64 gradients: fractions "
+        f"{ {e.name: round(float(v), 6) for e, v in fractions.items()} }, d/dlog(dye, "
+        f"background) and d/dn(world, slab) of NONRADIATIVE "
+        f"{gradients[Event.NONRADIATIVE].tolist()}, pathwise d/dn(lsc), d/dsize_z(lsc) "
+        f"{path_gradients[Event.NONRADIATIVE][-2:].tolist()}; LSC.gradient "
+        f"{ {w: r[0] for w, r in lsc_results.items()} }; simulate_checkpointed's fate_scores at "
+        f"{full['checkpoint']['sums_used']:.3g} of their float64 accumulation bound against "
+        f"{N_MAIN // N_BUNDLE} runs of {N_BUNDLE}; optimize_concentration 2 x {N_OPT}: history "
+        f"{[tuple(round(float(v), 6) for v in row) for row in history]}; phase 37 took "
+        f"{time.perf_counter() - tic:.1f} s | {smi}", flush=True)
+
+    gradient_entries = ["fate_gradients(dtype=float64)", "simulate(score=True, dtype=float64)",
+                        "LSC.gradient(dtype=float64)",
+                        "simulate_checkpointed(score=True, dtype=float64)",
+                        "optimize_concentration(dtype=float64)"]
+    pathwise_entries = ["fate_gradients(pathwise=..., dtype=float64)",
+                        "LSC.gradient(wrt='n', dtype=float64)"]
+    surrogate = ["absorbed_fraction_fn (float64)", "make_training_step (float64)"]
+    summary = {k: {q: v[q] for q in ("photons_per_s", "float32_photons_per_s", "kernel_ms",
+                                     "launches_f64", "seconds", "shared_rows")}
+               for k, v in full.items()}
+    rows = [
+        ("pvt_score", score_rep, full["gradient path"]["launched64"]["pvt_score"],
+         [f"{e} (inside pvt_trace_score)" for e in gradient_entries],
+         {"library": "score_f64", "n": N_CHECK, "channels": score_rep["channels"],
+          "runs_inside": "pvt_trace_score_f64 (score_step)"}),
+        ("pvt_fresnel", fresnel_rep, full["gradient path"]["launched64"]["pvt_fresnel"],
+         [f"{e} (inside pvt_trace_score)" for e in gradient_entries],
+         {"library": "score_f64", "points": fresnel_rep["points"],
+          "runs_inside": "pvt_trace_score_f64 (fresnel_dR)"}),
+        ("pvt_trace_score", traces["slab"], full["gradient path"]["launches_f64"],
+         gradient_entries,
+         {"library": "score_f64", "n": N_F64_SCORE, "full_width": summary,
+          **{k.replace(" ", "_").replace(",", ""): {q: v[q] for q in (
+              "ms", "plain_ms", "bound_ms", "parted", "shared_rows")}
+             for k, v in traces.items() if k != "slab"}}),
+        ("pvt_pathwise", path_rep, full["pathwise"]["launched64"]["pvt_pathwise"],
+         [f"{e} (inside pvt_trace_pathwise)" for e in pathwise_entries],
+         {"library": "pathwise_f64", "n": N_CHECK, "channels": path_rep["channels"],
+          "left_out": path_rep["left_out"],
+          "runs_inside": "pvt_trace_pathwise_f64 (step_tangent, pathwise_step)"}),
+        ("pvt_trace_pathwise", traces["slab, pathwise"], full["pathwise"]["launches_f64"],
+         pathwise_entries, {"library": "pathwise_f64", "n": N_F64_PATH}),
+        ("pvt_absorbed", absorbed_rep, sgd_launches["pvt_absorbed"], surrogate,
+         {"library": "diff_f64", "n": N_SLAB}),
+        ("pvt_absorbed_grad", dict(absorbed_rep, ms=absorbed_rep["grad_ms"],
+                                   plain_ms=absorbed_rep["grad_plain_ms"],
+                                   bound_ms=absorbed_rep["grad_bound_ms"],
+                                   bound_by=absorbed_rep["grad_bound_by"],
+                                   max_abs_err=absorbed_rep["grad_abs_err"]),
+         sgd_launches["pvt_absorbed_grad"], surrogate, {"library": "diff_f64", "n": N_SLAB}),
+    ]
+    return rows, {"seconds": time.perf_counter() - tic, "full_width": summary}
 
 
 def main():
@@ -1146,15 +1385,16 @@ def main():
     # third flag), and the two entries that run K9's and K10's code alone.
     k9_k10 = [f"{fn} {regs}/{stack}/{stores}" for name, (_, report) in built.items()
               for fn, regs, stack, stores, _ in build.ptxas_rows(report or "")
-              if name != "tracer_f64"
+              if not name.endswith("_f64")
               and (fn.startswith(("trace_kernel<1", "tally_kernel", "mesh_kernel"))
                    or fn.startswith("trace_kernel<") and fn[17:18] == "1")]
     print(f"phase 1 K9 and K10 (registers/stack bytes/spill bytes): {'; '.join(k9_k10)}",
           flush=True)
-    f64_fns = [f"{fn} {regs}/{stack}/{stores}/{loads}" for fn, regs, stack, stores, loads
-               in build.ptxas_rows(built["tracer_f64"][1] or "")]
-    print(f"phase 1 tracer_f64, the float64 build (registers/stack bytes/spill stores/spill "
-          f"loads): {'; '.join(f64_fns)}", flush=True)
+    for lib in ("tracer_f64", "score_f64", "pathwise_f64", "diff_f64"):
+        f64_fns = [f"{fn} {regs}/{stack}/{stores}/{loads}" for fn, regs, stack, stores, loads
+                   in build.ptxas_rows(built[lib][1] or "")]
+        print(f"phase 1 {lib}, a float64 build (registers/stack bytes/spill stores/spill "
+              f"loads): {'; '.join(f64_fns)}", flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -2024,6 +2264,39 @@ def main():
                 fail(f"simulate_checkpointed(mesh=) on the world of one: {key} differs")
         if ckpt_reduces != 6:
             fail(f"simulate_checkpointed(mesh=): {ckpt_reduces} all-reduces, not 6")
+        # Float64 on the same world: fate_gradients(mesh=) through score_f64
+        # (its float64 score sums all-reduced) against the run without a
+        # mesh, within two float64 runs' summation bound of the same
+        # photons' |score| sums, and make_training_step on float64 photons.
+        shard.reduce_stats.update(calls=0, bytes=0)
+        kernels.reset()
+        tracer.eager_runs = 0
+        f64_fr, f64_gr = transport.fate_gradients(lsc_slab(), N_LSC_MESH, seed=26, wrt="all",
+                                                  mesh=mesh, dtype=np.float64)
+        f64_launches, f64_reduces = dict(kernels.launches_f64), shard.reduce_stats["calls"]
+        f64_eager = tracer.eager_runs
+        f64_alone = transport.fate_gradients(lsc_slab(), N_LSC_MESH, seed=26, wrt="all",
+                                             dtype=np.float64)
+        st64 = scene_tensors(compiled, dtype=torch.float64, device="cuda")
+        f64_fates, _, f64_t, _ = kernels.trace(st64, rng.key_words(26), N_LSC_MESH, score=True)
+        f64_bound = check.sharded_gradient_bound(f64_fates.double().cpu(),
+                                                 f64_t["fate_abs"].cpu(), N_LSC_MESH,
+                                                 torch.float64).numpy()
+        f64_off = max(share_of_bound(np.abs(f64_gr[e] - f64_alone[1][e]), f64_bound[e.value])
+                      for e in f64_gr)
+        pos64, dir64, wav64 = check.absorbed_photons(st64, rng.key_words(19), N_SLAB)
+        kernels.reset()
+        f64_new, f64_loss = transport.make_training_step(compiled, mesh)(
+            {"log_concentration": torch.zeros((), device="cuda", dtype=torch.float64)}, pos64,
+            dir64, wav64)
+        if f64_fr != f64_alone[0] or not f64_off <= 1.0 or f64_eager \
+                or f64_launches["pvt_trace_score"] != 1 or f64_reduces != 3 \
+                or kernels.launches_f64["pvt_absorbed"] != 1 \
+                or f64_new["log_concentration"].dtype != torch.float64 \
+                or not bool(torch.isfinite(f64_loss)):
+            fail(f"NCCL world of one, float64: fate_gradients(mesh=) {f64_gr} against "
+                 f"{f64_alone[1]} ({f64_off:.3g} of the bound), float64 launches "
+                 f"{f64_launches}, {f64_reduces} all-reduces, training step {f64_new}")
     finally:
         shutdown_distributed()
     nccl_ms, nccl_bytes = one["reduce_ms"], one["reduce_bytes"]
@@ -2036,6 +2309,12 @@ def main():
         f"{nccl_bytes:.0f} bytes (the score run's tallies, 150 calls after the first) | {smi}",
         flush=True,
     )
+    print(
+        f"phase 26 NCCL world of one, float64: fate_gradients(slab, {N_LSC_MESH}, mesh=, "
+        f"dtype=float64) through score_f64 ({f64_reduces} all-reduces) equals the run without "
+        f"a mesh: fractions equal, gradients at {f64_off:.3g} of two float64 runs' bound; "
+        f"make_training_step on {N_SLAB} float64 photons through diff_f64, loss "
+        f"{float(f64_loss):.9g} | {smi}", flush=True)
     print(
         f"phase 26 NCCL world of one, the new entry points: LSC.gradient(n={N_LSC_MESH}, mesh=) "
         f"{meshed[0]} against no mesh {alone[0]['gradient']!r}: distinct equal, score sums at "
@@ -2374,6 +2653,11 @@ def main():
     f64_rows, f64_summary = float64_phases(smi, {
         "main path": rate, "recorders R=32": rec_rates[32], "mesh": full["mesh"]["photons_per_s"],
         "history": full["mesh, record_every=1000"]["photons_per_s"], "host emission": host_rate})
+    grad64_rows, grad64_summary = float64_gradient_phases(smi, {
+        "phase 18": grad_rate, "phase 23": path_rate, "phase 18 mesh": mesh_score_rate,
+        "phase 31 concentration": lsc_grads["concentration"]["photons_per_s"],
+        "phase 31 n": lsc_grads["n"]["photons_per_s"],
+        "phase 29": ckpt["slab, score"]["photons_per_s"]})
 
     stray = sorted(
         m for m in sys.modules
@@ -2512,7 +2796,8 @@ def main():
         "library_ms": None, "bytes_per_call": nccl_bytes, "backend": "nccl, world of one",
         "reached_from": reached_from("all_reduce_tallies"),
         "new_entry_points_reduces": {"LSC.gradient": lsc_reduces,
-                                     "simulate_checkpointed": ckpt_reduces},
+                                     "simulate_checkpointed": ckpt_reduces,
+                                     "fate_gradients(dtype=float64)": f64_reduces},
     }
     history_launches = full["mesh, record_every=1000"]["launches"]
     launches_of = dict(main_launches, pvt_trace_log=history_launches["pvt_trace_log"],
@@ -2524,7 +2809,8 @@ def main():
         pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"],
         pvt_trace_bundle=host_launches["pvt_trace_bundle"], pvt_draws=main_launches["pvt_draws"])
     print(f"the script: {time.perf_counter() - start_s:.1f} s, of it phase 36 "
-          f"{f64_summary['seconds']:.1f} s", flush=True)
+          f"{f64_summary['seconds']:.1f} s, phase 37 {grad64_summary['seconds']:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": [
         {
@@ -2539,12 +2825,13 @@ def main():
     ] + [
         {
             "name": f"{name}_f64", "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "library": "tracer_f64", "launches": launched,
+            "replaces": REPLACES[name], "library": extra.pop("library", "tracer_f64"),
+            "launches": launched,
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": extra.pop("library_ms", None), "reached_from": reached, **extra,
         }
-        for name, rep, launched, reached, extra in f64_rows
+        for name, rep, launched, reached, extra in f64_rows + grad64_rows
     ] + [collective]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -324,10 +324,9 @@ class LSC(object):
 
         The run is on `device`: on the card (the default) through
         ``pvt_trace_score``, or ``pvt_trace_pathwise`` for the pathwise
-        parameters; ``"cpu"`` runs the eager twin. `dtype` None means
-        float32, the card's only dtype for gradients (float64 on the card
-        raises NotImplementedError); the twin also takes float64. With a
-        mesh, `device` must name the mesh's device.
+        parameters (float64: their float64 builds, ``score_f64`` and
+        ``pathwise_f64``); ``"cpu"`` runs the eager twin. `dtype` None
+        means float32. With a mesh, `device` must name the mesh's device.
         """
         if not self._solar_cell_surfaces:
             raise ValueError(

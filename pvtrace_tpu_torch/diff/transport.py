@@ -221,20 +221,21 @@ def absorbed_fraction_fn(compiled):
     index-matched scenes, a smooth surrogate otherwise (use
     `fate_gradients` for the full multi-bounce estimator).
 
-    `pos` and `dir` are float32 [P, 3] and `wav` [P], world frame, and
-    ``params["log_concentration"]`` a float32 scalar tensor, all on one
-    device: on the card the weights come from the kernel ``pvt_absorbed``
-    and their gradient from its backward kernel, on the CPU from the
-    plain twin (``engine/absorb.py``). ``torch.autograd`` gives the
-    gradient in log_concentration only: `pos`, `dir` and `wav` get None.
+    `pos` and `dir` are [P, 3] and `wav` [P], world frame, and
+    ``params["log_concentration"]`` a scalar tensor, all of one dtype
+    (float32 or float64) on one device: on the card the weights come from
+    the kernel ``pvt_absorbed`` of the build of that dtype and their
+    gradient from its backward kernel, on the CPU from the plain twin
+    (``engine/absorb.py``). ``torch.autograd`` gives the gradient in
+    log_concentration only: `pos`, `dir` and `wav` get None.
     """
     tables = {}
 
     def weight(params, pos, direction, wav):
-        dev = pos.device
-        if dev not in tables:
-            tables[dev] = absorb.table(compiled, dev)
-        return _AbsorbedFraction.apply(params["log_concentration"], tables[dev], pos,
+        key = (pos.device, pos.dtype)
+        if key not in tables:
+            tables[key] = absorb.table(compiled, *key)
+        return _AbsorbedFraction.apply(params["log_concentration"], tables[key], pos,
                                        direction, wav)
 
     return weight
@@ -280,17 +281,17 @@ def make_training_step(compiled, mesh, axis_name="photons", target=0.8, lr=0.1):
     over `mesh` (``parallel.make_photon_mesh()``).
 
     fn(params, pos, dir, wav, key=None) -> (new_params, loss): each rank
-    passes its slice of the photons (float32 `pos` and `dir` [P, 3], `wav`
-    [P], on its device) and the same `params` (``{"log_concentration": a
-    float32 scalar tensor}``). With w the Beer–Lambert weight of
+    passes its slice of the photons (`pos` and `dir` [P, 3], `wav` [P], on
+    its device) and the same `params` (``{"log_concentration": a scalar
+    tensor}``), all float32 or all float64. With w the Beer–Lambert weight of
     `absorbed_fraction_fn` (``pvt_absorbed`` on the card), the loss is
     (Σw / Σcount − target)², both sums over every rank's photons; the
     gradient is each rank's ``torch.autograd.grad`` of its own Σw
     (``pvt_absorbed_grad``), summed over the ranks, times 2(mean −
     target)/Σcount, which is what the JAX package's ``value_and_grad``
     through its ``psum`` computes; then one step of size `lr`. The three
-    float32 sums go through one all-reduce (NCCL on the card, gloo on CPU
-    copies). `key` is accepted, as the JAX step's, and unused.
+    sums, in the photons' dtype, go through one all-reduce (NCCL on the
+    card, gloo on CPU copies). `key` is accepted, as the JAX step's, and unused.
 
     NOTE: the loss differentiates the first-pass straight-line surrogate:
     exact for index-matched scenes, biased where refraction bends rays
@@ -304,8 +305,8 @@ def make_training_step(compiled, mesh, axis_name="photons", target=0.8, lr=0.1):
         w = weight({"log_concentration": log_c}, pos, direction, wav)
         local = w.sum()
         (g_local,) = torch.autograd.grad(local, log_c)
-        sums = torch.stack([local.detach(), torch.tensor(float(w.shape[0]), device=w.device),
-                            g_local.reshape(())]).float()
+        count = torch.tensor(float(w.shape[0]), device=w.device, dtype=w.dtype)
+        sums = torch.stack([local.detach(), count, g_local.reshape(()).to(w.dtype)])
         if mesh.group is not None:
             on_card = dist.get_backend(mesh.group) == "nccl"
             buf = sums if on_card else sums.cpu()

@@ -9,14 +9,18 @@ attenuation lerped on the spectral grid, and its absorbed weight is
 exp(log_concentration)``. The chord is the length of the ray's forward
 part inside a box (slab intervals), a sphere (the quadratic) or a capped
 z-cylinder (barrel interval intersected with the cap slab), by the JAX
-formulas in float32.
+formulas, in the photons' dtype.
 
 ``table`` lays the absorbing nodes out for the CUDA kernel
-``pvt_absorbed`` (``kernels/csrc/diff.cuh``, the same arithmetic): per
-node its world-to-local rows and geometry constants (``AF`` float32
-columns; the constants the JAX function takes as python floats are
-rounded to float32 here, as JAX rounds them where it uses them), its
-geometry type, and its attenuation on the grid.
+``pvt_absorbed`` (``kernels/csrc/diff.cuh``, the same arithmetic), in
+the photons' dtype: per node its world-to-local rows and geometry
+constants (``AF`` columns), its geometry type, and its attenuation on
+the grid. Each constant has the precision the JAX function gives it
+under that dtype: the world-to-local rows, the box half-extents and the
+attenuation rows are float32 there (widened in float64); the sphere's
+r^2 and the cylinder's half-length and r^2 are Python floats, rounded to
+float32 in a float32 run and kept in a float64 one. ``BIG`` is the
+cylinder's ``jnp.float32(1e30)``.
 """
 import numpy as np
 import torch
@@ -27,7 +31,7 @@ from pvtrace_tpu_torch.engine import compiler as comp
 # constants: box half-extents (3); sphere r^2; cylinder half-length,
 # radius^2 and -half-length.
 AF_W2L, AF_G, AF = 0, 12, 16
-BIG = 1e30
+BIG = float(np.float32(1e30))
 
 
 def absorbing_nodes(compiled):
@@ -38,12 +42,14 @@ def absorbing_nodes(compiled):
     return nodes
 
 
-def table(compiled, device="cpu"):
-    """The absorbing nodes of `compiled` as tensors on `device`:
-    ``node_f`` [A, AF] float32, ``node_i`` [A] int32 geometry types,
-    ``alpha`` [A, L] float32, and ``meta`` (grid x0, dx and L)."""
+def table(compiled, device="cpu", dtype=torch.float32):
+    """The absorbing nodes of `compiled` as tensors on `device` for
+    photons of `dtype` (float32 or float64): ``node_f`` [A, AF] and
+    ``alpha`` [A, L] in `dtype`, ``node_i`` [A] int32 geometry types, and
+    ``meta`` (grid x0, dx and L)."""
+    real = np.float64 if dtype == torch.float64 else np.float32
     nodes = absorbing_nodes(compiled)
-    node_f = np.zeros((len(nodes), AF), np.float32)
+    node_f = np.zeros((len(nodes), AF), real)
     node_i = np.zeros(len(nodes), np.int32)
     for row, node in enumerate(nodes):
         gtype = int(compiled.geom_type[node])
@@ -53,14 +59,14 @@ def table(compiled, device="cpu"):
             compiled.world_to_local[node], np.float32)[:3].ravel()
         gp = np.asarray(compiled.geom_params[node], np.float64)
         if gtype == comp.GEOM_BOX:
-            g = 0.5 * gp[:3]
+            g = (0.5 * gp[:3]).astype(np.float32)
         elif gtype == comp.GEOM_SPHERE:
             g = [gp[0] * gp[0], 0.0, 0.0]
         else:
             g = [0.5 * gp[0], gp[1] * gp[1], -0.5 * gp[0]]
-        node_f[row, AF_G:AF_G + 3] = np.asarray(g, np.float64).astype(np.float32)
+        node_f[row, AF_G:AF_G + 3] = np.asarray(g, np.float64).astype(real)
         node_i[row] = gtype
-    alpha = np.stack([np.asarray(compiled.node_alpha[n], np.float32) for n in nodes])
+    alpha = np.stack([np.asarray(compiled.node_alpha[n], np.float32) for n in nodes]).astype(real)
     return {
         "node_f": torch.as_tensor(node_f, device=device),
         "node_i": torch.as_tensor(node_i, device=device),
@@ -72,7 +78,8 @@ def table(compiled, device="cpu"):
 
 def chord(gtype, g, o, d):
     """Straight-line chord of rays (local origins `o`, directions `d`:
-    [P, 3]) through a node of type `gtype` with float32 constants `g`."""
+    [P, 3]) through a node of type `gtype` with constants `g` (a row of
+    ``table``'s ``node_f``, in the rays' dtype)."""
     if gtype == comp.GEOM_BOX:
         half = g[:3]
         safe = torch.where(torch.abs(d) < 1e-20, 1e-20, d)

@@ -144,12 +144,13 @@ def simulate(
     Arguments are those of ``pvtrace_tpu.engine.simulate``; what differs:
 
     * `device` (default "cuda") holds the run. On a CUDA device the trace
-      is the kernel ``pvt_trace``, of the float32 library or, for
-      ``dtype=np.float64``, of its float64 build ``tracer_f64`` (every
-      real a double; score and pathwise channels are float32 only on the
-      card and raise NotImplementedError in float64); on "cpu" it is the
-      eager PyTorch twin, in float32 or float64. There is no fallback
-      from one to the other, nor from float64 to float32.
+      is the kernel ``pvt_trace`` (``pvt_trace_score`` with score
+      channels, ``pvt_trace_pathwise`` with pathwise ones too), of the
+      float32 libraries or, for ``dtype=np.float64``, of their float64
+      builds (``tracer_f64``, ``score_f64``, ``pathwise_f64``: every real
+      a double); on "cpu" it is the eager PyTorch twin, in float32 or
+      float64. There is no fallback from one to the other, nor from
+      float64 to float32.
     * `dtype` None means float32.
     * Lights the compiler cannot lower to device samplers (a histogram
       spectrum, a custom delegate) are emitted on the host, as in the JAX
@@ -166,7 +167,8 @@ def simulate(
       (``engine/score.py``), then one channel per entry of `pathwise`
       (``engine/pathwise.py``; resolved specs, as
       ``diff.transport.resolve_pathwise_params`` makes them). On the card
-      a photon's score is float32 and the accumulators float64. Without
+      a photon's score is in the run's dtype and the accumulators
+      float64. Without
       `score`, `pathwise` is ignored, as in the JAX package.
     * `lanes`: on the CPU the wavefront width of the eager twin ("auto":
       ``min(num_rays, 2**18)``, None: one lane per photon, no

@@ -10,15 +10,12 @@ Each wrapper takes the scene tensors of ``engine.tables.scene_tensors``
   raises if the launch failed, and adds one to ``launches[name]``.
   There is no fallback: a CUDA tensor the kernel does not take raises.
 
-The dtype of the scene tensors picks the library: float32 launches the
-float32 libraries, float64 the float64 build of the trace library
-(``tracer_f64``: ``pvt_emit``, ``pvt_step``, ``pvt_trace`` in every mode
-without scores, ``pvt_cheb``, ``pvt_tally``, ``pvt_mesh``, ``pvt_draws``,
-``pvt_log_pack``), whose launches count under the same names. The score,
-pathwise and K15 kernels cover float32 only: their wrappers raise
-NotImplementedError for float64 CUDA tensors (ROADMAP queue 1, float64
-gradients). Nothing converts a float64 run to float32 or moves it to the
-CPU. Each library is built by ``build.build()`` at its first launch.
+The dtype of the tensors picks the library: float32 launches the float32
+libraries, float64 their float64 builds (``tracer_f64``, ``score_f64``,
+``pathwise_f64``, ``diff_f64``: every real a double), whose launches
+count under the same names, and again in ``launches_f64``. Nothing
+converts a float64 run to float32 or moves it to the CPU. Each library
+is built by ``build.build()`` at its first launch.
 """
 import ctypes
 
@@ -51,11 +48,8 @@ launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_ta
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
             "pvt_absorbed_grad": 0, "pvt_trace_bundle": 0, "pvt_draws": 0, "pvt_log_pack": 0}
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
-# Of those, the launches of the float64 build (``tracer_f64``), by the same
-# names.
-launches_f64 = {name: 0 for name in ("pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb",
-                                     "pvt_tally", "pvt_mesh", "pvt_trace_log", "pvt_trace_bundle",
-                                     "pvt_draws", "pvt_log_pack")}
+# Of those, the launches of the float64 builds, by the same names.
+launches_f64 = dict.fromkeys(launches, 0)
 last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
               "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0, "library": ""}
@@ -159,12 +153,21 @@ class _Bundle(ctypes.Structure):
                 ("first", ctypes.c_ulonglong)]
 
 
-class _Absorbers(ctypes.Structure):
-    _fields_ = [
+def _absorbers_fields(real):
+    """PvtAbsorbers' fields (diff.cuh), its reals of ctypes type `real`."""
+    return [
         ("node_f", ctypes.c_void_p), ("node_i", ctypes.c_void_p), ("alpha", ctypes.c_void_p),
-        ("n", ctypes.c_int), ("grid_n", ctypes.c_int), ("x0", ctypes.c_float),
-        ("dx", ctypes.c_float),
+        ("n", ctypes.c_int), ("grid_n", ctypes.c_int), ("x0", real), ("dx", real),
     ]
+
+
+class _Absorbers(ctypes.Structure):
+    _fields_ = _absorbers_fields(ctypes.c_float)
+
+
+class _Absorbers64(ctypes.Structure):
+    """PvtAbsorbers of the float64 build (diff.cuh with -DPVT_F64)."""
+    _fields_ = _absorbers_fields(ctypes.c_double)
 
 
 _VP, _U32, _U64, _I32, _I64 = (
@@ -200,16 +203,14 @@ _ENTRIES = {
         "pvt_absorbed_grad": [_VP, _VP, _VP, _I64, _I32, _VP, _VP],
     },
 }
-# The float64 build of the trace library: the same entries, pvt_mesh's
-# tolerance a double.
+# The float64 builds: the same entries, pvt_mesh's tolerance a double (the
+# others take reals through pointers and descriptors alone).
 _ENTRIES["tracer_f64"] = dict(
     _ENTRIES["tracer"],
     pvt_mesh=[_VP, _I32, ctypes.c_double, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP])
+for _kind in ("score", "pathwise", "diff"):
+    _ENTRIES[f"{_kind}_f64"] = _ENTRIES[_kind]
 _libs = {}
-# What float64 is refused by: the libraries without a float64 build.
-F64_GRADIENTS = ("float64 on the card covers pvt_trace and the kernels of tracer.cu only; the "
-                 "score, pathwise and Beer-Lambert kernels are float32 (ROADMAP queue 1, "
-                 "float64 gradients): use float32, or device='cpu' for the float64 twin")
 
 
 def tally_rule(meta):
@@ -245,27 +246,25 @@ def _on_cpu(st):
     return st["node_f"].device.type == "cpu"
 
 
-def tracer_library(dtype):
-    """The trace library of real type `dtype`: "tracer" (float32) or
-    "tracer_f64" (float64)."""
+def gradient_library(kind, dtype):
+    """The library of `kind` ("tracer", "score", "pathwise" or "diff") of
+    real type `dtype`: `kind` itself for float32, its float64 build
+    ``kind + "_f64"`` for float64."""
     if dtype == torch.float32:
-        return "tracer"
+        return kind
     if dtype == torch.float64:
-        return "tracer_f64"
+        return f"{kind}_f64"
     raise ValueError(f"the kernels take float32 or float64, got {dtype}")
 
 
-def _check_scene(st, lib="tracer"):
-    """Check CUDA scene tensors `st` for the library of `lib`'s kind
-    ("tracer", or a float32-only one: "score", "pathwise"); returns the
-    library to launch, by the tensors' dtype."""
+def _check_scene(st, kind="tracer"):
+    """Check CUDA scene tensors `st` for the library of `kind` ("tracer",
+    "score" or "pathwise"); returns the library to launch, by the
+    tensors' dtype."""
     dev, dtype = st["node_f"].device, st["node_f"].dtype
     if dev.type != "cuda":
         raise ValueError(f"kernels need CUDA tensors, got {dev}")
-    traced = tracer_library(dtype)
-    if dtype == torch.float64 and lib != "tracer":
-        raise NotImplementedError(F64_GRADIENTS)
-    lib = traced if lib == "tracer" else lib
+    lib = gradient_library(kind, dtype)
     word = torch.int64 if dtype == torch.float64 else torch.int32
     for name in _SCENE_PTRS + _SCENE_GROUPS:
         t = st[name]
@@ -353,7 +352,7 @@ def _raise_on(rc, name):
 def _launched(name, lib):
     """Count a launch of `name` from library `lib`."""
     launches[name] += 1
-    if lib == "tracer_f64":
+    if lib.endswith("_f64"):
         launches_f64[name] += 1
 
 
@@ -407,13 +406,13 @@ def draws(seed_words, base, dead, need, k0, k1, count, mask, dtype=torch.float32
     emit = torch.empty((B, 6), device=dev, dtype=dtype)
     words = torch.empty((B, 8), device=dev, dtype=dtype)
     calls = torch.empty(W, device=dev, dtype=torch.int32)
-    rc = library(tracer_library(dtype)).pvt_draws(
+    rc = library(gradient_library("tracer", dtype)).pvt_draws(
         seed_words[0], seed_words[1], base.contiguous().data_ptr(), dead.data_ptr(), need,
         k0.data_ptr(), k1.data_ptr(), count.data_ptr(), mask.data_ptr(), B, keys.data_ptr(),
         emit.data_ptr(), words.data_ptr(), calls.data_ptr(), _stream(),
     )
     _raise_on(rc, "pvt_draws")
-    _launched("pvt_draws", tracer_library(dtype))
+    _launched("pvt_draws", gradient_library("tracer", dtype))
     return keys, emit, words, calls
 
 
@@ -612,7 +611,7 @@ def log_pack(log):
         return eventlog.pack(log, counts)
     S, E = log["ints"].shape[:2]
     dev, real = counts.device, log["floats"].dtype
-    lib = tracer_library(real)
+    lib = gradient_library("tracer", real)
     for name, dtype, shape in (("ints", torch.int32, (S, E, T.LOG_I)),
                                ("floats", real, (S, E, T.LOG_F)),
                                ("counts", torch.int32, (S,))):
@@ -654,8 +653,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     the resident capacity), `steps` is the largest per-photon step count,
     where the eager twin reports its number of wavefront steps, and the
     tallies have no ``seen``. Float32 scene tensors launch the float32
-    library, float64 ones ``tracer_f64`` (``last_trace["library"]``; no
-    score channels). The float32 build's sums are float32 per block, moved
+    libraries, float64 ones their float64 builds (``last_trace["library"]``).
+    The float32 build's sums are float32 per block, moved
     into float64 totals every ``tables.SUMS_FLUSH`` distinct rays of a
     recorder and at the end (``check.SUMS_BOUND``); the float64 build adds
     its float64 sums a block and then into the totals. With ``record_every >
@@ -664,8 +663,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     filled, so only the first ``counts[s]`` records of row s are set
     (``log_pack`` takes them). With `score` the launch is
     ``pvt_trace_score``, and the tallies also hold ``fate_scores`` [11, CH]
-    and ``rec_scores`` [max(R, 1), CH] (float64 sums of float32 path
-    scores) and ``fate_abs``, ``rec_abs``, the sums of their addends'
+    and ``rec_scores`` [max(R, 1), CH] (float64 sums of path scores in the
+    scene's dtype) and ``fate_abs``, ``rec_abs``, the sums of their addends'
     magnitudes (``check.score_runs_bound``). A block keeps its score sums
     in shared memory when they fit beside its tallies, else it adds them
     straight to the totals (``last_trace["shared_scores"]`` says which).
@@ -692,8 +691,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         raise ValueError("per_photon: needs score=True and index_offset 0")
     specs = tuple(pathwise) if score else ()
     name = "pvt_trace_pathwise" if specs else "pvt_trace_score" if score else "pvt_trace"
-    lib = _check_scene(st, {"pvt_trace": "tracer", "pvt_trace_score": "score",
-                            "pvt_trace_pathwise": "pathwise"}[name])
+    lib = _check_scene(st, "pathwise" if specs else "score" if score else "tracer")
     dev, dtype = st["node_f"].device, st["node_f"].dtype
     if bundle is None:
         _check_device_lights(st)
@@ -723,7 +721,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         desc.shared_rows = int(shared_rows)
         if per_photon:
             CH = score_ch.n_channels(st, len(specs))
-            photon = torch.zeros((CH + 2, n), device=dev, dtype=torch.float32)
+            photon = torch.zeros((CH + 2, n), device=dev, dtype=dtype)
             photon[CH] = -1.0
             desc.photon, desc.photon_n = photon.data_ptr(), n
         args += (ctypes.byref(desc),)
@@ -738,7 +736,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     if log_desc.n_slots:
         _launched("pvt_trace_log", lib)
     if name != "pvt_trace":
-        launches[name] += 1
+        _launched(name, lib)
         res.update(score_results(sums))
     if per_photon:
         res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
@@ -772,7 +770,7 @@ def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
     desc = _Score(ch=score_ch.n_channels(st, n_path), n_path=n_path,
                   shared_rows=int(shared_rows))
     info = (ctypes.c_longlong * 7)()
-    (entry or library(tracer_library(st["node_f"].dtype)).pvt_layout)(
+    (entry or library(gradient_library("tracer", st["node_f"].dtype)).pvt_layout)(
         ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
         ctypes.byref(desc) if score else None, info)
     return _placement(info)
@@ -788,19 +786,19 @@ def resident_threads(device, threads):
 
 def score_sums(st, stride, pathwise=()):
     """Zeroed K12 outputs of a score launch with `stride` lanes: the
-    per-lane rows [CH, stride] float32 and the float64 totals
+    per-lane rows [CH, stride] in the scene's dtype and the float64 totals
     ``fate_scores`` [2, 11, CH] and ``rec_scores`` [2, max(R, 1), CH]
     (signed sums, then magnitudes), with their ctypes descriptor (no
     per-photon records; the launch decides where a block keeps its
     sums). With `pathwise` specs (K13), CH counts them, and the lanes'
     tangent rows [C, 7, stride] and the path table come too."""
-    meta, dev = st["meta"], st["node_f"].device
+    meta, dev, real = st["meta"], st["node_f"].device, st["node_f"].dtype
     CH, R = score_ch.n_channels(st, len(pathwise)), max(meta["n_rec"], 1)
     sums = {
-        "rows": torch.empty((CH, stride), device=dev, dtype=torch.float32),
+        "rows": torch.empty((CH, stride), device=dev, dtype=real),
         "fate": torch.zeros((2, physics.N_FATES, CH), device=dev, dtype=torch.float64),
         "rec": torch.zeros((2, R, CH), device=dev, dtype=torch.float64),
-        "tang": torch.empty((len(pathwise), 7, stride), device=dev, dtype=torch.float32),
+        "tang": torch.empty((len(pathwise), 7, stride), device=dev, dtype=real),
         "path": T.pathwise_table(pathwise, dev),
     }
     desc = _Score(sums["rows"].data_ptr(), sums["fate"].data_ptr(), sums["rec"].data_ptr(),
@@ -823,32 +821,33 @@ def score_step(st, s, scores, maxsteps=1000, emit_method=0, maxpathlength=float(
     for none), the lanes' new path scores (`scores` [CH, B] plus the
     step's contributions) and this step's folds, ``fate_scores`` and
     ``fate_abs`` [11, CH] in float64 (a dict). The twin
-    (``score_step_twin``) on the CPU, ``pvt_score`` on the card."""
+    (``score_step_twin``) on the CPU, ``pvt_score`` on the card, of the
+    build of the scene's dtype (`scores` in it too)."""
     CH = score_ch.n_channels(st)
     if _on_cpu(st):
         return score_step_twin(st, s, scores, maxsteps, emit_method, maxpathlength)
-    _check_scene(st, "score")
-    dev = st["node_f"].device
+    lib = _check_scene(st, "score")
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     B = s["px"].shape[0]
-    want = _empty_state(B, dev)
+    want = _empty_state(B, dev, dtype)
     _check_lanes(s, want, B, dev)
-    if scores.shape != (CH, B) or scores.dtype != torch.float32 or not scores.is_contiguous():
-        raise ValueError(f"scores: need contiguous float32 [{CH}, {B}]")
-    flags = _empty_flags(B, dev)
+    if scores.shape != (CH, B) or scores.dtype != dtype or not scores.is_contiguous():
+        raise ValueError(f"scores: need contiguous {dtype} [{CH}, {B}]")
+    flags = _empty_flags(B, dev, dtype)
     flags["comp_id"] = torch.empty(B, device=dev, dtype=torch.int32)
     sums = {"rows": scores.clone(),
             "fate": torch.zeros((2, physics.N_FATES, CH), device=dev, dtype=torch.float64)}
     desc = _Score(sums["rows"].data_ptr(), sums["fate"].data_ptr(), sums["fate"].data_ptr(), B,
                   CH, st["meta"]["n_comps"], 0)
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
-    rc = library("score").pvt_score(
+    rc = library(lib).pvt_score(
         ctypes.byref(sc), ctypes.byref(_struct(_State, s, _STATE_PTRS)),
         ctypes.byref(_struct(_State, want, _STATE_PTRS)),
         ctypes.byref(_struct(_Flags, flags, _FLAG_PTRS)), B, ctypes.byref(desc),
         flags["comp_id"].data_ptr(), _stream(),
     )
     _raise_on(rc, "pvt_score")
-    launches["pvt_score"] += 1
+    _launched("pvt_score", lib)
     return dict(want, **flags), sums["rows"], {"fate_scores": sums["fate"][0],
                                                "fate_abs": sums["fate"][1]}
 
@@ -872,79 +871,79 @@ def score_step_twin(st, s, scores, maxsteps=1000, emit_method=0, maxpathlength=f
 
 def fresnel(n1, n2, c):
     """(dR/dn1, dR/dn2) of the Fresnel reflectivity at (n1, n2, c): the twin
-    ``score.fresnel_dR`` on the CPU, ``pvt_fresnel`` (float32) on the card."""
+    ``score.fresnel_dR`` on the CPU, ``pvt_fresnel`` of the build of their
+    dtype on the card."""
     if n1.device.type == "cpu":
         return score_ch.fresnel_dR(n1, n2, c)
-    _refuse_f64(n1, n2, c)
+    lib = gradient_library("score", n1.dtype)
     for t in (n1, n2, c):
-        if t.dtype != torch.float32 or t.dim() != 1 or t.shape != n1.shape \
+        if t.dtype != n1.dtype or t.dim() != 1 or t.shape != n1.shape \
                 or not t.is_contiguous() or t.device != n1.device:
-            raise ValueError("fresnel: need contiguous float32 vectors of one length on one card")
+            raise ValueError("fresnel: need contiguous vectors of one dtype and length on one card")
     d1, d2 = torch.empty_like(n1), torch.empty_like(n1)
-    rc = library("score").pvt_fresnel(n1.data_ptr(), n2.data_ptr(), c.data_ptr(), n1.shape[0],
-                                      d1.data_ptr(), d2.data_ptr(), _stream())
+    rc = library(lib).pvt_fresnel(n1.data_ptr(), n2.data_ptr(), c.data_ptr(), n1.shape[0],
+                                  d1.data_ptr(), d2.data_ptr(), _stream())
     _raise_on(rc, "pvt_fresnel")
-    launches["pvt_fresnel"] += 1
+    _launched("pvt_fresnel", lib)
     return d1, d2
 
 
-def _refuse_f64(*tensors):
-    """Float64 CUDA tensors have no kernel of the gradient libraries."""
-    if any(t.dtype == torch.float64 for t in tensors):
-        raise NotImplementedError(F64_GRADIENTS)
-
-
 def _check_photons(tab, pos, direction, wav):
-    _refuse_f64(tab["node_f"], pos, direction, wav)
-    P, dev = wav.shape[0], tab["node_f"].device
+    """Check K15's CUDA inputs; returns the library to launch (``diff``
+    for float32, ``diff_f64`` for float64: the table's dtype)."""
+    P, dev, real = wav.shape[0], tab["node_f"].device, tab["node_f"].dtype
+    lib = gradient_library("diff", real)
     for name, t, shape in (("pos", pos, (P, 3)), ("dir", direction, (P, 3)), ("wav", wav, (P,))):
-        if t.shape != shape or t.dtype != torch.float32 or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous float32 {list(shape)} on {dev}")
+        if t.shape != shape or t.dtype != real or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {real} {list(shape)} on {dev}")
+    return lib
 
 
 def absorbed(tab, pos, direction, wav, c):
     """K15 forward: (weights, optical depths) [P] of photons (pos, dir
-    [P, 3], wav [P], float32) through the absorbing nodes `tab`
-    (``absorb.table``) at concentration scale `c` (float32 [1], on the
-    photons' device): the twin on the CPU, ``pvt_absorbed`` on the card."""
+    [P, 3], wav [P], in the dtype of the absorbing nodes `tab`,
+    ``absorb.table``) at concentration scale `c` ([1] in that dtype, on the
+    photons' device): the twin on the CPU, ``pvt_absorbed`` of the build of
+    that dtype on the card."""
     if wav.device.type == "cpu":
         dep = absorb.depth(tab, pos, direction, wav)
         return absorb.weight(c, dep), dep
-    _check_photons(tab, pos, direction, wav)
-    if c.shape != (1,) or c.dtype != torch.float32 or c.device != wav.device:
-        raise ValueError("c: need a float32 [1] on the photons' device")
+    lib = _check_photons(tab, pos, direction, wav)
+    if c.shape != (1,) or c.dtype != wav.dtype or c.device != wav.device:
+        raise ValueError(f"c: need a {wav.dtype} [1] on the photons' device")
     P = wav.shape[0]
     w, dep = torch.empty_like(wav), torch.empty_like(wav)
     m = tab["meta"]
-    desc = _Absorbers(tab["node_f"].data_ptr(), tab["node_i"].data_ptr(),
-                      tab["alpha"].data_ptr(), tab["node_i"].shape[0], m["L"], m["x0"], m["dx"])
-    rc = library("diff").pvt_absorbed(ctypes.byref(desc), pos.data_ptr(), direction.data_ptr(),
-                                      wav.data_ptr(), c.data_ptr(), P, w.data_ptr(),
-                                      dep.data_ptr(), _stream())
+    cls = _Absorbers64 if lib == "diff_f64" else _Absorbers
+    desc = cls(tab["node_f"].data_ptr(), tab["node_i"].data_ptr(), tab["alpha"].data_ptr(),
+               tab["node_i"].shape[0], m["L"], m["x0"], m["dx"])
+    rc = library(lib).pvt_absorbed(ctypes.byref(desc), pos.data_ptr(), direction.data_ptr(),
+                                   wav.data_ptr(), c.data_ptr(), P, w.data_ptr(),
+                                   dep.data_ptr(), _stream())
     _raise_on(rc, "pvt_absorbed")
-    launches["pvt_absorbed"] += 1
+    _launched("pvt_absorbed", lib)
     return w, dep
 
 
 def absorbed_grad(dep, grad_w, c):
     """K15 backward: ``sum_i grad_w[i] * c * dep[i] * exp(-c * dep[i])``,
-    the gradient in log_concentration, as a float32 [1]: the twin on the
-    CPU, ``pvt_absorbed_grad`` (float64 sum) on the card."""
+    the gradient in log_concentration, as a [1] in the depths' dtype: the
+    twin on the CPU, ``pvt_absorbed_grad`` (a float64 sum) of the build of
+    that dtype on the card."""
     if dep.device.type == "cpu":
         return absorb.grad_log_concentration(c, dep, grad_w).reshape(1)
-    _refuse_f64(dep, grad_w, c)
-    for name, t in (("depth", dep), ("grad", grad_w)):
-        if t.dtype != torch.float32 or t.shape != dep.shape or t.dim() != 1 \
-                or not t.is_contiguous() or t.device != dep.device:
-            raise ValueError(f"{name}: need a contiguous float32 vector on the card")
+    lib = gradient_library("diff", dep.dtype)
+    for name, t in (("depth", dep), ("grad", grad_w), ("c", c)):
+        if t.dtype != dep.dtype or t.dim() != 1 or not t.is_contiguous() \
+                or t.device != dep.device or t.shape != (dep.shape if name != "c" else (1,)):
+            raise ValueError(f"{name}: need a contiguous {dep.dtype} vector on the card")
     out = torch.zeros(1, device=dep.device, dtype=torch.float64)
     blocks = 4 * torch.cuda.get_device_properties(dep.device).multi_processor_count
-    rc = library("diff").pvt_absorbed_grad(dep.data_ptr(), grad_w.data_ptr(), c.data_ptr(),
-                                           dep.shape[0], blocks, out.data_ptr(), _stream())
+    rc = library(lib).pvt_absorbed_grad(dep.data_ptr(), grad_w.data_ptr(), c.data_ptr(),
+                                        dep.shape[0], blocks, out.data_ptr(), _stream())
     _raise_on(rc, "pvt_absorbed_grad")
-    launches["pvt_absorbed_grad"] += 1
-    return out.to(torch.float32)
+    _launched("pvt_absorbed_grad", lib)
+    return out.to(dep.dtype)
 
 
 def pathwise_step(st, s, tang, specs, maxsteps=1000, emit_method=0,
@@ -955,34 +954,35 @@ def pathwise_step(st, s, tang, specs, maxsteps=1000, emit_method=0,
     channel's map [C, PATH_J, B] (the new coordinates' tangents, then those
     of t0, alpha and the reflectivity on surface events, through
     nan_to_num), contribution [C, B] and new tangents [C, 7, B]. The twin
-    (``pathwise_step_twin``) on the CPU, ``pvt_pathwise`` on the card."""
+    (``pathwise_step_twin``) on the CPU, ``pvt_pathwise`` on the card, of
+    the build of the scene's dtype (`tang` in it too)."""
     if _on_cpu(st):
         return pathwise_step_twin(st, s, tang, specs, maxsteps, emit_method, maxpathlength)
-    _check_scene(st, "pathwise")
-    dev = st["node_f"].device
+    lib = _check_scene(st, "pathwise")
+    dev, dtype = st["node_f"].device, st["node_f"].dtype
     B, C = s["px"].shape[0], len(specs)
-    want = _empty_state(B, dev)
+    want = _empty_state(B, dev, dtype)
     _check_lanes(s, want, B, dev)
-    if tang.shape != (C, 7, B) or tang.dtype != torch.float32 or not tang.is_contiguous() \
+    if tang.shape != (C, 7, B) or tang.dtype != dtype or not tang.is_contiguous() \
             or tang.device != dev:
-        raise ValueError(f"tangents: need contiguous float32 [{C}, 7, {B}] on {dev}")
-    flags = _empty_flags(B, dev)
+        raise ValueError(f"tangents: need contiguous {dtype} [{C}, 7, {B}] on {dev}")
+    flags = _empty_flags(B, dev, dtype)
     flags["comp_id"] = torch.empty(B, device=dev, dtype=torch.int32)
-    f = dict(device=dev, dtype=torch.float32)
+    f = dict(device=dev, dtype=dtype)
     table = T.pathwise_table(specs, dev)
     jv, ds, tout = (torch.empty((C, T.PATH_J, B), **f), torch.empty((C, B), **f),
                     torch.empty((C, 7, B), **f))
     desc = _Path(table.data_ptr(), C, tang.data_ptr(), tout.data_ptr(), jv.data_ptr(),
                  ds.data_ptr())
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
-    rc = library("pathwise").pvt_pathwise(
+    rc = library(lib).pvt_pathwise(
         ctypes.byref(sc), ctypes.byref(_struct(_State, s, _STATE_PTRS)),
         ctypes.byref(_struct(_State, want, _STATE_PTRS)),
         ctypes.byref(_struct(_Flags, flags, _FLAG_PTRS)), B, ctypes.byref(desc),
         flags["comp_id"].data_ptr(), _stream(),
     )
     _raise_on(rc, "pvt_pathwise")
-    launches["pvt_pathwise"] += 1
+    _launched("pvt_pathwise", lib)
     return dict(want, **flags), jv, ds, tout
 
 

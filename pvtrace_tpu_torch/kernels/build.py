@@ -4,9 +4,9 @@ Four libraries, one per translation unit of ``csrc/``: ``tracer`` (the
 score-free kernels), ``score`` (K12: the score instantiations of the trace
 kernel, ``pvt_score``, ``pvt_fresnel``), ``pathwise`` (K13: the
 instantiations with pathwise channels, ``pvt_pathwise``) and ``diff``
-(K15); and a fifth, ``tracer_f64``, the float64 build of ``tracer.cu``
-(``-DPVT_F64``: every real of ``tracer.cuh`` a double), which float64
-scene tensors launch. They go to
+(K15); and the float64 build of each, ``tracer_f64``, ``score_f64``,
+``pathwise_f64`` and ``diff_f64`` (``-DPVT_F64``: every real of the
+headers a double), which float64 tensors launch. They go to
 ``pvtrace_tpu_torch/kernels/_build/`` (listed in ``.gitignore``), named by
 a hash of the sources and flags, so a build happens at first use and
 again only when a source changes; ``build_all`` starts one nvcc per
@@ -26,9 +26,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # Library name -> its translation unit; every one includes headers of csrc/.
 LIBRARIES = {"tracer": "tracer.cu", "score": "score.cu", "pathwise": "pathwise.cu",
-             "diff": "diff.cu", "tracer_f64": "tracer.cu"}
+             "diff": "diff.cu", "tracer_f64": "tracer.cu", "score_f64": "score.cu",
+             "pathwise_f64": "pathwise.cu", "diff_f64": "diff.cu"}
 # Flags a library adds to NVCC_FLAGS.
-LIBRARY_FLAGS = {"tracer_f64": ("-DPVT_F64",)}
+LIBRARY_FLAGS = {name: ("-DPVT_F64",) for name in LIBRARIES if name.endswith("_f64")}
 SOURCES = ("tracer.cu", "score.cu", "pathwise.cu", "diff.cu", "tracer.cuh", "trace_kernel.cuh",
            "diff.cuh")
 # No --use_fast_math: log1p, sqrt and division stay IEEE.

@@ -212,7 +212,53 @@ PATH_LEFT_OUT = 1e-3
 # A scale is at least PATH_FLOOR of the channel's largest.
 PATH_GROUPS = ((0, 1, 2, 3, 4, 5, 7, 11, 12, 13, 14, 15, 16), (6, 17))
 PATH_FLOOR = 1e-6
+# ``saturates``' threshold: nan_to_num takes an infinite slope to FLT_MAX
+# in float32 and to DBL_MAX in float64, both above it, and no path score
+# or tangent of a float64 run comes near it otherwise, so it serves both.
 SATURATED = 1e30
+# K12, K13 and K15 of the float64 builds against the float64 twin, both on
+# the card. Each float32 bound above is float32's rounding grown by the
+# step's conditioning; float64's rounding is 2**-29 of it, and nvcc's FMA
+# contraction moves the float64 kernels by ulps that a few steps grow to
+# 5e-11 of a value (the float64 trace, F64_RTOL). So each float64 bound is
+# its float32 form with the rounding part taken at F64_RTOL in place of
+# 1e-4, the factor F64_SLACK = F64_RTOL / SCORE_RTOL (1e-5), still 10**4
+# times float64's own rounding in each:
+# * ``rtol``, ``path_rtol``: a path score, a tangent map's output, a fold
+#   against its magnitudes, a Fresnel partial (FRESNEL_SINGULAR still
+#   leaves the critical angle out) within F64_RTOL of its scale;
+# * the twin's slack (``score.SLACK_SPECTRAL``: K5a's 1e-5 of a fit's
+#   scale, which is 1e-12 in float64, CHEB_RTOL_F64; ``FRESNEL_ROUNDING``,
+#   ``GRAZING_ROUNDING`` and ``pathwise.grazing``: float32 ulps over the
+#   incidence's conditioning) times F64_SLACK;
+# * ``absorbed``: K15's weights and depths (F64_RTOL, as the float64
+#   transform and chord); ``grad``: its gradient against the sum of its
+#   terms' magnitudes, both float64 sums of float64 terms in other orders,
+#   m terms within m 2**-53 each: F64_RTOL covers m to 10**7.
+# Discrete outcomes part only where a value lies within an ulp or so of a
+# threshold: F64_PARTED photons of a score trace may part (``parted``),
+# and as many saturate (a photon's path, not its rounding, decides that).
+# The lanes PATH_LEFT_OUT counts are the grazing hits below
+# ``score.GRAZING_C`` and the saturated lanes, which the geometry sets, not
+# the rounding: the same share bounds them in float64 (``left_out``).
+F64_SLACK = F64_RTOL / SCORE_RTOL
+
+
+def gradient_bounds(dtype):
+    """The bounds of the K12, K13 and K15 checks for tensors of `dtype`:
+    a dict of ``rtol`` (SCORE_RTOL, PATH_RTOL; float64: F64_RTOL), the
+    factor on the twin's ``slack``, ``parted(n)`` the photons of n that may
+    part, ``left_out`` (PATH_LEFT_OUT), ``absorbed`` and ``grad`` (K15's),
+    and ``cast``, the rounding of ``simulate``'s sums in `dtype`."""
+    if dtype == torch.float64:
+        return {"rtol": F64_RTOL, "path_rtol": F64_RTOL, "slack": F64_SLACK,
+                "parted": lambda n: F64_PARTED, "left_out": PATH_LEFT_OUT,
+                "absorbed": F64_RTOL, "grad": F64_RTOL, "cast": 0.0,
+                "fates": lambda n: F64_PARTED}
+    return {"rtol": SCORE_RTOL, "path_rtol": PATH_RTOL, "slack": 1.0,
+            "parted": lambda n: SCORE_PARTED * n, "left_out": PATH_LEFT_OUT,
+            "absorbed": ABSORBED_RTOL, "grad": GRAD_RTOL, "cast": 2.0 ** -24,
+            "fates": lambda n: max(20, n // 500)}
 
 
 def require(ok, message):
@@ -1136,21 +1182,22 @@ def compare_databases(got, ref):
             "max_rel_err": worst}
 
 
-def score_runs_bound(m, S):
-    """``simulate``'s float32 score sums against float64 totals of the
+def score_runs_bound(m, S, dtype=torch.float32):
+    """``simulate``'s score sums in `dtype` against float64 totals of the
     same photons added in another order: m addends, S the sum of their
-    magnitudes (``SCORE_F64_ULP``)."""
-    return (2.0 ** -24 + 2 * m * SCORE_F64_ULP) * S
+    magnitudes (``SCORE_F64_ULP``); float32 sums are cast from float64
+    (2**-24), float64 sums not cast."""
+    return (gradient_bounds(dtype)["cast"] + 2 * m * SCORE_F64_ULP) * S
 
 
-def sharded_gradient_bound(fates, fate_abs, n):
+def sharded_gradient_bound(fates, fate_abs, n, dtype=torch.float32):
     """How far two ``fate_gradients(wrt="all")`` runs of the same n photons
     may differ when their float64 score sums were added in other orders
     (shards of a mesh against one process): ``score_runs_bound`` of each
     [fate, channel] sum (`fates` [11] float64, `fate_abs` [11, CH], the
     sums of the addends' magnitudes), carried through the centring, over
-    n."""
-    B = score_runs_bound(fates[:, None], fate_abs)
+    n; `dtype` the runs' (``score_runs_bound``)."""
+    B = score_runs_bound(fates[:, None], fate_abs, dtype)
     return (B + fates[:, None] / n * B.sum(0, keepdim=True)) / n
 
 
@@ -1159,7 +1206,8 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     `got_fates`: ``kernels.trace(..., per_photon=True)`` on the card or
     the host build of its device code) against the twin's (`ref_t`:
     ``tracer.trace_eager(..., per_photon=True)``), by the rules above
-    SCORE_F64_ULP; at most `max_parted` photons may part, and as many may
+    SCORE_F64_ULP (float64 records: F64_RTOL and the slack times
+    F64_SLACK); at most `max_parted` photons may part, and as many may
     saturate (the pathwise channels, PATH_RTOL above). Returns a dict:
     ``parted`` and ``saturated`` photons, ``record_used`` and
     ``sums_used``, the largest share of its bound a record and a sum took,
@@ -1168,6 +1216,7 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     and the saturated photons' own scores), and ``max_abs_err`` of the
     fate_scores against the twin's."""
     dev = ref_t["fate_scores"].device
+    tol = gradient_bounds(ref_t["photon_scores"].dtype)
     kf, tf = got_t["photon_fate"].to(dev), ref_t["photon_fate"]
     require(bool((kf >= 0).all()), "pvt_trace (score): a photon never folded its score")
     ks, ts = got_t["photon_scores"].to(dev).double(), ref_t["photon_scores"].double()
@@ -1176,7 +1225,7 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     require(n_sat <= max_parted,
             f"pvt_trace (score): {n_sat} of {n} photons saturated (limit {max_parted:g})")
     scale = torch.where(saturated[None, :], 0.0, ts.abs()).amax(1, keepdim=True)
-    allow = SCORE_RTOL * scale + ref_t["photon_slack"]
+    allow = tol["rtol"] * scale + tol["slack"] * ref_t["photon_slack"]
     off = torch.where(saturated[None, :], 0.0, (ks - ts).abs())
     parted = (kf != tf) | (got_t["photon_steps"].to(dev) != ref_t["photon_steps"]) \
         | (off > allow).any(0)
@@ -1210,7 +1259,8 @@ def compare_score_records(got_t, ref_t, got_fates, n, max_parted):
     for name, abs_name, slack_name in pairs:
         a, b = got_t[name].to(dev).double(), ref_t[name].double()
         a = a[:b.shape[0]]
-        bound_ = SCORE_RTOL * ref_t[abs_name].double() + ref_t[slack_name] + parted_allow
+        bound_ = tol["rtol"] * ref_t[abs_name].double() + tol["slack"] * ref_t[slack_name] \
+            + parted_allow
         d = (a - b).abs()
         require(bool((d <= bound_).all()),
                 f"pvt_trace (score): {name} off the twin's by "
@@ -1231,12 +1281,15 @@ def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_metho
     within SCORE_RTOL of its channel's scale plus the step's slack; each
     step's folds within SCORE_RTOL of their magnitudes, the folded lanes'
     slack, and the differing and grazing lanes at twice the channel's
-    scale."""
+    scale. A float64 scene: F64_RTOL and the slack times F64_SLACK
+    (``gradient_bounds``)."""
     B = state["px"].shape[0]
     CH = score_ch.n_channels(st)
     s = state
     dev = state["px"].device
-    scores = torch.zeros((CH, B), device=dev, dtype=torch.float32)
+    dtype, real = _real(st)
+    tol = gradient_bounds(dtype)
+    scores = torch.zeros((CH, B), device=dev, dtype=dtype)
     # rel: the largest difference over its allowance on the agreeing lanes
     worst_frac, err, rel, fold_rel, worst_lane = 0.0, 0.0, 0.0, 0.0, ""
     grazing = 0
@@ -1256,7 +1309,7 @@ def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_metho
         grazing += int(graze.sum())
         bad |= graze
         scale = twin_new.abs().amax(1, keepdim=True).clamp(min=1e-30).double()
-        allow = SCORE_RTOL * scale + twin["slack"]
+        allow = tol["rtol"] * scale + tol["slack"] * twin["slack"]
         diff = (got_new - twin_new).abs().double()
         excess = torch.where(bad[None, :], 0.0, diff - allow)
         over = float(excess.max())
@@ -1285,7 +1338,7 @@ def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_metho
                               f"{float(twin['c_in'][i]):.6g}, R {float(twin['refl_r'][i]):.4g}, "
                               f"advance {float(twin['advance'][i]):.4g}")
         twin_abs = twin_t["fate_abs"]
-        fold_allow = SCORE_RTOL * twin_abs + twin_t["fate_slack"] \
+        fold_allow = tol["rtol"] * twin_abs + tol["slack"] * twin_t["fate_slack"] \
             + int(bad.sum()) * 2.0 * scale.T
         off = (got_t["fate_scores"] - twin_t["fate_scores"]).abs()
         require(bool((off <= fold_allow).all()),
@@ -1306,8 +1359,10 @@ def check_score(st, state, steps=8, max_discrete=1e-4, maxsteps=1000, emit_metho
                             reps),
     }
     # pvt_step's bytes, and each lane's CH scores read and written.
+    lane, flags = 61 + 9 * (real - 4), 45 + 4 * (real - 4)
     report["bound_ms"], report["bound_by"] = bound(
-        B * (OPS_STEP + OPS_SCORE_STEP), B * (2 * 61 + 45 + 8 * CH), step_draws(B, 0)
+        B * (OPS_STEP + OPS_SCORE_STEP), B * (2 * lane + flags + 2 * real * CH),
+        step_draws(B, 0), dtype,
     )
     return report
 
@@ -1327,11 +1382,20 @@ def fresnel_grid(device, dtype=torch.float32):
     return tuple(torch.as_tensor(v, dtype=dtype, device=device) for v in (n1, n2, c))
 
 
-def check_fresnel(device, reps=10):
-    """pvt_fresnel against the twin, both float32 on the card, on
-    ``fresnel_grid``: within SCORE_RTOL of max(|twin|, 1) away from the
-    critical angle (FRESNEL_SINGULAR), non-finite where the twin is."""
-    n1, n2, c = fresnel_grid(device)
+def check_fresnel(device, reps=10, dtype=torch.float32, n=0):
+    """pvt_fresnel against the twin, both in `dtype` on the card, on
+    ``fresnel_grid`` and, up to `n` points in all, points drawn uniformly
+    (n1, n2 in [1, 2.5], c in [0, 1], seed 0): within SCORE_RTOL (float64:
+    F64_RTOL) of max(|twin|, 1) away from the critical angle
+    (FRESNEL_SINGULAR), non-finite where the twin is."""
+    rtol = gradient_bounds(dtype)["rtol"]
+    n1, n2, c = fresnel_grid(device, dtype)
+    extra = n - n1.numel()
+    if extra > 0:
+        g = torch.Generator(device=device).manual_seed(0)
+        u = torch.rand((3, extra), generator=g, device=device, dtype=dtype)
+        n1, n2, c = (torch.cat([v, w]) for v, w in zip((n1, n2, c),
+                                                       (1.0 + 1.5 * u[0], 1.0 + 1.5 * u[1], u[2])))
     got = kernels.fresnel(n1, n2, c)
     twin = score_ch.fresnel_dR(n1, n2, c)
     torch.cuda.synchronize()
@@ -1345,7 +1409,7 @@ def check_fresnel(device, reps=10):
                 "pvt_fresnel: finite where the twin is not, or the reverse")
         d = (g - t).abs()[fin] / t.abs()[fin].clamp(min=1.0)
         err = max(err, float(d.max()))
-    require(err <= SCORE_RTOL, f"pvt_fresnel: off by {err:.3g} > {SCORE_RTOL}")
+    require(err <= rtol, f"pvt_fresnel: off by {err:.3g} > {rtol}")
     report = {
         "max_abs_err": err,
         "points": int(n1.numel()),
@@ -1353,8 +1417,9 @@ def check_fresnel(device, reps=10):
         "ms": cuda_ms(lambda: kernels.fresnel(n1, n2, c), reps),
         "plain_ms": cuda_ms(lambda: score_ch.fresnel_dR(n1, n2, c), reps),
     }
+    # Three reals read and two written a point.
     report["bound_ms"], report["bound_by"] = bound(
-        n1.numel() * OPS_FRESNEL_DR, n1.numel() * 20
+        n1.numel() * OPS_FRESNEL_DR, n1.numel() * 5 * n1.element_size(), dtype=dtype
     )
     return report
 
@@ -1375,7 +1440,8 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
     n photons: fates (and recorder tallies) as ``check_trace``; the
     per-photon records and the fate_scores and rec_scores by
     ``compare_score_records``, at most SCORE_PARTED of the photons
-    parted. The kernel is timed again without its records, the twin with
+    parted (a float64 scene: each within F64_PARTED, F64_PARTED
+    parted). The kernel is timed again without its records, the twin with
     them. With `pathwise` specs the kernel is pvt_trace_pathwise. With a
     host `bundle` both start from it. The block's placement
     (``shared_rows`` among it) must be ``kernels.trace_layout``'s."""
@@ -1391,11 +1457,13 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
     stop.record()
     torch.cuda.synchronize()
     got, ref = got.cpu(), ref.cpu()
-    tol = max(20, n // 500)
+    dtype = st["node_f"].dtype
+    bounds = gradient_bounds(dtype)
+    tol = bounds["fates"](n)
     require(int(got.sum()) == n, f"pvt_trace (score): fates sum to {int(got.sum())}, not {n}")
     err = int((got - ref).abs().max())
     require(err <= tol, f"pvt_trace (score): fates {got.tolist()} vs twin {ref.tolist()}")
-    report = compare_score_records(got_t, ref_t, got, n, SCORE_PARTED * n)
+    report = compare_score_records(got_t, ref_t, got, n, bounds["parted"](n))
     R = st["meta"]["n_rec"]
     if R:
         for name in ("distinct", "cross", "bins"):
@@ -1417,8 +1485,9 @@ def check_trace_scores(st, seed_words, n, lanes=1 << 18, maxsteps=1000, emit_met
     C = len(pathwise)
     CH = score_ch.n_channels(st, C)
     per_step = OPS_SCORE_STEP + (OPS_PATH_STEP + C * OPS_PATH_CHANNEL if C else 0)
+    peak = PEAK_F64_OPS_PER_S if dtype == torch.float64 else PEAK_OPS_PER_S
     score_ms = (kernels.last_trace["total_steps"] * per_step + n * CH * OPS_SCORE_FOLD) \
-        / PEAK_OPS_PER_S * 1e3
+        / peak * 1e3
     report["bound_ms"], report["bound_by"] = (ops_ms + score_ms, "operations") \
         if by == "operations" else (ops_ms, by)
     return report
@@ -1439,10 +1508,11 @@ def check_rows_placement(st, seed_words, n, records, pathwise=(), reps=2):
     for name in ("photon_fate", "photon_steps"):
         require(torch.equal(t[name], records[name].to(t[name].device)),
                 f"rows in device memory: {name} differs from the placed rows' run")
-    a, b = t["photon_scores"], records["photon_scores"].to(t["photon_scores"].device)
-    require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-            f"rows in device memory: {int((a.view(torch.int32) != b.view(torch.int32)).sum())} "
-            f"record entries differ in their bits from the placed rows' run")
+    bits = torch.int64 if t["photon_scores"].dtype == torch.float64 else torch.int32
+    a = t["photon_scores"].view(bits)
+    b = records["photon_scores"].to(a.device).view(bits)
+    require(torch.equal(a, b), f"rows in device memory: {int((a != b).sum())} record entries "
+                               f"differ in their bits from the placed rows' run")
     ms = {True: [], False: []}
     for _ in range(reps):
         for placed in (True, False):
@@ -1477,11 +1547,16 @@ def check_pathwise(st, state, specs, steps=8, max_discrete=1e-4, maxsteps=1000, 
     counted, at most PATH_LEFT_OUT of them), each channel's map (the new
     coordinates' tangents, then those of t0, alpha and the reflectivity),
     contribution and new tangents within PATH_RTOL of their scale, the
-    contribution also within its slack."""
+    contribution also within its slack. A float64 scene: F64_RTOL,
+    PATH_LEFT_OUT and the slacks times F64_SLACK
+    (``gradient_bounds``)."""
     B, C = state["px"].shape[0], len(specs)
     dev = state["px"].device
     s = state
-    tang = torch.zeros((C, 7, B), device=dev, dtype=torch.float32)
+    dtype, real = _real(st)
+    tol = gradient_bounds(dtype)
+    rtol, left_max = tol["path_rtol"], tol["left_out"]
+    tang = torch.zeros((C, 7, B), device=dev, dtype=dtype)
     worst_frac, used, err, left_out, saturated, worst = 0.0, 0.0, 0.0, 0, 0, ""
     names = path.OUTPUTS + ("contribution",) + tuple(f"new {c}" for c in path.COORDS)
     for k in range(steps):
@@ -1503,23 +1578,23 @@ def check_pathwise(st, state, specs, steps=8, max_discrete=1e-4, maxsteps=1000, 
         out = bad | sat | graze
         saturated += int((sat & ~bad).sum())
         left_out += int((out & ~bad).sum())
-        require(left_out <= PATH_LEFT_OUT * B * (k + 1),
+        require(left_out <= left_max * B * (k + 1),
                 f"pvt_pathwise step {k}: {left_out} lanes left out (limit "
-                f"{PATH_LEFT_OUT * B * (k + 1):g})")
+                f"{left_max * B * (k + 1):g})")
         scale = torch.where(out[None, None, :], 0.0, ref.abs()).amax(2, keepdim=True)
         for group in PATH_GROUPS:
             scale[:, group] = scale[:, group].amax(1, keepdim=True)
         scale = torch.maximum(scale, PATH_FLOOR * scale.amax(1, keepdim=True))
-        allow = PATH_RTOL * scale.clamp(min=1e-30) + ref.abs() * path.grazing(twin)
-        allow[:, T.PATH_J] += twin["path_slack"]
+        allow = rtol * scale.clamp(min=1e-30) + ref.abs() * path.grazing(twin) * tol["slack"]
+        allow[:, T.PATH_J] += tol["slack"] * twin["path_slack"]
         # The reflectivity's tangent and the coin term carry the error of
-        # c's tangent (PATH_RTOL of the tangents' scale) times dR/dc.
+        # c's tangent (rtol of the tangents' scale) times dR/dc.
         dr_dc = fresnel_dR_dc(twin).nan_to_num(posinf=0.0, neginf=0.0)
         coin = twin["fres_coin"] & (twin["reflecting"] | twin["transmitting"])
         r = torch.where(coin, twin["refl_r"].double(), 0.5)
         branch = torch.where(twin["reflecting"], 1.0 / r.clamp(min=1e-12),
                              1.0 / (1.0 - r).clamp(min=1e-12))
-        carried = PATH_RTOL * scale[:, 0] * torch.where(coin, dr_dc, 0.0)[None, :]
+        carried = rtol * scale[:, 0] * torch.where(coin, dr_dc, 0.0)[None, :]
         allow[:, 9] += carried
         allow[:, T.PATH_J] += carried * branch
         diff = torch.where(out[None, None, :], 0.0, (val - ref).abs())
@@ -1547,9 +1622,10 @@ def check_pathwise(st, state, specs, steps=8, max_discrete=1e-4, maxsteps=1000, 
     }
     # pvt_step's work and bytes, and per channel the map: 7 tangents read,
     # 7 written, PATH_J map values and one contribution written.
+    lane, flags = 61 + 9 * (real - 4), 45 + 4 * (real - 4)
     report["bound_ms"], report["bound_by"] = bound(
         B * (OPS_STEP + OPS_PATH_STEP + C * OPS_PATH_CHANNEL),
-        B * (2 * 61 + 45 + 4 * C * (7 + 7 + T.PATH_J + 1)), step_draws(B, 0),
+        B * (2 * lane + flags + real * C * (7 + 7 + T.PATH_J + 1)), step_draws(B, 0), dtype,
     )
     return report
 
@@ -1558,8 +1634,9 @@ def check_chunk_scores(st, seed_words, data, n, chunk=1 << 20):
     """The score sums of one ``simulate(score=True)`` run of photons
     [0, n) (`data`) against the same photons traced by pvt_trace in runs
     of `chunk`: fates and recorder counts equal, and fate_scores and
-    rec_scores within ``score_runs_bound`` of the runs' float64 totals.
-    Returns the largest difference over its bound."""
+    rec_scores within ``score_runs_bound`` (of the scene's dtype) of the
+    runs' float64 totals. Returns the largest difference over its
+    bound."""
     total = None
     for first in range(0, n, chunk):
         fates, _, t, _ = kernels.trace(st, seed_words, min(chunk, n - first),
@@ -1580,7 +1657,8 @@ def check_chunk_scores(st, seed_words, data, n, chunk=1 << 20):
     for name, abs_name, m in rows:
         got = torch.as_tensor(data[name]).double()
         ref = total[name][:got.shape[0]].cpu()
-        allow = score_runs_bound(m[:, None], total[abs_name][:got.shape[0]].cpu())
+        allow = score_runs_bound(m[:, None], total[abs_name][:got.shape[0]].cpu(),
+                                 st["node_f"].dtype)
         off = (got - ref).abs()
         require(bool((off <= allow).all()),
                 f"{n} photons against runs of {chunk}: {name} off by "
@@ -1590,8 +1668,8 @@ def check_chunk_scores(st, seed_words, data, n, chunk=1 << 20):
 
 
 def absorbed_photons(st, seed_words, P):
-    """P photons of the scene's lights, as pvt_emit makes them: float32
-    positions and directions [P, 3] and wavelengths [P]."""
+    """P photons of the scene's lights, as pvt_emit makes them: positions
+    and directions [P, 3] and wavelengths [P] in the scene's dtype."""
     s = kernels.emit(st, seed_words, 0, P)
     pos = torch.stack([s["px"], s["py"], s["pz"]], 1).contiguous()
     direction = torch.stack([s["dx"], s["dy"], s["dz"]], 1).contiguous()
@@ -1602,9 +1680,11 @@ def check_absorbed(tab, pos, direction, wav, log_c=0.0, reps=10):
     """pvt_absorbed and pvt_absorbed_grad against the plain version
     (``engine/absorb.py``) on the card: weights and depths within
     ABSORBED_RTOL relative, the gradient (cotangents 1/P, as a mean's)
-    within GRAD_RTOL of the sum of its terms' magnitudes."""
-    P = wav.shape[0]
-    c = torch.exp(torch.full((1,), log_c, device=wav.device, dtype=torch.float32))
+    within GRAD_RTOL of the sum of its terms' magnitudes (float64 photons
+    and table: F64_RTOL for both)."""
+    P, dtype = wav.shape[0], wav.dtype
+    tol = gradient_bounds(dtype)
+    c = torch.exp(torch.full((1,), log_c, device=wav.device, dtype=dtype))
     grad_w = torch.full_like(wav, 1.0 / P)
     w, dep = kernels.absorbed(tab, pos, direction, wav, c)
     g = kernels.absorbed_grad(dep, grad_w, c)
@@ -1615,9 +1695,10 @@ def check_absorbed(tab, pos, direction, wav, log_c=0.0, reps=10):
     rel_w = float(((w - ref_w).abs() / ref_w.abs().clamp(min=1e-30)).max())
     rel_d = float(((dep - ref_dep).abs() / ref_dep.abs().clamp(min=1e-30)).max())
     rel_g = float((g.double() - terms.double().sum()).abs() / terms.abs().double().sum())
-    require(rel_w <= ABSORBED_RTOL and rel_d <= ABSORBED_RTOL,
-            f"pvt_absorbed: weights off by {rel_w:.3g}, depths by {rel_d:.3g} > {ABSORBED_RTOL}")
-    require(rel_g <= GRAD_RTOL, f"pvt_absorbed_grad: off by {rel_g:.3g} > {GRAD_RTOL}")
+    require(rel_w <= tol["absorbed"] and rel_d <= tol["absorbed"],
+            f"pvt_absorbed: weights off by {rel_w:.3g}, depths by {rel_d:.3g} > "
+            f"{tol['absorbed']}")
+    require(rel_g <= tol["grad"], f"pvt_absorbed_grad: off by {rel_g:.3g} > {tol['grad']}")
     A = tab["node_i"].shape[0]
     report = {
         "max_abs_err": float((w - ref_w).abs().max()),
@@ -1632,10 +1713,13 @@ def check_absorbed(tab, pos, direction, wav, log_c=0.0, reps=10):
         "grad_plain_ms": cuda_ms(lambda: absorb.grad_log_concentration(c, ref_dep, grad_w),
                                  reps),
     }
-    # Reads pos, dir, wav (28 bytes), writes w and depth (8); the grad
-    # reads depth and the cotangent (8 bytes) and writes one float64.
-    report["bound_ms"], report["bound_by"] = bound(P * (A * OPS_CHORD + OPS_ABSORBED), P * 36)
-    report["grad_bound_ms"], report["grad_bound_by"] = bound(P * OPS_ABSORBED_GRAD, P * 8 + 8)
+    # Reads pos, dir, wav (7 reals), writes w and depth (2); the grad reads
+    # depth and the cotangent (2 reals) and writes one float64.
+    real = wav.element_size()
+    report["bound_ms"], report["bound_by"] = bound(P * (A * OPS_CHORD + OPS_ABSORBED),
+                                                   P * 9 * real, dtype=dtype)
+    report["grad_bound_ms"], report["grad_bound_by"] = bound(P * OPS_ABSORBED_GRAD,
+                                                             P * 2 * real + 8, dtype=dtype)
     return report
 
 
@@ -1643,8 +1727,9 @@ def surrogate_sgd(weight_fn, pos, direction, wav, steps=5, target=0.8, lr=0.1):
     """`steps` SGD steps of ``make_training_step``'s single-shard
     arithmetic: loss = (mean(w) - target)^2 over the photons, gradient in
     log_concentration by torch.autograd, log_c -= lr * grad. `weight_fn`
-    (log_c, pos, dir, wav) -> weights. Returns [(log_c, loss, grad)]."""
-    log_c = torch.zeros((), device=wav.device, dtype=torch.float32, requires_grad=True)
+    (log_c, pos, dir, wav) -> weights. Returns [(log_c, loss, grad)]; log_c
+    in the photons' dtype."""
+    log_c = torch.zeros((), device=wav.device, dtype=wav.dtype, requires_grad=True)
     history = []
     for _ in range(steps):
         loss = (weight_fn(log_c, pos, direction, wav).mean() - target) ** 2

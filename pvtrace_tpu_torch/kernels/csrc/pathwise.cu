@@ -4,8 +4,9 @@
 // nvcc builds it beside tracer.cu and score.cu; their kernels carry none
 // of this code.
 //
-// Built by pvtrace_tpu_torch/kernels/build.py (flags as tracer.cu's) and
-// bound with ctypes. Every entry point launches on the stream it is
+// Built by pvtrace_tpu_torch/kernels/build.py (flags as tracer.cu's), and
+// again with -DPVT_F64 (pathwise_f64: every real a double), and bound
+// with ctypes. Every entry point launches on the stream it is
 // given, allocates nothing, and returns a CUDA error code.
 #include "trace_kernel.cuh"
 

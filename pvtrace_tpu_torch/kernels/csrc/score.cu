@@ -4,8 +4,9 @@
 // translation unit of its own, so that nvcc builds it beside tracer.cu;
 // the score-free kernels there carry none of this code.
 //
-// Built by pvtrace_tpu_torch/kernels/build.py (flags as tracer.cu's) and
-// bound with ctypes. Every entry point launches on the stream it is
+// Built by pvtrace_tpu_torch/kernels/build.py (flags as tracer.cu's), and
+// again with -DPVT_F64 (score_f64: every real a double), and bound with
+// ctypes. Every entry point launches on the stream it is
 // given, allocates nothing, and returns a CUDA error code.
 #include "trace_kernel.cuh"
 
@@ -34,11 +35,11 @@ score_kernel(PvtScene sc, PvtState in, PvtState out, PvtFlags fl, long long B, P
 // (n1, n2, c) triples, one thread each; lets the card hold fresnel_dR to
 // its twin. Bound by operations (about 60, three divisions and a root).
 __global__ void __launch_bounds__(kBlock)
-fresnel_kernel(const float* n1, const float* n2, const float* c, long long n, float* d1,
-               float* d2) {
+fresnel_kernel(const pvt_real* n1, const pvt_real* n2, const pvt_real* c, long long n,
+               pvt_real* d1, pvt_real* d2) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float d[2];
+  pvt_real d[2];
   fresnel_dR(n1[i], n2[i], c[i], d);
   d1[i] = d[0];
   d2[i] = d[1];
@@ -67,8 +68,8 @@ int pvt_score(const PvtScene* sc, const PvtState* in, const PvtState* out,
 }
 
 // dR/dn1, dR/dn2 of n (n1, n2, c) triples.
-int pvt_fresnel(const float* n1, const float* n2, const float* c, long long n, float* d1,
-                float* d2, void* stream) {
+int pvt_fresnel(const pvt_real* n1, const pvt_real* n2, const pvt_real* c, long long n,
+                pvt_real* d1, pvt_real* d2, void* stream) {
   fresnel_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(n1, n2, c, n, d1, d2);
   return (int)cudaGetLastError();
 }

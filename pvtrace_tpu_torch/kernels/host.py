@@ -6,10 +6,11 @@ interface, one loop per kernel body over the lanes. The CPU tests hold
 it to the eager twins: the one check of the kernels' arithmetic that
 runs without a card. Built with ``-ffp-contract=off``: the host code
 rounds every operation, as the twin does. ``build_library(f64=True)``
-builds it with ``-DPVT_F64``, as the card's ``tracer_f64`` library is
-built: every real a double (the entries' float arguments and the scene
-descriptor's reals too, ``kernels._Scene64``), without K15
-(``h_absorbed``, float32 only).
+builds it with ``-DPVT_F64``, as the card's float64 libraries
+(``tracer_f64``, ``score_f64``, ``pathwise_f64``, ``diff_f64``) are
+built: every real a double (the entries' real arguments and the scene and
+absorber descriptors' reals too, ``kernels._Scene64``,
+``kernels._Absorbers64``).
 """
 import ctypes
 import shutil
@@ -21,10 +22,7 @@ import torch
 from pvtrace_tpu_torch.kernels import build
 
 HARNESS = r"""
-#include "tracer.cuh"
-#ifndef PVT_F64
 #include "diff.cuh"
-#endif
 template <bool kTally, bool kLog, bool kPath>
 void h_trace_score_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
                      unsigned long long total, const PvtLog* lg, FateCounts& f,
@@ -318,16 +316,14 @@ void h_fresnel(const pvt_real* n1, const pvt_real* n2, const pvt_real* c, long l
     d2[i] = d[1];
   }
 }
-#ifndef PVT_F64
-void h_absorbed(const PvtAbsorbers* a, const float* pos, const float* dir, const float* wav,
-                const float* c, long long P, float* w, float* depth, const float* grad_w,
-                float* grad) {
+void h_absorbed(const PvtAbsorbers* a, const pvt_real* pos, const pvt_real* dir,
+                const pvt_real* wav, const pvt_real* c, long long P, pvt_real* w,
+                pvt_real* depth, const pvt_real* grad_w, pvt_real* grad) {
   for (long long i = 0; i < P; ++i) {
     absorbed_lane(*a, pos, dir, wav, c, i, w, depth);
     grad[i] = absorbed_grad_lane(depth, grad_w, *c, i);
   }
 }
-#endif
 }
 """
 
@@ -379,41 +375,46 @@ def build_library(directory, f64=False):
     h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
+    h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     entries = [h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
                h.h_tally_warp, h.h_trace, h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score,
                h.h_trace_score_bundle, h.h_trace_score_rows, h.h_trace_warp, h.h_layout,
-               h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel]
-    if not f64:
-        h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-        entries.append(h.h_absorbed)
+               h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel, h.h_absorbed]
     for fn in entries:
         fn.restype = None
     return h
 
 
-def trace_score_records(h, st, seed_words, n, pathwise=(), stride=1):
+def trace_scores(h, st, seed_words, n, pathwise=(), stride=1):
     """``trace_photon`` with scores (and the resolved `pathwise` specs)
-    built for the host (`h`, ``build_library``'s), photons [0, n) of the
-    float32 CPU scene tensors `st`, each photon's rows at `stride` (as a
-    thread's column of a launch's rows, or of a block's shared copy):
-    (fates [11] int64, records [CH + 2, n] float32: each photon's scores,
-    fate and steps, the folds' float64 fate_scores [2, 11, CH]: signed sums,
-    then magnitudes)."""
+    built for the host (`h`, ``build_library``'s, of the scene's dtype),
+    photons [0, n) of the CPU scene tensors `st`, each photon's rows at
+    `stride` (as a thread's column of a launch's rows, or of a block's
+    shared copy): (fates [11] int64, a dict as ``kernels.trace(...,
+    per_photon=True)`` gives it: ``fate_scores``, ``fate_abs``,
+    ``rec_scores``, ``rec_abs`` (float64 sums: signed, then magnitudes),
+    ``photon_scores`` [CH, n] in the scene's dtype, ``photon_fate``,
+    ``photon_steps``, and the recorders' ``distinct``)."""
     from pvtrace_tpu_torch import kernels
     from pvtrace_tpu_torch.engine import score, tables
 
+    real = st["node_f"].dtype
+    if (real == torch.float64) != h.f64:
+        raise ValueError(f"{real} scene tensors need the harness of that build")
     C = len(pathwise)
     CH, R = score.n_channels(st, C), max(st["meta"]["n_rec"], 1)
     _, log = kernels.empty_log(n, 0, 6, 0, "cpu")
     fates = torch.zeros(11, dtype=torch.int64)
     cross = torch.zeros(R, dtype=torch.int64)
     bins = torch.zeros(max(st["meta"]["total_bins"], 1), dtype=torch.int64)
-    distinct, sums = torch.zeros(R, dtype=torch.int32), torch.zeros(8 * R)
+    distinct, sums = torch.zeros(R, dtype=torch.int32), torch.zeros(8 * R, dtype=real)
     sums64 = torch.zeros(8 * R, dtype=torch.float64)
-    row, tang = torch.zeros(CH * stride), torch.zeros(max(7 * C, 1) * stride)
+    row = torch.zeros(CH * stride, dtype=real)
+    tang = torch.zeros(max(7 * C, 1) * stride, dtype=real)
     fate_scores = torch.zeros((2, 11, CH), dtype=torch.float64)
     rec_scores = torch.zeros((2, R, CH), dtype=torch.float64)
-    photon = torch.zeros((CH + 2, n))
+    photon = torch.zeros((CH + 2, n), dtype=real)
+    photon[CH] = -1.0  # a photon that never folds keeps fate -1
     table = tables.pathwise_table(pathwise)
     h.h_trace_score_rows(
         ctypes.byref(kernels._scene(st, 1000, 0, float("inf"))), seed_words[0], seed_words[1], 0,
@@ -422,5 +423,9 @@ def trace_score_records(h, st, seed_words, n, pathwise=(), stride=1):
         st["meta"]["n_comps"], fate_scores.data_ptr(), rec_scores.data_ptr(), photon.data_ptr(),
         tang.data_ptr(), table.data_ptr(), C, None, stride,
     )
-    return fates, photon, fate_scores
+    return fates, {"fate_scores": fate_scores[0], "fate_abs": fate_scores[1],
+                   "rec_scores": rec_scores[0], "rec_abs": rec_scores[1],
+                   "photon_scores": photon[:CH], "photon_fate": photon[CH].long(),
+                   "photon_steps": photon[CH + 1].long(), "distinct": distinct.long(),
+                   "records": photon, "folds": fate_scores}
 

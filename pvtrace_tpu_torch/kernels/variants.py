@@ -10,7 +10,9 @@ line ``constexpr int NAME = ...;`` of the sources rewritten to it;
 (their entry points must take the same arguments); ``--flags`` adds nvcc
 flags to every build (``--flags=-fmad=false``). ``--lib`` picks the
 library: ``tracer`` (pvt_trace), ``score`` (pvt_trace_score) or
-``pathwise`` (pvt_trace_pathwise). Each build is one nvcc, all started
+``pathwise`` (pvt_trace_pathwise), or the float64 build of one of them
+(``tracer_f64``, ``score_f64``, ``pathwise_f64``: the same runs on float64
+scene tensors). Each build is one nvcc, all started
 together, into a temporary directory under ``_build/``; ``--sass`` also
 prints, from ``cuobjdump -sass``, each function's instruction count and
 its count of each opcode of SASS_OPS (local-memory loads and stores,
@@ -29,7 +31,8 @@ Prints one line a run and build (the atomics of ``--sass`` by full
 opcode, ``ATOMS.CAST.SPIN`` being a compare-and-swap loop), and the
 card's nvidia-smi line; exits non-zero when the builds' fates, longest
 photon, distinct rays, crossings or bins differ, or their moment sums
-part by more than ``check.SUMS_RUNS_RTOL``. ``--entries`` times, in
+part by more than ``check.SUMS_RUNS_RTOL`` (``check.F64_RTOL`` for a
+float64 build). ``--entries`` times, in
 place of the runs, the tracer library's standalone entries as
 ``chip_smoke.py`` does (pvt_emit and pvt_step on 2**20 lanes of the
 slab, pvt_tally with 32 recorders, pvt_mesh on 24 and 140 triangles, the
@@ -88,6 +91,8 @@ RUNS = {
     ),
 }
 RUNS["pathwise"] = RUNS["score"]
+for _kind in ("tracer", "score", "pathwise"):
+    RUNS[f"{_kind}_f64"] = RUNS[_kind]
 PATHWISE = {"mesh LSC": [("n", "plate")]}
 SLAB_PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
 SASS_OPS = ("LDL", "STL", "ATOMS", "IADD3", "LOP3", "SHF", "IMAD", "IMAD.IADD", "FFMA", "MUFU",
@@ -230,6 +235,11 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs a CUDA device")
+    if args.entries and args.lib != "tracer":
+        raise SystemExit("variants: --entries times the tracer library's entries")
+    kind = args.lib.removesuffix("_f64")
+    real = torch.float64 if args.lib.endswith("_f64") else torch.float32
+    runs_rtol = check.F64_RTOL if real == torch.float64 else check.SUMS_RUNS_RTOL
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     variants = {}
     if args.set:
@@ -263,18 +273,19 @@ def main():
         try:
             scene = make()
             compiled = compile_scene(scene)
-            st = scene_tensors(compiled, dtype=torch.float32, device="cuda")
+            st = scene_tensors(compiled, dtype=real, device="cuda")
         finally:
             os.environ.pop("PVTRACE_TPU_NO_CHEB", None)
         bundle = None
         if host:
             np.random.seed(24)
-            bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(scene, n)[:3],
-                                                         np.float32)).cuda()
+            bundle = torch.from_numpy(tracer.bundle_rows(
+                *emit_bundle(scene, n)[:3], np.float64 if real == torch.float64 else np.float32
+            )).cuda()
         run = {"bundle": bundle, "record_every": every[0] if every else 0}
-        if args.lib != "tracer":
+        if kind != "tracer":
             run["score"] = True
-        if args.lib == "pathwise":
+        if kind == "pathwise":
             run["pathwise"] = transport.resolve_pathwise_params(
                 compiled, PATHWISE.get(label, SLAB_PATHWISE))
         ms, eff, fates, sums, steps = {v: [] for v in libs}, {}, {}, {}, {}
@@ -296,7 +307,7 @@ def main():
         for v in libs:
             rel = float(((sums[v] - first_sums).abs()
                          / first_sums.abs().clamp(min=1e-30)).max()) if R else 0.0
-            bad = fates[v] != first or rel > check.SUMS_RUNS_RTOL
+            bad = fates[v] != first or rel > runs_rtol
             print(f"{args.lib} {label}, {n} photons, {v}: kernel ms {ms[v]}, lane efficiency "
                   f"{eff[v]:.4f} (steps {steps[v][0]}, lane-steps {steps[v][1]}), fates "
                   f"{fates[v][0]}, longest {fates[v][1]}, distinct {fates[v][2][:8]}, sums "

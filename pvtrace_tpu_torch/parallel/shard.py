@@ -208,7 +208,8 @@ def shard_simulate(scene, num_rays, mesh, seed=None, maxsteps=1000, maxpathlengt
     bundle would differ); `record_every` must stay 0; `workers` and
     `axis_name` are accepted and unused. The run is on ``mesh.device``
     (`device`, when given, must name it); `dtype` None means float32, and
-    on the card float32 only. `lanes` as ``simulate``'s.
+    float64 runs the float64 builds on the card. `lanes` as
+    ``simulate``'s.
     """
     _check_tallies_only(record_every)
     _check_budget(num_rays, index_offset)

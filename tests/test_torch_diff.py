@@ -9,8 +9,9 @@ itself from the bundles it traces; its ``wrt`` slices and centring equal
 packages; ``optimize_concentration`` on the scaled LSC of
 ``examples/optimize_lsc.py`` follows the JAX package's history. The
 surrogate ``absorbed_fraction_fn`` (K15) matches the JAX function and
-``jax.grad`` in float32, and its device code (``diff.cuh``, built for the
-host) matches the twin.
+``jax.grad`` in float32 and in float64, and its device code (``diff.cuh``,
+built for the host, and with ``-DPVT_F64`` as ``diff_f64`` is) matches
+the twin in both.
 """
 import ctypes
 
@@ -30,6 +31,7 @@ from pvtrace_tpu.engine.compiler import compile_scene as jax_compile_scene  # no
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.diff import transport  # noqa: E402
 from pvtrace_tpu_torch.engine import absorb, compile_scene, simulate  # noqa: E402
+from pvtrace_tpu_torch.engine import compiler as comp  # noqa: E402
 from pvtrace_tpu_torch.kernels import host  # noqa: E402
 from pvtrace_tpu_torch.light.event import Event  # noqa: E402
 from pvtrace_tpu_torch.scenes import absorber_slab, api, fresnel_slab, lsc_slab  # noqa: E402
@@ -268,6 +270,69 @@ def test_absorbed_fraction_matches_jax(make):
     assert abs(float(grad) - ref_g) <= 1e-6 * terms, (float(grad), ref_g, terms)
 
 
+@pytest.mark.parametrize("make", [_surrogate_scene, _two_slabs], ids=["three-shapes", "two-slabs"])
+def test_absorbed_fraction_float64_matches_jax(make):
+    """Float64 photons and log_concentration, the JAX function under x64:
+    each constant at the precision JAX gives it (``absorb.table``), so the
+    two compute the same float64 operations on the same values (the frames
+    are axis-aligned, their products exact). Weights within rtol 1e-12 and
+    atol 1e-15: exp within an ulp in each library, and 1 - exp(-x) keeps
+    that ulp of 1 (2**-52) as w falls (w >= 0.01 here: 2.2e-14 relative;
+    found 1.1e-15); float32 arithmetic would be 5e-5 off (JAX's own float32
+    run). The gradient (cotangents uniform in [-1, 1]) within 1e-12 of the
+    sum of its terms' magnitudes (found 1e-17)."""
+    pos, d, wav = (v.astype(np.float64) for v in _photons())
+    g = np.random.default_rng(4).uniform(-1.0, 1.0, wav.shape[0])
+    jw = jax_transport.absorbed_fraction_fn(jax_compile_scene(make(pvtrace_tpu)))
+    args = (jnp.asarray(pos), jnp.asarray(d), jnp.asarray(wav))
+    ref = np.asarray(jw({"log_concentration": jnp.float64(0.3)}, *args))
+    ref_g = float(jax.grad(lambda p: jnp.sum(jnp.asarray(g) * jw(p, *args)))(
+        {"log_concentration": jnp.float64(0.3)})["log_concentration"])
+    assert ref.dtype == np.float64 and (ref > 0).sum() > 500
+
+    weight = transport.absorbed_fraction_fn(compile_scene(make()))
+    t_lc = torch.tensor(0.3, dtype=torch.float64, requires_grad=True)
+    got = weight({"log_concentration": t_lc}, torch.tensor(pos), torch.tensor(d),
+                 torch.tensor(wav))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-12, atol=1e-15)
+    (grad,) = torch.autograd.grad((torch.tensor(g) * got).sum(), t_lc)
+    assert grad.dtype == torch.float64
+    c = np.exp(0.3)
+    dep = -np.log1p(-ref) / c
+    terms = np.abs(g * c * dep * np.exp(-c * dep)).sum()
+    assert abs(float(grad) - ref_g) <= 1e-12 * terms, (float(grad), ref_g, terms)
+
+
+def test_absorbed_table_keeps_the_jax_precisions():
+    """``absorb.table`` for float64 photons: the world-to-local rows, the
+    box half-extents and the attenuation rows are the float32 table's,
+    widened (JAX rounds them to float32); the sphere's r^2 and the
+    cylinder's half-length, r^2 and -half-length are float64 (Python floats
+    in JAX), which float32 rounds."""
+    compiled = compile_scene(_surrogate_scene())
+    t32, t64 = absorb.table(compiled), absorb.table(compiled, "cpu", torch.float64)
+    assert t32["node_f"].dtype == torch.float32 and t64["node_f"].dtype == torch.float64
+    assert t64["alpha"].dtype == torch.float64
+    assert torch.equal(t64["alpha"], t32["alpha"].double())
+    assert t64["node_i"].tolist() == t32["node_i"].tolist()
+    assert set(t64["node_i"].tolist()) == {comp.GEOM_BOX, comp.GEOM_SPHERE, comp.GEOM_CYLINDER}
+    rows = slice(absorb.AF_W2L, absorb.AF_W2L + 12)
+    assert torch.equal(t64["node_f"][:, rows], t32["node_f"][:, rows].double())
+    for row, gtype in enumerate(t64["node_i"].tolist()):
+        g64, g32 = t64["node_f"][row, absorb.AF_G:], t32["node_f"][row, absorb.AF_G:]
+        node = absorb.absorbing_nodes(compiled)[row]
+        gp = np.asarray(compiled.geom_params[node], np.float64)
+        if gtype == comp.GEOM_BOX:
+            assert torch.equal(g64[:3], g32[:3].double())
+        elif gtype == comp.GEOM_SPHERE:
+            assert float(g64[0]) == gp[0] * gp[0]
+        else:
+            assert g64[:3].tolist() == [0.5 * gp[0], gp[1] * gp[1], -0.5 * gp[0]]
+            assert torch.equal(g32[:3], g64[:3].float())
+    assert absorb.BIG == float(np.float32(1e30))
+
+
 def test_absorbed_fraction_two_slabs_is_beer_lambert():
     """One ray straight through both slabs: 1 - exp(-(0.6 + 0.9))."""
     weight = transport.absorbed_fraction_fn(compile_scene(_two_slabs()))
@@ -285,27 +350,62 @@ def host_lib(tmp_path_factory):
     return host.build_library(tmp_path_factory.mktemp("host"))
 
 
+@pytest.fixture(scope="module")
+def host_lib64(tmp_path_factory):
+    """The same built with -DPVT_F64, as ``diff_f64`` is (skips without
+    g++)."""
+    if host.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    return host.build_library(tmp_path_factory.mktemp("host64"), f64=True)
+
+
+def _host_absorbed(h, make, dtype):
+    """``h_absorbed`` of harness `h` on ``_photons()`` in `dtype` through
+    `make()`'s absorbing nodes at c = exp(0.3), cotangents uniform in
+    [-1, 1]: (the table, the inputs, w, depth, the per-photon gradient
+    terms)."""
+    tab = absorb.table(compile_scene(make()), "cpu", dtype)
+    pos, d, wav = (torch.tensor(v, dtype=dtype) for v in _photons())
+    grad_w = torch.tensor(np.random.default_rng(5).uniform(-1.0, 1.0, wav.shape[0]), dtype=dtype)
+    c = torch.exp(torch.tensor([0.3], dtype=dtype))
+    m = tab["meta"]
+    cls = kernels._Absorbers64 if dtype == torch.float64 else kernels._Absorbers
+    desc = cls(tab["node_f"].data_ptr(), tab["node_i"].data_ptr(), tab["alpha"].data_ptr(),
+               tab["node_i"].shape[0], m["L"], m["x0"], m["dx"])
+    w, dep, grad = (torch.empty_like(wav) for _ in range(3))
+    h.h_absorbed(ctypes.byref(desc), pos.data_ptr(), d.data_ptr(), wav.data_ptr(), c.data_ptr(),
+                 wav.shape[0], w.data_ptr(), dep.data_ptr(), grad_w.data_ptr(), grad.data_ptr())
+    return tab, (pos, d, wav, grad_w, c), w, dep, grad
+
+
 @pytest.mark.parametrize("make", [_surrogate_scene, _two_slabs], ids=["three-shapes", "two-slabs"])
 def test_absorbed_device_code_matches_twin(host_lib, make):
     """``absorbed_lane`` and ``absorbed_grad_lane`` (pvt_absorbed's bodies)
     against the plain version: weights and depths to rtol 1e-6, the
     gradient to 1e-6 of its terms' magnitudes."""
-    tab = absorb.table(compile_scene(make()))
-    pos, d, wav = (torch.tensor(v) for v in _photons())
-    grad_w = torch.tensor(np.random.default_rng(5).uniform(-1.0, 1.0, wav.shape[0]),
-                          dtype=torch.float32)
-    c = torch.exp(torch.tensor([0.3]))
-    m = tab["meta"]
-    desc = kernels._Absorbers(tab["node_f"].data_ptr(), tab["node_i"].data_ptr(),
-                              tab["alpha"].data_ptr(), tab["node_i"].shape[0], m["L"], m["x0"],
-                              m["dx"])
-    w, dep, grad = (torch.empty_like(wav) for _ in range(3))
-    host_lib.h_absorbed(ctypes.byref(desc), pos.data_ptr(), d.data_ptr(), wav.data_ptr(),
-                        c.data_ptr(), wav.shape[0], w.data_ptr(), dep.data_ptr(),
-                        grad_w.data_ptr(), grad.data_ptr())
+    tab, (pos, d, wav, grad_w, c), w, dep, grad = _host_absorbed(host_lib, make, torch.float32)
     ref_dep = absorb.depth(tab, pos, d, wav)
     torch.testing.assert_close(dep, ref_dep, rtol=1e-6, atol=0)
     torch.testing.assert_close(w, absorb.weight(c, ref_dep), rtol=1e-6, atol=0)
     terms = grad_w * (c * ref_dep * torch.exp(-c * ref_dep))
     assert abs(float(grad.double().sum() - terms.double().sum())) <= 1e-6 * float(terms.abs().sum())
+    assert int((ref_dep > 0).sum()) > 500
+
+
+@pytest.mark.parametrize("make", [_surrogate_scene, _two_slabs], ids=["three-shapes", "two-slabs"])
+def test_absorbed_device_code_float64_matches_twin(host_lib64, make):
+    """The float64 build of ``absorbed_lane`` and ``absorbed_grad_lane``
+    (``diff_f64``'s code) against the float64 twin: depths, weights and the
+    gradient (against its terms' magnitudes) within 1e-12. The host build
+    (no FMA contraction) does the twin's operations in its order but for
+    exp, within an ulp in each library, which 1 - exp(-x) keeps as an ulp
+    of 1 over w (w >= 0.01 here: 2.2e-14 relative; found 7e-15)."""
+    tab, (pos, d, wav, grad_w, c), w, dep, grad = _host_absorbed(host_lib64, make,
+                                                                  torch.float64)
+    ref_dep = absorb.depth(tab, pos, d, wav)
+    assert ref_dep.dtype == torch.float64
+    torch.testing.assert_close(dep, ref_dep, rtol=1e-12, atol=0)
+    torch.testing.assert_close(w, absorb.weight(c, ref_dep), rtol=1e-12, atol=0)
+    terms = grad_w * (c * ref_dep * torch.exp(-c * ref_dep))
+    assert abs(float(grad.sum() - terms.sum())) <= 1e-12 * float(terms.abs().sum())
     assert int((ref_dep > 0).sum()) > 500

@@ -20,10 +20,17 @@ tensors:
   time;
 * the trace's fates against the JAX package's float64 ``simulate`` on
   the slab and the mixed scene (K5b, ``PVTRACE_TPU_NO_CHEB``, as in
-  ``test_torch_simulate.py``), within ``ULP_PHOTONS``.
+  ``test_torch_simulate.py``), within ``ULP_PHOTONS``;
+* K12 of the float64 builds (``score_f64``'s code): ``fresnel_dR``,
+  ``score_lane`` for 8 steps and ``trace_photon`` with scores, its
+  records at the row strides 1 and ``kernels.BLOCK``, against the float64
+  twin (``check.compare_score_records`` with the float64 bounds). K13's
+  float64 code is held in ``test_torch_pathwise.py``, K15's in
+  ``test_torch_diff.py``, the float64 score sums against the JAX package
+  in ``test_torch_score.py``.
 
-On the card ``test_torch_kernels.py`` (``gpu``) holds ``tracer_f64``'s
-kernels to the float64 twin.
+On the card ``test_torch_kernels.py`` (``gpu``) holds the float64
+libraries' kernels to the float64 twin.
 """
 import ctypes
 import subprocess
@@ -40,7 +47,7 @@ from pvtrace_tpu import engine as jax_engine  # noqa: E402
 from pvtrace_tpu.engine import api as jax_api  # noqa: E402
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.engine import chebyshev, compile_scene, eventlog, physics, rng  # noqa: E402
-from pvtrace_tpu_torch.engine import tables, tally, tracer  # noqa: E402
+from pvtrace_tpu_torch.engine import score, tables, tally, tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import build, check, host  # noqa: E402
 from pvtrace_tpu_torch.scenes import (  # noqa: E402
     lsc_slab,
@@ -92,27 +99,24 @@ def _state(s):
 LAYOUT_PROGRAM = r"""
 #include <stddef.h>
 #include <stdio.h>
-#include "tracer.cuh"
+#include "diff.cuh"
 #define FIELD(S, f) printf(#S " " #f " %zu\n", offsetof(S, f));
 int main() {
-  printf("PvtScene size %zu\n", sizeof(PvtScene));
+  printf("STRUCT size %zu\n", sizeof(STRUCT));
 %s
   return 0;
 }
 """
 
 
-@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
-def test_scene_struct_offsets_match_ctypes(tmp_path, f64):
-    """PvtScene's field offsets and size in the header compiled for each
-    build (-DPVT_F64: its four reals doubles) equal those of the ctypes
-    Structure the wrappers pass (``_Scene``, ``_Scene64``)."""
+def _layout(tmp_path, struct, cls, f64):
+    """The field offsets and size of `struct` in the headers compiled for
+    the host (-DPVT_F64 with `f64`) against ctypes Structure `cls`'s."""
     if host.compiler() is None:
         pytest.skip("no host C++ compiler")
-    cls = kernels._Scene64 if f64 else kernels._Scene
-    fields = "\n".join(f"  FIELD(PvtScene, {name})" for name, _ in cls._fields_)
+    fields = "\n".join(f"  FIELD({struct}, {name})" for name, _ in cls._fields_)
     src = tmp_path / "layout.cpp"
-    src.write_text(LAYOUT_PROGRAM.replace("%s", fields))
+    src.write_text(LAYOUT_PROGRAM.replace("%s", fields).replace("STRUCT", struct))
     exe = tmp_path / "layout"
     subprocess.run([host.compiler(), "-std=c++17", *(["-DPVT_F64"] if f64 else []), "-I",
                     str(build.CSRC), "-o", str(exe), str(src)], check=True, capture_output=True,
@@ -121,8 +125,26 @@ def test_scene_struct_offsets_match_ctypes(tmp_path, f64):
     got = {line.split()[1]: int(line.split()[2]) for line in out.splitlines() if line}
     assert got.pop("size") == ctypes.sizeof(cls)
     assert got == {name: getattr(cls, name).offset for name, _ in cls._fields_}
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+def test_scene_struct_offsets_match_ctypes(tmp_path, f64):
+    """PvtScene's field offsets and size in the header compiled for each
+    build (-DPVT_F64: its four reals doubles) equal those of the ctypes
+    Structure the wrappers pass (``_Scene``, ``_Scene64``)."""
+    cls = kernels._Scene64 if f64 else kernels._Scene
+    _layout(tmp_path, "PvtScene", cls, f64)
     real = ctypes.c_double if f64 else ctypes.c_float
     assert dict(cls._fields_)["grid_dx"] is real
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+def test_absorbers_struct_offsets_match_ctypes(tmp_path, f64):
+    """K15's PvtAbsorbers in each build (-DPVT_F64: its tables and grid
+    reals doubles) against ``_Absorbers`` and ``_Absorbers64``."""
+    cls = kernels._Absorbers64 if f64 else kernels._Absorbers
+    _layout(tmp_path, "PvtAbsorbers", cls, f64)
+    assert dict(cls._fields_)["dx"] is (ctypes.c_double if f64 else ctypes.c_float)
 
 
 @pytest.mark.parametrize("make", [lsc_slab, mixed_scene, lsc_tiles],
@@ -437,3 +459,83 @@ def test_f64_host_build_fates_match_jax(h64, jax_f64_runs):
     assert got.sum() == n and ref.sum() == n
     assert np.abs(got - ref).max() <= ULP_PHOTONS, (name, got.tolist(), ref.tolist())
     assert got[7] > 0 and got[4] > 0
+
+
+# -- K12 of the float64 builds ----------------------------------------------
+
+
+def test_f64_fresnel_dR_device_code_matches_twin(h64):
+    """``fresnel_dR`` of the float64 build (``pvt_fresnel_f64``'s body) on
+    the unit tests' grid against the float64 twin: finite where the twin
+    is, within RTOL of max(|twin|, 1) (the same operations in the same
+    order; the partials are sums of O(1) terms, so a scale of 1 where they
+    cancel)."""
+    n1, n2, c = check.fresnel_grid("cpu", F64)
+    d1, d2 = torch.empty_like(n1), torch.empty_like(n1)
+    h64.h_fresnel(n1.data_ptr(), n2.data_ptr(), c.data_ptr(), n1.numel(), d1.data_ptr(),
+                  d2.data_ptr())
+    for g, t in zip((d1, d2), score.fresnel_dR(n1, n2, c)):
+        fin = torch.isfinite(t)
+        assert g.dtype == F64 and torch.equal(torch.isfinite(g), fin)
+        assert float(((g - t).abs()[fin] / t.abs()[fin].clamp(min=1.0)).max()) <= RTOL
+
+
+@pytest.mark.parametrize("make", [lsc_slab, mixed_scene, lambda: lsc_tiles(tiles=2)],
+                         ids=["slab", "mixed", "tiles"])
+def test_f64_score_lane_device_code_matches_twin(h64, make):
+    """``score_lane`` of the float64 build (``pvt_score_f64``'s body)
+    against the float64 twin for 8 steps from the same lanes and scores:
+    the steps equal, each path score within RTOL of its channel's scale
+    plus the twin's slack times ``check.F64_SLACK``, each step's folds
+    within RTOL of their magnitudes (the float64 sums of the same float64
+    scores in another order, m 2**-53 each)."""
+    st, seed, B = _f64(make), rng.key_words(5), 1 << 12
+    CH = score.n_channels(st)
+    s = tracer.initial_state(st, seed, torch.arange(B))
+    scores = torch.zeros((CH, B), dtype=F64)
+    for _ in range(8):
+        out, new, t = kernels.score_step(st, s, scores)
+        got, flags = kernels._empty_state(B, "cpu", F64), kernels._empty_flags(B, "cpu", F64)
+        rows = scores.clone()
+        folds = torch.zeros((2, 11, CH), dtype=F64)
+        comp = torch.empty(B, dtype=torch.int32)
+        h64.h_score(_sc(st), _state(s), _state(got),
+                    ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS)), B,
+                    rows.data_ptr(), CH, st["meta"]["n_comps"], folds.data_ptr(), comp.data_ptr())
+        got.update(flags, comp_id=comp)
+        for name in check.DISCRETE + ("comp_id",):
+            assert torch.equal(got[name].long(), out[name].long()), name
+        scale = new.abs().amax(1, keepdim=True).clamp(min=1e-30)
+        allow = RTOL * scale + check.F64_SLACK * out["slack"]
+        assert bool(((rows - new).abs() <= allow).all())
+        assert bool(((folds[0] - t["fate_scores"]).abs() <= RTOL * t["fate_abs"]).all())
+        torch.testing.assert_close(folds[1], t["fate_abs"], rtol=RTOL, atol=0)
+        s, scores = {k: out[k] for k in s}, new
+    assert scores.abs().sum() > 0
+
+
+@pytest.mark.parametrize("make", [lambda: lsc_slab_recorders(4), mixed_scene],
+                         ids=["recorders", "mixed"])
+def test_f64_trace_photon_with_scores_matches_twin(h64, make):
+    """``trace_photon`` with scores of the float64 build
+    (``pvt_trace_score_f64``'s body) against the float64 eager twin, 4096
+    photons: fates and recorder rays equal; each photon's record and the
+    float64 sums by ``check.compare_score_records`` with the float64
+    bounds (``check.F64_RTOL``, the slack times ``F64_SLACK``), at
+    most ``check.F64_PARTED`` photons parted. The records at the row
+    stride of a block's shared copy (``kernels.BLOCK``) equal those at
+    stride 1 bit for bit, and so do the folds."""
+    st, seed, n = _f64(make), rng.key_words(5), 4096
+    fates, got = host.trace_scores(h64, st, seed, n)
+    block_fates, block = host.trace_scores(h64, st, seed, n, stride=kernels.BLOCK)
+    ref, _, t, _ = tracer.trace_eager(st, seed, n, lanes=512, score=True, per_photon=True)
+    assert got["photon_scores"].dtype == F64 and t["photon_scores"].dtype == F64
+    assert torch.equal(fates, ref), (fates.tolist(), ref.tolist())
+    if st["meta"]["n_rec"]:
+        assert torch.equal(got["distinct"][:st["meta"]["n_rec"]], t["distinct"])
+    rep = check.compare_score_records(got, t, fates, n, check.F64_PARTED)
+    assert rep["parted"] == 0 and rep["record_used"] <= 1.0
+    assert torch.equal(block_fates, fates)
+    assert torch.equal(block["records"].view(torch.int64), got["records"].view(torch.int64))
+    assert torch.equal(block["folds"], got["folds"])
+    assert float(got["folds"][1].sum()) > 0

@@ -609,23 +609,74 @@ def test_float64_trace_matches_twin_on_card(make):
 
 
 @pytest.mark.gpu
-def test_float64_gradients_on_card_are_refused(cuda_scene):
-    """The score, pathwise and K15 kernels have no float64 build: float64
-    on the card raises NotImplementedError naming the float64-gradients
-    item, and nothing falls back to float32 or to the CPU."""
-    from pvtrace_tpu_torch.diff import transport
+@pytest.mark.parametrize("channels", [0, 2], ids=["score", "pathwise"])
+def test_float64_score_traces_match_twin_on_card(channels):
+    """Float64 ``kernels.trace(score=True)`` (``pvt_trace_score`` of
+    ``score_f64``) and with two pathwise channels (``pvt_trace_pathwise``
+    of ``pathwise_f64``) against the float64 twin photon by photon at
+    2**14 (``check.check_trace_scores``: the float64 bounds, at most
+    ``check.F64_PARTED`` parted); counted in ``launches_f64``."""
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
 
-    st = tables.scene_tensors(compile_scene(lsc_slab()), dtype=torch.float64, device="cuda")
-    for attempt in (
-        lambda: kernels.trace(st, rng.key_words(1), 10, score=True),
-        lambda: simulate(lsc_slab(), 1 << 10, seed=1, dtype=np.float64, score=True),
-        lambda: transport.fate_gradients(lsc_slab(), 1 << 10, seed=1, dtype=np.float64),
-    ):
-        kernels.reset()
-        tracer.eager_runs = 0
-        with pytest.raises(NotImplementedError, match="float64 gradients"):
-            attempt()
-        assert kernels.launches["pvt_trace_score"] == 0 and tracer.eager_runs == 0
+    st = _cuda_tensors(lsc_slab, torch.float64)
+    specs = resolve_pathwise_params(compile_scene(lsc_slab()),
+                                    [("n", "lsc"), ("size", "lsc", 2)][:channels])
+    name = "pvt_trace_pathwise" if channels else "pvt_trace_score"
+    kernels.reset()
+    rep = check.check_trace_scores(st, rng.key_words(1), 1 << 14, pathwise=specs)
+    assert kernels.last_trace["library"] == ("pathwise_f64" if channels else "score_f64")
+    assert kernels.launches_f64[name] == kernels.launches[name] == 2
+    assert rep["parted"] <= check.F64_PARTED and rep["record_used"] <= 1.0
+    assert rep["tallies"]["photon_scores"].dtype == torch.float64
+
+
+@pytest.mark.gpu
+def test_float64_fate_gradients_launch_score_f64():
+    """``fate_gradients(dtype=np.float64)`` on the card runs through
+    ``score_f64``'s ``pvt_trace_score``: no eager run, no float32 launch,
+    finite gradients."""
+    from pvtrace_tpu_torch.diff.transport import fate_gradients
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kernels.reset()
+    tracer.eager_runs = 0
+    fractions, grads = fate_gradients(lsc_slab(), 1 << 16, seed=3, wrt="all", bundle=1 << 15,
+                                      dtype=np.float64)
+    assert kernels.launches_f64["pvt_trace_score"] == kernels.launches["pvt_trace_score"] == 2
+    assert kernels.launches["pvt_trace"] == kernels.launches_f64["pvt_trace"]
+    assert tracer.eager_runs == 0
+    assert all(np.isfinite(g).all() for g in grads.values())
+
+
+@pytest.mark.gpu
+def test_float64_absorbed_kernels_match_plain_on_card():
+    """``pvt_absorbed`` and ``pvt_absorbed_grad`` of ``diff_f64`` against the
+    float64 plain version at 2**16 photons (``check.check_absorbed``:
+    ``F64_RTOL``), and ``absorbed_fraction_fn``'s
+    forward and backward on float64 photons launching them."""
+    from pvtrace_tpu_torch.diff.transport import absorbed_fraction_fn
+    from pvtrace_tpu_torch.engine import absorb
+
+    st = _cuda_tensors(lsc_slab, torch.float64)
+    compiled = compile_scene(lsc_slab())
+    tab = absorb.table(compiled, "cuda", torch.float64)
+    pos, d, wav = check.absorbed_photons(st, rng.key_words(1), 1 << 16)
+    assert wav.dtype == torch.float64
+    kernels.reset()
+    rep = check.check_absorbed(tab, pos, d, wav, reps=2)
+    assert rep["max_rel_err"] <= check.F64_RTOL
+    assert kernels.launches_f64["pvt_absorbed"] > 0
+    assert kernels.launches_f64["pvt_absorbed_grad"] > 0
+    weight = absorbed_fraction_fn(compiled)
+    kernels.reset()
+    got = check.surrogate_sgd(lambda lc, p, dd, w: weight({"log_concentration": lc}, p, dd, w),
+                              pos, d, wav)
+    assert kernels.launches_f64["pvt_absorbed"] == kernels.launches_f64["pvt_absorbed_grad"] == 5
+    ref = check.surrogate_sgd(
+        lambda lc, p, dd, w: absorb.weight(torch.exp(lc), absorb.depth(tab, p, dd, w)), pos, d, wav)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=check.F64_RTOL,
+                               atol=1e-15)
 
 
 @pytest.mark.gpu

@@ -8,7 +8,8 @@ pathwise specs: the fates are equal and the pathwise columns of
 port's ``fate_abs``). The tie helpers of ``engine/ties.py`` are held to
 ``jax.jvp`` at the bounds; the device code of ``tracer.cuh``
 (``pathwise_lane``, ``trace_photon`` with pathwise channels, built for
-the host) to the eager twin; the twin to its own refill contract and to
+the host, and with ``-DPVT_F64`` as ``pathwise_f64`` is) to the eager
+twin in float32 and float64; the twin to its own refill contract and to
 the analytic gradients of the absorber slabs.
 """
 import ctypes
@@ -194,34 +195,43 @@ def host_lib(tmp_path_factory):
     return host.build_library(tmp_path_factory.mktemp("host"))
 
 
-def _f32(make, specs):
+@pytest.fixture(scope="module")
+def host_lib64(tmp_path_factory):
+    """The same built with -DPVT_F64, as ``pathwise_f64`` is (skips without
+    g++)."""
+    if host.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    return host.build_library(tmp_path_factory.mktemp("host64"), f64=True)
+
+
+def _f32(make, specs, dtype=torch.float32):
     compiled = compile_scene(make())
-    return (tables.scene_tensors(compiled, dtype=torch.float32),
+    return (tables.scene_tensors(compiled, dtype=dtype),
             resolve_pathwise_params(compiled, specs))
 
 
-def test_pathwise_lane_device_code_matches_twin(host_lib):
-    """``pathwise_lane`` (pvt_pathwise's body) against the twin for 8 steps
-    from the same lanes and tangents, on the mixed scene with four
-    channels (the plate's index and thickness, the rod's radius and
-    length): the steps equal; every output of each channel's map, its
-    contribution and new tangents within 1e-5 of the twin's scale
-    (``check.PATH_GROUPS``)."""
-    st, specs = _f32(mixed_scene, MIXED_SPECS)
+def _host_pathwise_steps(h, st, specs, dtype, steps=8):
+    """``pathwise_lane`` of harness `h` against ``kernels.pathwise_step``'s
+    twin for `steps` steps of 4096 lanes, both fed the twin's state and
+    tangents: asserts the steps equal; returns the largest difference of
+    a map output, contribution or new tangent over its scale (the twin's
+    largest |value| of its ``check.PATH_GROUPS`` group) and the tangents."""
     B, C = 1 << 12, len(specs)
     sc = kernels._scene(st, 1000, 0, float("inf"))
     s = tracer.initial_state(st, rng.key_words(5), torch.arange(B))
-    tang = torch.zeros((C, 7, B))
+    tang = torch.zeros((C, 7, B), dtype=dtype)
     table = tables.pathwise_table(specs)
-    for _ in range(8):
+    worst = 0.0
+    for _ in range(steps):
         out, jv, ds, tout = kernels.pathwise_step(st, s, tang, specs)
-        got, flags = kernels._empty_state(B, "cpu"), kernels._empty_flags(B, "cpu")
+        got, flags = kernels._empty_state(B, "cpu", dtype), kernels._empty_flags(B, "cpu", dtype)
         comp = torch.empty(B, dtype=torch.int32)
-        g_jv, g_ds, g_tout = torch.empty((C, tables.PATH_J, B)), torch.empty((C, B)), \
-            torch.empty((C, 7, B))
+        f = dict(dtype=dtype)
+        g_jv, g_ds, g_tout = (torch.empty((C, tables.PATH_J, B), **f), torch.empty((C, B), **f),
+                              torch.empty((C, 7, B), **f))
         desc = kernels._Path(table.data_ptr(), C, tang.data_ptr(), g_tout.data_ptr(),
                              g_jv.data_ptr(), g_ds.data_ptr())
-        host_lib.h_pathwise(
+        h.h_pathwise(
             ctypes.byref(sc), ctypes.byref(kernels._struct(kernels._State, s, kernels._STATE_PTRS)),
             ctypes.byref(kernels._struct(kernels._State, got, kernels._STATE_PTRS)),
             ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS)), B,
@@ -235,9 +245,35 @@ def test_pathwise_lane_device_code_matches_twin(host_lib):
         scale = ref.abs().amax(2, keepdim=True)
         for group in check.PATH_GROUPS:
             scale[:, group] = scale[:, group].amax(1, keepdim=True)
-        assert float(((val - ref).abs() / scale.clamp(min=1e-30)).max()) <= 1e-5
+        worst = max(worst, float(((val - ref).abs() / scale.clamp(min=1e-30)).max()))
         s, tang = {k: out[k] for k in s}, tout.contiguous()
+    return worst, tang
+
+
+def test_pathwise_lane_device_code_matches_twin(host_lib):
+    """``pathwise_lane`` (pvt_pathwise's body) against the twin for 8 steps
+    from the same lanes and tangents, on the mixed scene with four
+    channels (the plate's index and thickness, the rod's radius and
+    length): the steps equal; every output of each channel's map, its
+    contribution and new tangents within 1e-5 of the twin's scale
+    (``check.PATH_GROUPS``)."""
+    st, specs = _f32(mixed_scene, MIXED_SPECS)
+    worst, tang = _host_pathwise_steps(host_lib, st, specs, torch.float32)
+    assert worst <= 1e-5
     assert tang.abs().sum() > 0
+
+
+def test_pathwise_lane_device_code_float64_matches_twin(host_lib64):
+    """``pathwise_lane`` of the float64 build (``pvt_pathwise_f64``'s body)
+    against the float64 twin, as the float32 test above: the steps equal,
+    every output within ``check.F64_RTOL`` of its scale. The host
+    build rounds as the twin does, op for op, but for libm's
+    transcendentals (an ulp or two each), which the tangent map's
+    divisions by small distances grow (found 3.5e-15)."""
+    st, specs = _f32(mixed_scene, MIXED_SPECS, torch.float64)
+    worst, tang = _host_pathwise_steps(host_lib64, st, specs, torch.float64)
+    assert tang.dtype == torch.float64 and tang.abs().sum() > 0
+    assert worst <= check.F64_RTOL, worst
 
 
 @pytest.mark.parametrize("make, specs", [
@@ -285,6 +321,38 @@ def test_trace_photon_with_pathwise_matches_twin(host_lib, make, specs):
     rep = check.compare_score_records(got, t, fates, n, 2)
     assert rep["record_used"] <= 1.0 and rep["saturated"] == 0
     assert float(photon[CH - C:].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("make, specs", [
+    (mixed_scene, MIXED_SPECS),
+    (lambda: lsc_slab_recorders(4), [("n", "lsc"), ("size", "lsc", 2)]),
+    (tilted_fresnel_slab, [("n", "slab")]),
+], ids=["mixed", "recorders", "tilted"])
+def test_trace_photon_with_pathwise_float64_matches_twin(host_lib64, make, specs):
+    """``trace_photon`` with pathwise channels of the float64 build
+    (``pvt_trace_pathwise_f64``'s body) against the float64 eager twin,
+    4096 photons: fates equal; each photon's record and the sums by
+    ``check.compare_score_records`` with the float64 bounds, none parted
+    or saturated (``check.F64_PARTED`` allowed); the records and
+    folds at the row stride of a block's shared copy (``kernels.BLOCK``)
+    bit-equal to those at stride 1; with recorders, their rays equal."""
+    st, resolved = _f32(make, specs, torch.float64)
+    seed, n, C = rng.key_words(5), 4096, len(resolved)
+    fates, got = host.trace_scores(host_lib64, st, seed, n, resolved)
+    block_fates, block = host.trace_scores(host_lib64, st, seed, n, resolved,
+                                           stride=kernels.BLOCK)
+    ref, _, t, _ = tracer.trace_eager(st, seed, n, score=True, per_photon=True,
+                                      pathwise=resolved)
+    assert got["photon_scores"].dtype == torch.float64
+    assert torch.equal(fates, ref)
+    if st["meta"]["n_rec"]:
+        assert torch.equal(got["distinct"][:st["meta"]["n_rec"]], t["distinct"])
+    rep = check.compare_score_records(got, t, fates, n, check.F64_PARTED)
+    assert rep["parted"] == 0 and rep["saturated"] == 0 and rep["record_used"] <= 1.0
+    assert torch.equal(block_fates, fates)
+    assert torch.equal(block["records"].view(torch.int64), got["records"].view(torch.int64))
+    assert torch.equal(block["folds"], got["folds"])
+    assert float(got["photon_scores"][-C:].abs().sum()) > 0
 
 
 def test_fate_gradients_pathwise_survive_regeneration():
@@ -365,9 +433,8 @@ def test_pathwise_n_gradient_oblique_incidence():
 
 
 def _host_records(host_lib, st, resolved, n=1024, stride=1, seed=5, sums=False):
-    fates, rec, fate_scores = host.trace_score_records(host_lib, st, rng.key_words(seed), n,
-                                                       resolved, stride)
-    return (fates, rec, fate_scores) if sums else (fates, rec)
+    fates, t = host.trace_scores(host_lib, st, rng.key_words(seed), n, resolved, stride)
+    return (fates, t["records"], t["folds"]) if sums else (fates, t["records"])
 
 
 def _bits(x):

@@ -10,7 +10,8 @@ fate counts' total difference) at twice the largest per-photon |score|
 the port saw in the channel. The Fresnel partials are held to JAX's
 autodiff on a grid, and the device code of ``tracer.cuh`` (``fresnel_dR``,
 ``score_lane``, ``trace_photon`` with scores, built for the host) to the
-eager twin.
+eager twin; its float64 build (``score_f64``'s code) traces the slab's
+photons to the JAX package's float64 score sums by the same rule.
 """
 import ctypes
 
@@ -102,6 +103,35 @@ def test_simulate_score_float64_matches_jax(float64_runs, scene):
     ref, got, tallies = float64_runs[scene]
     assert np.abs(np.asarray(ref["fates"]) - got["fates"]).max() <= 4
     _assert_scores_match(ref, got, tallies)
+
+
+@pytest.fixture(scope="module")
+def host_lib64(tmp_path_factory):
+    """The device code built for the host with -DPVT_F64, as ``score_f64``
+    is (skips without g++)."""
+    if host.compiler() is None:
+        pytest.skip("no host C++ compiler")
+    return host.build_library(tmp_path_factory.mktemp("host64"), f64=True)
+
+
+def test_host_build_float64_score_sums_match_jax(float64_runs, host_lib64):
+    """``trace_photon`` with scores of the float64 build, photon by photon
+    (``host.trace_scores``), on the slab with 4 recorders, seed 5: its
+    fates within 4 of the JAX package's float64 ``simulate(score=True)``
+    of the same photons (regenerated lanes there, one photon at a time
+    here: the same streams), and its float64 ``fate_scores`` and
+    ``rec_scores`` within the module's allowance of the JAX package's
+    (1e-9 of each channel's sum of |score| where the counts agree)."""
+    ref = float64_runs["recorders"][0]
+    st = tables.scene_tensors(compile_scene(lsc_slab_recorders(4)), dtype=torch.float64)
+    R = st["meta"]["n_rec"]
+    fates, t = host.trace_scores(host_lib64, st, rng.key_words(5), N)
+    assert t["photon_scores"].dtype == torch.float64
+    got = {"fates": fates.numpy(), "fate_scores": t["fate_scores"].numpy(),
+           "rec_scores": t["rec_scores"][:R].numpy(), "rec_distinct": t["distinct"][:R].numpy()}
+    assert np.abs(np.asarray(ref["fates"]) - got["fates"]).max() <= 4
+    _assert_scores_match(ref, got, {"score_max": t["photon_scores"].abs().amax(1),
+                                    "fate_abs": t["fate_abs"], "rec_abs": t["rec_abs"]})
 
 
 def test_score_channel_layout(float64_runs):
@@ -299,9 +329,10 @@ def test_score_records_equal_at_any_row_stride(host_lib, make):
     folds' sums are equal bit for bit."""
     st = tables.scene_tensors(compile_scene(make()), dtype=torch.float32)
     seed = rng.key_words(5)
-    fates, rec, sums = host.trace_score_records(host_lib, st, seed, 1024)
-    block_fates, block, block_sums = host.trace_score_records(host_lib, st, seed, 1024,
-                                                              stride=kernels.BLOCK)
+    fates, t = host.trace_scores(host_lib, st, seed, 1024)
+    block_fates, block_t = host.trace_scores(host_lib, st, seed, 1024, stride=kernels.BLOCK)
+    rec, sums = t["records"], t["folds"]
+    block, block_sums = block_t["records"], block_t["folds"]
     assert torch.equal(fates, block_fates) and torch.equal(sums, block_sums)
     assert torch.equal(rec.view(torch.int32), block.view(torch.int32))
     assert float(rec[:-2].abs().sum()) > 0 and float(sums[1].sum()) > 0
