@@ -215,7 +215,9 @@ width. Phases, one line each:
 31. ``LSC.gradient`` with solar cells on the four edges at 2**27,
     ``wrt="concentration"`` (pvt_trace_score) and ``wrt="n"``
     (pvt_trace_pathwise), 9 launches each in bundles of 16,000,000, and at
-    2**18 against ``device="cpu"``: distinct counts within max(20, 0.2% of
+    2**20 against ``device="cpu"`` (the CPU side in a process of its own,
+    ``--lsc-twins`` below, started after phase 35 and compared after phase
+    38's random scenes): distinct counts within max(20, 0.2% of
     n), the cells' and the incident row's score sums within phase 17's
     bound (SCORE_RTOL of the twin's sum of |score| plus its slack, and
     twice the channel's largest |score| for each photon whose record
@@ -281,9 +283,21 @@ width. Phases, one line each:
     phases 18's, 23's, 29's and 31's float32 figures; and
     ``optimize_concentration`` for two iterations.
 
+38. random scenes (``scenes.random_scene``, seeds 0-31, each under its own
+    emit method and caps, with probe recorders on the faces touching boxes
+    share): ``check_trace`` in float32 at 2**18 and in float64 at 2**16
+    photons with the recorders' tallies, ``check_log`` on
+    four seeds, ``check_trace_scores`` on four with absorbing components
+    in nested nodes, and the index-matched copy's crafted rays through
+    ``pvt_trace``'s bundle mode in float64, their logs equal to the twin's
+    in kinds and nodes and to the oracle's record by record
+    (``kernels.crafted``); then ``lsc_tiles(N, dyes=1)`` for N = 8, 16, 32,
+    64: ``check_trace`` at 2**18 and ``simulate`` at 2**24 (photons/s,
+    kernel ms, lane efficiency, registers, where the K5a table lies).
+
 Then the script's seconds, the card's nvidia-smi line, one JSON line of
 per-kernel numbers (each row with ``reached_from``: the entry points above
-``simulate`` whose run in phases 26 and 28-34 launched it or, for device
+``simulate`` whose run in phases 26, 28-34 and 38 launched it or, for device
 code inside the trace kernels, launched a kernel whose loop runs it on a
 scene that needs it; the float64 entries' rows, named ``*_f64``, from
 phases 36 and 37, their bounds at the FP64 rate, each with its
@@ -297,7 +311,13 @@ exits non-zero before the last line; without a CUDA device nothing runs.
 
 is one rank of phase 26's gloo world: it joins ``tcp://localhost:P``,
 runs the sharded runs on the card and writes them to FILE as JSON.
+
+    python3 chip_smoke.py --lsc-twins FILE
+
+is phase 31's CPU side: ``LSC.gradient(device="cpu")`` and the eager
+twin's per-photon records at 2**20, saved to FILE (``torch.save``).
 """
+import atexit
 import contextlib
 import json
 import os
@@ -322,6 +342,16 @@ N_LSC_LOG = 1 << 16
 N_LSC_MESH = 1 << 23  # one bundle of LSC.gradient's 16,000,000
 N_F64_SCORE, N_F64_PATH = 1 << 16, 1 << 14
 RANKS = 2
+# Phase 31's parameters of LSC.gradient and the kernel each runs.
+LSC_PARAMS = (("concentration", "pvt_trace_score"), ("n", "pvt_trace_pathwise"))
+# Phase 38: random scenes (0-19 as the CPU tests, 20-31 on the card only),
+# the seeds of its event-log and score checks, and lsc_tiles' node counts.
+RANDOM_SEEDS = tuple(range(32))
+RANDOM_LOG_SEEDS = (1, 3, 10, 22)
+RANDOM_SCORE_SEEDS = (0, 7, 15, 20)
+N_RANDOM, N_RANDOM_F64 = 1 << 18, 1 << 16
+TILES = (8, 16, 32, 64)
+N_TILES = 1 << 24
 SOURCE = {name: "pvtrace_tpu_torch/kernels/csrc/tracer.cu" for name in (
     "pvt_emit", "pvt_step", "pvt_trace", "pvt_cheb", "pvt_tally", "pvt_mesh", "pvt_trace_log")}
 SOURCE.update({name: "pvtrace_tpu_torch/kernels/csrc/score.cu"
@@ -451,6 +481,63 @@ def lsc_gradient(wrt, n, seed, **kwargs):
     run = lsc._last_gradient
     return (out, {"rec_distinct": run["distinct"], "rec_scores": run["scores"]}, seconds,
             run["compiled"], run["pathwise"])
+
+
+def lsc_twins_main(out):
+    """Phase 31's CPU side, a process of its own (``python3 chip_smoke.py
+    --lsc-twins OUT``) that runs beside phases 36-38: for each parameter
+    of LSC_PARAMS, ``LSC.gradient(device="cpu")`` at N_CHECK and the eager
+    twin's trace of the same photons keeping each photon's score record
+    (``per_photon``; lanes as the CPU ``simulate`` takes them), saved to
+    `out`. It uses six of the host's cores, at a lower priority than the
+    script's own process."""
+    import torch
+
+    from pvtrace_tpu_torch.engine import rng, scene_tensors, tracer
+
+    os.nice(10)
+    torch.set_num_threads(6)
+    runs = {}
+    for wrt, _ in LSC_PARAMS:
+        twin_g = lsc_gradient(wrt, N_CHECK, 32, device="cpu")
+        tic = time.perf_counter()
+        _, _, cpu_t, _ = tracer.trace_eager(
+            scene_tensors(twin_g[3], dtype=torch.float32, device="cpu"), rng.key_words(32),
+            N_CHECK, lanes=1 << 18, score=True, per_photon=True, pathwise=twin_g[4])
+        cpu_t.pop("seen")
+        runs[wrt] = {"result": twin_g[:3], "tallies": cpu_t,
+                     "records_s": time.perf_counter() - tic}
+    torch.save(runs, out)
+
+
+def start_lsc_twins():
+    """Start ``lsc_twins_main`` in a child process: (the process, its
+    output file, its log file)."""
+    tmp = tempfile.mkdtemp()
+    out, log = os.path.join(tmp, "lsc_twins.pt"), open(os.path.join(tmp, "lsc_twins.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lsc-twins", out],
+                            stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)  # a failure before finish_lsc_twins ends it too
+    return proc, out, log
+
+
+def finish_lsc_twins(twins):
+    """Wait for ``start_lsc_twins``' process and load what it saved; the
+    process is killed if it has not ended (a failure here included)."""
+    import torch
+
+    proc, out, log = twins
+    try:
+        code = proc.wait(timeout=900)
+    finally:
+        proc.kill()
+        log.close()
+    if code != 0:
+        with open(log.name) as fh:
+            fail(f"phase 31's CPU twins exited {code}: {fh.read()[-3000:]}")
+    runs = torch.load(out, weights_only=False)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    return runs
 
 
 def lsc_channel(result):
@@ -1321,6 +1408,241 @@ def float64_gradient_phases(smi, f32):
          sgd_launches["pvt_absorbed_grad"], surrogate, {"library": "diff_f64", "n": N_SLAB}),
     ]
     return rows, {"seconds": time.perf_counter() - tic, "full_width": summary}
+
+
+def lsc_cpu_checks(smi, lsc_cards, lsc_grads, runs):
+    """Phase 31's comparisons with the CPU twin (`runs`, from
+    ``finish_lsc_twins``), for each parameter's card run at N_CHECK
+    (`lsc_cards`: ``lsc_gradient``'s result and ``check_trace_scores``'
+    report): the recorders' distinct counts, score sums and the gradient
+    of ``LSC.gradient`` on the card and on the CPU, and the kernel's
+    records photon by photon against the CPU twin's; each parameter's
+    `lsc_grads` entry gains the figures."""
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch.kernels import check
+
+    for wrt, name in LSC_PARAMS:
+        card_g, photons = lsc_cards[wrt]
+        twin_g, cpu_t = runs[wrt]["result"], runs[wrt]["tallies"]
+        cpu_photons = check.compare_score_records(photons["tallies"], cpu_t,
+                                                  torch.as_tensor(photons["fates"]), N_CHECK,
+                                                  check.SCORE_PARTED * N_CHECK)
+        tol = max(20, N_CHECK // 500)
+        d_off = int(np.abs(card_g[1]["rec_distinct"] - twin_g[1]["rec_distinct"]).max())
+        ch = lsc_channel(twin_g[0])
+        allow = (check.SCORE_RTOL * cpu_t["rec_abs"][:5, ch].double() + cpu_t["rec_slack"][:5, ch]
+                 + cpu_photons["parted_allow"][ch]).numpy()
+        off = np.abs(card_g[1]["rec_scores"][:, ch].astype(np.float64)
+                     - twin_g[1]["rec_scores"][:, ch])
+        bound = lsc_gradient_bound(N_CHECK, card_g[:2], twin_g[:2], allow)
+        g_off = abs(card_g[0]["gradient"] - twin_g[0]["gradient"])
+        if d_off > tol or not (off <= allow).all() or not g_off <= bound:
+            fail(f"LSC.gradient(wrt={wrt!r}) on the card against the CPU twin: distinct off by "
+                 f"{d_off} (limit {tol}), score sums {off.tolist()} (bound {allow.tolist()}), "
+                 f"gradient {card_g[0]} against {twin_g[0]} (bound {bound})")
+        lsc_grads[wrt]["check"] = {
+            "card": card_g[0], "cpu": twin_g[0], "distinct_off": d_off,
+            "sums_used": share_of_bound(off, allow), "gradient_off": g_off, "bound": bound,
+            "cpu_s": twin_g[2], "records_s": runs[wrt]["records_s"],
+            "parted_from_cpu": cpu_photons["parted"],
+            "saturated_from_cpu": cpu_photons["saturated"]}
+        print(
+            f"phase 31 LSC.gradient(wrt={wrt!r}) at {N_CHECK} on the card against device='cpu' "
+            f"({twin_g[2]:.1f} s, and {runs[wrt]['records_s']:.1f} s for the twin's per-photon "
+            f"records, in a process of their own): distinct within {d_off} (limit {tol}), "
+            f"score sums at {share_of_bound(off, allow):.3g} of their bound, gradient "
+            f"{card_g[0]['gradient']:.6f} against {twin_g[0]['gradient']:.6f} (|diff| "
+            f"{g_off:.3g}, bound {bound:.3g}); {name} photon by photon against the CPU twin: "
+            f"{cpu_photons['parted']} parted, {cpu_photons['saturated']} saturated | {smi}",
+            flush=True,
+        )
+
+
+def random_scene_phases(smi):
+    """Phase 38's random scenes on the card: ``scenes.random_scene`` seeds
+    RANDOM_SEEDS (0-19 as the CPU tests, 20-31 here only) under each
+    scene's own emit method and caps, with probe recorders on the faces
+    touching boxes share (``random_scene(probes=True)``, no draw of their
+    own): ``check.check_trace`` in float32 at N_RANDOM and in float64 at
+    N_RANDOM_F64 photons, with its recorders' tallies (on touching boxes
+    held through the probes); ``check.check_log`` (record_every=1) on
+    RANDOM_LOG_SEEDS, ``check.check_trace_scores`` on RANDOM_SCORE_SEEDS;
+    the index-matched copy's crafted rays through ``kernels.trace(
+    bundle=..., record_every=1)`` in float64, whose log must equal the CPU
+    twin's in kinds and nodes and the oracle's record by record
+    (``kernels.crafted.compare``). Returns a summary; records the launches
+    for the kernels line's ``reached_from`` (``ENTRY_RUNS["random
+    scenes"]``)."""
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, tracer
+    from pvtrace_tpu_torch.kernels import check, crafted
+    from pvtrace_tpu_torch.scenes import random_scene
+
+    tic = time.perf_counter()
+    kernels.reset()
+    tracer.eager_runs = 0
+    meta_max = {}
+    worst = {"fates32": 0, "fates64": 0, "tallies32": 0, "tallies64": 0, "sums64_used": 0.0,
+             "sums64_columns": [0.0] * 8, "coincident32": 0, "coincident64": 0, "shared32": 0,
+             "shared64": 0}
+    crafted_records = crafted_shared = oracle_repeats = crafted_swapped = 0
+    logs, scores = {}, {}
+    for seed in RANDOM_SEEDS:
+        built = random_scene(seed, probes=True)
+        compiled = compile_scene(built.scene)
+        faces = crafted.coincident(built, compiled)
+        opts = crafted.options(built)
+        words = rng.key_words(seed)
+        reps = {}
+        try:
+            for dtype, n in ((torch.float32, N_RANDOM), (torch.float64, N_RANDOM_F64)):
+                st = scene_tensors(compiled, dtype=dtype, device="cuda")
+                for key, value in st["meta"].items():
+                    if isinstance(value, (int, float)):
+                        meta_max[key] = max(meta_max.get(key, 0), value)
+                reps[dtype] = check.check_trace(st, words, n, **opts, **faces)
+                if dtype == torch.float32 and seed in RANDOM_LOG_SEEDS:
+                    logs[seed] = check.check_log(st, words, N_LOG, **opts,
+                                                 coincident=faces["coincident"])
+                if dtype == torch.float32 and seed in RANDOM_SCORE_SEEDS:
+                    scores[seed] = check.check_trace_scores(
+                        st, words, N_BUDGET, **opts, **faces,
+                        max_drifted=check.SCORE_DRIFTED * N_BUDGET)
+            matched = random_scene(seed, matched=True)
+            compiled_m = compile_scene(matched.scene)
+            card = crafted.trace_crafted(
+                matched, scene_tensors(compiled_m, dtype=torch.float64, device="cuda"), seed)
+            twin = crafted.trace_crafted(
+                matched, scene_tensors(compiled_m, dtype=torch.float64, device="cpu"), seed)
+            card_ints, _, swapped = check.coincident_hits(
+                card[0], card[1], {"ints": twin[0], "floats": twin[1]}, faces["coincident"])
+            used = torch.arange(card[0].shape[1]) < twin[2][:, None]
+            check.require(torch.equal(card[2], twin[2])
+                          and torch.equal(card_ints[used][:, :4], twin[0][used][:, :4]),
+                          "the crafted rays' float64 log differs from the twin's in kinds or nodes")
+            counted = crafted.compare(matched, card, torch.float64)
+        except AssertionError as err:
+            fail(f"phase 38 random scene {seed}: {err}")
+        crafted_records += counted["records"]
+        crafted_swapped += swapped
+        crafted_shared += counted["shared"]
+        oracle_repeats += counted["oracle"]
+        r32, r64 = reps[torch.float32], reps[torch.float64]
+        for tag, rep in (("32", r32), ("64", r64)):
+            worst["fates" + tag] = max(worst["fates" + tag], rep["max_abs_err"])
+            worst["tallies" + tag] = max(worst["tallies" + tag], rep["tally_max_diff"])
+            worst["coincident" + tag] = max(worst["coincident" + tag],
+                                            rep.get("coincident_max_diff", 0))
+            worst["shared" + tag] = max(worst["shared" + tag], rep.get("shared_crossings", 0))
+        worst["sums64_used"] = max(worst["sums64_used"], r64.get("sums_used", 0.0))
+        worst["sums64_columns"] = [max(a, b) for a, b in zip(
+            worst["sums64_columns"], r64.get("sums_used_columns", [0.0] * 8))]
+        f = built.features
+        print(
+            f"phase 38 random scene {seed} ({f['nodes']} nodes, depth {f['depth']}, touching "
+            f"{f['touching']}, {'/'.join(f['geometries'])}, {built.options['emit_method']}, "
+            f"maxsteps {built.options['maxsteps']}, maxpathlength "
+            f"{built.options['maxpathlength']}): float32 {N_RANDOM} fates {r32['fates']} vs twin "
+            f"{r32['twin_fates']}, max diff {r32['max_abs_err']}, tallies {r32['tally_max_diff']}"
+            f" (on touching boxes {r32.get('coincident_max_diff', 0)} of "
+            f"{r32.get('shared_crossings', 0)} shared-face crossings), kernel {r32['ms']:.4f} ms, "
+            f"twin {r32['plain_ms']:.1f} ms; float64 {N_RANDOM_F64} max diff "
+            f"{r64['max_abs_err']}, tallies {r64['tally_max_diff']} (on touching boxes "
+            f"{r64.get('coincident_max_diff', 0)} of {r64.get('shared_crossings', 0)}), sums at "
+            f"{r64.get('sums_used', 0.0):.3g} of their bound, kernel {r64['ms']:.4f} ms, twin "
+            f"{r64['plain_ms']:.1f} ms; crafted float64 {counted['records']} records as the "
+            f"twin's and the oracle's | {smi}", flush=True)
+    launched, launched64 = dict(kernels.launches), dict(kernels.launches_f64)
+    if tracer.eager_runs == 0 or launched["pvt_trace"] == 0 or launched64["pvt_trace"] == 0:
+        fail(f"phase 38: the random scenes did not run the kernels and the twin: {launched}")
+    ENTRY_RUNS["random scenes"] = (launched, meta_max)
+    for seed, rep in logs.items():
+        print(f"phase 38 random scene {seed} event log ({N_LOG}, record_every=1): "
+              f"{rep['diverged']} of {rep['slots']} photons parted (limit "
+              f"{check.LOG_DIVERGED} of them), {rep['drifted']} drifted after a curved surface "
+              f"with their events equal (limit {check.LOG_DRIFTED} of them), the others' floats "
+              f"within {rep['max_rel_err']:.3g} of their scale (limit {check.LOG_RTOL}), "
+              f"{rep['records']} records, {rep['coincident_hits']} hits on the other of two "
+              f"coincident faces, budget kills {rep['budget_kills']}; kernel {rep['ms']:.4f} ms "
+              f"| {smi}", flush=True)
+    for seed, rep in scores.items():
+        print(f"phase 38 random scene {seed} score trace ({N_BUDGET}): fates {rep['fates']} vs "
+              f"{rep['twin_fates']}, {rep['parted']} photons parted ({rep['drifted']} with their "
+              f"fate and steps equal; limits {check.SCORE_PARTED * N_BUDGET:g} and "
+              f"{check.SCORE_DRIFTED * N_BUDGET:g} more of those), records at "
+              f"{rep['record_used']:.3g} and sums at {rep['sums_used']:.3g} of their bounds, "
+              f"recorders on touching boxes within {rep.get('coincident_max_diff', 0)} of "
+              f"{rep.get('shared_crossings', 0)} shared-face crossings, kernel {rep['ms']:.4f} ms,"
+              f" rows in shared memory {rep['shared_rows']} | {smi}", flush=True)
+    seconds = time.perf_counter() - tic
+    columns = ", ".join(f"{c:.3g}" for c in worst["sums64_columns"])
+    print(f"phase 38 random scenes {RANDOM_SEEDS[0]}-{RANDOM_SEEDS[-1]}: worst fate diff "
+          f"{worst['fates32']} (float32, limit {max(20, N_RANDOM // 500)}), {worst['fates64']} "
+          f"(float64, limit {check.F64_PARTED}); tallies {worst['tallies32']}, "
+          f"{worst['tallies64']}; on touching boxes {worst['coincident32']}, "
+          f"{worst['coincident64']} (most shared-face crossings {worst['shared32']}, "
+          f"{worst['shared64']}); float64 sums at {worst['sums64_used']:.3g} of their bound "
+          f"(by column: {columns}); crafted rays {crafted_records} records, {crafted_shared} "
+          f"across touching faces ({crafted_swapped} hitting the other face than the twin), "
+          f"{oracle_repeats} oracle repeats left out; {seconds:.1f} s | {smi}", flush=True)
+    return {"seconds": seconds, "seeds": len(RANDOM_SEEDS), "worst": worst,
+            "crafted_records": crafted_records, "launched_f64": launched64, "meta": meta_max}
+
+
+def many_node_phases(smi, tracer_report):
+    """Phase 38's many-node scenes: ``scenes.lsc_tiles(N, dyes=1)`` for N
+    in TILES, ``check_trace`` against the twin at N_RANDOM and
+    ``simulate`` at N_TILES in float32, launches read around it alone.
+    `tracer_report` is phase 1's nvcc report of the tracer library.
+    Returns {N: figures} and the seconds."""
+    import numpy as np
+    import torch
+
+    from pvtrace_tpu_torch import kernels
+    from pvtrace_tpu_torch.engine import compile_scene, rng, scene_tensors, simulate, tracer
+    from pvtrace_tpu_torch.kernels import build, check
+    from pvtrace_tpu_torch.scenes import lsc_tiles
+
+    tic = time.perf_counter()
+    regs = {fn: (r, stack, stores) for fn, r, stack, stores, _ in build.ptxas_rows(tracer_report)}
+    registers = regs.get("trace_kernel<0,0,0,0,0,0,0>")
+    tiles = {}
+    for N in TILES:
+        scene = lsc_tiles(tiles=N, dyes=1)
+        compiled = compile_scene(scene)
+        st = scene_tensors(compiled, dtype=torch.float32, device="cuda")
+        try:
+            rep = check.check_trace(st, rng.key_words(38), N_RANDOM)
+        except AssertionError as err:
+            fail(f"phase 38 lsc_tiles({N}): {err}")
+        kernels.reset()
+        tracer.eager_runs = 0
+        res = simulate(scene, N_TILES, seed=38, record_every=0, dtype=np.float32,
+                       compiled=compiled)
+        fates = np.asarray(res.data["fates"])
+        if int(fates.sum()) != N_TILES or kernels.launches["pvt_trace"] != 1 \
+                or tracer.eager_runs:
+            fail(f"phase 38 lsc_tiles({N}): fates {fates.tolist()}, launches "
+                 f"{kernels.launches}, eager runs {tracer.eager_runs}")
+        run = kernels.last_trace
+        tiles[N] = {"photons_per_s": N_TILES / res.elapsed, "kernel_ms": run["ms"],
+                    "lane_efficiency": run["lane_efficiency"], "threads": run["threads"],
+                    "shared_cheb": run["shared_cheb"], "cheb_bytes": 4 * st["meta"]["cheb_words"],
+                    "fates": fates.tolist(), "check_max_diff": rep["max_abs_err"],
+                    "check_ms": rep["ms"], "twin_ms": rep["plain_ms"]}
+        print(
+            f"phase 38 lsc_tiles({N}, dyes=1): check_trace {N_RANDOM} fates {rep['fates']} vs twin "
+            f"{rep['twin_fates']}, max diff {rep['max_abs_err']}; simulate({N_TILES}) "
+            f"{tiles[N]['photons_per_s']:.6g} photons/s, pvt_trace {run['ms']:.3f} ms, lane "
+            f"efficiency {run['lane_efficiency']:.4f}, {run['threads']} threads, registers/stack/"
+            f"spill stores {registers}, K5a table {tiles[N]['cheb_bytes']} bytes in "
+            f"{'shared' if run['shared_cheb'] else 'device'} memory, fates {fates.tolist()} | "
+            f"{smi}", flush=True)
+    return tiles, time.perf_counter() - tic
 
 
 def main():
@@ -2581,9 +2903,11 @@ def main():
         flush=True,
     )
 
-    # 31. LSC.gradient at full width, then against the CPU twin
-    lsc_grads = {}
-    for wrt, name in (("concentration", "pvt_trace_score"), ("n", "pvt_trace_pathwise")):
+    # 31. LSC.gradient at full width, then against the CPU twin: the card's
+    # side here, the CPU twin's in a child process beside phases 36-38,
+    # compared after phase 38's random scenes (``lsc_cpu_checks``).
+    lsc_grads, lsc_cards = {}, {}
+    for wrt, name in LSC_PARAMS:
         kernels.reset()
         tracer.eager_runs = 0
         full_grad = lsc_gradient(wrt, N_MAIN, 31)
@@ -2594,62 +2918,32 @@ def main():
                  f"{full_grad[0]}")
         entry_run(f"LSC.gradient(wrt={wrt!r})", launches, full_grad[3])
         card_g = lsc_gradient(wrt, N_CHECK, 32)
-        twin_g = lsc_gradient(wrt, N_CHECK, 32, device="cpu")
         # The same photons' records, kernel against the twin on the card
         st_lsc = scene_tensors(card_g[3], dtype=torch.float32, device="cuda")
         photons = check.check_trace_scores(st_lsc, rng.key_words(32), N_CHECK,
                                            pathwise=card_g[4])
-        # and the kernel's records against the CPU twin's: the photons that
-        # parted between the two runs compared below, and the twin's sums
-        # of |score| and slack
-        _, _, cpu_t, _ = tracer.trace_eager(
-            scene_tensors(card_g[3], dtype=torch.float32, device="cpu"), rng.key_words(32),
-            N_CHECK, score=True, per_photon=True, pathwise=card_g[4])
-        cpu_photons = check.compare_score_records(photons["tallies"], cpu_t,
-                                                  torch.as_tensor(photons["fates"]), N_CHECK,
-                                                  check.SCORE_PARTED * N_CHECK)
-        tol = max(20, N_CHECK // 500)
-        d_off = int(np.abs(card_g[1]["rec_distinct"] - twin_g[1]["rec_distinct"]).max())
-        ch = lsc_channel(twin_g[0])
-        allow = (check.SCORE_RTOL * cpu_t["rec_abs"][:5, ch].double() + cpu_t["rec_slack"][:5, ch]
-                 + cpu_photons["parted_allow"][ch]).numpy()
-        off = np.abs(card_g[1]["rec_scores"][:, ch].astype(np.float64)
-                     - twin_g[1]["rec_scores"][:, ch])
-        bound = lsc_gradient_bound(N_CHECK, card_g[:2], twin_g[:2], allow)
-        g_off = abs(card_g[0]["gradient"] - twin_g[0]["gradient"])
-        if d_off > tol or not (off <= allow).all() or not g_off <= bound:
-            fail(f"LSC.gradient(wrt={wrt!r}) on the card against the CPU twin: distinct off by "
-                 f"{d_off} (limit {tol}), score sums {off.tolist()} (bound {allow.tolist()}), "
-                 f"gradient {card_g[0]} against {twin_g[0]} (bound {bound})")
+        lsc_cards[wrt] = (card_g, photons)
         lsc_grads[wrt] = {"photons_per_s": N_MAIN / full_grad[2], "seconds": full_grad[2],
                           "launches": launches[name], "kernel_ms": kernels.launch_ms[name],
-                          "result": full_grad[0], "check": {
-                              "card": card_g[0], "cpu": twin_g[0], "distinct_off": d_off,
-                              "sums_used": share_of_bound(off, allow), "gradient_off": g_off,
-                              "bound": bound, "cpu_s": twin_g[2],
-                              "parted_from_cpu": cpu_photons["parted"],
-                              "saturated_from_cpu": cpu_photons["saturated"]},
-                          "photon_by_photon": {k: photons[k] for k in (
+                          "result": full_grad[0], "photon_by_photon": {k: photons[k] for k in (
                               "parted", "saturated", "record_used", "sums_used", "ms",
                               "plain_ms", "bound_ms")}}
         print(
             f"phase 31 LSC.gradient(n={N_MAIN}, wrt={wrt!r}), cells on four edges: {full_grad[0]}"
             f" in {full_grad[2]:.4f} s, {N_MAIN / full_grad[2]:.6g} photons/s, "
-            f"{launches[name]} {name} launches ({kernels.launch_ms[name]:.2f} ms); at {N_CHECK} "
-            f"against device='cpu' ({twin_g[2]:.1f} s): distinct within {d_off} (limit {tol}), "
-            f"score sums at {share_of_bound(off, allow):.3g} of their bound, gradient "
-            f"{card_g[0]['gradient']:.6f} against {twin_g[0]['gradient']:.6f} (|diff| "
-            f"{g_off:.3g}, bound {bound:.3g}; photon by photon {cpu_photons['parted']} parted "
-            f"from the CPU twin, {cpu_photons['saturated']} saturated); {name} against the twin "
-            f"on the card photon by "
-            f"photon (phase {17 if wrt == 'concentration' else 21}'s check): {photons['parted']} "
-            f"parted, {photons['saturated']} saturated (limit each "
-            f"{check.SCORE_PARTED * N_CHECK:g}), records at {photons['record_used']:.3g} and "
-            f"sums at {photons['sums_used']:.3g} of their bounds | {smi}",
+            f"{launches[name]} {name} launches ({kernels.launch_ms[name]:.2f} ms); {name} "
+            f"against the twin on the card photon by photon at {N_CHECK} (phase "
+            f"{17 if wrt == 'concentration' else 21}'s check): {photons['parted']} parted, "
+            f"{photons['saturated']} saturated (limit each {check.SCORE_PARTED * N_CHECK:g}), "
+            f"records at {photons['record_used']:.3g} and sums at {photons['sums_used']:.3g} of "
+            f"their bounds | {smi}",
             flush=True,
         )
 
     entry = entry_point_phases(smi)
+    # Phase 31's CPU twins run in their own process from here, beside the
+    # phases that the host's clock does not time.
+    twins = start_lsc_twins()
     f64_rows, f64_summary = float64_phases(smi, {
         "main path": rate, "recorders R=32": rec_rates[32], "mesh": full["mesh"]["photons_per_s"],
         "history": full["mesh, record_every=1000"]["photons_per_s"], "host emission": host_rate})
@@ -2658,6 +2952,22 @@ def main():
         "phase 31 concentration": lsc_grads["concentration"]["photons_per_s"],
         "phase 31 n": lsc_grads["n"]["photons_per_s"],
         "phase 29": ckpt["slab, score"]["photons_per_s"]})
+    random_summary = random_scene_phases(smi)
+    tic = time.perf_counter()
+    lsc_cpu_checks(smi, lsc_cards, lsc_grads, finish_lsc_twins(twins))
+    lsc_wait = time.perf_counter() - tic
+    tiles, tiles_s = many_node_phases(smi, built["tracer"][1] or "")
+    random_summary["tiles"] = tiles
+    random_summary["seconds"] += tiles_s
+    print(f"phase 38 took {random_summary['seconds']:.1f} s (and phase 31's CPU checks "
+          f"between its parts {lsc_wait:.1f} s) | {smi}", flush=True)
+    for name, _, _, reached, _ in f64_rows:
+        via, need = INSIDE.get(name, ((), None))
+        if random_summary["launched_f64"].get(name):
+            reached.append("random scenes (float64)")
+        elif any(random_summary["launched_f64"].get(k) for k in via) \
+                and (need is None or random_summary["meta"].get(need)):
+            reached.append(f"random scenes (float64, inside {', '.join(via)})")
 
     stray = sorted(
         m for m in sys.modules
@@ -2683,6 +2993,8 @@ def main():
             "launches_by_recorders": {R: v["pvt_trace"] for R, v in rec_launches.items()},
             "simulate_stream": streams, "simulate_checkpointed": ckpt["slab R=32"],
             "trace_profile": entry["profile"],
+            "random_scenes": {k: random_summary[k] for k in ("seeds", "worst", "crafted_records",
+                                                            "tiles")},
         }),
         ("pvt_cheb", cheb_rep, {
             "n_fits": cheb_rep["n_fits"], "n_t": cheb_rep["n_t"],
@@ -2809,8 +3121,8 @@ def main():
         pvt_absorbed_grad=sgd_launches["pvt_absorbed_grad"],
         pvt_trace_bundle=host_launches["pvt_trace_bundle"], pvt_draws=main_launches["pvt_draws"])
     print(f"the script: {time.perf_counter() - start_s:.1f} s, of it phase 36 "
-          f"{f64_summary['seconds']:.1f} s, phase 37 {grad64_summary['seconds']:.1f} s",
-          flush=True)
+          f"{f64_summary['seconds']:.1f} s, phase 37 {grad64_summary['seconds']:.1f} s, phase 38 "
+          f"{random_summary['seconds']:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": [
         {
@@ -2839,7 +3151,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:
+    if sys.argv[1:2] == ["--lsc-twins"]:
+        lsc_twins_main(sys.argv[2])
+    elif len(sys.argv) > 1:
         import argparse
 
         parser = argparse.ArgumentParser(description="one rank of phase 26's gloo world")

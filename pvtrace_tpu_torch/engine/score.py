@@ -42,7 +42,12 @@ two float32 computations can give c's that differ by GRAZING_ROUNDING / c
 term gets GRAZING_ROUNDING / c^2 of its size more, down to c = GRAZING_C
 (2.5 % of the term). Below GRAZING_C that share stays at its cap, and
 the lane-by-lane check leaves such lanes out and counts them
-(``kernels/check.py``).
+(``kernels/check.py``). Where the reflectivity is below FRESNEL_ROUNDING
+(two equal or nearly equal indices, as touching or nested nodes of one
+glass have) the amplitudes cancel: the partials are 0 in exact arithmetic
+and rounding in float32, which grows as 1/c^3 at grazing incidence (at
+most 3.4e-7 / c^3 at equal indices from 1.05 to 1.9); the floor there is
+FRESNEL_ROUNDING * |branch| / c^3, c down to GRAZING_C.
 """
 import torch
 
@@ -170,7 +175,9 @@ def contributions(st, out, with_slack=False):
     if not with_slack:
         return ds
     cond = conditioning(out)
-    floor = FRESNEL_ROUNDING * branch.double().abs()
+    c = out["c_in"].double().clamp(min=GRAZING_C)
+    cancel = torch.where(r.double() < FRESNEL_ROUNDING, 1.0 / (c * c * c), 0.0)
+    floor = FRESNEL_ROUNDING * branch.double().abs() * (1.0 + cancel)
     slack[C + cont[coin], lanes[coin]] = floor[coin] + cond[coin] * w1.double().abs()
     slack[C + out["adjacent"].long()[adj], lanes[adj]] = floor[adj] \
         + cond[adj] * w2[adj].double().abs()

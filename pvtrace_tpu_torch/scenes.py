@@ -128,7 +128,8 @@ def lsc_tiles(ns=None, tiles=8, dyes=5):
     """A row of `tiles` 1 cm LSC cubes (n = 1.5) 1 mm apart, each with
     `dyes` Lumogen F Red 305 luminophores of graded strength (10 cm^-1
     peak in all, quantum yield 0.9) and a 0.3 cm^-1 background absorber,
-    in a 25 cm world sphere, lit by a 555 nm lamp over the row (a 20
+    in a world sphere of 25 cm (1.1 cm a tile past 22 tiles, so that the
+    row stays inside it), lit by a 555 nm lamp over the row (a 20
     degree cone from a rectangle 3 cm above). Every component is fitted on
     its own, so the K5a table grows with tiles x dyes: at the defaults 40
     luminophores, over 100 KB, more than the trace kernel's shared-memory
@@ -138,7 +139,8 @@ def lsc_tiles(ns=None, tiles=8, dyes=5):
     x = np.arange(400, 801, dtype=float)
     world = p.Node(
         name="world",
-        geometry=p.Sphere(radius=25.0, material=p.Material(refractive_index=1.0)),
+        geometry=p.Sphere(radius=max(25.0, 1.1 * tiles),
+                          material=p.Material(refractive_index=1.0)),
     )
     for i in range(tiles):
         comps = [
@@ -171,6 +173,31 @@ def lsc_tiles(ns=None, tiles=8, dyes=5):
     )
     light.translate((0.0, 0.0, 3.0))
     light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
+def touching_scene(ns=None, n1=1.5, n2=1.5, n3=1.5):
+    """Three unit glass boxes stacked along +z with coincident faces, in a
+    10 cm world sphere (the JAX package's
+    ``tests/test_touching_engine.py::touching_scene``)."""
+    p = api(ns)
+    world = p.Node(name="world",
+                   geometry=p.Sphere(radius=10.0, material=p.Material(refractive_index=1.0)))
+    for name, n, dz in (("box1", n1, 0.0), ("box2", n2, 1.0), ("box3", n3, 2.0)):
+        node = p.Node(name=name, parent=world,
+                      geometry=p.Box((1.0, 1.0, 1.0), material=p.Material(refractive_index=n)))
+        node.translate((0.0, 0.0, dz))
+    return p.Scene(world)
+
+
+def embedded_scene(ns=None, n1=1.5):
+    """One unit glass box in a 10 cm world sphere (the JAX package's
+    ``tests/test_touching_engine.py::embedded_scene``)."""
+    p = api(ns)
+    world = p.Node(name="world",
+                   geometry=p.Sphere(radius=10.0, material=p.Material(refractive_index=1.0)))
+    p.Node(name="box", parent=world,
+           geometry=p.Box((1.0, 1.0, 1.0), material=p.Material(refractive_index=n1)))
     return p.Scene(world)
 
 
@@ -554,4 +581,480 @@ def mesh_lsc(ns=None, radius=4.0, thickness=1.0, dye_peak=5.0, bg=0.1):
     )
     light.translate((0.0, 0.0, thickness * 2.0))
     light.rotate(np.radians(180), (1, 0, 0))
+    return p.Scene(world)
+
+
+
+# -- random scenes: disjoint, nested and touching nodes -------------------
+
+# What ``random_scene`` draws from (its coverage of seeds 0-19 is a test).
+RANDOM_SOLIDS = ("box", "sphere", "cylinder")
+RANDOM_MESHES = ("tetrahedron", "cube")
+RANDOM_COMPONENTS = ("absorber", "isotropic", "hg", "luminophore", "reactor")
+RANDOM_MASKS = ("point", "rectangle", "circle", "cube")
+RANDOM_EMIT = ("kT", "redshift", "full")
+RANDOM_RAYS = 16
+# The corner tetrahedron of ``tetrahedron()`` and the unit cube mesh of
+# the JAX package's tests/test_mesh_engine.py.
+_MESHES = {
+    "tetrahedron": (np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], dtype=float),
+                    np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])),
+    "cube": (np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                       [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], dtype=float) / 2.0,
+             np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7], [0, 1, 5], [0, 5, 4],
+                       [2, 3, 7], [2, 7, 6], [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]])),
+}
+_AXES = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, -1.0, 0.0),
+         (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
+
+
+def random_scene(seed, ns=None, matched=False, probes=False):
+    """A seeded random scene of disjoint, nested and touching nodes.
+
+    Every draw comes from ``np.random.default_rng(seed)``, so the same
+    seed builds the same scene from any package's classes (`ns`, as every
+    scene here). A world sphere (radius 10-50, n = 1) holds 2-6 boxes,
+    spheres and cylinders and, in one seed of four, a mesh (the corner
+    tetrahedron or a cube). Nodes are disjoint (bounding spheres apart),
+    nested up to three levels (a child's bounding sphere inside its
+    parent's inscribed sphere), or, in even seeds, 2-3 boxes that share
+    faces under one geometry-less group node with a random rigid
+    transform; every node has a random rotation and translation, and a
+    draw that would overlap another is drawn again. Materials: n in
+    [1, 2] (some neighbours share it), components from none, Absorber,
+    isotropic and Henyey-Greenstein Scatterers, Luminophores (Lumogen F
+    Red 305 or Gaussian spectra, quantum yield 0.5-1; each with a
+    background absorber, so that no photon is trapped for good) and
+    Reactors; facet overrides (mirror, absorb, Lambertian mirror) on some
+    free boxes; escaping and entering recorders, with and without a
+    facet. 1-2 lights, outside the nodes aimed at one or inside a dyed
+    leaf node, with point, rectangular, circular and cube position
+    masks, cone or Lambertian directions and constant or spectral
+    wavelengths. With `matched` the geometry is the same, but every node
+    has the world's n, no component and no override: every crossing is
+    then a deterministic TRANSMIT. With `probes` each face two touching
+    boxes share carries four facet recorders more (``probe-LO-HI-*``),
+    with no draw of their own, so the scene is otherwise the same: for
+    crossings upward (LO to HI) the lower box's escaping and the upper
+    box's entering recorder on that face, for crossings downward the
+    upper's escaping and the lower's entering one. Rounding picks which
+    of the two surfaces a crossing hits, so each pair's sum counts every
+    crossing of its direction whichever surface was hit.
+
+    Returns a namespace: ``scene``; ``options``, the run's
+    ``emit_method``, ``maxsteps`` and ``maxpathlength`` (None: no cap),
+    as ``simulate`` takes them; ``rays``, RANDOM_RAYS crafted start rays
+    (world positions and unit directions, [16, 3] each) from node centres
+    at every nesting level, across touching faces and from outside toward
+    nodes; ``features``, what the scene holds; ``scale``, the world
+    radius; ``coincident``, the names of the nodes that share a face;
+    ``probes``, with `probes` the names of each pair of probe recorders
+    (escaping, entering) whose crossings sum to the same in any build, else
+    empty."""
+    plan = _random_plan(int(seed))
+    pairs = _probe_pairs(plan) if probes else ()
+    return SimpleNamespace(scene=_build_random(api(ns), plan, matched, pairs),
+                           options=dict(plan["options"]), rays=plan["rays"],
+                           features=plan["features"], scale=plan["radius"],
+                           coincident=tuple(it["name"] for it in plan["items"]
+                                            if it["name"].startswith("t")),
+                           probes=tuple((a[1], b[1]) for a, b in pairs))
+
+
+def _probe_pairs(plan):
+    """The probe recorders of ``random_scene(probes=True)``: for each face
+    two touching boxes share (its outward world normal `up` from the lower
+    box), two pairs ((node, name, event, facet), (node, name, event,
+    facet)), the upward crossing's and the downward one's."""
+    pairs = []
+    for lo, hi, up in plan["faces"]:
+        down = tuple(-c for c in up)
+        tag = f"probe-{lo}-{hi}"
+        pairs.append(((lo, f"{tag}-up-out", "escaping", up),
+                      (hi, f"{tag}-up-in", "entering", down)))
+        pairs.append(((hi, f"{tag}-down-out", "escaping", down),
+                      (lo, f"{tag}-down-in", "entering", up)))
+    return tuple(pairs)
+
+
+def _rotation(rng):
+    """A uniform random rotation (a normalised Gaussian quaternion)."""
+    q = rng.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def _pose(rotation, offset):
+    m = np.eye(4)
+    m[:3, :3], m[:3, 3] = rotation, offset
+    return m
+
+
+def _unit(rng):
+    v = rng.normal(size=3)
+    return v / np.linalg.norm(v)
+
+
+def _in_ball(rng, radius):
+    return _unit(rng) * radius * rng.random() ** (1.0 / 3.0)
+
+
+def _mesh_radii(kind):
+    """(bounding, inscribed) radius of the unit mesh `kind` about its
+    vertex mean (``Mesh`` recentres there)."""
+    v, f = _MESHES[kind]
+    v = v - v.mean(axis=0)
+    normals = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    normals /= np.linalg.norm(normals, axis=1)[:, None]
+    inner = np.abs(np.einsum("ij,ij->i", normals, v[f[:, 0]])).min()
+    return float(np.linalg.norm(v, axis=1).max()), float(inner)
+
+
+def _shape(item):
+    """Set `item`'s dimensions and inscribed radius from its bounding
+    radius ``rb`` and shape draws."""
+    kind, rb, a = item["kind"], item["rb"], item["aspect"]
+    if kind == "sphere":
+        item["dims"], item["ri"] = (rb,), rb
+    elif kind == "box":
+        h = rb * a / np.linalg.norm(a)
+        item["dims"], item["ri"] = tuple(2.0 * h), float(h.min())
+    elif kind == "cylinder":
+        r, hl = rb * np.cos(a[0]), rb * np.sin(a[0])
+        item["dims"], item["ri"] = (2.0 * hl, r), min(r, hl)
+    elif kind == "group":
+        h = np.concatenate([a[:2], [a[2:].sum()]])
+        s = rb / np.linalg.norm(h)
+        item["dims"], item["ri"] = tuple(s * a), 0.0
+    else:
+        unit_rb, unit_ri = _mesh_radii(kind)
+        item["dims"], item["ri"] = (rb / unit_rb,), rb / unit_rb * unit_ri
+
+
+def _place(rng, children, items, container, radius):
+    """Draw the offsets (in the container's frame) and rotations of
+    `children`, disjoint with gaps: in the world, within a central region
+    that widens with every failed draw; in `container`, within its
+    inscribed sphere, a child shrinking by 3 % every 200 failed draws."""
+    placed = []
+    for c in children:
+        item = items[c]
+        tries = 0
+        while True:
+            if container is None:
+                reach = min(0.6 * radius - item["rb"], 1.0 + 2.0 * item["rb"] + 0.05 * tries)
+                gap = 0.3
+            else:
+                item["rb"] = item["fraction"] * items[container]["ri"] * 0.97 ** (tries // 200)
+                reach = 0.92 * items[container]["ri"] - item["rb"]
+                gap = 0.05 * items[container]["ri"]
+            centre = _in_ball(rng, reach)
+            if all(np.linalg.norm(centre - items[o]["centre"]) >= item["rb"] + items[o]["rb"] + gap
+                   for o in placed):
+                break
+            tries += 1
+        item["centre"] = centre
+        _shape(item)
+        item["pose"] = _pose(_rotation(rng), centre)
+        placed.append(c)
+
+
+def _random_plan(seed):
+    """Every draw of ``random_scene(seed)``, as plain data."""
+    rng = np.random.default_rng(seed)
+    radius = float(rng.uniform(10.0, 50.0))
+    n_solids = int(rng.integers(2, 7))
+    k_touch = min(int(rng.integers(2, 4)), n_solids) if seed % 2 == 0 else 0
+    deep = seed % 5 == 0
+    n_free = max(n_solids - k_touch, 3 if deep else 0)
+    mesh = RANDOM_MESHES[(seed // 4) % 2] if seed % 4 == 3 else None
+
+    # Geometry items: free solids, then the touching group, then the mesh.
+    items = []
+
+    def add(kind, parent, aspect):
+        level = 1 if parent is None else items[parent]["level"] + 1
+        item = {"name": None, "kind": kind, "parent": parent, "level": level,
+                "aspect": aspect, "fraction": float(rng.uniform(0.35, 0.6))}
+        if parent is None:
+            item["rb"] = float(rng.uniform(0.8, 2.2))
+        items.append(item)
+        return item
+
+    def pick_parent(p):
+        hosts = [j for j, it in enumerate(items) if it["kind"] in RANDOM_SOLIDS and it["level"] < 3]
+        return hosts[int(rng.integers(len(hosts)))] if hosts and rng.random() < p else None
+
+    for i in range(n_free):
+        kind = "sphere" if deep and i < 2 else RANDOM_SOLIDS[int(rng.integers(3))]
+        parent = i - 1 if deep and 0 < i < 3 else pick_parent(0.4) if i else None
+        aspect = (rng.uniform(0.5, 1.0, 3) if kind == "box"
+                  else np.array([rng.uniform(0.35, 1.2)]) if kind == "cylinder" else None)
+        add(kind, parent, aspect)
+        items[-1]["name"] = f"s{i}"
+    if k_touch:
+        group = add("group", pick_parent(0.3),
+                    np.concatenate([rng.uniform(0.5, 1.0, 2), rng.uniform(0.3, 0.8, k_touch)]))
+        group["name"] = "g0"
+    if mesh is not None:
+        add(mesh, pick_parent(0.5), None)["name"] = "m0"
+    for c in [None] + list(range(len(items))):
+        _place(rng, [j for j, it in enumerate(items) if it["parent"] == c], items, c, radius)
+
+    # World frames; the touching boxes, stacked along their group's z.
+    world_of = {}
+    for j, item in enumerate(items):
+        up = np.eye(4) if item["parent"] is None else world_of[item["parent"]]
+        world_of[j] = up @ item["pose"]
+    geometry = [j for j, it in enumerate(items) if it["kind"] != "group"]
+    boxes = []
+    if k_touch:
+        g = next(j for j, it in enumerate(items) if it["kind"] == "group")
+        hx, hy, *hz = items[g]["dims"]
+        z = -sum(hz)
+        for k, h in enumerate(hz):
+            boxes.append({"name": f"t{k}", "kind": "box", "parent": g,
+                          "level": items[g]["level"], "dims": (2 * hx, 2 * hy, 2 * h),
+                          "ri": min(hx, hy, h), "rb": float(np.linalg.norm((hx, hy, h))),
+                          "pose": _pose(np.eye(3), (0.0, 0.0, z + h))})
+            z += 2 * h
+        for b in boxes:
+            world_of[len(items)] = world_of[g] @ b["pose"]
+            items.append(b)
+            geometry.append(len(items) - 1)
+    up = tuple(float(c) for c in world_of[g][:3, 2]) if k_touch else None
+    shared = [(lo["name"], hi["name"], up) for lo, hi in zip(boxes, boxes[1:])]
+    solids = [j for j in geometry if items[j]["kind"] in RANDOM_SOLIDS]
+
+    # Materials.
+    touching = [j for j in geometry if items[j]["name"].startswith("t")]
+    for idx, j in enumerate(geometry):
+        item = items[j]
+        if touching and j in touching[1:]:
+            near = touching[touching.index(j) - 1]
+        elif item["parent"] is not None and items[item["parent"]]["kind"] != "group":
+            near = item["parent"]
+        else:
+            near = geometry[idx - 1] if idx else None
+        share = near is not None and rng.random() < 0.3
+        item["n"] = items[near]["n"] if share else float(rng.uniform(1.0, 2.0))
+        kinds = [] if rng.random() < 0.3 else [
+            RANDOM_COMPONENTS[k]
+            for k in rng.choice(5, size=int(rng.integers(1, 3)), replace=False)]
+        if idx == 0 and RANDOM_COMPONENTS[seed % 5] not in kinds:
+            kinds.append(RANDOM_COMPONENTS[seed % 5])
+        if "luminophore" in kinds and "absorber" not in kinds:
+            kinds.append("absorber")
+        comps = []
+        for kind in kinds:
+            alpha = float(rng.uniform(0.2, 1.5)) / (2.0 * item["rb"])
+            if kind == "absorber" and "luminophore" in kinds:
+                alpha = float(rng.uniform(0.1, 0.5)) / (2.0 * item["rb"])
+            spec = {"kind": kind, "alpha": alpha, "name": f"{item['name']}-{kind}"}
+            if kind == "hg":
+                spec["g"] = float(rng.uniform(-0.7, 0.9))
+            if kind == "luminophore":
+                spec.update(lumogen=bool(rng.random() < 0.5), centre=float(rng.uniform(450, 550)),
+                            shift=float(rng.uniform(60, 120)), qy=float(rng.uniform(0.5, 1.0)))
+            comps.append(spec)
+        item["components"] = comps
+        item["overrides"] = []
+        if item["kind"] == "box" and j not in touching and rng.random() < 0.35:
+            faces = rng.choice(6, size=int(rng.integers(1, 4)), replace=False)
+            item["overrides"] = [(_AXES[f], int(rng.integers(3))) for f in faces]
+        recs = []
+        if rng.random() < 0.35:
+            for k in range(int(rng.integers(1, 3))):
+                event = ("escaping", "entering")[int(rng.integers(2))]
+                facet = (_AXES[int(rng.integers(6))]
+                         if item["kind"] in ("box", "cube") and rng.random() < 0.6 else None)
+                recs.append({"name": f"{item['name']}-r{k}", "event": event, "facet": facet,
+                             "histogram": bool(rng.random() < 0.5)})
+        item["recorders"] = recs
+
+    # A photon that a scatterer, a luminophore or a Lambertian facet sends
+    # off in a random direction can be trapped for good by total internal
+    # reflection in any node it then enters from inside: every ancestor of
+    # such a node and every box touching it. Those that have no component
+    # get a background absorber.
+    def ancestors(j):
+        while items[j]["parent"] is not None:
+            j = items[j]["parent"]
+            yield j
+
+    randomizing = [j for j in geometry if 2 in {m for _, m in items[j]["overrides"]} or any(
+        c["kind"] in ("isotropic", "hg", "luminophore") for c in items[j]["components"])]
+    reached = {a for j in randomizing for a in ancestors(j)}
+    if any(j in touching for j in randomizing):
+        reached.update(touching)
+    for j in geometry:
+        if j in reached and not items[j]["components"]:
+            items[j]["components"] = [{
+                "kind": "absorber", "alpha": float(rng.uniform(0.1, 0.5)) / (2.0 * items[j]["rb"]),
+                "name": f"{items[j]['name']}-absorber"}]
+
+    # Lights: inside a dyed leaf node, or outside every node aimed at one.
+    tops = [j for j, it in enumerate(items) if it["parent"] is None]
+    leaves = [j for j in geometry if items[j]["kind"] in ("box", "sphere", "cylinder")
+              and not any(it["parent"] == j for it in items)
+              and any(c["kind"] == "luminophore" for c in items[j]["components"])]
+    lights = []
+    for k in range(int(rng.integers(1, 3))):
+        light = {"name": f"light{k}", "mask": RANDOM_MASKS[(seed + k) % 4],
+                 "lambertian": bool(rng.random() < 0.3), "theta": float(rng.uniform(5.0, 40.0)),
+                 "cone_class": bool(rng.random() < 0.5), "spectrum": bool(rng.random() < 0.4),
+                 "wavelength": float(rng.uniform(430.0, 600.0))}
+        if leaves and rng.random() < 0.5:
+            host = leaves[int(rng.integers(len(leaves)))]
+            light.update(parent=host, extent=0.3 * items[host]["ri"],
+                         pose=_pose(_rotation(rng), np.zeros(3)))
+        else:
+            target = tops[int(rng.integers(len(tops)))]
+            centre, rb = world_of[target][:3, 3], items[target]["rb"]
+            dist = rb + float(rng.uniform(0.8, 2.5))
+            for tries in range(1000):
+                u = _unit(rng)
+                pos = centre + (dist + 0.01 * tries) * u
+                if all(np.linalg.norm(pos - world_of[o][:3, 3]) > items[o]["rb"] + 0.5
+                       for o in tops) and np.linalg.norm(pos) < 0.8 * radius:
+                    break
+            z = -u
+            x = np.cross(z, _unit(rng))
+            x /= np.linalg.norm(x)
+            light.update(parent=None, extent=min(0.5 * rb, 0.2),
+                         pose=_pose(np.column_stack([x, np.cross(z, x), z]), pos))
+        lights.append(light)
+
+    # Crafted rays: from node centres, across touching faces, from outside.
+    starts, dirs = [], []
+    for j in geometry[:8]:
+        starts.append(world_of[j][:3, 3])
+        dirs.append(_unit(rng))
+    for k in range(len(boxes) - 1):
+        lo, hi = geometry[len(geometry) - len(boxes) + k:][:2]
+        up = world_of[lo][:3, 2]
+        tilt = 0.5 * min(items[lo]["dims"][:2]) / max(items[lo]["dims"][2], items[hi]["dims"][2])
+        side = world_of[lo][:3, :2] @ rng.uniform(-tilt, tilt, 2)
+        for j, sign in ((lo, 1.0), (hi, -1.0)):
+            d = sign * up + side
+            starts.append(world_of[j][:3, 3])
+            dirs.append(d / np.linalg.norm(d))
+    while len(starts) < RANDOM_RAYS:
+        j = geometry[len(starts) % len(geometry)]
+        aim = world_of[j][:3, 3] + 0.2 * items[j]["ri"] * _unit(rng)
+        start = 0.9 * radius * _unit(rng)
+        starts.append(start)
+        dirs.append((aim - start) / np.linalg.norm(aim - start))
+
+    options = {
+        "emit_method": RANDOM_EMIT[seed % 3],
+        "maxsteps": int(rng.integers(6, 21)) if seed % 5 == 1 or rng.random() < 0.1 else 1000,
+        "maxpathlength": (float(rng.uniform(5.0, 40.0))
+                          if seed % 5 == 2 or rng.random() < 0.1 else None),
+    }
+    recs = [r for j in geometry for r in items[j]["recorders"]]
+    features = {
+        "geometries": sorted({items[j]["kind"] for j in geometry}),
+        "depth": max(items[j]["level"] for j in geometry),
+        "touching": len(boxes),
+        "components": sorted({c["kind"] for j in geometry for c in items[j]["components"]}),
+        "overrides": sorted({m for j in geometry for _, m in items[j]["overrides"]}),
+        "masks": sorted({light["mask"] for light in lights}),
+        "lights_inside": sum(light["parent"] is not None for light in lights),
+        "caps": sorted(k for k in ("maxsteps", "maxpathlength")
+                       if options[k] not in (None, 1000)),
+        "recorders": sorted({"facet" if r["facet"] else "no facet" for r in recs}),
+        "nodes": len(geometry) + 1,
+    }
+    return {"radius": radius, "items": items, "geometry": geometry, "lights": lights,
+            "rays": (np.array(starts[:RANDOM_RAYS]), np.array(dirs[:RANDOM_RAYS])),
+            "options": options, "features": features, "faces": shared}
+
+
+def _random_component(p, spec, x):
+    name, alpha = spec["name"], spec["alpha"]
+    if spec["kind"] == "absorber":
+        return p.Absorber(alpha, name=name)
+    if spec["kind"] == "reactor":
+        return p.Reactor(alpha, name=name)
+    if spec["kind"] == "isotropic":
+        return p.Scatterer(alpha, name=name)
+    if spec["kind"] == "hg":
+        return p.Scatterer(alpha, phase_function=p.HenyeyGreenstein(spec["g"]), name=name)
+    if spec["lumogen"]:
+        absorption = p.lumogen_f_red_305.absorption(x)
+        emission = p.lumogen_f_red_305.emission(x)
+    else:
+        absorption = np.exp(-0.5 * ((x - spec["centre"]) / 25.0) ** 2)
+        emission = np.exp(-0.5 * ((x - spec["centre"] - spec["shift"]) / 30.0) ** 2)
+    return p.Luminophore(coefficient=np.column_stack((x, alpha * absorption)),
+                         emission=np.column_stack((x, emission)),
+                         quantum_yield=spec["qy"], name=name)
+
+
+def _build_random(p, plan, matched, probes=()):
+    """The scene of `plan` (``_random_plan``) from the classes of `p`, with
+    the probe recorders `probes` (``_probe_pairs``)."""
+    extra = {}
+    for pair in probes:
+        for node, name, event, facet in pair:
+            extra.setdefault(node, []).append(
+                p.Recorder(name, event=event, facet=facet, atol=1e-3))
+    x = np.arange(400, 801, dtype=float)
+    world = p.Node(name="world", geometry=p.Sphere(
+        radius=plan["radius"], material=p.Material(refractive_index=1.0)))
+    made = []
+    for item in plan["items"]:
+        parent = world if item["parent"] is None else made[item["parent"]]
+        if item["kind"] == "group":
+            made.append(p.Node(name=item["name"], parent=parent))
+            made[-1].pose = item["pose"]
+            continue
+        surface = None
+        if item["overrides"] and not matched:
+            surface = p.Surface(p.FacetOverrideSurfaceDelegate([
+                p.FacetOverride(normal, (p.OVERRIDE_MIRROR, p.OVERRIDE_ABSORB,
+                                         p.OVERRIDE_LAMBERTIAN_MIRROR)[mode], atol=1e-3)
+                for normal, mode in item["overrides"]]))
+        material = p.Material(
+            refractive_index=1.0 if matched else item["n"], surface=surface,
+            components=[] if matched else [_random_component(p, c, x)
+                                           for c in item["components"]])
+        kind, dims = item["kind"], item["dims"]
+        if kind == "box":
+            geometry = p.Box(dims, material=material)
+        elif kind == "sphere":
+            geometry = p.Sphere(radius=dims[0], material=material)
+        elif kind == "cylinder":
+            geometry = p.Cylinder(length=dims[0], radius=dims[1], material=material)
+        else:
+            v, f = _MESHES[kind]
+            geometry = p.Mesh((v * dims[0], f), material=material)
+        node = p.Node(name=item["name"], geometry=geometry, parent=parent)
+        node.pose = item["pose"]
+        node.recorders = [
+            p.Recorder(r["name"], event=r["event"], facet=r["facet"], atol=1e-3,
+                       histograms=[p.Histogram("wavelength", 400.0, 800.0, 20)]
+                       if r["histogram"] else [])
+            for r in item["recorders"]] + extra.get(item["name"], [])
+        made.append(node)
+    for light in plan["lights"]:
+        e = light["extent"]
+        position = {"point": None, "rectangle": p.RectangularMask(e, e),
+                    "circle": p.CircularMask(e), "cube": p.CubeMask(e, e, e)}[light["mask"]]
+        theta = np.radians(light["theta"])
+        direction = (p.lambertian if light["lambertian"]
+                     else p.Cone(theta) if light["cone_class"]
+                     else functools.partial(p.cone, theta))
+        wavelength = (p.SpectrumWavelengthMask(p.Distribution(
+            x, np.exp(-0.5 * ((x - light["wavelength"]) / 20.0) ** 2)))
+            if light["spectrum"] else p.ConstantWavelengthMask(light["wavelength"]))
+        parent = world if light["parent"] is None else made[light["parent"]]
+        node = p.Node(name=light["name"], parent=parent, light=p.Light(
+            position=position, direction=direction, wavelength=wavelength, name=light["name"]))
+        node.pose = light["pose"]
     return p.Scene(world)
