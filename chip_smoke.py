@@ -252,8 +252,9 @@ width. Phases, one line each:
 36. float64 (``tracer_f64``): each float64 entry against the float64
     twin on the card at 2**20 (pvt_emit, pvt_step for 8 steps, pvt_cheb
     in both placements, pvt_draws bit for bit, pvt_tally with 32 and 256
-    recorders, pvt_mesh; pvt_trace on the slab, with 32 and 256
-    recorders, the mesh LSC and the host-lit slab's bundle: fates and
+    recorders, pvt_mesh; pvt_trace on the slab (and on its table lerp,
+    K5b), with 32 and 256 recorders, the mesh LSC and the host-lit slab's
+    bundle: fates and
     integer tallies within ``check.F64_PARTED``, sums within the float64
     summation bound; the event log at record_every=1 on 2**14 photon by
     photon, at most F64_PARTED parted, and its pvt_log_pack, and
@@ -279,8 +280,9 @@ width. Phases, one line each:
     score=True)``, ``LSC.gradient`` (concentration and n) and
     ``simulate_checkpointed(score=True)`` (its sums against runs of 2**24
     within the float64 accumulation bound), each in float64, launches read
-    around it (the float64 builds' alone, no eager run), photons/s beside
-    phases 18's, 23's, 29's and 31's float32 figures; and
+    around it (the float64 builds' alone, no eager run), photons/s and
+    kernel ms beside phases 18's, 23's, 29's and 31's float32 figures, with
+    where a block put its rows and the K5a table; and
     ``optimize_concentration`` for two iterations.
 
 38. random scenes (``scenes.random_scene``, seeds 0-31, each under its own
@@ -1030,8 +1032,17 @@ def float64_phases(smi, f32_rates):
     mesh_scene = mesh_lsc()
     st_mesh = tensors(mesh_scene)
     mesh_rep = check.check_mesh(st_mesh, 1, N_CHECK, seed=36)
+    # The table lerp (K5b) in float64: the slab's tensors without its fits.
+    os.environ["PVTRACE_TPU_NO_CHEB"] = "1"
+    try:
+        st_b = tensors(lsc_slab())
+    finally:
+        os.environ.pop("PVTRACE_TPU_NO_CHEB", None)
+    if st_b["meta"]["cheb_spec"] or st_b["meta"]["cheb_icdf"]:
+        fail(f"phase 36: PVTRACE_TPU_NO_CHEB=1 left K5a on: {st_b['meta']}")
     traces = {label: check.check_trace(st_t, seed, N_CHECK) for label, st_t in (
-        ("slab", st), ("slab R=32", st32), ("slab R=256", st256), ("mesh LSC", st_mesh))}
+        ("slab", st), ("slab K5b", st_b), ("slab R=32", st32), ("slab R=256", st256),
+        ("mesh LSC", st_mesh))}
     for label, rep in traces.items():
         if rep["max_abs_err"] > tol or rep["tally_max_diff"] > tol:
             fail(f"phase 36 {label}: fates or tallies off by more than {tol}")
@@ -1177,8 +1188,8 @@ def float64_gradient_phases(smi, f32):
     """Phase 37 on the card: the float64 builds of K12, K13 and K15
     (``score_f64``, ``pathwise_f64``, ``diff_f64``) against the float64
     twin, entry by entry, then the float64 gradient paths at full width.
-    `f32` holds the float32 photons/s of phases 18, 23, 29 and 31 by path.
-    Returns (the kernels line's rows of the float64 gradient entries, a
+    `f32` holds the float32 (photons/s, kernel ms) of phases 18, 23, 29
+    and 31 by path. Returns (the kernels line's rows of the float64 gradient entries, a
     summary)."""
     import numpy as np
     import torch
@@ -1298,17 +1309,24 @@ def float64_gradient_phases(smi, f32):
                 or launched64["pvt_trace"] != launched["pvt_trace"]:
             fail(f"phase 37 {label}: launches {launched}, float64 launches {launched64}, eager "
                  f"runs {tracer.eager_runs}")
+        rate32, ms32 = f32[rate_of]
         run = {"n": N_MAIN, "seconds": seconds, "photons_per_s": N_MAIN / seconds,
                "launches_f64": launched64[name], "launched64": launched64,
-               "kernel_ms": kernels.launch_ms[name],
+               "kernel_ms": kernels.launch_ms[name], "float32_kernel_ms": ms32,
                "shared_rows": kernels.last_trace["shared_rows"],
-               "library": kernels.last_trace["library"], "float32_photons_per_s": f32[rate_of]}
+               "shared_cheb": kernels.last_trace["shared_cheb"],
+               "shared_bytes": kernels.last_trace["shared_bytes"],
+               "threads": kernels.last_trace["threads"],
+               "library": kernels.last_trace["library"], "float32_photons_per_s": rate32}
         print(
             f"phase 37 float64 {label}: {N_MAIN} photons in {seconds:.4f} s, "
-            f"{run['photons_per_s']:.6g} photons/s (float32, {rate_of}: {f32[rate_of]:.6g}, "
-            f"ratio {f32[rate_of] / run['photons_per_s']:.3f}), {want} {name} launches of "
-            f"{run['library']} ({run['kernel_ms']:.2f} ms, rows in shared memory: "
-            f"{run['shared_rows']}), eager runs 0 | {smi}", flush=True)
+            f"{run['photons_per_s']:.6g} photons/s (float32, {rate_of}: {rate32:.6g}, "
+            f"ratio {rate32 / run['photons_per_s']:.3f}), {want} {name} launches of "
+            f"{run['library']}: kernel {run['kernel_ms']:.2f} ms (float32 {ms32:.2f} ms, ratio "
+            f"{run['kernel_ms'] / ms32:.3f}); {run['threads']} threads in blocks of "
+            f"{kernels.score_block(F64)}, a block's {run['shared_bytes']} shared bytes, rows in "
+            f"shared memory: {run['shared_rows']}, K5a table in shared memory: "
+            f"{run['shared_cheb']}; eager runs 0 | {smi}", flush=True)
         return run, out
 
     full = {}
@@ -1374,7 +1392,8 @@ def float64_gradient_phases(smi, f32):
                         "LSC.gradient(wrt='n', dtype=float64)"]
     surrogate = ["absorbed_fraction_fn (float64)", "make_training_step (float64)"]
     summary = {k: {q: v[q] for q in ("photons_per_s", "float32_photons_per_s", "kernel_ms",
-                                     "launches_f64", "seconds", "shared_rows")}
+                                     "float32_kernel_ms", "launches_f64", "seconds",
+                                     "shared_rows", "shared_cheb")}
                for k, v in full.items()}
     rows = [
         ("pvt_score", score_rep, full["gradient path"]["launched64"]["pvt_score"],
@@ -2248,7 +2267,7 @@ def main():
     mesh_score_launches = dict(kernels.launches)
     if mesh_score_launches["pvt_trace_score"] != 1 or tracer.eager_runs:
         fail(f"mesh LSC score run did not go through pvt_trace_score: {mesh_score_launches}")
-    mesh_score_rate = N_MAIN / res.elapsed
+    mesh_score_rate, mesh_score_ms = N_MAIN / res.elapsed, kernels.last_trace["ms"]
     rec_scores = np.asarray(res.data["rec_scores"])
     print(
         f"phase 18 mesh LSC with score: {N_MAIN} photons, {res.elapsed:.4f} s, "
@@ -2786,6 +2805,7 @@ def main():
         wall = time.perf_counter() - tic
         launches = dict(kernels.launches)
         name = "pvt_trace_score" if score else "pvt_trace"
+        kernel_ms = kernels.launch_ms[name]
         if partial.traced != 3 * N_BUNDLE or not resumed.complete or resumed.bundle != N_BUNDLE \
                 or launches[name] != -(-N_MAIN // N_BUNDLE) or tracer.eager_runs:
             fail(f"simulate_checkpointed, {label}: traced {partial.traced}, then "
@@ -2808,7 +2828,7 @@ def main():
             saves.append(time.perf_counter() - tic)
         rep = {"wall_s": wall, "elapsed_s": resumed.elapsed, "save_s": saves,
                "photons_per_s": N_MAIN / wall, "launches": launches[name],
-               "fates": resumed._fates.tolist()}
+               "kernel_ms": kernel_ms, "fates": resumed._fates.tolist()}
         if score:
             rep["sums_used"] = max(
                 check.check_chunk_scores(st, rng.key_words(29), {"fates": r._fates,
@@ -2948,10 +2968,11 @@ def main():
         "main path": rate, "recorders R=32": rec_rates[32], "mesh": full["mesh"]["photons_per_s"],
         "history": full["mesh, record_every=1000"]["photons_per_s"], "host emission": host_rate})
     grad64_rows, grad64_summary = float64_gradient_phases(smi, {
-        "phase 18": grad_rate, "phase 23": path_rate, "phase 18 mesh": mesh_score_rate,
-        "phase 31 concentration": lsc_grads["concentration"]["photons_per_s"],
-        "phase 31 n": lsc_grads["n"]["photons_per_s"],
-        "phase 29": ckpt["slab, score"]["photons_per_s"]})
+        "phase 18": (grad_rate, grad_kernel_ms), "phase 23": (path_rate, path_kernel_ms),
+        "phase 18 mesh": (mesh_score_rate, mesh_score_ms),
+        **{f"phase 31 {w}": (lsc_grads[w]["photons_per_s"], lsc_grads[w]["kernel_ms"])
+           for w in ("concentration", "n")},
+        "phase 29": (ckpt["slab, score"]["photons_per_s"], ckpt["slab, score"]["kernel_ms"])})
     random_summary = random_scene_phases(smi)
     tic = time.perf_counter()
     lsc_cpu_checks(smi, lsc_cards, lsc_grads, finish_lsc_twins(twins))

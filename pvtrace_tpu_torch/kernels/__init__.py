@@ -59,6 +59,8 @@ last_cheb = {"shared_cheb": 0}
 last_pack = {"events": None}
 # A trace block's threads (tracer.cuh's kBlock).
 BLOCK = 256
+# The float64 build's score and pathwise trace blocks' (kScoreBlockF64).
+SCORE_BLOCK_F64 = 128
 # tracer.cuh's kWarpGroup: pvt_tally, and pvt_trace's launch with
 # recorders alone, add a scene's recorder events by the warp rule
 # (tally_warp) when one of its facet groups holds more recorders than
@@ -774,6 +776,12 @@ def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
         ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
         ctypes.byref(desc) if score else None, info)
     return _placement(info)
+
+
+def score_block(dtype):
+    """Threads of a score or pathwise trace block in the build of `dtype`
+    (tracer.cuh's kScoreBlock): the stride of a block's shared rows."""
+    return SCORE_BLOCK_F64 if dtype == torch.float64 else BLOCK
 
 
 def resident_threads(device, threads):

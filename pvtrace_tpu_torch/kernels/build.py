@@ -12,8 +12,15 @@ a hash of the sources and flags, so a build happens at first use and
 again only when a source changes; ``build_all`` starts one nvcc per
 library, all at once. Run ``python -m pvtrace_tpu_torch.kernels.build``
 to build ahead of use and print nvcc's registers, stack frame and spills
-of every function (``ptxas_rows``).
+of every function (``ptxas_rows``); with ``--against DIR`` it builds
+every library from this checkout's ``csrc/`` and from DIR (another
+checkout's, e.g. a ``git archive`` of the parent) into a temporary
+directory and prints, library by library, whether nvcc's report and the
+device code (``cuobjdump -sass``, the anonymous namespace's tag, which
+nvcc derives from the source's path, masked) are equal, and each
+function whose report differs.
 """
+import argparse
 import hashlib
 import os
 import re
@@ -56,13 +63,14 @@ def library_path(name="tracer"):
     return BUILD_DIR / f"{prefix}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name):
-    """Start nvcc on library `name` into a temporary file: (process, tmp, cmd)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+def _start(name, csrc=CSRC, directory=BUILD_DIR):
+    """Start nvcc on library `name` of the sources in `csrc` into a
+    temporary file in `directory`: (process, tmp, cmd)."""
+    directory.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=directory)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, *LIBRARY_FLAGS.get(name, ()), "-o", tmp,
-           str(CSRC / LIBRARIES[name])]
+           str(Path(csrc) / LIBRARIES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, cmd
 
@@ -135,7 +143,47 @@ def ptxas_rows(report):
     return [(short_name(f), regs.get(f), *frames.get(f, (0, 0, 0))) for f in order]
 
 
+def device_code(path):
+    """The SASS of the library at `path` (``cuobjdump -sass``) with the
+    anonymous namespace's path-derived tag masked."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    return re.sub(r"_GLOBAL__N__[0-9a-f]{8}", "_GLOBAL__N__", text)
+
+
+def compare(other):
+    """Builds every library from CSRC and from `other` (a csrc directory),
+    one nvcc each, all at once, and prints whether each library's nvcc
+    report and device code are equal, and the rows that differ."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = {(label, name): _start(name, csrc, Path(tmp)) for label, csrc in
+                (("this", CSRC), ("other", Path(other))) for name in LIBRARIES}
+        rows, code = {}, {}
+        for key, (proc, so, cmd) in jobs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            rows[key], code[key] = ptxas_rows(out), device_code(so)
+        for name in LIBRARIES:
+            a, b = rows["this", name], rows["other", name]
+            same_code = code["this", name] == code["other", name]
+            print(f"{name}: {len(a)} functions, nvcc report "
+                  f"{'equal' if sorted(a) == sorted(b) else 'differs'}, device code "
+                  f"{'equal' if same_code else 'differs'}", flush=True)
+            for row in sorted(set(a) ^ set(b)):
+                print(f"  {'this' if row in a else 'other'}: {row[0]} {row[1]}/{row[2]}/{row[3]}/"
+                      f"{row[4]}")
+
+
 if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", default=None, help="another checkout's csrc directory")
+    args = parser.parse_args()
+    if args.against:
+        compare(args.against)
+        raise SystemExit(0)
     for name, (path, report) in build_all().items():
         print(path)
         for fn, regs, stack, stores, loads in ptxas_rows(report or ""):

@@ -22,6 +22,15 @@ namespace {
 // tracer.cuh.
 constexpr int kMinBlocks = 2;
 
+// The score and pathwise instantiations' blocks an SM, of kScoreBlock
+// threads (tracer.cuh): the float64 build's kScoreMinBlocksF64, else
+// kMinBlocks of kBlock as every other instantiation.
+#ifdef PVT_F64
+constexpr int kScoreMinBlocks = kScoreMinBlocksF64;
+#else
+constexpr int kScoreMinBlocks = kMinBlocks;
+#endif
+
 bool bins_fit_shared(const PvtScene& sc) {
   return tally_bytes(sc, true) <= kSharedTallyLimit;
 }
@@ -72,15 +81,15 @@ __device__ void tally_block_flush(const PvtScene& sc, const PvtTally& acc,
 // A thread's K12 view: its own rows and the block's float64 accumulators,
 // zeroed in shared memory at `smem` (s.shared) or the totals themselves
 // (the caller synchronises). Its rows are the block's shared copy at
-// `rows` (s.shared_rows; stride kBlock), or column `lane` of s.rows and
+// `rows` (s.shared_rows; stride kScoreBlock), or column `lane` of s.rows and
 // s.tang, the global thread `lane` of the launch (stride s.stride).
 __device__ ScoreAcc score_block_init(const PvtScene& sc, const PvtScore& s, unsigned char* smem,
                                      unsigned char* rows, long long lane) {
   ScoreAcc a;
   if (s.shared_rows) {
     a.row = reinterpret_cast<pvt_real*>(rows) + threadIdx.x;
-    a.stride = kBlock;
-    a.tang = a.row + (size_t)s.ch * kBlock;
+    a.stride = kScoreBlock;
+    a.tang = a.row + (size_t)s.ch * kScoreBlock;
   } else {
     a.row = s.rows + lane;
     a.stride = s.stride;
@@ -172,8 +181,10 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // through, costs less than waiting for more lanes to refill together
 // would. Past that the step itself bounds it: its arithmetic, divergence
 // inside step_one (lanes hold photons at different stages) and registers
-// (128 a thread at two blocks an SM); with score channels and no
-// recorders, the fold's float64 shared-memory atomics (PERF.md, section 6).
+// (128 a thread at two blocks an SM; the float64 score and pathwise
+// instantiations 96 at five blocks of 128, kScoreBlock); with score
+// channels and no recorders, the fold's float64 shared-memory atomics
+// (PERF.md, section 6).
 //
 // Fates, steps and turns stay in registers, are reduced per block in
 // shared memory and added to the int64 counters, one atomic each. With
@@ -214,7 +225,8 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // spills of nearly all of them (PERF.md, section 6).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
           bool kBundle = false, bool kWarpTally = false>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+__global__ void __launch_bounds__(kScore ? kScoreBlock : kBlock,
+                                  kScore ? kScoreMinBlocks : kMinBlocks)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
@@ -296,8 +308,9 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 }
 
 // One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore,
-// kPath, kBundle, kWarpTally>, sized to the card's resident capacity (see pvt_trace),
-// and with scores to at most score.stride threads (the rows there are).
+// kPath, kBundle, kWarpTally>, in blocks of kBlock threads (kScoreBlock with scores),
+// sized to the card's resident capacity (see pvt_trace), and with scores
+// to at most score.stride threads (the rows there are).
 // Without a bundle every photon is emitted on the device, which a scene
 // without device lights cannot do: refused. info gets the thread count, a
 // block's dynamic shared memory, and whether the recorder bins, the score
@@ -313,6 +326,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          long long* info, cudaStream_t stream) {
   // A photon without a bundle row is emitted from light pid % n_lights.
   if (kBundle ? !bundle.rows : sc.n_lights <= 0) return cudaErrorInvalidValue;
+  constexpr int threads = kScore ? kScoreBlock : kBlock;
   const TraceLayout L = trace_layout(sc, kTally, kScore ? &given : nullptr);
   const int shared_bins = L.shared_bins, cheb_at = L.cheb_at;
   const size_t bytes = L.bytes;
@@ -328,16 +342,16 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   const auto kernel = trace_kernel<kTally, kLog, kMesh, kScore, kPath, kBundle, kWarpTally>;
   if (err == cudaSuccess && bytes > 0) err = allow_shared(kernel, bytes);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
   if (err != cudaSuccess) return err;
   long long blocks = (long long)sms * per_sm;
-  long long wanted = grid_for(max_threads);
-  if (kScore && score.stride / kBlock < wanted) wanted = score.stride / kBlock;
+  long long wanted = (max_threads + threads - 1) / threads;
+  if (kScore && score.stride / threads < wanted) wanted = score.stride / threads;
   if (wanted < blocks) blocks = wanted;
   if (blocks < 1) return cudaErrorInvalidValue;
-  info[0] = blocks * kBlock;
+  info[0] = blocks * threads;
   layout_info(L, info);
-  kernel<<<(unsigned int)blocks, kBlock, bytes, stream>>>(sc, s0, s1, total, next, fates,
+  kernel<<<(unsigned int)blocks, threads, bytes, stream>>>(sc, s0, s1, total, next, fates,
                                                            max_count, steps, tally, shared_bins,
                                                            lg, score, bundle, cheb_at, L.tris_at);
   return cudaGetLastError();

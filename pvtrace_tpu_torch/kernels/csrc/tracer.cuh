@@ -545,21 +545,43 @@ struct ScoreAcc {
 
 // ---------------------------------------------------------------------
 // What a block of the trace kernel shares, and where. Its dynamic shared
-// memory holds, in this order and each while it fits kSharedTallyLimit
-// after the ones before it: the recorder tallies (K9), the float64 score
-// sums (K12), its threads' score and tangent rows (K12, K13), the K5a
-// table, the mesh triangles (K10). What does not fit stays in device
-// memory, read and written by the same code through the same generic
-// pointers. Host-callable: the
-// launch, pvt_layout (tracer.cu) and the host build's tests share it.
+// memory holds, in this order and each while it fits its budget
+// (kSharedTallyLimit, or kScoreSharedLimit) after the ones before it: the
+// recorder tallies (K9), the float64 score sums (K12), its threads' score
+// and tangent rows (K12, K13), the K5a table, the mesh triangles (K10).
+// What does not fit stays in device memory, read and written by the same
+// code through the same generic pointers. Host-callable: the launch,
+// pvt_layout (tracer.cu) and the host build's tests share it.
 
-// Threads of a block, in every kernel of the port.
+// Threads of a block, in every kernel of the port but the float64 build's
+// score and pathwise trace kernels (kScoreBlock).
 constexpr int kBlock = 256;
 // A block's shared budget: two blocks of 256 threads are resident per SM
 // (kMinBlocks, trace_kernel.cuh), and 2 x 96 KB fits the SM's 228 KB.
 // Larger recorder bin sets (big heatmaps) go straight to 64-bit atomics in
 // device memory.
 constexpr size_t kSharedTallyLimit = 96 * 1024;
+
+// The float64 build's score and pathwise trace kernels (K12, K13): blocks
+// of kScoreBlockF64 threads, kScoreMinBlocksF64 of them resident an SM:
+// five warps on each of the SM's four schedulers, whose 16,384 registers
+// leave a thread 96 (in steps of 8). Their doubles take two registers
+// each: at two blocks of 256 threads (128 registers) they spilled up to
+// 1,248 bytes a thread, and one block of 256 (255 registers, no spill)
+// ran 1.29-1.56 times slower than that; 20 warps an SM that spill more
+// hide the float64 pipe's latency better than 16 (an A/B on the H100;
+// PERF.md, section 6). A block's budget is then the SM's 228 KB over five
+// blocks, less the 1 KB the card keeps for each: 44 KB. The float32 build
+// keeps kBlock, kMinBlocks and kSharedTallyLimit.
+constexpr int kScoreBlockF64 = 128;
+constexpr int kScoreMinBlocksF64 = 5;
+#ifdef PVT_F64
+constexpr int kScoreBlock = kScoreBlockF64;
+constexpr size_t kScoreSharedLimit = (228 / kScoreMinBlocksF64 - 1) * 1024;
+#else
+constexpr int kScoreBlock = kBlock;
+constexpr size_t kScoreSharedLimit = kSharedTallyLimit;
+#endif
 
 // Bytes of a block's K9 accumulators: crossings u32 [R], sums [8R] of
 // pvt_real, distinct u32 [R], then the bins u32 [total_bins] when they are
@@ -581,11 +603,12 @@ PVT_FN size_t score_bytes(const PvtScene& sc, const PvtScore& s) {
 }
 
 // `s` with its `shared` decided: the block's score sums go to shared
-// memory when they fit there after `offset` bytes of tallies.
-PVT_FN PvtScore score_placed(const PvtScene& sc, const PvtScore& s, size_t offset) {
+// memory when they fit its budget `limit` after `offset` bytes of tallies.
+PVT_FN PvtScore score_placed(const PvtScene& sc, const PvtScore& s, size_t offset,
+                             size_t limit = kSharedTallyLimit) {
   PvtScore placed = s;
   placed.shared = 1;
-  placed.shared = offset + score_bytes(sc, placed) <= kSharedTallyLimit ? 1 : 0;
+  placed.shared = offset + score_bytes(sc, placed) <= limit ? 1 : 0;
   return placed;
 }
 
@@ -595,10 +618,10 @@ PVT_FN size_t score_offset(const PvtScene& sc, bool tally, int shared_bins) {
 }
 
 // Bytes of a block's rows: score [ch] and tangents [n_path, 7] for each
-// of its threads, thread-minor (thread t's channel c at c * kBlock + t, so
-// a warp's accesses fall in 32 banks).
+// of its kScoreBlock threads, thread-minor (thread t's channel c at c *
+// kScoreBlock + t, so a warp's accesses fall in 32 banks).
 PVT_FN size_t rows_bytes(const PvtScore& s) {
-  return sizeof(pvt_real) * (size_t)kBlock * ((size_t)s.ch + 7 * (size_t)s.n_path);
+  return sizeof(pvt_real) * (size_t)kScoreBlock * ((size_t)s.ch + 7 * (size_t)s.n_path);
 }
 
 // Offset of the rows: after the score sums (s.shared placed), 16-byte
@@ -629,29 +652,31 @@ struct TraceLayout {
 
 // The placement of a launch with recorders (`tally`) and score channels
 // (`score`, null for none; its `shared_rows` says whether the rows may be
-// placed). The rows take the budget before the K5a table: where only one
-// of the two fits, the rows in shared memory ran faster (an A/B on the
-// H100; PERF.md).
+// placed), within the budget of its kernel's block (kScoreSharedLimit
+// with scores). The rows take the budget before the K5a table: where only
+// one of the two fits, the rows in shared memory ran faster (an A/B on
+// the H100; PERF.md).
 PVT_FN TraceLayout trace_layout(const PvtScene& sc, bool tally, const PvtScore* score) {
+  const size_t limit = score ? kScoreSharedLimit : kSharedTallyLimit;
   TraceLayout L;
-  L.shared_bins = tally && tally_bytes(sc, true) <= kSharedTallyLimit ? 1 : 0;
+  L.shared_bins = tally && tally_bytes(sc, true) <= limit ? 1 : 0;
   L.shared_scores = L.shared_rows = 0;
   size_t end = tally ? tally_bytes(sc, L.shared_bins) : 0;
   if (score) {
     const size_t at = score_offset(sc, tally, L.shared_bins);
-    const PvtScore s = score_placed(sc, *score, at);
+    const PvtScore s = score_placed(sc, *score, at, limit);
     L.shared_scores = s.shared;
     end = at + score_bytes(sc, s);
     const size_t rows_at = rows_offset(sc, tally, L.shared_bins, s);
-    L.shared_rows = score->shared_rows && rows_at + rows_bytes(s) <= kSharedTallyLimit ? 1 : 0;
+    L.shared_rows = score->shared_rows && rows_at + rows_bytes(s) <= limit ? 1 : 0;
     if (L.shared_rows) end = rows_at + rows_bytes(s);
   }
   const size_t cheb_start = (end + 15) / 16 * 16;
-  const bool cheb = cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= kSharedTallyLimit;
+  const bool cheb = cheb_bytes(sc) > 0 && cheb_start + cheb_bytes(sc) <= limit;
   L.cheb_at = cheb ? (int)cheb_start : -1;
   if (cheb) end = cheb_start + cheb_bytes(sc);
   const size_t tris_start = (end + 15) / 16 * 16;
-  const bool tris = sc.n_tris > 0 && tris_start + tris_bytes(sc) <= kSharedTallyLimit;
+  const bool tris = sc.n_tris > 0 && tris_start + tris_bytes(sc) <= limit;
   L.tris_at = tris ? (int)tris_start : -1;
   L.bytes = tris ? tris_start + tris_bytes(sc) : end;
   return L;

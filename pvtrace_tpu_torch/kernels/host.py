@@ -303,6 +303,15 @@ void h_log_pack(const PvtLog* lg, const long long* offsets, int* ints, pvt_real*
 void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
   layout_info(trace_layout(*sc, tally != 0, score), info);
 }
+// The build's block shapes and shared budgets: kBlock, kScoreBlock,
+// kScoreMinBlocksF64, kSharedTallyLimit, kScoreSharedLimit.
+void h_block_shape(long long* out) {
+  out[0] = kBlock;
+  out[1] = kScoreBlock;
+  out[2] = kScoreMinBlocksF64;
+  out[3] = (long long)kSharedTallyLimit;
+  out[4] = (long long)kScoreSharedLimit;
+}
 void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
                 long long B, const PvtPath* pw, int* comp) {
   for (long long i = 0; i < B; ++i) pathwise_lane(*sc, *in, *out, *fl, i, B, *pw, comp);
@@ -371,6 +380,7 @@ def build_library(directory, f64=False):
     h.h_trace_warp.argtypes = [vp, u32, u32, u64, u64, i32, vp, vp, vp, vp, vp, vp, vp, vp,
                                i32, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
     h.h_layout.argtypes = [vp, i32, vp, vp]
+    h.h_block_shape.argtypes = [vp]
     h.h_log_pack.argtypes = [vp, vp, vp, vp]
     h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
@@ -379,7 +389,7 @@ def build_library(directory, f64=False):
     entries = [h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
                h.h_tally_warp, h.h_trace, h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score,
                h.h_trace_score_bundle, h.h_trace_score_rows, h.h_trace_warp, h.h_layout,
-               h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel, h.h_absorbed]
+               h.h_block_shape, h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel, h.h_absorbed]
     for fn in entries:
         fn.restype = None
     return h

@@ -17,7 +17,8 @@ together, into a temporary directory under ``_build/``; ``--sass`` also
 prints, from ``cuobjdump -sass``, each function's instruction count and
 its count of each opcode of SASS_OPS (local-memory loads and stores,
 shared-memory atomics, the integer adds, logic and shifts of the ALU pipe
-against the multiply-adds of the FMA pipe, global and shared loads).
+against the multiply-adds of the FMA pipe, global and shared loads, the
+float64 pipe's multiply-adds, products and sums).
 Then every run of the library's (the slab at 2**20 and at its path's
 full size, K5b, the mesh LSC without and with the event log (at
 ``record_every`` 1000 and 1), recorders up to 256 and the heatmap's
@@ -86,8 +87,11 @@ RUNS = {
     "score": (
         ("slab", lsc_slab, 1 << 20, False, False, 1),
         ("slab", lsc_slab, 1 << 24, False, False, 1),
+        ("slab", lsc_slab, 1 << 27, False, False, 1),
         ("mesh LSC", mesh_lsc, 1 << 22, False, False, 1),
+        ("mesh LSC", mesh_lsc, 1 << 27, False, False, 1),
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 22, False, False, 1),
+        ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 22, False, False, 1),
     ),
 }
 RUNS["pathwise"] = RUNS["score"]
@@ -96,7 +100,7 @@ for _kind in ("tracer", "score", "pathwise"):
 PATHWISE = {"mesh LSC": [("n", "plate")]}
 SLAB_PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
 SASS_OPS = ("LDL", "STL", "ATOMS", "IADD3", "LOP3", "SHF", "IMAD", "IMAD.IADD", "FFMA", "MUFU",
-            "SHFL", "LDG", "LDS", "BRA")
+            "SHFL", "LDG", "LDS", "BRA", "DFMA", "DMUL", "DADD")
 
 
 def _sources(directory, name=None, value=None):
@@ -118,7 +122,8 @@ def _sources(directory, name=None, value=None):
 def build_variants(variants, lib, flags=()):
     """{label: csrc directory} built into library `lib` (nvcc `flags`
     added), one nvcc each, all at once: {label: (loaded library, its
-    path)}."""
+    path)}. Prints each build's registers, stack and spills of every
+    trace instantiation (nvcc's report)."""
     jobs = {}
     for label, csrc in variants.items():
         path = csrc / f"lib{lib}.so"
@@ -131,6 +136,9 @@ def build_variants(variants, lib, flags=()):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{out}")
+        print(f"ptxas {lib} {label}: " + "; ".join(
+            f"{fn} {regs}/{stack}/{stores}/{loads}" for fn, regs, stack, stores, loads
+            in build.ptxas_rows(out) if fn.startswith("trace_kernel")), flush=True)
         handle = ctypes.CDLL(str(path))
         for entry, argtypes in kernels._ENTRIES[lib].items():
             if not hasattr(handle, entry):
@@ -288,7 +296,7 @@ def main():
         if kind == "pathwise":
             run["pathwise"] = transport.resolve_pathwise_params(
                 compiled, PATHWISE.get(label, SLAB_PATHWISE))
-        ms, eff, fates, sums, steps = {v: [] for v in libs}, {}, {}, {}, {}
+        ms, eff, fates, sums, steps, placed = {v: [] for v in libs}, {}, {}, {}, {}, {}
         R = st["meta"]["n_rec"]
         for r in range(args.rounds):
             # Every other round in the reverse order, so no build always goes first.
@@ -299,6 +307,7 @@ def main():
                 eff[v] = kernels.last_trace["lane_efficiency"] \
                     if kernels.last_trace["lane_steps"] else float("nan")
                 steps[v] = (kernels.last_trace["total_steps"], kernels.last_trace["lane_steps"])
+                placed[v] = {k: kernels.last_trace[k] for k in kernels._PLACEMENT}
                 fates[v] = (got.cpu().tolist(), longest,
                             *(t[k][:R].cpu().tolist() for k in ("distinct", "cross")),
                             t["bins"].cpu().tolist())
@@ -309,7 +318,8 @@ def main():
                          / first_sums.abs().clamp(min=1e-30)).max()) if R else 0.0
             bad = fates[v] != first or rel > runs_rtol
             print(f"{args.lib} {label}, {n} photons, {v}: kernel ms {ms[v]}, lane efficiency "
-                  f"{eff[v]:.4f} (steps {steps[v][0]}, lane-steps {steps[v][1]}), fates "
+                  f"{eff[v]:.4f} (steps {steps[v][0]}, lane-steps {steps[v][1]}), placement "
+                  f"{placed[v]}, fates "
                   f"{fates[v][0]}, longest {fates[v][1]}, distinct {fates[v][2][:8]}, sums "
                   f"within {rel:.3g} of the first build's{' DIFFER' if bad else ''}", flush=True)
             if bad and label not in differ:

@@ -523,11 +523,12 @@ def test_f64_trace_photon_with_scores_matches_twin(h64, make):
     float64 sums by ``check.compare_score_records`` with the float64
     bounds (``check.F64_RTOL``, the slack times ``F64_SLACK``), at
     most ``check.F64_PARTED`` photons parted. The records at the row
-    stride of a block's shared copy (``kernels.BLOCK``) equal those at
-    stride 1 bit for bit, and so do the folds."""
+    stride of a block's shared copy (``kernels.score_block``: 128 threads
+    in the float64 build) equal those at stride 1 bit for bit, and so do
+    the folds."""
     st, seed, n = _f64(make), rng.key_words(5), 4096
     fates, got = host.trace_scores(h64, st, seed, n)
-    block_fates, block = host.trace_scores(h64, st, seed, n, stride=kernels.BLOCK)
+    block_fates, block = host.trace_scores(h64, st, seed, n, stride=kernels.score_block(F64))
     ref, _, t, _ = tracer.trace_eager(st, seed, n, lanes=512, score=True, per_photon=True)
     assert got["photon_scores"].dtype == F64 and t["photon_scores"].dtype == F64
     assert torch.equal(fates, ref), (fates.tolist(), ref.tolist())

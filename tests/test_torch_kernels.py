@@ -631,6 +631,27 @@ def test_float64_score_traces_match_twin_on_card(channels):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("channels", [0, 2], ids=["score", "pathwise"])
+def test_float64_score_traces_take_five_blocks_of_128(channels):
+    """The float64 score and pathwise trace kernels launch in blocks of
+    ``kernels.score_block(torch.float64)`` (128) threads, five resident an
+    SM on the slab (its blocks' shared bytes within the 44 KB budget),
+    where the float32 ones take two blocks of 256."""
+    from pvtrace_tpu_torch.diff.transport import resolve_pathwise_params
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if \
+        torch.cuda.is_available() else 0
+    specs = resolve_pathwise_params(compile_scene(lsc_slab()),
+                                    [("n", "lsc"), ("size", "lsc", 2)][:channels])
+    for dtype, per_sm in ((torch.float64, 5 * 128), (torch.float32, 2 * 256)):
+        st = _cuda_tensors(lsc_slab, dtype)
+        kernels.trace(st, rng.key_words(1), 1 << 20, score=True, pathwise=specs)
+        assert kernels.score_block(dtype) * (5 if dtype == torch.float64 else 2) == per_sm
+        assert kernels.last_trace["threads"] == per_sm * sms, (dtype, kernels.last_trace)
+        assert kernels.last_trace["shared_bytes"] <= (44 if dtype == torch.float64 else 96) * 1024
+
+
+@pytest.mark.gpu
 def test_float64_fate_gradients_launch_score_f64():
     """``fate_gradients(dtype=np.float64)`` on the card runs through
     ``score_f64``'s ``pvt_trace_score``: no eager run, no float32 launch,

@@ -334,13 +334,13 @@ def test_trace_photon_with_pathwise_float64_matches_twin(host_lib64, make, specs
     4096 photons: fates equal; each photon's record and the sums by
     ``check.compare_score_records`` with the float64 bounds, none parted
     or saturated (``check.F64_PARTED`` allowed); the records and
-    folds at the row stride of a block's shared copy (``kernels.BLOCK``)
+    folds at the row stride of a block's shared copy (``kernels.score_block``)
     bit-equal to those at stride 1; with recorders, their rays equal."""
     st, resolved = _f32(make, specs, torch.float64)
     seed, n, C = rng.key_words(5), 4096, len(resolved)
     fates, got = host.trace_scores(host_lib64, st, seed, n, resolved)
     block_fates, block = host.trace_scores(host_lib64, st, seed, n, resolved,
-                                           stride=kernels.BLOCK)
+                                           stride=kernels.score_block(torch.float64))
     ref, _, t, _ = tracer.trace_eager(st, seed, n, score=True, per_photon=True,
                                       pathwise=resolved)
     assert got["photon_scores"].dtype == torch.float64

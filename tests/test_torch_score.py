@@ -351,38 +351,46 @@ def layout_tensors():
 
 
 SHARED_LIMIT = 96 * 1024
+# The float64 build's score and pathwise trace blocks: 128 threads, five
+# an SM, each within the SM's 228 KB over five less 1 KB.
+SCORE_LIMIT_F64 = 44 * 1024
 
 
-def _budget_rule(st, score_, n_path, rows_allowed):
+def _budget_rule(st, score_, n_path, rows_allowed, f64=False):
     """A block's placement by the budget's rule, stated apart from the
     device code: the recorder tallies (40 bytes a recorder, then the bins
     while they fit), the float64 score sums (8-byte aligned), the threads'
     rows (16-byte aligned, 256 threads of CH + 7 n_path floats), the K5a
     table (16-byte aligned), the mesh triangles (16-byte aligned, 48 bytes
     a triangle), each in shared memory while it fits after the ones before
-    it."""
+    it. With `f64`, the float64 build's: 72 bytes a recorder, doubles, 8-byte
+    table words and 96-byte triangles, and with scores 128 threads a block
+    within SCORE_LIMIT_F64."""
     meta = st["meta"]
     R, CH = meta["n_rec"], score.n_channels(st, n_path)
+    real, rec_bytes = (8, 72) if f64 else (4, 40)
+    limit = SCORE_LIMIT_F64 if f64 and score_ else SHARED_LIMIT
+    threads = 128 if f64 else 256
 
     def align(x, a):
         return (x + a - 1) // a * a
 
-    bins = int(R > 0 and 40 * R + 4 * meta["total_bins"] <= SHARED_LIMIT)
-    end = 40 * R + 4 * meta["total_bins"] * bins
+    bins = int(R > 0 and rec_bytes * R + 4 * meta["total_bins"] <= limit)
+    end = rec_bytes * R + 4 * meta["total_bins"] * bins
     sums = rows = 0
     if score_:
         at, size = align(end, 8), 16 * CH * (11 + R)
-        sums = int(at + size <= SHARED_LIMIT)
+        sums = int(at + size <= limit)
         end = at + size * sums
-        at, size = align(end, 16), 4 * 256 * (CH + 7 * n_path)
-        rows = int(rows_allowed and at + size <= SHARED_LIMIT)
+        at, size = align(end, 16), real * threads * (CH + 7 * n_path)
+        rows = int(rows_allowed and at + size <= limit)
         end = at + size if rows else end
-    size = 4 * meta["cheb_words"] if meta["cheb_spec"] or meta["cheb_icdf"] or \
+    size = real * meta["cheb_words"] if meta["cheb_spec"] or meta["cheb_icdf"] or \
         meta["cheb_light"] else 0
-    cheb = int(size > 0 and align(end, 16) + size <= SHARED_LIMIT)
+    cheb = int(size > 0 and align(end, 16) + size <= limit)
     end = align(end, 16) + size if cheb else end
-    size = 48 * meta["n_tris"]
-    tris = int(size > 0 and align(end, 16) + size <= SHARED_LIMIT)
+    size = 12 * real * meta["n_tris"]
+    tris = int(size > 0 and align(end, 16) + size <= limit)
     return {"shared_bytes": align(end, 16) + size if tris else end, "shared_bins": bins,
             "shared_scores": sums, "shared_cheb": cheb, "shared_rows": rows,
             "shared_tris": tris}
@@ -400,6 +408,39 @@ def test_trace_layout_follows_the_budget_rule(host_lib, layout_tensors, scene):
         for rows in (True, False):
             got = kernels.trace_layout(st, score_, n_path, rows, entry=host_lib.h_layout)
             assert got == _budget_rule(st, score_, n_path, rows), (score_, n_path, rows)
+
+
+@pytest.mark.parametrize("scene", list(LAYOUT_SCENES))
+def test_trace_layout_float64_follows_the_budget_rule(host_lib64, scene):
+    """The float64 build's ``trace_layout`` (``score_f64``'s and
+    ``pathwise_f64``'s launches, and ``tracer_f64``'s ``pvt_layout``) places
+    each part of a float64 scene by the budget's rule in its float64 form:
+    without scores within 96 KB as float32's, with score or pathwise
+    channels in blocks of 128 threads within 44 KB (five blocks an SM)."""
+    st = tables.scene_tensors(compile_scene(LAYOUT_SCENES[scene]()), dtype=torch.float64)
+    for score_, n_path in ((False, 0), (True, 0), (True, 1), (True, 2)):
+        for rows in (True, False):
+            got = kernels.trace_layout(st, score_, n_path, rows, entry=host_lib64.h_layout)
+            assert got == _budget_rule(st, score_, n_path, rows, f64=True), \
+                (score_, n_path, rows)
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+def test_block_shape_matches_python(host_lib, host_lib64, f64):
+    """The host build's block shapes and shared budgets (tracer.cuh's
+    kBlock, kScoreBlock, kScoreMinBlocksF64, kSharedTallyLimit,
+    kScoreSharedLimit) are the Python side's: ``kernels.BLOCK``,
+    ``kernels.score_block(dtype)`` (the stride of a block's shared rows) and
+    this file's budgets. The float32 build keeps one shape for every trace
+    kernel."""
+    out = (ctypes.c_longlong * 5)()
+    (host_lib64 if f64 else host_lib).h_block_shape(out)
+    dtype = torch.float64 if f64 else torch.float32
+    assert list(out) == [kernels.BLOCK, kernels.score_block(dtype), 5, SHARED_LIMIT,
+                         SCORE_LIMIT_F64 if f64 else SHARED_LIMIT]
+    assert kernels.score_block(torch.float32) == kernels.BLOCK == 256
+    assert kernels.score_block(torch.float64) == kernels.SCORE_BLOCK_F64 == 128
+    assert (5 * (SCORE_LIMIT_F64 + 1024)) <= 228 * 1024
 
 
 def test_trace_layout_budget(host_lib):
