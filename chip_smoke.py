@@ -991,14 +991,14 @@ def entry_point_phases(smi):
     return reports
 
 
-def float64_phases(smi, f32_rates):
+def float64_phases(smi, f32):
     """Phase 36 on the card: the float64 build (``tracer_f64``) against the
     float64 twin, entry by entry, then ``simulate(dtype=np.float64)`` at
-    full width through the main, recorder, mesh, history and host-emission
-    paths, and a float64 stream against one ``simulate``. `f32_rates` are
-    phase 5's, 11's, 15's
-    and 25's float32 photons/s by path. Returns (the kernels line's rows of
-    the float64 entries, a summary)."""
+    full width through the main, recorder (R = 4, 32), mesh, history and
+    host-emission paths, and a float64 stream against one ``simulate``.
+    `f32` are phase 5's, 11's, 15's and 25's float32 (photons/s, kernel ms)
+    by path. Returns (the kernels line's rows of the float64 entries, a
+    summary)."""
     import numpy as np
     import torch
 
@@ -1100,25 +1100,34 @@ def float64_phases(smi, f32_rates):
         if res.data["rec_sums"].dtype != np.float64 or (
                 record_every and res.data["position"].dtype != np.float64):
             fail(f"phase 36 {label}: results not float64")
+        last = kernels.last_trace
         run = {"n": n, "photons_per_s": n / res.elapsed, "elapsed_s": res.elapsed,
-               "kernel_ms": kernels.last_trace["ms"], "threads": kernels.last_trace["threads"],
-               "lane_efficiency": kernels.last_trace["lane_efficiency"],
-               "shared_bytes": kernels.last_trace["shared_bytes"],
-               "shared_cheb": kernels.last_trace["shared_cheb"], "launches_f64": launched64,
-               "fates": fates.tolist()}
+               "kernel_ms": last["ms"], "threads": last["threads"], "block": last["block"],
+               "lane_efficiency": last["lane_efficiency"], "shared_bytes": last["shared_bytes"],
+               "shared_cheb": last["shared_cheb"], "shared_bins": last["shared_bins"],
+               "shared_tris": last["shared_tris"], "launches_f64": launched64,
+               "fates": fates.tolist(), "float32_kernel_ms": f32[label][1]}
         if record_every:
             run["fetch"] = dict(api.last_fetch)
+        meta = scene_tensors(compiled, dtype=F64, device="cuda")["meta"]
+        held = {"bins": meta["total_bins"], "cheb": meta["cheb_words"], "tris": meta["n_tris"]}
+        where = {k: ("shared" if last[f"shared_{k}"] else "device memory") if held[k] else "none"
+                 for k in held}
         print(
             f"phase 36 float64 {label}: simulate({n}, dtype=float64) {res.elapsed:.4f} s, "
-            f"{run['photons_per_s']:.6g} photons/s (float32: {f32_rates[label]:.6g}, ratio "
-            f"{f32_rates[label] / run['photons_per_s']:.3f}), pvt_trace {run['kernel_ms']:.2f} "
-            f"ms, {run['threads']} threads, {run['shared_bytes']} shared bytes a block, lane "
-            f"efficiency {run['lane_efficiency']:.4f}, fates {run['fates']}, float64 launches "
+            f"{run['photons_per_s']:.6g} photons/s (float32: {f32[label][0]:.6g}, ratio "
+            f"{f32[label][0] / run['photons_per_s']:.3f}), pvt_trace {run['kernel_ms']:.2f} "
+            f"ms (float32 {f32[label][1]:.2f} ms, ratio {run['kernel_ms'] / f32[label][1]:.3f}), "
+            f"{run['threads']} threads in blocks of {run['block']}, {run['shared_bytes']} shared "
+            f"bytes a block (bins {where['bins']}, K5a table {where['cheb']}, triangles "
+            f"{where['tris']}), lane efficiency {run['lane_efficiency']:.4f}, fates "
+            f"{run['fates']}, float64 launches "
             f"{ {k: v for k, v in launched64.items() if v} } | {smi}", flush=True)
         return run
 
     full = {
         "main path": drive("main path", lsc_slab(), N_MAIN),
+        "recorders R=4": drive("recorders R=4", lsc_slab_recorders(4), N_MAIN),
         "recorders R=32": drive("recorders R=32", lsc_slab_recorders(32), N_MAIN),
         "mesh": drive("mesh", mesh_scene, N_MAIN),
         "history": drive("history", mesh_scene, N_MAIN, 1000,
@@ -1736,6 +1745,20 @@ def main():
                    in build.ptxas_rows(built[lib][1] or "")]
         print(f"phase 1 {lib}, a float64 build (registers/stack bytes/spill stores/spill "
               f"loads): {'; '.join(f64_fns)}", flush=True)
+    # tracer_f64's instantiations with recorders or meshes (K9, K10), each
+    # with its block: threads x blocks an SM (kernels.trace_shape).
+    f64_k9_k10 = []
+    for fn, regs, stack, stores, loads in build.ptxas_rows(built["tracer_f64"][1] or ""):
+        if not fn.startswith("trace_kernel<"):
+            continue
+        tally, log, mesh, score_on, _, bundle, _ = (f == "1" for f in fn[13:-1].split(","))
+        if tally or mesh:
+            threads, blocks = kernels.trace_shape({"n_rec": int(tally), "n_tris": int(mesh)},
+                                                  torch.float64, score_on, log, bundle)
+            f64_fns = f"{fn} {threads}x{blocks} {regs}/{stack}/{stores}/{loads}"
+            f64_k9_k10.append(f64_fns)
+    print(f"phase 1 tracer_f64 K9 and K10 (block threads x blocks an SM, registers/stack "
+          f"bytes/spill stores/spill loads): {'; '.join(f64_k9_k10)}", flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)
@@ -2002,12 +2025,14 @@ def main():
 
     # 11. the recorder path at full size
     rec_rates = {0: rate}
+    rec_ms = {}
     rec_launches = {}
     for R in (4, 32, 256):
         rec_scene = lsc_slab_recorders(R)
         res, rec_launches[R] = drive(rec_scene, compile_scene(rec_scene), 4)
         run = dict(kernels.last_trace)
         rec_rates[R] = N_MAIN / res.elapsed
+        rec_ms[R] = run["ms"]
         distinct = np.asarray(res.data["rec_distinct"])
         if distinct.shape != (R,) or int(distinct.sum()) == 0:
             fail(f"{R} recorders: rec_distinct {distinct.tolist()[:8]}")
@@ -2965,8 +2990,12 @@ def main():
     # phases that the host's clock does not time.
     twins = start_lsc_twins()
     f64_rows, f64_summary = float64_phases(smi, {
-        "main path": rate, "recorders R=32": rec_rates[32], "mesh": full["mesh"]["photons_per_s"],
-        "history": full["mesh, record_every=1000"]["photons_per_s"], "host emission": host_rate})
+        "main path": (rate, main_run["ms"]),
+        **{f"recorders R={R}": (rec_rates[R], rec_ms[R]) for R in (4, 32)},
+        "mesh": (full["mesh"]["photons_per_s"], full["mesh"]["kernel_ms"]),
+        "history": (full["mesh, record_every=1000"]["photons_per_s"],
+                    full["mesh, record_every=1000"]["kernel_ms"]),
+        "host emission": (host_rate, host_run["ms"])})
     grad64_rows, grad64_summary = float64_gradient_phases(smi, {
         "phase 18": (grad_rate, grad_kernel_ms), "phase 23": (path_rate, path_kernel_ms),
         "phase 18 mesh": (mesh_score_rate, mesh_score_ms),

@@ -50,24 +50,26 @@ launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_ta
 launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0}
 # Of those, the launches of the float64 builds, by the same names.
 launches_f64 = dict.fromkeys(launches, 0)
-last_trace = {"threads": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
+last_trace = {"threads": 0, "block": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
               "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0, "library": ""}
 last_cheb = {"shared_cheb": 0}
 # CUDA events around the last pvt_log_pack launch (its time once the
 # stream has passed them: ``pack_ms``).
 last_pack = {"events": None}
-# A trace block's threads (tracer.cuh's kBlock).
+# A trace block's threads (tracer.cuh's kBlock), two blocks an SM.
 BLOCK = 256
-# The float64 build's score and pathwise trace blocks' (kScoreBlockF64).
-SCORE_BLOCK_F64 = 128
+# The float64 build's score, pathwise, recorder and mesh trace blocks:
+# (threads, blocks an SM), tracer.cuh's kBlockF64 and kMinBlocksF64.
+SHAPE_F64 = (128, 5)
 # tracer.cuh's kWarpGroup: pvt_tally, and pvt_trace's launch with
 # recorders alone, add a scene's recorder events by the warp rule
 # (tally_warp) when one of its facet groups holds more recorders than
 # this, else each lane its own (tally_event); every other trace launch
 # takes the lane rule (tally_rule, trace_rule).
 WARP_GROUP = 12
-# What a trace launch's info[1..6] report (tracer.cuh's layout_info).
+# What a trace launch's info[1..6] report (tracer.cuh's layout_info); info[0]
+# is its threads, info[7] a block's.
 _PLACEMENT = ("shared_bytes", "shared_bins", "shared_scores", "shared_cheb", "shared_rows",
               "shared_tris")
 
@@ -184,7 +186,7 @@ _ENTRIES = {
         "pvt_tally": [_VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP],
         "pvt_trace": [_VP, _U32, _U32, _U64, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP],
         "pvt_mesh": [_VP, _I32, ctypes.c_float, _VP, _VP, _I64, _VP, _VP, _VP, _VP, _VP],
-        "pvt_layout": [_VP, _I32, _VP, _VP],
+        "pvt_layout": [_VP, _I32, _VP, _VP, _I32, _I32],
         "pvt_draws": [_U32, _U32, _VP, _VP, _U32, _VP, _VP, _VP, _VP, _I64, _VP, _VP, _VP, _VP,
                       _VP],
         "pvt_log_pack": [_VP, _VP, _VP, _VP, _VP],
@@ -711,7 +713,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev, fill=False,
                               dtype=dtype)
-    info = (ctypes.c_longlong * 7)()
+    info = (ctypes.c_longlong * 8)()
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
@@ -745,7 +747,8 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
                    photon_steps=photon[CH + 1].long())
     total_steps, lane_steps = steps.tolist()
     last_trace.update(
-        threads=info[0], **_placement(info), total_steps=total_steps, lane_steps=lane_steps,
+        threads=info[0], block=info[7], **_placement(info), total_steps=total_steps,
+        lane_steps=lane_steps,
         lane_efficiency=total_steps / max(lane_steps, 1), ms=start.elapsed_time(stop),
         library=lib,
     )
@@ -760,28 +763,41 @@ def _placement(info):
     return {name: int(info[k + 1]) for k, name in enumerate(_PLACEMENT)}
 
 
-def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None):
+def trace_layout(st, score=False, n_path=0, shared_rows=True, entry=None, log=False,
+                 bundle=False):
     """Where a block of a trace launch on the scene `st` would keep what
     it shares, as ``last_trace`` reports it after the launch: the block's
     dynamic shared memory (``shared_bytes``) and 1 or 0 for the recorder
     bins, the score sums, the K5a table and the threads' score and tangent
-    rows (`shared_rows` False keeps the rows in device memory). The device
-    code's ``trace_layout`` decides, through ``pvt_layout`` on the card or
-    `entry`, the host build's ``h_layout``. Score and path channels as
-    ``score_sums`` counts them."""
+    rows (`shared_rows` False keeps the rows in device memory), and the
+    triangles. The device code's ``trace_layout`` decides, through
+    ``pvt_layout`` on the card or `entry`, the host build's ``h_layout``,
+    within the budget of the launch's block shape (with the event log, a
+    bundle: `log`, `bundle`). Score and path channels as ``score_sums``
+    counts them. ``block``: the device code's threads a block."""
     desc = _Score(ch=score_ch.n_channels(st, n_path), n_path=n_path,
                   shared_rows=int(shared_rows))
-    info = (ctypes.c_longlong * 7)()
+    info = (ctypes.c_longlong * 8)()
     (entry or library(gradient_library("tracer", st["node_f"].dtype)).pvt_layout)(
         ctypes.byref(_scene(st, 0, 0, float("inf"))), int(st["meta"]["n_rec"] > 0),
-        ctypes.byref(desc) if score else None, info)
-    return _placement(info)
+        ctypes.byref(desc) if score else None, info, int(log), int(bundle))
+    return {**_placement(info), "block": int(info[7])}
 
 
 def score_block(dtype):
     """Threads of a score or pathwise trace block in the build of `dtype`
     (tracer.cuh's kScoreBlock): the stride of a block's shared rows."""
-    return SCORE_BLOCK_F64 if dtype == torch.float64 else BLOCK
+    return SHAPE_F64[0] if dtype == torch.float64 else BLOCK
+
+
+def trace_shape(meta, dtype, score=False, log=False, bundle=False):
+    """(threads a block, blocks an SM) of the trace launch on a scene whose
+    tensors have `meta`, in the build of `dtype`, with score channels, the
+    event log or a host bundle as given (tracer.cuh's trace_shape)."""
+    if dtype == torch.float64 and (
+            score or not (log or bundle) and (meta["n_rec"] or meta["n_tris"])):
+        return SHAPE_F64
+    return BLOCK, 2
 
 
 def resident_threads(device, threads):

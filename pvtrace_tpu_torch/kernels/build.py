@@ -17,8 +17,8 @@ every library from this checkout's ``csrc/`` and from DIR (another
 checkout's, e.g. a ``git archive`` of the parent) into a temporary
 directory and prints, library by library, whether nvcc's report and the
 device code (``cuobjdump -sass``, the anonymous namespace's tag, which
-nvcc derives from the source's path, masked) are equal, and each
-function whose report differs.
+nvcc derives from the source's path, masked) are equal, each function
+whose report differs, and each function whose device code differs.
 """
 import argparse
 import hashlib
@@ -152,6 +152,20 @@ def device_code(path):
     return re.sub(r"_GLOBAL__N__[0-9a-f]{8}", "_GLOBAL__N__", text)
 
 
+def functions(sass):
+    """{function's short name: its SASS} of ``device_code``'s text."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            # device_code masked the namespace's tag: give its length back.
+            name = short_name(m.group(1).replace("_GLOBAL__N__", "_GLOBAL__N__00000000"))
+            out[name] = []
+        elif name:
+            out[name].append(line)
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
 def compare(other):
     """Builds every library from CSRC and from `other` (a csrc directory),
     one nvcc each, all at once, and prints whether each library's nvcc
@@ -175,6 +189,11 @@ def compare(other):
             for row in sorted(set(a) ^ set(b)):
                 print(f"  {'this' if row in a else 'other'}: {row[0]} {row[1]}/{row[2]}/{row[3]}/"
                       f"{row[4]}")
+            if not same_code:
+                fa, fb = functions(code["this", name]), functions(code["other", name])
+                print(f"  device code equal: {sorted(f for f in fa if fa[f] == fb.get(f))}")
+                differ = sorted(f for f in fa.keys() | fb.keys() if fa.get(f) != fb.get(f))
+                print(f"  device code differs: {differ}")
 
 
 if __name__ == "__main__":

@@ -12,24 +12,9 @@
 
 namespace {
 
-// Blocks of the trace kernel resident per SM, which caps a thread at 128
-// registers: left free, nvcc gives the main path's instantiation and the
-// heavier ones more and one block per SM, which ran slower than two
-// blocks that spill a little (an A/B build on the H100; again with the
-// step-a-turn loop: as fast on pvt_trace, slower with score or pathwise
-// channels; PERF.md, section 6). A block's shared
-// memory, kSharedTallyLimit, and its layout (trace_layout) are in
+// A trace instantiation's block shape (threads, blocks an SM, shared
+// budget: trace_shape) and a block's layout (trace_layout) are in
 // tracer.cuh.
-constexpr int kMinBlocks = 2;
-
-// The score and pathwise instantiations' blocks an SM, of kScoreBlock
-// threads (tracer.cuh): the float64 build's kScoreMinBlocksF64, else
-// kMinBlocks of kBlock as every other instantiation.
-#ifdef PVT_F64
-constexpr int kScoreMinBlocks = kScoreMinBlocksF64;
-#else
-constexpr int kScoreMinBlocks = kMinBlocks;
-#endif
 
 bool bins_fit_shared(const PvtScene& sc) {
   return tally_bytes(sc, true) <= kSharedTallyLimit;
@@ -181,8 +166,9 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // through, costs less than waiting for more lanes to refill together
 // would. Past that the step itself bounds it: its arithmetic, divergence
 // inside step_one (lanes hold photons at different stages) and registers
-// (128 a thread at two blocks an SM; the float64 score and pathwise
-// instantiations 96 at five blocks of 128, kScoreBlock); with score
+// (128 a thread at two blocks an SM; the float64 build's score, pathwise,
+// recorder and mesh instantiations 96 at five blocks of 128: trace_shape,
+// tracer.cuh); with score
 // channels and no recorders, the fold's float64 shared-memory atomics
 // (PERF.md, section 6).
 //
@@ -225,8 +211,8 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // spills of nearly all of them (PERF.md, section 6).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath = false,
           bool kBundle = false, bool kWarpTally = false>
-__global__ void __launch_bounds__(kScore ? kScoreBlock : kBlock,
-                                  kScore ? kScoreMinBlocks : kMinBlocks)
+__global__ void __launch_bounds__(trace_shape(kTally, kLog, kMesh, kScore, kBundle).threads,
+                                  trace_shape(kTally, kLog, kMesh, kScore, kBundle).blocks)
 trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
              unsigned long long* next, unsigned long long* fates, int* max_count,
              unsigned long long* steps, PvtTallyOut tout, int shared_bins, PvtLog lg,
@@ -275,8 +261,9 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     StepOut o;
     bool stepped = false;
     if (L.p.alive) {
-      stepped = photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, &lg,
-                                                                kScore ? &sa : nullptr, o, tris);
+      stepped = photon_step<kTally, kLog, kMesh, kScore, kPath,
+                            wide_mesh(kLog, kMesh, kScore, kBundle)>(
+          sc, cheb, L, f, &lg, kScore ? &sa : nullptr, o, tris);
       if (!L.p.alive) longest = max(longest, photon_finish<kLog>(L, f, &lg));
     }
     // Every lane of the warp is here: the loop leaves only by the warp's
@@ -308,14 +295,14 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 }
 
 // One pvt_trace launch of the instantiation <kTally, kLog, kMesh, kScore,
-// kPath, kBundle, kWarpTally>, in blocks of kBlock threads (kScoreBlock with scores),
+// kPath, kBundle, kWarpTally>, in blocks of its shape's threads (trace_shape),
 // sized to the card's resident capacity (see pvt_trace), and with scores
 // to at most score.stride threads (the rows there are).
 // Without a bundle every photon is emitted on the device, which a scene
 // without device lights cannot do: refused. info gets the thread count, a
-// block's dynamic shared memory, and whether the recorder bins, the score
-// sums, the K5a table and the threads' rows were placed there
-// (trace_layout).
+// block's dynamic shared memory, whether the recorder bins, the score
+// sums, the K5a table, the threads' rows and the triangles were placed
+// there (trace_layout), and a block's threads (info[7]).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle,
           bool kWarpTally = false>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
@@ -326,8 +313,8 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
                          long long* info, cudaStream_t stream) {
   // A photon without a bundle row is emitted from light pid % n_lights.
   if (kBundle ? !bundle.rows : sc.n_lights <= 0) return cudaErrorInvalidValue;
-  constexpr int threads = kScore ? kScoreBlock : kBlock;
-  const TraceLayout L = trace_layout(sc, kTally, kScore ? &given : nullptr);
+  constexpr int threads = trace_shape(kTally, kLog, kMesh, kScore, kBundle).threads;
+  const TraceLayout L = trace_layout(sc, kTally, kScore ? &given : nullptr, kLog, kBundle);
   const int shared_bins = L.shared_bins, cheb_at = L.cheb_at;
   const size_t bytes = L.bytes;
   PvtScore score = given;
@@ -350,6 +337,7 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   if (wanted < blocks) blocks = wanted;
   if (blocks < 1) return cudaErrorInvalidValue;
   info[0] = blocks * threads;
+  info[7] = threads;
   layout_info(L, info);
   kernel<<<(unsigned int)blocks, threads, bytes, stream>>>(sc, s0, s1, total, next, fates,
                                                            max_count, steps, tally, shared_bins,

@@ -251,7 +251,7 @@ int pvt_mesh(const pvt_real* tri, int n_tris, pvt_real eps, const pvt_real* o, c
 // memory of a block, info[2] 1 when the recorder bins were in shared
 // memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
 // K5a table was, info[5] 1 when the threads' score rows were (0 here),
-// info[6] 1 when the mesh triangles were.
+// info[6] 1 when the mesh triangles were, info[7] a block's threads.
 // fates [11], max_count and steps [2] (zeroed by the caller) get the fate
 // counts, the longest photon's steps, the photons' steps in all and the
 // lane-steps of the warps' turns (kWarp a turn of each warp). With
@@ -274,12 +274,16 @@ int pvt_trace(const PvtScene* sc, unsigned int s0, unsigned int s1,
 }
 
 // Where a trace launch on sc would place what its blocks share, without
-// launching: info[1..5] as pvt_trace's, for a launch with recorders
-// (tally) and, unless score is null, score->ch channels of which
+// launching: info[1..7] as pvt_trace's (info[7] a block's threads), for
+// a launch with recorders (tally), the event log (log), a host bundle
+// (bundle) and, unless score is null, score->ch channels of which
 // score->n_path pathwise, the rows allowed in shared memory where
 // score->shared_rows.
-int pvt_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
-  layout_info(trace_layout(*sc, tally != 0, score), info);
+int pvt_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info, int log,
+               int bundle) {
+  layout_info(trace_layout(*sc, tally != 0, score, log != 0, bundle != 0), info);
+  info[7] = trace_shape(tally != 0, log != 0, sc->n_tris > 0, score != nullptr,
+                        bundle != 0).threads;
   return 0;
 }
 

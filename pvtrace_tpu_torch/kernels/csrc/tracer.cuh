@@ -546,42 +546,92 @@ struct ScoreAcc {
 // ---------------------------------------------------------------------
 // What a block of the trace kernel shares, and where. Its dynamic shared
 // memory holds, in this order and each while it fits its budget
-// (kSharedTallyLimit, or kScoreSharedLimit) after the ones before it: the
-// recorder tallies (K9), the float64 score sums (K12), its threads' score
-// and tangent rows (K12, K13), the K5a table, the mesh triangles (K10).
+// (trace_shape's: kSharedTallyLimit or kSharedLimitF64) after the ones
+// before it: the recorder tallies (K9), the float64 score sums (K12), its
+// threads' score and tangent rows (K12, K13), the K5a table, the mesh
+// triangles (K10).
 // What does not fit stays in device memory, read and written by the same
 // code through the same generic pointers. Host-callable: the launch,
 // pvt_layout (tracer.cu) and the host build's tests share it.
 
 // Threads of a block, in every kernel of the port but the float64 build's
-// score and pathwise trace kernels (kScoreBlock).
+// score, pathwise, recorder and mesh trace kernels (trace_shape).
 constexpr int kBlock = 256;
 // A block's shared budget: two blocks of 256 threads are resident per SM
-// (kMinBlocks, trace_kernel.cuh), and 2 x 96 KB fits the SM's 228 KB.
+// (kMinBlocks, below), and 2 x 96 KB fits the SM's 228 KB.
 // Larger recorder bin sets (big heatmaps) go straight to 64-bit atomics in
 // device memory.
 constexpr size_t kSharedTallyLimit = 96 * 1024;
 
-// The float64 build's score and pathwise trace kernels (K12, K13): blocks
-// of kScoreBlockF64 threads, kScoreMinBlocksF64 of them resident an SM:
-// five warps on each of the SM's four schedulers, whose 16,384 registers
-// leave a thread 96 (in steps of 8). Their doubles take two registers
-// each: at two blocks of 256 threads (128 registers) they spilled up to
-// 1,248 bytes a thread, and one block of 256 (255 registers, no spill)
-// ran 1.29-1.56 times slower than that; 20 warps an SM that spill more
-// hide the float64 pipe's latency better than 16 (an A/B on the H100;
-// PERF.md, section 6). A block's budget is then the SM's 228 KB over five
-// blocks, less the 1 KB the card keeps for each: 44 KB. The float32 build
-// keeps kBlock, kMinBlocks and kSharedTallyLimit.
-constexpr int kScoreBlockF64 = 128;
-constexpr int kScoreMinBlocksF64 = 5;
+// Blocks of the trace kernel resident per SM, which caps a thread at 128
+// registers: left free, nvcc gives the main path's instantiation and the
+// heavier ones more and one block per SM, which ran slower than two
+// blocks that spill a little (an A/B build on the H100; again with the
+// step-a-turn loop: as fast on pvt_trace, slower with score or pathwise
+// channels; PERF.md, section 6).
+constexpr int kMinBlocks = 2;
+
+// The float64 build's trace kernels with score channels (K12, K13), and
+// those with recorders (K9) or meshes (K10) and neither the event log nor
+// a bundle: blocks of kBlockF64 threads, kMinBlocksF64 of them resident an
+// SM: five warps on each of the SM's four schedulers, whose 16,384
+// registers leave a thread 96 (in steps of 8). Their doubles take two
+// registers each, and 20 warps an SM that spill more hide the float64
+// pipe's and the shared atomics' latency better than 16 at 128 registers
+// (an A/B on the H100; PERF.md, section 6): the score kernels spilled up
+// to 1,248 bytes a thread at two blocks of 256, and one block of 256 (255
+// registers, no spill) ran 1.29-1.56 times slower than that; the recorder
+// and mesh kernels ran faster at five of 128 (slab with 32 recorders
+// -11.9 %, with 256 -7.4 %, the mesh LSC -3.3 %, R = 4 as fast), and
+// slower at 12 warps of 162-168 registers without a spill, at 24 of 80,
+// and in blocks of 192. A block's budget is then the SM's 228 KB over five
+// blocks, less the 1 KB the card keeps for each: 44 KB, which leaves 256
+// recorders' bins in device memory, and that too ran faster. The float64
+// main path keeps two blocks of 256 (five of 128 ran it 3 % slower), as do
+// the event log's and the bundle's kernels, and the float32 build keeps
+// kBlock, kMinBlocks and kSharedTallyLimit for every one.
+constexpr int kBlockF64 = 128;
+constexpr int kMinBlocksF64 = 5;
+constexpr size_t kSharedLimitF64 = (228 / kMinBlocksF64 - 1) * 1024;
+// A score or pathwise kernel's block: the stride of its shared rows.
 #ifdef PVT_F64
-constexpr int kScoreBlock = kScoreBlockF64;
-constexpr size_t kScoreSharedLimit = (228 / kScoreMinBlocksF64 - 1) * 1024;
+constexpr int kScoreBlock = kBlockF64;
 #else
 constexpr int kScoreBlock = kBlock;
-constexpr size_t kScoreSharedLimit = kSharedTallyLimit;
 #endif
+
+// A trace instantiation's block: its threads, the blocks of it resident an
+// SM (its __launch_bounds__) and a block's shared budget (trace_layout).
+struct TraceShape {
+  int threads, blocks;
+  size_t limit;
+};
+
+// The shape of the trace instantiation with recorders (`tally`), the event
+// log, meshes, score channels and a host bundle as given: in the float32
+// build kBlock and kMinBlocks for every one.
+PVT_FN constexpr TraceShape trace_shape(bool tally, bool log, bool mesh, bool score,
+                                        bool bundle) {
+#ifdef PVT_F64
+  return score || (!log && !bundle && (tally || mesh))
+             ? TraceShape{kBlockF64, kMinBlocksF64, kSharedLimitF64}
+             : TraceShape{kBlock, kMinBlocks, kSharedTallyLimit};
+#else
+  return (void)tally, (void)log, (void)mesh, (void)score, (void)bundle,
+         TraceShape{kBlock, kMinBlocks, kSharedTallyLimit};
+#endif
+}
+
+// Whether a trace instantiation's K10 takes the wide loop
+// (mesh_nearest_two's kWide): the float64 build's with meshes and neither
+// the event log, scores nor a bundle; and pvt_mesh in the float64 build.
+PVT_FN constexpr bool wide_mesh(bool log, bool mesh, bool score, bool bundle) {
+#ifdef PVT_F64
+  return mesh && !log && !score && !bundle;
+#else
+  return (void)log, (void)mesh, (void)score, (void)bundle, false;
+#endif
+}
 
 // Bytes of a block's K9 accumulators: crossings u32 [R], sums [8R] of
 // pvt_real, distinct u32 [R], then the bins u32 [total_bins] when they are
@@ -650,14 +700,15 @@ struct TraceLayout {
   size_t bytes;
 };
 
-// The placement of a launch with recorders (`tally`) and score channels
+// The placement of a launch with recorders (`tally`), score channels
 // (`score`, null for none; its `shared_rows` says whether the rows may be
-// placed), within the budget of its kernel's block (kScoreSharedLimit
-// with scores). The rows take the budget before the K5a table: where only
-// one of the two fits, the rows in shared memory ran faster (an A/B on
-// the H100; PERF.md).
-PVT_FN TraceLayout trace_layout(const PvtScene& sc, bool tally, const PvtScore* score) {
-  const size_t limit = score ? kScoreSharedLimit : kSharedTallyLimit;
+// placed), the event log and a bundle, within the budget of its kernel's
+// block (trace_shape; meshes where the scene has triangles). The rows take
+// the budget before the K5a table: where only one of the two fits, the
+// rows in shared memory ran faster (an A/B on the H100; PERF.md).
+PVT_FN TraceLayout trace_layout(const PvtScene& sc, bool tally, const PvtScore* score,
+                                bool log = false, bool bundle = false) {
+  const size_t limit = trace_shape(tally, log, sc.n_tris > 0, score != nullptr, bundle).limit;
   TraceLayout L;
   L.shared_bins = tally && tally_bytes(sc, true) <= limit ? 1 : 0;
   L.shared_scores = L.shared_rows = 0;
@@ -1141,6 +1192,34 @@ PVT_FN int intersect_node(int gtype, const pvt_real* gp, const pvt_real* o,
   return 4;
 }
 
+// Triangle k's test in mesh_nearest_two's loops (its v0 in a0..a2, e1 in
+// e10..e12, e2 in e20..e22): one text for both loops.
+#define PVT_MESH_TRIANGLE                                                   \
+  const pvt_real pvx = d[1] * e22 - d[2] * e21;                             \
+  const pvt_real pvy = d[2] * e20 - d[0] * e22;                             \
+  const pvt_real pvz = d[0] * e21 - d[1] * e20;                             \
+  const pvt_real det = e10 * pvx + e11 * pvy + e12 * pvz;                   \
+  const bool ok = pvt_fabs(det) > PVT_R(1e-14);                             \
+  const pvt_real inv = 1.0f / (ok ? det : 1.0f);                            \
+  const pvt_real tvx = o[0] - a0, tvy = o[1] - a1, tvz = o[2] - a2;         \
+  const pvt_real u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;             \
+  const pvt_real qvx = tvy * e12 - tvz * e11;                               \
+  const pvt_real qvy = tvz * e10 - tvx * e12;                               \
+  const pvt_real qvz = tvx * e11 - tvy * e10;                               \
+  const pvt_real v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;          \
+  const pvt_real th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv;            \
+  const bool hit = ok && u >= -PVT_R(1e-12) && v >= -PVT_R(1e-12) &&        \
+                   u + v <= (pvt_real)(1.0 + 1e-12) && th > eps;            \
+  cnt += hit;                                                               \
+  const pvt_real tv = hit ? th : PVT_INF;                                   \
+  if (tv < t1) {                                                            \
+    t2 = t1;                                                                \
+    t1 = tv;                                                                \
+    first = k;                                                              \
+  } else if (tv < t2) {                                                     \
+    t2 = tv;                                                                \
+  }
+
 // K10: Möller–Trumbore over the n_tris triangles `tri` (rows of TRI_F:
 // v0, e1, e2, face normal) of one mesh node, in its local frame. Writes
 // the nearest two forward hits (strict < in triangle order; PVT_INF where
@@ -1154,46 +1233,48 @@ PVT_FN int intersect_node(int gtype, const pvt_real* gp, const pvt_real* o,
 // so its 12 floats are one broadcast a load: `tri` points into the block's
 // shared copy (stage_tris, trace_kernel.cuh) where it fit, else into
 // device memory, read through the same generic loads. Inlined: only the
-// kMesh instantiations and pvt_mesh call it.
+// kMesh instantiations and pvt_mesh call it. kWide (the float64 build's
+// K10 launches, wide_mesh): the loop unrolled by two and each row's v0,
+// e1 and e2 read as five double pairs, 16-byte loads, where the others
+// read nine doubles; the same arithmetic in the same order (1-8 % faster
+// on the mesh LSC and the tessellated slab, and slower in the launches
+// with the event log or scores, which keep the plain loop: an A/B on the
+// H100; PERF.md, section 6).
+template <bool kWide = false>
 PVT_FN int mesh_nearest_two(const pvt_real* tri, int n_tris, const pvt_real* o, const pvt_real* d,
                             pvt_real eps, pvt_real* t1_out, pvt_real* t2_out, int* first_out) {
   pvt_real t1 = PVT_INF, t2 = PVT_INF;
   int cnt = 0, first = -1;
+#if defined(__CUDA_ARCH__) && defined(PVT_F64)
+  if constexpr (kWide) {
+#pragma unroll 2
+    for (int k = 0; k < n_tris; ++k) {
+      const double2* r = reinterpret_cast<const double2*>(tri + (size_t)k * TRI_F);
+      const double2 q0 = r[0], q1 = r[1], q2 = r[2], q3 = r[3], q4 = r[4];
+      const pvt_real a0 = q0.x, a1 = q0.y, a2 = q1.x;
+      const pvt_real e10 = q1.y, e11 = q2.x, e12 = q2.y;
+      const pvt_real e20 = q3.x, e21 = q3.y, e22 = q4.x;
+      PVT_MESH_TRIANGLE
+    }
+    *t1_out = t1;
+    *t2_out = t2;
+    *first_out = first;
+    return cnt;
+  }
+#endif
   for (int k = 0; k < n_tris; ++k) {
     const pvt_real* r = tri + (size_t)k * TRI_F;
     const pvt_real a0 = r[TF_V0], a1 = r[TF_V0 + 1], a2 = r[TF_V0 + 2];
     const pvt_real e10 = r[TF_E1], e11 = r[TF_E1 + 1], e12 = r[TF_E1 + 2];
     const pvt_real e20 = r[TF_E2], e21 = r[TF_E2 + 1], e22 = r[TF_E2 + 2];
-    const pvt_real pvx = d[1] * e22 - d[2] * e21;
-    const pvt_real pvy = d[2] * e20 - d[0] * e22;
-    const pvt_real pvz = d[0] * e21 - d[1] * e20;
-    const pvt_real det = e10 * pvx + e11 * pvy + e12 * pvz;
-    const bool ok = pvt_fabs(det) > PVT_R(1e-14);
-    const pvt_real inv = 1.0f / (ok ? det : 1.0f);
-    const pvt_real tvx = o[0] - a0, tvy = o[1] - a1, tvz = o[2] - a2;
-    const pvt_real u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
-    const pvt_real qvx = tvy * e12 - tvz * e11;
-    const pvt_real qvy = tvz * e10 - tvx * e12;
-    const pvt_real qvz = tvx * e11 - tvy * e10;
-    const pvt_real v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv;
-    const pvt_real th = (e20 * qvx + e21 * qvy + e22 * qvz) * inv;
-    const bool hit = ok && u >= -PVT_R(1e-12) && v >= -PVT_R(1e-12) &&
-                     u + v <= (pvt_real)(1.0 + 1e-12) && th > eps;
-    cnt += hit;
-    const pvt_real tv = hit ? th : PVT_INF;
-    if (tv < t1) {
-      t2 = t1;
-      t1 = tv;
-      first = k;
-    } else if (tv < t2) {
-      t2 = tv;
-    }
+    PVT_MESH_TRIANGLE
   }
   *t1_out = t1;
   *t2_out = t2;
   *first_out = first;
   return cnt;
 }
+#undef PVT_MESH_TRIANGLE
 
 // The face normal of triangle `first` of `tri`, (0, 0, 1) for -1.
 PVT_FN void mesh_normal(const pvt_real* tri, int first, pvt_real* nrm) {
@@ -1219,8 +1300,9 @@ struct Hits {
 // count; without, the scene has no mesh and the code has no mesh branch
 // (it would cost the other scenes registers: an A/B build on the H100).
 // With kPath it also keeps the hit's candidate. `tris`: the scene's
-// triangles where a block staged them, null for sc.tri_f.
-template <bool kMesh, bool kPath = false>
+// triangles where a block staged them, null for sc.tri_f. kWide: K10's
+// wide loop (mesh_nearest_two).
+template <bool kMesh, bool kPath = false, bool kWide = false>
 PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
                             const pvt_real* tris = nullptr) {
   pvt_real t1 = PVT_INF, t2 = PVT_INF, cont_t = PVT_INF;
@@ -1239,7 +1321,7 @@ PVT_FN void intersect_nodes(const PvtScene& sc, const Photon& p, Hits& h,
     int nc, cnt_n = 0;
     if (kMesh && ni[NI_GEOM] == GEOM_MESH) {
       const pvt_real* rows = (tris ? tris : sc.tri_f) + (size_t)ni[NI_TRI0] * TRI_F;
-      cnt_n = mesh_nearest_two(rows, ni[NI_NTRI], o, d, nf[NF_EPS], &t[0], &t[1], &tri);
+      cnt_n = mesh_nearest_two<kWide>(rows, ni[NI_NTRI], o, d, nf[NF_EPS], &t[0], &t[1], &tri);
       if (tri >= 0) tri += ni[NI_TRI0];
       v[0] = cnt_n >= 1;
       v[1] = cnt_n >= 2;
@@ -1332,13 +1414,14 @@ PVT_FN void local_normal(int gtype, const pvt_real* gp, const pvt_real* q, pvt_r
 // false: the scene has no mesh. With kScore it also gives the score
 // channels' inputs (StepOut's last fields and the shared ones), and with
 // kPath (only with kScore) what the pathwise channels' tangent map reads.
+// kWide: K10's wide loop (mesh_nearest_two).
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
-          bool kPath = false>
+          bool kPath = false, bool kWide = false>
 PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const pvt_real* u,
                      StepOut& out, const pvt_real* tris = nullptr) {
   constexpr bool kExtras = kLog || kScore;
   Hits h;
-  intersect_nodes<kMesh, kPath>(sc, p, h, tris);
+  intersect_nodes<kMesh, kPath, kWide>(sc, p, h, tris);
   if (kPath) {
     out.t0 = h.t0;
     out.cand = h.cand;
@@ -2896,8 +2979,9 @@ PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, 
 // (pathwise_step, with the photon's wavelength-tangent flag) before the
 // fold. When the photon dies, L.p.alive is false. Returns whether it took
 // a step, whose output is then in o: the caller adds its recorder event
-// (kTally; tally_event, or the warp's with tally_warp).
-template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath>
+// (kTally; tally_event, or the warp's with tally_warp). kWide: K10's wide
+// loop (mesh_nearest_two).
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kWide = false>
 PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, FateCounts& f,
                         const PvtLog* lg, const ScoreAcc* sa, StepOut& o,
                         const pvt_real* tris = nullptr) {
@@ -2921,7 +3005,7 @@ PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, 
   const pvt_real p_in[3] = {p.px, p.py, p.pz};
   pvt_real u[8];
   pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
-  step_one<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, p, u, o, tris);
+  step_one<kTally, kLog, kMesh, kScore, kPath, kWide>(sc, cheb, p, u, o, tris);
   f.exit += o.exit_mask;
   f.nonrad += o.losing;
   f.react += o.reacting;
@@ -3120,6 +3204,8 @@ PVT_FN void mesh_lane(const pvt_real* tris, const pvt_real* tri, int n_tris, pvt
                       const pvt_real* o, const pvt_real* d, long long i, pvt_real* t1, pvt_real* t2,
                       int* cnt, pvt_real* nrm) {
   int first;
-  cnt[i] = mesh_nearest_two(tris, n_tris, o + 3 * i, d + 3 * i, eps, t1 + i, t2 + i, &first);
+  cnt[i] = mesh_nearest_two<wide_mesh(false, true, false, false)>(tris, n_tris, o + 3 * i,
+                                                                   d + 3 * i, eps, t1 + i, t2 + i,
+                                                                   &first);
   mesh_normal(tri, first, nrm + 3 * i);
 }

@@ -300,17 +300,32 @@ void h_log_pack(const PvtLog* lg, const long long* offsets, int* ints, pvt_real*
       log_pack_slot(*lg, s, offsets[s], lane, kWarp, ints, floats);
 }
 // pvt_layout's twin (tracer.cu).
-void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info) {
-  layout_info(trace_layout(*sc, tally != 0, score), info);
+void h_layout(const PvtScene* sc, int tally, const PvtScore* score, long long* info, int log,
+              int bundle) {
+  layout_info(trace_layout(*sc, tally != 0, score, log != 0, bundle != 0), info);
+  info[7] = trace_shape(tally != 0, log != 0, sc->n_tris > 0, score != nullptr,
+                        bundle != 0).threads;
 }
 // The build's block shapes and shared budgets: kBlock, kScoreBlock,
-// kScoreMinBlocksF64, kSharedTallyLimit, kScoreSharedLimit.
+// kMinBlocksF64, kSharedTallyLimit, kSharedLimitF64, then trace_shape's
+// threads, blocks an SM and budget of five launches: with none of
+// recorders, meshes or scores; with scores; with recorders; with meshes;
+// with recorders and the event log.
 void h_block_shape(long long* out) {
   out[0] = kBlock;
   out[1] = kScoreBlock;
-  out[2] = kScoreMinBlocksF64;
+  out[2] = kMinBlocksF64;
   out[3] = (long long)kSharedTallyLimit;
-  out[4] = (long long)kScoreSharedLimit;
+  out[4] = (long long)kSharedLimitF64;
+  const TraceShape shapes[5] = {
+      trace_shape(false, false, false, false, false), trace_shape(false, false, false, true, false),
+      trace_shape(true, false, false, false, false), trace_shape(false, false, true, false, false),
+      trace_shape(true, true, false, false, false)};
+  for (int k = 0; k < 5; ++k) {
+    out[5 + 3 * k] = shapes[k].threads;
+    out[6 + 3 * k] = shapes[k].blocks;
+    out[7 + 3 * k] = (long long)shapes[k].limit;
+  }
 }
 void h_pathwise(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
                 long long B, const PvtPath* pw, int* comp) {
@@ -379,7 +394,7 @@ def build_library(directory, f64=False):
     h.h_trace_score_rows.argtypes = h.h_trace_score_bundle.argtypes + [i64]
     h.h_trace_warp.argtypes = [vp, u32, u32, u64, u64, i32, vp, vp, vp, vp, vp, vp, vp, vp,
                                i32, i32, vp, vp, vp, vp, vp, i32, vp, vp, vp]
-    h.h_layout.argtypes = [vp, i32, vp, vp]
+    h.h_layout.argtypes = [vp, i32, vp, vp, i32, i32]
     h.h_block_shape.argtypes = [vp]
     h.h_log_pack.argtypes = [vp, vp, vp, vp]
     h.h_draws.argtypes = [u32, u32, vp, vp, u32, vp, vp, vp, vp, i64, vp, vp, vp, vp]

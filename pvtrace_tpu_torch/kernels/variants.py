@@ -3,9 +3,13 @@ their sources, against each other on the card, in turns.
 
     python -m pvtrace_tpu_torch.kernels.variants --set kMinBlocks=1,2
     python -m pvtrace_tpu_torch.kernels.variants --lib score --csrc parent=OTHER/csrc
+    python -m pvtrace_tpu_torch.kernels.variants --lib tracer_f64 \
+        --set "kBlockF64=128,192 kMinBlocksF64=5,3" --only "slab R=32,mesh LSC"
 
 ``--set NAME=V1,V2,..`` builds the library once for each value, with the
-line ``constexpr int NAME = ...;`` of the sources rewritten to it;
+line ``constexpr int NAME = ...;`` of the sources rewritten to it; names
+given together in one ``--set``, space-separated, take their i-th values
+together in the i-th build, and ``--set`` may be given again;
 ``--csrc LABEL=DIR`` builds another checkout's sources as they stand
 (their entry points must take the same arguments); ``--flags`` adds nvcc
 flags to every build (``--flags=-fmad=false``). ``--lib`` picks the
@@ -24,7 +28,8 @@ full size, K5b, the mesh LSC without and with the event log (at
 ``record_every`` 1000 and 1), recorders up to 256 and the heatmap's
 global bins, the tessellated slab's 140 triangles, the host-lit slab's
 bundle, the mixed scene's Lambertian facet, lifetimes and two lamps), or
-those of ``--only``, goes through each build in turns, ``--rounds``
+those of ``--only`` (``LABEL:LOG2N``, or a label for all its sizes: ``--only
+"slab R=32,mesh LSC"``), goes through each build in turns, ``--rounds``
 times, every other round in the reverse order: the kernel's time
 (``last_trace["ms"]``), its lane efficiency, steps and lane-steps, its
 fates, longest photon and recorder tallies.
@@ -34,7 +39,7 @@ card's nvidia-smi line; exits non-zero when the builds' fates, longest
 photon, distinct rays, crossings or bins differ, or their moment sums
 part by more than ``check.SUMS_RUNS_RTOL`` (``check.F64_RTOL`` for a
 float64 build). ``--entries`` times, in
-place of the runs, the tracer library's standalone entries as
+place of the runs, the tracer library's (or ``tracer_f64``'s) standalone entries as
 ``chip_smoke.py`` does (pvt_emit and pvt_step on 2**20 lanes of the
 slab, pvt_tally with 32 recorders, pvt_mesh on 24 and 140 triangles, the
 K11 row: pvt_trace with the event log on 2**14 photons of the mesh LSC
@@ -78,9 +83,12 @@ RUNS = {
         ("mesh LSC log=1", mesh_lsc, 1 << 17, False, False, 15, 1),
         ("slab R=4", lambda: lsc_slab_recorders(4), 1 << 27, False, False, 4),
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 24, False, False, 1),
+        ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 27, False, False, 1),
         ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 24, False, False, 1),
+        ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 27, False, False, 1),
         ("heatmap", lsc_slab_heatmap, 1 << 24, False, False, 1),
         ("fine slab", mesh_slab_fine, 1 << 24, False, False, 1),
+        ("fine slab", mesh_slab_fine, 1 << 27, False, False, 1),
         ("host-lit slab, bundle", lsc_slab_host, 1 << 20, False, True, 1),
         ("mixed", mixed_scene, 1 << 24, False, False, 1),
     ),
@@ -100,23 +108,39 @@ for _kind in ("tracer", "score", "pathwise"):
 PATHWISE = {"mesh LSC": [("n", "plate")]}
 SLAB_PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
 SASS_OPS = ("LDL", "STL", "ATOMS", "IADD3", "LOP3", "SHF", "IMAD", "IMAD.IADD", "FFMA", "MUFU",
-            "SHFL", "LDG", "LDS", "BRA", "DFMA", "DMUL", "DADD")
+            "SHFL", "LDG", "LDS", "BRA", "CALL", "DFMA", "DMUL", "DADD")
 
 
-def _sources(directory, name=None, value=None):
+def _sources(directory, values=None):
     """A copy of the csrc `directory` in a new temporary directory, with
-    ``constexpr int name = ...;`` set to `value` when `name` is given."""
-    out, hits = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)), 0
+    ``constexpr int NAME = ...;`` set to V for each NAME: V of `values`."""
+    out, hits = Path(tempfile.mkdtemp(dir=build.BUILD_DIR)), collections.Counter()
     for path in Path(directory).iterdir():
         text = path.read_text()
-        if name is not None:
+        for name, value in (values or {}).items():
             text, k = re.subn(rf"constexpr int {name} = [^;]+;",
                               f"constexpr int {name} = {value};", text)
-            hits += k
+            hits[name] += k
         (out / path.name).write_text(text)
-    if name is not None and hits != 1:
-        raise SystemExit(f"variants: {hits} definitions of {name} in {directory}, not 1")
+    for name in values or {}:
+        if hits[name] != 1:
+            raise SystemExit(f"variants: {hits[name]} definitions of {name} in {directory}, "
+                             f"not 1")
     return out
+
+
+def set_variants(spec):
+    """The builds of one ``--set`` (``NAME=V1,V2 NAME2=W1,W2``): {label:
+    {NAME: Vi, NAME2: Wi}} for each i."""
+    columns = {}
+    for item in spec.split():
+        name, values = item.split("=")
+        columns[name] = values.split(",")
+    counts = {len(v) for v in columns.values()}
+    if len(counts) != 1:
+        raise SystemExit(f"variants: --set {spec!r} gives its names different numbers of values")
+    builds = [dict(zip(columns, row)) for row in zip(*columns.values())]
+    return {" ".join(f"{k}={v}" for k, v in b.items()): b for b in builds}
 
 
 def build_variants(variants, lib, flags=()):
@@ -176,19 +200,19 @@ def sass_counts(path):
     return counts
 
 
-def time_entries(libs, rounds, reps):
-    """The tracer library's standalone entries (``--entries``) of each
-    build in `libs`, in turns, as chip_smoke.py times them: pvt_emit and
+def time_entries(libs, rounds, reps, lib="tracer", real=torch.float32):
+    """The tracer library's standalone entries (``--entries``; of
+    ``tracer_f64`` on float64 tensors, `real`) of each build in `libs`, in
+    turns, as chip_smoke.py times them: pvt_emit and
     pvt_step on 2**20 lanes of the slab, pvt_tally (phase 7: the events of
     the eighth step of those lanes with 32 recorders, after seven), pvt_mesh
     (phase 12: 2**20 rays against the hex plate's 24 triangles and the
     tessellated slab's 140) and the log trace: {entry: {label: [mean ms of
     `reps` calls, a round]}}."""
     seed = rng.key_words(1)
-    st = scene_tensors(compile_scene(lsc_slab()), dtype=torch.float32, device="cuda")
-    st_log = scene_tensors(compile_scene(mesh_lsc()), dtype=torch.float32, device="cuda")
-    st32 = scene_tensors(compile_scene(lsc_slab_recorders(32)), dtype=torch.float32,
-                         device="cuda")
+    st = scene_tensors(compile_scene(lsc_slab()), dtype=real, device="cuda")
+    st_log = scene_tensors(compile_scene(mesh_lsc()), dtype=real, device="cuda")
+    st32 = scene_tensors(compile_scene(lsc_slab_recorders(32)), dtype=real, device="cuda")
     state = tracer.initial_state(st, seed, torch.arange(1 << 20, device="cuda"))
     events, t32 = state, tally.empty(st32, 1 << 20)
     for step in range(8):
@@ -198,8 +222,8 @@ def time_entries(libs, rounds, reps):
     words, res = kernels.pack_seen(t32["seen"]).contiguous(), kernels.zero_tally_out(st32)
     meshes = {}
     for label, make in (("24", mesh_lsc), ("140", mesh_slab_fine)):
-        st_m = st_log if label == "24" else scene_tensors(compile_scene(make()),
-                                                          dtype=torch.float32, device="cuda")
+        st_m = st_log if label == "24" else scene_tensors(compile_scene(make()), dtype=real,
+                                                          device="cuda")
         meshes[label] = (st_m, *check.mesh_rays(st_m, 1, 1 << 20, seed=12))
 
     def log_ms():
@@ -223,37 +247,38 @@ def time_entries(libs, rounds, reps):
         for e, fn in entries.items():
             # Every other round in the reverse order, so no build always goes first.
             for v, (handle, _) in list(libs.items())[::-1 if r % 2 else 1]:
-                kernels._libs["tracer"] = handle
+                kernels._libs[lib] = handle
                 ms[e][v].append(fn())
     return ms
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--set", default=None, help="NAME=V1,V2,..")
+    parser.add_argument("--set", action="append", default=[],
+                        help="NAME=V1,V2,.. [NAME2=W1,W2,..]")
     parser.add_argument("--csrc", action="append", default=[], help="LABEL=DIR")
     parser.add_argument("--lib", default="tracer", choices=sorted(RUNS))
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--sass", action="store_true")
     parser.add_argument("--flags", default="", help="extra nvcc flags, space-separated")
     parser.add_argument("--only", default=None,
-                        help="LABEL:LOG2N,.. runs to take (default: every run of --lib)")
+                        help="LABEL:LOG2N or LABEL (every size),.. runs to take (default: "
+                             "every run of --lib)")
     parser.add_argument("--entries", action="store_true")
     parser.add_argument("--reps", type=int, default=50)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs a CUDA device")
-    if args.entries and args.lib != "tracer":
+    if args.entries and args.lib not in ("tracer", "tracer_f64"):
         raise SystemExit("variants: --entries times the tracer library's entries")
     kind = args.lib.removesuffix("_f64")
     real = torch.float64 if args.lib.endswith("_f64") else torch.float32
     runs_rtol = check.F64_RTOL if real == torch.float64 else check.SUMS_RUNS_RTOL
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     variants = {}
-    if args.set:
-        name, values = args.set.split("=")
-        for v in values.split(","):
-            variants[f"{name}={v}"] = _sources(build.CSRC, name, v)
+    for spec in args.set:
+        for label, values in set_variants(spec).items():
+            variants[label] = _sources(build.CSRC, values)
     for item in args.csrc:
         label, directory = item.split("=", 1)
         variants[label] = _sources(directory)
@@ -267,13 +292,13 @@ def main():
                       + ", ".join(f"{op} {c[op]}" for op in SASS_OPS)
                       + "".join(f", {k[7:]} {c[k]}" for k in atomics), flush=True)
     if args.entries:
-        for e, by_build in time_entries(libs, args.rounds, args.reps).items():
+        for e, by_build in time_entries(libs, args.rounds, args.reps, args.lib, real).items():
             for v, t in by_build.items():
                 print(f"entry {e}, {v}: ms {t} ({args.reps} calls a round)", flush=True)
     only = set() if args.entries else None if args.only is None else set(args.only.split(","))
     differ = []
     for label, make, n, no_cheb, host, seed_value, *every in RUNS[args.lib]:
-        if only is not None and f"{label}:{n.bit_length() - 1}" not in only:
+        if only is not None and not {label, f"{label}:{n.bit_length() - 1}"} & only:
             continue
         seed = rng.key_words(seed_value)
         if no_cheb:
@@ -307,7 +332,7 @@ def main():
                 eff[v] = kernels.last_trace["lane_efficiency"] \
                     if kernels.last_trace["lane_steps"] else float("nan")
                 steps[v] = (kernels.last_trace["total_steps"], kernels.last_trace["lane_steps"])
-                placed[v] = {k: kernels.last_trace[k] for k in kernels._PLACEMENT}
+                placed[v] = {k: kernels.last_trace[k] for k in ("block", *kernels._PLACEMENT)}
                 fates[v] = (got.cpu().tolist(), longest,
                             *(t[k][:R].cpu().tolist() for k in ("distinct", "cross")),
                             t["bins"].cpu().tolist())

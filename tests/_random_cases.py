@@ -97,10 +97,11 @@ def assert_host_matches_twin(h, built, dtype, seed, B=1 << 12, steps=6, n=1 << 1
     return fates
 
 
-def host_tallies(h, built, st, seed, n):
+def host_tallies(h, built, st, seed, n, warps=0):
     """Photons [0, n) of `built` through the host build's ``trace_photon``
-    one at a time (``h_trace_warp`` with no warps) under its options:
-    (fates, the recorder tallies as ``tracer.trace_eager`` gives them)."""
+    one at a time (``h_trace_warp`` with no warps), or pvt_trace's loop on
+    `warps` emulated warps, under its options: (fates, the recorder
+    tallies as ``tracer.trace_eager`` gives them)."""
     R, dtype = max(st["meta"]["n_rec"], 1), st["node_f"].dtype
     t = {"fates": torch.zeros(11, dtype=torch.int64), "cross": torch.zeros(R, dtype=torch.int64),
          "distinct": torch.zeros(R, dtype=torch.int32), "sums": torch.zeros(8 * R, dtype=dtype),
@@ -110,7 +111,7 @@ def host_tallies(h, built, st, seed, n):
     o = options(built)
     sc = kernels._scene(st, o["maxsteps"], o["emit_method"], o["maxpathlength"])
     words, out = rng.key_words(seed), torch.zeros(3, dtype=torch.int64)
-    h.h_trace_warp(ctypes.byref(sc), words[0], words[1], 0, n, 0, ctypes.byref(no_log),
+    h.h_trace_warp(ctypes.byref(sc), words[0], words[1], 0, n, warps, ctypes.byref(no_log),
                    t["fates"].data_ptr(), t["cross"].data_ptr(), t["sums"].data_ptr(),
                    t["distinct"].data_ptr(), t["bins"].data_ptr(), t["sums64"].data_ptr(), None,
                    0, 0, None, None, None, None, None, 0, None, out.data_ptr(), None)

@@ -652,6 +652,32 @@ def test_float64_score_traces_take_five_blocks_of_128(channels):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("make", [lambda: lsc_slab_recorders(32), lambda: lsc_slab_recorders(256),
+                                  mesh_lsc, mesh_slab_fine],
+                         ids=["R32", "R256", "mesh_lsc", "fine_slab"])
+def test_float64_recorder_and_mesh_traces_take_five_blocks_of_128(make):
+    """The float64 trace kernels with recorders or meshes (K9, K10; the
+    mesh ones through K10's wide loop) against the float64 twin at 2**16:
+    fates and integer tallies within ``check.F64_PARTED``; at 2**20 they
+    launch blocks of 128 threads, five resident an SM, placed as
+    ``kernels.trace_layout`` says within 44 KB (256 recorders' bins in
+    device memory), where the same scene with the event log takes blocks
+    of 256."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if \
+        torch.cuda.is_available() else 0
+    st = _cuda_tensors(make, torch.float64)
+    rep = check.check_trace(st, rng.key_words(2), 1 << 16, lanes=1 << 14)
+    assert rep["max_abs_err"] <= check.F64_PARTED and rep["tally_max_diff"] <= check.F64_PARTED
+    kernels.trace(st, rng.key_words(2), 1 << 20)
+    placed = check.check_layout(st, False, 0)
+    assert placed["block"] == 128 and kernels.last_trace["threads"] == 5 * 128 * sms
+    assert placed["shared_bytes"] <= 44 * 1024
+    assert placed["shared_bins"] == int(0 < st["meta"]["n_rec"] < 256)
+    kernels.trace(st, rng.key_words(2), 1 << 12, record_every=8)
+    assert kernels.last_trace["block"] == 256
+
+
+@pytest.mark.gpu
 def test_float64_fate_gradients_launch_score_f64():
     """``fate_gradients(dtype=np.float64)`` on the card runs through
     ``score_f64``'s ``pvt_trace_score``: no eager run, no float32 launch,

@@ -351,12 +351,22 @@ def layout_tensors():
 
 
 SHARED_LIMIT = 96 * 1024
-# The float64 build's score and pathwise trace blocks: 128 threads, five
-# an SM, each within the SM's 228 KB over five less 1 KB.
+# The float64 build's score and pathwise trace blocks, and its blocks with
+# recorders or meshes where the launch has neither the event log nor a
+# bundle: 128 threads, five an SM, each within the SM's 228 KB over five
+# less 1 KB.
 SCORE_LIMIT_F64 = 44 * 1024
 
 
-def _budget_rule(st, score_, n_path, rows_allowed, f64=False):
+def _shape(meta, score_, f64, log=False, bundle=False):
+    """(threads a block, blocks an SM, shared budget) of a trace launch,
+    stated apart from the device code."""
+    if f64 and (score_ or not (log or bundle) and (meta["n_rec"] or meta["n_tris"])):
+        return 128, 5, SCORE_LIMIT_F64
+    return 256, 2, SHARED_LIMIT
+
+
+def _budget_rule(st, score_, n_path, rows_allowed, f64=False, log=False, bundle=False):
     """A block's placement by the budget's rule, stated apart from the
     device code: the recorder tallies (40 bytes a recorder, then the bins
     while they fit), the float64 score sums (8-byte aligned), the threads'
@@ -364,13 +374,14 @@ def _budget_rule(st, score_, n_path, rows_allowed, f64=False):
     table (16-byte aligned), the mesh triangles (16-byte aligned, 48 bytes
     a triangle), each in shared memory while it fits after the ones before
     it. With `f64`, the float64 build's: 72 bytes a recorder, doubles, 8-byte
-    table words and 96-byte triangles, and with scores 128 threads a block
-    within SCORE_LIMIT_F64."""
+    table words and 96-byte triangles, with scores 128 threads a block
+    within SCORE_LIMIT_F64, so too with recorders or meshes and neither the
+    event log nor a bundle (``_shape``). ``block``: the threads of a
+    block."""
     meta = st["meta"]
     R, CH = meta["n_rec"], score.n_channels(st, n_path)
     real, rec_bytes = (8, 72) if f64 else (4, 40)
-    limit = SCORE_LIMIT_F64 if f64 and score_ else SHARED_LIMIT
-    threads = 128 if f64 else 256
+    threads, _, limit = _shape(meta, score_, f64, log, bundle)
 
     def align(x, a):
         return (x + a - 1) // a * a
@@ -393,7 +404,7 @@ def _budget_rule(st, score_, n_path, rows_allowed, f64=False):
     tris = int(size > 0 and align(end, 16) + size <= limit)
     return {"shared_bytes": align(end, 16) + size if tris else end, "shared_bins": bins,
             "shared_scores": sums, "shared_cheb": cheb, "shared_rows": rows,
-            "shared_tris": tris}
+            "shared_tris": tris, "block": threads}
 
 
 @pytest.mark.parametrize("scene", list(LAYOUT_SCENES))
@@ -415,32 +426,48 @@ def test_trace_layout_float64_follows_the_budget_rule(host_lib64, scene):
     """The float64 build's ``trace_layout`` (``score_f64``'s and
     ``pathwise_f64``'s launches, and ``tracer_f64``'s ``pvt_layout``) places
     each part of a float64 scene by the budget's rule in its float64 form:
-    without scores within 96 KB as float32's, with score or pathwise
-    channels in blocks of 128 threads within 44 KB (five blocks an SM)."""
+    with score or pathwise channels in blocks of 128 threads within 44 KB
+    (five blocks an SM), with recorders or meshes the same, with the event
+    log or a bundle, or neither recorders nor meshes, within 96 KB as
+    float32's; and ``kernels.trace_shape`` gives the same block."""
     st = tables.scene_tensors(compile_scene(LAYOUT_SCENES[scene]()), dtype=torch.float64)
     for score_, n_path in ((False, 0), (True, 0), (True, 1), (True, 2)):
         for rows in (True, False):
-            got = kernels.trace_layout(st, score_, n_path, rows, entry=host_lib64.h_layout)
-            assert got == _budget_rule(st, score_, n_path, rows, f64=True), \
-                (score_, n_path, rows)
+            for log, bundle in ((False, False), (True, False), (False, True)):
+                got = kernels.trace_layout(st, score_, n_path, rows, entry=host_lib64.h_layout,
+                                           log=log, bundle=bundle)
+                assert got == _budget_rule(st, score_, n_path, rows, True, log, bundle), \
+                    (score_, n_path, rows, log, bundle)
+                assert got["block"] == kernels.trace_shape(
+                    st["meta"], torch.float64, score_, log, bundle)[0]
 
 
 @pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
 def test_block_shape_matches_python(host_lib, host_lib64, f64):
     """The host build's block shapes and shared budgets (tracer.cuh's
-    kBlock, kScoreBlock, kScoreMinBlocksF64, kSharedTallyLimit,
-    kScoreSharedLimit) are the Python side's: ``kernels.BLOCK``,
-    ``kernels.score_block(dtype)`` (the stride of a block's shared rows) and
-    this file's budgets. The float32 build keeps one shape for every trace
+    kBlock, kScoreBlock, kMinBlocksF64, kSharedTallyLimit,
+    kSharedLimitF64, and trace_shape's for launches with nothing, scores,
+    recorders, meshes, recorders and the event log) are the Python side's:
+    ``kernels.BLOCK``, ``kernels.score_block(dtype)`` (the stride of a
+    block's shared rows), ``kernels.trace_shape`` and this file's shapes
+    and budgets. The float32 build keeps one shape for every trace
     kernel."""
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 20)()
     (host_lib64 if f64 else host_lib).h_block_shape(out)
     dtype = torch.float64 if f64 else torch.float32
-    assert list(out) == [kernels.BLOCK, kernels.score_block(dtype), 5, SHARED_LIMIT,
-                         SCORE_LIMIT_F64 if f64 else SHARED_LIMIT]
+    assert list(out[:5]) == [kernels.BLOCK, kernels.score_block(dtype), 5, SHARED_LIMIT,
+                             SCORE_LIMIT_F64]
+    none, rec, mesh = ({"n_rec": 0, "n_tris": 0}, {"n_rec": 4, "n_tris": 0},
+                       {"n_rec": 0, "n_tris": 24})
+    launches = [(none, False, False), (none, True, False), (rec, False, False),
+                (mesh, False, False), (rec, False, True)]
+    for k, (meta, score_, log) in enumerate(launches):
+        want = _shape(meta, score_, f64, log)
+        assert tuple(out[5 + 3 * k:8 + 3 * k]) == want, (k, list(out))
+        assert kernels.trace_shape(meta, dtype, score_, log) == want[:2]
+        assert want[1] * (want[2] + 1024) <= 228 * 1024
     assert kernels.score_block(torch.float32) == kernels.BLOCK == 256
-    assert kernels.score_block(torch.float64) == kernels.SCORE_BLOCK_F64 == 128
-    assert (5 * (SCORE_LIMIT_F64 + 1024)) <= 228 * 1024
+    assert kernels.score_block(torch.float64) == kernels.SHAPE_F64[0] == 128
 
 
 def test_trace_layout_budget(host_lib):
