@@ -1759,6 +1759,17 @@ def main():
             f64_k9_k10.append(f64_fns)
     print(f"phase 1 tracer_f64 K9 and K10 (block threads x blocks an SM, registers/stack "
           f"bytes/spill stores/spill loads): {'; '.join(f64_k9_k10)}", flush=True)
+    # tracer_f64's main path and the bundle's launch, which runs its step
+    # (tracer.cuh::main_step: float uniforms, paired K5a chains, sincos,
+    # fates added at a photon's death), each with its block.
+    f64_main = []
+    for fn, regs, stack, stores, loads in build.ptxas_rows(built["tracer_f64"][1] or ""):
+        if fn in ("trace_kernel<0,0,0,0,0,0,0>", "trace_kernel<0,0,0,0,0,1,0>"):
+            threads, blocks = kernels.trace_shape({"n_rec": 0, "n_tris": 0}, torch.float64,
+                                                  bundle=fn[23] == "1")
+            f64_main.append(f"{fn} {threads}x{blocks} {regs}/{stack}/{stores}/{loads}")
+    print(f"phase 1 tracer_f64 main path and bundle (block threads x blocks an SM, registers/"
+          f"stack bytes/spill stores/spill loads): {'; '.join(f64_main)}", flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)

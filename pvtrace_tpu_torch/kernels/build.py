@@ -18,7 +18,8 @@ checkout's, e.g. a ``git archive`` of the parent) into a temporary
 directory and prints, library by library, whether nvcc's report and the
 device code (``cuobjdump -sass``, the anonymous namespace's tag, which
 nvcc derives from the source's path, masked) are equal, each function
-whose report differs, and each function whose device code differs.
+whose report differs, and each function whose device code differs (with
+what another function's change moves in it made equal: ``functions``).
 """
 import argparse
 import hashlib
@@ -153,7 +154,14 @@ def device_code(path):
 
 
 def functions(sass):
-    """{function's short name: its SASS} of ``device_code``'s text."""
+    """{function's short name: its SASS} of ``device_code``'s text, with
+    what one function's change moves in every other's text made equal:
+    each instruction without its encoding and its column padding (both
+    set library-wide), the branch labels (``.L_x_N``, numbered across the
+    library) renumbered from 0 in the order they first appear in the
+    function, and the slots of constant bank 4 (the addresses of the
+    library's global tables, such as the trig reduction's, in the order
+    the library first uses them) masked."""
     out, name = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -163,7 +171,16 @@ def functions(sass):
             out[name] = []
         elif name:
             out[name].append(line)
-    return {k: "\n".join(v) for k, v in out.items()}
+    renumbered = {}
+    for k, lines in out.items():
+        labels = {}
+        text = "\n".join(" ".join(re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line).split())
+                         for line in lines)
+        text = re.sub(r"c\[0x4\]\[[^\]]*\]", "c[0x4][.]", text)
+        renumbered[k] = re.sub(r"\.L_x_(\d+)",
+                               lambda m: f".L_x_{labels.setdefault(m.group(1), len(labels))}",
+                               text)
+    return renumbered
 
 
 def compare(other):

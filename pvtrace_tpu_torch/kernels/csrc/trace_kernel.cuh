@@ -166,9 +166,9 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // through, costs less than waiting for more lanes to refill together
 // would. Past that the step itself bounds it: its arithmetic, divergence
 // inside step_one (lanes hold photons at different stages) and registers
-// (128 a thread at two blocks an SM; the float64 build's score, pathwise,
-// recorder and mesh instantiations 96 at five blocks of 128: trace_shape,
-// tracer.cuh); with score
+// (128 a thread at two blocks an SM, the float64 main path's too; the
+// float64 build's score, pathwise, recorder and mesh instantiations 96 at
+// five blocks of 128: trace_shape, tracer.cuh); with score
 // channels and no recorders, the fold's float64 shared-memory atomics
 // (PERF.md, section 6).
 //
@@ -253,8 +253,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
       exhausted = base + __popc(dead) >= total;
       const unsigned long long id = base + lane_rank(dead, lane);
       if (!L.p.alive && id < total)
-        photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, need,
-                                                           L, &lg, kScore ? &sa : nullptr, bundle);
+        photon_start<kTally, kLog, kScore, kPath, kBundle, main_step(kTally, kLog, kMesh, kScore)>(
+            sc, cheb, s0, s1, (uint32_t)id, need, L, &lg, kScore ? &sa : nullptr, bundle);
     }
     if (!__any_sync(0xffffffffu, L.p.alive)) break;
     ++turns;

@@ -60,6 +60,7 @@ PVT_FN double pvt_cos(double x) { return cos(x); }
 PVT_FN double pvt_sin(double x) { return sin(x); }
 PVT_FN double pvt_acos(double x) { return acos(x); }
 PVT_FN double pvt_floor(double x) { return floor(x); }
+PVT_FN void pvt_sincos(double x, double* s, double* c) { sincos(x, s, c); }
 #else
 typedef float pvt_real;
 typedef int pvt_word;
@@ -76,6 +77,7 @@ typedef int pvt_word;
 #define pvt_sin sinf
 #define pvt_acos acosf
 #define pvt_floor floorf
+PVT_FN void pvt_sincos(float x, float* s, float* c) { sincosf(x, s, c); }
 #endif
 // Reals, and K5a table words, in 16 bytes: one vector load or store.
 constexpr int kReals16 = (int)(16 / sizeof(pvt_real));
@@ -587,9 +589,14 @@ constexpr int kMinBlocks = 2;
 // and in blocks of 192. A block's budget is then the SM's 228 KB over five
 // blocks, less the 1 KB the card keeps for each: 44 KB, which leaves 256
 // recorders' bins in device memory, and that too ran faster. The float64
-// main path keeps two blocks of 256 (five of 128 ran it 3 % slower), as do
-// the event log's and the bundle's kernels, and the float32 build keeps
-// kBlock, kMinBlocks and kSharedTallyLimit for every one.
+// main path keeps two blocks of 256, as do the event log's and the
+// bundle's kernels, and the float32 build keeps kBlock, kMinBlocks and
+// kSharedTallyLimit for every one. On the main path those blocks spill
+// (128 registers) and still ran the slab faster than every other shape
+// timed: five blocks of 128 (96 registers) by 3 %, 128 x 3 and 192 x 2
+// without a spill (168 registers) by 17-18 %, 256 x 1 (184) by 62 % (A/Bs
+// on the H100; PERF.md, section 6): its 16 warps an SM hide the float64
+// pipe's latency, and its turn is bound by the double math.
 constexpr int kBlockF64 = 128;
 constexpr int kMinBlocksF64 = 5;
 constexpr size_t kSharedLimitF64 = (228 / kMinBlocksF64 - 1) * 1024;
@@ -632,6 +639,36 @@ PVT_FN constexpr bool wide_mesh(bool log, bool mesh, bool score, bool bundle) {
   return (void)log, (void)mesh, (void)score, (void)bundle, false;
 #endif
 }
+
+// Whether a trace instantiation's step is the float64 main path's: the
+// float64 build's without recorders, the event log, meshes or scores (the
+// main path's launch, and the bundle's, which runs the same step). Its
+// step and start hold their uniforms as floats, widened where read, and
+// take an angle's sine and cosine from one sincos (bit-equal to sin and
+// cos at every angle a trace takes, on the card and the host): the same
+// results, 3.3 % faster on the slab at 2^27, 6.7 % with K5b, its spill
+// stores 136 bytes where they were 176 (an A/B on the H100; PERF.md,
+// section 6).
+// Two Clenshaw chains side by side in alpha_slot, inline or in one call,
+// and fates added only at a photon's death ran slower there.
+PVT_FN constexpr bool main_step(bool tally, bool log, bool mesh, bool score) {
+#ifdef PVT_F64
+  return !tally && !log && !mesh && !score;
+#else
+  return (void)tally, (void)log, (void)mesh, (void)score, false;
+#endif
+}
+
+// The type a step's or an emission's uniforms are held in: pvt_real, or
+// with kFloat float (pvt_uniform's own type, widened where it is read).
+template <bool kFloat>
+struct PvtUnif {
+  typedef pvt_real type;
+};
+template <>
+struct PvtUnif<true> {
+  typedef float type;
+};
 
 // Bytes of a block's K9 accumulators: crossings u32 [R], sums [8R] of
 // pvt_real, distinct u32 [R], then the bins u32 [total_bins] when they are
@@ -783,8 +820,8 @@ PVT_FN float pvt_uniform(uint32_t bits) {
 
 // 2n uniforms from counters (c0, first + j), j < n. Returns the threefry
 // calls it made (pvt_draws counts them; unused elsewhere).
-PVT_FN int pvt_draw(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t first,
-                    int n, pvt_real* u) {
+template <typename U>
+PVT_FN int pvt_draw(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t first, int n, U* u) {
   int calls = 0;
   for (int j = 0; j < n; ++j) {
     uint32_t w0, w1;
@@ -825,7 +862,8 @@ PVT_FN unsigned emit_pairs(const PvtScene& sc) {
 // three as pvt_draw draws them (three chains the compiler interleaves; a
 // pair at a time ran 1.9 % slower on the mixed scene, whose lamps read all
 // three), else the pairs one by one. Returns the threefry calls it made.
-PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, pvt_real* u) {
+template <typename U>
+PVT_FN int emit_draws(uint32_t k0, uint32_t k1, unsigned need, U* u) {
   if (need == 7u) return pvt_draw(k0, k1, 0u, 16u, 3, u);
   int calls = 0;
 #pragma unroll
@@ -1043,53 +1081,72 @@ PVT_FN pvt_real hg_mu(pvt_real g, pvt_real s) {
 
 // ---------------------------------------------------------------------
 // K2: emission of photon `pid` with key (k0, k1), from the emission pairs
-// of `need` (emit_draws), which hold every pair its lamp reads.
+// of `need` (emit_draws), which hold every pair its lamp reads. kMain (the
+// float64 main path's start, main_step): the uniforms held as floats, and
+// each angle's sine and cosine from one sincos.
+template <bool kMain = false>
 PVT_FN void emit_one(const PvtScene& sc, const pvt_word* cheb, uint32_t k0, uint32_t k1,
                      uint32_t pid, unsigned need, Photon& p) {
-  pvt_real u[6];
+  typename PvtUnif<kMain>::type u[6];
   emit_draws(k0, k1, need, u);
   const int li = (int)(pid % (uint32_t)sc.n_lights);
   const pvt_real* lf = sc.light_f + li * LIGHT_F;
   const int* lk = sc.light_i + li * LIGHT_I;
   pvt_real w = lf[LF_WAV];
   if (lk[LI_WAV] != WAV_CONST)
-    w = sc.cheb_light ? cheb_eval(cheb, sc.cheb_light0 + lk[LI_ROW], 2.0f * u[0] - 1.0f)
-                      : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n, sc.icdf_n, u[0]);
+    w = sc.cheb_light
+            ? cheb_eval(cheb, sc.cheb_light0 + lk[LI_ROW], 2.0f * (pvt_real)u[0] - 1.0f)
+            : lerp_pairs(sc.light_icdf_pairs, lk[LI_ROW] * sc.icdf_n, sc.icdf_n, (pvt_real)u[0]);
   const pvt_real a = lf[LF_POS], b = lf[LF_POS + 1], c = lf[LF_POS + 2];
   pvt_real lx = 0.0f, ly = 0.0f, lz = 0.0f;
   if (lk[LI_POS] == POS_RECT) {
-    lx = (2.0f * u[1] - 1.0f) * a;
-    ly = (2.0f * u[2] - 1.0f) * b;
+    lx = (2.0f * (pvt_real)u[1] - 1.0f) * a;
+    ly = (2.0f * (pvt_real)u[2] - 1.0f) * b;
   } else if (lk[LI_POS] == POS_CIRCLE) {
-    pvt_real r = pvt_sqrt(u[1]) * a;
-    pvt_real ang = PVT_TWO_PI * u[2];
-    lx = r * pvt_cos(ang);
-    ly = r * pvt_sin(ang);
+    pvt_real r = pvt_sqrt((pvt_real)u[1]) * a;
+    pvt_real ang = PVT_TWO_PI * (pvt_real)u[2];
+    if constexpr (kMain) {
+      pvt_real sn, cs;
+      pvt_sincos(ang, &sn, &cs);
+      lx = r * cs;
+      ly = r * sn;
+    } else {
+      lx = r * pvt_cos(ang);
+      ly = r * pvt_sin(ang);
+    }
   } else if (lk[LI_POS] != POS_DEFAULT) {
-    lx = (2.0f * u[1] - 1.0f) * a;
-    ly = (2.0f * u[2] - 1.0f) * b;
-    lz = (2.0f * u[3] - 1.0f) * c;
+    lx = (2.0f * (pvt_real)u[1] - 1.0f) * a;
+    ly = (2.0f * (pvt_real)u[2] - 1.0f) * b;
+    lz = (2.0f * (pvt_real)u[3] - 1.0f) * c;
   }
   pvt_real ldx = 0.0f, ldy = 0.0f, ldz = 1.0f;
   const int dk = lk[LI_DIR];
   if (dk != DIR_DEFAULT) {
     pvt_real mu, st;
+    const pvt_real u4 = u[4];
     if (dk == DIR_CONE) {
-      st = pvt_sqrt(u[4]) * lf[LF_SIN_DIR];
+      st = pvt_sqrt(u4) * lf[LF_SIN_DIR];
       mu = pvt_sqrt(pvt_fmax(1.0f - st * st, 0.0f));
     } else if (dk == DIR_ISOTROPIC) {
-      mu = 2.0f * u[4] - 1.0f;
+      mu = 2.0f * u4 - 1.0f;
       st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
     } else if (dk == DIR_LAMBERTIAN) {
-      st = pvt_sqrt(u[4]);
-      mu = pvt_sqrt(pvt_fmax(1.0f - u[4], 0.0f));
+      st = pvt_sqrt(u4);
+      mu = pvt_sqrt(pvt_fmax(1.0f - u4, 0.0f));
     } else {
-      mu = hg_mu(lf[LF_DIR], 2.0f * u[4] - 1.0f);
+      mu = hg_mu(lf[LF_DIR], 2.0f * u4 - 1.0f);
       st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
     }
-    pvt_real phi = PVT_TWO_PI * u[5];
-    ldx = st * pvt_cos(phi);
-    ldy = st * pvt_sin(phi);
+    pvt_real phi = PVT_TWO_PI * (pvt_real)u[5];
+    if constexpr (kMain) {
+      pvt_real sn, cs;
+      pvt_sincos(phi, &sn, &cs);
+      ldx = st * cs;
+      ldy = st * sn;
+    } else {
+      ldx = st * pvt_cos(phi);
+      ldy = st * pvt_sin(phi);
+    }
     ldz = mu;
   }
   const pvt_real* m = lf + LF_MAT;
@@ -1414,12 +1471,15 @@ PVT_FN void local_normal(int gtype, const pvt_real* gp, const pvt_real* q, pvt_r
 // false: the scene has no mesh. With kScore it also gives the score
 // channels' inputs (StepOut's last fields and the shared ones), and with
 // kPath (only with kScore) what the pathwise channels' tangent map reads.
-// kWide: K10's wide loop (mesh_nearest_two).
+// kWide: K10's wide loop (mesh_nearest_two). U: the uniforms' type (float
+// in the float64 main path's step, main_step), widened where each is
+// read.
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
-          bool kPath = false, bool kWide = false>
-PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const pvt_real* u,
+          bool kPath = false, bool kWide = false, typename U = pvt_real>
+PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const U* u,
                      StepOut& out, const pvt_real* tris = nullptr) {
   constexpr bool kExtras = kLog || kScore;
+  constexpr bool kMain = main_step(kTally, kLog, kMesh, kScore);
   Hits h;
   intersect_nodes<kMesh, kPath, kWide>(sc, p, h, tris);
   if (kPath) {
@@ -1455,7 +1515,8 @@ PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const 
   const pvt_real alpha =
       K > 0 ? alpha_slot(sc, cheb, h.container, row, K, frac, t, out.held) : 0.0f;
   const pvt_real depth =
-      alpha > PVT_ALPHA_ZERO ? -pvt_log1p(-u[0]) / pvt_fmax(alpha, PVT_R(1e-30)) : PVT_INF;
+      alpha > PVT_ALPHA_ZERO ? -pvt_log1p(-(pvt_real)u[0]) / pvt_fmax(alpha, PVT_R(1e-30))
+                             : PVT_INF;
   const bool absorbed = alive && !exit_mask && depth < h.t0;
   const pvt_real advance = absorbed ? depth : h.t0;
   if (kScore) {
@@ -1484,7 +1545,7 @@ PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const 
   // Volume event: component roulette, quantum-yield coin, re-emission.
   bool nonrad = false;
   if (absorbed) {
-    const pvt_real target = u[1] * alpha;
+    const pvt_real target = (pvt_real)u[1] * alpha;
     int ordinal = 0;
     for (int k = 0; k < K - 1; ++k)
       ordinal += cum_slot(sc, cheb, out.held, h.container, row, k, frac, t) < target;
@@ -1493,7 +1554,7 @@ PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const 
     const int* ci = sc.comp_i + cid * COMP_I;
     const int ctype = ci[CI_TYPE];
     const bool is_lum = ctype == COMP_LUMINOPHORE;
-    const bool radiative = (is_lum || ctype == COMP_SCATTERER) && u[2] < cf[CF_QY];
+    const bool radiative = (is_lum || ctype == COMP_SCATTERER) && (pvt_real)u[2] < cf[CF_QY];
     if (kExtras) out.comp = cid;
     if (kLog) {
       out.emitting = radiative && is_lum;
@@ -1506,35 +1567,42 @@ PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const 
     if (radiative) {
       pvt_real mu;
       if (ci[CI_PHASE] == PHASE_HG) {
-        mu = hg_mu(cf[CF_PHASE], 2.0f * u[3] - 1.0f);
+        mu = hg_mu(cf[CF_PHASE], 2.0f * (pvt_real)u[3] - 1.0f);
       } else if (ci[CI_PHASE] == PHASE_CONE) {
-        const pvt_real s = pvt_sqrt(u[3]) * cf[CF_SIN_PHASE];
+        const pvt_real s = pvt_sqrt((pvt_real)u[3]) * cf[CF_SIN_PHASE];
         mu = pvt_sqrt(pvt_fmax(1.0f - s * s, 0.0f));
       } else {
-        mu = 2.0f * u[3] - 1.0f;
+        mu = 2.0f * (pvt_real)u[3] - 1.0f;
       }
       const pvt_real st = pvt_sqrt(pvt_fmax(1.0f - mu * mu, 0.0f));
-      const pvt_real phi = PVT_TWO_PI * u[4];
+      const pvt_real phi = PVT_TWO_PI * (pvt_real)u[4];
       if (is_lum) {
         pvt_real p1 = 0.0f;
         if (sc.emit_method != EMIT_FULL)
           p1 = spec_slot(sc, cheb, h.container, row,
                          ci[CI_P1] + (sc.emit_method == EMIT_KT ? 0 : 1), frac, t);
-        const pvt_real gamma = p1 + (1.0f - p1) * u[5];
+        const pvt_real gamma = p1 + (1.0f - p1) * (pvt_real)u[5];
         p.wav = sc.cheb_icdf
                     ? cheb_eval(cheb, sc.cheb_icdf0 + ci[CI_LUM], 2.0f * gamma - 1.0f)
                     : lerp_pairs(sc.ems_icdf_pairs, ci[CI_LUM] * sc.icdf_n, sc.icdf_n, gamma);
         const pvt_real tau = cf[CF_TAU_RAD];
-        p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-u[6]) * tau : 0.0f);
+        p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-(pvt_real)u[6]) * tau : 0.0f);
       }
-      p.dx = st * pvt_cos(phi);
-      p.dy = st * pvt_sin(phi);
+      if constexpr (kMain) {
+        pvt_real sn, cs;
+        pvt_sincos(phi, &sn, &cs);
+        p.dx = st * cs;
+        p.dy = st * sn;
+      } else {
+        p.dx = st * pvt_cos(phi);
+        p.dy = st * pvt_sin(phi);
+      }
       p.dz = mu;
       p.source = cid;
     } else {
       nonrad = true;
       const pvt_real tau = cf[CF_TAU_NR];
-      p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-u[6]) * tau : 0.0f);
+      p.dur = p.dur + (tau > 0.0f ? -pvt_log1p(-(pvt_real)u[6]) * tau : 0.0f);
       out.reacting = ctype == COMP_REACTOR;
       out.losing = !out.reacting;
     }
@@ -1602,14 +1670,23 @@ PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const 
         out.mode = mode;
         out.tir = tir;
       }
-      reflecting = u[7] < r;
+      reflecting = (pvt_real)u[7] < r;
       if (reflecting) {
         const pvt_real two_d = 2.0f * c_in;
         if (mode == OVR_LAMBERTIAN) {
-          const pvt_real st_l = pvt_sqrt(u[3]);
-          const pvt_real ct_l = pvt_sqrt(pvt_fmax(1.0f - u[3], 0.0f));
-          const pvt_real phi_l = PVT_TWO_PI * u[4];
-          const pvt_real lx = st_l * pvt_cos(phi_l), ly = st_l * pvt_sin(phi_l);
+          const pvt_real st_l = pvt_sqrt((pvt_real)u[3]);
+          const pvt_real ct_l = pvt_sqrt(pvt_fmax(1.0f - (pvt_real)u[3], 0.0f));
+          const pvt_real phi_l = PVT_TWO_PI * (pvt_real)u[4];
+          pvt_real lx, ly;
+          if constexpr (kMain) {
+            pvt_real sn, cs;
+            pvt_sincos(phi_l, &sn, &cs);
+            lx = st_l * cs;
+            ly = st_l * sn;
+          } else {
+            lx = st_l * pvt_cos(phi_l);
+            ly = st_l * pvt_sin(phi_l);
+          }
           const pvt_real axx = -nax, axy = -nay, axz = -naz;
           const pvt_real sign = axz >= 0.0f ? 1.0f : -1.0f;
           const pvt_real a_ = -1.0f / (sign + axz);
@@ -2936,8 +3013,9 @@ struct TraceLane {
 // clear its `seen` bits, with kScore zero its score row (kPath: and its
 // tangent rows) in *sa, and with kLog, when it is recorded, write its
 // GENERATE record. Every photon starts alive. It draws the emission pairs
-// of `need` (start_pairs).
-template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
+// of `need` (start_pairs). kMain: the float64 main path's start
+// (main_step; emit_one's kMain).
+template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle, bool kMain = false>
 PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t s1,
                          uint32_t pid, unsigned need, TraceLane& L, const PvtLog* lg,
                          const ScoreAcc* sa, const PvtBundle& bundle) {
@@ -2946,7 +3024,7 @@ PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, 
   if (kBundle)
     load_one(bundle, pid, L.p);
   else
-    emit_one(sc, cheb, L.k0, L.k1, pid, need, L.p);
+    emit_one<kMain>(sc, cheb, L.k0, L.k1, pid, need, L.p);
   if (kTally) seen_clear(L.seen);
   if (kScore)
     for (int c = 0; c < sa->ch; ++c) sa->row[c * sa->stride] = 0.0f;
@@ -2980,7 +3058,8 @@ PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, 
 // fold. When the photon dies, L.p.alive is false. Returns whether it took
 // a step, whose output is then in o: the caller adds its recorder event
 // (kTally; tally_event, or the warp's with tally_warp). kWide: K10's wide
-// loop (mesh_nearest_two).
+// loop (mesh_nearest_two). The float64 main path's step (main_step) holds
+// its uniforms as floats (step_one's kMain).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kWide = false>
 PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, FateCounts& f,
                         const PvtLog* lg, const ScoreAcc* sa, StepOut& o,
@@ -3003,7 +3082,8 @@ PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, 
   const pvt_real wav_in = p.wav;
   const int src_in = p.source;
   const pvt_real p_in[3] = {p.px, p.py, p.pz};
-  pvt_real u[8];
+  constexpr bool kMain = main_step(kTally, kLog, kMesh, kScore);
+  typename PvtUnif<kMain>::type u[8];
   pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
   step_one<kTally, kLog, kMesh, kScore, kPath, kWide>(sc, cheb, p, u, o, tris);
   f.exit += o.exit_mask;
@@ -3013,7 +3093,7 @@ PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, 
   f.no_hit += o.no_hit_term;
   if (kScore) {
     score_step(sc, cheb, o, wav_in, *sa);
-    if (kPath) pathwise_step(sc, cheb, o, p_in, d_in, wav_in, u, *sa, L.dwav);
+    if constexpr (kPath) pathwise_step(sc, cheb, o, p_in, d_in, wav_in, u, *sa, L.dwav);
     const int fate = score_fate(o);
     if (fate >= 0) {
       score_add(*sa, sa->fate, N_FATES, fate);
@@ -3051,8 +3131,8 @@ PVT_FN int trace_photon(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, u
                         uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
   TraceLane L;
-  photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, pid,
-                                                     start_pairs<kPath>(sc), L, lg, sa, bundle);
+  photon_start<kTally, kLog, kScore, kPath, kBundle, main_step(kTally, kLog, kMesh, kScore)>(
+      sc, cheb, s0, s1, pid, start_pairs<kPath>(sc), L, lg, sa, bundle);
   while (L.p.alive) {
     StepOut o;
     if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, lg, sa, o) && kTally)
@@ -3151,9 +3231,9 @@ int trace_warps(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t 
         for (int l = 0; l < kWarp; ++l) {
           const unsigned long long id = base + lane_rank(dead, l);
           if (!(dead >> l & 1u) || id >= total) continue;
-          photon_start<kTally, kLog, kScore, kPath, kBundle>(sc, cheb, s0, s1, (uint32_t)id, need,
-                                                             L[l], lg, kScore ? wsa + l : nullptr,
-                                                             bundle);
+          photon_start<kTally, kLog, kScore, kPath, kBundle,
+                       main_step(kTally, kLog, kMesh, kScore)>(
+              sc, cheb, s0, s1, (uint32_t)id, need, L[l], lg, kScore ? wsa + l : nullptr, bundle);
           if (started) started[id - first] += 1;
         }
       }

@@ -48,6 +48,27 @@ void h_trace_score_p(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long
     else h_trace_score_t<false, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
   }
 }
+// pvt_trace's step without recorders, the log, meshes or scores (the
+// float64 main path's, main_step) on lane i, as step_lane takes it, with
+// its uniforms held as U.
+template <typename U>
+void step_main_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
+                    const PvtFlags& fl, long long i) {
+  Photon p;
+  load_lane(in, i, p);
+  p.count += p.alive ? 1 : 0;
+  const uint32_t k0 = (uint32_t)in.k0[i], k1 = (uint32_t)in.k1[i];
+  U u[8];
+  pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
+  StepOut o;
+  step_one<false, false, false>(sc, sc.cheb_pack, p, u, o);
+  store_lane(out, i, p, k0, k1);
+  store_flags(fl, i, o);
+}
+// pvt_sin and pvt_cos out of line, so that the compiler does not fuse a
+// pair of them into a sincos of its own.
+__attribute__((noinline)) pvt_real h_sin1(pvt_real x) { return pvt_sin(x); }
+__attribute__((noinline)) pvt_real h_cos1(pvt_real x) { return pvt_cos(x); }
 // The host bundle `b` or none (emission).
 PvtBundle h_bundle(const PvtBundle* b) {
   const PvtBundle none = {nullptr, 0, 0};
@@ -55,27 +76,40 @@ PvtBundle h_bundle(const PvtBundle* b) {
 }
 // Photons [off, total): with warps > 0 through trace_warps (pvt_trace's
 // loop, `warps` warps of 32 lanes, lane k's rows at sa[k]), else one
-// photon at a time through trace_photon (rows at sa[0]). out gets the
+// photon at a time through trace_photon (rows at sa[0]); with kMesh where
+// the scene has triangles, as the card's launch picks it. out gets the
 // steps in all, the lane-steps (warps only) and the longest photon.
-template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
-void h_warp_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle, bool kMesh>
+void h_warp_m(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
               unsigned long long total, int warps, const PvtLog* lg, FateCounts& f,
               const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b,
               unsigned long long* out, unsigned* started) {
   if (warps > 0) {
     unsigned long long next = off;
-    out[2] = (unsigned long long)trace_warps<kTally, kLog, true, kScore, kPath, kBundle>(
+    out[2] = (unsigned long long)trace_warps<kTally, kLog, kMesh, kScore, kPath, kBundle>(
         *sc, sc->cheb_pack, s0, s1, &next, total, warps, f, acc, lg, sa, b, out + 1, started,
         off);
   } else {
     for (unsigned long long id = off; id < total; ++id) {
-      const int steps = trace_photon<kTally, kLog, true, kScore, kPath, kBundle>(
+      const int steps = trace_photon<kTally, kLog, kMesh, kScore, kPath, kBundle>(
           *sc, sc->cheb_pack, s0, s1, (uint32_t)id, f, acc, lg, sa, b);
       if ((unsigned long long)steps > out[2]) out[2] = (unsigned long long)steps;
       if (started) started[id - off] += 1;
     }
   }
   out[0] = f.steps;
+}
+template <bool kTally, bool kLog, bool kScore, bool kPath, bool kBundle>
+void h_warp_t(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+              unsigned long long total, int warps, const PvtLog* lg, FateCounts& f,
+              const PvtTally* acc, const ScoreAcc* sa, const PvtBundle& b,
+              unsigned long long* out, unsigned* started) {
+  if (sc->n_tris > 0)
+    h_warp_m<kTally, kLog, kScore, kPath, kBundle, true>(sc, s0, s1, off, total, warps, lg, f,
+                                                         acc, sa, b, out, started);
+  else
+    h_warp_m<kTally, kLog, kScore, kPath, kBundle, false>(sc, s0, s1, off, total, warps, lg, f,
+                                                          acc, sa, b, out, started);
 }
 template <bool kTally, bool kLog, bool kScore, bool kPath>
 void h_warp_b(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
@@ -140,6 +174,45 @@ void h_cheb_seg(const PvtScene* sc, int n_fits, const pvt_real* t, long long n_t
 void h_cheb(const PvtScene* sc, int n_fits, const pvt_real* t, long long n_t, pvt_real* out) {
   h_cheb_seg(sc, n_fits, t, n_t, out, nullptr);
 }
+// The angles at which pvt_sincos differs from pvt_sin and pvt_cos in any
+// bit, of the n that variants.py's --sincos takes on the card (wide 0:
+// 2 pi u, u = i 2^-23 in float32; 1: spread over [-1e6, 1e6]).
+long long h_sincos_differ(long long n, int wide) {
+  long long bad = 0;
+  for (long long i = 0; i < n; ++i) {
+    const pvt_real phi = wide ? (i - n / 2) * (2e6 / n) + 1e-3 * (i % 7)
+                              : PVT_TWO_PI * (pvt_real)((float)i * 1.1920928955078125e-7f);
+    pvt_real sn, cs;
+    pvt_sincos(phi, &sn, &cs);
+    const pvt_real s1 = h_sin1(phi), c1 = h_cos1(phi);
+    bad += memcmp(&sn, &s1, sizeof sn) != 0 || memcmp(&cs, &c1, sizeof cs) != 0;
+  }
+  return bad;
+}
+// h_emit through the float64 main path's start (emit_one<true>).
+void h_emit_main(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long long off,
+                 long long B, const PvtState* out) {
+  const unsigned need = emit_pairs(*sc);
+  for (long long i = 0; i < B; ++i) {
+    const uint32_t pid = (uint32_t)(off + (unsigned long long)i);
+    uint32_t k0, k1;
+    threefry(s0, s1, pid, 0u, k0, k1);
+    Photon p;
+    emit_one<true>(*sc, sc->cheb_pack, k0, k1, pid, need, p);
+    store_lane(*out, i, p, k0, k1);
+  }
+}
+// h_step through the main path's step (step_main_lane), its uniforms held
+// as floats (`f32`) or as pvt_real.
+void h_step_main(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
+                 long long B, int f32) {
+  for (long long i = 0; i < B; ++i) {
+    if (f32)
+      step_main_lane<float>(*sc, *in, *out, *fl, i);
+    else
+      step_main_lane<pvt_real>(*sc, *in, *out, *fl, i);
+  }
+}
 void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
              long long B, unsigned long long* cross, pvt_real* sums, unsigned* distinct,
              unsigned long long* bins, double* sums64) {
@@ -181,12 +254,18 @@ void h_trace_bundle(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long 
     else if (lg->n_slots > 0)
       trace_photon<false, true, true>(*sc, sc->cheb_pack, s0, s1, pid, f, nullptr, lg, nullptr,
                                       b);
-    else if (b.rows)
+    else if (b.rows && sc->n_tris > 0)
       trace_photon<false, false, true, false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f,
                                                            nullptr, nullptr, nullptr, b);
-    else
+    else if (b.rows)  // no mesh: kMesh false, as the card's launch picks it
+      trace_photon<false, false, false, false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f,
+                                                            nullptr, nullptr, nullptr, b);
+    else if (sc->n_tris > 0)
       trace_photon<false, false, true>(*sc, sc->cheb_pack, s0, s1, pid, f, nullptr, nullptr,
                                        nullptr, b);
+    else
+      trace_photon<false, false, false>(*sc, sc->cheb_pack, s0, s1, pid, f, nullptr, nullptr,
+                                        nullptr, b);
   }
   fates[7] += f.exit; fates[4] += f.nonrad; fates[8] += f.react;
   fates[9] += f.kill; fates[10] += f.no_hit;
@@ -383,6 +462,10 @@ def build_library(directory, f64=False):
     h.h_step.argtypes = [vp, vp, vp, vp, i64]
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_cheb_seg.argtypes = h.h_cheb.argtypes + [vp]
+    h.h_emit_main.argtypes = h.h_emit.argtypes
+    h.h_step_main.argtypes = h.h_step.argtypes + [i32]
+    h.h_sincos_differ.argtypes = [i64, i32]
+    h.h_sincos_differ.restype = i64
     h.h_tally.argtypes = h.h_tally_warp.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]
     h.h_trace.argtypes = [vp, u32, u32, u64, u64, vp, vp]
     h.h_trace_bundle.argtypes = h.h_trace.argtypes + [vp]
@@ -401,7 +484,8 @@ def build_library(directory, f64=False):
     h.h_pathwise.argtypes = [vp, vp, vp, vp, i64, vp, vp]
     h.h_fresnel.argtypes = [vp, vp, vp, i64, vp, vp]
     h.h_absorbed.argtypes = [vp, vp, vp, vp, vp, i64, vp, vp, vp, vp]
-    entries = [h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg, h.h_tally,
+    entries = [h.h_emit, h.h_emit_need, h.h_step, h.h_cheb, h.h_cheb_seg,
+               h.h_emit_main, h.h_step_main, h.h_tally,
                h.h_tally_warp, h.h_trace, h.h_trace_bundle, h.h_mesh, h.h_score, h.h_trace_score,
                h.h_trace_score_bundle, h.h_trace_score_rows, h.h_trace_warp, h.h_layout,
                h.h_block_shape, h.h_log_pack, h.h_draws, h.h_pathwise, h.h_fresnel, h.h_absorbed]

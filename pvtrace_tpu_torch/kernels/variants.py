@@ -41,10 +41,16 @@ part by more than ``check.SUMS_RUNS_RTOL`` (``check.F64_RTOL`` for a
 float64 build). ``--entries`` times, in
 place of the runs, the tracer library's (or ``tracer_f64``'s) standalone entries as
 ``chip_smoke.py`` does (pvt_emit and pvt_step on 2**20 lanes of the
-slab, pvt_tally with 32 recorders, pvt_mesh on 24 and 140 triangles, the
-K11 row: pvt_trace with the event log on 2**14 photons of the mesh LSC
-at ``record_every=1``), ``--reps`` calls a build in turns, ``--rounds``
-times, which build goes first alternating. Needs a CUDA device.
+slab, pvt_cheb on the slab's fits at 4096 t, pvt_tally with 32
+recorders, pvt_mesh on 24 and 140 triangles, the K11 row: pvt_trace
+with the event log on 2**14 photons of the mesh LSC at
+``record_every=1``), ``--reps`` calls a build in turns, ``--rounds``
+times, which build goes first alternating. ``--sincos`` counts, on the
+card, the angles at which double ``sincos`` differs from ``sin`` and
+``cos`` bit for bit: every angle 2 pi u a trace takes (u a float32
+uniform, 2**23 of them) and 2**24 angles spread over [-1e6, 1e6] (the
+float64 main path takes ``sincos``; ``tracer.cuh::pvt_sincos``). Needs a
+CUDA device.
 """
 import argparse
 import collections
@@ -107,6 +113,36 @@ for _kind in ("tracer", "score", "pathwise"):
     RUNS[f"{_kind}_f64"] = RUNS[_kind]
 PATHWISE = {"mesh LSC": [("n", "plate")]}
 SLAB_PATHWISE = [("n", "lsc"), ("size", "lsc", 2)]
+# --sincos: angle i of n is 2 pi u_i, u_i = i 2**-23 in float32 (wide = 0),
+# or spread over [-1e6, 1e6] (wide = 1); `bad` counts where sincos(phi)
+# differs from (sin(phi), cos(phi)) in any bit.
+SINCOS_CU = r"""
+#include <cstdio>
+__global__ void differ(long long n, int wide, unsigned long long* bad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const double phi = wide ? (i - n / 2) * (2e6 / n) + 1e-3 * (i % 7)
+                          : 6.283185307179586 * (double)((float)i * 1.1920928955078125e-7f);
+  double s, c;
+  sincos(phi, &s, &c);
+  if (__double_as_longlong(s) != __double_as_longlong(sin(phi)) ||
+      __double_as_longlong(c) != __double_as_longlong(cos(phi)))
+    atomicAdd(bad, 1ull);
+}
+int main() {
+  unsigned long long* bad;
+  cudaMallocManaged(&bad, sizeof *bad);
+  for (int wide = 0; wide < 2; ++wide) {
+    const long long n = wide ? 1LL << 24 : 1LL << 23;
+    *bad = 0;
+    differ<<<(unsigned)((n + 255) / 256), 256>>>(n, wide, bad);
+    if (cudaDeviceSynchronize() != cudaSuccess) return 1;
+    printf("sincos against sin and cos, %s: %lld angles, %llu differ\n",
+           wide ? "[-1e6, 1e6]" : "2 pi u", n, *bad);
+  }
+  return 0;
+}
+"""
 SASS_OPS = ("LDL", "STL", "ATOMS", "IADD3", "LOP3", "SHF", "IMAD", "IMAD.IADD", "FFMA", "MUFU",
             "SHFL", "LDG", "LDS", "BRA", "CALL", "DFMA", "DMUL", "DADD")
 
@@ -205,7 +241,9 @@ def time_entries(libs, rounds, reps, lib="tracer", real=torch.float32):
     ``tracer_f64`` on float64 tensors, `real`) of each build in `libs`, in
     turns, as chip_smoke.py times them: pvt_emit and
     pvt_step on 2**20 lanes of the slab, pvt_tally (phase 7: the events of
-    the eighth step of those lanes with 32 recorders, after seven), pvt_mesh
+    the eighth step of those lanes with 32 recorders, after seven), pvt_cheb
+    (phase 6: the slab's fits at 4096 t, the table in shared memory, graphed
+    launches as ``check.check_cheb`` times them), pvt_mesh
     (phase 12: 2**20 rays against the hex plate's 24 triangles and the
     tessellated slab's 140) and the log trace: {entry: {label: [mean ms of
     `reps` calls, a round]}}."""
@@ -214,6 +252,7 @@ def time_entries(libs, rounds, reps, lib="tracer", real=torch.float32):
     st_log = scene_tensors(compile_scene(mesh_lsc()), dtype=real, device="cuda")
     st32 = scene_tensors(compile_scene(lsc_slab_recorders(32)), dtype=real, device="cuda")
     state = tracer.initial_state(st, seed, torch.arange(1 << 20, device="cuda"))
+    grid = torch.linspace(-1.0, 1.0, 4096, device="cuda", dtype=real)
     events, t32 = state, tally.empty(st32, 1 << 20)
     for step in range(8):
         events = tracer.step_state(st32, events, 1000, 0)
@@ -236,6 +275,7 @@ def time_entries(libs, rounds, reps, lib="tracer", real=torch.float32):
     entries = {
         "pvt_emit": lambda: check.cuda_ms(lambda: kernels.emit(st, seed, 0, 1 << 20), reps),
         "pvt_step": lambda: check.cuda_ms(lambda: kernels.step(st, state), reps),
+        "pvt_cheb": lambda: check.graph_ms(lambda: kernels.cheb(st, grid), reps),
         "pvt_tally R=32": lambda: check.cuda_ms(
             lambda: kernels.launch_tally(st32, events, words, res), reps),
         **{f"pvt_mesh {label} triangles": (lambda m=m: check.cuda_ms(
@@ -252,6 +292,18 @@ def time_entries(libs, rounds, reps, lib="tracer", real=torch.float32):
     return ms
 
 
+def check_sincos():
+    """Builds and runs SINCOS_CU on the card (``--sincos``): its lines."""
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        src, exe = Path(tmp) / "sincos.cu", Path(tmp) / "sincos"
+        src.write_text(SINCOS_CU)
+        flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        subprocess.run([build.nvcc_path(), *flags, "-o", str(exe), str(src)], check=True,
+                       capture_output=True, timeout=600)
+        return subprocess.run([str(exe)], check=True, capture_output=True, text=True,
+                              timeout=600).stdout
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--set", action="append", default=[],
@@ -266,15 +318,23 @@ def main():
                              "every run of --lib)")
     parser.add_argument("--entries", action="store_true")
     parser.add_argument("--reps", type=int, default=50)
+    parser.add_argument("--sincos", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("variants: needs a CUDA device")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if args.sincos:
+        out = check_sincos()
+        print(out, end="", flush=True)
+        if re.search(r", [1-9]\d* differ", out):
+            raise SystemExit("variants: sincos differs from sin and cos")
+        if not (args.set or args.csrc):
+            return
     if args.entries and args.lib not in ("tracer", "tracer_f64"):
         raise SystemExit("variants: --entries times the tracer library's entries")
     kind = args.lib.removesuffix("_f64")
     real = torch.float64 if args.lib.endswith("_f64") else torch.float32
     runs_rtol = check.F64_RTOL if real == torch.float64 else check.SUMS_RUNS_RTOL
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     variants = {}
     for spec in args.set:
         for label, values in set_variants(spec).items():
@@ -295,7 +355,9 @@ def main():
         for e, by_build in time_entries(libs, args.rounds, args.reps, args.lib, real).items():
             for v, t in by_build.items():
                 print(f"entry {e}, {v}: ms {t} ({args.reps} calls a round)", flush=True)
-    only = set() if args.entries else None if args.only is None else set(args.only.split(","))
+    # Labels are split at commas not followed by a space ("host-lit slab, bundle").
+    only = set() if args.entries else None if args.only is None else set(
+        re.split(r",(?! )", args.only))
     differ = []
     for label, make, n, no_cheb, host, seed_value, *every in RUNS[args.lib]:
         if only is not None and not {label, f"{label}:{n.bit_length() - 1}"} & only:

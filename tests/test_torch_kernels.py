@@ -400,6 +400,23 @@ def test_build_names_library_by_source_hash():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+def test_build_functions_ignore_what_another_function_moves():
+    """``build.functions`` (``build.py --against``) holds two libraries'
+    functions equal where only what another function's change moves
+    differs: the column padding and encodings, the library-wide label
+    numbers and constant bank 4's slot order; a changed instruction
+    differs."""
+    sass = ("\tFunction : _Z1fv\n"
+            "        /*0000*/ {pad}LDC.64 R2, c[0x4][{slot}] ;  /* 0x{enc}ff027b82 */\n"
+            "        /*0010*/ {pad}@!P0 BRA `(.L_x_{label}) ;\n"
+            ".L_x_{label}:\n"
+            "        /*0020*/ {pad}{op} R4, R2, R2 ;\n")
+    a = build.functions(sass.format(pad="  ", slot="RZ", enc="01000000", label=12, op="DADD"))
+    b = build.functions(sass.format(pad="   ", slot="0x8", enc="01000200", label=40, op="DADD"))
+    c = build.functions(sass.format(pad="  ", slot="RZ", enc="01000000", label=12, op="DMUL"))
+    assert a == b and a != c
+
+
 # -- on the card --------------------------------------------------------
 
 
