@@ -408,11 +408,16 @@ ENTRY_RUNS = {}
 
 
 def entry_run(label, launched, compiled):
-    """Record what the entry point `label` launched on `compiled`."""
+    """Record what the entry point `label` launched on `compiled`, and
+    print the instantiation of the last trace launch (its own last)."""
+    from pvtrace_tpu_torch import kernels
     from pvtrace_tpu_torch.engine import scene_tensors
 
     ENTRY_RUNS[label] = ({k: int(v) for k, v in launched.items()},
                          scene_tensors(compiled, device="cpu")["meta"])
+    print(f"  {label}: last trace launch trace_kernel{kernels.last_trace['instantiation']} of "
+          f"{kernels.last_trace['library']} in blocks of {kernels.last_trace['block']}",
+          flush=True)
 
 
 def reached_from(name):
@@ -1052,7 +1057,11 @@ def float64_phases(smi, f32):
     bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(host_scene, N_CHECK)[:3],
                                                  np.float64)).cuda()
     bundle_rep = check.check_trace(st_host, seed, N_CHECK, bundle=bundle)
+    launched_as = {"host-lit slab bundle": (kernels.last_trace["instantiation"],
+                                            kernels.last_trace["block"])}
     log_rep = check.check_log(st_mesh, seed, N_LOG)
+    launched_as["mesh LSC event log"] = (kernels.last_trace["instantiation"],
+                                         kernels.last_trace["block"])
     fetch_rep = check.check_fetch(mesh_scene, N_LOG, seed=36, dtype=np.float64)
     if kernels.last_trace["library"] != "tracer_f64":
         fail(f"phase 36: the float64 runs did not launch tracer_f64: {kernels.last_trace}")
@@ -1069,8 +1078,10 @@ def float64_phases(smi, f32):
         f"counts differ on {mesh_rep['count_diffs']} rays, {mesh_rep['ms']:.4f} ms | {smi}",
         flush=True)
     for label, rep in list(traces.items()) + [("host-lit slab bundle", bundle_rep)]:
+        how = " (trace_kernel{} in blocks of {})".format(*launched_as[label]) \
+            if label in launched_as else ""
         print(
-            f"phase 36 float64 pvt_trace vs twin, {label}: {N_CHECK} photons, fates "
+            f"phase 36 float64 pvt_trace vs twin, {label}{how}: {N_CHECK} photons, fates "
             f"{rep['fates']} vs {rep['twin_fates']}, max diff {rep['max_abs_err']}, tallies max "
             f"diff {rep['tally_max_diff']} (limit {tol}), sums at "
             f"{rep.get('sums_used', 0.0):.3g} of their bound; kernel {rep['ms']:.4f} ms, "
@@ -1078,7 +1089,9 @@ def float64_phases(smi, f32):
             f"({rep['bound_by']}), lane efficiency {rep['lane_efficiency']:.4f} | {smi}",
             flush=True)
     print(
-        f"phase 36 float64 event log vs twin, mesh LSC, {N_LOG} photons: {log_rep['diverged']} "
+        f"phase 36 float64 event log vs twin, mesh LSC (trace_kernel"
+        f"{launched_as['mesh LSC event log'][0]} in blocks of "
+        f"{launched_as['mesh LSC event log'][1]}), {N_LOG} photons: {log_rep['diverged']} "
         f"parted (limit {tol}), floats within {log_rep['max_rel_err']:.3g} of their scale, "
         f"{log_rep['records']} records; pvt_log_pack bit-equal, {log_rep['pack']['ms']:.4f} ms, "
         f"mask gathers {log_rep['pack']['library_ms']:.4f} ms; simulate's dense float64 log "
@@ -1118,7 +1131,8 @@ def float64_phases(smi, f32):
             f"{run['photons_per_s']:.6g} photons/s (float32: {f32[label][0]:.6g}, ratio "
             f"{f32[label][0] / run['photons_per_s']:.3f}), pvt_trace {run['kernel_ms']:.2f} "
             f"ms (float32 {f32[label][1]:.2f} ms, ratio {run['kernel_ms'] / f32[label][1]:.3f}), "
-            f"{run['threads']} threads in blocks of {run['block']}, {run['shared_bytes']} shared "
+            f"{run['threads']} threads in blocks of {run['block']} (trace_kernel"
+            f"{last['instantiation']}), {run['shared_bytes']} shared "
             f"bytes a block (bins {where['bins']}, K5a table {where['cheb']}, triangles "
             f"{where['tris']}), lane efficiency {run['lane_efficiency']:.4f}, fates "
             f"{run['fates']}, float64 launches "
@@ -1770,6 +1784,23 @@ def main():
             f64_main.append(f"{fn} {threads}x{blocks} {regs}/{stack}/{stores}/{loads}")
     print(f"phase 1 tracer_f64 main path and bundle (block threads x blocks an SM, registers/"
           f"stack bytes/spill stores/spill loads): {'; '.join(f64_main)}", flush=True)
+    # tracer_f64's eleven instantiations with the event log (K11), or from a
+    # host bundle with recorders, meshes or the log (K8-host), each with its
+    # block.
+    f64_eleven = []
+    for fn, regs, stack, stores, loads in build.ptxas_rows(built["tracer_f64"][1] or ""):
+        if not fn.startswith("trace_kernel<"):
+            continue
+        tally, log, mesh, score_on, _, bundle, _ = (f == "1" for f in fn[13:-1].split(","))
+        if not score_on and (log or bundle and (tally or mesh)):
+            threads, blocks = kernels.trace_shape({"n_rec": int(tally), "n_tris": int(mesh)},
+                                                  torch.float64, score_on, log, bundle)
+            f64_eleven.append(f"{fn} {threads}x{blocks} {regs}/{stack}/{stores}/{loads}")
+    if len(f64_eleven) != 11:
+        fail(f"phase 1: tracer_f64 has {len(f64_eleven)} log and bundle instantiations, not 11")
+    print(f"phase 1 tracer_f64 event log and host bundle, K11 and K8-host (block threads x "
+          f"blocks an SM, registers/stack bytes/spill stores/spill loads): "
+          f"{'; '.join(f64_eleven)}", flush=True)
 
     scene = lsc_slab()
     compiled = compile_scene(scene)

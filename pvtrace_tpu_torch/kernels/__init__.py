@@ -41,8 +41,10 @@ from pvtrace_tpu_torch.kernels import build
 # the steps its photons took in all, the
 # lane-steps of its warps' turns (32 a turn of each warp: a lane without a
 # photon idles through its warp's turn) and the share of them that traced
-# a photon (``lane_efficiency``), and its time on the card (CUDA events,
-# ms); and where the last pvt_cheb launch read the table.
+# a photon (``lane_efficiency``), its time on the card (CUDA events, ms)
+# and its instantiation (``"<1,1,1,0,0,0,0>"``: trace_kernel's template
+# flags kTally, kLog, kMesh, kScore, kPath, kBundle, kWarpTally); and
+# where the last pvt_cheb launch read the table.
 launches = {"pvt_emit": 0, "pvt_step": 0, "pvt_trace": 0, "pvt_cheb": 0, "pvt_tally": 0,
             "pvt_mesh": 0, "pvt_trace_log": 0, "pvt_trace_score": 0, "pvt_score": 0,
             "pvt_fresnel": 0, "pvt_trace_pathwise": 0, "pvt_pathwise": 0, "pvt_absorbed": 0,
@@ -52,7 +54,8 @@ launch_ms = {"pvt_trace": 0.0, "pvt_trace_score": 0.0, "pvt_trace_pathwise": 0.0
 launches_f64 = dict.fromkeys(launches, 0)
 last_trace = {"threads": 0, "block": 0, "shared_bytes": 0, "shared_bins": 0, "shared_scores": 0,
               "shared_cheb": 0, "shared_rows": 0, "shared_tris": 0, "total_steps": 0,
-              "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0, "library": ""}
+              "lane_steps": 0, "lane_efficiency": 0.0, "ms": 0.0, "library": "",
+              "instantiation": ""}
 last_cheb = {"shared_cheb": 0}
 # CUDA events around the last pvt_log_pack launch (its time once the
 # stream has passed them: ``pack_ms``).
@@ -60,8 +63,10 @@ last_pack = {"events": None}
 # A trace block's threads (tracer.cuh's kBlock), two blocks an SM.
 BLOCK = 256
 # The float64 build's score, pathwise, recorder and mesh trace blocks:
-# (threads, blocks an SM), tracer.cuh's kBlockF64 and kMinBlocksF64.
+# (threads, blocks an SM), tracer.cuh's kBlockF64 and kMinBlocksF64; and
+# its blocks with the event log, kBlockF64 and kMinBlocksLogF64.
 SHAPE_F64 = (128, 5)
+SHAPE_LOG_F64 = (128, 4)
 # tracer.cuh's kWarpGroup: pvt_tally, and pvt_trace's launch with
 # recorders alone, add a scene's recorder events by the warp rule
 # (tally_warp) when one of its facet groups holds more recorders than
@@ -69,7 +74,7 @@ SHAPE_F64 = (128, 5)
 # takes the lane rule (tally_rule, trace_rule).
 WARP_GROUP = 12
 # What a trace launch's info[1..6] report (tracer.cuh's layout_info); info[0]
-# is its threads, info[7] a block's.
+# is its threads, info[7] a block's, info[8] its instantiation's flags.
 _PLACEMENT = ("shared_bytes", "shared_bins", "shared_scores", "shared_cheb", "shared_rows",
               "shared_tris")
 
@@ -713,7 +718,7 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
     res = zero_tally_out(st)
     log, log_desc = empty_log(n, record_every, max_events, index_offset, dev, fill=False,
                               dtype=dtype)
-    info = (ctypes.c_longlong * 8)()
+    info = (ctypes.c_longlong * 9)(*[0] * 8, -1)
     sc = _scene(st, maxsteps, emit_method, maxpathlength)
     args = (
         ctypes.byref(sc), seed_words[0], seed_words[1], index_offset + n, threads,
@@ -746,11 +751,13 @@ def trace(st, seed_words, n, index_offset=0, lanes=None, maxsteps=1000,
         res.update(photon_scores=photon[:CH], photon_fate=photon[CH].long(),
                    photon_steps=photon[CH + 1].long())
     total_steps, lane_steps = steps.tolist()
+    # A library built before launches reported their flags leaves info[8] -1.
+    flags = "" if info[8] < 0 else "<" + ",".join(str(info[8] >> k & 1) for k in range(7)) + ">"
     last_trace.update(
         threads=info[0], block=info[7], **_placement(info), total_steps=total_steps,
         lane_steps=lane_steps,
         lane_efficiency=total_steps / max(lane_steps, 1), ms=start.elapsed_time(stop),
-        library=lib,
+        library=lib, instantiation=flags,
     )
     launch_ms["pvt_trace"] += last_trace["ms"]
     if name != "pvt_trace":
@@ -793,10 +800,13 @@ def score_block(dtype):
 def trace_shape(meta, dtype, score=False, log=False, bundle=False):
     """(threads a block, blocks an SM) of the trace launch on a scene whose
     tensors have `meta`, in the build of `dtype`, with score channels, the
-    event log or a host bundle as given (tracer.cuh's trace_shape)."""
-    if dtype == torch.float64 and (
-            score or not (log or bundle) and (meta["n_rec"] or meta["n_tris"])):
-        return SHAPE_F64
+    event log or a host bundle as given (tracer.cuh's trace_shape; a
+    bundle moves no shape)."""
+    if dtype == torch.float64:
+        if score or not log and (meta["n_rec"] or meta["n_tris"]):
+            return SHAPE_F64
+        if log:
+            return SHAPE_LOG_F64
     return BLOCK, 2
 
 

@@ -168,7 +168,8 @@ enum { F_NONRAD = 4, F_EXIT = 7, F_REACT = 8, F_KILL = 9, F_NO_HIT = 10 };
 // inside step_one (lanes hold photons at different stages) and registers
 // (128 a thread at two blocks an SM, the float64 main path's too; the
 // float64 build's score, pathwise, recorder and mesh instantiations 96 at
-// five blocks of 128: trace_shape, tracer.cuh); with score
+// five blocks of 128, its event log's 128 at four of 128: trace_shape,
+// tracer.cuh); with score
 // channels and no recorders, the fold's float64 shared-memory atomics
 // (PERF.md, section 6).
 //
@@ -253,7 +254,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
       exhausted = base + __popc(dead) >= total;
       const unsigned long long id = base + lane_rank(dead, lane);
       if (!L.p.alive && id < total)
-        photon_start<kTally, kLog, kScore, kPath, kBundle, main_step(kTally, kLog, kMesh, kScore)>(
+        photon_start<kTally, kLog, kScore, kPath, kBundle,
+                     main_step(kTally, kLog, kMesh, kScore, kBundle)>(
             sc, cheb, s0, s1, (uint32_t)id, need, L, &lg, kScore ? &sa : nullptr, bundle);
     }
     if (!__any_sync(0xffffffffu, L.p.alive)) break;
@@ -262,7 +264,8 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
     bool stepped = false;
     if (L.p.alive) {
       stepped = photon_step<kTally, kLog, kMesh, kScore, kPath,
-                            wide_mesh(kLog, kMesh, kScore, kBundle)>(
+                            wide_mesh(kLog, kMesh, kScore, kBundle),
+                            main_step(kTally, kLog, kMesh, kScore, kBundle)>(
           sc, cheb, L, f, &lg, kScore ? &sa : nullptr, o, tris);
       if (!L.p.alive) longest = max(longest, photon_finish<kLog>(L, f, &lg));
     }
@@ -302,7 +305,9 @@ trace_kernel(PvtScene sc, uint32_t s0, uint32_t s1, unsigned long long total,
 // without device lights cannot do: refused. info gets the thread count, a
 // block's dynamic shared memory, whether the recorder bins, the score
 // sums, the K5a table, the threads' rows and the triangles were placed
-// there (trace_layout), and a block's threads (info[7]).
+// there (trace_layout), a block's threads (info[7]) and the
+// instantiation's template flags (info[8]: bit k the k-th of kTally,
+// kLog, kMesh, kScore, kPath, kBundle, kWarpTally).
 template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kBundle,
           bool kWarpTally = false>
 cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
@@ -338,6 +343,8 @@ cudaError_t launch_trace(const PvtScene& sc, unsigned int s0, unsigned int s1,
   if (blocks < 1) return cudaErrorInvalidValue;
   info[0] = blocks * threads;
   info[7] = threads;
+  info[8] = kTally | kLog << 1 | kMesh << 2 | kScore << 3 | kPath << 4 | kBundle << 5 |
+            kWarpTally << 6;
   layout_info(L, info);
   kernel<<<(unsigned int)blocks, threads, bytes, stream>>>(sc, s0, s1, total, next, fates,
                                                            max_count, steps, tally, shared_bins,

@@ -251,7 +251,8 @@ int pvt_mesh(const pvt_real* tri, int n_tris, pvt_real eps, const pvt_real* o, c
 // memory of a block, info[2] 1 when the recorder bins were in shared
 // memory, info[3] 1 when the score sums were (0 here), info[4] 1 when the
 // K5a table was, info[5] 1 when the threads' score rows were (0 here),
-// info[6] 1 when the mesh triangles were, info[7] a block's threads.
+// info[6] 1 when the mesh triangles were, info[7] a block's threads,
+// info[8] the instantiation's template flags (launch_trace).
 // fates [11], max_count and steps [2] (zeroed by the caller) get the fate
 // counts, the longest photon's steps, the photons' steps in all and the
 // lane-steps of the warps' turns (kWarp a turn of each warp). With

@@ -548,7 +548,8 @@ struct ScoreAcc {
 // ---------------------------------------------------------------------
 // What a block of the trace kernel shares, and where. Its dynamic shared
 // memory holds, in this order and each while it fits its budget
-// (trace_shape's: kSharedTallyLimit or kSharedLimitF64) after the ones
+// (trace_shape's: kSharedTallyLimit, kSharedLimitF64 or
+// kSharedLimitLogF64) after the ones
 // before it: the recorder tallies (K9), the float64 score sums (K12), its
 // threads' score and tangent rows (K12, K13), the K5a table, the mesh
 // triangles (K10).
@@ -574,8 +575,8 @@ constexpr size_t kSharedTallyLimit = 96 * 1024;
 constexpr int kMinBlocks = 2;
 
 // The float64 build's trace kernels with score channels (K12, K13), and
-// those with recorders (K9) or meshes (K10) and neither the event log nor
-// a bundle: blocks of kBlockF64 threads, kMinBlocksF64 of them resident an
+// those with recorders (K9) or meshes (K10) and without the event log:
+// blocks of kBlockF64 threads, kMinBlocksF64 of them resident an
 // SM: five warps on each of the SM's four schedulers, whose 16,384
 // registers leave a thread 96 (in steps of 8). Their doubles take two
 // registers each, and 20 warps an SM that spill more hide the float64
@@ -588,10 +589,14 @@ constexpr int kMinBlocks = 2;
 // slower at 12 warps of 162-168 registers without a spill, at 24 of 80,
 // and in blocks of 192. A block's budget is then the SM's 228 KB over five
 // blocks, less the 1 KB the card keeps for each: 44 KB, which leaves 256
-// recorders' bins in device memory, and that too ran faster. The float64
-// main path keeps two blocks of 256, as do the event log's and the
-// bundle's kernels, and the float32 build keeps kBlock, kMinBlocks and
-// kSharedTallyLimit for every one. On the main path those blocks spill
+// recorders' bins in device memory, and that too ran faster. A host
+// bundle's kernels with recorders or meshes take that shape too: the
+// host-lit slab with 4 recorders ran 2 % faster there at 2**24 photons
+// than at two blocks of 256, 8 % with float uniforms (main_step). The float64 main path, and
+// the bundle's launch that runs its step, keep two blocks of 256, the
+// event log's kernels take kMinBlocksLogF64 (below), and the float32
+// build keeps kBlock, kMinBlocks and kSharedTallyLimit for every one. On
+// the main path those blocks spill
 // (128 registers) and still ran the slab faster than every other shape
 // timed: five blocks of 128 (96 registers) by 3 %, 128 x 3 and 192 x 2
 // without a spill (168 registers) by 17-18 %, 256 x 1 (184) by 62 % (A/Bs
@@ -600,12 +605,20 @@ constexpr int kMinBlocks = 2;
 constexpr int kBlockF64 = 128;
 constexpr int kMinBlocksF64 = 5;
 constexpr size_t kSharedLimitF64 = (228 / kMinBlocksF64 - 1) * 1024;
-// A score or pathwise kernel's block: the stride of its shared rows.
-#ifdef PVT_F64
-constexpr int kScoreBlock = kBlockF64;
-#else
-constexpr int kScoreBlock = kBlock;
-#endif
+// The float64 build's trace kernels with the event log (K11) and without
+// score channels: blocks of kBlockF64 threads, kMinBlocksLogF64 of them an
+// SM, so 16 warps at 128 registers, and a block's budget the SM's 228 KB
+// over four less 1 KB: 56 KB. A recorded photon's lane stores a record
+// most steps, and its kernel holds the record's operands and its slot
+// beside the step's: at five blocks of 128 (96 registers) it spilled
+// twice as much and ran 23-30 % slower where every photon is recorded, at
+// three of 192 (96 registers) 4-21 % slower; four of 128 ran the mesh
+// LSC's history at 2**27 with the log at 1000 1.9 % faster than two of
+// 256 (359.7 against 366.8 ms, both with float uniforms, main_step), with
+// the log at 1 1.4 %, and no slower elsewhere (A/Bs on the H100; PERF.md,
+// section 6).
+constexpr int kMinBlocksLogF64 = 4;
+constexpr size_t kSharedLimitLogF64 = (228 / kMinBlocksLogF64 - 1) * 1024;
 
 // A trace instantiation's block: its threads, the blocks of it resident an
 // SM (its __launch_bounds__) and a block's shared budget (trace_layout).
@@ -616,22 +629,31 @@ struct TraceShape {
 
 // The shape of the trace instantiation with recorders (`tally`), the event
 // log, meshes, score channels and a host bundle as given: in the float32
-// build kBlock and kMinBlocks for every one.
+// build kBlock and kMinBlocks for every one. (A bundle moves no shape: a
+// host-given photon's kernel takes its device-emitted twin's.)
 PVT_FN constexpr TraceShape trace_shape(bool tally, bool log, bool mesh, bool score,
                                         bool bundle) {
 #ifdef PVT_F64
-  return score || (!log && !bundle && (tally || mesh))
+  return (void)bundle,
+         score || (!log && (tally || mesh))
              ? TraceShape{kBlockF64, kMinBlocksF64, kSharedLimitF64}
-             : TraceShape{kBlock, kMinBlocks, kSharedTallyLimit};
+         : log ? TraceShape{kBlockF64, kMinBlocksLogF64, kSharedLimitLogF64}
+               : TraceShape{kBlock, kMinBlocks, kSharedTallyLimit};
 #else
   return (void)tally, (void)log, (void)mesh, (void)score, (void)bundle,
          TraceShape{kBlock, kMinBlocks, kSharedTallyLimit};
 #endif
 }
 
+// A score or pathwise kernel's block (trace_shape's with score channels,
+// whatever else the launch has): the stride of its shared rows.
+constexpr int kScoreBlock = trace_shape(false, false, false, true, false).threads;
+
 // Whether a trace instantiation's K10 takes the wide loop
 // (mesh_nearest_two's kWide): the float64 build's with meshes and neither
 // the event log, scores nor a bundle; and pvt_mesh in the float64 build.
+// The log's and the bundle's mesh kernels ran 0.2-1.5 % slower with it at
+// their shapes (an A/B on the H100; PERF.md, section 6).
 PVT_FN constexpr bool wide_mesh(bool log, bool mesh, bool score, bool bundle) {
 #ifdef PVT_F64
   return mesh && !log && !score && !bundle;
@@ -640,22 +662,25 @@ PVT_FN constexpr bool wide_mesh(bool log, bool mesh, bool score, bool bundle) {
 #endif
 }
 
-// Whether a trace instantiation's step is the float64 main path's: the
-// float64 build's without recorders, the event log, meshes or scores (the
-// main path's launch, and the bundle's, which runs the same step). Its
+// Whether a trace instantiation's step and start are the float64 main
+// path's: the float64 build's without score channels, and either without
+// recorders and meshes (the main path's launch, and the bundle's, which
+// runs the same step) or with the event log or from a host bundle. Its
 // step and start hold their uniforms as floats, widened where read, and
 // take an angle's sine and cosine from one sincos (bit-equal to sin and
 // cos at every angle a trace takes, on the card and the host): the same
 // results, 3.3 % faster on the slab at 2^27, 6.7 % with K5b, its spill
-// stores 136 bytes where they were 176 (an A/B on the H100; PERF.md,
-// section 6).
+// stores 136 bytes where they were 176; with the log (two blocks of 256)
+// 0-6 % faster, from a bundle with recorders (five of 128) 6 % (A/Bs on
+// the H100; PERF.md, section 6). The recorder and mesh kernels with
+// neither keep their uniforms as doubles (not timed with floats).
 // Two Clenshaw chains side by side in alpha_slot, inline or in one call,
 // and fates added only at a photon's death ran slower there.
-PVT_FN constexpr bool main_step(bool tally, bool log, bool mesh, bool score) {
+PVT_FN constexpr bool main_step(bool tally, bool log, bool mesh, bool score, bool bundle) {
 #ifdef PVT_F64
-  return !tally && !log && !mesh && !score;
+  return !score && (log || bundle || (!tally && !mesh));
 #else
-  return (void)tally, (void)log, (void)mesh, (void)score, false;
+  return (void)tally, (void)log, (void)mesh, (void)score, (void)bundle, false;
 #endif
 }
 
@@ -1475,11 +1500,11 @@ PVT_FN void local_normal(int gtype, const pvt_real* gp, const pvt_real* q, pvt_r
 // in the float64 main path's step, main_step), widened where each is
 // read.
 template <bool kTally, bool kLog = false, bool kMesh = true, bool kScore = false,
-          bool kPath = false, bool kWide = false, typename U = pvt_real>
+          bool kPath = false, bool kWide = false, typename U = pvt_real,
+          bool kMain = main_step(kTally, kLog, kMesh, kScore, false)>
 PVT_FN void step_one(const PvtScene& sc, const pvt_word* cheb, Photon& p, const U* u,
                      StepOut& out, const pvt_real* tris = nullptr) {
   constexpr bool kExtras = kLog || kScore;
-  constexpr bool kMain = main_step(kTally, kLog, kMesh, kScore);
   Hits h;
   intersect_nodes<kMesh, kPath, kWide>(sc, p, h, tris);
   if (kPath) {
@@ -3060,7 +3085,8 @@ PVT_FN void photon_start(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, 
 // (kTally; tally_event, or the warp's with tally_warp). kWide: K10's wide
 // loop (mesh_nearest_two). The float64 main path's step (main_step) holds
 // its uniforms as floats (step_one's kMain).
-template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kWide = false>
+template <bool kTally, bool kLog, bool kMesh, bool kScore, bool kPath, bool kWide = false,
+          bool kMain = main_step(kTally, kLog, kMesh, kScore, false)>
 PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, FateCounts& f,
                         const PvtLog* lg, const ScoreAcc* sa, StepOut& o,
                         const pvt_real* tris = nullptr) {
@@ -3082,10 +3108,10 @@ PVT_FN bool photon_step(const PvtScene& sc, const pvt_word* cheb, TraceLane& L, 
   const pvt_real wav_in = p.wav;
   const int src_in = p.source;
   const pvt_real p_in[3] = {p.px, p.py, p.pz};
-  constexpr bool kMain = main_step(kTally, kLog, kMesh, kScore);
-  typename PvtUnif<kMain>::type u[8];
+  typedef typename PvtUnif<kMain>::type U;
+  U u[8];
   pvt_draw(L.k0, L.k1, (uint32_t)p.count, 0u, 4, u);
-  step_one<kTally, kLog, kMesh, kScore, kPath, kWide>(sc, cheb, p, u, o, tris);
+  step_one<kTally, kLog, kMesh, kScore, kPath, kWide, U, kMain>(sc, cheb, p, u, o, tris);
   f.exit += o.exit_mask;
   f.nonrad += o.losing;
   f.react += o.reacting;
@@ -3131,11 +3157,14 @@ PVT_FN int trace_photon(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, u
                         uint32_t pid, FateCounts& f, const PvtTally* acc, const PvtLog* lg,
                         const ScoreAcc* sa, const PvtBundle& bundle) {
   TraceLane L;
-  photon_start<kTally, kLog, kScore, kPath, kBundle, main_step(kTally, kLog, kMesh, kScore)>(
+  constexpr bool kMain = main_step(kTally, kLog, kMesh, kScore, kBundle);
+  photon_start<kTally, kLog, kScore, kPath, kBundle, kMain>(
       sc, cheb, s0, s1, pid, start_pairs<kPath>(sc), L, lg, sa, bundle);
   while (L.p.alive) {
     StepOut o;
-    if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L, f, lg, sa, o) && kTally)
+    if (photon_step<kTally, kLog, kMesh, kScore, kPath, false, kMain>(sc, cheb, L, f, lg, sa,
+                                                                      o) &&
+        kTally)
       tally_event(sc, *acc, L.seen, o, L.p, kScore ? sa : nullptr);
   }
   return photon_finish<kLog>(L, f, lg);
@@ -3232,7 +3261,7 @@ int trace_warps(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t 
           const unsigned long long id = base + lane_rank(dead, l);
           if (!(dead >> l & 1u) || id >= total) continue;
           photon_start<kTally, kLog, kScore, kPath, kBundle,
-                       main_step(kTally, kLog, kMesh, kScore)>(
+                       main_step(kTally, kLog, kMesh, kScore, kBundle)>(
               sc, cheb, s0, s1, (uint32_t)id, need, L[l], lg, kScore ? wsa + l : nullptr, bundle);
           if (started) started[id - first] += 1;
         }
@@ -3251,8 +3280,9 @@ int trace_warps(const PvtScene& sc, const pvt_word* cheb, uint32_t s0, uint32_t 
       uint32_t events = 0u;
       for (int l = 0; l < kWarp; ++l) {
         if (!L[l].p.alive) continue;
-        if (photon_step<kTally, kLog, kMesh, kScore, kPath>(sc, cheb, L[l], f, lg,
-                                                            kScore ? wsa + l : nullptr, o[l]))
+        if (photon_step<kTally, kLog, kMesh, kScore, kPath, false,
+                        main_step(kTally, kLog, kMesh, kScore, kBundle)>(
+                sc, cheb, L[l], f, lg, kScore ? wsa + l : nullptr, o[l]))
           events |= 1u << l;
         if (!L[l].p.alive) {
           const int steps = photon_finish<kLog>(L[l], f, lg);

@@ -48,10 +48,12 @@ void h_trace_score_p(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long
     else h_trace_score_t<false, false, kPath>(sc, s0, s1, off, total, lg, f, acc, sa, b);
   }
 }
-// pvt_trace's step without recorders, the log, meshes or scores (the
-// float64 main path's, main_step) on lane i, as step_lane takes it, with
-// its uniforms held as U.
-template <typename U>
+// pvt_trace's step with the float64 main path's arithmetic (main_step:
+// sincos) on lane i, as step_lane takes it, with its uniforms held as U:
+// without recorders, the log or meshes (the main path's), or with them as
+// kTally, kLog, kMesh (the steps of the kernels with the event log or
+// from a host bundle).
+template <typename U, bool kTally = false, bool kLog = false, bool kMesh = false>
 void step_main_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
                     const PvtFlags& fl, long long i) {
   Photon p;
@@ -61,9 +63,25 @@ void step_main_lane(const PvtScene& sc, const PvtState& in, const PvtState& out,
   U u[8];
   pvt_draw(k0, k1, (uint32_t)p.count, 0u, 4, u);
   StepOut o;
-  step_one<false, false, false>(sc, sc.cheb_pack, p, u, o);
+  step_one<kTally, kLog, kMesh, false, false, false, U, true>(sc, sc.cheb_pack, p, u, o);
   store_lane(out, i, p, k0, k1);
   store_flags(fl, i, o);
+}
+// step_main_lane on lanes [0, B) with recorders, the log and meshes as bits 0-2 of `flags`.
+template <typename U>
+void step_main_lanes(const PvtScene* sc, const PvtState* in, const PvtState* out,
+                     const PvtFlags* fl, long long B, int flags) {
+  typedef void (*Lane)(const PvtScene&, const PvtState&, const PvtState&, const PvtFlags&,
+                       long long);
+  const Lane lanes[8] = {step_main_lane<U, false, false, false>,
+                         step_main_lane<U, true, false, false>,
+                         step_main_lane<U, false, true, false>,
+                         step_main_lane<U, true, true, false>,
+                         step_main_lane<U, false, false, true>,
+                         step_main_lane<U, true, false, true>,
+                         step_main_lane<U, false, true, true>,
+                         step_main_lane<U, true, true, true>};
+  for (long long i = 0; i < B; ++i) lanes[flags & 7](*sc, *in, *out, *fl, i);
 }
 // pvt_sin and pvt_cos out of line, so that the compiler does not fuse a
 // pair of them into a sincos of its own.
@@ -202,16 +220,16 @@ void h_emit_main(const PvtScene* sc, unsigned s0, unsigned s1, unsigned long lon
     store_lane(*out, i, p, k0, k1);
   }
 }
-// h_step through the main path's step (step_main_lane), its uniforms held
-// as floats (`f32`) or as pvt_real.
+// h_step through the float64 main path's step (step_main_lane), its
+// uniforms held as floats (`f32`) or as pvt_real, with recorders, the log
+// and meshes as bits 0-2 of `flags` (0: the main path's own; else the step
+// of a kernel with the event log or from a host bundle).
 void h_step_main(const PvtScene* sc, const PvtState* in, const PvtState* out, const PvtFlags* fl,
-                 long long B, int f32) {
-  for (long long i = 0; i < B; ++i) {
-    if (f32)
-      step_main_lane<float>(*sc, *in, *out, *fl, i);
-    else
-      step_main_lane<pvt_real>(*sc, *in, *out, *fl, i);
-  }
+                 long long B, int f32, int flags) {
+  if (f32)
+    step_main_lanes<float>(sc, in, out, fl, B, flags);
+  else
+    step_main_lanes<pvt_real>(sc, in, out, fl, B, flags);
 }
 void h_tally(const PvtScene* sc, const PvtState* s, const PvtFlags* fl, unsigned* seen,
              long long B, unsigned long long* cross, pvt_real* sums, unsigned* distinct,
@@ -463,7 +481,7 @@ def build_library(directory, f64=False):
     h.h_cheb.argtypes = [vp, i32, vp, i64, vp]
     h.h_cheb_seg.argtypes = h.h_cheb.argtypes + [vp]
     h.h_emit_main.argtypes = h.h_emit.argtypes
-    h.h_step_main.argtypes = h.h_step.argtypes + [i32]
+    h.h_step_main.argtypes = h.h_step.argtypes + [i32, i32]
     h.h_sincos_differ.argtypes = [i64, i32]
     h.h_sincos_differ.restype = i64
     h.h_tally.argtypes = h.h_tally_warp.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp]

@@ -26,8 +26,11 @@ float64 pipe's multiply-adds, products and sums).
 Then every run of the library's (the slab at 2**20 and at its path's
 full size, K5b, the mesh LSC without and with the event log (at
 ``record_every`` 1000 and 1), recorders up to 256 and the heatmap's
-global bins, the tessellated slab's 140 triangles, the host-lit slab's
-bundle, the mixed scene's Lambertian facet, lifetimes and two lamps), or
+global bins, 256 recorders with the event log at 1000, the tessellated
+slab's 140 triangles, the host-lit slab's bundle, without recorders and
+with 4 and the log at 1000, the mesh LSC from a bundle with and without
+the log, the slab with the log at 1, the mixed scene's Lambertian facet,
+lifetimes and two lamps), or
 those of ``--only`` (``LABEL:LOG2N``, or a label for all its sizes: ``--only
 "slab R=32,mesh LSC"``), goes through each build in turns, ``--rounds``
 times, every other round in the reverse order: the kernel's time
@@ -35,10 +38,13 @@ times, every other round in the reverse order: the kernel's time
 fates, longest photon and recorder tallies.
 Prints one line a run and build (the atomics of ``--sass`` by full
 opcode, ``ATOMS.CAST.SPIN`` being a compare-and-swap loop), and the
-card's nvidia-smi line; exits non-zero when the builds' fates, longest
-photon, distinct rays, crossings or bins differ, or their moment sums
-part by more than ``check.SUMS_RUNS_RTOL`` (``check.F64_RTOL`` for a
-float64 build). ``--entries`` times, in
+card's nvidia-smi line; exits non-zero when the builds' fates, steps,
+longest photon, distinct rays, crossings or bins differ, when a run with
+the event log packs any record or count that is not the first build's
+bit for bit (``kernels.log_pack``), or when their moment sums part by
+more than ``check.SUMS_RUNS_RTOL`` (``check.F64_RTOL`` for a float64
+build). Each line names the instantiation the launch reported
+(``last_trace["instantiation"]``). ``--entries`` times, in
 place of the runs, the tracer library's (or ``tracer_f64``'s) standalone entries as
 ``chip_smoke.py`` does (pvt_emit and pvt_step on 2**20 lanes of the
 slab, pvt_cheb on the slab's fits at 4096 t, pvt_tally with 32
@@ -78,7 +84,9 @@ from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_heatmap, lsc_slab_host,
 # score channels, the pathwise ones with the slab's index and thickness
 # channels too (the mesh LSC's plate index). The slab with 4 recorders and
 # the mesh LSC at 2**27, with and without the event log, take
-# chip_smoke.py's seeds of phases 11 and 15.
+# chip_smoke.py's seeds of phases 11 and 15. "slab log=1" is simulate's
+# default record_every on the bench slab (its dense float64 log 4 GB);
+# the host-lit slab with 4 recorders is phase 36's bundle scene.
 RUNS = {
     "tracer": (
         ("slab", lsc_slab, 1 << 20, False, False, 1),
@@ -92,10 +100,19 @@ RUNS = {
         ("slab R=32", lambda: lsc_slab_recorders(32), 1 << 27, False, False, 1),
         ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 24, False, False, 1),
         ("slab R=256", lambda: lsc_slab_recorders(256), 1 << 27, False, False, 1),
+        ("slab R=256, log=1000", lambda: lsc_slab_recorders(256), 1 << 24, False, False, 1,
+         1000),
         ("heatmap", lsc_slab_heatmap, 1 << 24, False, False, 1),
         ("fine slab", mesh_slab_fine, 1 << 24, False, False, 1),
         ("fine slab", mesh_slab_fine, 1 << 27, False, False, 1),
         ("host-lit slab, bundle", lsc_slab_host, 1 << 20, False, True, 1),
+        ("host-lit slab R=4, bundle", lambda: lsc_slab_host(n_rec=4), 1 << 20, False, True, 1),
+        ("host-lit slab R=4, bundle", lambda: lsc_slab_host(n_rec=4), 1 << 24, False, True, 1),
+        ("host-lit slab R=4, bundle, log=1000", lambda: lsc_slab_host(n_rec=4), 1 << 24, False,
+         True, 1, 1000),
+        ("slab log=1", lsc_slab, 1 << 18, False, False, 1, 1),
+        ("mesh LSC, bundle", mesh_lsc, 1 << 24, False, True, 15),
+        ("mesh LSC, bundle, log=1000", mesh_lsc, 1 << 24, False, True, 15, 1000),
         ("mixed", mixed_scene, 1 << 24, False, False, 1),
     ),
     "score": (
@@ -384,31 +401,44 @@ def main():
             run["pathwise"] = transport.resolve_pathwise_params(
                 compiled, PATHWISE.get(label, SLAB_PATHWISE))
         ms, eff, fates, sums, steps, placed = {v: [] for v in libs}, {}, {}, {}, {}, {}
+        records, first_log = {}, None
         R = st["meta"]["n_rec"]
         for r in range(args.rounds):
             # Every other round in the reverse order, so no build always goes first.
             for v, (handle, _) in list(libs.items())[::-1 if r % 2 else 1]:
                 kernels._libs[args.lib] = handle
-                got, longest, t, _ = kernels.trace(st, seed, n, **run)
+                got, longest, t, log = kernels.trace(st, seed, n, **run)
                 ms[v].append(kernels.last_trace["ms"])
                 eff[v] = kernels.last_trace["lane_efficiency"] \
                     if kernels.last_trace["lane_steps"] else float("nan")
                 steps[v] = (kernels.last_trace["total_steps"], kernels.last_trace["lane_steps"])
-                placed[v] = {k: kernels.last_trace[k] for k in ("block", *kernels._PLACEMENT)}
-                fates[v] = (got.cpu().tolist(), longest,
+                placed[v] = {k: kernels.last_trace[k]
+                             for k in ("instantiation", "block", *kernels._PLACEMENT)}
+                fates[v] = (got.cpu().tolist(), longest, steps[v][0],
                             *(t[k][:R].cpu().tolist() for k in ("distinct", "cross")),
                             t["bins"].cpu().tolist())
                 sums[v] = t["sums"][:R].double().cpu()
+                if log is not None:
+                    # Every record bit for bit against the first build's.
+                    packed = (log["counts"], *kernels.log_pack(log))
+                    first_log = first_log or packed
+                    records[v] = (int(packed[1].shape[0]), all(
+                        a.shape == b.shape and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                        for a, b in zip(packed, first_log)))
+                    del log, packed
         first, first_sums = next(iter(fates.values())), next(iter(sums.values()))
         for v in libs:
             rel = float(((sums[v] - first_sums).abs()
                          / first_sums.abs().clamp(min=1e-30)).max()) if R else 0.0
-            bad = fates[v] != first or rel > runs_rtol
+            bad = fates[v] != first or rel > runs_rtol or not records.get(v, (0, True))[1]
+            logged = f", {records[v][0]} log records, equal to the first build's: " \
+                     f"{records[v][1]}" if v in records else ""
             print(f"{args.lib} {label}, {n} photons, {v}: kernel ms {ms[v]}, lane efficiency "
                   f"{eff[v]:.4f} (steps {steps[v][0]}, lane-steps {steps[v][1]}), placement "
                   f"{placed[v]}, fates "
-                  f"{fates[v][0]}, longest {fates[v][1]}, distinct {fates[v][2][:8]}, sums "
-                  f"within {rel:.3g} of the first build's{' DIFFER' if bad else ''}", flush=True)
+                  f"{fates[v][0]}, longest {fates[v][1]}, distinct {fates[v][3][:8]}, sums "
+                  f"within {rel:.3g} of the first build's{logged}{' DIFFER' if bad else ''}",
+                  flush=True)
             if bad and label not in differ:
                 differ.append(label)
     for csrc in variants.values():

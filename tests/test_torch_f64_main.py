@@ -30,7 +30,8 @@ from pvtrace_tpu import engine as jax_engine  # noqa: E402
 from pvtrace_tpu_torch import kernels  # noqa: E402
 from pvtrace_tpu_torch.engine import compile_scene, physics, rng, tables, tracer  # noqa: E402
 from pvtrace_tpu_torch.kernels import check, crafted, host  # noqa: E402
-from pvtrace_tpu_torch.scenes import lsc_slab, mixed_scene, random_scene  # noqa: E402
+from pvtrace_tpu_torch.scenes import (lsc_slab, lsc_slab_recorders, mesh_lsc,  # noqa: E402
+                                      mixed_scene, random_scene)
 
 cap_threads()
 F64 = torch.float64
@@ -76,17 +77,39 @@ def _bits(x):
     return x.contiguous().view(torch.int64)
 
 
-@pytest.mark.parametrize("name", MAIN_SCENES)
+# The kernels with the event log or from a host bundle take the main
+# path's start and step too (main_step): each case the scene and the
+# recorder, log and mesh flags of the instantiation that the slab, the
+# slab with 4 recorders (and the host-lit slab's bundle) and the mesh LSC
+# launch with the log or from a bundle.
+ELEVEN = {
+    "slab-log": (lsc_slab, (0, 1, 0)),
+    "R4-log": (lambda: lsc_slab_recorders(4), (1, 1, 0)),
+    "R4-bundle": (lambda: lsc_slab_recorders(4), (1, 0, 0)),
+    "mesh_lsc-log": (mesh_lsc, (1, 1, 1)),
+    "mesh_lsc-bundle": (mesh_lsc, (1, 0, 1)),
+    "mesh_lsc-log-no-recorders": (mesh_lsc, (0, 1, 1)),
+    "mesh_lsc-bundle-no-recorders": (mesh_lsc, (0, 0, 1)),
+}
+
+
+@pytest.mark.parametrize("name", MAIN_SCENES + list(ELEVEN))
 def test_main_start_and_step_equal_the_lanes(h, name):
     """The main path's start (``emit_one<true>``: float uniforms, sincos)
     bit-equal to ``emit_lane``'s on 4,096 photons; then six steps of the
-    main path's step (``step_one`` without recorders, log or meshes:
-    sincos), its uniforms held as floats and as doubles, each bit-equal to
-    ``step_lane``'s in every photon field and in its hit, container and
-    fate flags."""
-    built = _built(name)
+    main path's step (``step_one`` without recorders, log or meshes, or
+    with those of a kernel with the event log or from a host bundle, as
+    ``ELEVEN`` gives them: sincos), its uniforms held as floats and as
+    doubles, each bit-equal to ``step_lane``'s in every photon field and in
+    its hit, container and fate flags."""
+    if name in ELEVEN:
+        make, (tally, log, mesh) = ELEVEN[name]
+        built = types.SimpleNamespace(scene=make(), options=dict(SLAB_OPTIONS))
+    else:
+        built, (tally, log, mesh) = _built(name), (0, 0, 0)
     st = _tensors(built)
-    assert not st["meta"]["n_tris"]
+    assert bool(st["meta"]["n_tris"]) == bool(mesh)
+    kind = tally | log << 1 | mesh << 2
     sc, words, B = _sc(st, built), rng.key_words(3), 1 << 12
     ref, got = kernels._empty_state(B, "cpu", F64), kernels._empty_state(B, "cpu", F64)
     h.h_emit(sc, words[0], words[1], 0, B, _state(ref))
@@ -97,7 +120,7 @@ def test_main_start_and_step_equal_the_lanes(h, name):
     s = ref
     for step in range(6):
         out = {}
-        for entry, args in (("lane", ()), ("float", (1,)), ("double", (0,))):
+        for entry, args in (("lane", ()), ("float", (1, kind)), ("double", (0, kind))):
             nxt, flags = kernels._empty_state(B, "cpu", F64), kernels._empty_flags(B, "cpu", F64)
             fl = ctypes.byref(kernels._struct(kernels._Flags, flags, kernels._FLAG_PTRS))
             fn = h.h_step if entry == "lane" else h.h_step_main

@@ -3,10 +3,12 @@ their block shape and shared budget, and pvt_trace's loop on the scenes
 that launch them, through the g++ host build of the device code.
 
 On the card these instantiations take blocks of 128 threads, five an SM,
-and a 44 KB budget a block (``tracer.cuh::trace_shape``), where every
-other float64 instantiation without scores, and every float32 one, takes
-two blocks of 256 and 96 KB. The host build's ``h_layout`` gives the
-device code's placement and block for a launch; ``trace_warps`` is
+and a 44 KB budget a block (``tracer.cuh::trace_shape``), from a host
+bundle too; with the event log blocks of 128, four an SM, within 56 KB;
+the float64 main path (and the bundle's launch that runs its step), and
+every float32 instantiation, two blocks of 256 and 96 KB. The host
+build's ``h_layout`` gives the device code's placement and block for a
+launch; ``trace_warps`` is
 pvt_trace's loop over emulated warps, whatever a block's size, held here
 to the float64 eager twin.
 """
@@ -58,12 +60,13 @@ PLACED = {
 
 @pytest.mark.parametrize("scene", list(PLACED))
 def test_f64_recorder_and_mesh_launches_take_their_block(h, scene):
-    """A float64 launch with recorders or meshes and neither scores, the
-    event log nor a bundle takes blocks of 128 threads within 44 KB, and
-    places its bins, K5a table and triangles by that budget; with the log
-    or a bundle the same scene takes blocks of 256 within 96 KB (256
-    recorders' bins shared again); ``kernels.trace_shape`` says the same
-    blocks, and the float32 build keeps 256 threads for every launch."""
+    """A float64 launch with recorders or meshes and neither scores nor
+    the event log takes blocks of 128 threads within 44 KB, from a host
+    bundle too, and places its bins, K5a table and triangles by that
+    budget; with the log the same scene takes blocks of 128, four an SM,
+    within 56 KB, and places them alike (256 recorders' bins, 69.6 KB,
+    in device memory); ``kernels.trace_shape`` says the same blocks, and
+    the float32 build keeps 256 threads for every launch."""
     make, placed = PLACED[scene]
     st = _tensors(make)
     meta = st["meta"]
@@ -71,15 +74,16 @@ def test_f64_recorder_and_mesh_launches_take_their_block(h, scene):
     assert got["block"] == 128 and got["shared_bytes"] <= 44 * KB, got
     assert (got["shared_bins"], got["shared_cheb"], got["shared_tris"]) == placed, got
     assert kernels.trace_shape(meta, F64) == (128, 5)
-    for log, bundle in ((True, False), (False, True)):
+    for log, bundle in ((True, False), (False, True), (True, True)):
         other = kernels.trace_layout(st, entry=h.h_layout, log=log, bundle=bundle)
-        assert other["block"] == 256 and other["shared_bytes"] <= 96 * KB, other
-        assert kernels.trace_shape(meta, F64, log=log, bundle=bundle) == (256, 2)
-        if scene == "R256":
-            assert other["shared_bins"] == 1
+        assert other["block"] == 128 and other["shared_bytes"] <= (56 if log else 44) * KB, other
+        assert (other["shared_bins"], other["shared_cheb"], other["shared_tris"]) == placed, other
+        assert kernels.trace_shape(meta, F64, log=log, bundle=bundle) == ((128, 4) if log
+                                                                           else (128, 5))
     assert kernels.trace_shape(meta, torch.float32) == (256, 2)
     slab = kernels.trace_layout(_tensors(lsc_slab), entry=h.h_layout)
     assert slab["block"] == 256
+    assert kernels.trace_layout(_tensors(lsc_slab), entry=h.h_layout, bundle=True)["block"] == 256
 
 
 # pvt_trace's loop against the twin: the slab with 32 recorders, the mesh

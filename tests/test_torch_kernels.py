@@ -678,8 +678,9 @@ def test_float64_recorder_and_mesh_traces_take_five_blocks_of_128(make):
     fates and integer tallies within ``check.F64_PARTED``; at 2**20 they
     launch blocks of 128 threads, five resident an SM, placed as
     ``kernels.trace_layout`` says within 44 KB (256 recorders' bins in
-    device memory), where the same scene with the event log takes blocks
-    of 256."""
+    device memory), from a host bundle too, where the same scene with the
+    event log takes blocks of 128, four an SM (each launch reporting its
+    instantiation)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count if \
         torch.cuda.is_available() else 0
     st = _cuda_tensors(make, torch.float64)
@@ -690,8 +691,15 @@ def test_float64_recorder_and_mesh_traces_take_five_blocks_of_128(make):
     assert placed["block"] == 128 and kernels.last_trace["threads"] == 5 * 128 * sms
     assert placed["shared_bytes"] <= 44 * 1024
     assert placed["shared_bins"] == int(0 < st["meta"]["n_rec"] < 256)
-    kernels.trace(st, rng.key_words(2), 1 << 12, record_every=8)
-    assert kernels.last_trace["block"] == 256
+    kernels.trace(st, rng.key_words(2), 1 << 20, record_every=1000)
+    assert kernels.last_trace["block"] == 128 and kernels.last_trace["threads"] == 4 * 128 * sms
+    assert kernels.last_trace["instantiation"][3] == "1"
+    np.random.seed(2)
+    bundle = torch.from_numpy(tracer.bundle_rows(*emit_bundle(make(), 1 << 20)[:3],
+                                                 np.float64)).cuda()
+    kernels.trace(st, rng.key_words(2), 1 << 20, bundle=bundle)
+    assert kernels.last_trace["block"] == 128 and kernels.last_trace["threads"] == 5 * 128 * sms
+    assert kernels.last_trace["instantiation"][11] == "1"
 
 
 @pytest.mark.gpu

@@ -352,17 +352,20 @@ def layout_tensors():
 
 SHARED_LIMIT = 96 * 1024
 # The float64 build's score and pathwise trace blocks, and its blocks with
-# recorders or meshes where the launch has neither the event log nor a
-# bundle: 128 threads, five an SM, each within the SM's 228 KB over five
-# less 1 KB.
+# recorders or meshes where the launch has no event log: 128 threads, five
+# an SM, each within the SM's 228 KB over five less 1 KB; with the log and
+# no scores, four an SM, within the 228 KB over four less 1 KB.
 SCORE_LIMIT_F64 = 44 * 1024
+LOG_LIMIT_F64 = 56 * 1024
 
 
 def _shape(meta, score_, f64, log=False, bundle=False):
     """(threads a block, blocks an SM, shared budget) of a trace launch,
     stated apart from the device code."""
-    if f64 and (score_ or not (log or bundle) and (meta["n_rec"] or meta["n_tris"])):
+    if f64 and (score_ or not log and (meta["n_rec"] or meta["n_tris"])):
         return 128, 5, SCORE_LIMIT_F64
+    if f64 and log:
+        return 128, 4, LOG_LIMIT_F64
     return 256, 2, SHARED_LIMIT
 
 
@@ -375,9 +378,9 @@ def _budget_rule(st, score_, n_path, rows_allowed, f64=False, log=False, bundle=
     a triangle), each in shared memory while it fits after the ones before
     it. With `f64`, the float64 build's: 72 bytes a recorder, doubles, 8-byte
     table words and 96-byte triangles, with scores 128 threads a block
-    within SCORE_LIMIT_F64, so too with recorders or meshes and neither the
-    event log nor a bundle (``_shape``). ``block``: the threads of a
-    block."""
+    within SCORE_LIMIT_F64, so too with recorders or meshes and no event
+    log, and with the log 128 within LOG_LIMIT_F64 (``_shape``).
+    ``block``: the threads of a block."""
     meta = st["meta"]
     R, CH = meta["n_rec"], score.n_channels(st, n_path)
     real, rec_bytes = (8, 72) if f64 else (4, 40)
@@ -427,9 +430,10 @@ def test_trace_layout_float64_follows_the_budget_rule(host_lib64, scene):
     ``pathwise_f64``'s launches, and ``tracer_f64``'s ``pvt_layout``) places
     each part of a float64 scene by the budget's rule in its float64 form:
     with score or pathwise channels in blocks of 128 threads within 44 KB
-    (five blocks an SM), with recorders or meshes the same, with the event
-    log or a bundle, or neither recorders nor meshes, within 96 KB as
-    float32's; and ``kernels.trace_shape`` gives the same block."""
+    (five blocks an SM), with recorders or meshes the same (from a bundle
+    too), with the event log in blocks of 128 within 56 KB (four an SM),
+    with neither recorders, meshes nor the log within 96 KB as float32's;
+    and ``kernels.trace_shape`` gives the same block."""
     st = tables.scene_tensors(compile_scene(LAYOUT_SCENES[scene]()), dtype=torch.float64)
     for score_, n_path in ((False, 0), (True, 0), (True, 1), (True, 2)):
         for rows in (True, False):
